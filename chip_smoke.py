@@ -2,22 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the four hand-written kernels from ``pydeseq2_tpu_torch/csrc`` with
-``nvcc`` for sm_90a, then:
+Builds the seven hand-written kernels from ``pydeseq2_tpu_torch/csrc`` with
+``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
    the build times;
 2. holds each kernel against its plain PyTorch version on the card, on the
-   inputs the Wald pipeline gives it at 100 samples x 60000 genes in
-   float32 (and at 100 x 4000 in float64), with the tolerance stated beside
-   each check, and times kernel, plain version and, where one PyTorch call
-   computes the same function, that call;
+   inputs the pipelines give it at 100 samples x 60000 genes in float32
+   (and at 100 x 4000 in float64; Cook's also at 1500 samples in one
+   cohort), with the tolerance stated beside each check, and times kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call;
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
-   overflow, share of finite p-values, and the launch count of every kernel
-   in one run (each must be > 0);
-4. runs the same pipeline in float64 at 100 x 2000 on the card and on the
+   overflow, share of finite p-values, and the launch count of each of its
+   kernels in one run (each must be > 0);
+3b. runs ``summary_pipeline`` (counts -> padj) the same way: warm wall,
+   genes/s, Cook's outliers, share of finite padj, the independent-filtering
+   row picked, and the launch count of all seven kernels in one run;
+4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
+4b. does the same for ``summary_pipeline`` with injected outliers, with and
+   without independent filtering;
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -39,11 +45,15 @@ import torch
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # float64 outside the tensor cores
 
 DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
 G_F64 = 4_000
 G_CPU_CMP = 2_000
+N_WIDE, G_WIDE = 1_500, 3_000  # Cook's past the JAX select switch (n >= 1024)
+# The kernels wald_pipeline launches; summary_pipeline adds cooks and bh.
+WALD_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald")
 
 
 def log(msg: str) -> None:
@@ -341,8 +351,8 @@ def main_path(reps: int):
             launches = dict(kernels.STATS.launches)
             trips = [int(t) for t in kernels.STATS.irls_trips]
     res = pt.outputs_to_numpy(out)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in WALD_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the Wald path")
     pv = res["p_values"]
     check(pv.shape == (G_MAIN,) and res["lfc"].shape == (G_MAIN, 2), "output shapes")
     finite = float(np.isfinite(pv).mean())
@@ -384,23 +394,370 @@ def card_vs_cpu() -> None:
         args = (counts_np.T, X, contrast, 0.0)
         gpu = pt.outputs_to_numpy(pt.wald_pipeline(**pt.inputs_from_numpy(*args, device=DEVICE, **static)))
         cpu = pt.outputs_to_numpy(pt.wald_pipeline(**pt.inputs_from_numpy(*args, device="cpu", **static)))
-        check(gpu.keys() == cpu.keys(), f"{label}: key sets differ")
         # Tolerance: rtol 1e-6 on the fitted quantities, as the CPU plain
         # path is held to the JAX f64 reference; identical NaN masks and flags.
-        worst = {}
-        for k in gpu:
-            a, b = gpu[k], cpu[k]
-            check(a.dtype == b.dtype and a.shape == b.shape, f"{label} {k}: dtype/shape")
-            if a.dtype.kind == "f":
-                check(np.array_equal(np.isnan(a), np.isnan(b)), f"{label} {k}: NaN masks differ")
-                m = ~np.isnan(b)
-                rel = float(np.max(np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]), 1e-300), initial=0.0))
-                worst[k] = rel
-                check(np.allclose(a[m], b[m], rtol=1e-6, atol=1e-12),
-                      f"{label} {k}: card and CPU differ beyond rtol 1e-6 (max rel {rel:.3g})")
+        compare_outputs(label, gpu, cpu)
+
+
+def summary_kwargs(counts_np, X_np, dtype, device, **static):
+    """``summary_pipeline`` keyword arguments with the design's host inputs."""
+    import pydeseq2_tpu_torch as pt
+
+    host = pt.summary_host_inputs(X_np)
+    static = {"cohort_ids": host["cohort_ids"], "use_for_max": host["use_for_max"],
+              "max_disp": float(max(10, X_np.shape[0])), **static}
+    contrast = np.zeros(X_np.shape[1])
+    contrast[-1] = 1.0
+    return pt.inputs_from_numpy(counts_np, X_np, contrast, 0.0, cooks_cutoff=host["cooks_cutoff"],
+                                dtype=dtype, device=device, **static)
+
+
+def capture_summary_inputs(kw: dict) -> dict:
+    """Run ``summary_pipeline`` once and keep the arguments that it hands to
+    the three summary kernels' wrappers and to ``device_padj``, and what
+    each returned: {name: (args, kwargs, result)}."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+
+    seen: dict = {}
+    names = ("hat_wald", "cooks_outliers", "bh_sweep", "device_padj")
+    originals = {n: getattr(fused, n) for n in names}
+
+    def wrap(name, fn):
+        def recorded(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            seen.setdefault(name, (args, kwargs, result))
+            return result
+
+        return recorded
+
+    try:
+        for n, fn in originals.items():
+            setattr(fused, n, wrap(n, fn))
+        pt.summary_pipeline(**kw)
+    finally:
+        for n, fn in originals.items():
+            setattr(fused, n, fn)
+    torch.cuda.synchronize()
+    return seen
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
+    """max |a - b| / max(|b|, floor) over the entries where b is not NaN,
+    after checking that a and b are NaN at the same places."""
+    check(torch.equal(torch.isnan(a), torch.isnan(b)), "NaN masks differ")
+    m = ~torch.isnan(b)
+    if not bool(m.any()):
+        return 0.0
+    return ((a[m] - b[m]).abs() / torch.clamp(b[m].abs(), min=floor)).max().item()
+
+
+def hat_wald_ops(P: int) -> int:
+    """Operations per (gene, sample) of the hat_wald kernel: pass 1 (linear
+    predictor, exp, both weights, both Gram triangles) and pass 2 (linear
+    predictor, exp, weight, x^T M^-1 x, H)."""
+    ntri = P * (P + 1) // 2
+    return (2 * P + 9 + 5 * ntri) + (2 * P + 7 + 2 * P * P + 2 * P)
+
+
+def cooks_ops(N: int, members, ntrims) -> int:
+    """Operations per gene that the Cook's function needs, whatever way a
+    kernel finds the trimmed means: per sample one divide (y / sf) and 21
+    for the mean, the distance, the cutoff test, the argmax and the count
+    above the argmax's count; per cohort member, the squared error (2) and
+    two trimmed means, each ceil(log2 n) compares to place the member in
+    the cohort's order (a comparison sort's share) and one add, or only the
+    add when nothing is trimmed."""
+    per = 0
+    for n, k in zip(members, ntrims):
+        place = math.ceil(math.log2(n)) if k > 0 and n > 1 else 0
+        per += n * (2 + 2 * (place + 1))
+    return per + 22 * N
+
+
+def summary_kernel_checks(dtype, G, N, reps, timings):
+    """Phase 2, summary kernels: hat_wald, cooks and bh against their plain
+    versions on the inputs ``summary_pipeline`` hands them. Returns
+    {name: max_abs_err} and fills ``timings`` (float32 only)."""
+    from pydeseq2_tpu_torch.ops import stats as st
+    from pydeseq2_tpu_torch.ops import wald as wd
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "f64"
+    counts_np, X_np = make_data(N, G)
+    seen = capture_summary_inputs(summary_kwargs(counts_np.T, X_np, dtype, DEVICE,
+                                                 beta_tol=1e-6 if f32 else 1e-8))
+    errs = {}
+
+    # -- kernel 5: hat diagonals + Wald test ---------------------------------
+    # Tolerance: both sum the Gram matrices over N samples in other orders
+    # and the plain linear predictor is a GEMM: 1e-4 (f32) / 1e-10 (f64)
+    # relative on H, mu, se and the statistic (H absolute below 1e-2), and
+    # on log p scaled by 1 + stat^2 (d log p / d stat ~ stat).
+    args, kwargs, _ = seen["hat_wald"]
+    beta, disp, sf, X, contrast, lfc_null = args
+    rtol = 1e-4 if f32 else 1e-10
+    alts = [kwargs["alt_hypothesis"]] if f32 else list(wd.ALT_CODES)
+    worst = {}
+    for alt in alts:
+        hw_args = (beta, disp, sf, X, contrast, lfc_null, kwargs["min_mu"], alt)
+        got = wd._hat_wald_cuda(*hw_args)
+        want = wd._hat_wald_plain(*hw_args)
+        for key, a, b, floor in zip(("H", "mu", "p", "stat", "se"), got, want, (1e-2, 1e-300, 0.0, 1e-3, 1e-300)):
+            if key == "p":
+                # Where the plain p is below `tiny` (the f32 tail underflows)
+                # the kernel's must be too (within a factor 1e3).
+                tiny = 1e-30 if f32 else 1e-300
+                check(torch.equal(torch.isnan(a), torch.isnan(b)), f"hat_wald {name} {alt}: p NaN masks differ")
+                big = b >= tiny
+                check(bool((a[~big & ~torch.isnan(b)] < 1e3 * tiny).all()), f"hat_wald {name} {alt}: p tail")
+                scale = 1.0 + want[3][big].double().square()
+                e = ((a[big].double().log() - b[big].double().log()).abs() / scale).max().item() if bool(big.any()) else 0.0
             else:
-                check(np.array_equal(a, b), f"{label} {k}: differs")
-        log(f"  {label}: max rel card vs CPU " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()))
+                e = rel_err(a.double(), b.double(), floor)
+            worst[key] = max(worst.get(key, 0.0), e)
+            check(e <= rtol, f"hat_wald {name} alt={alt} {key}: rel err {e:.3g} > {rtol}")
+    errs["hat_wald"] = max((got[0] - want[0]).nan_to_num(0.0).abs().max().item(),
+                           (got[4] - want[4]).nan_to_num(0.0).abs().max().item())
+    log(f"  hat_wald {name}: alternatives {alts}, max rel err " +
+        ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {rtol})")
+    if f32:
+        P = X.shape[1]
+        hw_args = (beta, disp, sf, X, contrast, lfc_null, kwargs["min_mu"], kwargs["alt_hypothesis"])
+        isz = beta.element_size()
+        timings["hat_wald"] = {
+            "ms": cuda_ms(lambda: wd._hat_wald_cuda(*hw_args), reps),
+            "plain_ms": cuda_ms(lambda: wd._hat_wald_plain(*hw_args), reps),
+            "library_ms": None,
+            # reads beta, disp (G (P + 1)), sf, X; writes H and mu (2 G N), p, stat, se
+            "bytes": isz * (G * (P + 1) + N * (P + 1) + 2 * G * N + 3 * G),
+            "ops": hat_wald_ops(P) * G * N,
+            "ops_per_s": F32_OPS_PER_S,
+        }
+
+    # -- kernel 10: Cook's distances, robust dispersion, outlier flags -------
+    cargs = seen["cooks_outliers"][0]
+    errs["cooks"] = cooks_check(name, cargs, reps if f32 else 0, timings)
+
+    # -- kernel 9: the batched BH sweep of independent filtering -------------
+    bargs, _, (adj_run, _) = seen["bh_sweep"]
+    p, order, valid, base_mean, cutoffs, alpha = bargs
+    for label, sweep_args in (
+        ("50 rows", bargs),
+        ("1 row", (p, order, valid, None, None, alpha)),
+        ("50 rows, float32 operands", (p.float(), order, valid, base_mean.float(), cutoffs.float(), alpha)),
+    ):
+        adj_k, rej_k = st._bh_sweep_cuda(*sweep_args)
+        adj_p, rej_p = st._bh_sweep_plain(*sweep_args)
+        # Exact: the same order, products, quotients and minima.
+        nan_k, nan_p = torch.isnan(adj_k), torch.isnan(adj_p)
+        check(torch.equal(nan_k, nan_p), f"bh {name} {label}: NaN masks differ")
+        check(torch.equal(adj_k.masked_fill(nan_k, 0.0), adj_p.masked_fill(nan_p, 0.0)),
+              f"bh {name} {label}: adjusted p-values not bit-identical")
+        check(torch.equal(rej_k, rej_p), f"bh {name} {label}: rejection counts differ")
+    rows = cutoffs.shape[0]
+    # The cutoff row the independent filter picked: the first row of the
+    # run's sweep equal to the run's padj (rows that equal it are the same
+    # adjustment). Adjusted values lie in [0, 1], so NaN is compared as 2.
+    padj_run = seen["device_padj"][2].nan_to_num(2.0)
+    same = [torch.equal(r.nan_to_num(2.0), padj_run) for r in adj_run]
+    check(any(same), f"bh {name}: the run's padj is no row of its sweep")
+    filter_row = same.index(True)
+    log(f"  bh {name}: ({rows}, {p.shape[0]}), 1 row, and float32 operands bit-identical; "
+        f"rejections per row {rej_k.tolist()[:3]}...{rej_k.tolist()[-3:]}; filter row j = {filter_row}")
+    errs["bh"] = 0.0
+    if f32:
+        Gp = p.shape[0]
+        timings["bh"] = {
+            "ms": cuda_ms(lambda: st._bh_sweep_cuda(*bargs), reps),
+            "plain_ms": cuda_ms(lambda: st._bh_sweep_plain(*bargs), reps),
+            "library_ms": None,
+            "sort_ms": cuda_ms(lambda: torch.argsort(p, stable=True), reps),
+            # reads p, base_mean (f64), order (i32), valid (u8), the cutoffs;
+            # writes adj (rows x G f64) and the counts
+            "bytes": Gp * (8 + 8 + 4 + 1) + rows * 8 + rows * Gp * 8 + rows * 8,
+            # per row and gene: mask (3 compares), rank count, product,
+            # quotient, rank clamp, minimum, clip, compare with alpha
+            "ops": 10 * rows * Gp,
+            "ops_per_s": F64_OPS_PER_S,
+        }
+    return errs, filter_row
+
+
+def cooks_check(name, cargs, reps, timings):
+    """The cooks kernel against its plain version on ``cargs``."""
+    from pydeseq2_tpu_torch.ops import cooks as ck
+
+    f32 = cargs[0].dtype == torch.float32
+    # Tolerance: the trimmed sums run in other orders and feed
+    # (v - m) / m^2, which cancels where v ~ m, so 1e-3 (f32) / 1e-9 (f64)
+    # relative on the distances and the robust dispersion. Flags: identical
+    # in f64; in f32 identical except on genes whose largest use_for_max
+    # distance lies within that tolerance of the cutoff.
+    rtol = 1e-3 if f32 else 1e-9
+    c_k, o_k, d_k = ck._cooks_cuda(*cargs)
+    c_p, o_p, d_p = ck._cooks_plain(*cargs)
+    counts, G, N = cargs[0], cargs[0].shape[0], cargs[0].shape[1]
+    e_c = rel_err(c_k.double(), c_p.double(), 1e-12)
+    e_d = rel_err(d_k.double(), d_p.double(), 1e-12)
+    check(e_c <= rtol and e_d <= rtol, f"cooks {name} N={N}: rel err cooks {e_c:.3g}, disp {e_d:.3g} > {rtol}")
+    differ = o_k != o_p
+    cohort_ids, use_for_max, cutoff = cargs[6], cargs[7], cargs[8]
+    if bool(differ.any()):
+        ufm = torch.tensor(use_for_max, device=counts.device)
+        top = torch.where(ufm[None, :], c_p, torch.full_like(c_p, -math.inf)).amax(1)
+        near = (top - cutoff).abs() <= rtol * cutoff.abs()
+        check(f32 and bool((near | ~differ).all()), f"cooks {name} N={N}: outlier flags differ on "
+                                                    f"{int(differ.sum())} genes")
+    cohort, trims, _ = ck.cohort_layout(cohort_ids, use_for_max, N)
+    log(f"  cooks {name} N={N} cohorts={len(trims)}: rel err cooks {e_c:.3g}, robust disp {e_d:.3g} "
+        f"(tol {rtol}); outliers kernel {int(o_k.sum())} plain {int(o_p.sum())}, "
+        f"flags differ on {int(differ.sum())}")
+    if reps:
+        members = [list(cohort).count(c) for c in range(len(trims))]
+        ntrims = [math.floor(n * t) for n, t in zip(members, trims)]
+        isz = counts.element_size()
+        timings["cooks"] = {
+            "ms": cuda_ms(lambda: ck._cooks_cuda(*cargs), reps),
+            "plain_ms": cuda_ms(lambda: ck._cooks_plain(*cargs), reps),
+            "library_ms": None,
+            # reads counts, mu, H, writes the distances (4 G N); per gene
+            # the flags and the dispersion
+            "bytes": 4 * G * N * isz + G * (1 + 1 + isz) + N * (isz + 1),
+            "ops": G * cooks_ops(N, members, ntrims),
+            "ops_per_s": F32_OPS_PER_S,
+        }
+    return (c_k - c_p).nan_to_num(0.0).abs().max().item()
+
+
+def cooks_wide_check() -> None:
+    """Phase 2, Cook's at 1500 samples in one cohort (float64): the inputs
+    of a ``summary_pipeline`` run whose design has no 3-replicate cohort
+    information (``cohort_ids=None``), so the robust dispersion is one
+    trimmed variance over all samples, past the JAX select switch."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_WIDE, G_WIDE, seed=5)
+    kw = summary_kwargs(counts_np.T, X_np, torch.float64, DEVICE, beta_tol=1e-8)
+    kw.update(cohort_ids=None, use_for_max=(True,) * N_WIDE)
+    cargs = capture_summary_inputs(kw)["cooks_outliers"][0]
+    check(cargs[6] is None and all(cargs[7]), "wide Cook's check: expected one cohort of all samples")
+    cooks_check("f64", cargs, 0, {})
+
+
+def summary_path(reps: int, filter_row: int):
+    """Phase 3b: ``summary_pipeline`` through the public entry point at full
+    width, float32. ``filter_row`` is the independent-filtering row that
+    phase 2's run of the same inputs picked."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_MAIN)
+    kw = summary_kwargs(counts_np.T, X_np, torch.float32, DEVICE, beta_tol=1e-6)
+    out = pt.summary_pipeline(**kw)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    launches = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pt.summary_pipeline(**kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the summary path")
+    res = pt.outputs_to_numpy(out)
+    padj = res["padj"]
+    check(padj.shape == (G_MAIN,) and padj.dtype == np.float64, "padj shape/dtype")
+    check(res["cooks"].shape == (G_MAIN, N_MAIN), "cooks shape")
+    fin = np.isfinite(padj)
+    check(fin.mean() > 0.5, f"only {fin.mean():.4f} of padj are finite")
+    check(np.all((padj[fin] >= 0) & (padj[fin] <= 1)), "padj outside [0, 1]")
+    check(np.array_equal(np.isnan(res["p_values"]) & np.isfinite(padj), np.zeros(G_MAIN, bool)),
+          "a gene without a p-value has a padj")
+    best = min(walls)
+    n_out = int(res["cooks_outlier"].sum())
+    log(f"  wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s, {G_MAIN / best:.1f} genes/s")
+    log(f"  launches in one run {launches}")
+    log(f"  cooks outliers {n_out}, finite padj {fin.mean():.5f}, padj < 0.05: {int((padj < 0.05).sum())}, "
+        f"filter row j = {filter_row} (phase 2), rescue_overflow {int(res['rescue_overflow'])}")
+    return {"walls_s": walls, "best_s": best, "genes_per_s": G_MAIN / best, "launches": launches,
+            "cooks_outliers": n_out, "finite_padj": float(fin.mean()), "filter_row": filter_row}
+
+
+def compare_outputs(label: str, gpu: dict, cpu: dict, skip=None) -> dict:
+    """Card against CPU, key by key: rtol 1e-6 on the float outputs,
+    identical NaN masks, identical flags and counts. ``skip`` (G,) bools
+    leaves genes out of the per-gene keys, except ``cooks_outlier`` and
+    ``padj``, which must agree on every gene."""
+    check(gpu.keys() == cpu.keys(), f"{label}: key sets differ")
+    worst = {}
+    for k in gpu:
+        a, b = gpu[k], cpu[k]
+        check(a.dtype == b.dtype and a.shape == b.shape, f"{label} {k}: dtype/shape")
+        if skip is not None and a.ndim and a.shape[0] == skip.shape[0] and k not in ("cooks_outlier", "padj"):
+            a, b = a[~skip], b[~skip]
+        if a.dtype.kind == "f":
+            check(np.array_equal(np.isnan(a), np.isnan(b)), f"{label} {k}: NaN masks differ")
+            m = ~np.isnan(b)
+            rel = float(np.max(np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]), 1e-300), initial=0.0))
+            worst[k] = rel
+            check(np.allclose(a[m], b[m], rtol=1e-6, atol=1e-12),
+                  f"{label} {k}: card and CPU differ beyond rtol 1e-6 (max rel {rel:.3g})")
+        else:
+            check(np.array_equal(a, b), f"{label} {k}: differs")
+    log(f"  {label}: max rel card vs CPU " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()))
+    return worst
+
+
+def summary_card_vs_cpu() -> None:
+    """Phase 4b: the f64 summary pipeline on the card against the CPU plain
+    path, with two injected outliers, both filtering modes.
+
+    One gene is a known exception. Gene 3 of this draw holds an injected
+    count of 969,890 among single digits. The IRLS hands it to the rescue
+    tiers, which are plain PyTorch on both sides. On an NVIDIA H100 its
+    projected-Newton exit test (|projected gradient| < 1e-5) passes on the
+    CPU and fails on the card from inputs that differ by rounding; the card
+    then takes the 2-D grid, and its LFC lands 0.00899 away. Only that gene
+    may differ in ``irls_converged``; where it does, it is left out of the
+    per-gene keys, must be a Cook's outlier on both sides (its p-value is
+    masked) and its LFC gap must stay within that observed 0.009.
+    ``cooks_outlier`` and ``padj`` agree on every gene."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    flip_gene, flip_lfc_gap = 3, 0.009
+    counts_np, X_np = make_data(N_MAIN, G_CPU_CMP, seed=1)
+    counts = counts_np.T.copy()
+    counts[0, 0] = counts.max() * 10 + 100
+    counts[3, 5] = counts.max() * 8 + 50
+    for indep in (True, False):
+        outs = {}
+        for dev in (DEVICE, "cpu"):
+            kw = summary_kwargs(counts, X_np, torch.float64, dev, beta_tol=1e-8, independent_filter=indep)
+            outs[dev] = pt.outputs_to_numpy(pt.summary_pipeline(**kw))
+        gpu, cpu = outs[DEVICE], outs["cpu"]
+        skip = gpu["irls_converged"] != cpu["irls_converged"]
+        flipped = np.where(skip)[0].tolist()
+        label = f"summary independent_filter={indep}"
+        check(set(flipped) <= {flip_gene}, f"{label}: rescue exits differ on genes {flipped}")
+        lfc_gap = [float(np.abs(gpu["lfc"][i] - cpu["lfc"][i]).max()) for i in flipped]
+        for i, gap in zip(flipped, lfc_gap):
+            check(bool(gpu["cooks_outlier"][i] and cpu["cooks_outlier"][i]) and gap <= flip_lfc_gap,
+                  f"{label}: gene {i} (rescue exit differs) is not an outlier on both sides or its "
+                  f"LFC gap {gap:.3g} exceeds {flip_lfc_gap}")
+        compare_outputs(label, gpu, cpu, skip)
+        n_out = int(gpu["cooks_outlier"].sum())
+        check(n_out >= 1, "summary card vs CPU: the injected outliers were not flagged")
+        log(f"    outliers {n_out}, padj < 0.05: {int(np.nansum(gpu['padj'] < 0.05))}; rescue exits differ on "
+            f"genes {flipped} (lfc max abs diff {lfc_gap}, bound {flip_lfc_gap}), left out of the per-gene keys")
 
 
 def main() -> int:
@@ -420,32 +777,51 @@ def main() -> int:
     timings: dict = {}
     errs32 = kernel_checks(torch.float32, G_MAIN, N_MAIN, reps=20, timings=timings)
     kernel_checks(torch.float64, G_F64, N_MAIN, reps=5, timings={})
+    errs_sum, filter_row = summary_kernel_checks(torch.float32, G_MAIN, N_MAIN, reps=20, timings=timings)
+    errs32.update(errs_sum)
+    summary_kernel_checks(torch.float64, G_F64, N_MAIN, reps=0, timings={})
+    cooks_wide_check()
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
 
+    log("phase 3b: summary_pipeline (counts -> padj), 100 x 60000 float32")
+    summary = summary_path(reps=3, filter_row=filter_row)
+
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
+    log("phase 4b: float64 summary pipeline with injected outliers, card against CPU, 100 x 2000")
+    summary_card_vs_cpu()
 
+    # name -> (source, TPU program it replaces, launch-count key)
     replaces = {
         "order_stats_select": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select"),
         "disp_scan": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:196", "disp_scan"),
         "disp_newton": ("pydeseq2_tpu_torch/csrc/disp_newton.cu", "pydeseq2_tpu/ops/dispersion.py:361", "disp_newton"),
         "irls": ("pydeseq2_tpu_torch/csrc/irls.cu", "pydeseq2_tpu/ops/irls.py:45", "irls"),
+        "hat_wald": ("pydeseq2_tpu_torch/csrc/hat_wald.cu",
+                     "pydeseq2_tpu/ops/irls.py:444 + pydeseq2_tpu/ops/wald.py:28", "hat_wald"),
+        "cooks": ("pydeseq2_tpu_torch/csrc/cooks.cu",
+                  "pydeseq2_tpu/ops/stats.py:108 + pydeseq2_tpu/fused.py:702", "cooks"),
+        "bh": ("pydeseq2_tpu_torch/csrc/bh.cu", "pydeseq2_tpu/ops/stats.py:145", "bh"),
     }
     rows = []
     for name, (source, repl, key) in replaces.items():
         t = timings[name]
         bytes_ms = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = t["ops"] / F32_OPS_PER_S * 1e3
-        rows.append({
+        ops_ms = t["ops"] / t.get("ops_per_s", F32_OPS_PER_S) * 1e3
+        row = {
             "name": name, "route": "cuda", "source": source, "replaces": repl,
-            "launches": main["launches"][key], "max_abs_err": errs32[name],
+            "launches": summary["launches"][key], "max_abs_err": errs32[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
-        })
-    log("main path: " + json.dumps(main))
+        }
+        if "sort_ms" in t:
+            row["sort_ms"] = t["sort_ms"]  # the one library sort that precedes the sweep
+        rows.append(row)
+    log("wald path: " + json.dumps(main))
+    log("summary path: " + json.dumps(summary))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

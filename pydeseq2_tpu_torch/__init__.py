@@ -1,11 +1,13 @@
-"""pydeseq2_tpu_torch — the DESeq2 Wald pipeline in PyTorch, with CUDA kernels.
+"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines in PyTorch,
+with CUDA kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
-PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the four
-per-gene device programs of the main path (size-factor order statistics,
-the dispersion coarse scan, the dispersion Newton polish and IRLS) are CUDA
-kernels written by hand for ``sm_90a`` under ``csrc/``, built with ``nvcc``
-at first use (see :mod:`pydeseq2_tpu_torch.kernels`).
+PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
+per-gene device programs (size-factor order statistics, the dispersion
+coarse scan, the dispersion Newton polish, IRLS, hat diagonals + Wald,
+Cook's distances, and the batched BH sweep of independent filtering) are
+CUDA kernels written by hand for ``sm_90a`` under ``csrc/``, built with
+``nvcc`` at first use (see :mod:`pydeseq2_tpu_torch.kernels`).
 
 Device rule: entry points take ``device`` (default ``"cuda"``) and raise if
 CUDA is requested and absent; they never carry on on the CPU by themselves.
@@ -31,12 +33,20 @@ from pydeseq2_tpu_torch.convert import (  # noqa: E402
     outputs_to_numpy,
     resolve_device,
 )
-from pydeseq2_tpu_torch.fused import wald_pipeline  # noqa: E402
+from pydeseq2_tpu_torch.fused import (  # noqa: E402
+    device_padj,
+    summary_host_inputs,
+    summary_pipeline,
+    wald_pipeline,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "wald_pipeline",
+    "summary_pipeline",
+    "summary_host_inputs",
+    "device_padj",
     "inputs_from_numpy",
     "outputs_to_numpy",
     "resolve_device",

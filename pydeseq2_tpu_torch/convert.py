@@ -2,8 +2,9 @@
 
 DESeq2 carries no weights; what crosses over from the JAX package is the
 call itself: :func:`inputs_from_numpy` turns the numpy arguments of
-``pydeseq2_tpu.fused.wald_pipeline`` into keyword arguments of the port's
-:func:`~pydeseq2_tpu_torch.fused.wald_pipeline`, and
+``pydeseq2_tpu.fused.wald_pipeline`` or ``summary_pipeline`` into keyword
+arguments of the port's :func:`~pydeseq2_tpu_torch.fused.wald_pipeline` or
+:func:`~pydeseq2_tpu_torch.fused.summary_pipeline`, and
 :func:`outputs_to_numpy` turns the port's result into the dict that
 ``jax.device_get`` gives for the JAX result (same keys, same dtypes).
 """
@@ -33,15 +34,18 @@ def inputs_from_numpy(
     gene_mask=None,
     size_factors=None,
     *,
+    cooks_cutoff=None,
     dtype: torch.dtype = torch.float64,
     device: str | torch.device = "cuda",
     **static,
 ) -> dict:
-    """Keyword arguments for the port's ``wald_pipeline``.
+    """Keyword arguments for the port's ``wald_pipeline``, or with
+    ``cooks_cutoff`` given, its ``summary_pipeline``.
 
-    The array arguments become ``dtype`` tensors on ``device`` (the mask a
-    bool tensor); the static keyword arguments (``max_disp``, ``beta_tol``,
-    ``alt_hypothesis``, ...) pass through unchanged.
+    The array arguments and ``cooks_cutoff`` become ``dtype`` tensors on
+    ``device`` (the mask a bool tensor); the static keyword arguments
+    (``max_disp``, ``beta_tol``, ``alt_hypothesis``, ``cohort_ids``, ...)
+    pass through unchanged.
     """
     dev = resolve_device(device)
 
@@ -57,10 +61,12 @@ def inputs_from_numpy(
         "size_factors": t(size_factors),
         "device": dev,
     }
+    if cooks_cutoff is not None:
+        kw["cooks_cutoff"] = t(cooks_cutoff)
     kw.update(static)
     return kw
 
 
 def outputs_to_numpy(out: dict) -> dict:
-    """Host copy of a ``wald_pipeline`` result: numpy arrays, same keys."""
+    """Host copy of a pipeline result: numpy arrays, same keys."""
     return {k: v.detach().cpu().numpy() for k, v in out.items()}

@@ -1,11 +1,14 @@
-"""The DESeq2 Wald pipeline on a gene-major (G, N) counts tile.
+"""The DESeq2 Wald and summary pipelines on a gene-major (G, N) counts tile.
 
-Port of ``pydeseq2_tpu/fused.py:wald_pipeline``: size factors -> MoM
+Port of ``pydeseq2_tpu/fused.py``. ``wald_pipeline``: size factors -> MoM
 dispersions -> mu init -> genewise dispersions -> trend -> prior -> MAP
-dispersions -> IRLS LFCs -> hat diagonals -> Wald test. PyTorch runs
-eagerly, so the ``lax.cond``/``lax.switch``/``while_loop`` conditions of the
-single JAX program become Python branches on values read from the device;
-each such read is marked where it happens.
+dispersions -> IRLS LFCs -> hat diagonals + Wald test. ``summary_pipeline``
+adds Cook's distances, the Cook's outlier mask and the adjusted p-values
+(BH, or independent filtering), counts -> padj. PyTorch runs eagerly, so
+the ``lax.cond``/``lax.switch``/``while_loop`` conditions of the single JAX
+program become Python branches on values read from the device; each such
+read is marked where it happens. The Cook's block and ``device_padj`` make
+none.
 """
 
 from __future__ import annotations
@@ -15,21 +18,29 @@ import torch
 from pydeseq2_tpu_torch.convert import resolve_device
 from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
 from pydeseq2_tpu_torch.ops.irls import (
+    _linspace,
     grid_fit_beta_batch,
-    hat_diagonals,
     irls_beta_init,
     irls_core,
     newton_box_nbglm,
 )
+from pydeseq2_tpu_torch.ops.cooks import cooks_outliers
 from pydeseq2_tpu_torch.ops.linreg import (
     fit_lin_mu_batch,
     fit_moments_dispersions_batch,
     fit_rough_dispersions_batch,
 )
 from pydeseq2_tpu_torch.ops.select import masked_median_select
-from pydeseq2_tpu_torch.ops.stats import nanmedian, trimmed_mean_masked
+from pydeseq2_tpu_torch.ops.nb import _psi_series_f64
+from pydeseq2_tpu_torch.ops.stats import (
+    bh_sweep,
+    lowess_device,
+    nanmedian,
+    nanquantile,
+    trimmed_mean_masked,
+)
 from pydeseq2_tpu_torch.ops.trend import gamma_glm_trend_fit
-from pydeseq2_tpu_torch.ops.wald import wald_test_batch
+from pydeseq2_tpu_torch.ops.wald import hat_wald
 
 
 def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_mu, beta_tol, phase1_iters=8):
@@ -221,7 +232,10 @@ def _wald_impl(
     center = nanmedian(resid_sel)
     mad = nanmedian(torch.abs(resid_sel - center)) / 0.6744897501960817
     squared_logres = mad**2
-    trigamma = torch.polygamma(1, torch.tensor((N - P) / 2.0, dtype=dtype, device=dev))
+    half_df = torch.tensor((N - P) / 2.0, dtype=dtype, device=dev)
+    # torch.polygamma(1, .) is ~1e-9 relative off in float64; the series is
+    # ~1e-15 (the JAX package's polygamma is within 2e-16).
+    trigamma = _psi_series_f64(half_df)[1] if dtype == torch.float64 else torch.polygamma(1, half_df)
     prior_disp_var = torch.clamp(squared_logres - trigamma, min=0.25)
 
     # --- MAP dispersions ------------------------------------------------------
@@ -240,11 +254,11 @@ def _wald_impl(
     beta, converged, lfc_overflow = _irls_with_rescue(
         counts, sf, X, disp_safe, beta_init, min_mu=min_mu, beta_tol=beta_tol
     )
-    H, mu = hat_diagonals(counts, sf, X, disp_safe, beta, min_mu=min_mu)
 
-    # --- Wald test --------------------------------------------------------------
-    ridge = 1e-6 * torch.eye(P, dtype=dtype, device=dev)
-    pvals, stats, se = wald_test_batch(X, disp_safe, beta, mu, ridge, contrast, lfc_null, alt_hypothesis)
+    # --- hat diagonals + Wald test (mu unthresholded) -----------------------
+    H, mu, pvals, stats, se = hat_wald(
+        beta, disp_safe, sf, X, contrast, lfc_null, min_mu=min_mu, alt_hypothesis=alt_hypothesis
+    )
 
     def nanm(a):
         return torch.where(non_zero, a, nan)
@@ -267,6 +281,8 @@ def _wald_impl(
         "se": nanm(se),
         "irls_converged": converged,
         "rescue_overflow": mu_overflow + lfc_overflow,
+        "_normed": normed,
+        "_non_zero": non_zero,
     }
 
 
@@ -307,9 +323,179 @@ def wald_pipeline(
 
     if gene_mask is not None:
         gene_mask = torch.as_tensor(gene_mask, dtype=torch.bool, device=dev)
-    return _wald_impl(
+    out = _wald_impl(
         counts, on_dev(design_matrix), on_dev(contrast), on_dev(lfc_null), gene_mask,
         on_dev(size_factors), min_mu=min_mu, min_disp=min_disp, max_disp=max_disp,
         beta_tol=beta_tol, trend_type=trend_type, trend_rounds=trend_rounds,
         alt_hypothesis=alt_hypothesis, mu_init=mu_init, sf_fit_type=sf_fit_type,
     )
+    out.pop("_normed")
+    out.pop("_non_zero")
+    return out
+
+
+def summary_pipeline(
+    counts,
+    design_matrix,
+    contrast,
+    lfc_null,
+    cooks_cutoff,
+    gene_mask=None,
+    size_factors=None,
+    *,
+    cohort_ids: tuple[int, ...] | None = None,
+    use_for_max: tuple[bool, ...] | None = None,
+    alpha: float = 0.05,
+    cooks_filter: bool = True,
+    independent_filter: bool = True,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    beta_tol: float = 1e-8,
+    trend_type: str = "parametric",
+    trend_rounds: int = 8,
+    alt_hypothesis: str | None = None,
+    mu_init: str = "linear",
+    sf_fit_type: str = "ratio",
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Counts -> padj on ``device`` (default ``"cuda"``): the DESeq2
+    ``deseq2()`` + ``summary()`` workflow with ``refit_cooks=False``.
+
+    :func:`wald_pipeline`, then Cook's distances and the Cook's outlier
+    mask (reference pydeseq2/dds.py:986-1110) and the adjusted p-values, BH
+    with or without independent filtering (reference pydeseq2/ds.py:486-542).
+    ``cooks_cutoff`` (the F(0.99, P, N - P) quantile), ``cohort_ids`` and
+    ``use_for_max`` come from :func:`summary_host_inputs`; the other
+    arguments are :func:`wald_pipeline`'s. Returns the dict of
+    ``pydeseq2_tpu.fused.summary_pipeline``: the Wald keys plus ``cooks``
+    (G, N), ``cooks_outlier`` (G,), the outlier-masked ``p_values`` and
+    ``padj`` (float64 whatever the dtype of ``counts``, as the JAX package
+    adjusts in float64). The Cook's block and :func:`device_padj` read
+    nothing back to the host.
+    """
+    dev = resolve_device(device)
+    counts = torch.as_tensor(counts, device=dev).contiguous()
+    G, N = counts.shape
+    dtype = counts.dtype
+
+    def on_dev(a):
+        return None if a is None else torch.as_tensor(a, dtype=dtype, device=dev).contiguous()
+
+    if gene_mask is None:
+        gene_mask = torch.ones(G, dtype=torch.bool, device=dev)
+    gene_mask = torch.as_tensor(gene_mask, dtype=torch.bool, device=dev)
+    if use_for_max is None:
+        use_for_max = (True,) * N
+    X = on_dev(design_matrix)
+    P = X.shape[1]
+    # The cutoff is compared in the dtype of the distances, as the JAX
+    # program compares a weakly typed scalar.
+    cutoff = on_dev(cooks_cutoff)
+    out = _wald_impl(
+        counts, X, on_dev(contrast), on_dev(lfc_null), gene_mask, on_dev(size_factors),
+        min_mu=min_mu, min_disp=min_disp, max_disp=max_disp, beta_tol=beta_tol,
+        trend_type=trend_type, trend_rounds=trend_rounds, alt_hypothesis=alt_hypothesis,
+        mu_init=mu_init, sf_fit_type=sf_fit_type,
+    )
+    out.pop("_normed")
+    non_zero = out.pop("_non_zero")
+
+    # --- Cook's distances and outlier mask (reference dds.py:986-1110) ------
+    cooks, outlier, _ = cooks_outliers(
+        counts, out["size_factors"], out["mu"], out["hat_diagonals"], non_zero, P,
+        cohort_ids, tuple(bool(u) for u in use_for_max), cutoff,
+    )
+
+    p = out["p_values"]
+    if cooks_filter:
+        p = torch.where(outlier, torch.full_like(p, float("nan")), p)
+        out["p_values"] = p
+    padj = device_padj(p, out["base_mean"], gene_mask, alpha, independent_filter)
+
+    out["cooks"] = cooks
+    out["cooks_outlier"] = outlier
+    out["padj"] = torch.where(gene_mask, padj, torch.full_like(padj, float("nan")))
+    return out
+
+
+def device_padj(
+    p: torch.Tensor,
+    base_mean: torch.Tensor,
+    gene_mask: torch.Tensor,
+    alpha: float,
+    independent_filter: bool,
+) -> torch.Tensor:
+    """Adjusted p-values (G,), float64: BH over the valid genes, or
+    independent filtering, on the device with no host read.
+
+    Independent filtering (reference pydeseq2/ds.py:486-542) sweeps 50
+    base-mean cutoffs as one launch of the ``bh`` kernel over one shared
+    order of the p-values, fits a lowess through the rejection counts and
+    picks the first cutoff whose count clears the fit's maximum less its
+    residual RMS. Port of ``pydeseq2_tpu/fused.py:731``.
+    """
+    dtype = base_mean.dtype
+    dev = base_mean.device
+    nan = torch.tensor(float("nan"), dtype=dtype, device=dev)
+    valid = ~torch.isnan(p) & gene_mask
+    # The JAX package adjusts in float64 (jnp.result_type(float) under its
+    # x64 pin) whatever the dtype of p; one stable sort serves every row.
+    p_filled = torch.nan_to_num(p, nan=1.0).to(torch.float64)
+    order = torch.argsort(p_filled, stable=True)
+    if not independent_filter:
+        return bh_sweep(p_filled, order, valid, alpha=alpha)[0][0]
+
+    base_m = torch.where(gene_mask, base_mean, nan)
+    # int / int is float64 in JAX under x64; torch would give float32.
+    n_zero = ((base_m == 0) & gene_mask).sum().to(torch.float64)
+    lower_q = (n_zero / torch.clamp(gene_mask.sum(), min=1).to(torch.float64)).to(dtype)
+    upper_q = torch.where(
+        lower_q < 0.95, torch.tensor(0.95, dtype=dtype, device=dev), torch.tensor(1.0, dtype=dtype, device=dev)
+    )
+    theta = lower_q + (upper_q - lower_q) * _linspace(0.0, 1.0, 50, dtype, dev)
+    cutoffs = nanquantile(base_m, theta)
+    adj, num_rej = bh_sweep(p_filled, order, valid, base_mean, cutoffs, alpha)  # (50, G), (50,)
+    rej = num_rej.to(dtype)
+    lo = lowess_device(theta, rej, frac=1.0 / 5.0)
+    resid = torch.where(num_rej > 0, rej - lo, nan)
+    thresh = lo.amax() - torch.sqrt(torch.nanmean(resid**2))
+    above = num_rej > thresh
+    j = torch.where(above.any(), torch.argmax(above.to(torch.uint8)), 0)
+    j = torch.where(num_rej.amax() <= 10, 0, j)
+    return adj.index_select(0, j.reshape(1))[0]
+
+
+def summary_host_inputs(design_matrix, min_replicates: int = 7) -> dict:
+    """Host-side, design-only inputs of :func:`summary_pipeline`.
+
+    From the design matrix (pandas DataFrame or array): the F(0.99, P,
+    N - P) Cook's cutoff (scipy, reference pydeseq2/dds.py:1080), the
+    ``use_for_max`` mask of samples in >= 3-replicate cohorts (reference
+    pydeseq2/utils.py:888-911), the cohort ids of those samples in
+    first-seen order (None when there are none), the ``replaceable`` mask
+    of >= ``min_replicates``-replicate samples, and the ``mu_init`` mode
+    ("linear" when the design rows group 1:1 onto its columns, else
+    "irls"). Port of ``pydeseq2_tpu/fused.py:772``.
+    """
+    import numpy as np
+    import pandas as pd
+    from scipy.stats import f
+
+    from pydeseq2_tpu_torch.utils import n_or_more_replicates
+
+    df = design_matrix if isinstance(design_matrix, pd.DataFrame) else pd.DataFrame(np.asarray(design_matrix))
+    n, p = df.shape
+    three_or_more = n_or_more_replicates(df, 3).to_numpy()
+    if three_or_more.any():
+        filtered = df.loc[three_or_more, :]
+        cohort_ids = tuple(int(x) for x in filtered.groupby(filtered.columns.tolist()).ngroup())
+    else:
+        cohort_ids = None
+    return {
+        "cooks_cutoff": float(f.ppf(0.99, p, n - p)),
+        "use_for_max": tuple(bool(b) for b in three_or_more),
+        "cohort_ids": cohort_ids,
+        "replaceable": tuple(bool(b) for b in n_or_more_replicates(df, min_replicates).to_numpy()),
+        "mu_init": "linear" if len(df.value_counts()) == p else "irls",
+    }

@@ -38,6 +38,9 @@ KERNELS = {
     "disp_scan": ("disp_scan.cu", "disp_scan_launch"),
     "disp_newton": ("disp_newton.cu", "disp_newton_launch"),
     "irls": ("irls.cu", "irls_launch"),
+    "hat_wald": ("hat_wald.cu", "hat_wald_launch"),
+    "cooks": ("cooks.cu", "cooks_launch"),
+    "bh": ("bh.cu", "bh_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -67,6 +70,9 @@ _ARGTYPES = {
                            _I, _I, _I, _P, _P, _P, _P],
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _P, _P, _P],
+    "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
+    "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 

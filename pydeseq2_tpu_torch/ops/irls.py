@@ -23,7 +23,8 @@ masked lane would. The lgamma constant of the deviance (``nll_const``) is
 computed once in PyTorch and passed in.
 
 The plain version (CPU tensors only) is the masked loop of the JAX package.
-Hat diagonals and both rescue tiers stay plain PyTorch.
+Both rescue tiers stay plain PyTorch. :func:`hat_diagonals` is the plain
+version of the hat half of ``ops/wald.py:hat_wald``.
 """
 
 from __future__ import annotations

@@ -1,14 +1,87 @@
-"""Robust statistics of the Wald slice: the masked trimmed mean and a
-NaN-aware median.
+"""Robust statistics: trimmed moments, NaN-aware median and quantiles, BH
+adjustment, lowess.
 
-Port of the parts of ``pydeseq2_tpu/ops/stats.py`` the Wald pipeline uses.
+Port of ``pydeseq2_tpu/ops/stats.py``. The Cook's-distance trimmed moments
+run as one CUDA kernel (``ops/cooks.py``); the plain versions here are the
+JAX package's sort-slice forms. The independent-filtering BH sweep runs as
+the ``bh`` kernel through :func:`bh_sweep`.
+
+Kernel (``csrc/bh.cu``): replaces the shared-order path of
+``bh_adjust_masked`` (pydeseq2_tpu/ops/stats.py:145) as ``device_padj``
+runs it: one shared order of the p-values (a stable ``torch.sort``, one
+library call) and a (rows, G) masked sweep, each row's mask
+``base_mean >= cutoff_row & valid`` evaluated in the kernel rather than
+materialised. One block per row walks the sorted order from the end in
+chunks: a block-wide scan gives the suffix count of the mask (hence each
+element's rank from the row's total) and the suffix minimum of
+``p * n_valid / max(rank, 1)``, which is the BH adjustment before the clip
+at 1; the result is scattered back to gene order and counted against
+``alpha``. Per row it reads the shared order and gathers p, valid and
+base_mean through it, so it is bound by those gathers (L2-resident at 60000
+genes) and by the block's scan steps. It forms the same products and
+quotients as the plain version and min is exact, so the two agree bit for
+bit.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops.select import masked_median_select
+
+
+def trimmed_mean(x: torch.Tensor, trim: float = 0.1, axis: int = 0) -> torch.Tensor:
+    """Mean after dropping ``floor(n * trim)`` entries at each end of the
+    sorted axis (reference pydeseq2/utils.py:567-599).
+
+    The sort-slice semantics of ``pydeseq2_tpu/ops/stats.py:28``; the JAX
+    package switches to a sort-free select at n >= 1024, which keeps the
+    same multiset and sums it in another order.
+    """
+    n = x.shape[axis]
+    ntrim = math.floor(n * trim)
+    s = torch.sort(x, dim=axis).values
+    return s.narrow(axis, ntrim, n - 2 * ntrim).mean(axis)
+
+
+def trimmed_variance(x: torch.Tensor, trim: float = 0.125, axis: int = 0) -> torch.Tensor:
+    """Trimmed variance with the 1.51 trimming-bias scale (reference
+    pydeseq2/utils.py:653-679)."""
+    rm = trimmed_mean(x, trim=trim, axis=axis)
+    sqerror = (x - rm.unsqueeze(axis)) ** 2
+    return 1.51 * trimmed_mean(sqerror, trim=trim, axis=axis)
+
+
+# (trim ratio, scale) by cohort-size bin: n < 3.5, n < 23.5, n >= 23.5
+# (reference pydeseq2/utils.py:622-645).
+_COHORT_TRIM_RATIOS = (1.0 / 3.0, 1.0 / 4.0, 1.0 / 8.0)
+_COHORT_SCALES = (2.04, 1.86, 1.51)
+
+
+def cohort_bin(n: int) -> int:
+    return 2 if n >= 23.5 else 1 if n >= 3.5 else 0
+
+
+def trimmed_cell_variance(counts: torch.Tensor, cells) -> torch.Tensor:
+    """Max over cohorts of the cohort's trimmed variance.
+
+    counts (N, G) sample-major; ``cells`` (N,) host cohort ids (levels in
+    first-seen order). Reference pydeseq2/utils.py:602-650.
+    """
+    cells = [int(c) for c in cells]
+    var_ests = []
+    for lvl in dict.fromkeys(cells):
+        idx = torch.tensor([i for i, c in enumerate(cells) if c == lvl], device=counts.device)
+        b = cohort_bin(len(idx))
+        trim, scale = _COHORT_TRIM_RATIOS[b], _COHORT_SCALES[b]
+        sub = counts[idx, :]
+        cell_means = trimmed_mean(sub, trim=trim, axis=0)
+        sqerror = (sub - cell_means[None, :]) ** 2
+        var_ests.append(scale * trimmed_mean(sqerror, trim=trim, axis=0))
+    return torch.stack(var_ests, dim=0).amax(dim=0)
 
 
 def trimmed_mean_masked(values: torch.Tensor, sel: torch.Tensor, cut: float) -> torch.Tensor:
@@ -40,3 +113,180 @@ def nanmedian(x: torch.Tensor) -> torch.Tensor:
     nan = torch.isnan(x)
     vals = torch.where(nan, torch.full_like(x, float("inf")), x)
     return masked_median_select(vals[:, None], (~nan).sum(), axis=0)[0]
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, as a fused multiply-add rounds it.
+
+    float32 is evaluated in float64 (the product is exact there); float64
+    takes Dekker's exact product and a compensated sum, which rounds as an
+    FMA except in halfway cases of the last bit.
+    """
+    if a.dtype == torch.float32:
+        return (a.double() * b.double() + c.double()).float()
+    split = 134217729.0  # 2**27 + 1
+
+    def halves(x):
+        t = split * x
+        hi = t - (t - x)
+        return hi, x - hi
+
+    p = a * b
+    ah, al = halves(a)
+    bh, bl = halves(b)
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    return s + (((p - (s - bb)) + (c - bb)) + err)
+
+
+def nanquantile(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanquantile(x, q)`` ("linear") of a 1-D tensor, with its rounding.
+
+    JAX forms ``lo * (1 - w) + hi * w`` at JAX's positions, and XLA
+    contracts it to ``fma(hi, w, lo * (1 - w))``; ``torch.nanquantile``
+    interpolates with ``lerp``, which rounds differently. One ulp of a
+    cutoff moves a gene across ``base_mean >= cutoff`` (tied base means sit
+    exactly on it), so the contraction is reproduced. Positions are computed
+    in the dtype of ``q`` as JAX computes them.
+    """
+    s = torch.sort(x).values  # NaN sorts last
+    counts = (~torch.isnan(s)).sum().to(q.dtype)
+    pos = q * (counts - 1)
+    low = torch.floor(pos)
+    high = torch.ceil(pos)
+    high_w = pos - low
+    low_w = 1 - high_w
+    top = counts - 1
+    low = torch.clamp(torch.minimum(low, top), min=0).to(torch.int64)
+    high = torch.clamp(torch.minimum(high, top), min=0).to(torch.int64)
+    return _fma(s[high].to(q.dtype), high_w, s[low].to(q.dtype) * low_w).to(x.dtype)
+
+
+def _bh_shared_order(p: torch.Tensor, order: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """BH of a 1-D ``p`` under each row of ``mask`` (..., G), sharing one
+    ascending order of ``p``: NaN outside the mask. Each row's masked subset
+    keeps its relative order under the shared sort, so its rank is a cumsum
+    of the sorted mask (pydeseq2_tpu/ops/stats.py:175-190)."""
+    n_valid = mask.sum(dim=-1, keepdim=True)
+    p_sorted = p[order]
+    mask_sorted = mask[..., order]
+    ranks = torch.cumsum(mask_sorted.to(p.dtype), dim=-1)
+    scaled = torch.where(
+        mask_sorted,
+        p_sorted * n_valid / torch.clamp(ranks, min=1.0),
+        torch.full_like(ranks, float("inf")),
+    )
+    adj_sorted = torch.clamp(cummin_reverse(scaled), max=1.0)
+    adj = torch.empty_like(adj_sorted)
+    adj[..., order] = adj_sorted
+    return torch.where(mask, adj, torch.full_like(adj, float("nan")))
+
+
+def cummin_reverse(x: torch.Tensor) -> torch.Tensor:
+    """Running minimum from the right along the last axis."""
+    return torch.flip(torch.cummin(torch.flip(x, (-1,)), dim=-1).values, (-1,))
+
+
+def _bh_sweep_plain(p, order, valid, base_mean, cutoffs, alpha):
+    if base_mean is None:
+        masks = valid[None, :]
+    else:
+        masks = (base_mean[None, :] >= cutoffs[:, None]) & valid[None, :]
+    adj = _bh_shared_order(p, order, masks & ~torch.isnan(p))
+    return adj, (adj < alpha).sum(dim=1)
+
+
+def _bh_sweep_cuda(p, order, valid, base_mean, cutoffs, alpha):
+    G = p.shape[0]
+    rows = 1 if cutoffs is None else cutoffs.shape[0]
+    # The mask compares base_mean with the cutoffs; widening both to p's
+    # dtype is exact and keeps the comparison's result.
+    if base_mean is not None:
+        base_mean = base_mean.to(p.dtype).contiguous()
+        cutoffs = cutoffs.to(p.dtype).contiguous()
+    order32 = order.to(torch.int32).contiguous()
+    valid8 = valid.to(torch.uint8).contiguous()
+    adj = torch.empty((rows, G), dtype=p.dtype, device=p.device)
+    num_rej = torch.empty(rows, dtype=torch.int64, device=p.device)
+    kernels.check_cuda_operands("bh", p, base_mean, cutoffs, adj, order32, valid8)
+    kernels.launch(
+        "bh",
+        [
+            int(p.dtype == torch.float64), rows, G,
+            p.data_ptr(), order32.data_ptr(), valid8.data_ptr(),
+            kernels.ptr(base_mean), kernels.ptr(cutoffs), float(alpha),
+            adj.data_ptr(), num_rej.data_ptr(),
+        ],
+        p.device,
+    )
+    return adj, num_rej
+
+
+def bh_sweep(
+    p: torch.Tensor,
+    order: torch.Tensor,
+    valid: torch.Tensor,
+    base_mean: torch.Tensor | None = None,
+    cutoffs: torch.Tensor | None = None,
+    alpha: float = 0.05,
+):
+    """BH adjustment of ``p`` (G,) under one mask per row, sharing ``order``
+    (a stable ascending sort of ``p``): ``(adj (rows, G), num_rej (rows,))``.
+
+    Row j's mask is ``base_mean >= cutoffs[j] & valid`` (one row of
+    ``valid`` when ``cutoffs`` is None); ``num_rej`` counts ``adj < alpha``.
+    A NaN p inside the mask counts as unmasked; adjusted values are clipped
+    at 1 and NaN outside the mask. This is the shared-order path of
+    ``bh_adjust_masked`` (``pydeseq2_tpu/ops/stats.py:145``, scipy's
+    ``false_discovery_control``), the one ``device_padj`` runs. CUDA tensors
+    launch the ``bh`` kernel; CPU tensors take the plain version.
+    """
+    if p.is_cuda:
+        return _bh_sweep_cuda(p, order, valid, base_mean, cutoffs, alpha)
+    return _bh_sweep_plain(p, order, valid, base_mean, cutoffs, alpha)
+
+
+def _median_nan(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` of a 1-D tensor: the mean of the middle pair, NaN if
+    any entry is NaN."""
+    return torch.where(torch.isnan(x).any(), torch.full_like(x[0], float("nan")), nanmedian(x))
+
+
+def lowess_device(
+    features: torch.Tensor, targets: torch.Tensor, frac: float = 2.0 / 3.0, it: int = 3
+) -> torch.Tensor:
+    """Tricube-weighted robust local linear regression over a small grid
+    (the 50 independent-filtering cutoffs): closed-form 2x2 weighted least
+    squares per point and ``it`` robustifying rounds. Port of
+    ``pydeseq2_tpu/ops/stats.py:218`` (reference pydeseq2/utils.py:1379-1443)."""
+    f = features
+    y = targets.to(f.dtype)
+    n = f.shape[0]
+    r = int(math.ceil(frac * n))
+    dists = torch.abs(f[:, None] - f[None, :])
+    h = torch.clamp(torch.sort(dists, dim=1).values[:, r], min=1e-12)
+    w = torch.clamp(dists / h[None, :], 0.0, 1.0)
+    w = (1.0 - w**3) ** 3  # column i: weights of the local fit at i
+
+    delta = torch.ones(n, dtype=f.dtype, device=f.device)
+    for _ in range(it):
+        weights = delta[:, None] * w
+        sw = weights.sum(0)
+        swf = (weights * f[:, None]).sum(0)
+        swff = (weights * f[:, None] ** 2).sum(0)
+        b0 = (weights * y[:, None]).sum(0)
+        b1 = (weights * (y * f)[:, None]).sum(0)
+        det = sw * swff - swf**2
+        beta0 = (b0 * swff - b1 * swf) / det
+        beta1 = (sw * b1 - swf * b0) / det
+        yest = beta0 + beta1 * f
+        resid = y - yest
+        s = _median_nan(torch.abs(resid))
+        delta = torch.where(
+            s == 0,
+            (torch.abs(resid) > 0).to(f.dtype),
+            torch.clamp(resid / (6.0 * s), -1.0, 1.0),
+        )
+        delta = (1.0 - delta**2) ** 2
+    return yest

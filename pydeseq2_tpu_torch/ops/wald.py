@@ -1,15 +1,37 @@
-"""Batched Wald tests for NB GLM contrasts.
+"""Hat diagonals and batched Wald tests for NB GLM contrasts.
 
 Port of ``pydeseq2_tpu/ops/wald.py:wald_test_batch`` (reference
 pydeseq2/utils.py:718-811): covariance, SE, statistic and p-values for all
-four alternative hypotheses, in plain PyTorch.
+four alternative hypotheses, beside the hat diagonals that the Cook's
+distances read.
+
+Kernel (``csrc/hat_wald.cu``): replaces ``hat_diagonals``
+(pydeseq2_tpu/ops/irls.py:444) followed by ``wald_test_batch``
+(pydeseq2_tpu/ops/wald.py:28). One warp per gene: a first pass over the
+gene's N samples builds both Gram matrices, X^T W_thr X on the min_mu-
+thresholded mu (for the hat matrix) and X^T W X on the unthresholded mu
+(for the Wald covariance, as the JAX pipeline feeds ``wald_test_batch`` the
+unthresholded mu that ``hat_diagonals`` returns), reduced by warp shuffle;
+the two P x P inverses and the contrast SE, statistic and p-value are
+scalar work in registers; a second pass writes H and mu. It never reads the
+counts. On the H100 it is bound by its writes, 2 x G x N values (48 MB at
+100 x 60000 f32); the exp per sample is recomputed in the second pass
+rather than stored.
+
+The plain version (CPU tensors only) is ``ops/irls.py:hat_diagonals``
+followed by :func:`wald_test_batch`.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch.ops.irls import hat_diagonals
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv, weighted_gram
+
+# alt_hypothesis -> the kernel's branch code
+ALT_CODES = {None: 0, "greaterAbs": 1, "lessAbs": 2, "greater": 3, "less": 4}
 
 
 def norm_sf(x: torch.Tensor) -> torch.Tensor:
@@ -71,3 +93,60 @@ def wald_test_batch(
         raise ValueError(f"unknown alt_hypothesis {alt_hypothesis!r}")
     return pval, stat, se
 
+
+def _hat_wald_plain(beta, disp, size_factors, X, contrast, lfc_null, min_mu, alt_hypothesis):
+    H, mu = hat_diagonals(None, size_factors, X, disp, beta, min_mu=min_mu)
+    ridge = 1e-6 * torch.eye(X.shape[1], dtype=beta.dtype, device=beta.device)
+    pval, stat, se = wald_test_batch(X, disp, beta, mu, ridge, contrast, lfc_null, alt_hypothesis)
+    return H, mu, pval, stat, se
+
+
+def _hat_wald_cuda(beta, disp, size_factors, X, contrast, lfc_null, min_mu, alt_hypothesis):
+    G, P = beta.shape
+    N = X.shape[0]
+    dev = beta.device
+    lfc_null = torch.as_tensor(lfc_null, dtype=beta.dtype, device=dev).reshape(1)
+    ops = [t.contiguous() for t in (beta, disp, size_factors, X, contrast, lfc_null)]
+    beta, disp, size_factors, X, contrast, lfc_null = ops
+    H = torch.empty((G, N), dtype=beta.dtype, device=dev)
+    mu = torch.empty_like(H)
+    pval = torch.empty(G, dtype=beta.dtype, device=dev)
+    stat = torch.empty_like(pval)
+    se = torch.empty_like(pval)
+    kernels.check_cuda_operands("hat_wald", *ops, H, mu, pval, stat, se)
+    kernels.check_p("hat_wald", P)
+    kernels.launch(
+        "hat_wald",
+        [
+            int(beta.dtype == torch.float64), P, G, N,
+            beta.data_ptr(), disp.data_ptr(), size_factors.data_ptr(), X.data_ptr(),
+            contrast.data_ptr(), lfc_null.data_ptr(), float(min_mu), ALT_CODES[alt_hypothesis],
+            H.data_ptr(), mu.data_ptr(), pval.data_ptr(), stat.data_ptr(), se.data_ptr(),
+        ],
+        dev,
+    )
+    return H, mu, pval, stat, se
+
+
+def hat_wald(
+    beta: torch.Tensor,
+    disp: torch.Tensor,
+    size_factors: torch.Tensor,
+    design_matrix: torch.Tensor,
+    contrast: torch.Tensor,
+    lfc_null: torch.Tensor | float,
+    min_mu: float = 0.5,
+    alt_hypothesis: str | None = None,
+):
+    """Hat diagonals and the Wald test from the fitted coefficients:
+    ``(H (G, N), mu (G, N), p_values, statistics, se)``.
+
+    H = W_thr x_n^T (X^T W_thr X + 1e-6 I)^-1 x_n on the min_mu-thresholded
+    mu; mu is the UNthresholded sf e^{X beta}, which the Wald covariance
+    uses. CUDA tensors launch the ``hat_wald`` kernel; CPU tensors take the
+    plain version.
+    """
+    if alt_hypothesis not in ALT_CODES:
+        raise ValueError(f"unknown alt_hypothesis {alt_hypothesis!r}")
+    fn = _hat_wald_cuda if beta.is_cuda else _hat_wald_plain
+    return fn(beta, disp, size_factors, design_matrix, contrast, lfc_null, min_mu, alt_hypothesis)

@@ -1,9 +1,12 @@
-"""Where the time of one ``wald_pipeline`` run goes, on a CUDA card.
+"""Where the time of one ``wald_pipeline`` or ``summary_pipeline`` run goes,
+on a CUDA card.
 
-    python3 -m pydeseq2_tpu_torch.stage_profile [n_samples] [n_genes]
+    python3 -m pydeseq2_tpu_torch.stage_profile [--summary] [n_samples] [n_genes]
 
-Runs the pipeline on ``make_data(n_samples, n_genes)`` (default 100 x
-60000, float32, the benchmark's configuration) once to warm up, then:
+Runs the pipeline (with ``--summary``, counts -> padj: the Wald stages,
+then the Cook's block and ``device_padj``) on ``make_data(n_samples,
+n_genes)`` (default 100 x 60000, float32, the benchmark's configuration)
+once to warm up, then:
 
 1. wall time per stage function of ``fused`` (each call wrapped in a
    synchronise before and after, host clock), and what is left outside
@@ -26,19 +29,20 @@ import numpy as np
 import torch
 
 
-# The pipeline's stage functions, as ``fused`` calls them (module globals).
+# The pipeline's stage functions, as ``fused`` calls them (module globals);
+# the summary pipeline adds the last two.
 STAGES = (
     "_size_factors", "fit_rough_dispersions_batch", "fit_moments_dispersions_batch",
     "fit_lin_mu_batch", "alpha_mle_batch", "fit_fused_trend", "nanmedian",
-    "irls_beta_init", "_irls_with_rescue", "hat_diagonals", "wald_test_batch",
+    "irls_beta_init", "_irls_with_rescue", "hat_wald", "cooks_outliers", "device_padj",
 )
 # Called inside _irls_with_rescue: timed too, and not added to the stages.
 SUBSTAGES = ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch")
 
 
-def timed_run(kw: dict) -> tuple[float, dict]:
-    """One ``wald_pipeline`` run with every stage function wrapped in a
-    synchronise-timed call: ``(wall_s, {stage: [seconds per call]})``."""
+def timed_run(run, kw: dict) -> tuple[float, dict]:
+    """One ``run(**kw)`` of a pipeline with every stage function wrapped in
+    a synchronise-timed call: ``(wall_s, {stage: [seconds per call]})``."""
     from pydeseq2_tpu_torch import fused
 
     times: dict = {name: [] for name in STAGES + SUBSTAGES}
@@ -60,7 +64,7 @@ def timed_run(kw: dict) -> tuple[float, dict]:
             setattr(fused, name, wrap(name, fn))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fused.wald_pipeline(**kw)
+        run(**kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -77,20 +81,28 @@ def main() -> int:
     from pydeseq2_tpu_torch import kernels
     from pydeseq2_tpu_torch.synthetic import make_data
 
-    n_samples = int(sys.argv[1]) if len(sys.argv) > 1 else 100
-    n_genes = int(sys.argv[2]) if len(sys.argv) > 2 else 60_000
+    args = sys.argv[1:]
+    summary = "--summary" in args
+    args = [a for a in args if a != "--summary"]
+    n_samples = int(args[0]) if args else 100
+    n_genes = int(args[1]) if len(args) > 1 else 60_000
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
     kernels.build()
     counts_np, X_np = make_data(n_samples, n_genes)
-    max_disp = float(max(10, n_samples))
+    static = dict(max_disp=float(max(10, n_samples)), beta_tol=1e-6)
+    if summary:
+        host = pt.summary_host_inputs(X_np)
+        static.update(cooks_cutoff=host["cooks_cutoff"], cohort_ids=host["cohort_ids"],
+                      use_for_max=host["use_for_max"])
+    run = pt.summary_pipeline if summary else pt.wald_pipeline
     kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, dtype=torch.float32,
-                              device="cuda", max_disp=max_disp, beta_tol=1e-6)
-    pt.wald_pipeline(**kw)
+                              device="cuda", **static)
+    run(**kw)
     torch.cuda.synchronize()
 
-    wall_s, times = timed_run(kw)
+    wall_s, times = timed_run(run, kw)
     stage_s = {name: sum(ts) for name, ts in times.items() if ts}
     for name, sec in stage_s.items():
         indent = "    " if name in SUBSTAGES else ""
@@ -103,7 +115,7 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pt.wald_pipeline(**kw)
+        run(**kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -122,7 +134,7 @@ def main() -> int:
           f"syncs/copies {n_sync}", flush=True)
     for t in top:
         print(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}", flush=True)
-    out = {"card": card, "shape": [n_samples, n_genes], "timed_wall_ms": wall_s * 1e3,
+    out = {"card": card, "pipeline": run.__name__, "shape": [n_samples, n_genes], "timed_wall_ms": wall_s * 1e3,
            "stage_ms": {k: v * 1e3 for k, v in stage_s.items()},
            "profiled_wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3, "launches": n_launch,
            "syncs_or_copies": n_sync, "top_device": top}

@@ -61,6 +61,35 @@ def test_default_device_raises_without_cuda():
         pt.wald_pipeline(counts.T, X, np.array([0.0, 1.0]), 0.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.summary_pipeline(counts.T, X, np.array([0.0, 1.0]), 0.0, 5.0)
+
+
+def test_public_surface():
+    for name in ("wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
+                 "inputs_from_numpy", "outputs_to_numpy"):
+        assert callable(getattr(pt, name)), name
+    counts, X = make_data(6, 20)
+    kw = pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0, cooks_cutoff=5.0, dtype=torch.float32,
+                              device="cpu", alpha=0.1)
+    assert kw["cooks_cutoff"].dtype == torch.float32 and kw["alpha"] == 0.1
+
+
+def test_argtypes_match_the_c_launchers():
+    """The ctypes argtypes of every exported launcher follow its C
+    signature (int, double or pointer, then the stream pointer): nvcc is not
+    here, so this is where a mismatch shows before the card."""
+    import ctypes
+    import re
+
+    kinds = {"int": ctypes.c_int, "double": ctypes.c_double}
+    for name, (source, fn) in {**kernels.KERNELS, **kernels.HELPERS}.items():
+        text = (kernels.CSRC / source).read_text()
+        sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+        assert sig, name
+        params = [" ".join(p.split()[:-1]) for p in sig.group(1).split(",")]
+        want = [ctypes.c_void_p if "*" in p else kinds[p] for p in params]
+        assert kernels._ARGTYPES[fn] + [ctypes.c_void_p] == want, name
 
 
 def test_precision_pins():

@@ -395,3 +395,265 @@ def test_size_factors_ratio_and_poscounts(name):
     assert np.array_equal(_np(filt_t), np.asarray(filt_j))
     _close(t_fused._poscounts_size_factors(_t(counts, name), torch.as_tensor(mask)),
            j_fused._poscounts_size_factors(_j(counts, name), jnp.asarray(mask)), rtol)
+
+
+# --- summary slice: trimmed moments, Cook's, BH, lowess, padj, hat + Wald ---
+
+from pydeseq2_tpu_torch.ops import cooks as t_cooks  # noqa: E402
+
+
+def test_trigamma_f64_against_scipy():
+    """The prior variance's trigamma((N - P) / 2) in float64 is the series
+    of ``_psi_series_f64`` (torch.polygamma(1, .) is ~1e-9 relative off)."""
+    from scipy.special import polygamma
+
+    x = np.array([0.5, 1.0, 1.5, 4.0, 49.0])
+    got = _np(t_nb._psi_series_f64(torch.as_tensor(x))[1])
+    np.testing.assert_allclose(got, polygamma(1, x), rtol=1e-14, atol=0)
+
+
+def _tied_cohort_data(n, seed):
+    """(n, 40) sample-major normalised counts with heavy ties."""
+    rng = np.random.default_rng(seed)
+    return np.round(rng.lognormal(2.0, 1.0, size=(n, 40)) / 4.0) * 4.0 / rng.uniform(0.5, 2.0, size=(n, 1))
+
+
+@pytest.mark.parametrize("n", [3, 10, 30, 1100])
+def test_trimmed_variance(n):
+    """Sort-slice trimmed moments against the JAX package's; n = 1100 takes
+    its sort-free select path (same kept multiset, another summation order,
+    hence 1e-12)."""
+    x = _tied_cohort_data(n, n)
+    _close(t_stats.trimmed_mean(torch.as_tensor(x), 0.125), j_stats.trimmed_mean(jnp.asarray(x), 0.125), 1e-12)
+    _close(t_stats.trimmed_variance(torch.as_tensor(x)), j_stats.trimmed_variance(jnp.asarray(x)), 1e-12)
+
+
+def test_trimmed_cell_variance_bins():
+    """Cohorts of 3, 10 and 30 samples take the three (trim, scale) bins."""
+    x = _tied_cohort_data(43, 11)
+    cells = np.array([2] * 3 + [0] * 10 + [1] * 30)
+    np.random.default_rng(12).shuffle(cells)
+    _close(t_stats.trimmed_cell_variance(torch.as_tensor(x), cells),
+           j_stats.trimmed_cell_variance(jnp.asarray(x), cells), 1e-12)
+
+
+def _jax_cooks_block(counts, sf, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff):
+    """``pydeseq2_tpu/fused.py:695-716`` (inline in the JAX program)."""
+    normed = counts / sf[None, :]
+    if cohort_ids is not None:
+        idx = np.where(np.asarray(use_for_max))[0]
+        v = j_stats.trimmed_cell_variance(normed[:, idx].T, np.asarray(cohort_ids))
+    else:
+        v = j_stats.trimmed_variance(normed.T, axis=0)
+    m = normed.mean(axis=1)
+    disp_c = jnp.maximum((v - m) / m**2, 0.04)
+    V = mu + disp_c[:, None] * mu**2
+    cooks = (counts - mu) ** 2 / (V * P) * H / (1.0 - H) ** 2
+    ufm = jnp.asarray(np.asarray(use_for_max), dtype=bool)
+    flagged = (jnp.where(ufm[None, :], cooks, -jnp.inf) > cutoff).any(axis=1)
+    max_count = jnp.take_along_axis(counts, jnp.argmax(cooks, axis=1)[:, None], axis=1)
+    flagged = flagged & ((counts > max_count).sum(axis=1) < 3)
+    return jnp.where(non_zero[:, None], cooks, jnp.nan), flagged & non_zero, disp_c
+
+
+@pytest.mark.parametrize("layout", ["cohorts", "global", "global_1100"])
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_cooks_outliers(name, layout):
+    """Cook's distances, robust dispersion and outlier flags against the JAX
+    block, with injected outliers, an all-zero gene and samples outside
+    use_for_max. Cohorts of 3, 10 and 30 (the three bins) or one global
+    cohort; 1100 samples take the JAX select path. f64: 1e-10 and equal
+    flags; f32: 1e-4 (trimmed sums in another order feed (v - m) / m^2)."""
+    rng = np.random.default_rng(13)
+    N = 1100 if layout == "global_1100" else 48
+    G = 60
+    sf = np.exp(rng.normal(0, 0.2, N))
+    mu = rng.lognormal(3.0, 1.0, size=(G, 1)) * sf[None, :]
+    counts = rng.negative_binomial(5, 5 / (5 + mu)).astype(float)
+    counts[:8, 0] = mu[:8, 0] * 40 + 100  # outliers
+    counts[9] = 0.0
+    H = rng.uniform(0.01, 0.3, size=(G, N))
+    # Gene 8: the largest distance (high leverage) sits on a sample with 3
+    # higher counts beside it, so the gene is not flagged.
+    counts[8, :4] = mu[8, :4] * np.array([10, 40, 40, 40]) + 100
+    H[8, :4] = [0.9, 0.001, 0.001, 0.001]
+    non_zero = ~(counts == 0).all(axis=1)
+    if layout == "cohorts":
+        use_for_max = np.ones(N, bool)
+        use_for_max[[1, 7, 20, 33, 40]] = False
+        cohort_ids = tuple(int(c) for c in rng.permutation([5] * 3 + [2] * 10 + [9] * 30))
+    else:
+        use_for_max, cohort_ids = np.ones(N, bool), None
+    cutoff = 4.8
+    want = _jax_cooks_block(*(_j(a, name) for a in (counts, sf, mu, H)), jnp.asarray(non_zero), 2,
+                            cohort_ids, tuple(use_for_max), _j(cutoff, name))
+    got = t_cooks.cooks_outliers(*(_t(a, name) for a in (counts, sf, mu, H)), torch.as_tensor(non_zero), 2,
+                                 cohort_ids, tuple(use_for_max), _t(cutoff, name))
+    rtol = 1e-10 if name == "f64" else 1e-4
+    assert np.array_equal(np.isnan(_np(got[0])), np.isnan(np.asarray(want[0])))
+    _close(np.nan_to_num(_np(got[0])), np.nan_to_num(np.asarray(want[0])), rtol)
+    _close(_np(got[2])[non_zero], np.asarray(want[2])[non_zero], rtol)
+    assert np.array_equal(_np(got[1]), np.asarray(want[1]))
+    assert _np(got[1])[:8].all() and not _np(got[1])[8:10].any()
+
+
+def test_cohort_layout():
+    """The kernel's cohort description: members in first-seen id order with
+    their bin's (trim, scale), -1 outside use_for_max; None is one cohort
+    of every sample with trimmed_variance's fixed 0.125 and 1.51."""
+    use_for_max = (True, False, True, True, True, True, False, True, True)
+    cohort, trims, scales = t_cooks.cohort_layout((7, 3, 7, 7, 3, 3, 3), use_for_max, 9)
+    assert cohort == (0, -1, 1, 0, 0, 1, -1, 1, 1)
+    assert trims == (1 / 3, 1 / 4) and scales == (2.04, 1.86)
+    perm, offsets, ntrim, scale, ufm = t_cooks._layout_tensors(
+        cohort, trims, scales, use_for_max, torch.device("cpu"), torch.float32)
+    assert perm.tolist() == [0, 3, 4, 2, 5, 7, 8] and offsets.tolist() == [0, 3, 7]
+    assert ntrim.tolist() == [1, 1] and scale.dtype == torch.float32 and ufm.tolist() == [int(u) for u in use_for_max]
+    assert t_cooks.cohort_layout(None, (False,) * 5, 5) == ((0,) * 5, (0.125,), (1.51,))
+
+
+def test_first_argmax_matches_jnp_argmax():
+    f = np.array([[3.0, 5.0, np.nan, 5.0], [1.0, 1.0, 0.0, 1.0], [-np.inf, -np.inf, -np.inf, -np.inf]])
+    got = t_cooks.first_argmax(torch.as_tensor(f))
+    assert np.array_equal(_np(got), np.asarray(jnp.argmax(jnp.asarray(f), axis=1)))
+
+
+def _bh_inputs(G=3000, seed=14):
+    rng = np.random.default_rng(seed)
+    p = np.where(rng.random(G) < 0.3, rng.uniform(0, 1e-3, G), rng.uniform(0, 1, G))
+    p = np.round(p, 4)  # ties
+    p[rng.random(G) < 0.05] = np.nan
+    base_mean = np.where(rng.random(G) < 0.1, 0.0, rng.lognormal(2.0, 2.0, G))
+    mask = rng.random(G) < 0.97
+    return p, base_mean, mask
+
+
+def test_bh_sweep_plain_against_bh_adjust_masked():
+    """The sweep's plain version on a p with NaN inside the mask, one row
+    and (50, G) rows over one shared order, with ties: a NaN p counts as
+    unmasked, and the same products, quotients and minima as the JAX
+    package's ``bh_adjust_masked`` give equal bits."""
+    p, base_mean, mask = _bh_inputs()
+    cut = np.quantile(base_mean, np.linspace(0, 0.95, 50))
+    pt_ = torch.as_tensor(p)
+    order = torch.argsort(pt_, stable=True)
+    for label, bm, cuts, m in (
+        ("1 row", None, None, mask[None, :]),
+        ("50 rows", base_mean, cut, (base_mean[None, :] >= cut[:, None]) & mask[None, :]),
+    ):
+        got, num_rej = t_stats._bh_sweep_plain(
+            pt_, order, torch.as_tensor(mask), None if bm is None else torch.as_tensor(bm),
+            None if cuts is None else torch.as_tensor(cuts), 0.05)
+        want = np.asarray(j_stats.bh_adjust_masked(jnp.asarray(p), jnp.asarray(m)))
+        assert np.array_equal(_np(got), want, equal_nan=True), label
+        assert np.array_equal(_np(num_rej), (want < 0.05).sum(1)), label
+        assert np.nanmax(_np(got)) <= 1.0 and np.isnan(_np(got)[:, np.isnan(p)]).all(), label
+
+
+def test_bh_sweep_matches_masked_bh():
+    """The kernel's plain version: masks formed from base_mean and the
+    cutoffs row by row, one shared stable order, rejection counts."""
+    p, base_mean, mask = _bh_inputs()
+    valid = ~np.isnan(p) & mask
+    p_filled = np.nan_to_num(p, nan=1.0)
+    cut = np.quantile(base_mean, np.linspace(0, 0.95, 50))
+    pt_ = torch.as_tensor(p_filled)
+    order = torch.argsort(pt_, stable=True)
+    adj, num_rej = t_stats.bh_sweep(pt_, order, torch.as_tensor(valid), torch.as_tensor(base_mean),
+                                    torch.as_tensor(cut), alpha=0.05)
+    want = np.asarray(j_stats.bh_adjust_masked(
+        jnp.asarray(p_filled), jnp.asarray((base_mean[None, :] >= cut[:, None]) & valid[None, :])))
+    assert np.array_equal(_np(adj), want, equal_nan=True)
+    assert np.array_equal(_np(num_rej), (want < 0.05).sum(1))
+    adj1, _ = t_stats.bh_sweep(pt_, order, torch.as_tensor(valid))
+    want1 = np.asarray(j_stats.bh_adjust_masked(jnp.asarray(p_filled), jnp.asarray(valid)))
+    assert np.array_equal(_np(adj1)[0], want1, equal_nan=True)
+
+
+def test_nanquantile_rounds_as_jnp():
+    """JAX's "linear" quantile, lo (1 - w) + hi w, bit for bit (torch's
+    lerp rounds differently), NaN ignored."""
+    _, base_mean, mask = _bh_inputs()
+    for name in ("f64", "f32"):
+        x = np.where(mask, base_mean, np.nan)
+        q = np.linspace(0.1, 0.95, 50)
+        got = t_stats.nanquantile(_t(x, name), _t(q, name))
+        want = jnp.nanquantile(_j(x, name), _j(q, name))
+        assert np.array_equal(_np(got), np.asarray(want)), name
+
+
+@pytest.mark.parametrize("kind", ["counts", "zeros"])
+def test_lowess_device(kind):
+    """50 points (the filtering grid), including all-zero targets, where
+    the robustness weights vanish and both give the same NaN/finite mask."""
+    rng = np.random.default_rng(15)
+    theta = np.linspace(0.05, 0.95, 50)
+    y = np.zeros(50) if kind == "zeros" else np.maximum(0, 400 * (1 - theta) + rng.normal(0, 20, 50)).round()
+    got = t_stats.lowess_device(torch.as_tensor(theta), torch.as_tensor(y), frac=0.2)
+    want = j_stats.lowess_device(jnp.asarray(theta), jnp.asarray(y), frac=0.2)
+    assert np.array_equal(np.isnan(_np(got)), np.isnan(np.asarray(want)))
+    _close(np.nan_to_num(_np(got)), np.nan_to_num(np.asarray(want)), 1e-12, atol=1e-9)
+
+
+@pytest.mark.parametrize("independent_filter", [True, False])
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_device_padj(name, independent_filter):
+    """Both modes against ``pydeseq2_tpu.fused.device_padj`` with padding,
+    zero base means and NaN p-values; > 10 rejections, so the lowess pick
+    chooses the row. The adjustment is float64 in both whatever the input."""
+    from pydeseq2_tpu import fused as j_fused
+    from pydeseq2_tpu_torch import fused as t_fused
+
+    p, base_mean, mask = _bh_inputs()
+    got = t_fused.device_padj(_t(p, name), _t(base_mean, name), torch.as_tensor(mask), 0.05, independent_filter)
+    want = np.asarray(j_fused.device_padj(_j(p, name), _j(base_mean, name), jnp.asarray(mask), 0.05,
+                                          independent_filter))
+    assert _np(got).dtype == want.dtype == np.float64
+    assert np.array_equal(_np(got), want, equal_nan=True)
+    assert np.sum(want < 0.05) > 10
+
+
+def test_summary_host_inputs():
+    """Equal dicts for a single-factor, a multi-factor (one cohort of 2),
+    a continuous design (no cohort) and a DataFrame design."""
+    import pandas as pd
+
+    from pydeseq2_tpu.fused import summary_host_inputs as j_host
+    from pydeseq2_tpu_torch.fused import summary_host_inputs as t_host
+
+    rng = np.random.default_rng(16)
+    cond = rng.integers(0, 2, 20).astype(float)
+    group = np.r_[np.zeros(18), np.ones(2)]
+    designs = [
+        np.column_stack([np.ones(20), cond]),
+        np.column_stack([np.ones(20), group, cond]),
+        np.column_stack([np.ones(20), cond, rng.normal(size=20)]),
+        pd.DataFrame({"intercept": np.ones(20), "cond": cond}),
+    ]
+    for X in designs:
+        assert t_host(X) == j_host(X)
+
+
+@pytest.mark.parametrize("alt", [None, "greaterAbs", "lessAbs", "greater", "less"])
+@pytest.mark.parametrize("P", [2, 3, 5])
+def test_hat_wald_plain(P, alt):
+    """The ``hat_wald`` kernel's plain version against the JAX pair it
+    replaces: hat_diagonals, then wald_test_batch on the UNthresholded mu,
+    f64, every alternative hypothesis, a multi-entry contrast."""
+    rng = np.random.default_rng(17 + P)
+    G, N = 40, 24
+    X = np.column_stack([np.ones(N), rng.integers(0, 2, (N, P - 2)), rng.normal(size=N)])
+    beta = np.column_stack([rng.normal(2.0, 2.0, G), rng.normal(0, 0.5, (G, P - 1))])
+    beta[:3, 0] = -4.0  # mu below min_mu: thresholded in H only
+    disp = rng.lognormal(-2, 1, G)
+    sf = np.exp(rng.normal(0, 0.2, N))
+    contrast = np.r_[0.0, 0.5, np.ones(P - 2)]
+    got = t_wald.hat_wald(*(torch.as_tensor(a) for a in (beta, disp, sf, X, contrast)), torch.tensor(0.1, dtype=torch.float64),
+                          min_mu=0.5, alt_hypothesis=alt)
+    H_j, mu_j = j_irls.hat_diagonals(None, *(jnp.asarray(a) for a in (sf, X, disp, beta)))
+    want = (H_j, mu_j) + tuple(j_wald.wald_test_batch(
+        jnp.asarray(X), jnp.asarray(disp), jnp.asarray(beta), mu_j, jnp.asarray(1e-6 * np.eye(P)),
+        jnp.asarray(contrast), jnp.asarray(0.1), alt))
+    assert np.any(_np(got[1]) < 0.5)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, 1e-10, atol=1e-300)
