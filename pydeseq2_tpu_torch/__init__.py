@@ -1,12 +1,13 @@
-"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines in PyTorch,
-with CUDA kernels.
+"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines and apeGLM
+LFC shrinkage in PyTorch, with CUDA kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
 per-gene device programs (size-factor order statistics, the dispersion
-coarse scan, the dispersion Newton polish, IRLS, hat diagonals + Wald,
-Cook's distances, and the batched BH sweep of independent filtering) are
-CUDA kernels written by hand for ``sm_90a`` under ``csrc/``, built with
+coarse scan, the dispersion Newton polish, IRLS and its two rescue tiers,
+hat diagonals + Wald, Cook's distances, the batched BH sweep of
+independent filtering, and the apeGLM Newton fit and grid) are eleven CUDA
+kernels written by hand for ``sm_90a`` under ``csrc/``, built with
 ``nvcc`` at first use (see :mod:`pydeseq2_tpu_torch.kernels`).
 
 Device rule: entry points take ``device`` (default ``"cuda"``) and raise if
@@ -39,6 +40,10 @@ from pydeseq2_tpu_torch.fused import (  # noqa: E402
     summary_pipeline,
     wald_pipeline,
 )
+from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
+    lfc_shrink_pipeline_streamed,
+    run_lfc_shrink_streamed,
+)
 
 __version__ = "0.1.0"
 
@@ -47,6 +52,8 @@ __all__ = [
     "summary_pipeline",
     "summary_host_inputs",
     "device_padj",
+    "run_lfc_shrink_streamed",
+    "lfc_shrink_pipeline_streamed",
     "inputs_from_numpy",
     "outputs_to_numpy",
     "resolve_device",

@@ -9,7 +9,9 @@
 // - a float64 psi and psi' (CUDA's math library has neither): shift by the
 //   recurrence to x >= 10, then the asymptotic series;
 // - the small symmetric solves of pydeseq2_tpu/ops/smalllinalg.py: closed
-//   forms for P <= 3, unrolled Cholesky for P <= 8.
+//   forms for P <= 3, unrolled Cholesky for P <= 8;
+// - the NB GLM gradient/Hessian pass of the IRLS polish and the Newton
+//   rescue, and the apeGLM log-likelihood term and jnp.logaddexp.
 //
 // The kernels are compiled with --fmad=false and write each expression in
 // the JAX package's order, so that they round as the plain PyTorch
@@ -291,6 +293,86 @@ template <typename T, int P> __device__ __forceinline__ void unpack(const T* Mp,
   for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int j = 0; j < P; ++j) M[i * P + j] = Mp[tri_idx<P>(i, j)];
+}
+
+template <int P, typename T> __device__ __forceinline__ void add_diag(T* M, T v) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) M[tri_idx<P>(p, p)] = M[tri_idx<P>(p, p)] + v;
+}
+
+// max_p |v_p|, NaN-propagating like jnp.abs(v).max().
+template <int P, typename T> __device__ __forceinline__ T sup_norm(const T* v) {
+  T s = m_abs(v[0]);
+#pragma unroll
+  for (int p = 1; p < P; ++p) s = m_max(s, m_abs(v[p]));
+  return s;
+}
+
+// Linear predictor x_n . b of sample n, summed in coefficient order; the
+// row of X is left in xv.
+template <int P, typename T>
+__device__ __forceinline__ T lin_pred(const T* __restrict__ X, int n, const T* b, T* xv) {
+  const T* xn = X + (size_t)n * P;
+  T xb = T(0);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    xv[p] = __ldg(xn + p);
+    xb = xb + b[p] * xv[p];
+  }
+  return xb;
+}
+
+// ---- NB GLM passes over one gene's row, one warp (pydeseq2_tpu/ops/irls.py) --
+// Ridged NLL gradient at b and, with want_h, the packed exact Hessian
+// X^T diag(mu (1 + a y)/(1 + a mu)^2) X (without ridge), mu = max(sf e^{xb},
+// min_mu): ridged_grad / hess_fn of irls.py:214-221,319-330.
+template <int P, typename T>
+__device__ __forceinline__ void grad_pass(const T* __restrict__ y, const T* __restrict__ sf,
+                                          const T* __restrict__ X, int N, int lane,
+                                          const T* b, T disp, T inv_disp, T min_mu,
+                                          bool want_h, T* grad, T* hess) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) grad[p] = T(0);
+#pragma unroll
+  for (int i = 0; i < NTRI<P>; ++i) hess[i] = T(0);
+  for (int n = lane; n < N; n += WARP) {
+    T xv[P];
+    const T xb = lin_pred<P, T>(X, n, b, xv);
+    const T mu = m_max(__ldg(sf + n) * m_exp(xb), min_mu);
+    const T yv = y[n];
+    const T t = (inv_disp + yv) * mu / (inv_disp + mu);
+#pragma unroll
+    for (int p = 0; p < P; ++p) grad[p] += (t - yv) * xv[p];
+    if (want_h) {
+      const T den = T(1) + disp * mu;
+      const T w = mu * (T(1) + disp * yv) / (den * den);
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const T wp = w * xv[p];
+#pragma unroll
+        for (int q = p; q < P; ++q) hess[tri_idx<P>(p, q)] += wp * xv[q];
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) grad[p] = warp_sum(grad[p]) + T(1e-6) * b[p];
+  if (want_h) {
+#pragma unroll
+    for (int i = 0; i < NTRI<P>; ++i) hess[i] = warp_sum(hess[i]);
+  }
+}
+
+// jnp.logaddexp: max(a, b) + log1p(exp(-|a - b|)), a + b where a - b is NaN.
+template <typename T> __device__ __forceinline__ T m_logaddexp(T a, T b) {
+  const T delta = a - b;
+  return (delta != delta) ? a + b : m_max(a, b) + m_log1p(m_exp(-m_abs(delta)));
+}
+
+// One sample's share of the apeGLM log-likelihood (pydeseq2_tpu/ops/
+// shrink.py:48-52): y xb - (y + s) logaddexp(xb + offset, log s).
+template <typename T>
+__device__ __forceinline__ T apeglm_ll_term(T y, T y_plus_s, T xb, T off, T log_s) {
+  return y * xb - y_plus_s * m_logaddexp(xb + off, log_s);
 }
 
 // Dispatch a templated launcher over P = 1..8 (the statement after P may

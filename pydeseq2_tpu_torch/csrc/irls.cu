@@ -40,14 +40,8 @@ __device__ __forceinline__ void irls_pass(const T* __restrict__ y, const T* __re
   for (int p = 0; p < P; ++p) rhs[p] = T(0);
   T dev = T(0);
   for (int n = lane; n < N; n += WARP) {
-    const T* xn = X + (size_t)n * P;
     T xv[P];
-    T xb = T(0);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      xv[p] = __ldg(xn + p);
-      xb = xb + b[p] * xv[p];
-    }
+    const T xb = lin_pred<P, T>(X, n, b, xv);
     const T raw = __ldg(sf + n) * m_exp(xb);
     const bool clamped = raw < min_mu;
     const T mu = clamped ? min_mu : raw;
@@ -72,64 +66,6 @@ __device__ __forceinline__ void irls_pass(const T* __restrict__ y, const T* __re
   for (int i = 0; i < NTRI<P>; ++i) gram[i] = warp_sum(gram[i]);
 #pragma unroll
   for (int p = 0; p < P; ++p) rhs[p] = warp_sum(rhs[p]);
-}
-
-// Ridged NLL gradient at b and, with want_h, the packed exact Hessian
-// X^T diag(mu (1 + a y)/(1 + a mu)^2) X (without ridge).
-template <int P, typename T>
-__device__ __forceinline__ void grad_pass(const T* __restrict__ y, const T* __restrict__ sf,
-                                          const T* __restrict__ X, int N, int lane,
-                                          const T* b, T disp, T inv_disp, T min_mu,
-                                          bool want_h, T* grad, T* hess) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) grad[p] = T(0);
-#pragma unroll
-  for (int i = 0; i < NTRI<P>; ++i) hess[i] = T(0);
-  for (int n = lane; n < N; n += WARP) {
-    const T* xn = X + (size_t)n * P;
-    T xv[P];
-    T xb = T(0);
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      xv[p] = __ldg(xn + p);
-      xb = xb + b[p] * xv[p];
-    }
-    const T mu = m_max(__ldg(sf + n) * m_exp(xb), min_mu);
-    const T yv = y[n];
-    const T t = (inv_disp + yv) * mu / (inv_disp + mu);
-#pragma unroll
-    for (int p = 0; p < P; ++p) grad[p] += (t - yv) * xv[p];
-    if (want_h) {
-      const T den = T(1) + disp * mu;
-      const T w = mu * (T(1) + disp * yv) / (den * den);
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const T wp = w * xv[p];
-#pragma unroll
-        for (int q = p; q < P; ++q) hess[tri_idx<P>(p, q)] += wp * xv[q];
-      }
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < P; ++p) grad[p] = warp_sum(grad[p]) + T(1e-6) * b[p];
-  if (want_h) {
-#pragma unroll
-    for (int i = 0; i < NTRI<P>; ++i) hess[i] = warp_sum(hess[i]);
-  }
-}
-
-template <int P, typename T>
-__device__ __forceinline__ void add_ridge(T* M) {
-#pragma unroll
-  for (int p = 0; p < P; ++p) M[tri_idx<P>(p, p)] = M[tri_idx<P>(p, p)] + T(1e-6);
-}
-
-template <int P, typename T>
-__device__ __forceinline__ T sup_norm(const T* v) {
-  T s = m_abs(v[0]);
-#pragma unroll
-  for (int p = 1; p < P; ++p) s = m_max(s, m_abs(v[p]));
-  return s;
 }
 
 template <int P, typename T>
@@ -161,7 +97,7 @@ __global__ void __launch_bounds__(THREADS)
   bool active = true, needs_fb = false, prev_small = false;
   int it = 0;
   while (active && it < maxiter) {
-    add_ridge<P, T>(gram);
+    add_diag<P, T>(gram, T(1e-6));
     T beta_hat[P];
     sym_solve<T, P>(gram, rhs, beta_hat);
     ++it;
@@ -205,7 +141,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int p = 0; p < P; ++p) b[p] = beta[p];
     for (int i = 0; i < polish_iters; ++i) {
       if (i > 0) grad_pass<P, T>(y, sf, X, N, lane, b, disp, inv_disp, min_mu, true, g, H);
-      add_ridge<P, T>(H);
+      add_diag<P, T>(H, T(1e-6));
       T d[P], cand[P];
       sym_solve<T, P>(H, g, d);
       bool ok = true;

@@ -50,8 +50,10 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     lanes continue from their iterate on a compacted tile of K = max(512,
     G/64) lanes, flagged first by a STABLE argsort, or at full width when
     more than K are unfinished. Lanes still flagged then take the projected
-    Newton rescue and, for P == 2, the 2-D grid. ``overflow`` counts flagged
-    lanes beyond the K tile. See ``pydeseq2_tpu/fused.py:51``.
+    Newton rescue and, for P == 2, the 2-D grid; each tier is told which
+    lanes of the tile it rescues (``sel``), and its kernel works on those
+    only. ``overflow`` counts flagged lanes beyond the K tile. See
+    ``pydeseq2_tpu/fused.py:51``.
     """
     X = design_matrix
     beta, needs_fb, converged = irls_core(
@@ -90,7 +92,7 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     # Host-evaluated lax.cond (fused.py:183-185).
     if bool(needs_fb.any()):
         b_fb, ok = newton_box_nbglm(
-            counts[idx], size_factors, X, disp[idx], beta_init[idx], min_mu=min_mu
+            counts[idx], size_factors, X, disp[idx], beta_init[idx], min_mu=min_mu, sel=sel
         )
         beta, converged = beta.clone(), converged.clone()
         beta[idx] = torch.where(sel[:, None], b_fb, beta[idx])
@@ -101,7 +103,7 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
         sel_grid = still_bad[idx]
         # Host-evaluated lax.cond (fused.py:206-208).
         if bool(still_bad.any()):
-            b_grid = grid_fit_beta_batch(counts[idx], size_factors, X, disp[idx], min_mu=min_mu)
+            b_grid = grid_fit_beta_batch(counts[idx], size_factors, X, disp[idx], min_mu=min_mu, sel=sel_grid)
             beta = beta.clone()
             beta[idx] = torch.where(sel_grid[:, None], b_grid, beta[idx])
     return beta, converged, overflow

@@ -41,6 +41,10 @@ KERNELS = {
     "hat_wald": ("hat_wald.cu", "hat_wald_launch"),
     "cooks": ("cooks.cu", "cooks_launch"),
     "bh": ("bh.cu", "bh_launch"),
+    "newton_box": ("newton_box.cu", "newton_box_launch"),
+    "grid_nb": ("grid.cu", "grid_nb_launch"),
+    "shrink": ("shrink.cu", "shrink_launch"),
+    "grid_apeglm": ("grid.cu", "grid_apeglm_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -73,6 +77,10 @@ _ARGTYPES = {
     "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
     "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
     "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
+    "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
+    "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
+    "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
+    "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 
@@ -216,3 +224,19 @@ def check_p(name: str, P: int) -> None:
     """Raise unless the design width is one the kernels are built for."""
     if not 1 <= P <= MAX_P:
         raise ValueError(f"{name}: design width P={P}; the CUDA kernels take 1 <= P <= {MAX_P}")
+
+
+def check_p2(name: str, P: int) -> None:
+    """Raise unless the design has two columns (the 2-D grid searches)."""
+    if P != 2:
+        raise ValueError(f"{name}: design width P={P}; the grid kernels take P == 2 only")
+
+
+def check_sel(name: str, sel: torch.Tensor | None, K: int) -> torch.Tensor | None:
+    """The lane selection of a rescue kernel as a contiguous (K,) uint8 CUDA
+    tensor, or None (every lane)."""
+    if sel is None:
+        return None
+    if not sel.is_cuda or sel.shape != (K,) or sel.dtype != torch.bool:
+        raise ValueError(f"{name}: sel must be a ({K},) bool CUDA tensor")
+    return sel.to(torch.uint8).contiguous()

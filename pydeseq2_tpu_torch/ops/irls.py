@@ -23,8 +23,13 @@ masked lane would. The lgamma constant of the deviance (``nll_const``) is
 computed once in PyTorch and passed in.
 
 The plain version (CPU tensors only) is the masked loop of the JAX package.
-Both rescue tiers stay plain PyTorch. :func:`hat_diagonals` is the plain
-version of the hat half of ``ops/wald.py:hat_wald``.
+
+The rescue tiers have kernels too: ``csrc/newton_box.cu`` (the projected
+Newton box solver, one warp per selected lane) and ``csrc/grid.cu``'s
+``grid_nb`` (the 2-D grid, one block per selected lane). Both take ``sel``,
+the lanes of the compacted tile whose result the caller uses, and do no work
+for the others. :func:`hat_diagonals` is the plain version of the hat half
+of ``ops/wald.py:hat_wald``.
 """
 
 from __future__ import annotations
@@ -214,20 +219,7 @@ def irls_beta_init(counts: torch.Tensor, size_factors: torch.Tensor, design_matr
     return torch.linalg.solve_triangular(R, rhs.T, upper=True).T
 
 
-def newton_box_nbglm(
-    counts: torch.Tensor,
-    size_factors: torch.Tensor,
-    design_matrix: torch.Tensor,
-    disp: torch.Tensor,
-    beta_init: torch.Tensor,
-    min_mu: float = 0.5,
-    max_beta: float = 30.0,
-    maxiter: int = 60,
-):
-    """Projected Newton on the ridged NB NLL in the [-30, 30]^P box with
-    13-halving backtracking: ``(beta, success)``, success = projected
-    gradient sup-norm < 1e-5. Port of ``pydeseq2_tpu/ops/irls.py:272``."""
-    X = design_matrix
+def _newton_box_plain(counts, size_factors, X, disp, beta_init, min_mu, max_beta, maxiter):
     G = counts.shape[0]
     P = X.shape[1]
     dtype = beta_init.dtype
@@ -269,6 +261,54 @@ def newton_box_nbglm(
     return beta, torch.abs(pg).amax(dim=1) < 1e-5
 
 
+def _newton_box_cuda(counts, size_factors, X, disp, beta_init, min_mu, max_beta, maxiter, sel=None):
+    """Launch the ``newton_box`` kernel: ``(beta, success, passes per lane)``,
+    passes = evaluations over the lane's row (0 where not selected)."""
+    K, N = counts.shape
+    P = X.shape[1]
+    dev = counts.device
+    beta = torch.empty((K, P), dtype=beta_init.dtype, device=dev)
+    ok = torch.empty(K, dtype=torch.uint8, device=dev)
+    passes = torch.empty(K, dtype=torch.int32, device=dev)
+    log_sf = torch.log(size_factors)
+    ops = [t.contiguous() for t in (counts, size_factors, log_sf, X, disp, beta_init)]
+    kernels.check_cuda_operands("newton_box", *ops)
+    kernels.check_p("newton_box", P)
+    sel8 = kernels.check_sel("newton_box", sel, K)
+    kernels.launch(
+        "newton_box",
+        [int(counts.dtype == torch.float64), P, K, N, *(t.data_ptr() for t in ops), kernels.ptr(sel8),
+         float(min_mu), float(max_beta), maxiter, beta.data_ptr(), ok.data_ptr(), passes.data_ptr()],
+        dev,
+    )
+    return beta, ok.bool(), passes
+
+
+def newton_box_nbglm(
+    counts: torch.Tensor,
+    size_factors: torch.Tensor,
+    design_matrix: torch.Tensor,
+    disp: torch.Tensor,
+    beta_init: torch.Tensor,
+    min_mu: float = 0.5,
+    max_beta: float = 30.0,
+    maxiter: int = 60,
+    sel: torch.Tensor | None = None,
+):
+    """Projected Newton on the ridged NB NLL in the [-30, 30]^P box with
+    13-halving backtracking: ``(beta, success)``, success = projected
+    gradient sup-norm < 1e-5. Port of ``pydeseq2_tpu/ops/irls.py:272``.
+
+    ``sel`` (K,) bool marks the lanes whose result the caller uses: the
+    ``newton_box`` kernel (CUDA tensors) does no work for the others and
+    returns ``beta_init`` and False there; the plain version ignores it.
+    """
+    if counts.is_cuda:
+        return _newton_box_cuda(counts, size_factors, design_matrix, disp, beta_init, min_mu, max_beta,
+                                maxiter, sel)[:2]
+    return _newton_box_plain(counts, size_factors, design_matrix, disp, beta_init, min_mu, max_beta, maxiter)
+
+
 def _linspace(start, stop, num: int, dtype, device) -> torch.Tensor:
     """``jnp.linspace`` with its rounding: start*(1-s) + stop*s, s = i/(num-1)."""
     div = num - 1
@@ -278,19 +318,16 @@ def _linspace(start, stop, num: int, dtype, device) -> torch.Tensor:
     return torch.cat([start * (1 - s) + stop * s, stop.reshape(1)])
 
 
-def grid_fit_beta_batch(
-    counts: torch.Tensor,
-    size_factors: torch.Tensor,
-    design_matrix: torch.Tensor,
-    disp: torch.Tensor,
-    min_mu: float = 0.5,
-    grid_length: int = 60,
-    min_beta: float = -30.0,
-    max_beta: float = 30.0,
-) -> torch.Tensor:
-    """Coarse then fine 2-D grid search for P == 2 designs. Port of
-    ``pydeseq2_tpu/ops/irls.py:375``."""
-    X = design_matrix
+def grid_axes(min_beta: float, max_beta: float, num: int, dtype, device):
+    """The coarse grid and the fine grid's offsets of the 2-D searches, as
+    ``jnp.linspace`` rounds them: ``(base, offs)``, offs spanning one
+    coarse step either side."""
+    base = _linspace(min_beta, max_beta, num, dtype, device)
+    delta = base[1] - base[0]
+    return base, _linspace(-delta, delta, num, dtype, device)
+
+
+def _grid_fit_beta_plain(counts, size_factors, X, disp, min_mu, grid_length, min_beta, max_beta):
     dtype = counts.dtype
     dev = counts.device
     G = counts.shape[0]
@@ -306,10 +343,8 @@ def grid_fit_beta_batch(
         flat = first_argmin(ll.reshape(G, -1).T)
         return x_grid[flat // y_grid.shape[0]], y_grid[flat % y_grid.shape[0]]
 
-    base = _linspace(min_beta, max_beta, grid_length, dtype, dev)
+    base, offs = grid_axes(min_beta, max_beta, grid_length, dtype, dev)
     bx, by = search(base, base)
-    delta = base[1] - base[0]
-    offs = _linspace(-delta, delta, grid_length, dtype, dev)
 
     best_f = torch.full((G,), float("inf"), dtype=dtype, device=dev)
     best_x, best_y = bx, by
@@ -327,6 +362,52 @@ def grid_fit_beta_batch(
         best_x = torch.where(better, x_val, best_x)
         best_y = torch.where(better, y_vals.gather(1, j[:, None])[:, 0], best_y)
     return torch.stack([best_x, best_y], dim=1)
+
+
+def _grid_fit_beta_cuda(counts, size_factors, X, disp, min_mu, grid_length, min_beta, max_beta, sel=None):
+    """Launch the ``grid_nb`` kernel (one block per selected lane; NaN in
+    the lanes not selected)."""
+    K, N = counts.shape
+    dev = counts.device
+    base, offs = grid_axes(min_beta, max_beta, grid_length, counts.dtype, dev)
+    beta = torch.empty((K, 2), dtype=counts.dtype, device=dev)
+    ops = [t.contiguous() for t in (counts, size_factors, X, disp, base, offs)]
+    kernels.check_cuda_operands("grid_nb", *ops)
+    kernels.check_p2("grid_nb", X.shape[1])
+    sel8 = kernels.check_sel("grid_nb", sel, K)
+    counts, size_factors, X, disp, base, offs = ops
+    kernels.launch(
+        "grid_nb",
+        [int(counts.dtype == torch.float64), K, N, counts.data_ptr(), size_factors.data_ptr(), X.data_ptr(),
+         disp.data_ptr(), kernels.ptr(sel8), base.data_ptr(), offs.data_ptr(), grid_length, float(min_mu),
+         beta.data_ptr()],
+        dev,
+    )
+    return beta
+
+
+def grid_fit_beta_batch(
+    counts: torch.Tensor,
+    size_factors: torch.Tensor,
+    design_matrix: torch.Tensor,
+    disp: torch.Tensor,
+    min_mu: float = 0.5,
+    grid_length: int = 60,
+    min_beta: float = -30.0,
+    max_beta: float = 30.0,
+    sel: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Coarse then fine 2-D grid search for P == 2 designs. Port of
+    ``pydeseq2_tpu/ops/irls.py:375``.
+
+    ``sel`` (K,) bool marks the lanes whose result the caller uses: the
+    ``grid_nb`` kernel (CUDA tensors) searches only those and returns NaN
+    for the others; the plain version ignores it.
+    """
+    args = (counts, size_factors, design_matrix, disp, min_mu, grid_length, min_beta, max_beta)
+    if counts.is_cuda:
+        return _grid_fit_beta_cuda(*args, sel)
+    return _grid_fit_beta_plain(*args)
 
 
 def hat_diagonals(

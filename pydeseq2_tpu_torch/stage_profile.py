@@ -1,16 +1,18 @@
-"""Where the time of one ``wald_pipeline`` or ``summary_pipeline`` run goes,
-on a CUDA card.
+"""Where the time of one ``wald_pipeline``, ``summary_pipeline`` or
+summary-then-shrink run goes, on a CUDA card.
 
-    python3 -m pydeseq2_tpu_torch.stage_profile [--summary] [n_samples] [n_genes]
+    python3 -m pydeseq2_tpu_torch.stage_profile [--summary | --shrink] [n_samples] [n_genes]
 
 Runs the pipeline (with ``--summary``, counts -> padj: the Wald stages,
-then the Cook's block and ``device_padj``) on ``make_data(n_samples,
-n_genes)`` (default 100 x 60000, float32, the benchmark's configuration)
-once to warm up, then:
+then the Cook's block and ``device_padj``; with ``--shrink``, that and then
+``run_lfc_shrink_streamed`` on its dispersions, size factors, MLE LFCs and
+SEs: the host prior fit, the apeGLM Newton fit and the grid) on
+``make_data(n_samples, n_genes)`` (default 100 x 60000, float32, the
+benchmark's configuration) once to warm up, then:
 
-1. wall time per stage function of ``fused`` (each call wrapped in a
-   synchronise before and after, host clock), and what is left outside
-   them, over one run of the real pipeline;
+1. wall time per stage function of ``fused`` and ``fused_stream`` (each
+   call wrapped in a synchronise before and after, host clock), and what
+   is left outside them, over one run of the real pipeline;
 2. one run under ``torch.profiler``: device time per kernel name (top 15),
    the summed device time, and the device's idle share of the wall.
 
@@ -29,24 +31,42 @@ import numpy as np
 import torch
 
 
-# The pipeline's stage functions, as ``fused`` calls them (module globals);
-# the summary pipeline adds the last two.
-STAGES = (
-    "_size_factors", "fit_rough_dispersions_batch", "fit_moments_dispersions_batch",
-    "fit_lin_mu_batch", "alpha_mle_batch", "fit_fused_trend", "nanmedian",
-    "irls_beta_init", "_irls_with_rescue", "hat_wald", "cooks_outliers", "device_padj",
-)
-# Called inside _irls_with_rescue: timed too, and not added to the stages.
-SUBSTAGES = ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch")
+# The pipelines' stage functions, by the module that calls them (as module
+# globals): the summary pipeline adds the last two of ``fused``'s, the
+# shrink path those of ``fused_stream`` (the host prior fit, then the
+# streamed blocks).
+STAGES = {
+    "fused": (
+        "_size_factors", "fit_rough_dispersions_batch", "fit_moments_dispersions_batch",
+        "fit_lin_mu_batch", "alpha_mle_batch", "fit_fused_trend", "nanmedian",
+        "irls_beta_init", "_irls_with_rescue", "hat_wald", "cooks_outliers", "device_padj",
+    ),
+    "fused_stream": ("_apeglm_prior_variance", "lfc_shrink_pipeline_streamed"),
+}
+# Called inside a stage (_irls_with_rescue, lfc_shrink_pipeline_streamed):
+# timed too, and not added to the stages.
+SUBSTAGES = {
+    "fused": ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch"),
+    "fused_stream": ("nbinom_glm_batch", "grid_fit_shrink_beta_batch"),
+}
+
+
+def _flat(table: dict) -> tuple:
+    return tuple(name for names in table.values() for name in names)
 
 
 def timed_run(run, kw: dict) -> tuple[float, dict]:
     """One ``run(**kw)`` of a pipeline with every stage function wrapped in
     a synchronise-timed call: ``(wall_s, {stage: [seconds per call]})``."""
-    from pydeseq2_tpu_torch import fused
+    import importlib
 
-    times: dict = {name: [] for name in STAGES + SUBSTAGES}
-    originals = {name: getattr(fused, name) for name in STAGES + SUBSTAGES}
+    times: dict = {name: [] for name in _flat(STAGES) + _flat(SUBSTAGES)}
+    originals = {}
+    for table in (STAGES, SUBSTAGES):
+        for mod_name, names in table.items():
+            mod = importlib.import_module(f"pydeseq2_tpu_torch.{mod_name}")
+            for name in names:
+                originals[name] = (mod, getattr(mod, name))
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -60,16 +80,16 @@ def timed_run(run, kw: dict) -> tuple[float, dict]:
         return timed
 
     try:
-        for name, fn in originals.items():
-            setattr(fused, name, wrap(name, fn))
+        for name, (mod, fn) in originals.items():
+            setattr(mod, name, wrap(name, fn))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(**kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for name, fn in originals.items():
-            setattr(fused, name, fn)
+        for name, (mod, fn) in originals.items():
+            setattr(mod, name, fn)
     return wall, times
 
 
@@ -82,8 +102,9 @@ def main() -> int:
     from pydeseq2_tpu_torch.synthetic import make_data
 
     args = sys.argv[1:]
-    summary = "--summary" in args
-    args = [a for a in args if a != "--summary"]
+    shrink = "--shrink" in args
+    summary = "--summary" in args or shrink
+    args = [a for a in args if a not in ("--summary", "--shrink")]
     n_samples = int(args[0]) if args else 100
     n_genes = int(args[1]) if len(args) > 1 else 60_000
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -97,17 +118,30 @@ def main() -> int:
         static.update(cooks_cutoff=host["cooks_cutoff"], cohort_ids=host["cohort_ids"],
                       use_for_max=host["use_for_max"])
     run = pt.summary_pipeline if summary else pt.wald_pipeline
+    label = run.__name__
+    if shrink:
+        def run(**kw):
+            out = pt.summary_pipeline(**kw)
+            return pt.run_lfc_shrink_streamed(
+                kw["counts"], kw["design_matrix"], 1, out["dispersions"], out["size_factors"],
+                mle_lfc=out["lfc"][:, 1], mle_se=out["se"], dtype=torch.float32, device="cuda",
+            )
+
+        label = "summary_pipeline + run_lfc_shrink_streamed"
     kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, dtype=torch.float32,
                               device="cuda", **static)
     run(**kw)
     torch.cuda.synchronize()
 
+    kernels.STATS.reset()
     wall_s, times = timed_run(run, kw)
+    kernel_launches = dict(kernels.STATS.launches)
     stage_s = {name: sum(ts) for name, ts in times.items() if ts}
     for name, sec in stage_s.items():
-        indent = "    " if name in SUBSTAGES else ""
+        indent = "    " if name in _flat(SUBSTAGES) else ""
         print(f"  stage {indent}{name:30s} x{len(times[name])} {sec * 1e3:9.3f} ms", flush=True)
-    glue = wall_s - sum(sec for name, sec in stage_s.items() if name in STAGES)
+    glue = wall_s - sum(sec for name, sec in stage_s.items() if name in _flat(STAGES))
+    print(f"  hand-written kernel launches in the run {kernel_launches}", flush=True)
     print(f"  timed wall {wall_s * 1e3:.3f} ms, outside the stage functions {glue * 1e3:.3f} ms", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -134,8 +168,8 @@ def main() -> int:
           f"syncs/copies {n_sync}", flush=True)
     for t in top:
         print(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}", flush=True)
-    out = {"card": card, "pipeline": run.__name__, "shape": [n_samples, n_genes], "timed_wall_ms": wall_s * 1e3,
-           "stage_ms": {k: v * 1e3 for k, v in stage_s.items()},
+    out = {"card": card, "pipeline": label, "shape": [n_samples, n_genes], "timed_wall_ms": wall_s * 1e3,
+           "stage_ms": {k: v * 1e3 for k, v in stage_s.items()}, "kernel_launches": kernel_launches,
            "profiled_wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3, "launches": n_launch,
            "syncs_or_copies": n_sync, "top_device": top}
     print(json.dumps(out), flush=True)

@@ -10,12 +10,15 @@ from __future__ import annotations
 import numpy as np
 
 
-def make_data(n_samples: int, n_genes: int, seed: int = 0):
+def make_data(n_samples: int, n_genes: int, seed: int = 0, lfc_sd: float = 0.5):
     """``(counts (N, G) float, design (N, 2))``: NB counts with lognormal
-    means and dispersions and a random two-level condition."""
+    means and dispersions and a random two-level condition. ``lfc_sd`` is
+    the standard deviation of the natural-log fold changes (the
+    benchmark's 0.5 by default; a smaller one draws a study with weak
+    effects, whose fitted apeGLM prior is narrow)."""
     rng = np.random.default_rng(seed)
     base = rng.lognormal(3.0, 1.5, size=n_genes)
-    lfc = rng.normal(0, 0.5, size=n_genes)
+    lfc = rng.normal(0, lfc_sd, size=n_genes)
     cond = rng.integers(0, 2, n_samples)
     X = np.column_stack([np.ones(n_samples), cond]).astype(float)
     mu = base[None, :] * np.exp(cond[:, None] * lfc[None, :])

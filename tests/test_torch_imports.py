@@ -30,7 +30,8 @@ def _port_sources():
 def test_import_loads_no_jax_and_no_jax_package():
     code = (
         "import sys; before = set(sys.modules); import pydeseq2_tpu_torch, pydeseq2_tpu_torch.fused; "
-        "import pydeseq2_tpu_torch.synthetic, pydeseq2_tpu_torch.kernels; "
+        "import pydeseq2_tpu_torch.synthetic, pydeseq2_tpu_torch.kernels, pydeseq2_tpu_torch.fused_stream; "
+        "import pydeseq2_tpu_torch.ops.shrink, pydeseq2_tpu_torch.models.stats, pydeseq2_tpu_torch.stage_profile; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -67,7 +68,8 @@ def test_default_device_raises_without_cuda():
 
 def test_public_surface():
     for name in ("wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
-                 "inputs_from_numpy", "outputs_to_numpy"):
+                 "run_lfc_shrink_streamed", "lfc_shrink_pipeline_streamed", "inputs_from_numpy",
+                 "outputs_to_numpy"):
         assert callable(getattr(pt, name)), name
     counts, X = make_data(6, 20)
     kw = pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0, cooks_cutoff=5.0, dtype=torch.float32,
@@ -103,3 +105,15 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
         kernels.check_p("irls", kernels.MAX_P + 1)
     with pytest.raises(ValueError, match="expected CUDA"):
         kernels.check_cuda_operands("irls", torch.zeros(3))
+    with pytest.raises(ValueError, match="P == 2"):
+        kernels.check_p2("grid_nb", 3)
+    with pytest.raises(ValueError, match="bool CUDA tensor"):
+        kernels.check_sel("newton_box", torch.ones(4, dtype=torch.bool), 4)
+    assert kernels.check_sel("newton_box", None, 4) is None
+
+
+def test_every_kernel_is_counted():
+    """Eleven kernels, each with a launch count that starts at 0."""
+    kernels.STATS.reset()
+    assert len(kernels.KERNELS) == 11
+    assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)

@@ -302,18 +302,67 @@ def test_irls_beta_init(fit_data, name):
            j_irls.irls_beta_init(_j(counts, name), _j(sf, name), _j(X, name)), rtol, atol=rtol)
 
 
-def test_rescue_tiers(irls_inputs):
-    """Projected-Newton box solver and the 2-D grid, on a few lanes (f64)."""
+def _rescue_tile(irls_inputs):
+    """12 lanes of the fit data; lane 5 holds one count of 969,890 among
+    single digits (the outlier gene of chip_smoke.py's card-against-CPU
+    summary), with its own IRLS start."""
     counts, X, sf, disp, beta_init = irls_inputs
-    sl = slice(0, 12)
-    args = (counts[sl], sf, X, disp[sl])
-    b_j, ok_j = j_irls.newton_box_nbglm(*(jnp.asarray(a) for a in args), jnp.asarray(beta_init[sl]))
-    b_t, ok_t = t_irls.newton_box_nbglm(*(torch.as_tensor(a) for a in args), torch.as_tensor(beta_init[sl]))
+    rng = np.random.default_rng(18)
+    c, d, b0 = counts[:12].copy(), disp[:12].copy(), beta_init[:12].copy()
+    c[5] = rng.integers(0, 10, c.shape[1])
+    c[5, 4] = 969890.0
+    d[5] = 0.5
+    b0[5] = np.asarray(j_irls.irls_beta_init(jnp.asarray(c[5:6]), jnp.asarray(sf), jnp.asarray(X)))[0]
+    return c, sf, X, d, b0
+
+
+def _box_objective(counts, sf, X, disp, beta):
+    """The rescue's ridged NB NLL in float64 (irls.py:308-317 plus the
+    lgamma bulk, which cancels in comparisons)."""
+    mu = np.maximum(sf[None, :] * np.exp(beta @ X.T), 0.5)
+    return np.asarray(j_nb.nb_nll(jnp.asarray(counts), jnp.asarray(mu), jnp.asarray(disp))) + 0.5e-6 * (beta**2).sum(1)
+
+
+def test_rescue_tiers(irls_inputs):
+    """Projected-Newton box solver and the 2-D grid, on a few lanes (f64),
+    the outlier lane among them. ``sel`` marks the lanes a caller uses; the
+    plain versions ignore it, so every lane still equals JAX's."""
+    args = _rescue_tile(irls_inputs)
+    sel = torch.zeros(12, dtype=torch.bool)
+    sel[[3, 5]] = True
+    b_j, ok_j = j_irls.newton_box_nbglm(*(jnp.asarray(a) for a in args))
+    b_t, ok_t = t_irls.newton_box_nbglm(*(torch.as_tensor(a) for a in args), sel=sel)
     _close(b_t, b_j, 1e-7, atol=1e-9)
     assert np.array_equal(_np(ok_t), np.asarray(ok_j))
-    g_j = j_irls.grid_fit_beta_batch(*(jnp.asarray(a) for a in args))
-    g_t = t_irls.grid_fit_beta_batch(*(torch.as_tensor(a) for a in args))
+    assert bool(ok_j[5])  # the outlier lane converges in f64
+    g_j = j_irls.grid_fit_beta_batch(*(jnp.asarray(a) for a in args[:4]))
+    g_t = t_irls.grid_fit_beta_batch(*(torch.as_tensor(a) for a in args[:4]), sel=sel)
     _close(g_t, g_j, 1e-12, atol=1e-12)
+
+
+def test_rescue_tiers_f32(irls_inputs):
+    """The rescue tiers in float32 against JAX's float32. The box solver's
+    backtracking accepts a step where the f32 objective drops, i.e. at its
+    rounding noise, which is ~1e-7 of the lane's count total (its terms are
+    y log mu; ~1 at the outlier lane), and its exit test |projected
+    gradient| < 1e-5 lies below the f32 gradient noise here, so flags are
+    not compared; the coefficients must reach the same minimum: float64
+    objectives within 1e-6 (1 + sum y) of each other. The grid may pick a
+    neighbouring fine point (one step, 2/59 of a coarse step) where the two
+    f32 objectives tie: within one fine step and with float64 objectives as
+    close."""
+    args = [np.asarray(a, np.float32) for a in _rescue_tile(irls_inputs)]
+    c64, sf64, X64, d64 = (np.asarray(a, np.float64) for a in args[:4])
+    b_j, _ = j_irls.newton_box_nbglm(*(jnp.asarray(a) for a in args))
+    b_t, _ = t_irls.newton_box_nbglm(*(torch.as_tensor(a) for a in args))
+    tol = 1e-6 * (1.0 + c64.sum(1))
+    f_j = _box_objective(c64, sf64, X64, d64, np.asarray(b_j, np.float64))
+    f_t = _box_objective(c64, sf64, X64, d64, _np(b_t).astype(np.float64))
+    assert np.all(np.abs(f_t - f_j) <= tol)
+    g_j = np.asarray(j_irls.grid_fit_beta_batch(*(jnp.asarray(a) for a in args[:4])), np.float64)
+    g_t = _np(t_irls.grid_fit_beta_batch(*(torch.as_tensor(a) for a in args[:4]))).astype(np.float64)
+    assert np.all(np.abs(g_t - g_j) <= 2.0 * (60.0 / 59.0) / 59.0 * 1.001)
+    assert np.all(np.abs(_box_objective(c64, sf64, X64, d64, g_t) - _box_objective(c64, sf64, X64, d64, g_j)) <= tol)
 
 
 @pytest.mark.parametrize("name", ["f64", "f32"])
