@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the eleven hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the fifteen hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -16,7 +16,10 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    (every lane, then the pipeline's selection), ``shrink`` at full width on
    the operands the shrink path hands it and ``grid_apeglm`` on its
    failed-first tile; both grid kernels also at 8000 (float32) and 4000
-   (float64) samples;
+   (float64) samples; ``mom``, ``trend``, ``lowess``, ``impute`` and the
+   refit mode of ``cooks`` on the operands one
+   ``run_summary_streamed(refit_cooks=True)`` run hands them (100 x 60000
+   float32 and 100 x 4000 float64, an outlier planted in every 100th gene);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -33,12 +36,21 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    with weak effects, where Newton fails on some lanes (coverage of the
    grid rescue): ``grid_apeglm`` must launch, and both apeGLM kernels are
    held to their plain versions on that run's operands;
+3e. runs ``run_summary_streamed(refit_cooks=True)`` the same way on a draw
+   with planted outliers, the counts already on the card: warm wall,
+   genes/s, the refit tile, the genes replaced and refitted, and the
+   launches of its eleven kernels in one run (each must be > 0);
+3f. the same at 1000 x 60000, where the automatic gene block streams two
+   blocks of 30000 genes;
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
    without independent filtering, every gene at rtol 1e-6 (a gene whose
    rescue exit differs is accounted for from the card's rescue inputs);
 4c. runs the f64 shrink path on the card and on the CPU on 4b's result;
+4d. runs the f64 streamed refit on the card and on the CPU at 100 x 2000
+   with planted outliers: the same genes replaced and refitted, every
+   float output (padj included) at rtol 1e-6;
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -68,11 +80,19 @@ G_MAIN, N_MAIN = 60_000, 100
 G_F64 = 4_000
 G_CPU_CMP = 2_000
 N_WIDE, G_WIDE = 1_500, 3_000  # Cook's past the JAX select switch (n >= 1024)
-# The kernels wald_pipeline launches; summary_pipeline adds cooks and bh.
-# Both launch the rescue tiers' kernels (newton_box, grid_nb) only where a
-# lane stays flagged after IRLS, as at 100 x 60000 (1-2 lanes).
-WALD_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "newton_box", "grid_nb")
-SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh")
+# The kernels wald_pipeline launches; summary_pipeline adds cooks, bh and
+# lowess. Both launch the rescue tiers' kernels (newton_box, grid_nb) only
+# where a lane stays flagged after IRLS, as at 100 x 60000 (1-2 lanes).
+WALD_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "newton_box", "grid_nb", "mom", "trend")
+SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh", "lowess")
+# The kernels run_summary_streamed(refit_cooks=True) must launch (phases 3e,
+# 3f): the rescue tiers again only where a lane stays flagged.
+STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "cooks", "bh", "mom", "trend", "lowess",
+                  "impute")
+N_STREAM_WIDE = 1_000  # phase 3f: auto gene_block splits 60000 genes into 2 blocks of 30000
+# Planted Cook's outliers of the streamed refit runs: one cell at 20x its
+# row's maximum in every OUTLIER_EVERY-th gene.
+OUTLIER_EVERY = 100
 # Coverage only, not a cited study: a draw with weak effects (fold changes
 # of SD 0.1), whose narrow fitted prior makes Newton fail on some lanes, so
 # that the shrink path's grid rescue runs (phases 2 and 3d; PERF.md section
@@ -447,12 +467,13 @@ def summary_kwargs(counts_np, X_np, dtype, device, **static):
                                 dtype=dtype, device=device, **static)
 
 
-def capture(module, names, run, key: str, kw: dict) -> dict:
-    """Call ``run(**kw)`` once with the functions ``names`` of ``module``
-    recorded: {name: (args, kwargs, result)} for the first call of each,
-    plus the run's output under ``key``."""
+def capture(targets, run, key: str, kw: dict) -> dict:
+    """Call ``run(**kw)`` once with the functions ``names`` of each
+    ``(module, names)`` in ``targets`` recorded: {name: (args, kwargs,
+    result)} for the first call of each, plus the run's output under
+    ``key``."""
     seen: dict = {}
-    originals = {n: getattr(module, n) for n in names}
+    originals = [(module, n, getattr(module, n)) for module, names in targets for n in names]
 
     def wrap(name, fn):
         def recorded(*args, **kwargs):
@@ -463,11 +484,11 @@ def capture(module, names, run, key: str, kw: dict) -> dict:
         return recorded
 
     try:
-        for n, fn in originals.items():
+        for module, n, fn in originals:
             setattr(module, n, wrap(n, fn))
         seen[key] = run(**kw)
     finally:
-        for n, fn in originals.items():
+        for module, n, fn in originals:
             setattr(module, n, fn)
     torch.cuda.synchronize()
     return seen
@@ -483,7 +504,7 @@ def capture_summary_inputs(kw: dict) -> dict:
 
     names = ("hat_wald", "cooks_outliers", "bh_sweep", "device_padj", "_irls_with_rescue",
              "newton_box_nbglm", "grid_fit_beta_batch")
-    return capture(fused, names, pt.summary_pipeline, "summary", kw)
+    return capture([(fused, names)], pt.summary_pipeline, "summary", kw)
 
 
 def capture_shrink_inputs(kw: dict) -> dict:
@@ -495,7 +516,7 @@ def capture_shrink_inputs(kw: dict) -> dict:
     from pydeseq2_tpu_torch import fused_stream
 
     names = ("_shrink_block", "nbinom_glm_batch", "grid_fit_shrink_beta_batch")
-    return capture(fused_stream, names, pt.run_lfc_shrink_streamed, "shrink", kw)
+    return capture([(fused_stream, names)], pt.run_lfc_shrink_streamed, "shrink", kw)
 
 
 def bound_args(fn, args, kwargs) -> tuple:
@@ -1398,6 +1419,354 @@ def shrink_path(reps: int, summary_kw: dict, summary_out: dict, grid: bool = Fal
             "prior_scale": res["prior_scale"], "converged": float(conv.mean()), "to_grid": to_grid}
 
 
+def plant_outliers(counts: np.ndarray) -> np.ndarray:
+    """(G, N) counts with an outlier planted in every OUTLIER_EVERY-th gene
+    (``synthetic.plant_outliers``)."""
+    from pydeseq2_tpu_torch.synthetic import plant_outliers as plant
+
+    return plant(counts, OUTLIER_EVERY)
+
+
+def stream_kwargs(counts: np.ndarray, X_np: np.ndarray, dtype, device) -> dict:
+    """``run_summary_streamed(refit_cooks=True)`` keyword arguments, the
+    counts already on ``device`` (the device-resident input), at the
+    pipelines' beta_tol (1e-6 in float32, 1e-8 in float64)."""
+    contrast = np.zeros(X_np.shape[1])
+    contrast[-1] = 1.0
+    return dict(counts=torch.as_tensor(counts, dtype=dtype, device=device), design_matrix=X_np, contrast=contrast,
+                dtype=dtype, refit_cooks=True, max_disp=float(max(10, X_np.shape[0])),
+                beta_tol=1e-6 if dtype == torch.float32 else 1e-8, device=device)
+
+
+def capture_stream_inputs(kw: dict) -> dict:
+    """Run ``run_summary_streamed`` once and keep what it hands to the
+    wrappers of the streamed path's new kernels (the first call of each:
+    pass 1's first block for ``mom`` and ``cooks``, the refit tile's first
+    block for ``impute``), plus the run's output under ``"stream"``."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused, fused_stream
+
+    targets = [(fused, ("parametric_trend", "lowess_pick")),
+               (fused_stream, ("mom_and_mu_coef", "cooks_outliers", "impute_outliers"))]
+    return capture(targets, pt.run_summary_streamed, "stream", kw)
+
+
+def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max(|b|, 1) (relative, absolute below 1), after
+    checking that a and b are NaN at the same places."""
+    return rel_err(a.double(), b.double(), 1.0)
+
+
+def count_trend_passes(bm, gm, nz, mean_disp, max_rounds) -> tuple[int, int]:
+    """(loss passes, gradient + Fisher passes) over the genes that the
+    plain trend fit makes on these inputs: the work the kernel's bound
+    counts."""
+    from pydeseq2_tpu_torch.ops import trend as tr
+
+    calls = {"trend_loss": 0, "trend_grad": 0}
+    originals = {n: getattr(tr, n) for n in calls}
+
+    def counted(name):
+        def fn(*args, **kwargs):
+            calls[name] += 1
+            return originals[name](*args, **kwargs)
+
+        return fn
+
+    try:
+        for n in calls:
+            setattr(tr, n, counted(n))
+        tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds)
+    finally:
+        for n, fn in originals.items():
+            setattr(tr, n, fn)
+    return calls["trend_loss"], calls["trend_grad"]
+
+
+def stream_kernel_checks(dtype, G, N, reps, timings):
+    """Phase 2, the streamed refit path's kernels (``mom``, ``trend``,
+    ``lowess``, ``impute`` and the refit outputs of ``cooks``) against their
+    plain versions on the operands one ``run_summary_streamed(refit_cooks=
+    True)`` run of ``make_data(N, G)`` with planted outliers hands them.
+    Returns {name: max_abs_err} and fills ``timings`` (``reps`` > 0)."""
+    from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import linreg as lin
+    from pydeseq2_tpu_torch.ops import refit as rf
+    from pydeseq2_tpu_torch.ops import stats as st
+    from pydeseq2_tpu_torch.ops import trend as tr
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "f64"
+    counts_np, X_np = make_data(N, G)
+    seen = capture_stream_inputs(stream_kwargs(plant_outliers(counts_np.T), X_np, dtype, DEVICE))
+    for key in ("mom_and_mu_coef", "parametric_trend", "lowess_pick", "cooks_outliers", "impute_outliers"):
+        check(key in seen, f"stream {name}: the run made no call of {key}")
+    errs = {}
+    isz = torch.finfo(dtype).bits // 8
+
+    # -- mom: MoM dispersions, OLS coefficients, linear mu ---------------------
+    # Tolerance 1e-5 (f32) / 1e-12 (f64), relative or absolute below 1: both
+    # sum the row in other orders (warp tree, vectorised loops). A
+    # coefficient is held relative to the gene's largest one: the condition
+    # coefficient is a difference of group means and cancels to its
+    # rounding at that scale.
+    c, sf, X, pinv, min_mu, _ = bound_args(lin.mom_and_mu_coef, *seen["mom_and_mu_coef"][:2])
+    Gm, P = c.shape[0], X.shape[1]
+    check(bits_equal(lin._mom_cuda(c, sf, X, pinv, min_mu, False)[0], seen["mom_and_mu_coef"][2][0]),
+          f"mom {name}: the launch differs from the path's")
+    rtol = 1e-5 if f32 else 1e-12
+    worst = {}
+    for want_mu in (False, True):
+        got = lin._mom_cuda(c, sf, X, pinv, min_mu, want_mu)
+        want = lin._mom_plain(c, sf, X, pinv, min_mu, want_mu)
+        for key, a, b in zip(("rough", "moments", "coef", "mu"), got, want):
+            if b is None:
+                check(a is None, f"mom {name}: mu written without want_mu")
+                continue
+            if key == "coef":
+                e = ((a - b).abs() / torch.clamp(b.abs().amax(1, keepdim=True), min=1.0)).max().item()
+            else:
+                e = scaled_err(a, b)
+            worst[key] = max(worst.get(key, 0.0), e)
+    check(all(v <= rtol for v in worst.values()), f"mom {name}: errors {worst} beyond {rtol}")
+    errs["mom"] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    log(f"  mom {name} ({Gm}, {N}): rel err (abs below 1) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tol {rtol})")
+    if reps:
+        normed = c / sf[None, :]
+        pinv_t = pinv.T.contiguous()
+        timings["mom"] = {
+            "ms": cuda_ms(lambda: lin._mom_cuda(c, sf, X, pinv, min_mu, False), reps),
+            "ms_with_mu": cuda_ms(lambda: lin._mom_cuda(c, sf, X, pinv, min_mu, True), reps),
+            "plain_ms": cuda_ms(lambda: lin._mom_plain(c, sf, X, pinv, min_mu, False), reps),
+            # the (G, N) @ (N, P) product of the OLS fit alone
+            "library_ms": cuda_ms(lambda: torch.matmul(normed, pinv_t), reps),
+            # reads counts, sf, X, pinv; writes rough, moments, coef (pass 1 of
+            # the streamed path writes no mu)
+            "bytes": isz * (Gm * N + N * (2 * P + 1) + Gm * (P + 2)),
+            # per element: y / sf, P products and sums, the mean's add (pass 1);
+            # y / sf, x.b (2P), max, the rough term (7), the squared deviation (3)
+            "ops": Gm * N * (2 + 2 * P + 12 + 2 * P),
+        }
+
+    # -- trend: every exclusion round on the card -----------------------------
+    # f64: coefficients and fitted values within 1e-10 relative, the same
+    # rounds and failed flag. f32: within 1e-4, the same failed flag, rounds
+    # within 1. Both versions sum each term in float64 and round the total,
+    # so their accept and stall tests see the same float32 totals.
+    bm, gm, nz, mean_disp, max_rounds = bound_args(tr.parametric_trend, *seen["parametric_trend"][:2])
+    run_out = seen["parametric_trend"][2]
+    got = tr._parametric_trend_cuda(bm, gm, nz, mean_disp, max_rounds)
+    want = tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds)
+    check(bits_equal(got[1], run_out[1]), f"trend {name}: the launch differs from the path's")
+    e_c = rel_err(got[1].double(), want[1].double(), 1e-300)
+    e_f = rel_err(got[0][nz].double(), want[0][nz].double(), 1e-300)
+    rk, rp = int(got[3]), int(want[3])
+    ctol = 1e-4 if f32 else 1e-10
+    check(bool(got[2]) == bool(want[2]), f"trend {name}: failed flag {bool(got[2])}, plain {bool(want[2])}")
+    check(e_c <= ctol and e_f <= ctol, f"trend {name}: coefficient rel err {e_c:.3g}, fitted {e_f:.3g} > {ctol}")
+    check(abs(rk - rp) <= (1 if f32 else 0), f"trend {name}: {rk} rounds, plain {rp}")
+    n_loss, n_grad = count_trend_passes(bm, gm, nz, mean_disp, max_rounds)
+    log(f"  trend {name} (G {bm.shape[0]}): coeffs {got[1].tolist()} (plain {want[1].tolist()}), rel err {e_c:.3g}, "
+        f"fitted {e_f:.3g} (tol {ctol}); rounds {rk} "
+        f"(plain {rp}), failed {bool(got[2])}; plain passes: {n_loss} loss, {n_grad} gradient + Fisher")
+    errs["trend"] = (got[1] - want[1]).abs().max().item()
+    if reps:
+        Gt = bm.shape[0]
+        timings["trend"] = {
+            "ms": cuda_ms(lambda: tr._parametric_trend_cuda(bm, gm, nz, mean_disp, max_rounds), reps),
+            "plain_ms": cuda_ms(lambda: tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds), 2),
+            "library_ms": None,
+            # reads base_mean, genewise, non_zero, mean_disp; writes fitted
+            # and the coefficients, flag and round count
+            "bytes": isz * (3 * Gt + 3) + Gt + 5,
+            # per gene: the loss pass ~6 operations (clamp, divide, log, adds),
+            # the gradient + Fisher pass ~22; passes counted on the plain run
+            "ops": Gt * (6 * n_loss + 22 * n_grad),
+        }
+
+    # -- lowess: the independent-filtering fit and cutoff row -----------------
+    # The same row j; the fit within 1e-6 (f32) / 1e-13 (f64), relative
+    # (absolute below 1). Both versions sum over the points in index order.
+    theta, num_rej, frac = bound_args(st.lowess_pick, *seen["lowess_pick"][:2])
+    for label, rej in (("run", num_rej), ("all-zero counts", torch.zeros_like(num_rej))):
+        yk, jk = st._lowess_pick_cuda(theta, rej, frac)
+        yp, jp = st._lowess_pick_plain(theta, rej, frac)
+        ytol = 1e-6 if f32 else 1e-13
+        e_y = scaled_err(yk, yp)
+        check(int(jk) == int(jp), f"lowess {name} {label}: row {int(jk)}, plain {int(jp)}")
+        check(e_y <= ytol, f"lowess {name} {label}: fit rel err {e_y:.3g} > {ytol:.3g}")
+        log(f"  lowess {name} {label}: row j = {int(jk)} (plain {int(jp)}), fit rel err {e_y:.3g} (tol {ytol:.3g})")
+    check(int(seen["lowess_pick"][2][1]) == int(st._lowess_pick_plain(theta, num_rej, frac)[1]),
+          f"lowess {name}: the path's row differs from the plain pick")
+    check(int(st._lowess_pick_cuda(theta, torch.zeros_like(num_rej), frac)[1]) == 0,
+          f"lowess {name}: all-zero counts must pick row 0")
+    yk, _ = st._lowess_pick_cuda(theta, num_rej, frac)
+    errs["lowess"] = (yk - st._lowess_pick_plain(theta, num_rej, frac)[0]).nan_to_num(0.0).abs().max().item()
+    if reps:
+        n = theta.shape[0]
+        timings["lowess"] = {
+            "ms": cuda_ms(lambda: st._lowess_pick_cuda(theta, num_rej, frac), reps),
+            "plain_ms": cuda_ms(lambda: st._lowess_pick_plain(theta, num_rej, frac), reps),
+            "library_ms": None,
+            # reads theta and the counts (int64); writes the fit and the row
+            "bytes": n * (isz + 8) + n * isz + 8,
+            # 3 rounds x n^2 pairs x ~22 (weight 10, five weighted sums 12),
+            # plus a sort of each point's n distances (n log2 n compares)
+            "ops": 3 * n * n * 22 + n * n * math.ceil(math.log2(n)),
+        }
+
+    # -- cooks, refit mode: exceed bits, replaced, the refit flag -------------
+    # Bit for bit, except cells whose plain distance lies within 1e-5 (f32)
+    # / 1e-12 (f64) relative of the cutoff, and flags of genes holding one.
+    b = bound_args(ck.cooks_outliers, *seen["cooks_outliers"][:2])
+    cargs, repl = b[:9], b[9]
+    check(repl is not None and b[10] is False, f"cooks {name}: the streamed pass is not in refit mode")
+    got = ck._cooks_cuda(*cargs, repl, False)
+    check(got[0] is None and all(bits_equal(x.double(), y.double()) for x, y in zip(got[1:], seen["cooks_outliers"][2][1:])),
+          f"cooks {name} refit: the launch differs from the path's")
+    want = ck._cooks_plain(*cargs, repl, True)
+    dtol = 1e-5 if f32 else 1e-12
+    cutoff = cargs[8]
+    near = (want[0] - cutoff).abs() <= dtol * cutoff.abs()  # False on NaN distances
+    Nc = cargs[0].shape[1]
+    bits_k, bits_p = ck.unpack_bits(got[3], Nc), ck.unpack_bits(want[3], Nc)
+    cell_differ = bits_k != bits_p
+    check(not bool((cell_differ & ~near).any()), f"cooks {name} refit: {int((cell_differ & ~near).sum())} exceed bits "
+                                                 "differ away from the cutoff")
+    gene_near = near.any(1)
+    for label, i in (("outlier", 1), ("replaced", 4), ("cooks_outlier_refit", 5)):
+        differ = got[i] != want[i]
+        check(not bool((differ & ~gene_near).any()), f"cooks {name} refit: {label} differs on "
+                                                      f"{int((differ & ~gene_near).sum())} genes away from the cutoff")
+    log(f"  cooks {name} refit mode ({cargs[0].shape[0]}, {Nc}): exceed bits differ on {int(cell_differ.sum())} cells "
+        f"({int(near.sum())} within {dtol} of the cutoff); replaced {int(got[4].sum())} (plain {int(want[4].sum())}), "
+        f"refit flag {int(got[5].sum())} (plain {int(want[5].sum())})")
+    if reps:
+        timings["cooks_refit_ms"] = cuda_ms(lambda: ck._cooks_cuda(*cargs, repl, False), reps)
+
+    # -- impute: the refit tile ------------------------------------------------
+    # floor() is discontinuous: the kernel sums the trimmed mean in another
+    # order than sort-then-mean, so a product trim02 * sf within an ulp of an
+    # integer may floor one count apart. A differing cell is accepted only
+    # where the plain product lies within 4 ulps of an integer, and by 1.
+    tile, packed, repl_i, sf_i, mask = bound_args(rf.impute_outliers, *seen["impute_outliers"][:2])
+    ik, nk = rf._impute_cuda(tile, packed, repl_i, sf_i, mask)
+    ip, nplain = rf._impute_plain(tile, packed, repl_i, sf_i, mask)
+    check(bits_equal(ik, seen["impute_outliers"][2][0]), f"impute {name}: the launch differs from the path's")
+    prod = st.trimmed_mean(tile / sf_i[None, :], trim=rf.TRIM, axis=1)[:, None] * sf_i[None, :]
+    ulp = (torch.nextafter(prod.abs(), torch.full_like(prod, math.inf)) - prod.abs())
+    near_int = (prod - torch.round(prod)).abs() <= 4 * ulp
+    differ = ik != ip
+    bad = differ & ~(near_int & ((ik - ip).abs() == 1))
+    check(not bool(bad.any()), f"impute {name}: {int(bad.sum())} cells differ beyond the floor rule")
+    naz_differ = nk != nplain
+    check(not bool((naz_differ & ~differ.any(1)).any()), f"impute {name}: new_all_zero differs on rows with equal cells")
+    swapped = int((ck.unpack_bits(packed, tile.shape[1]) & torch.as_tensor(repl_i, device=tile.device)[None, :]
+                   & mask[:, None]).sum())
+    log(f"  impute {name} ({tile.shape[0]}, {tile.shape[1]}), {int(mask.sum())} rows in the tile, {swapped} cells "
+        f"imputed: {int(differ.sum())} cells floor one count apart (plain product within 4 ulps of an integer); "
+        f"new_all_zero {int(nk.sum())} (plain {int(nplain.sum())})")
+    errs["impute"] = (ik - ip).abs().max().item()
+    if reps:
+        K, Ni = tile.shape
+        timings["impute"] = {
+            "ms": cuda_ms(lambda: rf._impute_cuda(tile, packed, repl_i, sf_i, mask), reps),
+            "plain_ms": cuda_ms(lambda: rf._impute_plain(tile, packed, repl_i, sf_i, mask), reps),
+            "library_ms": None,
+            # reads the tile, its words, sf, the replaceable mask and the tile
+            # mask; writes the imputed tile and the flags
+            "bytes": isz * (2 * K * Ni + Ni) + 4 * K * packed.shape[1] + Ni + 2 * K,
+            # per cell: y / sf, its place in the row's order (log2 N compares)
+            # and the trimmed sum's add, then unpack (2), test, product, floor,
+            # select and the zero test
+            "ops": K * Ni * (2 + math.ceil(math.log2(Ni)) + 7),
+        }
+    return errs, seen["stream"]
+
+
+def stream_path(reps: int, G: int, N: int, label: str):
+    """Phases 3e and 3f: ``run_summary_streamed(refit_cooks=True)`` through
+    the public entry point, float32, on ``make_data(N, G)`` with a planted
+    outlier in every OUTLIER_EVERY-th gene, the counts already on the card:
+    warm wall (best of ``reps``), genes/s, gene blocks, the refit tile K,
+    the genes replaced and refitted, and the launches of one run (each of
+    STREAM_KERNELS must be > 0)."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused_stream, kernels
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    t0 = time.perf_counter()
+    counts_np, X_np = make_data(N, G)
+    counts = plant_outliers(counts_np.T)
+    del counts_np
+    kw = stream_kwargs(counts, X_np, torch.float32, DEVICE)
+    gen_s = time.perf_counter() - t0
+    res = pt.run_summary_streamed(**kw)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    launches = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.run_summary_streamed(**kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+    for name in STREAM_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the streamed refit path ({label})")
+    padj = res["padj"]
+    check(padj.shape == (G,) and padj.dtype == np.float64 and res["lfc"].shape == (G, 2), f"{label}: output shapes")
+    fin = np.isfinite(padj)
+    check(fin.mean() > 0.5, f"{label}: only {fin.mean():.4f} of padj are finite")
+    check(np.all((padj[fin] >= 0) & (padj[fin] <= 1)), f"{label}: padj outside [0, 1]")
+    check(not np.any(np.isnan(res["p_values"]) & fin), f"{label}: a gene without a p-value has a padj")
+    n_rep, n_refit = int(res["replaced"].sum()), int(res["refitted"].sum())
+    planted = np.arange(0, G, OUTLIER_EVERY)
+    planted_share = float(res["replaced"][planted].mean())
+    check(n_refit > 0 and planted_share > 0.9, f"{label}: {n_refit} genes refitted, planted replaced {planted_share}")
+    block = fused_stream._refit_block_size(N)
+    K = math.ceil(n_rep / block) * block
+    B = res["gene_block"]
+    best = min(walls)
+    log(f"  data {gen_s:.1f} s; wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s, {G / best:.1f} genes/s; "
+        f"gene_block {B} ({-(-G // B)} blocks)")
+    log(f"  replaced {n_rep} (planted genes {planted_share:.4f}), refitted {n_refit}, new all-zero "
+        f"{int(res['new_all_zeroes'].sum())}, refit tile K {K} ({K // block} block of {block}); cooks outliers "
+        f"{int(res['cooks_outlier'].sum())}, finite padj {fin.mean():.5f}, padj < 0.05: {int((padj < 0.05).sum())}, "
+        f"rescue_overflow {int(res['rescue_overflow'])}")
+    log(f"  launches in one run {launches}")
+    return {"shape": [N, G], "walls_s": walls, "best_s": best, "genes_per_s": G / best, "gene_block": B,
+            "refit_tile": K, "replaced": n_rep, "refitted": n_refit, "launches": launches,
+            "finite_padj": float(fin.mean())}
+
+
+def stream_card_vs_cpu() -> None:
+    """Phase 4d: the float64 streamed refit on the card against the CPU
+    plain path at 100 x 2000 with planted outliers: the same genes
+    replaced, refitted and left all zero, the same Cook's outliers, and
+    every float output (padj included) at rtol 1e-6 with identical NaN
+    masks (:func:`compare_outputs`)."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_CPU_CMP, seed=1)
+    counts = plant_outliers(counts_np.T)
+    gpu = pt.run_summary_streamed(**stream_kwargs(counts, X_np, torch.float64, DEVICE))
+    cpu = pt.run_summary_streamed(**stream_kwargs(counts, X_np, torch.float64, "cpu"))
+    check(gpu.pop("gene_block") == cpu.pop("gene_block"), "stream card vs CPU: gene_block differs")
+    for k in ("replaced", "refitted", "new_all_zeroes", "cooks_outlier"):
+        check(np.array_equal(gpu[k], cpu[k]), f"stream card vs CPU: {k} differs")
+    check(int(gpu["refitted"].sum()) > 0, "stream card vs CPU: no gene was refitted")
+    compare_outputs("stream refit f64", gpu, cpu)
+    log(f"    replaced {int(gpu['replaced'].sum())}, refitted {int(gpu['refitted'].sum())}, cooks outliers "
+        f"{int(gpu['cooks_outlier'].sum())}, padj < 0.05: {int(np.nansum(gpu['padj'] < 0.05))}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1432,6 +1801,8 @@ def main() -> int:
     del seen64, draw, seen
     grid_wide_checks(readings)
     cooks_wide_check()
+    errs32.update(stream_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings)[0])
+    stream_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -1446,12 +1817,23 @@ def main() -> int:
         "100 x 60000 float32")
     weak = weak_shrink_path(3, readings)
 
+    log(f"phase 3e: run_summary_streamed(refit_cooks=True), {N_MAIN} x {G_MAIN} float32, an outlier planted in "
+        f"every {OUTLIER_EVERY}th gene")
+    stream = stream_path(3, G_MAIN, N_MAIN, "phase 3e")
+    log(f"phase 3f: the same at {N_STREAM_WIDE} x {G_MAIN} float32 (auto gene_block: 2 blocks)")
+    stream_wide = stream_path(3, G_MAIN, N_STREAM_WIDE, "phase 3f")
+    check(stream_wide["gene_block"] == G_MAIN // 2, f"phase 3f: gene_block {stream_wide['gene_block']}, expected "
+                                                    f"{G_MAIN // 2}")
+
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
     log("phase 4b: float64 summary pipeline with injected outliers, card against CPU, 100 x 2000")
     counts4, X4, summary4 = summary_card_vs_cpu()
     log("phase 4c: float64 apeGLM shrinkage on phase 4b's draw, card against CPU")
     shrink_card_vs_cpu(counts4, X4, summary4)
+    log("phase 4d: float64 run_summary_streamed(refit_cooks=True) with planted outliers, card against CPU, "
+        "100 x 2000")
+    stream_card_vs_cpu()
 
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
@@ -1468,9 +1850,19 @@ def main() -> int:
         "bh": ("pydeseq2_tpu_torch/csrc/bh.cu", "pydeseq2_tpu/ops/stats.py:145", "bh"),
         "shrink": ("pydeseq2_tpu_torch/csrc/shrink.cu", "pydeseq2_tpu/ops/shrink.py:101", "shrink"),
         "grid_apeglm": ("pydeseq2_tpu_torch/csrc/grid.cu", "pydeseq2_tpu/ops/shrink.py:258", "grid_apeglm"),
+        "mom": ("pydeseq2_tpu_torch/csrc/mom.cu", "pydeseq2_tpu/ops/linreg.py:23,52,76", "mom"),
+        "trend": ("pydeseq2_tpu_torch/csrc/trend.cu", "pydeseq2_tpu/ops/trend.py:22 + pydeseq2_tpu/fused.py:212",
+                  "trend"),
+        "lowess": ("pydeseq2_tpu_torch/csrc/lowess.cu", "pydeseq2_tpu/ops/stats.py:218 + pydeseq2_tpu/fused.py:763",
+                   "lowess"),
+        "impute": ("pydeseq2_tpu_torch/csrc/impute.cu", "pydeseq2_tpu/fused_stream.py:561", "impute"),
     }
+    # Launches: the summary path for its kernels, the shrink paths for
+    # theirs, the streamed refit path (phase 3e) for this slice's four.
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
-                "grid_apeglm": weak["launches"]["grid_apeglm"]}
+                "grid_apeglm": weak["launches"]["grid_apeglm"],
+                **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")}}
+    timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
         t = timings[name]
@@ -1483,14 +1875,18 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms"):
+        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu"):
             if extra in t:
-                row[extra] = t[extra]  # the sort before the BH sweep; a rescue kernel over every lane of its tile
+                # the sort before the BH sweep; a rescue kernel over every lane
+                # of its tile; cooks in the streamed refit mode; mom writing mu
+                row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
     log("summary path: " + json.dumps(summary))
     log("shrink path: " + json.dumps(shrink))
     log("shrink path, weak effects: " + json.dumps(weak))
+    log("streamed refit path: " + json.dumps(stream))
+    log("streamed refit path, wide: " + json.dumps(stream_wide))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

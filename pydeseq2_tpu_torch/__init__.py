@@ -1,14 +1,17 @@
-"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines and apeGLM
+"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines, the
+gene-streamed summary with Cook's outlier replacement and refit, and apeGLM
 LFC shrinkage in PyTorch, with CUDA kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
-per-gene device programs (size-factor order statistics, the dispersion
-coarse scan, the dispersion Newton polish, IRLS and its two rescue tiers,
-hat diagonals + Wald, Cook's distances, the batched BH sweep of
-independent filtering, and the apeGLM Newton fit and grid) are eleven CUDA
-kernels written by hand for ``sm_90a`` under ``csrc/``, built with
-``nvcc`` at first use (see :mod:`pydeseq2_tpu_torch.kernels`).
+per-gene device programs (size-factor order statistics, the MoM
+dispersions with the OLS mu init, the dispersion coarse scan, the
+dispersion Newton polish, the dispersion trend, IRLS and its two rescue
+tiers, hat diagonals + Wald, Cook's distances, the batched BH sweep and
+the lowess pick of independent filtering, the Cook's refit imputation, and
+the apeGLM Newton fit and grid) are fifteen CUDA kernels written by hand
+for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use (see
+:mod:`pydeseq2_tpu_torch.kernels`).
 
 Device rule: entry points take ``device`` (default ``"cuda"``) and raise if
 CUDA is requested and absent; they never carry on on the CPU by themselves.
@@ -42,7 +45,10 @@ from pydeseq2_tpu_torch.fused import (  # noqa: E402
 )
 from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
     lfc_shrink_pipeline_streamed,
+    refit_pipeline_streamed,
     run_lfc_shrink_streamed,
+    run_summary_streamed,
+    summary_pipeline_streamed,
 )
 
 __version__ = "0.1.0"
@@ -52,6 +58,9 @@ __all__ = [
     "summary_pipeline",
     "summary_host_inputs",
     "device_padj",
+    "run_summary_streamed",
+    "summary_pipeline_streamed",
+    "refit_pipeline_streamed",
     "run_lfc_shrink_streamed",
     "lfc_shrink_pipeline_streamed",
     "inputs_from_numpy",

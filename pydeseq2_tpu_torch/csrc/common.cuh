@@ -4,6 +4,7 @@
 // - warp reductions (xor butterfly: every lane ends with the same bits,
 //   because each lane adds the same tree with commuted operands, so all 32
 //   lanes can run a gene's scalar logic redundantly without divergence);
+// - the exact warp-wide trimmed mean by key bisection (Cook's, refit);
 // - the NB forms of pydeseq2_tpu/ops/nb.py and their Stirling-8
 //   lgamma/psi/psi' (float only, as the JAX package gates them by dtype);
 // - a float64 psi and psi' (CUDA's math library has neither): shift by the
@@ -69,6 +70,94 @@ template <typename T> __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
+}
+
+__device__ __forceinline__ int warp_sum_i(int v) {
+#pragma unroll
+  for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// ---- exact trimmed mean over one warp (pydeseq2_tpu/ops/select.py:166) -------
+// Monotone integer keys: x < y <=> key(x) < key(y) (negative values
+// bit-complemented, the sign bit set on the others).
+template <typename T> struct KeyOf;
+template <> struct KeyOf<float> {
+  using U = uint32_t;
+  static constexpr int BITS = 32;
+  static __device__ __forceinline__ U key(float x) {
+    U u = __float_as_uint(x);
+    return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  }
+  static __device__ __forceinline__ float value(U k) {
+    return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+  }
+};
+template <> struct KeyOf<double> {
+  using U = unsigned long long;
+  static constexpr int BITS = 64;
+  static __device__ __forceinline__ U key(double x) {
+    U u = (U)__double_as_longlong(x);
+    return (u & 0x8000000000000000ull) ? ~u : (u | 0x8000000000000000ull);
+  }
+  static __device__ __forceinline__ double value(U k) {
+    return __longlong_as_double(
+        (long long)((k & 0x8000000000000000ull) ? (k ^ 0x8000000000000000ull) : ~k));
+  }
+};
+
+// Trimmed mean of the n values val(i), i = 0..n-1, dropping k at each end,
+// one warp (every lane returns it). The two boundary order statistics come
+// from MSB-first bisection over the keys (the k-th smallest key is the
+// largest prefix with at most k keys below it): one warp-wide count per key
+// bit, both ranks in the same pass. The interior is then summed directly
+// and copies of the boundary values are counted exactly, so the kept
+// multiset is a sort's; only the order of the sum differs. val(i) is
+// recomputed on every pass (the caller's row stays in L1), so any n works
+// without shared memory.
+template <typename T, typename F>
+__device__ T trimmed_mean(F val, int n, int k, int lane) {
+  using K = KeyOf<T>;
+  using U = typename K::U;
+  if (k == 0) {
+    T s = T(0);
+    for (int i = lane; i < n; i += WARP) s += val(i);
+    return warp_sum(s) / T(n);
+  }
+  const int k_hi = n - 1 - k;
+  U t_lo = 0, t_hi = 0;
+  for (int b = K::BITS - 1; b >= 0; --b) {
+    const U c_lo = t_lo | ((U)1 << b);
+    const U c_hi = t_hi | ((U)1 << b);
+    int n_lo = 0, n_hi = 0;
+    for (int i = lane; i < n; i += WARP) {
+      const U kk = K::key(val(i));
+      n_lo += kk < c_lo;
+      n_hi += kk < c_hi;
+    }
+    n_lo = warp_sum_i(n_lo);
+    n_hi = warp_sum_i(n_hi);
+    if (n_lo <= k) t_lo = c_lo;
+    if (n_hi <= k_hi) t_hi = c_hi;
+  }
+  const T lo = K::value(t_lo);
+  const T hi = K::value(t_hi);
+  T strict = T(0);
+  int c_le_lo = 0, c_lt_hi = 0;
+  for (int i = lane; i < n; i += WARP) {
+    const T x = val(i);
+    if (x > lo && x < hi) strict += x;
+    c_le_lo += x <= lo;
+    c_lt_hi += x < hi;
+  }
+  strict = warp_sum(strict);
+  c_le_lo = warp_sum_i(c_le_lo);
+  c_lt_hi = warp_sum_i(c_lt_hi);
+  // kept ranks are [k, n-1-k]; copies of each boundary value inside them
+  const T copies_lo = T(c_le_lo - k);
+  const T copies_hi = T(n - k - c_lt_hi);
+  const T total = strict + lo * copies_lo + hi * copies_hi;
+  return lo == hi ? lo : total / T(n - 2 * k);
 }
 
 // ---- Stirling-8 forms (pydeseq2_tpu/ops/nb.py:34,232,253) -------------------

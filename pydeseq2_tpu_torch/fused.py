@@ -25,21 +25,17 @@ from pydeseq2_tpu_torch.ops.irls import (
     newton_box_nbglm,
 )
 from pydeseq2_tpu_torch.ops.cooks import cooks_outliers
-from pydeseq2_tpu_torch.ops.linreg import (
-    fit_lin_mu_batch,
-    fit_moments_dispersions_batch,
-    fit_rough_dispersions_batch,
-)
+from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.select import masked_median_select
 from pydeseq2_tpu_torch.ops.nb import _psi_series_f64
 from pydeseq2_tpu_torch.ops.stats import (
     bh_sweep,
-    lowess_device,
+    lowess_pick,
     nanmedian,
     nanquantile,
     trimmed_mean_masked,
 )
-from pydeseq2_tpu_torch.ops.trend import gamma_glm_trend_fit
+from pydeseq2_tpu_torch.ops.trend import parametric_trend
 from pydeseq2_tpu_torch.ops.wald import hat_wald
 
 
@@ -111,8 +107,10 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
 
 def fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds=20):
     """Dispersion trend with the mean fallback: ``(fitted, coeffs,
-    used_mean, mean_disp)``; ``fitted`` is not non_zero-masked.
-    See ``pydeseq2_tpu/fused.py:212``."""
+    used_mean, mean_disp)``; ``fitted`` is not non_zero-masked. The
+    parametric branch is :func:`~pydeseq2_tpu_torch.ops.trend.parametric_trend`
+    (the ``trend`` kernel on CUDA tensors: no host read). See
+    ``pydeseq2_tpu/fused.py:212``."""
     dtype = base_mean.dtype
     dev = base_mean.device
     sel = genewise_m > 10.0 * min_disp
@@ -127,28 +125,27 @@ def fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type, max_r
             mean_disp,
         )
 
-    covariates = 1.0 / base_mean
-    valid = non_zero & torch.isfinite(covariates) & torch.isfinite(genewise_m)
-    zero = torch.zeros_like(covariates)
-    covariates = torch.where(valid, covariates, zero)
-    targets = torch.where(valid, torch.nan_to_num(genewise_m), zero)
-
-    coeffs = torch.ones(2, dtype=dtype, device=dev)
-    failed = torch.tensor(False, device=dev)
-    for _ in range(max_rounds):
-        new_coeffs, preds, glm_ok = gamma_glm_trend_fit(covariates, targets, valid)
-        failed = ~glm_ok | (new_coeffs <= 1e-10).any()
-        drift = torch.sum(torch.log(torch.abs(new_coeffs / coeffs)) ** 2)
-        ratio = genewise_m / preds
-        valid = valid & (ratio >= 1e-4) & (ratio < 15.0)
-        coeffs = new_coeffs
-        # Host-evaluated while_loop condition (fused.py:264-266).
-        if bool(failed) or not bool(drift >= 1e-6):
-            break
-
-    parametric = coeffs[0] + coeffs[1] / base_mean
-    fitted = torch.where(failed, mean_disp, parametric)
+    fitted, coeffs, failed, _ = parametric_trend(base_mean, genewise_m, non_zero, mean_disp, max_rounds)
     return fitted, coeffs, failed, mean_disp
+
+
+def dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P):
+    """``(squared_logres, prior_disp_var)``: the squared MAD of the log
+    residuals off the trend over genes with genewise >= 100 min_disp, and
+    the prior variance max(squared_logres - trigamma((N - P) / 2), 0.25)
+    (reference dds.py:840-884; ``pydeseq2_tpu/fused.py:447-458``)."""
+    disp_resid = torch.log(genewise_m) - torch.log(fitted_m)
+    above = genewise_m >= 100.0 * min_disp
+    resid_sel = torch.where(above & non_zero, disp_resid, torch.full_like(disp_resid, float("nan")))
+    # jnp.nanmedian averages the two middle values; torch.nanmedian does not.
+    center = nanmedian(resid_sel)
+    mad = nanmedian(torch.abs(resid_sel - center)) / 0.6744897501960817
+    squared_logres = mad**2
+    half_df = torch.tensor((N - P) / 2.0, dtype=genewise_m.dtype, device=genewise_m.device)
+    # torch.polygamma(1, .) is ~1e-9 relative off in float64; the series is
+    # ~1e-15 (the JAX package's polygamma is within 2e-16).
+    trigamma = _psi_series_f64(half_df)[1] if half_df.dtype == torch.float64 else torch.polygamma(1, half_df)
+    return squared_logres, torch.clamp(squared_logres - trigamma, min=0.25)
 
 
 def _size_factors(counts: torch.Tensor, gene_mask: torch.Tensor):
@@ -196,13 +193,11 @@ def _wald_impl(
         sf = _poscounts_size_factors(counts, gene_mask)
     else:
         sf, _ = _size_factors(counts, gene_mask)
-    normed = counts / sf[None, :]
-    base_mean = normed.mean(dim=1)
+    base_mean = (counts / sf[None, :]).mean(dim=1)
     non_zero = ~(counts == 0).all(dim=1) & gene_mask
 
-    # --- MoM dispersions --------------------------------------------------
-    rde = fit_rough_dispersions_batch(normed, X)
-    mde = fit_moments_dispersions_batch(normed, sf)
+    # --- MoM dispersions and the linear mu init (one mom launch) ----------
+    rde, mde, _, mu_lin = mom_and_mu_coef(counts, sf, X, ols_pinv(X), min_mu, want_mu=mu_init != "irls")
     mom = torch.clamp(torch.minimum(rde, mde), min_disp, max_disp)
 
     # --- mu init + genewise dispersion MLE --------------------------------
@@ -213,7 +208,7 @@ def _wald_impl(
         mu_hat = sf[None, :] * torch.exp(beta_mom @ X.T)
     else:
         mu_overflow = torch.zeros((), dtype=torch.int64, device=dev)
-        mu_hat = fit_lin_mu_batch(counts, sf, X, min_mu)
+        mu_hat = mu_lin
     genewise, _, coarse_cache = alpha_mle_batch(
         counts, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, prior_reg=False, return_coarse=True
     )
@@ -225,20 +220,7 @@ def _wald_impl(
         base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds=max(trend_rounds, 20)
     )
     fitted_m = torch.where(non_zero, fitted, nan)
-
-    # --- dispersion prior (reference dds.py:840-884) ------------------------
-    disp_resid = torch.log(genewise_m) - torch.log(fitted_m)
-    above = genewise_m >= 100.0 * min_disp
-    resid_sel = torch.where(above & non_zero, disp_resid, nan)
-    # jnp.nanmedian averages the two middle values; torch.nanmedian does not.
-    center = nanmedian(resid_sel)
-    mad = nanmedian(torch.abs(resid_sel - center)) / 0.6744897501960817
-    squared_logres = mad**2
-    half_df = torch.tensor((N - P) / 2.0, dtype=dtype, device=dev)
-    # torch.polygamma(1, .) is ~1e-9 relative off in float64; the series is
-    # ~1e-15 (the JAX package's polygamma is within 2e-16).
-    trigamma = _psi_series_f64(half_df)[1] if dtype == torch.float64 else torch.polygamma(1, half_df)
-    prior_disp_var = torch.clamp(squared_logres - trigamma, min=0.25)
+    squared_logres, prior_disp_var = dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P)
 
     # --- MAP dispersions ------------------------------------------------------
     map_disp, _ = alpha_mle_batch(
@@ -283,7 +265,6 @@ def _wald_impl(
         "se": nanm(se),
         "irls_converged": converged,
         "rescue_overflow": mu_overflow + lfc_overflow,
-        "_normed": normed,
         "_non_zero": non_zero,
     }
 
@@ -331,7 +312,6 @@ def wald_pipeline(
         beta_tol=beta_tol, trend_type=trend_type, trend_rounds=trend_rounds,
         alt_hypothesis=alt_hypothesis, mu_init=mu_init, sf_fit_type=sf_fit_type,
     )
-    out.pop("_normed")
     out.pop("_non_zero")
     return out
 
@@ -400,7 +380,6 @@ def summary_pipeline(
         trend_type=trend_type, trend_rounds=trend_rounds, alt_hypothesis=alt_hypothesis,
         mu_init=mu_init, sf_fit_type=sf_fit_type,
     )
-    out.pop("_normed")
     non_zero = out.pop("_non_zero")
 
     # --- Cook's distances and outlier mask (reference dds.py:986-1110) ------
@@ -435,7 +414,8 @@ def device_padj(
     base-mean cutoffs as one launch of the ``bh`` kernel over one shared
     order of the p-values, fits a lowess through the rejection counts and
     picks the first cutoff whose count clears the fit's maximum less its
-    residual RMS. Port of ``pydeseq2_tpu/fused.py:731``.
+    residual RMS (one launch of the ``lowess`` kernel). Port of
+    ``pydeseq2_tpu/fused.py:731``.
     """
     dtype = base_mean.dtype
     dev = base_mean.device
@@ -458,13 +438,7 @@ def device_padj(
     theta = lower_q + (upper_q - lower_q) * _linspace(0.0, 1.0, 50, dtype, dev)
     cutoffs = nanquantile(base_m, theta)
     adj, num_rej = bh_sweep(p_filled, order, valid, base_mean, cutoffs, alpha)  # (50, G), (50,)
-    rej = num_rej.to(dtype)
-    lo = lowess_device(theta, rej, frac=1.0 / 5.0)
-    resid = torch.where(num_rej > 0, rej - lo, nan)
-    thresh = lo.amax() - torch.sqrt(torch.nanmean(resid**2))
-    above = num_rej > thresh
-    j = torch.where(above.any(), torch.argmax(above.to(torch.uint8)), 0)
-    j = torch.where(num_rej.amax() <= 10, 0, j)
+    _, j = lowess_pick(theta, num_rej, frac=1.0 / 5.0)
     return adj.index_select(0, j.reshape(1))[0]
 
 

@@ -45,6 +45,10 @@ KERNELS = {
     "grid_nb": ("grid.cu", "grid_nb_launch"),
     "shrink": ("shrink.cu", "shrink_launch"),
     "grid_apeglm": ("grid.cu", "grid_apeglm_launch"),
+    "mom": ("mom.cu", "mom_launch"),
+    "trend": ("trend.cu", "trend_launch"),
+    "lowess": ("lowess.cu", "lowess_launch"),
+    "impute": ("impute.cu", "impute_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -75,12 +79,17 @@ _ARGTYPES = {
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _P, _P, _P],
     "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
-    "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+    "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _P, _P],
     "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
     "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
     "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
+    "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P],
+    "trend_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
+    "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 

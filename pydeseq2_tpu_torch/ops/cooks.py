@@ -76,7 +76,31 @@ def first_argmax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, idx, torch.full_like(idx, N)).amin(1)
 
 
-def _cooks_plain(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff):
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(G, N) bools -> (G, ceil(N/32)) int32 words, bit k of word w holding
+    sample 32 w + k: the JAX package's uint32 words (fused_stream.py:427-433)
+    as the same bit pattern in int32, which has the operators PyTorch lacks
+    for uint32."""
+    G, N = bits.shape
+    W = -(-N // 32)
+    padded = torch.zeros((G, W * 32), dtype=torch.int64, device=bits.device)
+    padded[:, :N] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (padded.reshape(G, W, 32) << shifts).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, N: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: (G, W) int32 words -> (G, N) bools.
+    The arithmetic shift of a word with bit 31 set fills with ones, so the
+    bit is taken with ``& 1``."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :N].bool()
+
+
+def _cooks_plain(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff,
+                 replaceable=None, want_distances=True):
     normed = counts / size_factors[None, :]
     if cohort_ids is not None:
         idx = torch.tensor([i for i, u in enumerate(use_for_max) if u], device=counts.device)
@@ -95,10 +119,22 @@ def _cooks_plain(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_m
     # Un-flag genes where >= 3 samples exceed the max-cooks sample's count
     # (reference pydeseq2/dds.py:1097-1101): argmax and count over ALL samples.
     max_count = counts.gather(1, first_argmax(cooks)[:, None])
-    flagged = flagged & ((counts > max_count).sum(dim=1) < 3)
-    outlier = flagged & non_zero
-    cooks = torch.where(non_zero[:, None], cooks, torch.full_like(cooks, float("nan")))
-    return cooks, outlier, disp_c
+    veto = (counts > max_count).sum(dim=1) < 3
+    outlier = flagged & veto & non_zero
+    out = (
+        torch.where(non_zero[:, None], cooks, torch.full_like(cooks, float("nan"))) if want_distances else None,
+        outlier,
+        disp_c,
+    )
+    if replaceable is None:
+        return out
+    # Refit mode (fused_stream.py:422-445): the exceed bits of every cell,
+    # and the flag a refitted gene keeps, from its use_for_max samples that
+    # are not replaceable, with the veto on the original distances.
+    exceeds = cooks > cutoff
+    repl = torch.as_tensor(replaceable, dtype=torch.bool, device=counts.device)
+    flagged_nr = (torch.where((ufm & ~repl)[None, :], cooks, neg_inf) > cutoff).any(dim=1)
+    return out + (pack_bits(exceeds), exceeds.any(dim=1) & non_zero, flagged_nr & veto & non_zero)
 
 
 @functools.lru_cache(maxsize=16)
@@ -116,7 +152,14 @@ def _layout_tensors(cohort, trims, scales, use_for_max, device: torch.device, dt
     return perm, offsets, ntrim, scale, ufm
 
 
-def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff):
+@functools.lru_cache(maxsize=16)
+def _mask_tensor(mask, device: torch.device) -> torch.Tensor:
+    """A device copy of a static (N,) mask as uint8, made once per mask."""
+    return torch.tensor(mask, dtype=torch.uint8, device=device)
+
+
+def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff,
+                replaceable=None, want_distances=True):
     G, N = counts.shape
     dev = counts.device
     use_for_max = tuple(bool(u) for u in use_for_max)
@@ -125,10 +168,17 @@ def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_ma
     nz = non_zero.to(torch.uint8).contiguous()
     cutoff = torch.as_tensor(cutoff, dtype=counts.dtype, device=dev).reshape(1)
     ops = [t.contiguous() for t in (counts, size_factors, mu, H)]
-    cooks = torch.empty((G, N), dtype=counts.dtype, device=dev)
+    cooks = torch.empty((G, N), dtype=counts.dtype, device=dev) if want_distances else None
     outlier = torch.empty(G, dtype=torch.uint8, device=dev)
     disp_c = torch.empty(G, dtype=counts.dtype, device=dev)
-    kernels.check_cuda_operands("cooks", *ops, cutoff, scale, cooks, disp_c, perm, offsets, ntrim, ufm, nz)
+    repl = packed = replaced = refit = None
+    if replaceable is not None:
+        repl = _mask_tensor(tuple(bool(r) for r in replaceable), dev)
+        packed = torch.empty((G, -(-N // 32)), dtype=torch.int32, device=dev)
+        replaced = torch.empty(G, dtype=torch.uint8, device=dev)
+        refit = torch.empty(G, dtype=torch.uint8, device=dev)
+    kernels.check_cuda_operands("cooks", *ops, cutoff, scale, cooks, disp_c, perm, offsets, ntrim, ufm, nz, repl,
+                                packed, replaced, refit)
     counts, size_factors, mu, H = ops
     kernels.launch(
         "cooks",
@@ -137,11 +187,15 @@ def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_ma
             counts.data_ptr(), size_factors.data_ptr(), mu.data_ptr(), H.data_ptr(),
             nz.data_ptr(), ufm.data_ptr(), cutoff.data_ptr(),
             len(trims), perm.data_ptr(), offsets.data_ptr(), ntrim.data_ptr(), scale.data_ptr(),
-            cooks.data_ptr(), outlier.data_ptr(), disp_c.data_ptr(),
+            kernels.ptr(repl), kernels.ptr(cooks), outlier.data_ptr(), disp_c.data_ptr(),
+            kernels.ptr(packed), kernels.ptr(replaced), kernels.ptr(refit),
         ],
         dev,
     )
-    return cooks, outlier.bool(), disp_c
+    out = (cooks, outlier.bool(), disp_c)
+    if replaceable is None:
+        return out
+    return out + (packed, replaced.bool(), refit.bool())
 
 
 def cooks_outliers(
@@ -154,9 +208,11 @@ def cooks_outliers(
     cohort_ids: tuple[int, ...] | None,
     use_for_max: tuple[bool, ...],
     cutoff: torch.Tensor,
+    replaceable: tuple[bool, ...] | None = None,
+    want_distances: bool = True,
 ):
     """Cook's distances and outliers: ``(cooks (G, N), cooks_outlier (G,),
-    robust dispersion (G,))``.
+    robust dispersion (G,))``, and in refit mode three more outputs.
 
     counts, mu (unthresholded) and H are (G, N); ``cohort_ids`` (the cohort
     of each ``use_for_max`` sample, or None for one trimmed variance over
@@ -165,6 +221,18 @@ def cooks_outliers(
     ``cutoff`` (a 0-d tensor, the F(0.99, P, N - P) quantile). ``cooks`` is
     NaN on genes that are not ``non_zero``. CUDA tensors launch the
     ``cooks`` kernel; CPU tensors take the plain version.
+
+    With ``want_distances=False`` the first output is None and no (G, N)
+    array is written. ``replaceable`` (N,), the samples in cohorts of at
+    least ``min_replicates``, switches on the refit mode of
+    ``pydeseq2_tpu/fused_stream.py:422-445``, which appends
+    ``exceeds_packed`` (G, ceil(N/32)) int32 (bit k of word w: sample
+    32 w + k has a distance above the cutoff, NaN distances never),
+    ``replaced`` (G,) (any bit set, on non_zero genes) and
+    ``cooks_outlier_refit`` (G,) (the flag a refitted gene keeps: a
+    ``use_for_max`` sample that is not replaceable exceeds the cutoff, with
+    the count veto of the original distances).
     """
     fn = _cooks_cuda if counts.is_cuda else _cooks_plain
-    return fn(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff)
+    return fn(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff, replaceable,
+              want_distances)

@@ -21,6 +21,15 @@ base_mean through it, so it is bound by those gathers (L2-resident at 60000
 genes) and by the block's scan steps. It forms the same products and
 quotients as the plain version and min is exact, so the two agree bit for
 bit.
+
+Kernel (``csrc/lowess.cu``): :func:`lowess_pick` replaces ``lowess_device``
+(pydeseq2_tpu/ops/stats.py:218) and the cutoff pick of ``device_padj``
+(pydeseq2_tpu/fused.py:763-768) with one launch of one 64-thread block:
+thread i owns filtering cutoff i, finds its bandwidth (the r-th smallest
+distance) and each round's median of |resid| by counting ranks, sums its
+local fit over the 50 points in index order, and thread 0 picks the
+cutoff. 3 rounds of 50 x 50 weighted sums (~50,000 operations, under 2 KB):
+bound by launch latency, where the plain version is ~40 small launches.
 """
 
 from __future__ import annotations
@@ -253,13 +262,25 @@ def _median_nan(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(x).any(), torch.full_like(x[0], float("nan")), nanmedian(x))
 
 
+def _sum_in_order(m: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 one row at a time, in index order: the order in which
+    the ``lowess`` kernel's thread for each point adds its terms."""
+    acc = m[0]
+    for row in m[1:]:
+        acc = acc + row
+    return acc
+
+
 def lowess_device(
     features: torch.Tensor, targets: torch.Tensor, frac: float = 2.0 / 3.0, it: int = 3
 ) -> torch.Tensor:
     """Tricube-weighted robust local linear regression over a small grid
     (the 50 independent-filtering cutoffs): closed-form 2x2 weighted least
     squares per point and ``it`` robustifying rounds. Port of
-    ``pydeseq2_tpu/ops/stats.py:218`` (reference pydeseq2/utils.py:1379-1443)."""
+    ``pydeseq2_tpu/ops/stats.py:218`` (reference pydeseq2/utils.py:1379-1443).
+    The weighted sums run over the points in index order, as the kernel's
+    do: each local determinant sw swff - swf^2 cancels ~100x over a 10-point
+    window, so another order would move the fit well above eps."""
     f = features
     y = targets.to(f.dtype)
     n = f.shape[0]
@@ -272,11 +293,9 @@ def lowess_device(
     delta = torch.ones(n, dtype=f.dtype, device=f.device)
     for _ in range(it):
         weights = delta[:, None] * w
-        sw = weights.sum(0)
-        swf = (weights * f[:, None]).sum(0)
-        swff = (weights * f[:, None] ** 2).sum(0)
-        b0 = (weights * y[:, None]).sum(0)
-        b1 = (weights * (y * f)[:, None]).sum(0)
+        terms = torch.stack([weights, weights * f[:, None], weights * (f * f)[:, None], weights * y[:, None],
+                             weights * (y * f)[:, None]], dim=1)
+        sw, swf, swff, b0, b1 = _sum_in_order(terms)
         det = sw * swff - swf**2
         beta0 = (b0 * swff - b1 * swf) / det
         beta1 = (sw * b1 - swf * b0) / det
@@ -290,3 +309,50 @@ def lowess_device(
         )
         delta = (1.0 - delta**2) ** 2
     return yest
+
+
+def _lowess_pick_plain(theta: torch.Tensor, num_rej: torch.Tensor, frac: float):
+    rej = num_rej.to(theta.dtype)
+    lo = lowess_device(theta, rej, frac=frac)
+    nan = torch.tensor(float("nan"), dtype=theta.dtype, device=theta.device)
+    sq = torch.where(num_rej > 0, rej - lo, nan) ** 2
+    kept = ~torch.isnan(sq)
+    # nanmean, summed in index order (0/0, NaN, when no count is positive)
+    ssum = _sum_in_order(torch.where(kept, sq, torch.zeros_like(sq))[:, None])[0]
+    thresh = lo.amax() - torch.sqrt(ssum / kept.sum().to(sq.dtype))
+    above = num_rej > thresh
+    j = torch.where(above.any(), torch.argmax(above.to(torch.uint8)), 0)
+    return lo, torch.where(num_rej.amax() <= 10, 0, j)
+
+
+def _lowess_pick_cuda(theta: torch.Tensor, num_rej: torch.Tensor, frac: float):
+    n = theta.shape[0]
+    theta = theta.contiguous()
+    rej = num_rej.to(torch.int64).contiguous()
+    yest = torch.empty_like(theta)
+    j = torch.empty((), dtype=torch.int64, device=theta.device)
+    kernels.check_cuda_operands("lowess", theta, rej, yest, j)
+    if not 0 < n <= 64:
+        raise ValueError(f"lowess: {n} points; the kernel takes 1 to 64")
+    kernels.launch(
+        "lowess",
+        [int(theta.dtype == torch.float64), n, int(math.ceil(frac * n)), 3, theta.data_ptr(), rej.data_ptr(),
+         yest.data_ptr(), j.data_ptr()],
+        theta.device,
+    )
+    return yest, j
+
+
+def lowess_pick(theta: torch.Tensor, num_rej: torch.Tensor, frac: float = 1.0 / 5.0):
+    """The independent-filtering cutoff: ``(yest (n,), j)``.
+
+    :func:`lowess_device` (3 robust rounds) of the rejection counts
+    ``num_rej`` (n,) int64 over the quantiles ``theta`` (n,), then the
+    pick of ``pydeseq2_tpu/fused.py:763-768``: ``j`` (a 0-d int64 tensor)
+    is the first row whose count exceeds max(yest) less the RMS of the
+    residuals where the count is positive, 0 if none does (a NaN threshold
+    included) or if no row has more than 10 rejections. CUDA tensors launch
+    the ``lowess`` kernel (n <= 64); CPU tensors take the plain version.
+    """
+    fn = _lowess_pick_cuda if theta.is_cuda else _lowess_pick_plain
+    return fn(theta, num_rej, frac)

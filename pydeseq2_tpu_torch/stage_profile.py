@@ -1,18 +1,23 @@
-"""Where the time of one ``wald_pipeline``, ``summary_pipeline`` or
-summary-then-shrink run goes, on a CUDA card.
+"""Where the time of one ``wald_pipeline``, ``summary_pipeline``,
+summary-then-shrink or streamed refit run goes, on a CUDA card.
 
-    python3 -m pydeseq2_tpu_torch.stage_profile [--summary | --shrink] [n_samples] [n_genes]
+    python3 -m pydeseq2_tpu_torch.stage_profile [--summary | --shrink | --stream] [n_samples] [n_genes]
 
 Runs the pipeline (with ``--summary``, counts -> padj: the Wald stages,
 then the Cook's block and ``device_padj``; with ``--shrink``, that and then
 ``run_lfc_shrink_streamed`` on its dispersions, size factors, MLE LFCs and
-SEs: the host prior fit, the apeGLM Newton fit and the grid) on
-``make_data(n_samples, n_genes)`` (default 100 x 60000, float32, the
-benchmark's configuration) once to warm up, then:
+SEs: the host prior fit, the apeGLM Newton fit and the grid; with
+``--stream``, ``run_summary_streamed(refit_cooks=True)`` on counts already
+on the card with an outlier planted in every 100th gene: size factors,
+pass 1, trend + prior, pass 2, the host copy, the gather of the refit tile,
+the refit and the merge + padj) on ``make_data(n_samples, n_genes)``
+(default 100 x 60000, float32, the benchmark's configuration) once to warm
+up, then:
 
 1. wall time per stage function of ``fused`` and ``fused_stream`` (each
    call wrapped in a synchronise before and after, host clock), and what
-   is left outside them, over one run of the real pipeline;
+   is left outside them, over one run of the real pipeline, and the peak
+   device memory of that run (``torch.cuda.max_memory_allocated``);
 2. one run under ``torch.profiler``: device time per kernel name (top 15),
    the summed device time, and the device's idle share of the wall.
 
@@ -37,17 +42,29 @@ import torch
 # streamed blocks).
 STAGES = {
     "fused": (
-        "_size_factors", "fit_rough_dispersions_batch", "fit_moments_dispersions_batch",
-        "fit_lin_mu_batch", "alpha_mle_batch", "fit_fused_trend", "nanmedian",
+        "_size_factors", "mom_and_mu_coef", "alpha_mle_batch", "fit_fused_trend", "dispersion_prior",
         "irls_beta_init", "_irls_with_rescue", "hat_wald", "cooks_outliers", "device_padj",
     ),
     "fused_stream": ("_apeglm_prior_variance", "lfc_shrink_pipeline_streamed"),
 }
-# Called inside a stage (_irls_with_rescue, lfc_shrink_pipeline_streamed):
-# timed too, and not added to the stages.
+# Called inside a stage (_irls_with_rescue, fit_fused_trend, device_padj,
+# lfc_shrink_pipeline_streamed): timed too, and not added to the stages.
 SUBSTAGES = {
-    "fused": ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch"),
+    "fused": ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch", "parametric_trend", "lowess_pick"),
     "fused_stream": ("nbinom_glm_batch", "grid_fit_shrink_beta_batch"),
+}
+# The streamed refit run (``--stream``): its passes, the host copy, and the
+# refit's gather, tile and merge, with the stage functions they call.
+STREAM_STAGES = {
+    "fused_stream": (
+        "_log_stats", "_streamed_size_factors", "_genewise_pass", "_trend_and_prior", "_analyse_pass",
+        "_to_host", "_gather_refit_tile", "refit_pipeline_streamed", "_merge_refit", "_padj_program",
+    ),
+}
+STREAM_SUBSTAGES = {
+    "fused_stream": ("mom_and_mu_coef", "alpha_mle_batch", "_irls_with_rescue", "hat_wald", "cooks_outliers",
+                     "impute_outliers", "fit_fused_trend", "dispersion_prior", "device_padj"),
+    "fused": ("parametric_trend", "lowess_pick"),
 }
 
 
@@ -55,18 +72,18 @@ def _flat(table: dict) -> tuple:
     return tuple(name for names in table.values() for name in names)
 
 
-def timed_run(run, kw: dict) -> tuple[float, dict]:
+def timed_run(run, kw: dict, stages: dict, substages: dict) -> tuple[float, dict]:
     """One ``run(**kw)`` of a pipeline with every stage function wrapped in
     a synchronise-timed call: ``(wall_s, {stage: [seconds per call]})``."""
     import importlib
 
-    times: dict = {name: [] for name in _flat(STAGES) + _flat(SUBSTAGES)}
+    times: dict = {name: [] for name in _flat(stages) + _flat(substages)}
     originals = {}
-    for table in (STAGES, SUBSTAGES):
+    for table in (stages, substages):
         for mod_name, names in table.items():
             mod = importlib.import_module(f"pydeseq2_tpu_torch.{mod_name}")
             for name in names:
-                originals[name] = (mod, getattr(mod, name))
+                originals[(mod_name, name)] = (mod, name, getattr(mod, name))
 
     def wrap(name, fn):
         def timed(*args, **kwargs):
@@ -80,7 +97,7 @@ def timed_run(run, kw: dict) -> tuple[float, dict]:
         return timed
 
     try:
-        for name, (mod, fn) in originals.items():
+        for mod, name, fn in originals.values():
             setattr(mod, name, wrap(name, fn))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -88,7 +105,7 @@ def timed_run(run, kw: dict) -> tuple[float, dict]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        for name, (mod, fn) in originals.items():
+        for mod, name, fn in originals.values():
             setattr(mod, name, fn)
     return wall, times
 
@@ -99,12 +116,13 @@ def main() -> int:
         return 1
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import kernels
-    from pydeseq2_tpu_torch.synthetic import make_data
+    from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers
 
     args = sys.argv[1:]
+    stream = "--stream" in args
     shrink = "--shrink" in args
     summary = "--summary" in args or shrink
-    args = [a for a in args if a not in ("--summary", "--shrink")]
+    args = [a for a in args if a not in ("--summary", "--shrink", "--stream")]
     n_samples = int(args[0]) if args else 100
     n_genes = int(args[1]) if len(args) > 1 else 60_000
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -128,21 +146,34 @@ def main() -> int:
             )
 
         label = "summary_pipeline + run_lfc_shrink_streamed"
-    kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, dtype=torch.float32,
-                              device="cuda", **static)
+    stages, substages = STAGES, SUBSTAGES
+    if stream:
+        # Counts on the card once, as an atlas caller holds them.
+        counts = torch.as_tensor(plant_outliers(counts_np.T), dtype=torch.float32, device="cuda")
+        del counts_np
+        kw = dict(counts=counts, design_matrix=X_np, contrast=np.array([0.0, 1.0]), dtype=torch.float32,
+                  refit_cooks=True, device="cuda", max_disp=static["max_disp"], beta_tol=static["beta_tol"])
+        run, label = pt.run_summary_streamed, "run_summary_streamed(refit_cooks=True)"
+        stages, substages = STREAM_STAGES, STREAM_SUBSTAGES
+    else:
+        kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, dtype=torch.float32,
+                                  device="cuda", **static)
     run(**kw)
     torch.cuda.synchronize()
 
     kernels.STATS.reset()
-    wall_s, times = timed_run(run, kw)
+    torch.cuda.reset_peak_memory_stats()
+    wall_s, times = timed_run(run, kw, stages, substages)
+    peak_bytes = torch.cuda.max_memory_allocated()
     kernel_launches = dict(kernels.STATS.launches)
     stage_s = {name: sum(ts) for name, ts in times.items() if ts}
     for name, sec in stage_s.items():
-        indent = "    " if name in _flat(SUBSTAGES) else ""
+        indent = "    " if name in _flat(substages) else ""
         print(f"  stage {indent}{name:30s} x{len(times[name])} {sec * 1e3:9.3f} ms", flush=True)
-    glue = wall_s - sum(sec for name, sec in stage_s.items() if name in _flat(STAGES))
+    glue = wall_s - sum(sec for name, sec in stage_s.items() if name in _flat(stages))
     print(f"  hand-written kernel launches in the run {kernel_launches}", flush=True)
-    print(f"  timed wall {wall_s * 1e3:.3f} ms, outside the stage functions {glue * 1e3:.3f} ms", flush=True)
+    print(f"  timed wall {wall_s * 1e3:.3f} ms, outside the stage functions {glue * 1e3:.3f} ms, "
+          f"peak device memory {peak_bytes / 2**30:.3f} GiB", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,6 +200,7 @@ def main() -> int:
     for t in top:
         print(f"    {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}", flush=True)
     out = {"card": card, "pipeline": label, "shape": [n_samples, n_genes], "timed_wall_ms": wall_s * 1e3,
+           "peak_memory_bytes": peak_bytes,
            "stage_ms": {k: v * 1e3 for k, v in stage_s.items()}, "kernel_launches": kernel_launches,
            "profiled_wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3, "launches": n_launch,
            "syncs_or_copies": n_sync, "top_device": top}

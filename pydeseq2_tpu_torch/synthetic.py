@@ -25,3 +25,13 @@ def make_data(n_samples: int, n_genes: int, seed: int = 0, lfc_sd: float = 0.5):
     disp = np.clip(rng.lognormal(-2.0, 1.0, size=n_genes), 1e-3, 5.0)
     counts = rng.negative_binomial(1 / disp[None, :], 1 / (1 + disp[None, :] * mu))
     return counts.astype(float), X
+
+
+def plant_outliers(counts: np.ndarray, every: int = 100) -> np.ndarray:
+    """A copy of gene-major (G, N) counts with one Cook's outlier planted in
+    every ``every``-th gene: the cell of sample (g / every) mod N set to 20x
+    the row's maximum."""
+    counts = counts.copy()
+    genes = np.arange(0, counts.shape[0], every)
+    counts[genes, (genes // every) % counts.shape[1]] = 20.0 * counts[genes].max(axis=1)
+    return counts

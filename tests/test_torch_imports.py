@@ -32,6 +32,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import sys; before = set(sys.modules); import pydeseq2_tpu_torch, pydeseq2_tpu_torch.fused; "
         "import pydeseq2_tpu_torch.synthetic, pydeseq2_tpu_torch.kernels, pydeseq2_tpu_torch.fused_stream; "
         "import pydeseq2_tpu_torch.ops.shrink, pydeseq2_tpu_torch.models.stats, pydeseq2_tpu_torch.stage_profile; "
+        "import pydeseq2_tpu_torch.ops.refit, pydeseq2_tpu_torch.ops.linreg, pydeseq2_tpu_torch.ops.trend; "
+        "import pydeseq2_tpu_torch.ops.stats, pydeseq2_tpu_torch.ops.cooks; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -64,12 +66,15 @@ def test_default_device_raises_without_cuda():
         pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pt.summary_pipeline(counts.T, X, np.array([0.0, 1.0]), 0.0, 5.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.run_summary_streamed(counts.T, X, np.array([0.0, 1.0]))
 
 
 def test_public_surface():
     for name in ("wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
                  "run_lfc_shrink_streamed", "lfc_shrink_pipeline_streamed", "inputs_from_numpy",
-                 "outputs_to_numpy"):
+                 "outputs_to_numpy", "run_summary_streamed", "summary_pipeline_streamed",
+                 "refit_pipeline_streamed"):
         assert callable(getattr(pt, name)), name
     counts, X = make_data(6, 20)
     kw = pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0, cooks_cutoff=5.0, dtype=torch.float32,
@@ -107,13 +112,15 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
         kernels.check_cuda_operands("irls", torch.zeros(3))
     with pytest.raises(ValueError, match="P == 2"):
         kernels.check_p2("grid_nb", 3)
+    with pytest.raises(ValueError, match="expected CUDA"):
+        kernels.check_cuda_operands("impute", torch.zeros(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="bool CUDA tensor"):
         kernels.check_sel("newton_box", torch.ones(4, dtype=torch.bool), 4)
     assert kernels.check_sel("newton_box", None, 4) is None
 
 
 def test_every_kernel_is_counted():
-    """Eleven kernels, each with a launch count that starts at 0."""
+    """Fifteen kernels, each with a launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 11
+    assert len(kernels.KERNELS) == 15
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)

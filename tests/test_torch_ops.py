@@ -706,3 +706,199 @@ def test_hat_wald_plain(P, alt):
     assert np.any(_np(got[1]) < 0.5)
     for g_, w_ in zip(got, want):
         _close(g_, w_, 1e-10, atol=1e-300)
+
+
+# --- streamed refit slice: mom, trend, lowess pick, imputation, refit bits ---
+
+from pydeseq2_tpu_torch.ops import refit as t_refit  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_mom_and_mu_coef(fit_data, name):
+    """The ``mom`` kernel's plain version against the JAX expressions it
+    replaces (``fused_stream.py:289-314``): rough and moment dispersions of
+    the normalised counts, the OLS coefficients against pinv(X) and the
+    clamped linear mu, with an all-zero gene (moments 0/0 -> 0). Tolerance
+    as ``test_linreg`` (pinv by different SVD routines)."""
+    counts, X, sf, _ = fit_data
+    rtol = {"f64": 1e-9, "f32": 1e-4}[name]
+    c, s, x = _t(counts, name), _t(sf, name), _t(X, name)
+    rough, moments, coef, mu = t_lin.mom_and_mu_coef(c, s, x, t_lin.ols_pinv(x), 0.5, want_mu=True)
+    normed = _j(counts, name) / _j(sf, name)[None, :]
+    coef_j = normed @ j_lin.ols_pinv(_j(X, name)).T
+    _close(rough, j_lin.fit_rough_dispersions_batch(normed, _j(X, name)), rtol, atol=1e-6)
+    _close(moments, j_lin.fit_moments_dispersions_batch(normed, _j(sf, name)), rtol, atol=1e-6)
+    _close(coef, coef_j, rtol, atol=1e-6)
+    _close(mu, jnp.maximum(_j(sf, name)[None, :] * (coef_j @ _j(X, name).T), 0.5), rtol)
+    assert _np(moments)[3] == 0.0
+    assert t_lin.mom_and_mu_coef(c, s, x, t_lin.ols_pinv(x), 0.5, want_mu=False)[3] is None
+
+
+def _trend_data(kind):
+    """Genewise dispersions on a 1/mean trend ("fit"), or flat ones whose
+    fitted slope hits the 1e-10 floor, so the trend falls back to the mean
+    ("fallback"); NaN and all-zero genes among them."""
+    rng = np.random.default_rng(18)
+    G = 500
+    mean = rng.lognormal(3, 1.5, size=G)
+    if kind == "fit":
+        gw = (0.05 + 2.0 / mean) * rng.lognormal(0, 0.5, size=G)
+    else:
+        gw = 0.1 * (mean / mean.mean()) ** 0.3 * rng.lognormal(0, 0.3, size=G)
+    non_zero = rng.random(G) < 0.97
+    gw[~non_zero] = np.nan
+    mean[~non_zero] = 0.0
+    return mean, gw, non_zero
+
+
+@pytest.mark.parametrize("kind", ["fit", "fallback"])
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_fit_fused_trend(name, kind):
+    """The ``trend`` kernel's plain version (every exclusion round and
+    Newton trip) against ``pydeseq2_tpu.fused.fit_fused_trend``: the same
+    failed flag and round count, coefficients and fitted values within
+    1e-8 (f64) / 1e-3 (f32) (2 x 2 solves by different LU routines)."""
+    from pydeseq2_tpu import fused as j_fused
+    from pydeseq2_tpu_torch import fused as t_fused
+
+    mean, gw, nz = _trend_data(kind)
+    want = j_fused.fit_fused_trend(_j(mean, name), _j(gw, name), jnp.asarray(nz), 1e-8, "parametric",
+                                   return_rounds=True)
+    got = t_fused.fit_fused_trend(_t(mean, name), _t(gw, name), torch.as_tensor(nz), 1e-8, "parametric")
+    rounds = t_trend.parametric_trend(_t(mean, name), _t(gw, name), torch.as_tensor(nz), got[3])[3]
+    rtol = {"f64": 1e-8, "f32": 1e-3}[name]
+    assert bool(got[2]) == bool(want[2]) == (kind == "fallback")
+    assert int(rounds) == int(want[4])
+    _close(got[1], want[1], rtol)
+    _close(got[3], want[3], rtol)
+    m = nz
+    _close(_np(got[0])[m], np.asarray(want[0])[m], rtol)
+
+
+def _jax_pick(theta, num_rej):
+    """``lowess_device`` and the pick of ``pydeseq2_tpu/fused.py:763-768``."""
+    rej = num_rej.astype(theta.dtype)
+    lo = j_stats.lowess_device(theta, rej, frac=0.2)
+    resid = jnp.where(num_rej > 0, rej - lo, jnp.nan)
+    thresh = lo.max() - jnp.sqrt(jnp.nanmean(resid**2))
+    above = num_rej > thresh
+    j = jnp.where(above.any(), jnp.argmax(above), 0)
+    return lo, jnp.where(num_rej.max() <= 10, 0, j)
+
+
+@pytest.mark.parametrize("kind", ["counts", "zeros", "few"])
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_lowess_pick(name, kind):
+    """The ``lowess`` kernel's plain version: the fit and the cutoff row
+    against the JAX expressions; every count 0 (NaN threshold) and counts
+    never above 10 both pick row 0. Rejections that rise as filtering drops
+    low-count genes, then level off, pick a later row. Tolerance on the fit
+    1e-12 (f64) / 1e-3 (f32): XLA sums the 50 weights in another order, and
+    the robustness weights (resid / 6 median) carry that rounding on."""
+    rng = np.random.default_rng(19)
+    theta = np.linspace(0.05, 0.95, 50)
+    rising = 500 * np.minimum(theta / 0.4, 1.0) * (1 - 0.3 * theta) + rng.normal(0, 10, 50)
+    rej = {"counts": np.maximum(0, rising).round(), "zeros": np.zeros(50),
+           "few": rng.integers(0, 11, 50)}[kind].astype(np.int64)
+    yest, j = t_stats.lowess_pick(_t(theta, name), torch.as_tensor(rej))
+    lo, jj = _jax_pick(_j(theta, name), jnp.asarray(rej))
+    assert np.array_equal(np.isnan(_np(yest)), np.isnan(np.asarray(lo)))
+    _close(np.nan_to_num(_np(yest)), np.nan_to_num(np.asarray(lo)), {"f64": 1e-12, "f32": 1e-3}[name], atol=1e-6)
+    assert int(j) == int(jj)
+    assert (int(j) > 0) == (kind == "counts")
+
+
+def _jax_words(bits):
+    """The JAX package's uint32 exceed words (``fused_stream.py:427-433``)."""
+    G, N = bits.shape
+    n_words = -(-N // 32)
+    padded = jnp.pad(jnp.asarray(bits), ((0, 0), (0, n_words * 32 - N)))
+    weights = jnp.asarray([1 << k for k in range(32)], jnp.uint32)
+    return np.asarray(jnp.sum(padded.reshape(-1, n_words, 32) * weights[None, None, :], axis=-1, dtype=jnp.uint32))
+
+
+def test_exceed_bits_layout_matches_jax():
+    """int32 words with the JAX package's uint32 bit pattern (bit k of word
+    w: sample 32 w + k), a partial last word and bit 31 set, and back."""
+    rng = np.random.default_rng(20)
+    bits = rng.random((7, 70)) < 0.3
+    bits[:, 31] = True
+    words = t_cooks.pack_bits(torch.as_tensor(bits))
+    assert words.dtype == torch.int32 and words.shape == (7, 3)
+    assert np.array_equal(_np(words).view(np.uint32), _jax_words(bits))
+    assert np.array_equal(_np(t_cooks.unpack_bits(words, 70)), bits)
+
+
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_cooks_refit_outputs(name):
+    """The refit-mode outputs of the Cook's block against the JAX
+    expressions (``fused_stream.py:422-445``): exceed words bit for bit,
+    ``replaced`` and ``cooks_outlier_refit`` equal; the distances are not
+    written with ``want_distances=False``."""
+    rng = np.random.default_rng(21)
+    N, G = 48, 60
+    sf = np.exp(rng.normal(0, 0.2, N))
+    mu = rng.lognormal(3.0, 1.0, size=(G, 1)) * sf[None, :]
+    counts = rng.negative_binomial(5, 5 / (5 + mu)).astype(float)
+    counts[:8, 0] = mu[:8, 0] * 40 + 100
+    counts[:4, 40] = mu[:4, 40] * 40 + 100  # outliers in a sample that is not replaceable
+    counts[9] = 0.0
+    H = rng.uniform(0.01, 0.3, size=(G, N))
+    non_zero = ~(counts == 0).all(axis=1)
+    use_for_max = np.ones(N, bool)
+    use_for_max[[1, 7]] = False
+    cohort_ids = tuple(int(c) for c in np.r_[[0] * 30, [1] * 16])
+    replaceable = np.ones(N, bool)
+    replaceable[40:] = False
+    cutoff = 4.8
+    args = [_t(a, name) for a in (counts, sf, mu, H)]
+    got = t_cooks.cooks_outliers(*args, torch.as_tensor(non_zero), 2, cohort_ids, tuple(use_for_max),
+                                 _t(cutoff, name), replaceable=tuple(replaceable), want_distances=False)
+    assert got[0] is None and len(got) == 6
+    # JAX: the raw distances of the block, then the refit-mode bits.
+    cj = _j(counts, name)
+    _, _, disp_c = _jax_cooks_block(cj, *(_j(a, name) for a in (sf, mu, H)), jnp.asarray(non_zero), 2,
+                                    cohort_ids, tuple(use_for_max), _j(cutoff, name))
+    muj, Hj = _j(mu, name), _j(H, name)
+    cooks = (cj - muj) ** 2 / ((muj + disp_c[:, None] * muj**2) * 2) * Hj / (1.0 - Hj) ** 2
+    exceeds = np.asarray(cooks > _j(cutoff, name))
+    veto = (cj > jnp.take_along_axis(cj, jnp.argmax(cooks, axis=1)[:, None], axis=1)).sum(axis=1) < 3
+    nr = jnp.asarray(use_for_max & ~replaceable)
+    refit_flag = (jnp.where(nr[None, :], cooks, -jnp.inf) > _j(cutoff, name)).any(axis=1) & veto & non_zero
+    assert np.array_equal(_np(got[3]).view(np.uint32), _jax_words(exceeds))
+    assert np.array_equal(_np(got[4]), exceeds.any(axis=1) & non_zero)
+    assert np.array_equal(_np(got[5]), np.asarray(refit_flag))
+    assert _np(got[4])[:8].all() and _np(got[5])[:4].all() and not _np(got[5])[4:8].any()
+
+
+@pytest.mark.parametrize("name", ["f64", "f32"])
+def test_impute_outliers(name):
+    """The ``impute`` kernel's plain version against the JAX expressions
+    (``fused_stream.py:563-573``): bits unpacked from the JAX words, the
+    trimmed mean (0.2) of the normalised row, floor-imputed counts in
+    replaceable samples only, and the all-zero flag on masked-in rows (row
+    2 becomes all zero; rows 10-11 are padding)."""
+    rng = np.random.default_rng(22)
+    K, N = 12, 40
+    sf = np.exp(rng.normal(0, 0.2, N))
+    counts = rng.negative_binomial(3, 0.1, size=(K, N)).astype(float)
+    bits = rng.random((K, N)) < 0.1
+    counts[2] = 0.0
+    counts[2, 5] = 1e6
+    bits[2] = False
+    bits[2, 5] = True
+    replaceable = np.ones(N, bool)
+    replaceable[30:] = False
+    bits[:, 33] = True  # exceeds, not replaceable: kept
+    tile_mask = np.arange(K) < 10
+    words = _jax_words(bits)
+    imputed, naz = t_refit.impute_outliers(_t(counts, name), torch.as_tensor(words.view(np.int32)),
+                                           tuple(replaceable), _t(sf, name), torch.as_tensor(tile_mask))
+    cj, sj = _j(counts, name), _j(sf, name)
+    unpacked = ((jnp.asarray(words)[:, :, None] >> jnp.arange(32, dtype=jnp.uint32)) & 1).reshape(K, -1)[:, :N]
+    swap = jnp.asarray(replaceable)[None, :] & unpacked.astype(bool)
+    trim02 = j_stats.trimmed_mean(cj / sj[None, :], trim=0.2, axis=1)
+    want = jnp.where(swap, jnp.floor(trim02[:, None] * sj[None, :]), cj)
+    assert np.array_equal(_np(imputed), np.asarray(want))
+    assert np.array_equal(_np(naz), np.asarray((want == 0).all(axis=1) & tile_mask))
+    assert _np(naz).tolist() == [i == 2 for i in range(K)]
