@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the fifteen hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the eighteen hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -20,6 +20,12 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    refit mode of ``cooks`` on the operands one
    ``run_summary_streamed(refit_cooks=True)`` run hands them (100 x 60000
    float32 and 100 x 4000 float64, an outlier planted in every 100th gene);
+   ``sf_nll`` and ``sf_newton`` (one round's steps, then the whole trimmed
+   solve by each route: the same keep sets) on the operands the first
+   trimmed solve of a zero-inflated run of the same refit path hands them;
+   ``vst`` (parametric, ``used_mean`` forced each way, the mean form, masked
+   rows) and ``mom``, ``disp_scan``, ``disp_newton``, ``trend`` at P = 1 on
+   the operands one ``vst_pipeline`` run hands them (same two scales);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -42,6 +48,12 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    launches of its eleven kernels in one run (each must be > 0);
 3f. the same at 1000 x 60000, where the automatic gene block streams two
    blocks of 30000 genes;
+3g. runs ``vst_pipeline`` (the blind VST) at 100 x 60000 float32 the same
+   way: warm wall, genes/s and the launches of its six kernels in one run;
+3h. runs ``run_vst_streamed`` at 1000 x 60000 float32 (two gene blocks);
+3i. runs phase 3e on a zero-inflated draw (a zero in every gene): each run
+   must warn and switch to the iterative size factors, whose two kernels
+   must launch beside the eleven; the rounds of the iterative fit;
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
@@ -51,6 +63,9 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 4d. runs the f64 streamed refit on the card and on the CPU at 100 x 2000
    with planted outliers: the same genes replaced and refitted, every
    float output (padj included) at rtol 1e-6;
+4e. does the same for the iterative size factors (whole-G and over gene
+   blocks: the same rounds), the zero-inflated streamed refit,
+   ``vst_pipeline`` (both trend types) and ``run_vst_streamed``;
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -89,7 +104,10 @@ SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh", "lowess")
 # 3f): the rescue tiers again only where a lane stays flagged.
 STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "cooks", "bh", "mom", "trend", "lowess",
                   "impute")
-N_STREAM_WIDE = 1_000  # phase 3f: auto gene_block splits 60000 genes into 2 blocks of 30000
+N_STREAM_WIDE = 1_000  # phases 3f, 3h: auto gene_block splits 60000 genes into 2 blocks of 30000
+# The kernels the blind VST launches (phases 3g, 3h): the size-factor
+# medians, MoM, the genewise fit and the trend at P = 1, and the transform.
+VST_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend", "vst")
 # Planted Cook's outliers of the streamed refit runs: one cell at 20x its
 # row's maximum in every OUTLIER_EVERY-th gene.
 OUTLIER_EVERY = 100
@@ -167,6 +185,60 @@ def stage_inputs(counts, X, max_disp):
     return log_ratios, n_valid, sf, mom, mu
 
 
+def scan_check(name: str, scan_args) -> tuple[float, torch.Tensor]:
+    """``disp_scan`` against its plain version on ``scan_args``: (max abs
+    error, the kernel's argmin la)."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    f32 = scan_args[1].dtype == torch.float32
+    la_grid = scan_args[3]
+    la1_k, fk = dsp.scan_coarse(*scan_args)
+    la1_p, fp = dsp.scan_coarse_plain(*scan_args)
+    # Tolerance: both sum ~N terms of size up to |f| in different orders and
+    # take log1p/lgamma from different math libraries: a few ulps of the
+    # largest term, so 2e-5 (f32) / 1e-11 (f64) of (1 + |f|).
+    rtol = 2e-5 if f32 else 1e-11
+    scale = 1.0 + fp.abs()
+    err = ((fk - fp).abs() / scale).max().item()
+    check(err <= rtol, f"disp_scan {name}: objective rel err {err:.3g} > {rtol}")
+    # The argmin may differ only at near ties: the kernel's choice must be
+    # within the same tolerance of the plain minimum.
+    idx_k = ((la1_k[None, :] - la_grid[:, None]).abs().argmin(0))
+    f_at_k = fp.gather(0, idx_k[None])[0]
+    tie_err = ((f_at_k - fp.amin(0)) / (1.0 + fp.amin(0).abs())).max().item()
+    check(tie_err <= 2 * rtol, f"disp_scan {name}: argmin off a near tie ({tie_err:.3g})")
+    log(f"  disp_scan {name}: objective rel err {err:.3g} (tol {rtol}), argmin tie err {tie_err:.3g}")
+    return (fk - fp).abs().max().item(), la1_k
+
+
+def newton_check(name: str, newton_args):
+    """``disp_newton`` against its plain version on ``newton_args``: (max
+    abs la error, kernel outputs, plain outputs)."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    f32 = newton_args[1].dtype == torch.float32
+    outk = dsp.newton_polish(*newton_args)
+    outp = dsp.newton_polish_plain(*newton_args)
+    # Tolerance: the objective at the polished point, 2e-3 (f32) / 1e-10
+    # (f64) of (1 + |f|). Below r = 8 the centred f32 objective sums terms
+    # of size lgamma(y + r) ~ 1e4 to a total ~1e2, so its rounding noise is
+    # ~1e-4 of |f|, and the Newton acceptance (f_cand < f) decides at that
+    # noise; on likelihood plateaus that moves la far while f stays flat, so
+    # f is held tightly and la only on 99% of lanes.
+    ftol = 2e-3 if f32 else 1e-10
+    fdiff = (outk[1] - outp[1]).abs() / (1.0 + outp[1].abs())
+    ferr = fdiff.max().item()
+    check(ferr <= ftol, f"disp_newton {name}: objective rel err {ferr:.3g} > {ftol}")
+    ladiff = (outk[0] - outp[0]).abs()
+    la_close = (ladiff <= (1e-3 if f32 else 1e-6)).float().mean().item()
+    check(la_close >= 0.99, f"disp_newton {name}: only {la_close:.4f} of la agree")
+    q = torch.tensor([0.5, 0.99, 0.999], dtype=fdiff.dtype, device=fdiff.device)
+    log(f"  disp_newton {name}: f rel diff quantiles (50/99/99.9%) {fdiff.quantile(q).tolist()}, "
+        f"la diff {ladiff.quantile(q.to(ladiff.dtype)).tolist()}")
+    log(f"  disp_newton {name}: objective rel err {ferr:.3g} (tol {ftol}), la within tol on {la_close:.4f}")
+    return (outk[0] - outp[0]).abs().max().item(), outk, outp
+
+
 def kernel_checks(dtype, G, N, reps, timings):
     """Phase 2: every kernel against its plain version on the same inputs.
 
@@ -225,22 +297,7 @@ def kernel_checks(dtype, G, N, reps, timings):
     la_hat = torch.log(torch.clamp(mom, 1e-8, max_disp))
     pdv = torch.tensor(1.0, dtype=dtype, device=dev)
     scan_args = (counts, mu, X, la_grid, bnd_start, bnd_end, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
-    la1_k, fk = dsp.scan_coarse(*scan_args)
-    la1_p, fp = dsp.scan_coarse_plain(*scan_args)
-    # Tolerance: both sum ~N terms of size up to |f| in different orders and
-    # take log1p/lgamma from different math libraries: a few ulps of the
-    # largest term, so 2e-5 (f32) / 1e-11 (f64) of (1 + |f|).
-    rtol = 2e-5 if f32 else 1e-11
-    scale = 1.0 + fp.abs()
-    err = ((fk - fp).abs() / scale).max().item()
-    check(err <= rtol, f"disp_scan {name}: objective rel err {err:.3g} > {rtol}")
-    # The argmin may differ only at near ties: the kernel's choice must be
-    # within the same tolerance of the plain minimum.
-    idx_k = ((la1_k[None, :] - la_grid[:, None]).abs().argmin(0))
-    f_at_k = fp.gather(0, idx_k[None])[0]
-    tie_err = ((f_at_k - fp.amin(0)) / (1.0 + fp.amin(0).abs())).max().item()
-    check(tie_err <= 2 * rtol, f"disp_scan {name}: argmin off a near tie ({tie_err:.3g})")
-    errs["disp_scan"] = (fk - fp).abs().max().item()
+    errs["disp_scan"], la1_k = scan_check(name, scan_args)
     if f32:
         n_stable = bnd_start
         n_auto = bnd_end - bnd_start
@@ -256,30 +313,11 @@ def kernel_checks(dtype, G, N, reps, timings):
             # (Stirling-8 lgamma 32 + 6), Cox-Reid weight and Gram ops_cr
             "ops": G * N * (30 * n_stable + 38 * n_auto + 40 * n_plain + K * ops_cr),
         }
-    log(f"  disp_scan {name}: objective rel err {err:.3g} (tol {rtol}), argmin tie err {tie_err:.3g}")
 
     # -- kernel 3: dispersion Newton (genewise fit from the scan's argmin) -
     step2_f = step1_f / 3.5
     newton_args = (counts, mu, X, la1_k, lo_f, hi_f, step1_f, step2_f, 4, True, False, la_hat, pdv)
-    outk = dsp.newton_polish(*newton_args)
-    outp = dsp.newton_polish_plain(*newton_args)
-    # Tolerance: the objective at the polished point, 2e-3 (f32) / 1e-10
-    # (f64) of (1 + |f|). Below r = 8 the centred f32 objective sums terms
-    # of size lgamma(y + r) ~ 1e4 to a total ~1e2, so its rounding noise is
-    # ~1e-4 of |f|, and the Newton acceptance (f_cand < f) decides at that
-    # noise; on likelihood plateaus that moves la far while f stays flat, so
-    # f is held tightly and la only on 99% of lanes.
-    ftol = 2e-3 if f32 else 1e-10
-    fdiff = (outk[1] - outp[1]).abs() / (1.0 + outp[1].abs())
-    ferr = fdiff.max().item()
-    check(ferr <= ftol, f"disp_newton {name}: objective rel err {ferr:.3g} > {ftol}")
-    ladiff = (outk[0] - outp[0]).abs()
-    la_close = (ladiff <= (1e-3 if f32 else 1e-6)).float().mean().item()
-    check(la_close >= 0.99, f"disp_newton {name}: only {la_close:.4f} of la agree")
-    q = torch.tensor([0.5, 0.99, 0.999], dtype=fdiff.dtype, device=fdiff.device)
-    log(f"  disp_newton {name}: f rel diff quantiles (50/99/99.9%) {fdiff.quantile(q).tolist()}, "
-        f"la diff {ladiff.quantile(q.to(ladiff.dtype)).tolist()}")
-    errs["disp_newton"] = (outk[0] - outp[0]).abs().max().item()
+    errs["disp_newton"], outk, outp = newton_check(name, newton_args)
     if f32:
         plain_frac = (torch.exp(-outp[0]) < 8.0).double().mean().item()
         ntri = P * (P + 1) // 2
@@ -294,7 +332,6 @@ def kernel_checks(dtype, G, N, reps, timings):
             # la of each gene; Cox-Reid weights and three Grams ops_cr
             "ops": int(5 * G * N * ((1 - plain_frac) * 85 + plain_frac * 127 + ops_cr)),
         }
-    log(f"  disp_newton {name}: objective rel err {ferr:.3g} (tol {ftol}), la within tol on {la_close:.4f}")
 
     # -- kernel 4: IRLS (phase 1 of the LFC fit: every lane, 8 trips) ------
     disp = torch.clamp(torch.exp(outk[0]), 1e-8, max_disp)
@@ -1483,6 +1520,62 @@ def count_trend_passes(bm, gm, nz, mean_disp, max_rounds) -> tuple[int, int]:
     return calls["trend_loss"], calls["trend_grad"]
 
 
+def mom_check(name: str, recorded) -> float:
+    """``mom`` against its plain version on a recorded ``mom_and_mu_coef``
+    call (args, kwargs, result), with and without mu: the max abs error."""
+    from pydeseq2_tpu_torch.ops import linreg as lin
+
+    f32 = recorded[0][0].dtype == torch.float32
+    c, sf, X, pinv, min_mu, _ = bound_args(lin.mom_and_mu_coef, *recorded[:2])
+    Gm, P = c.shape[0], X.shape[1]
+    check(bits_equal(lin._mom_cuda(c, sf, X, pinv, min_mu, False)[0], recorded[2][0]),
+          f"mom {name}: the launch differs from the path's")
+    rtol = 1e-5 if f32 else 1e-12
+    worst = {}
+    for want_mu in (False, True):
+        got = lin._mom_cuda(c, sf, X, pinv, min_mu, want_mu)
+        want = lin._mom_plain(c, sf, X, pinv, min_mu, want_mu)
+        for key, a, b in zip(("rough", "moments", "coef", "mu"), got, want):
+            if b is None:
+                check(a is None, f"mom {name}: mu written without want_mu")
+                continue
+            if key == "coef":
+                e = ((a - b).abs() / torch.clamp(b.abs().amax(1, keepdim=True), min=1.0)).max().item()
+            else:
+                e = scaled_err(a, b)
+            worst[key] = max(worst.get(key, 0.0), e)
+    check(all(v <= rtol for v in worst.values()), f"mom {name}: errors {worst} beyond {rtol}")
+    log(f"  mom {name} ({Gm}, {c.shape[1]}): rel err (abs below 1) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tol {rtol})")
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
+def trend_check(name: str, recorded) -> tuple[float, int, int]:
+    """``trend`` against its plain version on a recorded
+    ``parametric_trend`` call: (max abs coefficient error, the plain fit's
+    loss passes, its gradient + Fisher passes)."""
+    from pydeseq2_tpu_torch.ops import trend as tr
+
+    f32 = recorded[0][0].dtype == torch.float32
+    bm, gm, nz, mean_disp, max_rounds = bound_args(tr.parametric_trend, *recorded[:2])
+    run_out = recorded[2]
+    got = tr._parametric_trend_cuda(bm, gm, nz, mean_disp, max_rounds)
+    want = tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds)
+    check(bits_equal(got[1], run_out[1]), f"trend {name}: the launch differs from the path's")
+    e_c = rel_err(got[1].double(), want[1].double(), 1e-300)
+    e_f = rel_err(got[0][nz].double(), want[0][nz].double(), 1e-300)
+    rk, rp = int(got[3]), int(want[3])
+    ctol = 1e-4 if f32 else 1e-10
+    check(bool(got[2]) == bool(want[2]), f"trend {name}: failed flag {bool(got[2])}, plain {bool(want[2])}")
+    check(e_c <= ctol and e_f <= ctol, f"trend {name}: coefficient rel err {e_c:.3g}, fitted {e_f:.3g} > {ctol}")
+    check(abs(rk - rp) <= (1 if f32 else 0), f"trend {name}: {rk} rounds, plain {rp}")
+    n_loss, n_grad = count_trend_passes(bm, gm, nz, mean_disp, max_rounds)
+    log(f"  trend {name} (G {bm.shape[0]}): coeffs {got[1].tolist()} (plain {want[1].tolist()}), rel err {e_c:.3g}, "
+        f"fitted {e_f:.3g} (tol {ctol}); rounds {rk} "
+        f"(plain {rp}), failed {bool(got[2])}; plain passes: {n_loss} loss, {n_grad} gradient + Fisher")
+    return (got[1] - want[1]).abs().max().item(), n_loss, n_grad
+
+
 def stream_kernel_checks(dtype, G, N, reps, timings):
     """Phase 2, the streamed refit path's kernels (``mom``, ``trend``,
     ``lowess``, ``impute`` and the refit outputs of ``cooks``) against their
@@ -1513,26 +1606,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     # rounding at that scale.
     c, sf, X, pinv, min_mu, _ = bound_args(lin.mom_and_mu_coef, *seen["mom_and_mu_coef"][:2])
     Gm, P = c.shape[0], X.shape[1]
-    check(bits_equal(lin._mom_cuda(c, sf, X, pinv, min_mu, False)[0], seen["mom_and_mu_coef"][2][0]),
-          f"mom {name}: the launch differs from the path's")
-    rtol = 1e-5 if f32 else 1e-12
-    worst = {}
-    for want_mu in (False, True):
-        got = lin._mom_cuda(c, sf, X, pinv, min_mu, want_mu)
-        want = lin._mom_plain(c, sf, X, pinv, min_mu, want_mu)
-        for key, a, b in zip(("rough", "moments", "coef", "mu"), got, want):
-            if b is None:
-                check(a is None, f"mom {name}: mu written without want_mu")
-                continue
-            if key == "coef":
-                e = ((a - b).abs() / torch.clamp(b.abs().amax(1, keepdim=True), min=1.0)).max().item()
-            else:
-                e = scaled_err(a, b)
-            worst[key] = max(worst.get(key, 0.0), e)
-    check(all(v <= rtol for v in worst.values()), f"mom {name}: errors {worst} beyond {rtol}")
-    errs["mom"] = max((a - b).abs().max().item() for a, b in zip(got, want))
-    log(f"  mom {name} ({Gm}, {N}): rel err (abs below 1) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + f" (tol {rtol})")
+    errs["mom"] = mom_check(name, seen["mom_and_mu_coef"])
     if reps:
         normed = c / sf[None, :]
         pinv_t = pinv.T.contiguous()
@@ -1556,22 +1630,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     # within 1. Both versions sum each term in float64 and round the total,
     # so their accept and stall tests see the same float32 totals.
     bm, gm, nz, mean_disp, max_rounds = bound_args(tr.parametric_trend, *seen["parametric_trend"][:2])
-    run_out = seen["parametric_trend"][2]
-    got = tr._parametric_trend_cuda(bm, gm, nz, mean_disp, max_rounds)
-    want = tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds)
-    check(bits_equal(got[1], run_out[1]), f"trend {name}: the launch differs from the path's")
-    e_c = rel_err(got[1].double(), want[1].double(), 1e-300)
-    e_f = rel_err(got[0][nz].double(), want[0][nz].double(), 1e-300)
-    rk, rp = int(got[3]), int(want[3])
-    ctol = 1e-4 if f32 else 1e-10
-    check(bool(got[2]) == bool(want[2]), f"trend {name}: failed flag {bool(got[2])}, plain {bool(want[2])}")
-    check(e_c <= ctol and e_f <= ctol, f"trend {name}: coefficient rel err {e_c:.3g}, fitted {e_f:.3g} > {ctol}")
-    check(abs(rk - rp) <= (1 if f32 else 0), f"trend {name}: {rk} rounds, plain {rp}")
-    n_loss, n_grad = count_trend_passes(bm, gm, nz, mean_disp, max_rounds)
-    log(f"  trend {name} (G {bm.shape[0]}): coeffs {got[1].tolist()} (plain {want[1].tolist()}), rel err {e_c:.3g}, "
-        f"fitted {e_f:.3g} (tol {ctol}); rounds {rk} "
-        f"(plain {rp}), failed {bool(got[2])}; plain passes: {n_loss} loss, {n_grad} gradient + Fisher")
-    errs["trend"] = (got[1] - want[1]).abs().max().item()
+    errs["trend"], n_loss, n_grad = trend_check(name, seen["parametric_trend"])
     if reps:
         Gt = bm.shape[0]
         timings["trend"] = {
@@ -1686,39 +1745,69 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     return errs, seen["stream"]
 
 
-def stream_path(reps: int, G: int, N: int, label: str):
-    """Phases 3e and 3f: ``run_summary_streamed(refit_cooks=True)`` through
-    the public entry point, float32, on ``make_data(N, G)`` with a planted
-    outlier in every OUTLIER_EVERY-th gene, the counts already on the card:
-    warm wall (best of ``reps``), genes/s, gene blocks, the refit tile K,
-    the genes replaced and refitted, and the launches of one run (each of
-    STREAM_KERNELS must be > 0)."""
+def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = False):
+    """Phases 3e, 3f and 3i: ``run_summary_streamed(refit_cooks=True)``
+    through the public entry point, float32, on ``make_data(N, G)`` with a
+    planted outlier in every OUTLIER_EVERY-th gene, the counts already on
+    the card: warm wall (best of ``reps``), genes/s, gene blocks, the refit
+    tile K, the genes replaced and refitted, and the launches of one run
+    (each of STREAM_KERNELS must be > 0). ``zero_inflated`` then sets one
+    zero in every gene (``synthetic.zero_per_gene``; the planted outlier of
+    a gene whose zero falls on it is lost): each run must warn and switch to
+    the iterative size factors, whose kernels must launch, every size factor
+    must be finite, and the iterative rounds are reported."""
+    import warnings
+
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import fused_stream, kernels
-    from pydeseq2_tpu_torch.synthetic import make_data
+    from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
 
     t0 = time.perf_counter()
     counts_np, X_np = make_data(N, G)
     counts = plant_outliers(counts_np.T)
+    if zero_inflated:
+        counts = zero_per_gene(counts)
     del counts_np
     kw = stream_kwargs(counts, X_np, torch.float32, DEVICE)
     gen_s = time.perf_counter() - t0
-    res = pt.run_summary_streamed(**kw)  # warm-up
-    torch.cuda.synchronize()
-    walls = []
-    launches = None
-    for i in range(reps):
-        if i == 0:
-            kernels.STATS.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = pt.run_summary_streamed(**kw)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if i == 0:
-            launches = dict(kernels.STATS.launches)
-    for name in STREAM_KERNELS:
+    n_iters = []
+    iterative = fused_stream.iterative_size_factors
+
+    def recorded(*args, **kwargs):
+        out = iterative(*args, **kwargs)
+        n_iters.append(out[1])
+        return out
+
+    fused_stream.iterative_size_factors = recorded
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = pt.run_summary_streamed(**kw)  # warm-up
+            torch.cuda.synchronize()
+            walls = []
+            launches = None
+            for i in range(reps):
+                if i == 0:
+                    kernels.STATS.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = pt.run_summary_streamed(**kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    launches = dict(kernels.STATS.launches)
+    finally:
+        fused_stream.iterative_size_factors = iterative
+    switched = sum("Switching to iterative mode" in str(w.message) for w in caught)
+    must = STREAM_KERNELS + (("sf_nll", "sf_newton") if zero_inflated else ())
+    for name in must:
         check(launches[name] > 0, f"kernel {name} was not launched on the streamed refit path ({label})")
+    if zero_inflated:
+        check(switched == reps + 1 and len(n_iters) == reps + 1,
+              f"{label}: {switched} iterative-mode warnings and {len(n_iters)} iterative fits in {reps + 1} runs")
+        check(bool(np.isfinite(res["size_factors"]).all()), f"{label}: a size factor is not finite")
+    else:
+        check(switched == 0 and not n_iters, f"{label}: switched to iterative size factors")
     padj = res["padj"]
     check(padj.shape == (G,) and padj.dtype == np.float64 and res["lfc"].shape == (G, 2), f"{label}: output shapes")
     fin = np.isfinite(padj)
@@ -1739,10 +1828,16 @@ def stream_path(reps: int, G: int, N: int, label: str):
         f"{int(res['new_all_zeroes'].sum())}, refit tile K {K} ({K // block} block of {block}); cooks outliers "
         f"{int(res['cooks_outlier'].sum())}, finite padj {fin.mean():.5f}, padj < 0.05: {int((padj < 0.05).sum())}, "
         f"rescue_overflow {int(res['rescue_overflow'])}")
+    if zero_inflated:
+        sf = res["size_factors"]
+        log(f"  iterative size factors: rounds per run {n_iters}, size factors in [{sf.min():.4f}, {sf.max():.4f}]")
     log(f"  launches in one run {launches}")
-    return {"shape": [N, G], "walls_s": walls, "best_s": best, "genes_per_s": G / best, "gene_block": B,
-            "refit_tile": K, "replaced": n_rep, "refitted": n_refit, "launches": launches,
-            "finite_padj": float(fin.mean())}
+    out = {"shape": [N, G], "walls_s": walls, "best_s": best, "genes_per_s": G / best, "gene_block": B,
+           "refit_tile": K, "replaced": n_rep, "refitted": n_refit, "launches": launches,
+           "finite_padj": float(fin.mean())}
+    if zero_inflated:
+        out["n_iters"] = n_iters[1]
+    return out
 
 
 def stream_card_vs_cpu() -> None:
@@ -1765,6 +1860,307 @@ def stream_card_vs_cpu() -> None:
     compare_outputs("stream refit f64", gpu, cpu)
     log(f"    replaced {int(gpu['replaced'].sum())}, refitted {int(gpu['refitted'].sum())}, cooks outliers "
         f"{int(gpu['cooks_outlier'].sum())}, padj < 0.05: {int(np.nansum(gpu['padj'] < 0.05))}")
+
+
+def sf_kernel_checks(dtype, G, N, reps, timings):
+    """Phase 2, the iterative size factors' kernels: ``sf_nll`` and
+    ``sf_newton`` against their plain versions on the operands that the
+    first trimmed solve of one zero-inflated
+    ``run_summary_streamed(refit_cooks=True)`` run of ``make_data(N, G)``
+    hands them, then the whole solve (6 rounds of both) by each route.
+    Returns {name: max_abs_err} and fills ``timings`` (``reps`` > 0)."""
+    import warnings
+
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+    from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
+
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "f64"
+    counts_np, X_np = make_data(N, G)
+    kw = stream_kwargs(zero_per_gene(plant_outliers(counts_np.T)), X_np, dtype, DEVICE)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the switch to iterative mode; phase 3i checks it
+        seen = capture([(sz, ("trimmed_sf_newton",))], pt.run_summary_streamed, "stream", kw)
+    check("trimmed_sf_newton" in seen, f"sizefactors {name}: the run made no trimmed solve")
+    c, coef, disp, s0, quant, mask, min_mu, outer, inner, gb = bound_args(sz.trimmed_sf_newton,
+                                                                         *seen["trimmed_sf_newton"][:2])
+    sf0, inv_sf0 = torch.exp(s0), torch.exp(-s0)
+    eps = torch.finfo(dtype).eps
+    errs = {}
+
+    # -- sf_nll: the per-gene NLL at the solve's start ---------------------------
+    # Both compute each cell with the same expressions and the card's libm and
+    # sum in float64: the rounded totals agree to a few ulps (tolerance 8 eps,
+    # relative), +inf exactly off the mask.
+    nk = sz._sf_nll_cuda(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu)
+    npl = sz._sf_nll_plain(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu)
+    check(torch.equal(torch.isinf(nk), ~mask) and torch.equal(torch.isinf(npl), ~mask),
+          f"sf_nll {name}: +inf lanes are not the lanes off the mask")
+    e_nll = ((nk[mask] - npl[mask]).abs() / npl[mask].abs().clamp(min=1.0)).max().item()
+    same = (nk[mask] == npl[mask]).double().mean().item()
+    check(e_nll <= 8 * eps, f"sf_nll {name}: rel err {e_nll:.3g} > {8 * eps:.3g}")
+    errs["sf_nll"] = (nk[mask] - npl[mask]).abs().max().item()
+
+    # The keep sets of the two NLLs: equal, but for a gene whose plain NLL
+    # lies within 8 eps (relative) of the plain quantile (a rounding tie).
+    def differ_off_ties(kk, kp, nll_p):
+        q = sz.trim_quantile(nll_p, mask, quant)
+        near = (nll_p - q).abs() <= 8 * eps * q.abs()
+        return int((kk != kp).sum()), int(((kk != kp) & ~near).sum())
+
+    kk, kp = sz.keep_mask(nk, mask, quant), sz.keep_mask(npl, mask, quant)
+    n_diff, n_bad = differ_off_ties(kk, kp, npl)
+    check(n_bad == 0, f"sf_nll {name}: keep sets differ on {n_bad} genes away from the quantile")
+    log(f"  sf_nll {name} ({c.shape[0]}, {c.shape[1]}), {int(mask.sum())} genes on the mask: rel err {e_nll:.3g} "
+        f"(tol {8 * eps:.3g}), bit-equal on {same:.5f}; keep {int(kp.sum())}, sets differ on {n_diff} (ties)")
+
+    # -- sf_newton: one round's Newton steps from the plain keep set -------------
+    # Identical terms summed in float64 and rounded: 1e-5 (f32) / 1e-12 (f64).
+    sk = sz._sf_newton_cuda(c, coef, sf0, inv_sf0, s0, disp, kp, min_mu, inner)
+    sp = sz._sf_newton_plain(c, coef, sf0, inv_sf0, s0, disp, kp, min_mu, inner)
+    stol = 1e-5 if f32 else 1e-12
+    e_s = (sk - sp).abs().max().item()
+    check(e_s <= stol, f"sf_newton {name}: {inner} steps, log size factor err {e_s:.3g} > {stol}")
+    errs["sf_newton"] = e_s
+
+    # -- the whole solve by each route ---------------------------------------------
+    def route(fns, rounds):
+        return sz._trimmed_sf_newton(c, coef, disp, s0, mask, quant, min_mu, rounds, inner, gb, *fns)
+
+    cuda_fns, plain_fns = (sz._sf_nll_cuda, sz._sf_newton_cuda), (sz._sf_nll_plain, sz._sf_newton_plain)
+    rk, rp = route(cuda_fns, outer), route(plain_fns, outer)
+    path_s, path_keep = seen["trimmed_sf_newton"][2]
+    check(bits_equal(rk[0], path_s) and torch.equal(rk[1], path_keep), f"sizefactors {name}: the path's solve "
+                                                                        "does not repeat")
+    last_p = sz._sf_nll_plain(c, coef, sf0, inv_sf0, route(plain_fns, outer - 1)[0], disp, mask, min_mu)
+    n_diff, n_bad = differ_off_ties(rk[1], rp[1], last_p)
+    check(n_bad == 0, f"sizefactors {name}: final keep sets differ on {n_bad} genes away from the quantile")
+    e_solve = (rk[0] - rp[0]).abs().max().item()
+    check(e_solve <= stol, f"sizefactors {name}: solve err {e_solve:.3g} > {stol}")
+    log(f"  sf_newton {name}: {inner} steps err {e_s:.3g} (tol {stol}); whole solve ({outer} rounds) err "
+        f"{e_solve:.3g}, final keep {int(rk[1].sum())} (plain {int(rp[1].sum())}), sets differ on {n_diff} (ties)")
+    if reps:
+        isz = c.element_size()
+        Gs, Ns = c.shape
+        on = mask.sum().item()
+        n_plain = (mask & (1.0 / disp < 8.0)).sum().item()
+        timings["sf_nll"] = {
+            "ms": cuda_ms(lambda: sz._sf_nll_cuda(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu), reps),
+            "plain_ms": cuda_ms(lambda: sz._sf_nll_plain(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu), reps),
+            "library_ms": None,
+            # reads counts, coef, disp, sf0, inv_sf0, s and the mask; writes the NLL
+            "bytes": isz * (Gs * Ns + 3 * Gs + 3 * Ns) + Gs,
+            # per cell of a gene on the mask: mu 5 (two products, max, exp,
+            # product), y log mu 3, lgamma(y + 1) 2, the float64 add 2, and
+            # the plain form 14 (r < 8) or the Stirling-difference form 25
+            "ops": Ns * (n_plain * (12 + 14) + (on - n_plain) * (12 + 25)),
+        }
+        n_keep = kp.sum().item()
+        timings["sf_newton"] = {
+            "ms": cuda_ms(lambda: sz._sf_newton_cuda(c, coef, sf0, inv_sf0, s0, disp, kp, min_mu, inner), reps),
+            "plain_ms": cuda_ms(lambda: sz._sf_newton_plain(c, coef, sf0, inv_sf0, s0, disp, kp, min_mu, inner),
+                                reps),
+            "library_ms": None,
+            # reads counts, coef, disp, the keep set, sf0, inv_sf0, s; writes s
+            "bytes": isz * (Gs * Ns + 2 * Gs + 4 * Ns) + Gs,
+            # per step and cell of a kept gene: 1 / disp, mu 5, w 3, g 4 and h
+            # 6 (with their float64 converts and adds)
+            "ops": inner * Ns * n_keep * 19,
+            "steps": inner,
+        }
+    return errs
+
+
+def vst_kernel_checks(dtype, G, N, reps, timings):
+    """Phase 2, the blind VST: ``vst`` against its plain version on the
+    operands one ``vst_pipeline`` run of ``make_data(N, G)`` hands it
+    (parametric as run, with the ``used_mean`` flag forced each way, and the
+    mean form), every 7th gene masked out; and ``mom``, ``disp_scan``,
+    ``disp_newton`` and ``trend`` at P = 1 on that run's blind-design
+    operands. Returns {name: max_abs_err} and fills ``timings``."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+    from pydeseq2_tpu_torch.ops import vst as vs
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "f64"
+    counts = torch.as_tensor(make_data(N, G)[0].T.copy(), dtype=dtype, device=DEVICE)
+    seen = capture([(fused, ("vst_transform", "mom_and_mu_coef", "parametric_trend")),
+                    (dsp, ("scan_coarse", "newton_polish"))],
+                   pt.vst_pipeline, "vst", dict(counts=counts, max_disp=float(max(10, N)), device=DEVICE))
+    for key in ("vst_transform", "mom_and_mu_coef", "parametric_trend", "scan_coarse", "newton_polish"):
+        check(key in seen, f"vst {name}: the run made no call of {key}")
+    check(seen["mom_and_mu_coef"][0][2].shape[1] == 1, f"vst {name}: the design is not intercept-only")
+    mom_check(f"{name} P=1", seen["mom_and_mu_coef"])
+    scan_check(f"{name} P=1", bound_args(dsp.scan_coarse, *seen["scan_coarse"][:2]))
+    newton_check(f"{name} P=1", bound_args(dsp.newton_polish, *seen["newton_polish"][:2]))
+    trend_check(f"{name} blind", seen["parametric_trend"])
+
+    c, sf, coeffs, used_mean, mean_disp, gmask, trend_type = bound_args(vs.vst_transform, *seen["vst_transform"][:2])
+    check(trend_type == "parametric", f"vst {name}: the run's trend is {trend_type}")
+    check(bits_equal(vs._vst_cuda(c, sf, coeffs, used_mean, mean_disp, gmask, False), seen["vst_transform"][2]),
+          f"vst {name}: the launch differs from the path's")
+    # Tolerance: the same expressions with the card's libm (log, sqrt,
+    # asinh) on each side, so a few ulps at most: 1e-6 (f32) / 1e-13 (f64),
+    # relative (absolute below 1), and NaN on the same rows.
+    vtol = 1e-6 if f32 else 1e-13
+    masked = gmask & (torch.arange(c.shape[0], device=c.device) % 7 != 0)
+    flag = {v: torch.tensor(v, device=c.device) for v in (False, True)}
+    worst = {}
+    errs_v = 0.0
+    for label, fl, mean_only in (("parametric", flag[False], False), ("used_mean", flag[True], False),
+                                 ("mean", None, True)):
+        got = vs._vst_cuda(c, sf, coeffs, fl, mean_disp, masked, mean_only)
+        want = vs._vst_plain(c, sf, coeffs, fl, mean_disp, masked, mean_only)
+        check(bool(torch.isnan(got).all(1).eq(~masked).all()), f"vst {name} {label}: NaN rows are not the masked ones")
+        worst[label] = scaled_err(got, want)
+        errs_v = max(errs_v, (got - want).nan_to_num(0.0).abs().max().item())
+    check(all(v <= vtol for v in worst.values()), f"vst {name}: errors {worst} beyond {vtol}")
+    log(f"  vst {name} ({c.shape[0]}, {c.shape[1]}), every 7th gene masked: rel err (abs below 1) "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {vtol}); the run's used_mean "
+        f"{bool(used_mean)}")
+    if reps:
+        isz = c.element_size()
+        Gv, Nv = c.shape
+        timings["vst"] = {
+            "ms": cuda_ms(lambda: vs._vst_cuda(c, sf, coeffs, used_mean, mean_disp, gmask, False), reps),
+            "plain_ms": cuda_ms(lambda: vs._vst_plain(c, sf, coeffs, used_mean, mean_disp, gmask, False), reps),
+            "library_ms": None,
+            # reads counts and sf once, the mask, coefficients, flag and mean
+            # dispersion; writes the (G, N) result
+            "bytes": isz * (2 * Gv * Nv + Nv + 3) + Gv + 1,
+            # per cell: y / sf, then the closed form: 6 products and sums, sqrt,
+            # 2 sums, the divide by 4 a0, log and the divide by log 2
+            "ops": Gv * Nv * 13,
+        }
+    return {"vst": errs_v}
+
+
+def vst_path(reps: int):
+    """Phase 3g: ``vst_pipeline`` through its public entry point at 100 x
+    60000 float32, the counts on the card: warm wall (best of ``reps``),
+    genes/s and the launches of one run (each of VST_KERNELS must be > 0);
+    the result must be finite, of shape (G, N), on the parametric trend."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts = torch.as_tensor(make_data(N_MAIN, G_MAIN)[0].T.copy(), dtype=torch.float32, device=DEVICE)
+    kw = dict(counts=counts, max_disp=float(max(10, N_MAIN)), device=DEVICE)
+    out = pt.vst_pipeline(**kw)  # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    launches = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pt.vst_pipeline(**kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+    for name in VST_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the VST path")
+    v = out["vst_counts"]
+    check(v.shape == (G_MAIN, N_MAIN) and v.dtype == torch.float32, "vst_pipeline: output shape")
+    check(bool(torch.isfinite(v).all()), "vst_pipeline: a VST value is not finite")
+    check(not bool(out["trend_used_mean"]), "vst_pipeline: the parametric trend fell back to the mean")
+    best = min(walls)
+    log(f"  wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s, {G_MAIN / best:.1f} genes/s; VST in "
+        f"[{float(v.min()):.3f}, {float(v.max()):.3f}], trend coeffs {out['trend_coeffs'].tolist()}")
+    log(f"  launches in one run {launches}")
+    return {"walls_s": walls, "best_s": best, "genes_per_s": G_MAIN / best, "launches": launches}
+
+
+def vst_stream_path(reps: int, G: int, N: int):
+    """Phase 3h: ``run_vst_streamed`` through its public entry point,
+    float32, the counts on the card: warm wall (best of ``reps``), genes/s,
+    the gene blocks and the launches of one run (each of VST_KERNELS must be
+    > 0); the result must be finite and of shape (G, N)."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts = torch.as_tensor(make_data(N, G)[0].T.copy(), dtype=torch.float32, device=DEVICE)
+    kw = dict(counts=counts, dtype=torch.float32, max_disp=float(max(10, N)), device=DEVICE)
+    res = pt.run_vst_streamed(**kw)  # warm-up
+    walls = []
+    launches = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pt.run_vst_streamed(**kw)
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+    for name in VST_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the streamed VST path")
+    v = res["vst_counts"]
+    check(v.shape == (G, N) and v.dtype == np.float32, "run_vst_streamed: output shape")
+    check(bool(np.isfinite(v).all()), "run_vst_streamed: a VST value is not finite")
+    B = res["gene_block"]
+    best = min(walls)
+    log(f"  wall (warm, to numpy on the host) {[round(w, 4) for w in walls]} s, best {best:.4f} s, "
+        f"{G / best:.1f} genes/s; gene_block {B} ({-(-G // B)} blocks)")
+    log(f"  launches in one run {launches}")
+    return {"shape": [N, G], "walls_s": walls, "best_s": best, "genes_per_s": G / best, "gene_block": B,
+            "launches": launches}
+
+
+def sf_vst_card_vs_cpu() -> None:
+    """Phase 4e: float64 on the card against the CPU plain path at 100 x
+    2000: the iterative size factors of the zero-inflated draw, whole-G and
+    over gene blocks of 512 (the same rounds, rtol 1e-6); the zero-inflated
+    ``run_summary_streamed(refit_cooks=True)`` with planted outliers (the
+    same flags, every float output at rtol 1e-6); ``vst_pipeline`` with both
+    trend types and ``run_vst_streamed`` (rtol 1e-6, the same NaN masks)."""
+    import warnings
+
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
+
+    counts_np, X_np = make_data(N_MAIN, G_CPU_CMP, seed=1)
+    counts = counts_np.T
+    max_disp = float(max(10, N_MAIN))
+    fits = {}
+    for gb in (None, 512):
+        for dev in (DEVICE, "cpu"):
+            sf, n_it = pt.iterative_size_factors(zero_per_gene(counts), max_disp=max_disp, gene_block=gb, device=dev)
+            fits[gb, dev] = (sf.cpu().numpy(), n_it)
+        (a, ia), (b, ib) = fits[gb, DEVICE], fits[gb, "cpu"]
+        check(ia == ib, f"iterative size factors gene_block={gb}: {ia} rounds on the card, {ib} on the CPU")
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        check(rel <= 1e-6, f"iterative size factors gene_block={gb}: card vs CPU rel {rel:.3g}")
+        log(f"  iterative size factors f64 gene_block={gb}: {ia} rounds on both, max rel card vs CPU {rel:.2g}")
+    rel = float(np.max(np.abs(fits[512, DEVICE][0] / fits[None, DEVICE][0] - 1.0)))
+    check(fits[512, DEVICE][1] == fits[None, DEVICE][1] and rel <= 1e-12,
+          f"iterative size factors: blocked vs whole-G on the card rel {rel:.3g}")
+
+    zi = zero_per_gene(plant_outliers(counts))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the switch to iterative mode (phase 3i checks it)
+        gpu = pt.run_summary_streamed(**stream_kwargs(zi, X_np, torch.float64, DEVICE))
+        cpu = pt.run_summary_streamed(**stream_kwargs(zi, X_np, torch.float64, "cpu"))
+    check(gpu.pop("gene_block") == cpu.pop("gene_block"), "zero-inflated stream card vs CPU: gene_block differs")
+    for k in ("replaced", "refitted", "new_all_zeroes", "cooks_outlier"):
+        check(np.array_equal(gpu[k], cpu[k]), f"zero-inflated stream card vs CPU: {k} differs")
+    compare_outputs("zero-inflated stream refit f64", gpu, cpu)
+
+    for trend_type in ("parametric", "mean"):
+        gpu, cpu = (pt.outputs_to_numpy(pt.vst_pipeline(counts, trend_type=trend_type, max_disp=max_disp, device=dev))
+                    for dev in (DEVICE, "cpu"))
+        compare_outputs(f"vst_pipeline {trend_type} f64", gpu, cpu)
+    gpu, cpu = (pt.run_vst_streamed(counts, dtype=torch.float64, max_disp=max_disp, device=dev)
+                for dev in (DEVICE, "cpu"))
+    check(gpu.pop("gene_block") == cpu.pop("gene_block"), "run_vst_streamed: gene_block differs")
+    compare_outputs("run_vst_streamed f64", gpu, cpu)
 
 
 def main() -> int:
@@ -1803,6 +2199,10 @@ def main() -> int:
     cooks_wide_check()
     errs32.update(stream_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings)[0])
     stream_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
+    errs32.update(sf_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
+    sf_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
+    errs32.update(vst_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
+    vst_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -1825,6 +2225,16 @@ def main() -> int:
     check(stream_wide["gene_block"] == G_MAIN // 2, f"phase 3f: gene_block {stream_wide['gene_block']}, expected "
                                                     f"{G_MAIN // 2}")
 
+    log(f"phase 3g: vst_pipeline (blind VST), {N_MAIN} x {G_MAIN} float32")
+    vst = vst_path(3)
+    log(f"phase 3h: run_vst_streamed, {N_STREAM_WIDE} x {G_MAIN} float32 (auto gene_block: 2 blocks)")
+    vst_wide = vst_stream_path(3, G_MAIN, N_STREAM_WIDE)
+    check(vst_wide["gene_block"] == G_MAIN // 2, f"phase 3h: gene_block {vst_wide['gene_block']}, expected "
+                                                 f"{G_MAIN // 2}")
+    log(f"phase 3i: run_summary_streamed(refit_cooks=True) on a zero-inflated draw (a zero in every gene), "
+        f"{N_MAIN} x {G_MAIN} float32, an outlier planted in every {OUTLIER_EVERY}th gene")
+    stream_zi = stream_path(3, G_MAIN, N_MAIN, "phase 3i", zero_inflated=True)
+
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
     log("phase 4b: float64 summary pipeline with injected outliers, card against CPU, 100 x 2000")
@@ -1834,6 +2244,9 @@ def main() -> int:
     log("phase 4d: float64 run_summary_streamed(refit_cooks=True) with planted outliers, card against CPU, "
         "100 x 2000")
     stream_card_vs_cpu()
+    log("phase 4e: float64 iterative size factors, zero-inflated run_summary_streamed, vst_pipeline and "
+        "run_vst_streamed, card against CPU, 100 x 2000")
+    sf_vst_card_vs_cpu()
 
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
@@ -1856,12 +2269,20 @@ def main() -> int:
         "lowess": ("pydeseq2_tpu_torch/csrc/lowess.cu", "pydeseq2_tpu/ops/stats.py:218 + pydeseq2_tpu/fused.py:763",
                    "lowess"),
         "impute": ("pydeseq2_tpu_torch/csrc/impute.cu", "pydeseq2_tpu/fused_stream.py:561", "impute"),
+        "sf_nll": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34", "sf_nll"),
+        "sf_newton": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34", "sf_newton"),
+        "vst": ("pydeseq2_tpu_torch/csrc/vst.cu", "pydeseq2_tpu/fused.py:886 + pydeseq2_tpu/fused_stream.py:1249",
+                "vst"),
     }
     # Launches: the summary path for its kernels, the shrink paths for
-    # theirs, the streamed refit path (phase 3e) for this slice's four.
+    # theirs, the streamed refit path (phase 3e) for mom, trend, lowess and
+    # impute, the zero-inflated one (3i) for the size-factor kernels, the
+    # blind VST (3g) for vst.
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
                 "grid_apeglm": weak["launches"]["grid_apeglm"],
-                **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")}}
+                **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")},
+                "sf_nll": stream_zi["launches"]["sf_nll"], "sf_newton": stream_zi["launches"]["sf_newton"],
+                "vst": vst["launches"]["vst"]}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -1875,10 +2296,11 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu"):
+        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps"):
             if extra in t:
                 # the sort before the BH sweep; a rescue kernel over every lane
-                # of its tile; cooks in the streamed refit mode; mom writing mu
+                # of its tile; cooks in the streamed refit mode; mom writing mu;
+                # the Newton steps of one sf_newton launch
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -1887,6 +2309,9 @@ def main() -> int:
     log("shrink path, weak effects: " + json.dumps(weak))
     log("streamed refit path: " + json.dumps(stream))
     log("streamed refit path, wide: " + json.dumps(stream_wide))
+    log("blind VST path: " + json.dumps(vst))
+    log("streamed VST path, wide: " + json.dumps(vst_wide))
+    log("streamed refit path, zero-inflated: " + json.dumps(stream_zi))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

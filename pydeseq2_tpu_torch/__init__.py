@@ -1,6 +1,7 @@
 """pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines, the
-gene-streamed summary with Cook's outlier replacement and refit, and apeGLM
-LFC shrinkage in PyTorch, with CUDA kernels.
+gene-streamed summary with Cook's outlier replacement and refit (and the
+iterative size factors of zero-inflated counts), apeGLM LFC shrinkage and
+the blind variance-stabilising transform in PyTorch, with CUDA kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
@@ -8,8 +9,9 @@ per-gene device programs (size-factor order statistics, the MoM
 dispersions with the OLS mu init, the dispersion coarse scan, the
 dispersion Newton polish, the dispersion trend, IRLS and its two rescue
 tiers, hat diagonals + Wald, Cook's distances, the batched BH sweep and
-the lowess pick of independent filtering, the Cook's refit imputation, and
-the apeGLM Newton fit and grid) are fifteen CUDA kernels written by hand
+the lowess pick of independent filtering, the Cook's refit imputation, the
+apeGLM Newton fit and grid, the trimmed size-factor NLL and Newton steps,
+and the VST transform) are eighteen CUDA kernels written by hand
 for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use (see
 :mod:`pydeseq2_tpu_torch.kernels`).
 
@@ -41,6 +43,7 @@ from pydeseq2_tpu_torch.fused import (  # noqa: E402
     device_padj,
     summary_host_inputs,
     summary_pipeline,
+    vst_pipeline,
     wald_pipeline,
 )
 from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
@@ -48,8 +51,11 @@ from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
     refit_pipeline_streamed,
     run_lfc_shrink_streamed,
     run_summary_streamed,
+    run_vst_streamed,
     summary_pipeline_streamed,
+    vst_pipeline_streamed,
 )
+from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -63,6 +69,10 @@ __all__ = [
     "refit_pipeline_streamed",
     "run_lfc_shrink_streamed",
     "lfc_shrink_pipeline_streamed",
+    "vst_pipeline",
+    "run_vst_streamed",
+    "vst_pipeline_streamed",
+    "iterative_size_factors",
     "inputs_from_numpy",
     "outputs_to_numpy",
     "resolve_device",

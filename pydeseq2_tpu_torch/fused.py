@@ -36,6 +36,7 @@ from pydeseq2_tpu_torch.ops.stats import (
     trimmed_mean_masked,
 )
 from pydeseq2_tpu_torch.ops.trend import parametric_trend
+from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
 
 
@@ -397,6 +398,57 @@ def summary_pipeline(
     out["cooks"] = cooks
     out["cooks_outlier"] = outlier
     out["padj"] = torch.where(gene_mask, padj, torch.full_like(padj, float("nan")))
+    return out
+
+
+def vst_pipeline(
+    counts,
+    gene_mask=None,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    trend_type: str = "parametric",
+    trend_rounds: int = 8,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Blind variance-stabilising transform of a (G, N) counts tile on
+    ``device`` (default ``"cuda"``; raises if CUDA is requested and absent).
+
+    Port of ``pydeseq2_tpu/fused.py:828`` (reference pydeseq2/dds.py:349-514
+    with ``use_design=False``): median-of-ratios size factors, the MoM
+    dispersions and linear mu under the intercept-only design (one ``mom``
+    launch), the genewise dispersion MLE, the parametric (or mean) trend,
+    then the transform (the ``vst`` kernel, :mod:`~pydeseq2_tpu_torch.ops.vst`).
+    counts float32/float64, a tensor or array; gene_mask (G,) bool, False on
+    padding lanes. Returns tensors: ``vst_counts`` (G, N), ``size_factors``,
+    ``base_mean``, ``genewise_dispersions``, and ``trend_coeffs`` with
+    ``trend_used_mean`` (parametric) or ``mean_disp`` (mean).
+    """
+    dev = resolve_device(device)
+    counts = torch.as_tensor(counts, device=dev).contiguous()
+    G, N = counts.shape
+    dtype = counts.dtype
+    gene_mask = (torch.ones(G, dtype=torch.bool, device=dev) if gene_mask is None
+                 else torch.as_tensor(gene_mask, dtype=torch.bool, device=dev))
+    X = torch.ones((N, 1), dtype=dtype, device=dev)  # blind: intercept-only design
+
+    sf, _ = _size_factors(counts, gene_mask)
+    base_mean = (counts / sf[None, :]).mean(dim=1)
+    non_zero = ~(counts == 0).all(dim=1) & gene_mask
+    rde, mde, _, mu_hat = mom_and_mu_coef(counts, sf, X, ols_pinv(X), min_mu)
+    mom = torch.clamp(torch.minimum(rde, mde), min_disp, max_disp)
+    genewise, _ = alpha_mle_batch(counts, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, prior_reg=False)
+    genewise = torch.clamp(genewise, min_disp, max_disp)
+    genewise_m = torch.where(non_zero, genewise, torch.full_like(genewise, float("nan")))
+    _, coeffs, used_mean, mean_disp = fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type,
+                                                      max_rounds=max(trend_rounds, 20))
+    out = {"size_factors": sf, "base_mean": base_mean, "genewise_dispersions": genewise_m}
+    if trend_type == "parametric":
+        out["trend_coeffs"] = coeffs
+        out["trend_used_mean"] = used_mean
+    else:
+        out["mean_disp"] = mean_disp
+    out["vst_counts"] = vst_transform(counts, sf, coeffs, used_mean, mean_disp, gene_mask, trend_type)
     return out
 
 

@@ -1,5 +1,6 @@
 """Gene-streamed pipelines: the summary with Cook's outlier replacement and
-refit, and apeGLM LFC shrinkage, with O(gene_block x N) temporaries.
+refit, apeGLM LFC shrinkage and the blind VST, with O(gene_block x N)
+temporaries.
 
 Port of ``pydeseq2_tpu/fused_stream.py``: the streamed summary
 (:func:`summary_pipeline_streamed`, ``:188``), the refit of the genes whose
@@ -7,14 +8,16 @@ Cook's outliers were replaced (:func:`refit_pipeline_streamed`, ``:504``),
 their host wrapper :func:`run_summary_streamed` (``:783``, the default path
 of ``api.run_deseq2``), and the shrinkage
 (:func:`lfc_shrink_pipeline_streamed`, ``:975``, and
-:func:`run_lfc_shrink_streamed`, ``:1085``). The raw counts stay on the
+:func:`run_lfc_shrink_streamed`, ``:1085``) and the blind VST
+(:func:`vst_pipeline_streamed`, ``:1184``, and :func:`run_vst_streamed`,
+``:1285``). The raw counts stay on the
 device once; every per-gene stage runs over ``gene_block`` row slices in a
 Python loop (``lax.map`` in the JAX program), and the global reductions
 (size factors, trend, prior, the BH sweep) run between the passes on O(G)
 data, so each block sees the inputs the monolithic pipeline would give it.
 The ``lax.cond``/``while_loop`` conditions that stay on the host are marked
-where they are read. The VST pipelines and the iterative size factors are
-not ported yet.
+where they are read. On zero-inflated counts :func:`run_summary_streamed`
+switches to the iterative size factors (:mod:`~pydeseq2_tpu_torch.ops.sizefactors`).
 """
 
 from __future__ import annotations
@@ -40,8 +43,10 @@ from pydeseq2_tpu_torch.ops.irls import irls_beta_init
 from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, mu_from_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.refit import impute_outliers
 from pydeseq2_tpu_torch.ops.select import masked_median_select
+from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors, pick_sf_gene_block
 from pydeseq2_tpu_torch.ops.shrink import _hess, grid_fit_shrink_beta_batch, nbinom_fn_batch, nbinom_glm_batch
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv
+from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
 
 # The ~4 GB device budget of the JAX package's block sizing: ~20 live
@@ -82,11 +87,15 @@ def _stage_counts(counts, dtype, n_genes, gene_block, dev):
 
 def _to_host(tensors: dict) -> dict:
     """Numpy copies of a dict of tensors in ONE device-to-host copy: every
-    tensor is widened to float64 (exact for the bools, small integers,
-    float32 and float64 held here), joined, copied, split and cast back."""
+    tensor is widened to one dtype, joined, copied, split and cast back.
+    The dtype is float32 where every tensor is float32 or bool (a (G, N)
+    VST result then crosses at its own width), else float64 (exact for the
+    bools, small integers, float32 and float64 held here)."""
     if not tensors:
         return {}
-    flat = torch.cat([v.reshape(-1).to(torch.float64) for v in tensors.values()]).cpu().numpy()
+    narrow = all(v.dtype in (torch.float32, torch.bool) for v in tensors.values())
+    wide = torch.float32 if narrow else torch.float64
+    flat = torch.cat([v.reshape(-1).to(wide) for v in tensors.values()]).cpu().numpy()
     out, at = {}, 0
     for k, v in tensors.items():
         n = v.numel()
@@ -579,9 +588,12 @@ def run_summary_streamed(
     is the cohort size from which a sample is replaceable. ``knobs`` go to
     :func:`summary_pipeline_streamed`.
 
-    Iterative size factors are not ported yet: ``sf_fit_type="iterative"``,
-    or ratio size factors on counts where every gene has a zero, raise
-    NotImplementedError (the JAX package switches to them there).
+    Where ratio size factors are asked for and every gene has a zero
+    (median-of-ratios is undefined), it warns and switches to the iterative
+    size factors, as with ``sf_fit_type="iterative"``
+    (:func:`~pydeseq2_tpu_torch.ops.sizefactors.iterative_size_factors` on
+    the device-resident counts, its dispersion fits over gene blocks past 1
+    GB of counts); their result is injected as ``size_factors``.
     """
     dev = resolve_device(device)
     counts, G, gene_block = _stage_counts(counts, dtype, n_genes, gene_block, dev)
@@ -590,12 +602,22 @@ def run_summary_streamed(
     sf_req = knobs.get("sf_fit_type", "ratio")
     if knobs.get("size_factors") is None and sf_req in ("ratio", "iterative"):
         # Host-evaluated: does any gene have no zero (median-of-ratios defined)?
-        if sf_req == "iterative" or not bool((counts > 0).all(dim=1).any()):
-            raise NotImplementedError(
-                "iterative size factors (pydeseq2_tpu/ops/sizefactors.py) are not ported yet: "
-                + ("sf_fit_type='iterative'" if sf_req == "iterative" else
-                   "every gene contains at least one zero, so median-of-ratios is undefined")
-                + "; pass size_factors or sf_fit_type='poscounts'")
+        ratio_undefined = sf_req == "ratio" and not bool((counts > 0).all(dim=1).any())
+        if sf_req == "iterative" or ratio_undefined:
+            if ratio_undefined:
+                warnings.warn(
+                    "Every gene contains at least one zero, cannot compute log geometric means. Switching to "
+                    "iterative mode.",
+                    UserWarning,
+                    stacklevel=2,
+                )
+            # The iterative solver's own max_disp default is max(10, N),
+            # not the pipeline's (fused_stream.py:871).
+            knobs["size_factors"], _ = iterative_size_factors(
+                counts, torch.arange(padded_G, device=dev) < G, min_disp=knobs.get("min_disp", 1e-8),
+                max_disp=knobs.get("max_disp", float(max(10, N))), min_mu=knobs.get("min_mu", 0.5),
+                gene_block=pick_sf_gene_block(padded_G, N, counts.dtype), device=dev)
+            knobs["sf_fit_type"] = "ratio"  # unused once the factors are injected
     if isinstance(design_matrix, torch.Tensor):
         design_matrix = _host(design_matrix)
     host = summary_host_inputs(design_matrix, min_replicates)
@@ -604,7 +626,9 @@ def run_summary_streamed(
     knobs.setdefault("mu_init", host["mu_init"])
     if "sample_block" not in knobs and G * N * np.dtype(np_dtype).itemsize > 1_000_000_000:
         knobs["sample_block"] = min(N, 1024)
-    if knobs.get("size_factors") is not None:
+    if isinstance(knobs.get("size_factors"), torch.Tensor):
+        knobs["size_factors"] = knobs["size_factors"].to(device=dev, dtype=counts.dtype)
+    elif knobs.get("size_factors") is not None:
         knobs["size_factors"] = torch.tensor(_host(knobs["size_factors"], np_dtype), device=dev)
     # Refitting runs only when some cohort can absorb a replacement
     # (reference dds.py:1315-1320: no replaceable sample, no refit).
@@ -787,5 +811,103 @@ def run_lfc_shrink_streamed(
     )
     res = {k: v[:G].cpu().numpy() for k, v in out.items()}
     res["prior_scale"] = prior_scale
+    res["gene_block"] = gene_block
+    return res
+
+
+# -------------------------------------------------------------- blind VST
+def _vst_genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp):
+    """Streamed pass 1 of the VST: per block, base means and the genewise
+    dispersion MLE at mu = max(sf base_mean, min_mu) (``fused_stream.py:
+    1224-1239``; not the OLS mu)."""
+    base_mean, genewise = [], []
+    for b in range(0, counts.shape[0], gene_block):
+        c = counts[b:b + gene_block]
+        bm = (c / sf[None, :]).mean(dim=1)
+        rough, moments, _, _ = mom_and_mu_coef(c, sf, X, pinv, min_mu, want_mu=False)
+        mom = torch.clamp(torch.minimum(rough, moments), min_disp, max_disp)
+        mu_hat = torch.clamp(sf[None, :] * bm[:, None], min=min_mu)
+        gw, _ = alpha_mle_batch(c, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, prior_reg=False)
+        base_mean.append(bm)
+        genewise.append(torch.clamp(gw, min_disp, max_disp))
+    return torch.cat(base_mean), torch.cat(genewise)
+
+
+def vst_pipeline_streamed(
+    counts: torch.Tensor,
+    gene_mask: torch.Tensor | None = None,
+    *,
+    gene_block: int = 8192,
+    sample_block: int | None = None,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    trend_type: str = "parametric",
+) -> dict:
+    """Blind variance-stabilising transform streamed over gene blocks, on
+    the device of ``counts`` (G, N), G a multiple of ``gene_block``.
+
+    Port of ``pydeseq2_tpu/fused_stream.py:1184``: the log-stats sweep,
+    median-of-ratios size factors (over ``sample_block`` columns at a
+    time), the genewise dispersions per block (:func:`_vst_genewise_pass`),
+    one trend, then the transform per block (the ``vst`` kernel) into one
+    (G, N) output. Returns tensors: ``vst_counts``, ``size_factors``,
+    ``base_mean``, ``genewise_dispersions``, ``mean_disp`` and, for the
+    parametric trend, ``trend_coeffs`` and ``trend_used_mean``.
+    """
+    G, N = counts.shape
+    if gene_mask is None:
+        gene_mask = torch.ones(G, dtype=torch.bool, device=counts.device)
+    if G % gene_block:
+        raise ValueError(f"pad G={G} to a multiple of gene_block={gene_block}")
+    X = torch.ones((N, 1), dtype=counts.dtype, device=counts.device)
+
+    logmeans, non_zero = _log_stats(counts, gene_mask, gene_block, "ratio")
+    sf = _streamed_size_factors(counts, gene_mask, logmeans, sample_block)
+    base_mean, genewise = _vst_genewise_pass(counts, sf, X, ols_pinv(X), gene_block, min_mu, min_disp, max_disp)
+    genewise_m = torch.where(non_zero, genewise, torch.full_like(genewise, float("nan")))
+    _, coeffs, used_mean, mean_disp = fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type)
+
+    vst = torch.empty_like(counts)
+    for b in range(0, G, gene_block):
+        sl = slice(b, b + gene_block)
+        vst[sl] = vst_transform(counts[sl], sf, coeffs, used_mean, mean_disp, gene_mask[sl], trend_type)
+    out = {"vst_counts": vst, "size_factors": sf, "base_mean": base_mean, "genewise_dispersions": genewise_m,
+           "mean_disp": mean_disp}
+    if trend_type == "parametric":
+        out["trend_coeffs"] = coeffs
+        out["trend_used_mean"] = used_mean
+    return out
+
+
+def run_vst_streamed(
+    counts,
+    gene_block: int | None = None,
+    dtype=np.float32,
+    n_genes: int | None = None,
+    device: str | torch.device = "cuda",
+    **knobs,
+) -> dict:
+    """Blind VST on ``device`` (default ``"cuda"``; raises if CUDA is
+    requested and absent), streamed over gene blocks. Port of
+    ``pydeseq2_tpu/fused_stream.py:1285``: the same arguments, and the same
+    keys as numpy, plus ``gene_block``.
+
+    counts (G, N) gene-major raw counts, a numpy array or a tensor (kept on
+    its device when that is ``device``); ``dtype`` a numpy or torch float
+    dtype; ``gene_block=None`` picks the streamed summary's even split;
+    ``n_genes`` is the number of leading real genes of pre-padded counts;
+    the size-factor medians go over 1024-sample blocks once counts pass 1
+    GB. ``knobs`` go to :func:`vst_pipeline_streamed`. Every output comes to
+    the host in one copy.
+    """
+    dev = resolve_device(device)
+    counts, G, gene_block = _stage_counts(counts, dtype, n_genes, gene_block, dev)
+    padded_G, N = counts.shape
+    if "sample_block" not in knobs and G * N * counts.element_size() > 1_000_000_000:
+        knobs["sample_block"] = min(N, 1024)
+    out = vst_pipeline_streamed(counts, torch.arange(padded_G, device=dev) < G, gene_block=gene_block, **knobs)
+    res = {k: v[:G] if k != "size_factors" and v.ndim >= 1 and v.shape[0] == padded_G else v
+           for k, v in _to_host(out).items()}
     res["gene_block"] = gene_block
     return res

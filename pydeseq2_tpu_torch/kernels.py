@@ -49,6 +49,9 @@ KERNELS = {
     "trend": ("trend.cu", "trend_launch"),
     "lowess": ("lowess.cu", "lowess_launch"),
     "impute": ("impute.cu", "impute_launch"),
+    "sf_nll": ("sizefactors.cu", "sf_nll_launch"),
+    "sf_newton": ("sizefactors.cu", "sf_newton_launch"),
+    "vst": ("vst.cu", "vst_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -90,6 +93,9 @@ _ARGTYPES = {
     "trend_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
     "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "sf_nll_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P],
+    "sf_newton_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P],
+    "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 

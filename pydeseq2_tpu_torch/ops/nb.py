@@ -126,6 +126,11 @@ def nb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
     counts (..., N); mu broadcastable to counts; alpha broadcastable to the
     leading axes. Plain form for r < 8, Stirling-difference form above.
     """
+    return nb_nll_terms(counts, mu, alpha).sum(-1)
+
+
+def nb_nll_terms(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
+    """The per-sample terms of :func:`nb_nll`, before the sum."""
     alpha = torch.as_tensor(alpha, dtype=mu.dtype, device=mu.device)
     r = 1.0 / alpha[..., None]
 
@@ -147,8 +152,7 @@ def nb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
         + counts / (12.0 * r * yr)
         + (1.0 / yr**3 - 1.0 / r**3) / 360.0
     )
-    per = torch.where(r < _R_SWITCH, plain, stable)
-    return per.sum(-1)
+    return torch.where(r < _R_SWITCH, plain, stable)
 
 
 def nb_nll_centered(

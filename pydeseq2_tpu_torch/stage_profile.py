@@ -1,7 +1,9 @@
 """Where the time of one ``wald_pipeline``, ``summary_pipeline``,
-summary-then-shrink or streamed refit run goes, on a CUDA card.
+summary-then-shrink, streamed refit or streamed VST run goes, on a CUDA
+card.
 
-    python3 -m pydeseq2_tpu_torch.stage_profile [--summary | --shrink | --stream] [n_samples] [n_genes]
+    python3 -m pydeseq2_tpu_torch.stage_profile [--summary | --shrink | --stream | --iterative | --vst]
+        [n_samples] [n_genes]
 
 Runs the pipeline (with ``--summary``, counts -> padj: the Wald stages,
 then the Cook's block and ``device_padj``; with ``--shrink``, that and then
@@ -10,7 +12,11 @@ SEs: the host prior fit, the apeGLM Newton fit and the grid; with
 ``--stream``, ``run_summary_streamed(refit_cooks=True)`` on counts already
 on the card with an outlier planted in every 100th gene: size factors,
 pass 1, trend + prior, pass 2, the host copy, the gather of the refit tile,
-the refit and the merge + padj) on ``make_data(n_samples, n_genes)``
+the refit and the merge + padj; with ``--iterative``, the same on counts
+with a zero in every gene, so that the run first fits the iterative size
+factors; with ``--vst``, ``run_vst_streamed`` on counts on the card: the
+log stats, size factors, the genewise pass, the trend, the transform and
+the host copy) on ``make_data(n_samples, n_genes)``
 (default 100 x 60000, float32, the benchmark's configuration) once to warm
 up, then:
 
@@ -31,6 +37,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -66,6 +73,20 @@ STREAM_SUBSTAGES = {
                      "impute_outliers", "fit_fused_trend", "dispersion_prior", "device_padj"),
     "fused": ("parametric_trend", "lowess_pick"),
 }
+
+
+# The zero-inflated run (``--iterative``): the streamed refit's stages plus
+# the iterative size factors, with the rounds and the trimmed solve's parts.
+ITERATIVE_STAGES = {"fused_stream": STREAM_STAGES["fused_stream"] + ("iterative_size_factors",)}
+ITERATIVE_SUBSTAGES = {**STREAM_SUBSTAGES,
+                       "ops.sizefactors": ("_iteration", "trimmed_sf_newton", "_sf_nll_cuda", "keep_mask",
+                                           "_sf_newton_cuda")}
+# The streamed VST (``--vst``).
+VST_STAGES = {
+    "fused_stream": ("_log_stats", "_streamed_size_factors", "_vst_genewise_pass", "fit_fused_trend",
+                     "vst_transform", "_to_host"),
+}
+VST_SUBSTAGES = {"fused_stream": ("mom_and_mu_coef", "alpha_mle_batch"), "fused": ("parametric_trend",)}
 
 
 def _flat(table: dict) -> tuple:
@@ -116,13 +137,15 @@ def main() -> int:
         return 1
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import kernels
-    from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers
+    from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers, zero_per_gene
 
     args = sys.argv[1:]
-    stream = "--stream" in args
+    iterative = "--iterative" in args
+    vst = "--vst" in args
+    stream = "--stream" in args or iterative
     shrink = "--shrink" in args
     summary = "--summary" in args or shrink
-    args = [a for a in args if a not in ("--summary", "--shrink", "--stream")]
+    args = [a for a in args if a not in ("--summary", "--shrink", "--stream", "--iterative", "--vst")]
     n_samples = int(args[0]) if args else 100
     n_genes = int(args[1]) if len(args) > 1 else 60_000
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -147,23 +170,39 @@ def main() -> int:
 
         label = "summary_pipeline + run_lfc_shrink_streamed"
     stages, substages = STAGES, SUBSTAGES
-    if stream:
-        # Counts on the card once, as an atlas caller holds them.
-        counts = torch.as_tensor(plant_outliers(counts_np.T), dtype=torch.float32, device="cuda")
+    if vst:
+        counts = torch.as_tensor(counts_np.T, dtype=torch.float32, device="cuda")
         del counts_np
+        kw = dict(counts=counts, dtype=torch.float32, device="cuda", max_disp=static["max_disp"])
+        run, label = pt.run_vst_streamed, "run_vst_streamed"
+        stages, substages = VST_STAGES, VST_SUBSTAGES
+    elif stream:
+        # Counts on the card once, as an atlas caller holds them.
+        host = plant_outliers(counts_np.T)
+        if iterative:
+            host = zero_per_gene(host)
+        counts = torch.as_tensor(host, dtype=torch.float32, device="cuda")
+        del counts_np, host
         kw = dict(counts=counts, design_matrix=X_np, contrast=np.array([0.0, 1.0]), dtype=torch.float32,
                   refit_cooks=True, device="cuda", max_disp=static["max_disp"], beta_tol=static["beta_tol"])
         run, label = pt.run_summary_streamed, "run_summary_streamed(refit_cooks=True)"
         stages, substages = STREAM_STAGES, STREAM_SUBSTAGES
+        if iterative:
+            label += " on zero-inflated counts (iterative size factors)"
+            stages, substages = ITERATIVE_STAGES, ITERATIVE_SUBSTAGES
     else:
         kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, dtype=torch.float32,
                                   device="cuda", **static)
-    run(**kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the zero-inflated run's switch to iterative mode
+        run(**kw)
     torch.cuda.synchronize()
 
     kernels.STATS.reset()
     torch.cuda.reset_peak_memory_stats()
-    wall_s, times = timed_run(run, kw, stages, substages)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        wall_s, times = timed_run(run, kw, stages, substages)
     peak_bytes = torch.cuda.max_memory_allocated()
     kernel_launches = dict(kernels.STATS.launches)
     stage_s = {name: sum(ts) for name, ts in times.items() if ts}
@@ -177,7 +216,8 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(**kw)

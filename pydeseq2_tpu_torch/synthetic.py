@@ -1,4 +1,5 @@
-"""Synthetic single-factor bulk RNA-seq counts, the benchmark's generator.
+"""Synthetic single-factor bulk RNA-seq counts, the benchmark's generator,
+with planted Cook's outliers or a zero in every gene on request.
 
 A copy of ``make_data`` from ``benchmarks/reference_baseline.py`` (seed 0 by
 default), kept here so the port and ``chip_smoke.py`` need neither that
@@ -34,4 +35,16 @@ def plant_outliers(counts: np.ndarray, every: int = 100) -> np.ndarray:
     counts = counts.copy()
     genes = np.arange(0, counts.shape[0], every)
     counts[genes, (genes // every) % counts.shape[1]] = 20.0 * counts[genes].max(axis=1)
+    return counts
+
+
+def zero_per_gene(counts: np.ndarray) -> np.ndarray:
+    """A copy of gene-major (G, N) counts with one zero in every gene, at
+    sample g mod N (the zero-inflated draw of the JAX package's tests):
+    median-of-ratios is then undefined and the pipelines switch to the
+    iterative size factors. Coverage of that documented switch, not a cited
+    study."""
+    counts = counts.copy()
+    genes = np.arange(counts.shape[0])
+    counts[genes, genes % counts.shape[1]] = 0.0
     return counts

@@ -34,6 +34,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import pydeseq2_tpu_torch.ops.shrink, pydeseq2_tpu_torch.models.stats, pydeseq2_tpu_torch.stage_profile; "
         "import pydeseq2_tpu_torch.ops.refit, pydeseq2_tpu_torch.ops.linreg, pydeseq2_tpu_torch.ops.trend; "
         "import pydeseq2_tpu_torch.ops.stats, pydeseq2_tpu_torch.ops.cooks; "
+        "import pydeseq2_tpu_torch.ops.sizefactors, pydeseq2_tpu_torch.ops.vst; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -68,13 +69,20 @@ def test_default_device_raises_without_cuda():
         pt.summary_pipeline(counts.T, X, np.array([0.0, 1.0]), 0.0, 5.0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pt.run_summary_streamed(counts.T, X, np.array([0.0, 1.0]))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.vst_pipeline(counts.T)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.run_vst_streamed(counts.T)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.iterative_size_factors(counts.T)
 
 
 def test_public_surface():
     for name in ("wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
                  "run_lfc_shrink_streamed", "lfc_shrink_pipeline_streamed", "inputs_from_numpy",
                  "outputs_to_numpy", "run_summary_streamed", "summary_pipeline_streamed",
-                 "refit_pipeline_streamed"):
+                 "refit_pipeline_streamed", "vst_pipeline", "run_vst_streamed", "vst_pipeline_streamed",
+                 "iterative_size_factors"):
         assert callable(getattr(pt, name)), name
     counts, X = make_data(6, 20)
     kw = pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0, cooks_cutoff=5.0, dtype=torch.float32,
@@ -120,7 +128,7 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Fifteen kernels, each with a launch count that starts at 0."""
+    """Eighteen kernels, each with a launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 15
+    assert len(kernels.KERNELS) == 18
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)

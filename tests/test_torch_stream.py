@@ -108,14 +108,15 @@ def test_tensor_counts_input(synthetic):
         np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
 
 
-def test_iterative_size_factors_not_ported(synthetic):
-    """The iterative size factors are left to a later slice: asking for
-    them, or ratio size factors on counts where every gene has a zero,
-    raises NotImplementedError naming the missing piece (no fallback)."""
+def test_sf_fit_type_iterative_matches_jax(synthetic):
+    """``sf_fit_type="iterative"`` on counts where ratio size factors exist:
+    the iterative factors are injected without a warning, as in JAX."""
+    import warnings
+
     counts, X = synthetic
-    with pytest.raises(NotImplementedError, match="iterative size factors"):
-        pt.run_summary_streamed(counts, X, [0.0, 1.0], device="cpu", sf_fit_type="iterative", **KW)
-    zeros = counts.copy()
-    zeros[:, 0] = 0.0
-    with pytest.raises(NotImplementedError, match="every gene contains at least one zero"):
-        pt.run_summary_streamed(zeros, X, [0.0, 1.0], device="cpu", **KW)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        jo, po = run_both(counts, X, [0.0, 1.0], sf_fit_type="iterative")
+    assert_parity(jo, po)
+    ratio = pt.run_summary_streamed(counts, X, [0.0, 1.0], device="cpu", **KW)
+    assert not np.allclose(po["size_factors"], ratio["size_factors"], rtol=1e-6)
