@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the eighteen hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-two hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -26,6 +26,10 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    ``vst`` (parametric, ``used_mean`` forced each way, the mean form, masked
    rows) and ``mom``, ``disp_scan``, ``disp_newton``, ``trend`` at P = 1 on
    the operands one ``vst_pipeline`` run hands them (same two scales);
+   ``trend_fit``, ``trimmed_var`` (Cook's cohorts of ~50, and one column of
+   the genewise dispersions), the ``hat`` and ``wald`` entries and ``mom``
+   in its normed-count mode on the operands one class-API deseq2() +
+   summary() run hands them (same two scales, planted outliers);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -54,6 +58,13 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 3i. runs phase 3e on a zero-inflated draw (a zero in every gene): each run
    must warn and switch to the iterative size factors, whose two kernels
    must launch beside the eleven; the rounds of the iterative fit;
+3j. runs the class API at 100 x 60000 float32 with planted outliers:
+   ``DeseqDataSet(...).deseq2()``, ``DeseqStats(...).summary()``,
+   ``lfc_shrink()`` and ``vst()``: the warm wall of each step, the peak
+   device memory, the device-to-host bytes of deseq2() (torch.profiler),
+   the launches of one run (each of CLASS_KERNELS must be > 0), and
+   ``results_df`` against ``run_summary_streamed(refit_cooks=True)`` on the
+   same counts (the same refitted genes, the gaps of CLASS_VS_STREAM);
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
@@ -66,6 +77,9 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 4e. does the same for the iterative size factors (whole-G and over gene
    blocks: the same rounds), the zero-inflated streamed refit,
    ``vst_pipeline`` (both trend types) and ``run_vst_streamed``;
+4f. runs the float64 class API (deseq2, summary, lfc_shrink, vst) on the
+   card and on the CPU at 100 x 2000 with planted outliers: the same flags
+   and every float column at rtol 1e-6;
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -124,6 +138,14 @@ N_GRID_WIDE = {torch.float32: 8_000, torch.float64: 4_000}
 # its terms (noise_unit); PERF.md section 6 gives the ties and the
 # one-fine-step gaps read on the H100.
 TIE_UNITS = 8.0
+# Phase 3j holds the class API's results_df to run_summary_streamed's on the
+# same counts (f32 both): the largest |log2 fold change| gap, the 99th
+# percentile of the relative padj gap, and the shares of genes whose padj <
+# 0.05 call and whose NaN mask agree, over genes refitted alike. The two
+# paths differ by design in float32 rounding: the class API keeps its
+# normalised counts and Cook's distances in float64 and runs one IRLS phase,
+# the streamed path works in float32 with two.
+CLASS_VS_STREAM = {"lfc_abs": 1e-3, "padj_rel_p99": 1e-3, "call_agreement": 0.999, "nan_mask_agreement": 0.999}
 
 
 def log(msg: str) -> None:
@@ -1494,10 +1516,10 @@ def scaled_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return rel_err(a.double(), b.double(), 1.0)
 
 
-def count_trend_passes(bm, gm, nz, mean_disp, max_rounds) -> tuple[int, int]:
+def count_trend_passes(run) -> tuple[int, int]:
     """(loss passes, gradient + Fisher passes) over the genes that the
-    plain trend fit makes on these inputs: the work the kernel's bound
-    counts."""
+    plain trend fit makes in ``run()`` (a call of a plain version): the
+    work the kernel's bound counts."""
     from pydeseq2_tpu_torch.ops import trend as tr
 
     calls = {"trend_loss": 0, "trend_grad": 0}
@@ -1513,7 +1535,7 @@ def count_trend_passes(bm, gm, nz, mean_disp, max_rounds) -> tuple[int, int]:
     try:
         for n in calls:
             setattr(tr, n, counted(n))
-        tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds)
+        run()
     finally:
         for n, fn in originals.items():
             setattr(tr, n, fn)
@@ -1526,15 +1548,15 @@ def mom_check(name: str, recorded) -> float:
     from pydeseq2_tpu_torch.ops import linreg as lin
 
     f32 = recorded[0][0].dtype == torch.float32
-    c, sf, X, pinv, min_mu, _ = bound_args(lin.mom_and_mu_coef, *recorded[:2])
+    c, sf, X, pinv, min_mu, _, normed = bound_args(lin.mom_and_mu_coef, *recorded[:2])
     Gm, P = c.shape[0], X.shape[1]
-    check(bits_equal(lin._mom_cuda(c, sf, X, pinv, min_mu, False)[0], recorded[2][0]),
+    check(bits_equal(lin._mom_cuda(c, sf, X, pinv, min_mu, False, normed)[0], recorded[2][0]),
           f"mom {name}: the launch differs from the path's")
     rtol = 1e-5 if f32 else 1e-12
     worst = {}
     for want_mu in (False, True):
-        got = lin._mom_cuda(c, sf, X, pinv, min_mu, want_mu)
-        want = lin._mom_plain(c, sf, X, pinv, min_mu, want_mu)
+        got = lin._mom_cuda(c, sf, X, pinv, min_mu, want_mu, normed)
+        want = lin._mom_plain(c, sf, X, pinv, min_mu, want_mu, normed)
         for key, a, b in zip(("rough", "moments", "coef", "mu"), got, want):
             if b is None:
                 check(a is None, f"mom {name}: mu written without want_mu")
@@ -1545,7 +1567,7 @@ def mom_check(name: str, recorded) -> float:
                 e = scaled_err(a, b)
             worst[key] = max(worst.get(key, 0.0), e)
     check(all(v <= rtol for v in worst.values()), f"mom {name}: errors {worst} beyond {rtol}")
-    log(f"  mom {name} ({Gm}, {c.shape[1]}): rel err (abs below 1) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+    log(f"  mom {name}{' normed counts' if normed else ''} ({Gm}, {c.shape[1]}): rel err (abs below 1) " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f" (tol {rtol})")
     return max((a - b).abs().max().item() for a, b in zip(got, want))
 
@@ -1569,7 +1591,7 @@ def trend_check(name: str, recorded) -> tuple[float, int, int]:
     check(bool(got[2]) == bool(want[2]), f"trend {name}: failed flag {bool(got[2])}, plain {bool(want[2])}")
     check(e_c <= ctol and e_f <= ctol, f"trend {name}: coefficient rel err {e_c:.3g}, fitted {e_f:.3g} > {ctol}")
     check(abs(rk - rp) <= (1 if f32 else 0), f"trend {name}: {rk} rounds, plain {rp}")
-    n_loss, n_grad = count_trend_passes(bm, gm, nz, mean_disp, max_rounds)
+    n_loss, n_grad = count_trend_passes(lambda: tr._parametric_trend_plain(bm, gm, nz, mean_disp, max_rounds))
     log(f"  trend {name} (G {bm.shape[0]}): coeffs {got[1].tolist()} (plain {want[1].tolist()}), rel err {e_c:.3g}, "
         f"fitted {e_f:.3g} (tol {ctol}); rounds {rk} "
         f"(plain {rp}), failed {bool(got[2])}; plain passes: {n_loss} loss, {n_grad} gradient + Fisher")
@@ -1604,7 +1626,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     # coefficient is held relative to the gene's largest one: the condition
     # coefficient is a difference of group means and cancels to its
     # rounding at that scale.
-    c, sf, X, pinv, min_mu, _ = bound_args(lin.mom_and_mu_coef, *seen["mom_and_mu_coef"][:2])
+    c, sf, X, pinv, min_mu, _, _ = bound_args(lin.mom_and_mu_coef, *seen["mom_and_mu_coef"][:2])
     Gm, P = c.shape[0], X.shape[1]
     errs["mom"] = mom_check(name, seen["mom_and_mu_coef"])
     if reps:
@@ -1714,7 +1736,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     ik, nk = rf._impute_cuda(tile, packed, repl_i, sf_i, mask)
     ip, nplain = rf._impute_plain(tile, packed, repl_i, sf_i, mask)
     check(bits_equal(ik, seen["impute_outliers"][2][0]), f"impute {name}: the launch differs from the path's")
-    prod = st.trimmed_mean(tile / sf_i[None, :], trim=rf.TRIM, axis=1)[:, None] * sf_i[None, :]
+    prod = st._trimmed_mean_plain(tile / sf_i[None, :], rf.TRIM, 1)[:, None] * sf_i[None, :]
     ulp = (torch.nextafter(prod.abs(), torch.full_like(prod, math.inf)) - prod.abs())
     near_int = (prod - torch.round(prod)).abs() <= 4 * ulp
     differ = ik != ip
@@ -2163,6 +2185,481 @@ def sf_vst_card_vs_cpu() -> None:
     compare_outputs("run_vst_streamed f64", gpu, cpu)
 
 
+# ------------------------------------------------------------- the class API
+# The kernels the class API launches at 100 x 60000 (phase 3j): deseq2()
+# (size-factor and MAD medians, MoM in its normed-count mode, the dispersion
+# fits, the trend fit once per exclusion round, IRLS and the hat-only entry,
+# the trimmed cell variances of Cook's), summary() (the Wald-only entry, the
+# BH sweep, the lowess pick), lfc_shrink() and vst(). The rescue tiers
+# launch only where a lane stays flagged after IRLS, grid_apeglm only where
+# Newton fails: their counts are reported, not required.
+CLASS_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend_fit", "irls", "hat", "trimmed_var", "wald",
+                 "bh", "lowess", "shrink", "vst")
+
+
+def class_inputs(N: int, G: int, seed: int = 0):
+    """``make_data(N, G)`` with an outlier planted in every OUTLIER_EVERY-th
+    gene, as the class API takes it: ``(counts DataFrame (N, G) of ints,
+    metadata with a condition column, design (N, 2), gene-major counts)``."""
+    import pandas as pd
+
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G, seed=seed)
+    counts_gn = plant_outliers(counts_np.T)
+    samples = [f"sample{i}" for i in range(N)]
+    counts_df = pd.DataFrame(counts_gn.T.astype(np.int64), index=samples, columns=[f"gene{j}" for j in range(G)])
+    metadata = pd.DataFrame({"condition": np.where(X_np[:, 1] > 0, "B", "A")}, index=samples)
+    return counts_df, metadata, X_np, counts_gn
+
+
+def class_deseq2(counts_df, metadata, dtype, device):
+    """``DeseqDataSet(...)`` and ``deseq2()`` over ``TorchInference``, at the
+    pipelines' beta_tol (1e-6 in float32, 1e-8 in float64), so that the
+    class API and run_summary_streamed run the same stopping rule."""
+    import pydeseq2_tpu_torch as pt
+
+    dds = pt.DeseqDataSet(counts=counts_df, metadata=metadata, design="~condition", quiet=True,
+                          beta_tol=1e-6 if dtype == torch.float32 else 1e-8,
+                          inference=pt.TorchInference(dtype=dtype, device=device))
+    dds.deseq2()
+    return dds
+
+
+def class_summary(dds):
+    import pydeseq2_tpu_torch as pt
+
+    ds = pt.DeseqStats(dds, contrast=["condition", "B", "A"], quiet=True)
+    ds.summary()
+    return ds
+
+
+def capture_class_inputs(counts_df, metadata, dtype) -> dict:
+    """Run deseq2() + summary() once and keep what the class API hands the
+    new kernels' wrappers (the first call of each: the first exclusion
+    round's trend fit, the main LFC fit's hat diagonals, the summary's Wald
+    test, Cook's trimmed cell variances, the MoM fit in its normed-count
+    mode), plus ``(dds, ds)`` under ``"class"``."""
+    from pydeseq2_tpu_torch import torch_inference as ti
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    def run():
+        dds = class_deseq2(counts_df, metadata, dtype, DEVICE)
+        return dds, class_summary(dds)
+
+    targets = [(ti, ("gamma_glm_trend_fit", "hat_diagonals", "wald_test_batch", "mom_and_mu_coef")),
+               (st, ("trimmed_cell_variance",))]
+    return capture(targets, run, "class", {})
+
+
+def trimmed_ops(members) -> int:
+    """Operations per row that a trimmed variance needs, whatever way a
+    kernel finds the order statistics: per cohort member the squared error
+    (2) and two trimmed means, each ceil(log2 n) compares to place the
+    member in the cohort's order (a comparison sort's share) and one add."""
+    return sum(n * (2 + 2 * (math.ceil(math.log2(n)) + 1)) for n in members if n > 1)
+
+
+def class_kernel_checks(dtype, G, N, reps, timings):
+    """Phase 2, the class API's kernels: ``trend_fit``, ``trimmed_var``
+    (cohorts of ~50; one column of the genewise dispersions, the mean
+    trend's input), the ``hat`` and ``wald`` entries of hat_wald.cu and
+    ``mom`` in its normed-count mode, each against its plain version on the
+    operands one deseq2() + summary() run of ``make_data(N, G)`` with
+    planted outliers hands it. Returns {name: max_abs_err} and fills
+    ``timings`` (``reps`` > 0)."""
+    from pydeseq2_tpu_torch.ops import irls as ir
+    from pydeseq2_tpu_torch.ops import stats as st
+    from pydeseq2_tpu_torch.ops import trend as tr
+    from pydeseq2_tpu_torch.ops import wald as wd
+
+    f32 = dtype == torch.float32
+    name = "f32" if f32 else "f64"
+    counts_df, metadata, _, _ = class_inputs(N, G)
+    seen = capture_class_inputs(counts_df, metadata, dtype)
+    for key in ("gamma_glm_trend_fit", "hat_diagonals", "wald_test_batch", "mom_and_mu_coef",
+                "trimmed_cell_variance"):
+        check(key in seen, f"class {name}: the run made no call of {key}")
+    dds, _ = seen["class"]
+    errs = {}
+    isz = torch.finfo(dtype).bits // 8
+
+    # -- mom in its normed-count mode (fit_rough_dispersions) ----------------
+    check(seen["mom_and_mu_coef"][1].get("normed") is True, f"class {name}: the MoM fit is not in normed mode")
+    mom_check(f"{name} class API", seen["mom_and_mu_coef"])
+
+    # -- trend_fit: the first exclusion round's fit ---------------------------
+    # Coefficients and predictions within 1e-4 relative in f32, the same
+    # converged flag: both sum every term in float64 in their own order and
+    # round, as the trend kernel does (bit-equal in f32 on the class API's
+    # inputs). In f64 the fit stops once a step gains less than 10 eps
+    # (|f| + 1) of the loss, which it does anywhere within ~sqrt(10 eps)
+    # ~ 5e-8 of the optimum, relative, so two sum orders stop up to that
+    # far apart: 1e-7 there (4.75e-9 read on the H100). A fit that does not
+    # converge (both flags False: the class API then falls back to the mean
+    # trend) stops at its 60th iterate: 1e-6 there.
+    cov, tar, valid = bound_args(tr.gamma_glm_trend_fit, *seen["gamma_glm_trend_fit"][:2])[:3]
+    got = tr._trend_fit_cuda(cov, tar, valid, 60)
+    want = tr._trend_fit_plain(cov, tar, valid, 60)
+    check(bits_equal(got[0], seen["gamma_glm_trend_fit"][2][0]), f"trend_fit {name}: the launch differs from the path's")
+    ctol = 1e-4 if f32 else (1e-7 if bool(want[2]) else 1e-6)
+    e_c = rel_err(got[0].double(), want[0].double(), 1e-300)
+    e_p = rel_err(got[1].double(), want[1].double(), 1e-300)
+    check(bool(got[2]) == bool(want[2]), f"trend_fit {name}: converged {bool(got[2])}, plain {bool(want[2])}")
+    check(e_c <= ctol and e_p <= ctol, f"trend_fit {name}: coefficient rel err {e_c:.3g}, predictions {e_p:.3g} > {ctol}")
+    n_loss, n_grad = count_trend_passes(lambda: tr._trend_fit_plain(cov, tar, valid, 60))
+    log(f"  trend_fit {name} (G {cov.shape[0]}, {int(valid.sum())} valid): coeffs {got[0].tolist()} (plain "
+        f"{want[0].tolist()}), bit-equal {bits_equal(got[0], want[0])}, rel err {e_c:.3g}, predictions {e_p:.3g} "
+        f"(tol {ctol}); converged {bool(got[2])}; plain passes: {n_loss} loss, {n_grad} gradient + Fisher")
+    errs["trend_fit"] = (got[0] - want[0]).abs().max().item()
+    if reps:
+        Gt = cov.shape[0]
+        timings["trend_fit"] = {
+            "ms": cuda_ms(lambda: tr._trend_fit_cuda(cov, tar, valid, 60), reps),
+            "plain_ms": cuda_ms(lambda: tr._trend_fit_plain(cov, tar, valid, 60), 2),
+            "library_ms": None,
+            # reads covariates, targets, the mask; writes predictions, the
+            # coefficients and the flag
+            "bytes": Gt * (3 * isz + 1) + 2 * isz + 1,
+            # per valid gene: the loss pass ~6 operations, the gradient +
+            # Fisher pass ~22; passes counted on the plain fit
+            "ops": int(valid.sum()) * (6 * n_loss + 22 * n_grad),
+        }
+
+    # -- trimmed_var: Cook's cell variances, and a column of ~G --------------
+    # Relative 1e-6 (f32) / 1e-12 (f64): both find the same kept multiset and
+    # sum it in float64, rounding once; the plain sort path (n < 1024) and
+    # the kernel's interior + boundary sum differ only by that sum's order,
+    # so in float32 they agree to the bit but for rounding ties. The class
+    # API hands the cell variances its float64 normalised counts whatever
+    # the solvers' dtype; both are also run on a float32 copy here. The
+    # column is the genewise dispersions over 10 min_disp (the mean trend's
+    # input), in the solvers' dtype and in the other one.
+    counts_nt, cells = bound_args(st.trimmed_cell_variance, *seen["trimmed_cell_variance"][:2])
+    cohorts, bins = st._cohorts(cells)
+    got = st._trimmed_cell_variance_cuda(counts_nt, cells)
+    check(bits_equal(got, seen["trimmed_cell_variance"][2]), f"trimmed_var {name}: the launch differs from the path's")
+    gd = dds.var["genewise_dispersions"].to_numpy()
+    gd = gd[gd > 10 * dds.min_disp]
+    for cdt in (torch.float64, torch.float32):
+        x = counts_nt.to(cdt)
+        got = st._trimmed_cell_variance_cuda(x, cells)
+        want = st._trimmed_cell_variance_plain(x, cells)
+        vtol = 1e-6 if cdt == torch.float32 else 1e-12
+        e_v = rel_err(got.double(), want.double(), 1e-300)
+        check(e_v <= vtol, f"trimmed_var {name} cells {cdt}: rel err {e_v:.3g} > {vtol}")
+        column = torch.as_tensor(gd, dtype=cdt, device=DEVICE)
+        got_c = st.trimmed_mean(column, 0.001)
+        want_c = st._trimmed_mean_plain(column, 0.001, 0)
+        e_m = rel_err(got_c.double().reshape(1), want_c.double().reshape(1), 1e-300)
+        check(e_m <= vtol, f"trimmed_var {name} column {cdt}: rel err {e_m:.3g} > {vtol}")
+        log(f"  trimmed_var {name} run, {cdt} operands: cell variances ({x.shape[1]} genes, cohorts of "
+            f"{[len(c) for c in cohorts]}) rel err {e_v:.3g}, {int((got != want).sum())} not bit-equal; column of "
+            f"{column.shape[0]} (trim 0.001, one block) {got_c.item()!r} (plain {want_c.item()!r}), rel err {e_m:.3g} "
+            f"(tol {vtol})")
+        if cdt == dtype:
+            errs["trimmed_var"] = (got - want).abs().max().item()
+    if reps:
+        Gv, Nv = counts_nt.shape[1], counts_nt.shape[0]
+        members = [len(c) for c in cohorts]
+        column = torch.as_tensor(gd, dtype=dtype, device=DEVICE)
+        vsz = counts_nt.element_size()  # the class API's float64 normalised counts
+        timings["trimmed_var"] = {
+            "ms": cuda_ms(lambda: st._trimmed_cell_variance_cuda(counts_nt, cells), reps),
+            "plain_ms": cuda_ms(lambda: st._trimmed_cell_variance_plain(counts_nt, cells), reps),
+            "library_ms": None,
+            "column_ms": cuda_ms(lambda: st.trimmed_mean(column, 0.001), reps),
+            # reads the (G, N) normalised counts once, writes one value a gene
+            "bytes": vsz * (Gv * Nv + Gv),
+            "ops": Gv * trimmed_ops(members),
+            "ops_per_s": F64_OPS_PER_S if vsz == 8 else F32_OPS_PER_S,
+        }
+
+    # -- hat: the hat-only entry (fit_LFC) -------------------------------------
+    # The hat_wald tolerances: 1e-4 (f32) / 1e-10 (f64) relative on H (absolute
+    # below 1e-2) and mu.
+    _, sf, X, disp, beta, min_mu = bound_args(ir.hat_diagonals, *seen["hat_diagonals"][:2])
+    got = ir._hat_cuda(sf, X, disp, beta, min_mu)
+    want = ir._hat_plain(sf, X, disp, beta, min_mu)
+    check(bits_equal(got[0], seen["hat_diagonals"][2][0]), f"hat {name}: the launch differs from the path's")
+    rtol = 1e-4 if f32 else 1e-10
+    e_h = rel_err(got[0].double(), want[0].double(), 1e-2)
+    e_mu = rel_err(got[1].double(), want[1].double(), 1e-300)
+    check(e_h <= rtol and e_mu <= rtol, f"hat {name}: rel err H {e_h:.3g}, mu {e_mu:.3g} > {rtol}")
+    log(f"  hat {name} ({beta.shape[0]}, {X.shape[0]}): rel err H {e_h:.3g}, mu {e_mu:.3g} (tol {rtol})")
+    errs["hat"] = (got[0] - want[0]).abs().max().item()
+    P = X.shape[1]
+    ntri = P * (P + 1) // 2
+    if reps:
+        Gh, Nh = beta.shape[0], X.shape[0]
+        timings["hat"] = {
+            "ms": cuda_ms(lambda: ir._hat_cuda(sf, X, disp, beta, min_mu), reps),
+            "plain_ms": cuda_ms(lambda: ir._hat_plain(sf, X, disp, beta, min_mu), reps),
+            "library_ms": None,
+            # reads beta, disp, sf, X; writes H and mu
+            "bytes": isz * (Gh * (P + 1) + Nh * (P + 1) + 2 * Gh * Nh),
+            # per (gene, sample): pass 1 linear predictor, exp, clamp, weight,
+            # the thresholded Gram triangle; pass 2 the same predictor and
+            # weight, x^T M^-1 x and H
+            "ops": Gh * Nh * ((2 * P + 6 + 3 * ntri) + (2 * P + 7 + 2 * P * P + 2 * P)),
+        }
+
+    # -- wald: the Wald-only entry (summary), the caller's mu and ridge -------
+    # The hat_wald tolerances on p (log p scaled by 1 + stat^2), stat and se;
+    # every alternative in f64, and a prior-LFC ridge diag(1 / v^2).
+    wargs = bound_args(wd.wald_test_batch, *seen["wald_test_batch"][:2])
+    got = wd._wald_cuda(*wargs)
+    check(bits_equal(got[0], seen["wald_test_batch"][2][0]), f"wald {name}: the launch differs from the path's")
+    X_w, disp_w, lfc_w, mu_w, ridge_w, contrast_w, null_w, alt_w = wargs
+    cases = [("run", ridge_w, null_w, alt_w)]
+    if not f32:
+        prior = torch.diag(1.0 / torch.tensor([3.0, 0.7], dtype=dtype, device=DEVICE) ** 2)
+        cases += [(alt, prior, 0.3, alt) for alt in ("greaterAbs", "lessAbs", "greater", "less")]
+    worst = {}
+    for label, ridge, null, alt in cases:
+        args = (X_w, disp_w, lfc_w, mu_w, ridge, contrast_w, null, alt)
+        got, want = wd._wald_cuda(*args), wd._wald_plain(*args)
+        tiny = 1e-30 if f32 else 1e-300
+        p_k, p_p = got[0], want[0]
+        check(torch.equal(torch.isnan(p_k), torch.isnan(p_p)), f"wald {name} {label}: p NaN masks differ")
+        big = p_p >= tiny
+        check(bool((p_k[~big & ~torch.isnan(p_p)] < 1e3 * tiny).all()), f"wald {name} {label}: p tail")
+        scale = 1.0 + want[1][big].double().square()
+        e_p = ((p_k[big].double().log() - p_p[big].double().log()).abs() / scale).max().item() if bool(big.any()) else 0.0
+        e_s = rel_err(got[1].double(), want[1].double(), 1e-3)
+        e_se = rel_err(got[2].double(), want[2].double(), 1e-300)
+        for key, e in (("p", e_p), ("stat", e_s), ("se", e_se)):
+            worst[key] = max(worst.get(key, 0.0), e)
+            check(e <= rtol, f"wald {name} {label} {key}: rel err {e:.3g} > {rtol}")
+    log(f"  wald {name}: cases {[c[0] for c in cases]}, max rel err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + f" (tol {rtol})")
+    got, want = wd._wald_cuda(*wargs), wd._wald_plain(*wargs)
+    errs["wald"] = (got[2] - want[2]).nan_to_num(0.0).abs().max().item()
+    if reps:
+        Gw, Nw = mu_w.shape
+        timings["wald"] = {
+            "ms": cuda_ms(lambda: wd._wald_cuda(*wargs), reps),
+            "plain_ms": cuda_ms(lambda: wd._wald_plain(*wargs), reps),
+            "library_ms": None,
+            # reads mu (G N), lfc, disp, X, ridge, contrast; writes p, stat, se
+            "bytes": isz * (Gw * Nw + Gw * (P + 1) + Nw * P + P * P + P + 3 * Gw),
+            # per (gene, sample): the weight (3) and the Gram triangle (3 a term)
+            "ops": Gw * Nw * (3 + 3 * ntri),
+        }
+    return errs
+
+
+def profiled_d2h(fn) -> dict:
+    """One torch.profiler trace of ``fn``: the device-to-host copies it
+    makes (count and bytes; bytes None where the trace has copies without
+    byte counts), the device's busy time in kernels and copies, and the
+    host wall of the traced call (the profiler's own cost included)."""
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = Path(__file__).resolve().parent / "build" / "class_api_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text()).get("traceEvents", []) if e.get("ph") == "X"]
+    copies = [e for e in events if "DtoH" in str(e.get("name", "")) and "memcpy" in str(e.get("cat", "")).lower()]
+    sizes = [e.get("args", {}).get("bytes") for e in copies]
+    device = [e for e in events if str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return {"d2h_bytes": int(sum(sizes)) if copies and None not in sizes else None, "d2h_copies": len(copies),
+            "device_busy_ms": sum(float(e.get("dur", 0.0)) for e in device) / 1e3,
+            "kernels": sum(str(e.get("cat", "")).lower() == "kernel" for e in device), "traced_wall_ms": wall * 1e3}
+
+
+def class_stage_walls(counts_df, metadata, dtype) -> dict:
+    """Host wall (synchronised) of each top-level stage that deseq2() calls,
+    in ms, on one more run: where the class API's wall goes."""
+    import pydeseq2_tpu_torch as pt
+
+    stages = ("fit_size_factors", "fit_genewise_dispersions", "fit_dispersion_trend", "fit_dispersion_prior",
+              "fit_MAP_dispersions", "fit_LFC", "calculate_cooks", "refit", "cooks_outlier")
+    walls: dict = {}
+    depth = [0]
+    originals = {s: getattr(pt.DeseqDataSet, s) for s in stages}
+
+    def timed(name, fn):
+        def run(self, *args, **kwargs):
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                depth[0] -= 1
+                if depth[0] == 0:
+                    walls[name] = walls.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+        return run
+
+    try:
+        for s, fn in originals.items():
+            setattr(pt.DeseqDataSet, s, timed(s, fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        class_deseq2(counts_df, metadata, dtype, DEVICE)
+        torch.cuda.synchronize()
+        walls["total"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        for s, fn in originals.items():
+            setattr(pt.DeseqDataSet, s, fn)
+    return walls
+
+
+def class_path(reps: int):
+    """Phase 3j: the class API at 100 x 60000 float32 on the card through
+    its public steps, an outlier planted in every OUTLIER_EVERY-th gene:
+    ``DeseqDataSet(...).deseq2()``, ``DeseqStats(...).summary()``,
+    ``lfc_shrink()`` and ``vst()``. Warm wall of each step (best of
+    ``reps``), peak device memory, the device-to-host bytes of deseq2()
+    (torch.profiler), the launches of one run (each of CLASS_KERNELS must be
+    > 0), and ``results_df`` held against ``run_summary_streamed(
+    refit_cooks=True)`` on the same counts on the card."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernels
+
+    counts_df, metadata, X_np, counts_gn = class_inputs(N_MAIN, G_MAIN)
+    dtype = torch.float32
+    steps = ("deseq2", "summary", "lfc_shrink", "vst")
+
+    def run():
+        t = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dds = class_deseq2(counts_df, metadata, dtype, DEVICE)
+        torch.cuda.synchronize()
+        t["deseq2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds = class_summary(dds)
+        t["summary"] = time.perf_counter() - t0
+        results = ds.results_df.copy()
+        t0 = time.perf_counter()
+        ds.lfc_shrink("condition[T.B]")
+        torch.cuda.synchronize()
+        t["lfc_shrink"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dds.vst()
+        torch.cuda.synchronize()
+        t["vst"] = time.perf_counter() - t0
+        return dds, ds, results, t
+
+    run()  # warm-up
+    walls = {s: [] for s in steps}
+    launches = None
+    peak = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+            torch.cuda.reset_peak_memory_stats()
+        dds, ds, results, t = run()
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+            peak = torch.cuda.max_memory_allocated()
+        for s in steps:
+            walls[s].append(t[s])
+    for k in CLASS_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the class API path")
+    trace = profiled_d2h(lambda: class_deseq2(counts_df, metadata, dtype, DEVICE))
+    stage_ms = class_stage_walls(counts_df, metadata, dtype)
+
+    # -- outputs: finite, shaped, and the streamed refit's ---------------------
+    G = G_MAIN
+    padj = results["padj"].to_numpy()
+    check(results.shape == (G, 6) and padj.dtype == np.float64, "phase 3j: results_df shape")
+    fin = np.isfinite(padj)
+    check(fin.mean() > 0.5 and np.all((padj[fin] >= 0) & (padj[fin] <= 1)), "phase 3j: padj")
+    vst = dds.layers["vst_counts"]
+    check(vst.shape == (N_MAIN, G) and bool(np.isfinite(vst).all()), "phase 3j: vst_counts")
+    check(bool(np.isfinite(ds.results_df["log2FoldChange"].to_numpy()[fin]).all()), "phase 3j: shrunk LFCs")
+    stream = pt.run_summary_streamed(**stream_kwargs(counts_gn, X_np, dtype, DEVICE))
+    refit_c = dds.var["refitted"].to_numpy()
+    refit_s = stream["refitted"]
+    n_refit = int(refit_c.sum())
+    check(n_refit > 0, "phase 3j: no gene was refitted")
+    # Tie rule: a gene whose largest Cook's distance lies within 1e-4 relative
+    # of the cutoff may be replaced by one path and not the other (the class
+    # API forms the distances from float64 normalised counts, the streamed
+    # path in float32).
+    cooks = dds.layers["cooks"]
+    cutoff = dds._cooks_cutoff()
+    near = (np.abs(np.nan_to_num(cooks, nan=-1.0) - cutoff) <= 1e-4 * cutoff).any(axis=0)
+    differ = refit_c != refit_s
+    check(not bool((differ & ~near).any()), f"phase 3j: refitted sets differ on {int((differ & ~near).sum())} genes "
+                                              "away from the cutoff")
+    same = ~differ
+    ln2 = math.log(2.0)
+    lfc_c, lfc_s = results["log2FoldChange"].to_numpy(), stream["lfc"][:, 1] / ln2
+    p_c, p_s = results["padj"].to_numpy(), stream["padj"]
+    gaps = {}
+    m = same & np.isfinite(lfc_c) & np.isfinite(lfc_s)
+    gaps["lfc_abs"] = float(np.max(np.abs(lfc_c[m] - lfc_s[m])))
+    m2 = same & np.isfinite(p_c) & np.isfinite(p_s)
+    gaps["padj_rel_p99"] = float(np.quantile(np.abs(p_c[m2] - p_s[m2]) / np.maximum(p_s[m2], 1e-12), 0.99))
+    gaps["padj_rel_max"] = float(np.max(np.abs(p_c[m2] - p_s[m2]) / np.maximum(p_s[m2], 1e-12)))
+    gaps["call_agreement"] = float(np.mean((p_c[m2] < 0.05) == (p_s[m2] < 0.05)))
+    gaps["nan_mask_agreement"] = float(np.mean(np.isnan(p_c) == np.isnan(p_s)))
+    log(f"  class API vs run_summary_streamed (f32, same counts): refitted {n_refit} (streamed {int(refit_s.sum())}), "
+        f"{int(differ.sum())} differ ({int(near.sum())} genes with a distance within 1e-4 of the cutoff); gaps {gaps}")
+    check(gaps["lfc_abs"] <= CLASS_VS_STREAM["lfc_abs"] and gaps["padj_rel_p99"] <= CLASS_VS_STREAM["padj_rel_p99"]
+          and gaps["call_agreement"] >= CLASS_VS_STREAM["call_agreement"]
+          and gaps["nan_mask_agreement"] >= CLASS_VS_STREAM["nan_mask_agreement"],
+          f"phase 3j: class API vs streamed gaps {gaps} beyond {CLASS_VS_STREAM}")
+
+    best = {s: min(walls[s]) for s in steps}
+    log(f"  warm walls (best of {reps}) " + ", ".join(f"{s} {best[s]:.4f} s" for s in steps)
+        + f"; all runs {walls}")
+    d2h = trace["d2h_bytes"]
+    log(f"  peak device memory {peak / 2**30:.3f} GiB; deseq2() device-to-host "
+        + (f"{d2h} bytes" if d2h is not None else "bytes not measured") + f" in {trace['d2h_copies']} copies; "
+        f"traced deseq2(): {trace['traced_wall_ms']:.3f} ms wall, device busy {trace['device_busy_ms']:.3f} ms "
+        f"({trace['kernels']} kernels)")
+    log(f"  deseq2() stages, ms (synchronised, one run): {stage_ms}")
+    log(f"  launches in one run {launches}")
+    return {"walls_s": walls, "best_s": best, "peak_bytes": peak, "trace_deseq2": trace, "stage_ms": stage_ms,
+            "launches": launches, "refitted": n_refit, "gaps_vs_stream": gaps}
+
+
+def class_card_vs_cpu() -> None:
+    """Phase 4f: the float64 class API on the card against the CPU plain
+    path at 100 x 2000 with planted outliers: deseq2(), summary(),
+    lfc_shrink() and vst(); the same replaced, refitted and Cook's-outlier
+    genes and convergence flags, every float column of ``results_df`` (and
+    the shrunk one), the dispersions and ``vst_counts`` at rtol 1e-6 with
+    identical NaN masks."""
+    counts_df, metadata, _, _ = class_inputs(N_MAIN, G_CPU_CMP, seed=1)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        dds = class_deseq2(counts_df, metadata, torch.float64, dev)
+        ds = class_summary(dds)
+        res = ds.results_df.copy()
+        ds.lfc_shrink("condition[T.B]")
+        dds.vst()
+        out[dev] = (dds, res, ds.results_df, dds.layers["vst_counts"])
+    (dg, rg, sg, vg), (dc, rc, sc, vc) = out[DEVICE], out["cpu"]
+    for col in ("replaced", "refitted", "_pvalue_cooks_outlier", "_genewise_converged", "_MAP_converged",
+                "_LFC_converged", "_outlier_genes"):
+        check(np.array_equal(dg.var[col].to_numpy(), dc.var[col].to_numpy()), f"class card vs CPU: {col} differs")
+    check(int(dg.var["refitted"].sum()) > 0, "class card vs CPU: no gene was refitted")
+    arrays = {f"results {c}": (rg[c].to_numpy(), rc[c].to_numpy()) for c in rg.columns}
+    arrays.update({f"shrunk {c}": (sg[c].to_numpy(), sc[c].to_numpy()) for c in ("log2FoldChange", "lfcSE")})
+    arrays.update({c: (dg.var[c].to_numpy(), dc.var[c].to_numpy()) for c in ("genewise_dispersions", "dispersions")})
+    arrays["vst_counts"] = (vg, vc)
+    compare_outputs("class API f64", *({k: np.asarray(v[side], dtype=np.float64) for k, v in arrays.items()}
+                                       for side in (0, 1)))
+    log(f"    refitted {int(dg.var['refitted'].sum())}, cooks outliers {int(dg.var['_pvalue_cooks_outlier'].sum())}, "
+        f"padj < 0.05: {int(np.nansum(rg['padj'] < 0.05))}")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2203,6 +2700,8 @@ def main() -> int:
     sf_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
     errs32.update(vst_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
     vst_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
+    errs32.update(class_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
+    class_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -2234,6 +2733,9 @@ def main() -> int:
     log(f"phase 3i: run_summary_streamed(refit_cooks=True) on a zero-inflated draw (a zero in every gene), "
         f"{N_MAIN} x {G_MAIN} float32, an outlier planted in every {OUTLIER_EVERY}th gene")
     stream_zi = stream_path(3, G_MAIN, N_MAIN, "phase 3i", zero_inflated=True)
+    log(f"phase 3j: the class API (DeseqDataSet.deseq2, DeseqStats.summary, lfc_shrink, vst), {N_MAIN} x {G_MAIN} "
+        f"float32, an outlier planted in every {OUTLIER_EVERY}th gene")
+    klass = class_path(3)
 
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
@@ -2247,6 +2749,9 @@ def main() -> int:
     log("phase 4e: float64 iterative size factors, zero-inflated run_summary_streamed, vst_pipeline and "
         "run_vst_streamed, card against CPU, 100 x 2000")
     sf_vst_card_vs_cpu()
+    log("phase 4f: float64 class API (deseq2, summary, lfc_shrink, vst) with planted outliers, card against CPU, "
+        "100 x 2000")
+    class_card_vs_cpu()
 
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
@@ -2273,16 +2778,22 @@ def main() -> int:
         "sf_newton": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34", "sf_newton"),
         "vst": ("pydeseq2_tpu_torch/csrc/vst.cu", "pydeseq2_tpu/fused.py:886 + pydeseq2_tpu/fused_stream.py:1249",
                 "vst"),
+        "trend_fit": ("pydeseq2_tpu_torch/csrc/trend.cu", "pydeseq2_tpu/ops/trend.py:22", "trend_fit"),
+        "trimmed_var": ("pydeseq2_tpu_torch/csrc/trimmed.cu",
+                        "pydeseq2_tpu/ops/select.py:166 + pydeseq2_tpu/ops/stats.py:28,88,108", "trimmed_var"),
+        "hat": ("pydeseq2_tpu_torch/csrc/hat_wald.cu", "pydeseq2_tpu/ops/irls.py:444", "hat"),
+        "wald": ("pydeseq2_tpu_torch/csrc/hat_wald.cu", "pydeseq2_tpu/ops/wald.py:28", "wald"),
     }
     # Launches: the summary path for its kernels, the shrink paths for
     # theirs, the streamed refit path (phase 3e) for mom, trend, lowess and
     # impute, the zero-inflated one (3i) for the size-factor kernels, the
-    # blind VST (3g) for vst.
+    # blind VST (3g) for vst, the class API (3j) for its four.
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
                 "grid_apeglm": weak["launches"]["grid_apeglm"],
                 **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")},
                 "sf_nll": stream_zi["launches"]["sf_nll"], "sf_newton": stream_zi["launches"]["sf_newton"],
-                "vst": vst["launches"]["vst"]}
+                "vst": vst["launches"]["vst"],
+                **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")}}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -2296,11 +2807,12 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps"):
+        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms"):
             if extra in t:
                 # the sort before the BH sweep; a rescue kernel over every lane
                 # of its tile; cooks in the streamed refit mode; mom writing mu;
-                # the Newton steps of one sf_newton launch
+                # the Newton steps of one sf_newton launch; trimmed_var over the
+                # mean trend's one column
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -2312,6 +2824,7 @@ def main() -> int:
     log("blind VST path: " + json.dumps(vst))
     log("streamed VST path, wide: " + json.dumps(vst_wide))
     log("streamed refit path, zero-inflated: " + json.dumps(stream_zi))
+    log("class API path: " + json.dumps(klass))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

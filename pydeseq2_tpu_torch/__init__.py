@@ -1,7 +1,9 @@
 """pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines, the
 gene-streamed summary with Cook's outlier replacement and refit (and the
-iterative size factors of zero-inflated counts), apeGLM LFC shrinkage and
-the blind variance-stabilising transform in PyTorch, with CUDA kernels.
+iterative size factors of zero-inflated counts), apeGLM LFC shrinkage, the
+blind variance-stabilising transform and the ``DeseqDataSet`` /
+``DeseqStats`` class API over a device-resident ``TorchInference``, in
+PyTorch, with CUDA kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
@@ -11,8 +13,10 @@ dispersion Newton polish, the dispersion trend, IRLS and its two rescue
 tiers, hat diagonals + Wald, Cook's distances, the batched BH sweep and
 the lowess pick of independent filtering, the Cook's refit imputation, the
 apeGLM Newton fit and grid, the trimmed size-factor NLL and Newton steps,
-and the VST transform) are eighteen CUDA kernels written by hand
-for ``sm_90a`` under ``csrc/``, built with ``nvcc`` at first use (see
+the VST transform, and for the class API the standalone trend fit, the
+trimmed (cell) variances and the hat-only and Wald-only halves of hat +
+Wald) are twenty-two CUDA kernels written by hand for ``sm_90a`` under
+``csrc/``, built with ``nvcc`` at first use (see
 :mod:`pydeseq2_tpu_torch.kernels`).
 
 Device rule: entry points take ``device`` (default ``"cuda"``) and raise if
@@ -56,6 +60,17 @@ from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
     vst_pipeline_streamed,
 )
 from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors  # noqa: E402
+from pydeseq2_tpu_torch.container import DeseqDataContainer  # noqa: E402
+from pydeseq2_tpu_torch.inference import Inference  # noqa: E402
+from pydeseq2_tpu_torch.torch_inference import TorchInference  # noqa: E402
+from pydeseq2_tpu_torch.default_inference import DefaultInference  # noqa: E402
+from pydeseq2_tpu_torch.models.dataset import DeseqDataSet  # noqa: E402
+from pydeseq2_tpu_torch.models.stats import DeseqStats  # noqa: E402
+from pydeseq2_tpu_torch.preprocessing import (  # noqa: E402
+    deseq2_norm,
+    deseq2_norm_fit,
+    deseq2_norm_transform,
+)
 
 __version__ = "0.1.0"
 
@@ -73,6 +88,15 @@ __all__ = [
     "run_vst_streamed",
     "vst_pipeline_streamed",
     "iterative_size_factors",
+    "DeseqDataSet",
+    "DeseqStats",
+    "DeseqDataContainer",
+    "Inference",
+    "TorchInference",
+    "DefaultInference",
+    "deseq2_norm",
+    "deseq2_norm_fit",
+    "deseq2_norm_transform",
     "inputs_from_numpy",
     "outputs_to_numpy",
     "resolve_device",

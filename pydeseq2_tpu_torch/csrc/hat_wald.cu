@@ -17,6 +17,15 @@
 // Bound on the H100 by its writes, 2 x G x N values; the exp of pass 1 is
 // recomputed in pass 2 rather than stored, which costs operations, not
 // bytes.
+//
+// Two more entries serve the class API, which calls the two halves apart
+// (models/dataset.py fit_LFC, models/stats.py run_wald_test):
+//   hat_launch  (hat_diagonals alone): pass 1 builds only X^T W_thr X, pass
+//     2 writes H and mu; bound by the same 2 G N writes.
+//   wald_launch (wald_test_batch alone): reads the caller's (G, N) mu
+//     instead of forming it, and the caller's (P, P) ridge (DeseqStats
+//     passes diag(1 / prior_LFC_var^2) or 1e-6 I) instead of 1e-6 I; it
+//     writes no (G, N) value, so it is bound by reading mu, G x N values.
 #include "common.cuh"
 
 using namespace pdt;
@@ -39,6 +48,8 @@ template <typename T> __device__ __forceinline__ T norm_sf(T x) {
 
 // alt_hypothesis codes (ops/wald.py:ALT_CODES)
 enum { ALT_NONE = 0, ALT_GREATER_ABS = 1, ALT_LESS_ABS = 2, ALT_GREATER = 3, ALT_LESS = 4 };
+// what a launch computes
+enum { MODE_FUSED = 0, MODE_HAT = 1, MODE_WALD = 2 };
 
 // sum_p fmax((lfc_p - null) / se, 0) c_p  and its p-value
 template <int P, typename T>
@@ -59,13 +70,19 @@ __device__ __forceinline__ void less(const T* lfc, const T* c, T se, T null, T& 
   pval = norm_sf(m_abs(s));
 }
 
-template <int P, typename T>
+// MODE_FUSED: both passes and the test; MODE_HAT: no test (contrast,
+// lfc_null, the test's outputs unused); MODE_WALD: mu_in read, ridge (P, P)
+// added, no hat pass (sf, H_out, mu_out unused).
+template <int P, typename T, int MODE>
 __global__ void __launch_bounds__(THREADS)
     hat_wald_kernel(int G, int N, const T* __restrict__ beta_g, const T* __restrict__ disp_g,
                     const T* __restrict__ sf, const T* __restrict__ X,
                     const T* __restrict__ contrast, const T* __restrict__ lfc_null_p, T min_mu,
-                    int alt, T* __restrict__ H_out, T* __restrict__ mu_out,
+                    int alt, const T* __restrict__ mu_in, const T* __restrict__ ridge,
+                    T* __restrict__ H_out, T* __restrict__ mu_out,
                     T* __restrict__ pval_out, T* __restrict__ stat_out, T* __restrict__ se_out) {
+  constexpr bool HAT = MODE != MODE_WALD;
+  constexpr bool TEST = MODE != MODE_HAT;
   const int gi = (int)(((size_t)blockIdx.x * THREADS + threadIdx.x) / WARP);
   const int lane = threadIdx.x & (WARP - 1);
   if (gi >= G) return;
@@ -74,7 +91,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     b[p] = beta_g[(size_t)gi * P + p];
-    c[p] = __ldg(contrast + p);
+    c[p] = TEST ? __ldg(contrast + p) : T(0);
   }
 
   // ---- pass 1: both Gram matrices ----
@@ -93,7 +110,7 @@ __global__ void __launch_bounds__(THREADS)
       xv[p] = __ldg(xn + p);
       xb = xb + b[p] * xv[p];
     }
-    const T mu = __ldg(sf + n) * m_exp(xb);
+    const T mu = MODE == MODE_WALD ? mu_in[(size_t)gi * N + n] : __ldg(sf + n) * m_exp(xb);
     const T mu_thr = m_max(mu, min_mu);
     const T w_thr = mu_thr / (T(1) + mu_thr * disp);
     const T w = mu / (T(1) + mu * disp);
@@ -102,34 +119,46 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int q = p; q < P; ++q) {
         const T xx = xv[p] * xv[q];
-        gram_thr[tri_idx<P>(p, q)] += w_thr * xx;
-        gram[tri_idx<P>(p, q)] += w * xx;
+        if (HAT) gram_thr[tri_idx<P>(p, q)] += w_thr * xx;
+        if (TEST) gram[tri_idx<P>(p, q)] += w * xx;
       }
     }
   }
 #pragma unroll
   for (int i = 0; i < NTRI<P>; ++i) {
-    gram_thr[i] = warp_sum(gram_thr[i]);
-    gram[i] = warp_sum(gram[i]);
+    if (HAT) gram_thr[i] = warp_sum(gram_thr[i]);
+    if (TEST) gram[i] = warp_sum(gram[i]);
   }
 
   // ---- the two inverses ----
   T ridged[NTRI<P>], minv[P * P], hinv[P * P];
+  if (HAT) {
 #pragma unroll
-  for (int i = 0; i < NTRI<P>; ++i) ridged[i] = gram_thr[i];
+    for (int i = 0; i < NTRI<P>; ++i) ridged[i] = gram_thr[i];
 #pragma unroll
-  for (int p = 0; p < P; ++p) ridged[tri_idx<P>(p, p)] = ridged[tri_idx<P>(p, p)] + T(1e-6);
-  sym_inv<T, P>(ridged, minv);
+    for (int p = 0; p < P; ++p) ridged[tri_idx<P>(p, p)] = ridged[tri_idx<P>(p, p)] + T(1e-6);
+    sym_inv<T, P>(ridged, minv);
+  }
+  if (TEST) {
 #pragma unroll
-  for (int i = 0; i < NTRI<P>; ++i) ridged[i] = gram[i];
+    for (int i = 0; i < NTRI<P>; ++i) ridged[i] = gram[i];
+    if (MODE == MODE_WALD) {
 #pragma unroll
-  for (int p = 0; p < P; ++p) ridged[tri_idx<P>(p, p)] = ridged[tri_idx<P>(p, p)] + T(1e-6);
-  sym_inv<T, P>(ridged, hinv);
+      for (int p = 0; p < P; ++p) {
+#pragma unroll
+        for (int q = p; q < P; ++q) ridged[tri_idx<P>(p, q)] = ridged[tri_idx<P>(p, q)] + __ldg(ridge + p * P + q);
+      }
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p) ridged[tri_idx<P>(p, p)] = ridged[tri_idx<P>(p, p)] + T(1e-6);
+    }
+    sym_inv<T, P>(ridged, hinv);
+  }
 
   // ---- pass 2: hat diagonals and mu ----
   T* Hrow = H_out + (size_t)gi * N;
   T* murow = mu_out + (size_t)gi * N;
-  for (int n = lane; n < N; n += WARP) {
+  for (int n = lane; HAT && n < N; n += WARP) {
     const T* xn = X + (size_t)n * P;
     T xv[P];
     T xb = T(0);
@@ -154,7 +183,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   // ---- Wald statistic (all lanes hold the same values; lane 0 writes) ----
-  if (lane != 0) return;
+  if (!TEST || lane != 0) return;
   T hc[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -205,15 +234,34 @@ __global__ void __launch_bounds__(THREADS)
   se_out[gi] = se;
 }
 
-template <int P, typename T>
+template <int P, typename T, int MODE>
 int launch(int G, int N, const void* beta, const void* disp, const void* sf, const void* X,
-           const void* contrast, const void* lfc_null, double min_mu, int alt, void* H, void* mu,
-           void* pval, void* stat, void* se, cudaStream_t s) {
+           const void* contrast, const void* lfc_null, double min_mu, int alt, const void* mu_in,
+           const void* ridge, void* H, void* mu, void* pval, void* stat, void* se, cudaStream_t s) {
   const unsigned blocks = (unsigned)(((size_t)G * WARP + THREADS - 1) / THREADS);
-  hat_wald_kernel<P, T><<<blocks, THREADS, 0, s>>>(
+  hat_wald_kernel<P, T, MODE><<<blocks, THREADS, 0, s>>>(
       G, N, (const T*)beta, (const T*)disp, (const T*)sf, (const T*)X, (const T*)contrast,
-      (const T*)lfc_null, (T)min_mu, alt, (T*)H, (T*)mu, (T*)pval, (T*)stat, (T*)se);
+      (const T*)lfc_null, (T)min_mu, alt, (const T*)mu_in, (const T*)ridge, (T*)H, (T*)mu, (T*)pval,
+      (T*)stat, (T*)se);
   return 0;
+}
+
+template <int MODE>
+int dispatch(int is_f64, int P, int G, int N, const void* beta, const void* disp, const void* sf,
+             const void* X, const void* contrast, const void* lfc_null, double min_mu, int alt,
+             const void* mu_in, const void* ridge, void* H, void* mu, void* pval, void* stat, void* se,
+             void* stream) {
+  if (G <= 0) return (int)cudaSuccess;
+  if (alt < ALT_NONE || alt > ALT_LESS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_f64) {
+    PDT_DISPATCH_P(P, (launch<PP, double, MODE>(G, N, beta, disp, sf, X, contrast, lfc_null, min_mu, alt,
+                                                mu_in, ridge, H, mu, pval, stat, se, s)));
+  } else {
+    PDT_DISPATCH_P(P, (launch<PP, float, MODE>(G, N, beta, disp, sf, X, contrast, lfc_null, min_mu, alt,
+                                               mu_in, ridge, H, mu, pval, stat, se, s)));
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -222,15 +270,19 @@ extern "C" int hat_wald_launch(int is_f64, int P, int G, int N, const void* beta
                                const void* sf, const void* X, const void* contrast,
                                const void* lfc_null, double min_mu, int alt, void* H, void* mu,
                                void* pval, void* stat, void* se, void* stream) {
-  if (G <= 0) return (int)cudaSuccess;
-  if (alt < ALT_NONE || alt > ALT_LESS) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_f64) {
-    PDT_DISPATCH_P(P, launch<PP, double>(G, N, beta, disp, sf, X, contrast, lfc_null, min_mu, alt,
-                                         H, mu, pval, stat, se, s));
-  } else {
-    PDT_DISPATCH_P(P, launch<PP, float>(G, N, beta, disp, sf, X, contrast, lfc_null, min_mu, alt,
-                                        H, mu, pval, stat, se, s));
-  }
-  return (int)cudaGetLastError();
+  return dispatch<MODE_FUSED>(is_f64, P, G, N, beta, disp, sf, X, contrast, lfc_null, min_mu, alt, nullptr,
+                              nullptr, H, mu, pval, stat, se, stream);
+}
+
+extern "C" int hat_launch(int is_f64, int P, int G, int N, const void* beta, const void* disp, const void* sf,
+                          const void* X, double min_mu, void* H, void* mu, void* stream) {
+  return dispatch<MODE_HAT>(is_f64, P, G, N, beta, disp, sf, X, nullptr, nullptr, min_mu, ALT_NONE, nullptr,
+                            nullptr, H, mu, nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int wald_launch(int is_f64, int P, int G, int N, const void* lfc, const void* disp, const void* mu,
+                           const void* X, const void* ridge, const void* contrast, const void* lfc_null, int alt,
+                           void* pval, void* stat, void* se, void* stream) {
+  return dispatch<MODE_WALD>(is_f64, P, G, N, lfc, disp, nullptr, X, contrast, lfc_null, 0.0, alt, mu, ridge,
+                             nullptr, nullptr, pval, stat, se, stream);
 }

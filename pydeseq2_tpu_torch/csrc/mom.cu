@@ -19,6 +19,11 @@
 // gene and read through L1/L2: at N = 10000, P = 8 they are 640 KB in f64,
 // more than shared memory holds.
 //
+// With normed set, the counts operand already holds y = counts / sf (the
+// class API's Inference methods hand over normalised counts, and a product
+// normed x sf would not give the raw counts back to the bit): y_n is read
+// as it is, and sf enters only mean(1/sf) and mu.
+//
 // Bound on the H100 by its bytes: the counts read once (the second pass
 // re-reads the row from L1) and mu written when asked, 24 + 24 MB at
 // 100 x 60000 f32.
@@ -50,7 +55,7 @@ template <int P, typename T>
 __global__ void __launch_bounds__(THREADS)
     mom_kernel(int G, int N, const T* __restrict__ counts, const T* __restrict__ sf,
                const T* __restrict__ X, const T* __restrict__ pinv,
-               const T* __restrict__ s_mean_inv_p, T min_mu, T* __restrict__ rough_out,
+               const T* __restrict__ s_mean_inv_p, T min_mu, int normed, T* __restrict__ rough_out,
                T* __restrict__ moments_out, T* __restrict__ coef_out, T* __restrict__ mu_out) {
   const int gi = (int)(((size_t)blockIdx.x * THREADS + threadIdx.x) / WARP);
   const int lane = threadIdx.x & (WARP - 1);
@@ -62,7 +67,7 @@ __global__ void __launch_bounds__(THREADS)
   for (int p = 0; p < P; ++p) b[p] = T(0);
   T s = T(0);
   for (int n = lane; n < N; n += WARP) {
-    const T v = y[n] / __ldg(sf + n);
+    const T v = normed ? y[n] : y[n] / __ldg(sf + n);
     s += v;
 #pragma unroll
     for (int p = 0; p < P; ++p) b[p] += v * __ldg(pinv + (size_t)p * N + n);
@@ -75,7 +80,7 @@ __global__ void __launch_bounds__(THREADS)
   T r = T(0), d = T(0);
   for (int n = lane; n < N; n += WARP) {
     const T sfn = __ldg(sf + n);
-    const T v = y[n] / sfn;
+    const T v = normed ? y[n] : y[n] / sfn;
     T xv[P];
     const T xb = lin_pred<P, T>(X, n, b, xv);
     const T yh = m_max(xb, T(1));
@@ -98,29 +103,29 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int P, typename T>
 int launch(int G, int N, const void* counts, const void* sf, const void* X, const void* pinv,
-           const void* s_mean_inv, double min_mu, void* rough, void* moments, void* coef, void* mu,
-           cudaStream_t s) {
+           const void* s_mean_inv, double min_mu, int normed, void* rough, void* moments, void* coef,
+           void* mu, cudaStream_t s) {
   const unsigned blocks = (unsigned)(((size_t)G * WARP + THREADS - 1) / THREADS);
   mom_kernel<P, T><<<blocks, THREADS, 0, s>>>(G, N, (const T*)counts, (const T*)sf, (const T*)X,
-                                              (const T*)pinv, (const T*)s_mean_inv, (T)min_mu,
+                                              (const T*)pinv, (const T*)s_mean_inv, (T)min_mu, normed,
                                               (T*)rough, (T*)moments, (T*)coef, (T*)mu);
   return 0;
 }
 
 }  // namespace
 
-// mu may be NULL (no mu written).
+// mu may be NULL (no mu written). normed: counts holds counts / sf.
 extern "C" int mom_launch(int is_f64, int P, int G, int N, const void* counts, const void* sf,
                           const void* X, const void* pinv, const void* s_mean_inv, double min_mu,
-                          void* rough, void* moments, void* coef, void* mu, void* stream) {
+                          int normed, void* rough, void* moments, void* coef, void* mu, void* stream) {
   if (G <= 0) return (int)cudaSuccess;
   if (N <= P) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64) {
-    PDT_DISPATCH_P(P, launch<PP, double>(G, N, counts, sf, X, pinv, s_mean_inv, min_mu, rough,
+    PDT_DISPATCH_P(P, launch<PP, double>(G, N, counts, sf, X, pinv, s_mean_inv, min_mu, normed, rough,
                                          moments, coef, mu, s));
   } else {
-    PDT_DISPATCH_P(P, launch<PP, float>(G, N, counts, sf, X, pinv, s_mean_inv, min_mu, rough,
+    PDT_DISPATCH_P(P, launch<PP, float>(G, N, counts, sf, X, pinv, s_mean_inv, min_mu, normed, rough,
                                         moments, coef, mu, s));
   }
   return (int)cudaGetLastError();

@@ -46,7 +46,8 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     Phase 1 runs ``phase1_iters`` trips over every lane; the unfinished
     lanes continue from their iterate on a compacted tile of K = max(512,
     G/64) lanes, flagged first by a STABLE argsort, or at full width when
-    more than K are unfinished. Lanes still flagged then take the projected
+    more than K are unfinished (``phase1_iters=250``: one phase, the whole
+    budget at once). Lanes still flagged then take the projected
     Newton rescue and, for P == 2, the 2-D grid; each tier is told which
     lanes of the tile it rescues (``sel``), and its kernel works on those
     only. ``overflow`` counts flagged lanes beyond the K tile. See
@@ -62,8 +63,10 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     # Flagged lanes first; ties keep ascending lane order (stable sort).
     idx1 = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:K]
 
-    # Host-evaluated lax.switch branch (fused.py:154-160).
-    n_unfinished = int(needs_fb.sum())
+    # Host-evaluated lax.switch branch (fused.py:154-160); with
+    # phase1_iters = 250 (one phase, as the class API's backend runs it)
+    # there is nothing to continue.
+    n_unfinished = int(needs_fb.sum()) if phase1_iters < 250 else 0
     if n_unfinished > K:
         b2, nfb2, conv2 = irls_core(
             counts, size_factors, X, disp, beta,

@@ -39,6 +39,8 @@ KERNELS = {
     "disp_newton": ("disp_newton.cu", "disp_newton_launch"),
     "irls": ("irls.cu", "irls_launch"),
     "hat_wald": ("hat_wald.cu", "hat_wald_launch"),
+    "hat": ("hat_wald.cu", "hat_launch"),
+    "wald": ("hat_wald.cu", "wald_launch"),
     "cooks": ("cooks.cu", "cooks_launch"),
     "bh": ("bh.cu", "bh_launch"),
     "newton_box": ("newton_box.cu", "newton_box_launch"),
@@ -47,11 +49,13 @@ KERNELS = {
     "grid_apeglm": ("grid.cu", "grid_apeglm_launch"),
     "mom": ("mom.cu", "mom_launch"),
     "trend": ("trend.cu", "trend_launch"),
+    "trend_fit": ("trend.cu", "trend_fit_launch"),
     "lowess": ("lowess.cu", "lowess_launch"),
     "impute": ("impute.cu", "impute_launch"),
     "sf_nll": ("sizefactors.cu", "sf_nll_launch"),
     "sf_newton": ("sizefactors.cu", "sf_newton_launch"),
     "vst": ("vst.cu", "vst_launch"),
+    "trimmed_var": ("trimmed.cu", "trimmed_var_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -82,6 +86,8 @@ _ARGTYPES = {
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _P, _P, _P],
     "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
+    "hat_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _P, _P],
+    "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P],
     "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
@@ -89,13 +95,15 @@ _ARGTYPES = {
     "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
-    "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P],
+    "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P],
     "trend_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "trend_fit_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
     "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "sf_nll_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P],
     "sf_newton_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "trimmed_var_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 

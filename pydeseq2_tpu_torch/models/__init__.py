@@ -1,1 +1,1 @@
-"""Host-side statistics of the class API (numpy only)."""
+"""The class API: ``DeseqDataSet`` and ``DeseqStats``."""

@@ -36,9 +36,9 @@ from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops.stats import (
     _COHORT_SCALES,
     _COHORT_TRIM_RATIOS,
+    _trimmed_cell_variance_plain,
+    _trimmed_variance_plain,
     cohort_bin,
-    trimmed_cell_variance,
-    trimmed_variance,
 )
 
 
@@ -104,9 +104,9 @@ def _cooks_plain(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_m
     normed = counts / size_factors[None, :]
     if cohort_ids is not None:
         idx = torch.tensor([i for i, u in enumerate(use_for_max) if u], device=counts.device)
-        v = trimmed_cell_variance(normed[:, idx].T, cohort_ids)
+        v = _trimmed_cell_variance_plain(normed[:, idx].T, cohort_ids)
     else:
-        v = trimmed_variance(normed.T, axis=0)
+        v = _trimmed_variance_plain(normed.T, 0.125, 0)
     m = normed.mean(dim=1)
     disp_c = torch.clamp((v - m) / m**2, min=0.04)
     V = mu + disp_c[:, None] * mu**2

@@ -28,8 +28,10 @@ The rescue tiers have kernels too: ``csrc/newton_box.cu`` (the projected
 Newton box solver, one warp per selected lane) and ``csrc/grid.cu``'s
 ``grid_nb`` (the 2-D grid, one block per selected lane). Both take ``sel``,
 the lanes of the compacted tile whose result the caller uses, and do no work
-for the others. :func:`hat_diagonals` is the plain version of the hat half
-of ``ops/wald.py:hat_wald``.
+for the others. :func:`hat_diagonals` on CUDA tensors launches the
+hat-only entry of ``csrc/hat_wald.cu`` (``hat``, the class API's
+``TorchInference.irls``); its plain version is the hat half of
+``ops/wald.py:hat_wald``'s.
 """
 
 from __future__ import annotations
@@ -210,9 +212,17 @@ def irls_core(
     return beta, needs_fb, ~needs_fb
 
 
-def irls_beta_init(counts: torch.Tensor, size_factors: torch.Tensor, design_matrix: torch.Tensor) -> torch.Tensor:
-    """Initial coefficients: QR least squares of log(y/sf + 0.1) on X
-    (full-rank design; reference pydeseq2/utils.py:348-357)."""
+def irls_beta_init(
+    counts: torch.Tensor, size_factors: torch.Tensor, design_matrix: torch.Tensor, full_rank: bool = True
+) -> torch.Tensor:
+    """Initial coefficients: QR least squares of log(y/sf + 0.1) on X for a
+    full-rank design; otherwise zeros with a log-mean intercept (reference
+    pydeseq2/utils.py:348-357, ``pydeseq2_tpu/ops/irls.py:248``).
+    ``full_rank`` is a host-side property of the design."""
+    if not full_rank:
+        beta = torch.zeros((counts.shape[0], design_matrix.shape[1]), dtype=counts.dtype, device=counts.device)
+        beta[:, 0] = torch.log(counts / size_factors[None, :]).mean(dim=1)
+        return beta
     y = torch.log(counts / size_factors[None, :] + 0.1)
     Q, R = torch.linalg.qr(design_matrix)
     rhs = y @ Q
@@ -410,17 +420,7 @@ def grid_fit_beta_batch(
     return _grid_fit_beta_plain(*args)
 
 
-def hat_diagonals(
-    counts: torch.Tensor,
-    size_factors: torch.Tensor,
-    design_matrix: torch.Tensor,
-    disp: torch.Tensor,
-    beta: torch.Tensor,
-    min_mu: float = 0.5,
-):
-    """Hat diagonals W diag(X (X^T W X + 1e-6 I)^-1 X^T) and the
-    UNthresholded mu. Port of ``pydeseq2_tpu/ops/irls.py:444``."""
-    X = design_matrix
+def _hat_plain(size_factors, X, disp, beta, min_mu):
     P = X.shape[1]
     xb = beta @ X.T
     mu_thr = torch.clamp(size_factors[None, :] * torch.exp(xb), min=min_mu)
@@ -429,3 +429,40 @@ def hat_diagonals(
     Minv = sym_inv(M)
     xmx = torch.einsum("np,gpq,nq->gn", X, Minv, X)
     return W * xmx, size_factors[None, :] * torch.exp(xb)
+
+
+def _hat_cuda(size_factors, X, disp, beta, min_mu):
+    """Launch the hat-only entry of ``csrc/hat_wald.cu`` (``hat``)."""
+    G, P = beta.shape
+    N = X.shape[0]
+    dev = beta.device
+    ops = [t.contiguous() for t in (beta, disp, size_factors, X)]
+    beta, disp, size_factors, X = ops
+    H = torch.empty((G, N), dtype=beta.dtype, device=dev)
+    mu = torch.empty_like(H)
+    kernels.check_cuda_operands("hat", *ops, H, mu)
+    kernels.check_p("hat", P)
+    kernels.launch(
+        "hat",
+        [int(beta.dtype == torch.float64), P, G, N, beta.data_ptr(), disp.data_ptr(), size_factors.data_ptr(),
+         X.data_ptr(), float(min_mu), H.data_ptr(), mu.data_ptr()],
+        dev,
+    )
+    return H, mu
+
+
+def hat_diagonals(
+    counts: torch.Tensor | None,
+    size_factors: torch.Tensor,
+    design_matrix: torch.Tensor,
+    disp: torch.Tensor,
+    beta: torch.Tensor,
+    min_mu: float = 0.5,
+):
+    """Hat diagonals W diag(X (X^T W X + 1e-6 I)^-1 X^T) on the min_mu-
+    thresholded mu, and the UNthresholded mu, both (G, N). Port of
+    ``pydeseq2_tpu/ops/irls.py:444``; ``counts`` is not read. CUDA tensors
+    launch the hat-only entry of ``csrc/hat_wald.cu``; CPU tensors take the
+    plain version."""
+    fn = _hat_cuda if beta.is_cuda else _hat_plain
+    return fn(size_factors, design_matrix, disp, beta, min_mu)

@@ -71,15 +71,15 @@ def mu_from_coef(beta_coef: torch.Tensor, size_factors: torch.Tensor, design_mat
     return torch.clamp(size_factors[None, :] * (beta_coef @ design_matrix.T), min=min_mu)
 
 
-def _mom_plain(counts, size_factors, X, pinv, min_mu, want_mu):
-    normed = counts / size_factors[None, :]
-    rough = fit_rough_dispersions_batch(normed, X)
-    moments = fit_moments_dispersions_batch(normed, size_factors)
-    coef = normed @ pinv.T
+def _mom_plain(counts, size_factors, X, pinv, min_mu, want_mu, normed=False):
+    y = counts if normed else counts / size_factors[None, :]
+    rough = fit_rough_dispersions_batch(y, X)
+    moments = fit_moments_dispersions_batch(y, size_factors)
+    coef = y @ pinv.T
     return rough, moments, coef, mu_from_coef(coef, size_factors, X, min_mu) if want_mu else None
 
 
-def _mom_cuda(counts, size_factors, X, pinv, min_mu, want_mu):
+def _mom_cuda(counts, size_factors, X, pinv, min_mu, want_mu, normed=False):
     G, N = counts.shape
     P = X.shape[1]
     dev = counts.device
@@ -99,7 +99,7 @@ def _mom_cuda(counts, size_factors, X, pinv, min_mu, want_mu):
         [
             int(counts.dtype == torch.float64), P, G, N,
             counts.data_ptr(), size_factors.data_ptr(), X.data_ptr(), pinv.data_ptr(), s_mean_inv.data_ptr(),
-            float(min_mu), rough.data_ptr(), moments.data_ptr(), coef.data_ptr(), kernels.ptr(mu),
+            float(min_mu), int(normed), rough.data_ptr(), moments.data_ptr(), coef.data_ptr(), kernels.ptr(mu),
         ],
         dev,
     )
@@ -113,6 +113,7 @@ def mom_and_mu_coef(
     pinv: torch.Tensor,
     min_mu: float = 0.5,
     want_mu: bool = True,
+    normed: bool = False,
 ):
     """The method-of-moments inputs and the linear mu init in one pass:
     ``(rough (G,), moments (G,), beta_coef (G, P), mu_hat (G, N) or None)``.
@@ -122,8 +123,10 @@ def mom_and_mu_coef(
     ``beta_coef = y @ pinv.T`` the OLS coefficients, and with ``want_mu``
     ``mu_hat = max(sf * (beta_coef @ X.T), min_mu)``, which is
     :func:`fit_lin_mu_batch`. ``pinv`` is :func:`ols_pinv` of the design.
-    CUDA tensors launch the ``mom`` kernel; CPU tensors take the plain
-    functions.
+    With ``normed``, ``counts`` already holds y (the class API's MoM
+    methods receive normalised counts); ``size_factors`` then enter only
+    ``moments`` (mean(1/sf)) and mu. CUDA tensors launch the ``mom``
+    kernel; CPU tensors take the plain functions.
     """
     fn = _mom_cuda if counts.is_cuda else _mom_plain
-    return fn(counts, size_factors, design_matrix, pinv, min_mu, want_mu)
+    return fn(counts, size_factors, design_matrix, pinv, min_mu, want_mu, normed)

@@ -25,7 +25,7 @@ import torch
 
 from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops.cooks import _mask_tensor, unpack_bits
-from pydeseq2_tpu_torch.ops.stats import trimmed_mean
+from pydeseq2_tpu_torch.ops.stats import _trimmed_mean_plain
 
 TRIM = 0.2
 
@@ -34,7 +34,7 @@ def _impute_plain(counts, exceeds_packed, replaceable, size_factors, tile_mask):
     N = counts.shape[1]
     repl = torch.as_tensor(replaceable, dtype=torch.bool, device=counts.device)
     swap = repl[None, :] & unpack_bits(exceeds_packed, N)
-    trim02 = trimmed_mean(counts / size_factors[None, :], trim=TRIM, axis=1)
+    trim02 = _trimmed_mean_plain(counts / size_factors[None, :], TRIM, 1)
     # .astype(int) truncation of the reference; counts are >= 0, so floor.
     imputed = torch.where(swap, torch.floor(trim02[:, None] * size_factors[None, :]), counts)
     return imputed, (imputed == 0).all(dim=1) & tile_mask

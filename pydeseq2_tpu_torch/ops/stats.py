@@ -1,10 +1,24 @@
 """Robust statistics: trimmed moments, NaN-aware median and quantiles, BH
 adjustment, lowess.
 
-Port of ``pydeseq2_tpu/ops/stats.py``. The Cook's-distance trimmed moments
-run as one CUDA kernel (``ops/cooks.py``); the plain versions here are the
-JAX package's sort-slice forms. The independent-filtering BH sweep runs as
-the ``bh`` kernel through :func:`bh_sweep`.
+Port of ``pydeseq2_tpu/ops/stats.py``. The pipelines' Cook's-distance
+trimmed moments run inside the ``cooks`` kernel (``ops/cooks.py``). The
+independent-filtering BH sweep runs as the ``bh`` kernel through
+:func:`bh_sweep`.
+
+Kernel (``csrc/trimmed.cu``): :func:`trimmed_mean`, :func:`trimmed_variance`
+and :func:`trimmed_cell_variance` on CUDA tensors launch ``trimmed_var``,
+which replaces ``trimmed_mean_select`` (pydeseq2_tpu/ops/select.py:166)
+inside ``pydeseq2_tpu/ops/stats.py:28,88,108`` as the class API calls them
+(the robust MoM dispersions of Cook's distances; the mean trend's trimmed
+mean over a column of ~G dispersions). One warp per row, or one block of
+256 for rows of 4096 or more, bisects the keys to the two boundary order
+statistics, sums the interior and counts the boundary copies exactly; the
+variances do both passes and the max over cohorts in the same launch. It is
+bound by its operations: 32 or 64 passes over a row that stays in cache.
+The kept sum is taken in float64 and rounded once, in the plain versions
+too, so in float32 kernel and plain version agree to the bit but for
+rounding ties of that sum.
 
 Kernel (``csrc/bh.cu``): replaces the shared-order path of
 ``bh_adjust_masked`` (pydeseq2_tpu/ops/stats.py:145) as ``device_padj``
@@ -34,34 +48,126 @@ bound by launch latency, where the plain version is ~40 small launches.
 
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 
 from pydeseq2_tpu_torch import kernels
-from pydeseq2_tpu_torch.ops.select import masked_median_select
+from pydeseq2_tpu_torch.ops.select import masked_median_select, order_stats_select_plain
+
+# Phi^-1(0.75), the MAD's normal-consistency constant.
+_NORM_PPF_075 = 0.6744897501960817
+
+
+# Rows at least this long take one block per row in the trimmed_var kernel
+# (a column of dispersions over the genes); shorter ones one warp.
+_BLOCK_ROW = 4096
+# JAX's trimmed_mean switches from the sort path to the select path here
+# (pydeseq2_tpu/ops/stats.py:46).
+_SELECT_MIN_N = 1024
+
+
+def _kept_sum_mean(total64: torch.Tensor, n_kept: int, dtype) -> torch.Tensor:
+    """The kept values' float64 sum rounded once to ``dtype``, over their
+    count (the ``trimmed_var`` kernel's last step). The count is a 0-d
+    tensor: a Python scalar divisor on the card becomes a product with its
+    reciprocal."""
+    return total64.to(dtype) / torch.tensor(n_kept, dtype=dtype, device=total64.device)
+
+
+def _trimmed_mean_plain(x: torch.Tensor, trim: float, axis: int) -> torch.Tensor:
+    """JAX's two paths (``pydeseq2_tpu/ops/stats.py:28``): the sort slice
+    below n = 1024, ``trimmed_mean_select``'s kept multiset by order
+    statistics at or above it; both sum the kept values in float64."""
+    n = x.shape[axis]
+    k = math.floor(n * trim)
+    xm = x.movedim(axis, 0)
+    if k == 0:
+        return _kept_sum_mean(xm.sum(0, dtype=torch.float64), n, x.dtype)
+    if n < _SELECT_MIN_N:
+        kept = torch.sort(xm, dim=0).values[k:n - k]
+        return _kept_sum_mean(kept.sum(0, dtype=torch.float64), n - 2 * k, x.dtype)
+    lo, hi = order_stats_select_plain(xm, (k, n - 1 - k), axis=0)
+    strict = torch.where((xm > lo) & (xm < hi), xm, torch.zeros_like(xm)).sum(0, dtype=torch.float64)
+    copies_lo = ((xm <= lo).sum(0) - k).to(torch.float64)
+    copies_hi = (n - k - (xm < hi).sum(0)).to(torch.float64)
+    total = strict + lo.to(torch.float64) * copies_lo + hi.to(torch.float64) * copies_hi
+    return torch.where(lo == hi, lo, _kept_sum_mean(total, n - 2 * k, x.dtype))
+
+
+def _trimmed_rows_cuda(rows: torch.Tensor, ks, scales=None, cohorts=None) -> torch.Tensor:
+    """Launch ``trimmed_var`` over the rows of ``rows`` (R, N): the trimmed
+    mean dropping ``ks[0]`` at each end (``scales`` None), or the max over
+    ``cohorts`` (lists of sample indices) of ``scales[c]`` times the
+    cohort's trimmed variance dropping ``ks[c]``."""
+    R, N = rows.shape
+    dev = rows.device
+    rows = rows.contiguous()
+    out = torch.empty(R, dtype=rows.dtype, device=dev)
+    ks_t = torch.tensor(ks, dtype=torch.int32, device=dev)
+    members = offsets = scales_t = None
+    if scales is not None:
+        members = torch.tensor([i for c in cohorts for i in c], dtype=torch.int32, device=dev)
+        offsets = torch.tensor([0] + list(itertools.accumulate(len(c) for c in cohorts)), dtype=torch.int32,
+                               device=dev)
+        scales_t = torch.tensor(scales, dtype=rows.dtype, device=dev)
+    kernels.check_cuda_operands("trimmed_var", rows, scales_t, out, ks_t, members, offsets)
+    kernels.launch(
+        "trimmed_var",
+        [int(rows.dtype == torch.float64), R, N, int(scales is not None), int(N >= _BLOCK_ROW), rows.data_ptr(),
+         kernels.ptr(members), kernels.ptr(offsets), 1 if cohorts is None else len(cohorts), ks_t.data_ptr(),
+         kernels.ptr(scales_t), out.data_ptr()],
+        dev,
+    )
+    return out
+
+
+def _as_rows(x: torch.Tensor, axis: int):
+    """``x`` with ``axis`` last, flattened to rows, and the shape of the rest."""
+    xt = x.movedim(axis, -1)
+    return xt.reshape(-1, xt.shape[-1]), xt.shape[:-1]
 
 
 def trimmed_mean(x: torch.Tensor, trim: float = 0.1, axis: int = 0) -> torch.Tensor:
     """Mean after dropping ``floor(n * trim)`` entries at each end of the
     sorted axis (reference pydeseq2/utils.py:567-599).
 
-    The sort-slice semantics of ``pydeseq2_tpu/ops/stats.py:28``; the JAX
-    package switches to a sort-free select at n >= 1024, which keeps the
-    same multiset and sums it in another order.
+    Port of ``pydeseq2_tpu/ops/stats.py:28``. CUDA tensors launch the
+    ``trimmed_var`` kernel (the exact kept multiset by key bisection, any
+    n); CPU tensors take JAX's sort path below n = 1024 and its select
+    semantics at or above it. Both sum the kept values in float64 and round
+    once. Inputs must be finite: the select semantics drop a NaN where a
+    sort would propagate it.
     """
-    n = x.shape[axis]
-    ntrim = math.floor(n * trim)
-    s = torch.sort(x, dim=axis).values
-    return s.narrow(axis, ntrim, n - 2 * ntrim).mean(axis)
+    if not x.is_cuda:
+        return _trimmed_mean_plain(x, trim, axis)
+    rows, rest = _as_rows(x, axis)
+    return _trimmed_rows_cuda(rows, [math.floor(rows.shape[1] * trim)]).reshape(rest)
+
+
+def scipy_style_trim_mean(x: torch.Tensor, proportiontocut: float, axis: int = 0) -> torch.Tensor:
+    """``scipy.stats.trim_mean`` as the mean trend calls it (reference
+    pydeseq2/dds.py:505,1288): ``int(n * p)`` trimmed at each end, which is
+    :func:`trimmed_mean` for the proportions used (0.001)."""
+    return trimmed_mean(x, trim=proportiontocut, axis=axis)
+
+
+def _trimmed_variance_plain(x: torch.Tensor, trim: float, axis: int) -> torch.Tensor:
+    rm = _trimmed_mean_plain(x, trim, axis)
+    sqerror = (x - rm.unsqueeze(axis)) ** 2
+    return 1.51 * _trimmed_mean_plain(sqerror, trim, axis)
 
 
 def trimmed_variance(x: torch.Tensor, trim: float = 0.125, axis: int = 0) -> torch.Tensor:
     """Trimmed variance with the 1.51 trimming-bias scale (reference
-    pydeseq2/utils.py:653-679)."""
-    rm = trimmed_mean(x, trim=trim, axis=axis)
-    sqerror = (x - rm.unsqueeze(axis)) ** 2
-    return 1.51 * trimmed_mean(sqerror, trim=trim, axis=axis)
+    pydeseq2/utils.py:653-679; ``pydeseq2_tpu/ops/stats.py:88``). CUDA
+    tensors launch ``trimmed_var`` with one cohort of all entries."""
+    if not x.is_cuda:
+        return _trimmed_variance_plain(x, trim, axis)
+    rows, rest = _as_rows(x, axis)
+    n = rows.shape[1]
+    return _trimmed_rows_cuda(rows, [math.floor(n * trim)], [1.51], [list(range(n))]).reshape(rest)
 
 
 # (trim ratio, scale) by cohort-size bin: n < 3.5, n < 23.5, n >= 23.5
@@ -74,23 +180,51 @@ def cohort_bin(n: int) -> int:
     return 2 if n >= 23.5 else 1 if n >= 3.5 else 0
 
 
+def _cohorts(cells):
+    """Sample indices of each cohort (levels in first-seen order) and its
+    size bin."""
+    cells = [int(c) for c in cells]
+    cohorts = [[i for i, c in enumerate(cells) if c == lvl] for lvl in dict.fromkeys(cells)]
+    return cohorts, [cohort_bin(len(idx)) for idx in cohorts]
+
+
+def _trimmed_cell_variance_plain(counts: torch.Tensor, cells) -> torch.Tensor:
+    var_ests = []
+    for idx, b in zip(*_cohorts(cells)):
+        trim, scale = _COHORT_TRIM_RATIOS[b], _COHORT_SCALES[b]
+        sub = counts[torch.tensor(idx, device=counts.device), :]
+        cell_means = _trimmed_mean_plain(sub, trim, 0)
+        sqerror = (sub - cell_means[None, :]) ** 2
+        var_ests.append(scale * _trimmed_mean_plain(sqerror, trim, 0))
+    return torch.stack(var_ests, dim=0).amax(dim=0)
+
+
+def _trimmed_cell_variance_cuda(counts: torch.Tensor, cells) -> torch.Tensor:
+    cohorts, bins = _cohorts(cells)
+    ks = [math.floor(len(idx) * _COHORT_TRIM_RATIOS[b]) for idx, b in zip(cohorts, bins)]
+    return _trimmed_rows_cuda(counts.T, ks, [_COHORT_SCALES[b] for b in bins], cohorts)
+
+
 def trimmed_cell_variance(counts: torch.Tensor, cells) -> torch.Tensor:
     """Max over cohorts of the cohort's trimmed variance.
 
     counts (N, G) sample-major; ``cells`` (N,) host cohort ids (levels in
-    first-seen order). Reference pydeseq2/utils.py:602-650.
+    first-seen order). Reference pydeseq2/utils.py:602-650;
+    ``pydeseq2_tpu/ops/stats.py:108``. CUDA tensors launch ``trimmed_var``
+    once, one warp per gene over its cohorts; CPU tensors take the plain
+    version.
     """
-    cells = [int(c) for c in cells]
-    var_ests = []
-    for lvl in dict.fromkeys(cells):
-        idx = torch.tensor([i for i, c in enumerate(cells) if c == lvl], device=counts.device)
-        b = cohort_bin(len(idx))
-        trim, scale = _COHORT_TRIM_RATIOS[b], _COHORT_SCALES[b]
-        sub = counts[idx, :]
-        cell_means = trimmed_mean(sub, trim=trim, axis=0)
-        sqerror = (sub - cell_means[None, :]) ** 2
-        var_ests.append(scale * trimmed_mean(sqerror, trim=trim, axis=0))
-    return torch.stack(var_ests, dim=0).amax(dim=0)
+    fn = _trimmed_cell_variance_cuda if counts.is_cuda else _trimmed_cell_variance_plain
+    return fn(counts, cells)
+
+
+def mean_absolute_deviation(x: torch.Tensor) -> torch.Tensor:
+    """Scaled median absolute deviation of a 1-D tensor (reference
+    pydeseq2/utils.py:1210-1227; ``pydeseq2_tpu/ops/stats.py:136``), with
+    ``jnp.median``'s NaN propagation. The medians run on the ``select``
+    kernel for CUDA tensors."""
+    center = _median_nan(x)
+    return _median_nan(torch.abs(x - center)) / torch.tensor(_NORM_PPF_075, dtype=x.dtype, device=x.device)
 
 
 def trimmed_mean_masked(values: torch.Tensor, sel: torch.Tensor, cut: float) -> torch.Tensor:

@@ -12,7 +12,9 @@ Kernel (``csrc/trend.cu``): :func:`parametric_trend` on CUDA tensors runs
 every exclusion round, Newton step and backtracking trip in one block of
 1024 threads, each loss, gradient and Fisher sum a block reduction in a
 fixed order, so the host reads no loop condition (the plain version below
-reads one per trip). Its work is O(G) per step over 0.54 MB at 60000 genes
+reads one per trip). :func:`gamma_glm_trend_fit` on CUDA tensors launches
+the same source's ``trend_fit``: one fit on the caller's mask, the same
+block sums, for the class API, whose exclusion rounds run on the host. Its work is O(G) per step over 0.54 MB at 60000 genes
 that stays in L2: it is bound by its serial chain of reductions, not by
 bytes. The plain version (CPU tensors only) is the JAX program's loops as
 Python loops.
@@ -94,8 +96,7 @@ def _solve2(F, r):
     return torch.stack([(r0 - s1 * q) / p, s1])
 
 
-def gamma_glm_trend_fit(covariates: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor, maxiter: int = 60):
-    """Fit (a0, a1): ``(coeffs (2,), predictions (G,), converged)``."""
+def _trend_fit_plain(covariates, targets, valid, maxiter):
     dtype = targets.dtype
     dev = targets.device
     x = _design(covariates)
@@ -142,6 +143,37 @@ def gamma_glm_trend_fit(covariates: torch.Tensor, targets: torch.Tensor, valid: 
     return c, predictions, converged
 
 
+def _trend_fit_cuda(covariates, targets, valid, maxiter):
+    """Launch ``trend_fit``: the whole fit in one block."""
+    G = covariates.shape[0]
+    dev = covariates.device
+    covariates, targets = covariates.contiguous(), targets.contiguous()
+    valid8 = valid.to(torch.uint8).contiguous()
+    coeffs = torch.empty(2, dtype=targets.dtype, device=dev)
+    predictions = torch.empty_like(targets)
+    converged = torch.empty((), dtype=torch.uint8, device=dev)
+    kernels.check_cuda_operands("trend_fit", covariates, targets, valid8, coeffs, predictions, converged)
+    kernels.launch(
+        "trend_fit",
+        [int(targets.dtype == torch.float64), G, int(maxiter), covariates.data_ptr(), targets.data_ptr(),
+         valid8.data_ptr(), coeffs.data_ptr(), predictions.data_ptr(), converged.data_ptr()],
+        dev,
+    )
+    return coeffs, predictions, converged.bool()
+
+
+def gamma_glm_trend_fit(covariates: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor, maxiter: int = 60):
+    """Fit (a0, a1) on the ``valid`` lanes: ``(coeffs (2,), predictions
+    (G,), converged)``, predictions a0 + a1 x at every lane and converged a
+    0-d bool tensor. Port of ``pydeseq2_tpu/ops/trend.py:22``, the fit that
+    the class API's exclusion loop calls once a round. CUDA tensors launch
+    the ``trend_fit`` kernel (every Fisher step and backtracking trip on the
+    card, the host reads only the result); CPU tensors take the plain
+    version, which reads a loop condition per trip."""
+    fn = _trend_fit_cuda if covariates.is_cuda else _trend_fit_plain
+    return fn(covariates, targets, valid, maxiter)
+
+
 def _trend_inputs(base_mean, genewise_m, non_zero):
     """Covariates 1/base_mean and targets, zeroed outside the initial mask
     of finite non-zero genes (fused.py:251-258), and that mask."""
@@ -157,7 +189,7 @@ def _parametric_trend_plain(base_mean, genewise_m, non_zero, mean_disp, max_roun
     failed = torch.tensor(False, device=base_mean.device)
     rounds = 0
     for _ in range(max_rounds):
-        new_coeffs, preds, glm_ok = gamma_glm_trend_fit(covariates, targets, valid)
+        new_coeffs, preds, glm_ok = _trend_fit_plain(covariates, targets, valid, 60)
         failed = ~glm_ok | (new_coeffs <= 1e-10).any()
         drift = torch.sum(torch.log(torch.abs(new_coeffs / coeffs)) ** 2)
         ratio = genewise_m / preds

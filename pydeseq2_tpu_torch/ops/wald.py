@@ -20,6 +20,11 @@ rather than stored.
 
 The plain version (CPU tensors only) is ``ops/irls.py:hat_diagonals``
 followed by :func:`wald_test_batch`.
+
+The class API calls the two halves apart, so each has an entry of its own
+in the same source: ``hat`` (``ops/irls.py:hat_diagonals``) and ``wald``
+(:func:`wald_test_batch` on the caller's mu and ridge). On CUDA tensors
+each launches its entry; on CPU tensors each runs its plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from pydeseq2_tpu_torch import kernels
-from pydeseq2_tpu_torch.ops.irls import hat_diagonals
+from pydeseq2_tpu_torch.ops.irls import _hat_plain
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv, weighted_gram
 
 # alt_hypothesis -> the kernel's branch code
@@ -39,23 +44,7 @@ def norm_sf(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * torch.special.erfc(x / torch.sqrt(torch.tensor(2.0, dtype=x.dtype, device=x.device)))
 
 
-def wald_test_batch(
-    design_matrix: torch.Tensor,
-    disp: torch.Tensor,
-    lfc: torch.Tensor,
-    mu: torch.Tensor,
-    ridge_factor: torch.Tensor,
-    contrast: torch.Tensor,
-    lfc_null: torch.Tensor | float,
-    alt_hypothesis: str | None = None,
-):
-    """``(p_values, statistics, se)``, three (G,) tensors.
-
-    lfc (G, P) natural-log coefficients, mu (G, N), ridge_factor (P, P),
-    contrast (P,), lfc_null a natural-log scalar; ``alt_hypothesis`` one of
-    None, "greaterAbs", "lessAbs", "greater", "less".
-    """
-    X = design_matrix
+def _wald_plain(X, disp, lfc, mu, ridge_factor, contrast, lfc_null, alt_hypothesis):
     W = mu / (1.0 + mu * disp[:, None])
     M = weighted_gram(X, W)
     Hinv = sym_inv(M + ridge_factor[None])
@@ -94,10 +83,59 @@ def wald_test_batch(
     return pval, stat, se
 
 
+def _wald_cuda(X, disp, lfc, mu, ridge_factor, contrast, lfc_null, alt_hypothesis):
+    """Launch the Wald-only entry of ``csrc/hat_wald.cu`` (``wald``)."""
+    G, P = lfc.shape
+    N = X.shape[0]
+    dev = lfc.device
+    lfc_null = torch.as_tensor(lfc_null, dtype=lfc.dtype, device=dev).reshape(1)
+    ops = [t.contiguous() for t in (lfc, disp, mu, X, ridge_factor, contrast, lfc_null)]
+    lfc, disp, mu, X, ridge_factor, contrast, lfc_null = ops
+    if mu.shape != (G, N) or ridge_factor.shape != (P, P):
+        raise ValueError(f"wald: mu {tuple(mu.shape)}, ridge {tuple(ridge_factor.shape)}; expected ({G}, {N}), "
+                         f"({P}, {P})")
+    pval = torch.empty(G, dtype=lfc.dtype, device=dev)
+    stat = torch.empty_like(pval)
+    se = torch.empty_like(pval)
+    kernels.check_cuda_operands("wald", *ops, pval, stat, se)
+    kernels.check_p("wald", P)
+    kernels.launch(
+        "wald",
+        [int(lfc.dtype == torch.float64), P, G, N, *(t.data_ptr() for t in ops), ALT_CODES[alt_hypothesis],
+         pval.data_ptr(), stat.data_ptr(), se.data_ptr()],
+        dev,
+    )
+    return pval, stat, se
+
+
+def wald_test_batch(
+    design_matrix: torch.Tensor,
+    disp: torch.Tensor,
+    lfc: torch.Tensor,
+    mu: torch.Tensor,
+    ridge_factor: torch.Tensor,
+    contrast: torch.Tensor,
+    lfc_null: torch.Tensor | float,
+    alt_hypothesis: str | None = None,
+):
+    """``(p_values, statistics, se)``, three (G,) tensors.
+
+    lfc (G, P) natural-log coefficients, mu (G, N), ridge_factor (P, P),
+    contrast (P,), lfc_null a natural-log scalar; ``alt_hypothesis`` one of
+    None, "greaterAbs", "lessAbs", "greater", "less". Port of
+    ``pydeseq2_tpu/ops/wald.py:28``. CUDA tensors launch the Wald-only entry
+    of ``csrc/hat_wald.cu``; CPU tensors take the plain version.
+    """
+    if alt_hypothesis not in ALT_CODES:
+        raise ValueError(f"unknown alt_hypothesis {alt_hypothesis!r}")
+    fn = _wald_cuda if lfc.is_cuda else _wald_plain
+    return fn(design_matrix, disp, lfc, mu, ridge_factor, contrast, lfc_null, alt_hypothesis)
+
+
 def _hat_wald_plain(beta, disp, size_factors, X, contrast, lfc_null, min_mu, alt_hypothesis):
-    H, mu = hat_diagonals(None, size_factors, X, disp, beta, min_mu=min_mu)
+    H, mu = _hat_plain(size_factors, X, disp, beta, min_mu)
     ridge = 1e-6 * torch.eye(X.shape[1], dtype=beta.dtype, device=beta.device)
-    pval, stat, se = wald_test_batch(X, disp, beta, mu, ridge, contrast, lfc_null, alt_hypothesis)
+    pval, stat, se = _wald_plain(X, disp, beta, mu, ridge, contrast, lfc_null, alt_hypothesis)
     return H, mu, pval, stat, se
 
 

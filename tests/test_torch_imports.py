@@ -35,6 +35,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import pydeseq2_tpu_torch.ops.refit, pydeseq2_tpu_torch.ops.linreg, pydeseq2_tpu_torch.ops.trend; "
         "import pydeseq2_tpu_torch.ops.stats, pydeseq2_tpu_torch.ops.cooks; "
         "import pydeseq2_tpu_torch.ops.sizefactors, pydeseq2_tpu_torch.ops.vst; "
+        "import pydeseq2_tpu_torch.utils, pydeseq2_tpu_torch.utils.plots, pydeseq2_tpu_torch.container; "
+        "import pydeseq2_tpu_torch.formula, pydeseq2_tpu_torch.preprocessing, pydeseq2_tpu_torch.inference; "
+        "import pydeseq2_tpu_torch.torch_inference, pydeseq2_tpu_torch.default_inference; "
+        "import pydeseq2_tpu_torch.models.dataset, pydeseq2_tpu_torch.models.stats; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -57,6 +61,21 @@ def test_no_forbidden_import_in_source(path):
             assert not _forbidden(name), f"{path.name}:{node.lineno} imports {name}"
 
 
+def test_import_needs_no_nvcc_triton_or_matplotlib():
+    """Importing every module builds nothing and loads neither triton nor
+    matplotlib, with no nvcc on the PATH and CUDA_HOME pointing nowhere."""
+    code = (
+        "import sys, pathlib; import pydeseq2_tpu_torch as pt, pydeseq2_tpu_torch.utils.plots; "
+        "import pydeseq2_tpu_torch.models.dataset, pydeseq2_tpu_torch.torch_inference; "
+        "bad = [m for m in ('triton', 'matplotlib', 'anndata') if m in sys.modules]; "
+        "built = pt.kernels.BUILD_DIR.exists() and any(pt.kernels.BUILD_DIR.glob('*.tmp')); "
+        "print(bad, built); sys.exit(1 if bad or built else 0)"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the default device is valid")
@@ -75,6 +94,11 @@ def test_default_device_raises_without_cuda():
         pt.run_vst_streamed(counts.T)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         pt.iterative_size_factors(counts.T)
+    for backend in (pt.TorchInference, pt.DefaultInference):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            backend()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pt.deseq2_norm(counts)
 
 
 def test_public_surface():
@@ -82,8 +106,10 @@ def test_public_surface():
                  "run_lfc_shrink_streamed", "lfc_shrink_pipeline_streamed", "inputs_from_numpy",
                  "outputs_to_numpy", "run_summary_streamed", "summary_pipeline_streamed",
                  "refit_pipeline_streamed", "vst_pipeline", "run_vst_streamed", "vst_pipeline_streamed",
-                 "iterative_size_factors"):
+                 "iterative_size_factors", "DeseqDataSet", "DeseqStats", "DeseqDataContainer", "Inference",
+                 "TorchInference", "DefaultInference", "deseq2_norm", "deseq2_norm_fit", "deseq2_norm_transform"):
         assert callable(getattr(pt, name)), name
+    assert issubclass(pt.DefaultInference, pt.TorchInference) and issubclass(pt.TorchInference, pt.Inference)
     counts, X = make_data(6, 20)
     kw = pt.inputs_from_numpy(counts.T, X, np.array([0.0, 1.0]), 0.0, cooks_cutoff=5.0, dtype=torch.float32,
                               device="cpu", alpha=0.1)
@@ -128,7 +154,9 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Eighteen kernels, each with a launch count that starts at 0."""
+    """Twenty-two kernels (the class API's trend_fit, trimmed_var and the
+    hat-only and Wald-only entries of hat_wald.cu beside the pipelines'
+    eighteen), each with a launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 18
+    assert len(kernels.KERNELS) == 22
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)
