@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-two hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-four hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -30,6 +30,11 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    the genewise dispersions), the ``hat`` and ``wald`` entries and ``mom``
    in its normed-count mode on the operands one class-API deseq2() +
    summary() run hands them (same two scales, planted outliers);
+   ``disp_scan_fine`` (the fine scan of ``alpha_mle_batch(fine_length=8)``
+   around the coarse argmin) and ``dnb_nll`` (at the genewise dispersions)
+   on the main draw's operands (same two scales); ``disp_scan`` and
+   ``disp_newton`` at the atlas iterative fit's shape (5000 genes x 10000
+   samples, P = 1, float32), checked and timed;
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -65,6 +70,9 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    the launches of one run (each of CLASS_KERNELS must be > 0), and
    ``results_df`` against ``run_summary_streamed(refit_cooks=True)`` on the
    same counts (the same refitted genes, the gaps of CLASS_VS_STREAM);
+3k. runs ``alpha_mle_batch(fine_length=8)`` then ``dnb_nll`` at 100 x
+   60000 float32: warm wall, the launches of FINE_KERNELS in one run (each
+   must be > 0), and the dispersions against ``fine_length=0``;
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
@@ -80,6 +88,8 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 4f. runs the float64 class API (deseq2, summary, lfc_shrink, vst) on the
    card and on the CPU at 100 x 2000 with planted outliers: the same flags
    and every float column at rtol 1e-6;
+4g. runs float64 ``alpha_mle_batch(fine_length=8)`` (MLE and MAP) and
+   ``dnb_nll`` on the card and on the CPU at 100 x 2000;
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -103,12 +113,24 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12  # float64 outside the tensor cores
+# Special-function units (reciprocal, log2, exp2): 16 a clock per SM (4 per
+# SM sub-partition, the Hopper white paper), 132 SMs at the 1.98 GHz boost
+# clock. The dispersion kernels' phase-2 log lines state an SFU time beside
+# their bound, from the SFU operations their source issues per sample (an
+# estimate, not a count of the compiled code, and not in the kernels line).
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
 G_F64 = 4_000
 G_CPU_CMP = 2_000
 N_WIDE, G_WIDE = 1_500, 3_000  # Cook's past the JAX select switch (n >= 1024)
+# The atlas iterative fit's dispersion shape (PERF.md section 4): one block
+# of 5000 genes of 10000 samples, intercept-only design, float32.
+N_ATLAS, G_ATLAS_BLOCK = 10_000, 5_000
+# The fine scan's points in phases 2 and 3k (alpha_mle_batch(fine_length=8),
+# the JAX package's documented fine setting).
+FINE_LENGTH = 8
 # The kernels wald_pipeline launches; summary_pipeline adds cooks, bh and
 # lowess. Both launch the rescue tiers' kernels (newton_box, grid_nb) only
 # where a lane stays flagged after IRLS, as at 100 x 60000 (1-2 lanes).
@@ -122,6 +144,9 @@ N_STREAM_WIDE = 1_000  # phases 3f, 3h: auto gene_block splits 60000 genes into 
 # The kernels the blind VST launches (phases 3g, 3h): the size-factor
 # medians, MoM, the genewise fit and the trend at P = 1, and the transform.
 VST_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend", "vst")
+# The kernels of phase 3k: alpha_mle_batch(fine_length=8), then dnb_nll at
+# its dispersions.
+FINE_KERNELS = ("disp_scan", "disp_scan_fine", "disp_newton", "dnb_nll")
 # Planted Cook's outliers of the streamed refit runs: one cell at 20x its
 # row's maximum in every OUTLIER_EVERY-th gene.
 OUTLIER_EVERY = 100
@@ -261,12 +286,131 @@ def newton_check(name: str, newton_args):
     return (outk[0] - outp[0]).abs().max().item(), outk, outp
 
 
+def fine_check(name: str, fine_args) -> float:
+    """``disp_scan_fine`` against its plain version on ``fine_args``: the
+    max abs la error. The kernel's point must be one of the lane's grid
+    points, and where the two choose different points, the plain objective
+    there must tie with the plain minimum within scan_check's tolerance."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    counts, mu, X, center, hw, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv = fine_args
+    f32 = mu.dtype == torch.float32
+    la_k = dsp.scan_grid(*fine_args)
+    la_p = dsp.scan_grid_plain(*fine_args)
+    dt, dev = mu.dtype, mu.device
+    lo, hi, hw_t, step = (torch.tensor(v, dtype=dt, device=dev) for v in (lo_f, hi_f, hw, 2.0 * hw / (length - 1)))
+    ks = torch.arange(length, dtype=dt, device=dev)
+    grid = torch.clamp(center[None, :] - hw_t + ks[:, None] * step, lo, hi)
+    check(bool((grid == la_k[None, :]).any(0).all()), f"disp_scan_fine {name}: a point off the lane's grid")
+    f_k = dsp._alpha_objective(la_k, counts, X, mu, la_hat, pdv, cr_reg, prior_reg, "auto")
+    f_p = dsp._alpha_objective(la_p, counts, X, mu, la_hat, pdv, cr_reg, prior_reg, "auto")
+    check(bool(torch.equal(torch.isnan(f_k), torch.isnan(f_p))), f"disp_scan_fine {name}: NaN lanes differ")
+    rtol = 2e-5 if f32 else 1e-11  # scan_check's: the same objective, sums in another order
+    tie_err = ((f_k - f_p) / (1.0 + f_p.abs())).nan_to_num(0.0).abs().max().item()
+    check(tie_err <= 2 * rtol, f"disp_scan_fine {name}: argmin off a near tie ({tie_err:.3g})")
+    same = (la_k == la_p).double().mean().item()
+    log(f"  disp_scan_fine {name} ({counts.shape[0]}, {counts.shape[1]}), {length} points: the same point on "
+        f"{same:.5f} of lanes, argmin tie err {tie_err:.3g} (tol {2 * rtol})")
+    return (la_k - la_p).abs().max().item()
+
+
+def dnb_scale(counts, mu, alpha):
+    """alpha^-2 sum_n (|psi(r)| + |psi(y + r)| + |log1p(mu a)| + |(y - mu)/(mu + r)|),
+    r = 1/alpha: the size of the terms dnb_nll sums."""
+    from pydeseq2_tpu_torch.ops import nb
+
+    r = 1.0 / alpha[:, None]
+    return (nb._psi_fast(r).abs() + nb._psi_fast(counts + r).abs() + torch.log1p(mu * alpha[:, None]).abs()
+            + ((counts - mu) / (mu + r)).abs()).sum(-1) / alpha**2
+
+
+def dnb_check(name: str, counts, mu, alpha) -> tuple[float, float]:
+    """``dnb_nll`` against its plain version: (max abs error, max error
+    relative to the summed magnitudes). Both evaluate the same terms with
+    the same psi; alpha^-2 amplifies psi(1/a) - psi(y + 1/a), which cancels
+    as alpha -> 0, so the gap is held against alpha^-2 sum(|psi(r)| +
+    |psi(y + r)| + |log1p(mu a)| + |(y - mu)/(mu + r)|): 1e-5 (f32) / 1e-13
+    (f64), a few rounding units of that sum in float32 (~80 eps) and
+    float64 (~450 eps) for terms summed in another order."""
+    from pydeseq2_tpu_torch.ops import nb
+
+    f32 = mu.dtype == torch.float32
+    got = nb.dnb_nll(counts, mu, alpha)
+    want = nb._dnb_nll_plain(counts, mu, alpha)
+    scale = dnb_scale(counts, mu, alpha)
+    tol = 1e-5 if f32 else 1e-13
+    check(bool(torch.equal(torch.isfinite(got), torch.isfinite(want))), f"dnb_nll {name}: non-finite lanes differ")
+    fin = torch.isfinite(want)
+    err = ((got - want).abs() / scale)[fin].max().item()
+    check(err <= tol, f"dnb_nll {name}: error {err:.3g} of the summed magnitudes > {tol}")
+    abs_err = (got - want)[fin].abs().max().item()
+    log(f"  dnb_nll {name} ({counts.shape[0]}, {counts.shape[1]}): error {err:.3g} of the summed magnitudes "
+        f"(tol {tol}), max abs {abs_err:.3g}, alpha in [{alpha.min().item():.3g}, {alpha.max().item():.3g}]")
+    return abs_err, err
+
+
+def scan_cost(G: int, N: int, P: int, K: int, bnd_start: int, bnd_end: int, isz: int) -> tuple[int, int, int]:
+    """(bytes, operations, SFU operations) of one coarse scan: counts and mu
+    read once, the (K, G) cache written; per sample and point the stable
+    form 30 operations, the auto/plain forms 38/40 (Stirling-8 lgamma 32 +
+    6), the Cox-Reid weight and Gram 3 + P + 2 P(P+1)/2; SFU: the stable
+    form's five reciprocals and two log1p, the auto form's lgamma_st8 (a
+    reciprocal, three logs), a reciprocal and a log1p, the plain form's
+    lgamma_st8 and a log, the weight's reciprocal."""
+    n_stable, n_auto, n_plain = bnd_start, bnd_end - bnd_start, K - bnd_end
+    ops_cr = 3 + P + P * (P + 1)
+    return (2 * G * N * isz + K * G * isz,
+            G * N * (30 * n_stable + 38 * n_auto + 40 * n_plain + K * ops_cr),
+            G * N * (7 * n_stable + 6 * n_auto + 5 * n_plain + K))
+
+
+def fine_cost(G: int, N: int, P: int, n_plain_pairs: int, n_stable_pairs: int, isz: int) -> tuple[int, int, int]:
+    """(bytes, operations, SFU operations) of one fine scan: counts, mu and
+    the centres read once, best_la written; each (gene, point) runs the
+    auto form's plain part (r < 8) or the stable form, as scan_cost."""
+    ops_cr = 3 + P + P * (P + 1)
+    pairs = n_plain_pairs + n_stable_pairs
+    return (2 * G * N * isz + 2 * G * isz,
+            N * (38 * n_plain_pairs + 30 * n_stable_pairs + pairs * ops_cr),
+            N * (6 * n_plain_pairs + 7 * n_stable_pairs + pairs))
+
+
+def newton_cost(G: int, N: int, P: int, plain_frac: float, isz: int) -> tuple[int, int, int]:
+    """(bytes, operations, SFU operations) of one Newton polish: counts and
+    mu read once, la read and four outputs written; 5 evaluations per gene,
+    per sample the stable fgh 85 operations and 16 SFU (13 reciprocals, two
+    log1p, the weight), the plain fgh 127 and 30 (Stirling-8 lgamma, psi,
+    psi'), the branch from the final la of each gene; the Cox-Reid weights
+    and three Grams."""
+    ntri = P * (P + 1) // 2
+    ops_cr = 10 + 3 * (2 * ntri) + ntri
+    return (2 * G * N * isz + 5 * G * isz,
+            int(5 * G * N * ((1 - plain_frac) * 85 + plain_frac * 127 + ops_cr)),
+            int(5 * G * N * ((1 - plain_frac) * 16 + plain_frac * 30)))
+
+
+def dnb_cost(G: int, N: int, isz: int) -> tuple[int, int, int]:
+    """(bytes, operations, SFU operations) of dnb_nll: counts and mu read
+    once, alpha read and the result written; per sample psi_st8 (~35
+    operations: eight reciprocals and their sum, the series, a log) and ~10
+    more (log1p, the ratio, the sums); SFU: 8 + 1 reciprocals and a log in
+    psi, the log1p and the division."""
+    return 2 * G * N * isz + 2 * G * isz, G * N * 45, G * N * 12
+
+
+def log_sfu(key: str, sfu: int) -> None:
+    """Log the special-function units' time of ``sfu`` operations at the
+    card's peak: an estimate from the source, beside the measured rows."""
+    log(f"  {key}: SFU estimate {sfu / SFU_OPS_PER_S * 1e3:.4f} ms")
+
+
 def kernel_checks(dtype, G, N, reps, timings):
     """Phase 2: every kernel against its plain version on the same inputs.
 
     Returns {name: max_abs_err} and fills ``timings`` (float32 only)."""
     from pydeseq2_tpu_torch.ops import dispersion as dsp
     from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops import nb
     from pydeseq2_tpu_torch.ops import select as sel
     from pydeseq2_tpu_torch.ops.nb import nb_nll
     from pydeseq2_tpu_torch.synthetic import make_data
@@ -320,40 +464,57 @@ def kernel_checks(dtype, G, N, reps, timings):
     pdv = torch.tensor(1.0, dtype=dtype, device=dev)
     scan_args = (counts, mu, X, la_grid, bnd_start, bnd_end, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
     errs["disp_scan"], la1_k = scan_check(name, scan_args)
+    isz = counts.element_size()
     if f32:
-        n_stable = bnd_start
-        n_auto = bnd_end - bnd_start
-        n_plain = K - bnd_end
-        ntri = P * (P + 1) // 2
-        ops_cr = 3 + P + 2 * ntri
+        nbytes, ops, sfu = scan_cost(G, N, P, K, bnd_start, bnd_end, isz)
         timings["disp_scan"] = {
             "ms": cuda_ms(lambda: dsp.scan_coarse(*scan_args), reps),
             "plain_ms": cuda_ms(lambda: dsp.scan_coarse_plain(*scan_args), max(1, reps // 5)),
-            "library_ms": None,
-            "bytes": 2 * counts.numel() * counts.element_size() + K * G * counts.element_size(),
-            # per element and point: stable form 30, auto/plain forms 38/40
-            # (Stirling-8 lgamma 32 + 6), Cox-Reid weight and Gram ops_cr
-            "ops": G * N * (30 * n_stable + 38 * n_auto + 40 * n_plain + K * ops_cr),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
         }
+        log_sfu("disp_scan", sfu)
 
     # -- kernel 3: dispersion Newton (genewise fit from the scan's argmin) -
     step2_f = step1_f / 3.5
     newton_args = (counts, mu, X, la1_k, lo_f, hi_f, step1_f, step2_f, 4, True, False, la_hat, pdv)
     errs["disp_newton"], outk, outp = newton_check(name, newton_args)
     if f32:
-        plain_frac = (torch.exp(-outp[0]) < 8.0).double().mean().item()
-        ntri = P * (P + 1) // 2
-        ops_cr = 10 + 3 * (2 * ntri) + ntri
+        plain_gene = torch.exp(-outp[0]) < 8.0
+        nbytes, ops, sfu = newton_cost(G, N, P, plain_gene.double().mean().item(), isz)
         timings["disp_newton"] = {
             "ms": cuda_ms(lambda: dsp.newton_polish(*newton_args), reps),
             "plain_ms": cuda_ms(lambda: dsp.newton_polish_plain(*newton_args), max(1, reps // 5)),
-            "library_ms": None,
-            "bytes": 2 * counts.numel() * counts.element_size() + 5 * G * counts.element_size(),
-            # 5 evaluations per gene; per element: stable fgh 85 ops, plain
-            # fgh 127 (Stirling-8 lgamma, psi, psi'), branch from the final
-            # la of each gene; Cox-Reid weights and three Grams ops_cr
-            "ops": int(5 * G * N * ((1 - plain_frac) * 85 + plain_frac * 127 + ops_cr)),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
         }
+        log_sfu("disp_newton", sfu)
+
+    # -- the fine scan of alpha_mle_batch(fine_length=8) around the coarse argmin
+    fine_args = (counts, mu, X, la1_k, step1_f, FINE_LENGTH, lo_f, hi_f, True, False, la_hat, pdv)
+    errs["disp_scan_fine"] = fine_check(name, fine_args)
+    if f32:
+        hw_t, st_t = (torch.tensor(v, dtype=dtype, device=dev) for v in (step1_f, 2.0 * step1_f / (FINE_LENGTH - 1)))
+        ks = torch.arange(FINE_LENGTH, dtype=dtype, device=dev)
+        fgrid = torch.clamp(la1_k[None, :] - hw_t + ks[:, None] * st_t, lo, torch.tensor(hi_f, dtype=dtype, device=dev))
+        n_pl = int((torch.exp(-fgrid) < 8.0).sum())
+        nbytes, ops, sfu = fine_cost(G, N, P, n_pl, FINE_LENGTH * G - n_pl, isz)
+        timings["disp_scan_fine"] = {
+            "ms": cuda_ms(lambda: dsp.scan_grid(*fine_args), reps),
+            "plain_ms": cuda_ms(lambda: dsp.scan_grid_plain(*fine_args), max(1, reps // 5)),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+        }
+        log_sfu("disp_scan_fine", sfu)
+
+    # -- dnb_nll at the genewise fit's dispersions
+    alpha = torch.exp(outk[0])
+    errs["dnb_nll"], _ = dnb_check(name, counts, mu, alpha)
+    if f32:
+        nbytes, ops, sfu = dnb_cost(G, N, isz)
+        timings["dnb_nll"] = {
+            "ms": cuda_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps),
+            "plain_ms": cuda_ms(lambda: nb._dnb_nll_plain(counts, mu, alpha), reps),
+            "library_ms": None, "bytes": nbytes, "ops": ops,
+        }
+        log_sfu("dnb_nll", sfu)
 
     # -- kernel 4: IRLS (phase 1 of the LFC fit: every lane, 8 trips) ------
     disp = torch.clamp(torch.exp(outk[0]), 1e-8, max_disp)
@@ -405,6 +566,50 @@ def kernel_checks(dtype, G, N, reps, timings):
             "trips_mean": trips.mean().item(),
         }
     return errs
+
+
+def wide_dispersion_checks(reps: int, timings: dict) -> None:
+    """Phase 2, the atlas shape: ``disp_scan`` and ``disp_newton`` against
+    their plain versions at the atlas iterative fit's dispersion shape (one
+    block of G_ATLAS_BLOCK genes x N_ATLAS samples, P = 1, float32), with
+    scan_check's and newton_check's tolerances, and timed; the rows of the
+    kernels line gain ``wide_ms`` and ``wide_plain_ms``."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    G, N = G_ATLAS_BLOCK, N_ATLAS
+    dtype = torch.float32
+    dev = torch.device(DEVICE)
+    counts = torch.as_tensor(make_data(N, G)[0].T.copy(), dtype=dtype, device=dev)
+    X = torch.ones((N, 1), dtype=dtype, device=dev)
+    max_disp = float(max(10, N))
+    _, _, _, mom, mu = stage_inputs(counts, X, max_disp)
+    lo_f, hi_f = math.log(1e-8), math.log(max_disp)
+    K = 32
+    step1_f = (hi_f - lo_f) / (K - 1)
+    lo = torch.tensor(lo_f, dtype=dtype, device=dev)
+    la_grid = lo + torch.arange(K, dtype=dtype, device=dev) * torch.tensor(step1_f, dtype=dtype, device=dev)
+    bnd_start, bnd_end = dsp._scan_branches(K, step1_f, lo_f)
+    la_hat = torch.log(torch.clamp(mom, 1e-8, max_disp))
+    pdv = torch.tensor(1.0, dtype=dtype, device=dev)
+    scan_args = (counts, mu, X, la_grid, bnd_start, bnd_end, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
+    _, la1 = scan_check(f"f32 atlas block {G} x {N} P=1", scan_args)
+    newton_args = (counts, mu, X, la1, lo_f, hi_f, step1_f, step1_f / 3.5, 4, True, False, la_hat, pdv)
+    _, _, outp = newton_check(f"f32 atlas block {G} x {N} P=1", newton_args)
+    isz = counts.element_size()
+    for key, fn, plain, cost in (
+        ("disp_scan", dsp.scan_coarse, dsp.scan_coarse_plain, scan_cost(G, N, 1, K, bnd_start, bnd_end, isz)),
+        ("disp_newton", dsp.newton_polish, dsp.newton_polish_plain,
+         newton_cost(G, N, 1, (torch.exp(-outp[0]) < 8.0).double().mean().item(), isz)),
+    ):
+        args = scan_args if key == "disp_scan" else newton_args
+        nbytes, ops, sfu = cost
+        t = timings[key]
+        t["wide_ms"] = cuda_ms(lambda: fn(*args), reps)
+        t["wide_plain_ms"] = cuda_ms(lambda: plain(*args), 1)
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+        log(f"  {key} atlas block: {t['wide_ms']:.4f} ms (plain {t['wide_plain_ms']:.4f}), bound "
+            f"{bound:.4f} ms, SFU estimate {sfu / SFU_OPS_PER_S * 1e3:.4f} ms")
 
 
 def psi_check() -> None:
@@ -481,6 +686,108 @@ def main_path(reps: int):
     return {"walls_s": walls, "best_s": best, "genes_per_s": G_MAIN / best, "launches": launches,
             "irls_trips": trips, "rescue_overflow": int(res["rescue_overflow"]), "finite_p": finite,
             "rescue_share": rescue_s / rescue_wall}
+
+
+def fine_path(reps: int) -> dict:
+    """Phase 3k: this slice's own path at 100 x 60000 float32,
+    ``alpha_mle_batch(fine_length=8)`` (coarse scan, fine scan, Newton
+    polish) then ``dnb_nll`` at its dispersions, through the public
+    functions: warm wall, the launches of FINE_KERNELS in one run (each
+    must be > 0), finite outputs, the converged share; reported beside them,
+    the dispersions and their objective against ``fine_length=0``'s."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+    from pydeseq2_tpu_torch.ops import nb
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_MAIN)
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=torch.float32, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=torch.float32, device=DEVICE)
+    max_disp = float(max(10, N_MAIN))
+    _, _, _, mom, mu = stage_inputs(counts, X, max_disp)
+
+    def run(fine_length=FINE_LENGTH):
+        alpha, conv = dsp.alpha_mle_batch(counts, X, mu, mom, 1e-8, max_disp, fine_length=fine_length)
+        return alpha, conv, nb.dnb_nll(counts, mu, alpha)
+
+    run()
+    torch.cuda.synchronize()
+    walls = []
+    launches = None
+    for i in range(reps):
+        if i == 0:
+            kernels.STATS.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alpha, conv, d = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = dict(kernels.STATS.launches)
+    for name in FINE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the fine-scan path")
+    check(alpha.shape == (G_MAIN,) and d.shape == (G_MAIN,), "fine path: output shapes")
+    check(bool(torch.isfinite(alpha).all()), "fine path: non-finite dispersions")
+    conv_share = conv.double().mean().item()
+    d_finite = torch.isfinite(d).double().mean().item()
+    check(conv_share > 0.9 and d_finite > 0.99, f"fine path: converged {conv_share:.4f}, finite dnb {d_finite:.4f}")
+    alpha0 = run(0)[0]
+    agree = ((alpha - alpha0).abs() <= 1e-3 * alpha0).double().mean().item()
+    # Reported, not held: the fine scan hands Newton another start, and
+    # four steps from either may end at another point of a plateau or
+    # another local minimum (the JAX package's algorithm, not the kernels,
+    # which phases 2 and 4g hold).
+    la_hat = torch.log(torch.clamp(mom, 1e-8, max_disp))
+    pdv = torch.tensor(1.0, dtype=mu.dtype, device=mu.device)
+    f1, f0 = (dsp._alpha_objective(torch.log(a), counts, X, mu, la_hat, pdv, True, False) for a in (alpha, alpha0))
+    gap = (f1 - f0) / (1.0 + f0.abs())
+    q = torch.tensor([0.5, 0.99, 1.0], dtype=gap.dtype, device=gap.device)
+    f_gap = gap.quantile(q).tolist()
+    best = min(walls)
+    log(f"  wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s; launches in one run "
+        f"{ {k: launches[k] for k in FINE_KERNELS} }; converged {conv_share:.5f}, finite dnb_nll {d_finite:.5f}, "
+        f"alpha within 1e-3 of fine_length=0's on {agree:.5f}, objective minus fine_length=0's (over 1 + |f|; "
+        f"50/99/100%) {f_gap}")
+    return {"walls_s": walls, "best_s": best, "launches": launches, "converged": conv_share,
+            "dnb_finite": d_finite, "agree_fine0": agree, "objective_gap_fine0": f_gap}
+
+
+def fine_card_vs_cpu() -> None:
+    """Phase 4g: float64 ``alpha_mle_batch(fine_length=8)`` and ``dnb_nll``
+    on the card against the CPU plain path at 100 x 2000 (P = 2), and with
+    the prior (the MAP fit's form). Tolerance: the dispersions at rtol 1e-6
+    and the same flags, as the pipelines' phase 4, on 99.9% of lanes (a
+    near tie of two fine points may hand Newton another start on a plateau);
+    dnb_nll as dnb_check's f64 bound."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+    from pydeseq2_tpu_torch.ops import nb
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_CPU_CMP, seed=1)
+    max_disp = float(max(10, N_MAIN))
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=torch.float64)
+    X = torch.as_tensor(X_np, dtype=torch.float64)
+    _, _, _, mom, mu = stage_inputs(counts, X, max_disp)  # the CPU's operands, on both sides
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        out = []
+        for kw in ({}, {"prior_reg": True, "prior_disp_var": 0.5}):
+            alpha, conv = dsp.alpha_mle_batch(counts.to(dev), X.to(dev), mu.to(dev), mom.to(dev), 1e-8, max_disp,
+                                              fine_length=FINE_LENGTH, **kw)
+            out += [alpha.cpu(), conv.cpu()]
+        res[dev] = out
+    gpu, cpu = res[DEVICE], res["cpu"]
+    for label, i in (("MLE", 0), ("MAP", 2)):
+        close = torch.isclose(gpu[i], cpu[i], rtol=1e-6, atol=0.0).double().mean().item()
+        flags = (gpu[i + 1] == cpu[i + 1]).double().mean().item()
+        check(close >= 0.999 and flags >= 0.999, f"phase 4g {label}: alpha close on {close:.5f}, flags {flags:.5f}")
+        log(f"  alpha_mle_batch(fine_length={FINE_LENGTH}) {label} f64: alpha within 1e-6 on {close:.5f}, "
+            f"flags agree on {flags:.5f}")
+    alpha = cpu[0]
+    d_card = nb.dnb_nll(counts.to(DEVICE), mu.to(DEVICE), alpha.to(DEVICE)).cpu()
+    err = ((d_card - nb.dnb_nll(counts, mu, alpha)).abs() / dnb_scale(counts, mu, alpha)).max().item()
+    check(err <= 1e-13, f"phase 4g dnb_nll: error {err:.3g} of the summed magnitudes")
+    log(f"  dnb_nll f64 card against CPU: error {err:.3g} of the summed magnitudes (tol 1e-13)")
 
 
 def card_vs_cpu() -> None:
@@ -2678,6 +2985,7 @@ def main() -> int:
     readings: dict = {}  # objective gaps of the lanes where a kernel and its plain version tie
     errs32 = kernel_checks(torch.float32, G_MAIN, N_MAIN, reps=20, timings=timings)
     kernel_checks(torch.float64, G_F64, N_MAIN, reps=5, timings={})
+    wide_dispersion_checks(5, timings)
     errs_sum, filter_row, seen32 = summary_kernel_checks(torch.float32, G_MAIN, N_MAIN, reps=20, timings=timings)
     errs32.update(errs_sum)
     errs32.update(rescue_checks(seen32, torch.float32, 20, timings, readings))
@@ -2736,6 +3044,8 @@ def main() -> int:
     log(f"phase 3j: the class API (DeseqDataSet.deseq2, DeseqStats.summary, lfc_shrink, vst), {N_MAIN} x {G_MAIN} "
         f"float32, an outlier planted in every {OUTLIER_EVERY}th gene")
     klass = class_path(3)
+    log(f"phase 3k: alpha_mle_batch(fine_length={FINE_LENGTH}) then dnb_nll, {N_MAIN} x {G_MAIN} float32")
+    fine = fine_path(3)
 
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
@@ -2752,12 +3062,17 @@ def main() -> int:
     log("phase 4f: float64 class API (deseq2, summary, lfc_shrink, vst) with planted outliers, card against CPU, "
         "100 x 2000")
     class_card_vs_cpu()
+    log(f"phase 4g: float64 alpha_mle_batch(fine_length={FINE_LENGTH}) and dnb_nll, card against CPU, 100 x 2000")
+    fine_card_vs_cpu()
 
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
         "order_stats_select": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select"),
         "disp_scan": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:196", "disp_scan"),
         "disp_newton": ("pydeseq2_tpu_torch/csrc/disp_newton.cu", "pydeseq2_tpu/ops/dispersion.py:361", "disp_newton"),
+        "disp_scan_fine": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:170",
+                           "disp_scan_fine"),
+        "dnb_nll": ("pydeseq2_tpu_torch/csrc/dnb_nll.cu", "pydeseq2_tpu/ops/nb.py:381", "dnb_nll"),
         "irls": ("pydeseq2_tpu_torch/csrc/irls.cu", "pydeseq2_tpu/ops/irls.py:45", "irls"),
         "newton_box": ("pydeseq2_tpu_torch/csrc/newton_box.cu", "pydeseq2_tpu/ops/irls.py:272", "newton_box"),
         "grid_nb": ("pydeseq2_tpu_torch/csrc/grid.cu", "pydeseq2_tpu/ops/irls.py:375", "grid_nb"),
@@ -2787,13 +3102,15 @@ def main() -> int:
     # Launches: the summary path for its kernels, the shrink paths for
     # theirs, the streamed refit path (phase 3e) for mom, trend, lowess and
     # impute, the zero-inflated one (3i) for the size-factor kernels, the
-    # blind VST (3g) for vst, the class API (3j) for its four.
+    # blind VST (3g) for vst, the class API (3j) for its four, the fine-scan
+    # path (3k) for disp_scan_fine and dnb_nll.
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
                 "grid_apeglm": weak["launches"]["grid_apeglm"],
                 **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")},
                 "sf_nll": stream_zi["launches"]["sf_nll"], "sf_newton": stream_zi["launches"]["sf_newton"],
                 "vst": vst["launches"]["vst"],
-                **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")}}
+                **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")},
+                **{k: fine["launches"][k] for k in ("disp_scan_fine", "dnb_nll")}}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -2807,12 +3124,14 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms"):
+        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "wide_ms",
+                      "wide_plain_ms"):
             if extra in t:
                 # the sort before the BH sweep; a rescue kernel over every lane
                 # of its tile; cooks in the streamed refit mode; mom writing mu;
                 # the Newton steps of one sf_newton launch; trimmed_var over the
-                # mean trend's one column
+                # mean trend's one column; the atlas block's times of disp_scan
+                # and disp_newton
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -2825,6 +3144,7 @@ def main() -> int:
     log("streamed VST path, wide: " + json.dumps(vst_wide))
     log("streamed refit path, zero-inflated: " + json.dumps(stream_zi))
     log("class API path: " + json.dumps(klass))
+    log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

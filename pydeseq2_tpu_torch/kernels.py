@@ -18,6 +18,7 @@ allocate nothing: the ``ops`` wrappers allocate outputs with ``torch.empty``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,6 +37,7 @@ HEADERS = ("common.cuh",)
 KERNELS = {
     "select": ("select.cu", "order_stats_select_launch"),
     "disp_scan": ("disp_scan.cu", "disp_scan_launch"),
+    "disp_scan_fine": ("disp_scan.cu", "disp_scan_fine_launch"),
     "disp_newton": ("disp_newton.cu", "disp_newton_launch"),
     "irls": ("irls.cu", "irls_launch"),
     "hat_wald": ("hat_wald.cu", "hat_wald_launch"),
@@ -56,6 +58,7 @@ KERNELS = {
     "sf_newton": ("sizefactors.cu", "sf_newton_launch"),
     "vst": ("vst.cu", "vst_launch"),
     "trimmed_var": ("trimmed.cu", "trimmed_var_launch"),
+    "dnb_nll": ("dnb_nll.cu", "dnb_nll_launch"),
 }
 
 # Exported helpers that are not kernels of the pipeline (checks only);
@@ -80,8 +83,10 @@ _D = ctypes.c_double
 _ARGTYPES = {
     "order_stats_select_launch": [_I, _P, _I, _I, _P, _P, _P, _P],
     "disp_scan_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
-                         _P, _P, _P, _P],
-    "disp_newton_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
+                         _P, _P, _I, _P, _P, _P, _P],
+    "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _I, _I,
+                              _P, _P, _I, _P, _P, _P],
+    "disp_newton_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                            _I, _I, _I, _P, _P, _P, _P],
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _P, _P, _P],
@@ -104,6 +109,7 @@ _ARGTYPES = {
     "sf_newton_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "trimmed_var_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
 
@@ -219,6 +225,12 @@ def call_helper(name: str, args, device: torch.device) -> None:
     """Launch an uncounted check helper (see :data:`HELPERS`)."""
     source, fn_name = HELPERS[name]
     _call(source, fn_name, args, device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the scan's split rule)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -2,33 +2,32 @@
 
 Port of ``pydeseq2_tpu/ops/dispersion.py:alpha_mle_batch``: for every gene
 at once, a coarse scan of the objective (NB NLL + Cox-Reid + optional prior)
-over ``grid_length`` static points of [log(min_disp), log(max_disp)], then
-``newton_iters`` safeguarded Newton steps from the coarse argmin. The fine
-scan of the JAX package (``fine_length > 0``) is not on the Wald path and is
-not ported; the polish starts at the coarse argmin as there by default.
+over ``grid_length`` static points of [log(min_disp), log(max_disp)], with
+``fine_length > 0`` a fine scan of ``fine_length`` points per gene around
+its coarse argmin (halfwidth one coarse step), then ``newton_iters``
+safeguarded Newton steps from the best point. The pipelines run
+``fine_length = 0`` as the JAX package does by default.
 
 Two hand-written CUDA kernels carry the (G, N) work:
 
 ``csrc/disp_scan.cu`` replaces ``scan_coarse`` (pydeseq2_tpu/ops/
-dispersion.py:196 with ops/nb.py:nb_nll_centered and the Cox-Reid
-``sym_logdet``). One warp per gene walks the 32 grid points; its lanes
-stride the gene's contiguous row of N samples and reduce the NLL terms and
-the P(P+1)/2 Gram entries by warp shuffle; X comes through the read-only
-cache. The branch per point is fixed exactly as ``scan_coarse`` fixes it.
-On the H100 it is bound by the transcendentals (log1p twice per sample and
-point, plus lgamma below r = 8): 32 points x 60000 x 100 is ~2e8 log1p,
-while the 48 MB of counts and mu are read from device memory once and then
-from L1/L2. The design keeps every intermediate in registers and writes
-only the (32, G) objective cache and the argmin.
+dispersion.py:196) and, as its per-gene-grid mode ``disp_scan_fine``,
+``scan_grid`` (:170-194), both on ops/nb.py:nb_nll_centered and the
+Cox-Reid ``sym_logdet``. A block takes 32 genes (a lane each) and its warps
+take the grid points, so every thread sums one (gene, point) over the
+samples, which the block stages in shared memory once for all its points;
+where the tiles alone leave the card short, the rows are split over segments
+whose sums the last block of a tile adds (:func:`_scan_segments`). Bound on
+the H100 by the transcendentals (two log1p per sample and point, lgamma
+below r = 8).
 
 ``csrc/disp_newton.cu`` replaces ``fgh_closed`` + ``newton_body``
 (pydeseq2_tpu/ops/dispersion.py:313,361 with ops/nb.py:
 nb_nll_centered_fgh). One launch runs the initial (f, g, h) and all Newton
-steps per gene, one warp per gene, the three Cox-Reid Grams M, M', M''
-reduced beside the NB sums. Bound like the scan by transcendentals (two
-log1p per sample and step; lgamma, psi and psi' of y + r below r = 8); the
-step logic is per-gene scalar work done redundantly by all 32 lanes, so no
-lane waits on shared memory.
+steps per gene, L = 4-32 lanes a gene by N and, on short gene lists, by
+how many blocks fill the card, the rows staged in shared memory
+for all five evaluations where they fit, the three Cox-Reid Grams M, M',
+M'' reduced beside the NB sums. Bound like the scan by transcendentals.
 
 The JAX package takes the autodiff (f, g, h) below N = 512 for TPU speed;
 the port uses the closed form at every N (both compute the same values,
@@ -95,6 +94,54 @@ def scan_coarse_plain(counts, mu, X, la_grid, bnd_start, bnd_end, la_init, cr_re
     return best_la, torch.stack(fs)
 
 
+# csrc/disp_scan.cu: genes per block (a lane each); the fewest samples a
+# segment of a split row holds; blocks per SM that count as a full card.
+_SCAN_TILE = 32
+_SCAN_SEG_MIN = 32
+_SCAN_BLOCKS_PER_SM = 4
+
+
+def _scan_segments(G: int, N: int, sms: int) -> int:
+    """Segments per row of the scan kernel: 1 where the gene tiles alone
+    give ~4 blocks per SM, else enough to reach that, at least
+    ``_SCAN_SEG_MIN`` samples each (on 132 SMs, 5000 genes x 10000 samples:
+    157 tiles x 4 segments; 2000 genes x 100 samples: 63 tiles x 3)."""
+    tiles = -(-G // _SCAN_TILE)
+    target = _SCAN_BLOCKS_PER_SM * sms
+    if tiles >= target:
+        return 1
+    return max(1, min(-(-target // tiles), N // _SCAN_SEG_MIN))
+
+
+def _scan_launch(name, counts, mu, X, grid_args, K, cr_reg, prior_reg, la_hat, pdv, coarse):
+    """Launch ``disp_scan`` or ``disp_scan_fine``: checks, the segment
+    split and its scratch (the segments' sums and a counter per tile)."""
+    G, N = counts.shape
+    P = X.shape[1]
+    best_la = torch.empty(G, dtype=mu.dtype, device=mu.device)
+    lah = la_hat.contiguous() if prior_reg else None
+    pdv = pdv.reshape(()).contiguous()
+    S = _scan_segments(G, N, kernels.sm_count(mu.device))
+    partial = done = None
+    if S > 1:
+        tiles = -(-G // _SCAN_TILE)
+        partial = torch.empty(tiles * S * K * (1 + P * (P + 1) // 2) * _SCAN_TILE, dtype=torch.float64,
+                              device=mu.device)
+        done = torch.zeros(tiles, dtype=torch.int32, device=mu.device)
+    tensors = [t for t in grid_args if isinstance(t, torch.Tensor)]
+    # the float64 scratch is the wrapper's own, outside the one-dtype check
+    kernels.check_cuda_operands(name, counts, mu, X, *tensors, lah, pdv, done, best_la, coarse)
+    kernels.check_p(name, P)
+    args = [int(mu.dtype == torch.float64), P, G, N, counts.data_ptr(), mu.data_ptr(), X.data_ptr()]
+    args += [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in grid_args]
+    args += [int(cr_reg), int(prior_reg), kernels.ptr(lah), pdv.data_ptr(), S, kernels.ptr(partial),
+             kernels.ptr(done), best_la.data_ptr()]
+    if coarse is not None:
+        args.append(coarse.data_ptr())
+    kernels.launch(name, args, mu.device)
+    return best_la
+
+
 def scan_coarse(counts, mu, X, la_grid, bnd_start, bnd_end, la_init, cr_reg, prior_reg, la_hat, pdv):
     """Coarse scan over the static grid ``la_grid``: the first strict
     minimum per gene (``la_init`` where no point is finite) and the
@@ -103,27 +150,46 @@ def scan_coarse(counts, mu, X, la_grid, bnd_start, bnd_end, la_init, cr_reg, pri
         return scan_coarse_plain(
             counts, mu, X, la_grid, bnd_start, bnd_end, la_init, cr_reg, prior_reg, la_hat, pdv
         )
-    G, N = counts.shape
-    P = X.shape[1]
     K = la_grid.shape[0]
-    best_la = torch.empty(G, dtype=mu.dtype, device=mu.device)
-    coarse = torch.empty((K, G), dtype=mu.dtype, device=mu.device)
-    lah = la_hat.contiguous() if prior_reg else None
-    pdv = pdv.reshape(()).contiguous()
-    kernels.check_cuda_operands("disp_scan", counts, mu, X, la_grid, lah, pdv, best_la, coarse)
-    kernels.check_p("disp_scan", P)
-    kernels.launch(
-        "disp_scan",
-        [
-            int(mu.dtype == torch.float64), P, G, N,
-            counts.data_ptr(), mu.data_ptr(), X.data_ptr(), la_grid.data_ptr(),
-            K, bnd_start, bnd_end, float(la_init), int(cr_reg), int(prior_reg),
-            kernels.ptr(lah), pdv.data_ptr(),
-            best_la.data_ptr(), coarse.data_ptr(),
-        ],
-        mu.device,
-    )
+    coarse = torch.empty((K, counts.shape[0]), dtype=mu.dtype, device=mu.device)
+    grid_args = (la_grid, K, bnd_start, bnd_end, float(la_init))
+    best_la = _scan_launch("disp_scan", counts, mu, X, grid_args, K, cr_reg, prior_reg, la_hat, pdv, coarse)
     return best_la, coarse
+
+
+def scan_grid_plain(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv):
+    """Plain version of the fine scan: best_la (G,)."""
+    dtype, dev = mu.dtype, mu.device
+    lo, hi, hw, step = (
+        torch.tensor(v, dtype=dtype, device=dev)
+        for v in (lo_f, hi_f, halfwidth_f, 2.0 * halfwidth_f / (length - 1))
+    )
+    ks = torch.arange(length, dtype=dtype, device=dev)
+    best_f = torch.full(center.shape, float("inf"), dtype=dtype, device=dev)
+    best_la = center.clone()
+    for k in range(length):
+        la = torch.clamp(center - hw + ks[k] * step, lo, hi)
+        f = _alpha_objective(la, counts, X, mu, la_hat, pdv, cr_reg, prior_reg, "auto")
+        better = f < best_f
+        best_f = torch.where(better, f, best_f)
+        best_la = torch.where(better, la, best_la)
+    return best_la
+
+
+def scan_grid(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv):
+    """Fine scan: the objective (auto branch per gene and point) at
+    ``length`` points ``clip(center - halfwidth + k step, lo, hi)``, step =
+    2 halfwidth / (length - 1), and the first strict minimum per gene,
+    ``center`` where no point is finite (JAX ``scan_grid``; bounds and steps
+    are Python floats, rounded to the working dtype as JAX rounds them).
+    CUDA tensors launch ``disp_scan_fine``."""
+    if not counts.is_cuda:
+        return scan_grid_plain(
+            counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv
+        )
+    step_f = 2.0 * halfwidth_f / (length - 1)
+    grid_args = (center.contiguous(), halfwidth_f, step_f, lo_f, hi_f, length)
+    return _scan_launch("disp_scan_fine", counts, mu, X, grid_args, length, cr_reg, prior_reg, la_hat, pdv, None)
 
 
 def fgh_closed(counts, mu, X, la, cr_reg, prior_reg, la_hat, pdv):
@@ -187,18 +253,27 @@ def newton_polish(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg,
         return newton_polish_plain(
             counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv
         )
+    return _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv)
+
+
+def _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv):
+    """Launch ``disp_newton``: four outputs. The kernel takes the genes in
+    an order grouped by the branch at their start (r = exp(-la) < 8 or
+    not), so that the genes of a warp mostly run one form; each gene's
+    results land at its own index."""
     G, N = counts.shape
     P = X.shape[1]
     la = la.contiguous()
     outs = [torch.empty(G, dtype=mu.dtype, device=mu.device) for _ in range(4)]
+    order = torch.argsort((la > -math.log(_R_SWITCH)).to(torch.uint8), stable=True).to(torch.int32)
     lah = la_hat.contiguous() if prior_reg else None
     pdv = pdv.reshape(()).contiguous()
-    kernels.check_cuda_operands("disp_newton", counts, mu, X, la, lah, pdv, *outs)
+    kernels.check_cuda_operands("disp_newton", counts, mu, X, la, lah, pdv, order, *outs)
     kernels.check_p("disp_newton", P)
     kernels.launch(
         "disp_newton",
         [
-            int(mu.dtype == torch.float64), P, G, N,
+            int(mu.dtype == torch.float64), P, G, N, order.data_ptr(),
             counts.data_ptr(), mu.data_ptr(), X.data_ptr(), la.data_ptr(),
             kernels.ptr(lah), pdv.data_ptr(), lo_f, hi_f, clip_f, step2_f,
             iters, int(cr_reg), int(prior_reg),
@@ -230,11 +305,12 @@ def alpha_mle_batch(
     cr_reg: bool = True,
     prior_reg: bool = False,
     grid_length: int = 32,
+    fine_length: int = 0,
     newton_iters: int = 4,
     return_coarse: bool = False,
     coarse_cache: torch.Tensor | None = None,
 ):
-    """Per-gene dispersions by coarse grid + Newton polish.
+    """Per-gene dispersions by coarse grid (+ fine grid) + Newton polish.
 
     Returns ``(alpha, converged)``, plus the (grid_length, G) base objective
     (no prior) at the static grid points when ``return_coarse``. A later
@@ -253,7 +329,9 @@ def alpha_mle_batch(
     pdv = torch.as_tensor(1.0 if prior_disp_var is None else prior_disp_var, dtype=dtype, device=dev)
 
     step1_f = (hi_f - lo_f) / (grid_length - 1)
-    step2_f = step1_f / 3.5  # the 8-point fine spacing (fine_length = 0)
+    # The fine spacing; without the fine scan the 8-point one, so the
+    # plateau-lane flag |g| step2 keeps the same resolution.
+    step2_f = step1_f / 3.5 if fine_length == 0 else 2.0 * step1_f / (fine_length - 1)
     step1 = torch.tensor(step1_f, dtype=dtype, device=dev)
     la_grid = lo + torch.arange(grid_length, dtype=dtype, device=dev) * step1
     prior = (la_grid[:, None] - la_hat[None, :]) ** 2 / (2.0 * pdv) if prior_reg else None
@@ -271,8 +349,13 @@ def alpha_mle_batch(
         if return_coarse:
             coarse_vals = emitted - prior if prior_reg else emitted
 
+    if fine_length == 0:
+        la2 = la1
+    else:
+        la2 = scan_grid(counts, mu, X, la1, step1_f, fine_length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv)
+
     la_fit, f_fit, g_fin, h_fin = newton_polish(
-        counts, mu, X, la1, lo_f, hi_f, step1_f, step2_f, newton_iters, cr_reg, prior_reg, la_hat, pdv
+        counts, mu, X, la2, lo_f, hi_f, step1_f, step2_f, newton_iters, cr_reg, prior_reg, la_hat, pdv
     )
     step2 = torch.tensor(step2_f, dtype=dtype, device=dev)
 

@@ -12,11 +12,16 @@ only; float64 keeps the library functions) are kept as in the JAX package:
 near r = 8 the branch choice decides the value, and the f32 lgamma must be
 the Stirling form or the port does not match the JAX f32 reference. The
 CUDA kernels (``csrc/common.cuh``) carry the same forms.
+
+:func:`dnb_nll`, the derivative in alpha, launches ``csrc/dnb_nll.cu`` on
+CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pydeseq2_tpu_torch import kernels
 
 _R_SWITCH = 8.0  # Stirling-difference form is used for r = 1/alpha >= 8
 
@@ -120,6 +125,13 @@ def _digamma_fast(z: torch.Tensor):
     return _psi_series_f64(z)
 
 
+def _psi_fast(z: torch.Tensor) -> torch.Tensor:
+    """psi alone, gated by dtype as :func:`_digamma_fast`."""
+    if z.dtype == torch.float32:
+        return _digamma_stirling8(z)
+    return _psi_series_f64(z)[0]
+
+
 def nb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
     """Per-lane NB negative log-likelihood, summed over the last axis.
 
@@ -155,6 +167,16 @@ def nb_nll_terms(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
     return torch.where(r < _R_SWITCH, plain, stable)
 
 
+def _sum_f64(per: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis accumulated in float64, rounded once to the
+    terms' dtype: the centred terms cancel to totals far below their sizes
+    (at 10000 samples, terms of ~4 summing to ~2), so a float32 sum in any
+    order is off by ~1e-5 of the total, enough to move the dispersion
+    scan's argmin and the Newton acceptance. The kernels (csrc/disp_scan.cu,
+    csrc/disp_newton.cu) accumulate in float64 too."""
+    return per.sum(-1, dtype=torch.float64).to(per.dtype)
+
+
 def nb_nll_centered(
     counts: torch.Tensor, mu: torch.Tensor, alpha, branch: str = "auto"
 ) -> torch.Tensor:
@@ -164,7 +186,8 @@ def nb_nll_centered(
     r >= 8) or "auto" (per element, with the transcendentals shared between
     the two forms exactly as the JAX package shares them). r is computed as
     ``1/alpha`` (``alpha = exp(la)`` upstream) — keep it so: near r = 8 the
-    branch choice depends on the rounding.
+    branch choice depends on the rounding. The terms are summed in float64
+    and rounded once (:func:`_sum_f64`).
     """
     alpha = torch.as_tensor(alpha, dtype=mu.dtype, device=mu.device)
     r = 1.0 / alpha[..., None]
@@ -208,7 +231,7 @@ def nb_nll_centered(
             + (1.0 / yr**3 - 1.0 / r**3) / 360.0
         )
         per = torch.where(r < _R_SWITCH, plain, stable)
-    return per.sum(-1)
+    return _sum_f64(per)
 
 
 def nb_nll_centered_fgh(
@@ -217,7 +240,8 @@ def nb_nll_centered_fgh(
     """Value, gradient and curvature of :func:`nb_nll_centered` in log-alpha.
 
     One pass, both branches, selected per element at r < 8. Here r is
-    ``exp(-la)`` (not ``1/exp(la)``), as in the JAX package.
+    ``exp(-la)`` (not ``1/exp(la)``), as in the JAX package. Each sum is
+    accumulated in float64 and rounded once (:func:`_sum_f64`).
     """
     r = torch.exp(-la)[..., None]
     y = counts
@@ -283,7 +307,50 @@ def nb_nll_centered_fgh(
     )
 
     sel = r < _R_SWITCH
-    f = torch.where(sel, f_pl, f_st).sum(-1)
-    g = torch.where(sel, g_pl, g_st).sum(-1)
-    h = torch.where(sel, h_pl, h_st).sum(-1)
+    f = _sum_f64(torch.where(sel, f_pl, f_st))
+    g = _sum_f64(torch.where(sel, g_pl, g_st))
+    h = _sum_f64(torch.where(sel, h_pl, h_st))
     return f, g, h
+
+
+def _dnb_nll_plain(counts: torch.Tensor, mu: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`dnb_nll` (alpha already a tensor)."""
+    r = 1.0 / alpha[..., None]
+    term = _psi_fast(r) - _psi_fast(counts + r) + torch.log1p(mu * alpha[..., None]) + (counts - mu) / (mu + r)
+    return -((1.0 / alpha**2) * term.sum(-1))
+
+
+def dnb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
+    """Batched gradient of :func:`nb_nll` with respect to ``alpha``.
+
+    Port of ``pydeseq2_tpu/ops/nb.py:dnb_nll`` (the reference's digamma
+    form): -alpha^-2 sum_n [psi(1/alpha) - psi(y + 1/alpha) + log1p(mu alpha)
+    + (y - mu)/(mu + 1/alpha)]. counts and mu (..., N), alpha broadcasting
+    over the leading axes; the result has their broadcast leading shape.
+    psi is the port's dtype-gated one (:func:`_psi_fast`: Stirling-8 in
+    float32, the series in float64), the same on the card; the JAX package
+    takes the library digamma. As alpha -> 0 the psi difference cancels and
+    the float32 result is ill-conditioned, as JAX's is. CUDA tensors launch
+    ``dnb_nll`` (a warp per row).
+    """
+    alpha = torch.as_tensor(alpha, dtype=mu.dtype, device=mu.device)
+    if not mu.is_cuda:
+        return _dnb_nll_plain(counts, mu, alpha)
+    return _dnb_nll_cuda(counts, mu, alpha)
+
+
+def _dnb_nll_cuda(counts: torch.Tensor, mu: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Launch ``dnb_nll`` on the broadcast rows, one warp a row."""
+    lead = torch.broadcast_shapes(counts.shape[:-1], mu.shape[:-1], alpha.shape)
+    N = torch.broadcast_shapes(counts.shape[-1:], mu.shape[-1:])[0]
+    y = counts.to(mu.dtype).expand(lead + (N,)).reshape(-1, N).contiguous()
+    m = mu.expand(lead + (N,)).reshape(-1, N).contiguous()
+    a = alpha.expand(lead).reshape(-1).contiguous()
+    out = torch.empty(a.shape, dtype=mu.dtype, device=mu.device)
+    kernels.check_cuda_operands("dnb_nll", y, m, a, out)
+    kernels.launch(
+        "dnb_nll",
+        [int(mu.dtype == torch.float64), a.shape[0], N, y.data_ptr(), m.data_ptr(), a.data_ptr(), out.data_ptr()],
+        mu.device,
+    )
+    return out.reshape(lead)

@@ -32,6 +32,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import sys; before = set(sys.modules); import pydeseq2_tpu_torch, pydeseq2_tpu_torch.fused; "
         "import pydeseq2_tpu_torch.synthetic, pydeseq2_tpu_torch.kernels, pydeseq2_tpu_torch.fused_stream; "
         "import pydeseq2_tpu_torch.ops.shrink, pydeseq2_tpu_torch.models.stats, pydeseq2_tpu_torch.stage_profile; "
+        "import pydeseq2_tpu_torch.disp_bench; "
         "import pydeseq2_tpu_torch.ops.refit, pydeseq2_tpu_torch.ops.linreg, pydeseq2_tpu_torch.ops.trend; "
         "import pydeseq2_tpu_torch.ops.stats, pydeseq2_tpu_torch.ops.cooks; "
         "import pydeseq2_tpu_torch.ops.sizefactors, pydeseq2_tpu_torch.ops.vst; "
@@ -154,9 +155,10 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Twenty-two kernels (the class API's trend_fit, trimmed_var and the
-    hat-only and Wald-only entries of hat_wald.cu beside the pipelines'
-    eighteen), each with a launch count that starts at 0."""
+    """Twenty-four kernels (the class API's trend_fit, trimmed_var and the
+    hat-only and Wald-only entries of hat_wald.cu, dnb_nll and the fine
+    scan's disp_scan_fine beside the pipelines' eighteen), each with a
+    launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 22
+    assert len(kernels.KERNELS) == 24
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)
