@@ -34,7 +34,13 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    around the coarse argmin) and ``dnb_nll`` (at the genewise dispersions)
    on the main draw's operands (same two scales); ``disp_scan`` and
    ``disp_newton`` at the atlas iterative fit's shape (5000 genes x 10000
-   samples, P = 1, float32), checked and timed;
+   samples, P = 1, float32), checked and timed; the cluster kernels in every
+   mode (``cluster_kernel_checks``): ``sf_newton`` with its counts in shared
+   memory at 100 x 60000 float32 and float64 and streamed at 200000 genes
+   float64, at N = 3 and G = 5 (one block, and a cluster of 16 with empty
+   blocks), ``trend_fit`` and ``trend`` at 300, 60000 and 200000 lanes in
+   both types, their lanes in shared memory and streamed, each launched
+   twice and equal to itself bit for bit;
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -119,6 +125,13 @@ F64_OPS_PER_S = 34e12  # float64 outside the tensor cores
 # their bound, from the SFU operations their source issues per sample (an
 # estimate, not a count of the compiled code, and not in the kernels line).
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# Instruction rate: 4 schedulers an SM, one warp instruction (32 lanes)
+# each a clock, 132 SMs at 1.98 GHz; an IEEE float32 division takes ~16
+# instructions on its fast path (reciprocal estimate, refinement and checks:
+# an estimate from the instruction sequence, not a count of the compiled
+# code). sf_newton's phase-2 log line states the divisions' time at that rate.
+INSTR_PER_S = 132 * 4 * 32 * 1.98e9
+DIV_INSTR = 16
 
 DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
@@ -140,6 +153,12 @@ SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh", "lowess")
 # 3f): the rescue tiers again only where a lane stays flagged.
 STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "cooks", "bh", "mom", "trend", "lowess",
                   "impute")
+# The cluster kernels' own shapes (phase 2, cluster_kernel_checks): the
+# streamed mode of sf_newton at a transcript-level gene list (~200000 rows,
+# float64, whose slab does not fit a block's shared memory); trend_fit and
+# trend at a few hundred lanes (one block), the main width and that list.
+SF_STREAMED_G = 200_000
+TREND_LANES = (300, G_MAIN, SF_STREAMED_G)
 N_STREAM_WIDE = 1_000  # phases 3f, 3h: auto gene_block splits 60000 genes into 2 blocks of 30000
 # The kernels the blind VST launches (phases 3g, 3h): the size-factor
 # medians, MoM, the genewise fit and the trend at P = 1, and the transform.
@@ -1827,26 +1846,10 @@ def count_trend_passes(run) -> tuple[int, int]:
     """(loss passes, gradient + Fisher passes) over the genes that the
     plain trend fit makes in ``run()`` (a call of a plain version): the
     work the kernel's bound counts."""
+    from pydeseq2_tpu_torch.kernel_bench import count_passes
     from pydeseq2_tpu_torch.ops import trend as tr
 
-    calls = {"trend_loss": 0, "trend_grad": 0}
-    originals = {n: getattr(tr, n) for n in calls}
-
-    def counted(name):
-        def fn(*args, **kwargs):
-            calls[name] += 1
-            return originals[name](*args, **kwargs)
-
-        return fn
-
-    try:
-        for n in calls:
-            setattr(tr, n, counted(n))
-        run()
-    finally:
-        for n, fn in originals.items():
-            setattr(tr, n, fn)
-    return calls["trend_loss"], calls["trend_grad"]
+    return count_passes(tr, run)
 
 
 def mom_check(name: str, recorded) -> float:
@@ -1972,7 +1975,10 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
             # per gene: the loss pass ~6 operations (clamp, divide, log, adds),
             # the gradient + Fisher pass ~22; passes counted on the plain run
             "ops": Gt * (6 * n_loss + 22 * n_grad),
+            "passes": n_loss + n_grad,
+            "plan": tr._trend_plan(Gt, isz)._asdict(),
         }
+        timings["trend"]["ms_per_pass"] = timings["trend"]["ms"] / (n_loss + n_grad)
 
     # -- lowess: the independent-filtering fit and cutoff row -----------------
     # The same row j; the fit within 1e-6 (f32) / 1e-13 (f64), relative
@@ -2297,8 +2303,113 @@ def sf_kernel_checks(dtype, G, N, reps, timings):
             # 6 (with their float64 converts and adds)
             "ops": inner * Ns * n_keep * 19,
             "steps": inner,
+            "plan": sz._sf_plan(Gs, Ns, isz, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
         }
+        # the instruction time of the two IEEE divisions a cell and step, an
+        # estimate (DIV_INSTR each), logged beside the bound
+        div_ms = inner * Ns * n_keep * 2 * DIV_INSTR / INSTR_PER_S * 1e3
+        log(f"  sf_newton {name}: plan {timings['sf_newton']['plan']}, {timings['sf_newton']['ms']:.4f} ms; bytes "
+            f"bound {timings['sf_newton']['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms (one read a round), division "
+            f"instruction estimate {div_ms:.4f} ms")
     return errs
+
+
+def cluster_kernel_checks() -> dict:
+    """Phase 2, the cluster kernels in every mode they have, against their
+    plain versions on the seeded operands of ``kernel_bench`` (one
+    trimmed-solve round on Poisson counts; trend lanes), each launched twice (the second
+    launch equal to the first bit for bit): ``sf_newton`` in its
+    shared-memory mode at the main width in float32 and float64, in its
+    streamed mode at SF_STREAMED_G genes in float64 (and forced at the main
+    width), at the edge shapes (N = 3; G = 5 on one block and on a cluster
+    of 16 whose blocks but one hold no gene; no kept gene); ``trend_fit``
+    and ``trend`` at TREND_LANES lanes in float32 and float64, with the lanes
+    in shared memory (their plan's mode at every such width) and streamed.
+    Returns {label: plan} of the plans run."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+    from pydeseq2_tpu_torch.ops import trend as tr
+
+    plans = {}
+    # -- sf_newton: one round's steps. Identical terms summed in float64 and
+    # rounded: 1e-5 (f32) / 1e-12 (f64), the tolerance of sf_kernel_checks.
+    cases = [
+        (G_MAIN, N_MAIN, torch.float32, None, "main width"),
+        (G_MAIN, N_MAIN, torch.float64, None, "main width"),
+        (SF_STREAMED_G, N_MAIN, torch.float64, None, "transcript-level width"),
+        (G_MAIN, N_MAIN, torch.float32, "streamed", "main width, streamed forced"),
+        (G_MAIN, 3, torch.float32, None, "N = 3"),
+        (5, N_MAIN, torch.float64, None, "G = 5"),
+        (5, N_MAIN, torch.float64, "cluster16", "G = 5 on a cluster of 16"),
+        (5, N_MAIN, torch.float32, "none kept", "G = 5, no kept gene"),
+    ]
+    for G, N, dtype, force, what in cases:
+        c, coef, sf0, inv_sf0, s0, disp, keep = kernel_bench.sf_operands(G, N, dtype)
+        plan = sz._sf_plan(G, N, c.element_size(), torch.cuda.get_device_properties(0).multi_processor_count)
+        if force == "streamed":
+            plan = plan._replace(shared=False)
+        elif force == "cluster16":
+            plan = plan._replace(K=16)
+        elif force == "none kept":
+            keep = torch.zeros_like(keep)
+        if (G, dtype) == (G_MAIN, torch.float32) or (G, dtype) == (G_MAIN, torch.float64):
+            check(plan.shared or force == "streamed", f"sf_newton {what}: plan {plan} is not in shared memory")
+        if G == SF_STREAMED_G:
+            check(not plan.shared, f"sf_newton {what}: plan {plan} is not streamed")
+        label = f"sf_newton {'f32' if dtype == torch.float32 else 'f64'} {G} x {N} {what}"
+        plans[label] = plan._asdict()
+        sk = sz._sf_newton_cuda(c, coef, sf0, inv_sf0, s0, disp, keep, 0.5, 8, plan=plan)
+        sk2 = sz._sf_newton_cuda(c, coef, sf0, inv_sf0, s0, disp, keep, 0.5, 8, plan=plan)
+        sp = sz._sf_newton_plain(c, coef, sf0, inv_sf0, s0, disp, keep, 0.5, 8)
+        stol = 1e-5 if dtype == torch.float32 else 1e-12
+        e_s = (sk - sp).abs().max().item()
+        check(bits_equal(sk, sk2), f"{label}: a second launch differs from the first")
+        check(e_s <= stol, f"{label}: log size factor err {e_s:.3g} > {stol}")
+        if force == "none kept":
+            check(bits_equal(sk, s0), f"{label}: s moved without a kept gene")
+        log(f"  {label}: plan {plan}, 8 steps err {e_s:.3g} (tol {stol}), repeat bit-equal")
+        del c, coef, disp, keep, sk, sk2, sp
+    # -- trend_fit and trend on seeded lanes: the tolerances of
+    # class_kernel_checks' trend_fit (1e-4 f32; f64 1e-7 where the fit
+    # converges, 1e-6 where it stops at its 60th iterate), the same
+    # converged / failed flags, rounds within 1 in f32 and equal in f64.
+    for G in TREND_LANES:
+        for dtype in (torch.float32, torch.float64):
+            f32 = dtype == torch.float32
+            cov, tar, valid, bm = kernel_bench.trend_lanes(G, dtype)
+            auto = tr._trend_plan(G, cov.element_size())
+            check(auto.shared, f"trend_fit {G} lanes: plan {auto} does not keep the lanes in shared memory")
+            want = tr._trend_fit_plain(cov, tar, valid, 60)
+            ctol = 1e-4 if f32 else (1e-7 if bool(want[2]) else 1e-6)
+            nz = valid
+            mean_disp = tar[valid].mean()
+            want_t = tr._parametric_trend_plain(bm, tar, nz, mean_disp, 20)
+            for plan in (auto, auto._replace(shared=False)):
+                tag = f"{'f32' if f32 else 'f64'} {G} lanes, K {plan.K} {'shared' if plan.shared else 'streamed'}"
+                label = f"trend_fit {tag}"
+                plans[label] = plan._asdict()
+                got = tr._trend_fit_cuda(cov, tar, valid, 60, plan=plan)
+                again = tr._trend_fit_cuda(cov, tar, valid, 60, plan=plan)
+                check(bits_equal(got[0], again[0]) and bits_equal(got[1], again[1]),
+                      f"{label}: a second launch differs from the first")
+                e_c = rel_err(got[0].double(), want[0].double(), 1e-300)
+                e_p = rel_err(got[1].double(), want[1].double(), 1e-300)
+                check(bool(got[2]) == bool(want[2]), f"{label}: converged {bool(got[2])}, plain {bool(want[2])}")
+                check(e_c <= ctol and e_p <= ctol, f"{label}: coefficient rel err {e_c:.3g}, predictions {e_p:.3g} "
+                                                   f"> {ctol}")
+                gt = tr._parametric_trend_cuda(bm, tar, nz, mean_disp, 20, plan=plan)
+                gt2 = tr._parametric_trend_cuda(bm, tar, nz, mean_disp, 20, plan=plan)
+                check(bits_equal(gt[0], gt2[0]) and bits_equal(gt[1], gt2[1]),
+                      f"trend {tag}: a second launch differs from the first")
+                e_t = rel_err(gt[1].double(), want_t[1].double(), 1e-300)
+                rk, rp = int(gt[3]), int(want_t[3])
+                check(bool(gt[2]) == bool(want_t[2]), f"trend {tag}: failed {bool(gt[2])}, plain "
+                                                       f"{bool(want_t[2])}")
+                check(e_t <= ctol, f"trend {tag}: coefficient rel err {e_t:.3g} > {ctol}")
+                check(abs(rk - rp) <= (1 if f32 else 0), f"trend {tag}: {rk} rounds, plain {rp}")
+                log(f"  {label}: coefficient rel err {e_c:.3g}, predictions {e_p:.3g} (tol {ctol}), converged "
+                    f"{bool(got[2])}; trend: rel err {e_t:.3g}, rounds {rk} (plain {rp}); repeats bit-equal")
+    return plans
 
 
 def vst_kernel_checks(dtype, G, N, reps, timings):
@@ -2631,7 +2742,10 @@ def class_kernel_checks(dtype, G, N, reps, timings):
             # per valid gene: the loss pass ~6 operations, the gradient +
             # Fisher pass ~22; passes counted on the plain fit
             "ops": int(valid.sum()) * (6 * n_loss + 22 * n_grad),
+            "passes": n_loss + n_grad,
+            "plan": tr._trend_plan(Gt, isz)._asdict(),
         }
+        timings["trend_fit"]["ms_per_pass"] = timings["trend_fit"]["ms"] / (n_loss + n_grad)
 
     # -- trimmed_var: Cook's cell variances, and a column of ~G --------------
     # Relative 1e-6 (f32) / 1e-12 (f64): both find the same kept multiset and
@@ -3010,6 +3124,7 @@ def main() -> int:
     vst_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
     errs32.update(class_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
     class_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
+    plans = cluster_kernel_checks()
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3125,13 +3240,15 @@ def main() -> int:
             "library_ms": t["library_ms"],
         }
         for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "wide_ms",
-                      "wide_plain_ms"):
+                      "wide_plain_ms", "passes", "ms_per_pass", "plan"):
             if extra in t:
                 # the sort before the BH sweep; a rescue kernel over every lane
                 # of its tile; cooks in the streamed refit mode; mom writing mu;
                 # the Newton steps of one sf_newton launch; trimmed_var over the
                 # mean trend's one column; the atlas block's times of disp_scan
-                # and disp_newton
+                # and disp_newton; the reduction passes of one trend or
+                # trend_fit launch and the time per pass; a cluster kernel's
+                # launch plan
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -3146,6 +3263,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
+    log("cluster kernel plans: " + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

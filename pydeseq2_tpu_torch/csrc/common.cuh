@@ -464,6 +464,41 @@ __device__ __forceinline__ T apeglm_ll_term(T y, T y_plus_s, T xb, T off, T log_
   return y * xb - y_plus_s * m_logaddexp(xb + off, log_s);
 }
 
+// ---- thread-block clusters (sizefactors.cu, trend.cu) -------------------------
+constexpr int MAX_CLUSTER = 16;            // blocks a cluster, non-portable size allowed
+constexpr size_t SMEM_BLOCK_MAX = 232448;  // dynamic shared memory a block may use (227 KB)
+
+// Opt kernel F in to 16-block clusters and the full dynamic shared memory of
+// a block, once per device: these calls cost host time on every launch.
+template <auto F> cudaError_t cluster_opt_in() {
+  static unsigned done = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= 32 || ((done >> dev) & 1u)) return e;
+  e = cudaFuncSetAttribute(F, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess) e = cudaFuncSetAttribute(F, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BLOCK_MAX);
+  if (e == cudaSuccess) done |= 1u << dev;
+  return e;
+}
+
+// A launch configuration of K-block clusters of `threads` threads with
+// `smem` bytes of dynamic shared memory each; attr must outlive it.
+inline cudaLaunchConfig_t cluster_config(int clusters, int K, int threads, size_t smem, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = (unsigned)K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * K));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
 // Dispatch a templated launcher over P = 1..8 (the statement after P may
 // hold commas: it is variadic); P > 8 is refused.
 #define PDT_DISPATCH_P(P_RUNTIME, ...)                   \

@@ -1,4 +1,4 @@
-// The parametric dispersion trend with its gene-exclusion rounds, one block;
+// The parametric dispersion trend with its gene-exclusion rounds, one cluster;
 // and one standalone gamma-GLM fit on a caller's mask (trend_fit_launch).
 //
 // Replaces pydeseq2_tpu/fused.py:212 fit_fused_trend's parametric branch
@@ -7,18 +7,28 @@
 // Fisher-scoring fit of mu = a0 + a1 x, x = 1/base_mean, minimising
 // mean(y/mu + log mu) over the valid genes, with backtracking, :71-129).
 //
-// A single block of 1024 threads runs every round and every Newton and
-// backtracking trip: the loop conditions are read on the card, so the
-// host reads none of them. Each loss, gradient and Fisher sum over the G
-// genes is one block reduction in a fixed order (each thread's strided
-// lanes in order, a warp xor tree, then the 32 warp sums by a second xor
-// tree that every warp runs), and every thread ends with the same bits, so
-// all threads take the same branches. Each term is computed in T and summed
+// One thread-block cluster of K <= 16 blocks of 1024 threads runs every
+// round and every Newton and backtracking trip: the loop conditions are read
+// on the card, so the host reads none of them. Block q of the cluster owns
+// the genes [q ceil(G / K), (q + 1) ceil(G / K)); where they fit, it loads
+// their lanes once into shared memory (x = 1/base_mean, the target, the
+// valid byte) and every pass reads them there, else it reads them from
+// global memory each pass (the streamed mode). The plan (K, mode) comes
+// from the host (ops/trend.py:_trend_plan); K = 1 is one block, as for a
+// few hundred genes. Each loss, gradient and Fisher sum over the genes is
+// one cluster reduction in a fixed order: each thread's strided lanes in
+// order, a warp xor tree, the block's 32 warp sums by a second xor tree
+// that every warp runs, then the K block totals, read through distributed
+// shared memory after one cluster barrier (one remote read a total and
+// block), by a third xor tree over the ranks. Every thread of
+// every block ends with the same bits, so all threads take the same
+// branches. Each term is computed in T and summed
 // in double, the total rounded to T, as the plain version does: in float32
 // a 60000-term sum in another order would move by more than the stall
 // tolerance, and the two fits would stop after different trips. The per-gene mask of the current
-// round lives in a scratch byte array; each thread reads and writes only
-// its own lanes. Expressions follow the plain version term by term
+// round lives in shared memory, or in a scratch byte array in the streamed
+// mode; each thread reads and writes only its own lanes. Expressions follow
+// the plain version term by term
 // (--fmad=false): the clamped-lane gradient factor (1 above 1e-12, 1/2 at
 // the tie, 0 below), the 1e-12 ridge on the Fisher matrix, the 2 x 2 solve
 // by LU with partial pivoting as LAPACK factors it (multiplier by the
@@ -29,7 +39,7 @@
 // converge or has a coefficient <= 1e-10), the number of rounds, and
 // fitted = failed ? mean_disp : a0 + a1 / base_mean for every gene.
 //
-// trend_fit runs the same fit (gamma_fit below, the same block sums) once
+// trend_fit runs the same fit (gamma_fit below, the same cluster sums) once
 // on the caller's covariates, targets and mask and writes the coefficients,
 // the predictions a0 + a1 x of every lane and the converged flag: the class
 // API's exclusion loop (models/dataset.py) reads only that, once a round.
@@ -37,12 +47,15 @@
 // plain version; the two differ only where such a lane is non-finite, which
 // no caller passes.
 //
-// Bound on the H100 by its operations and its serial chain of block
-// reductions: ~40 operations per gene per Fisher step over data (0.54 MB at
-// 60000 genes) that stays in L2.
+// Bound on the H100 by its serial chain of reductions (a pass over the
+// lanes, two barriers and the cluster's remote reads each), not by its ~40
+// operations per gene per Fisher step over 0.54 MB at 60000 genes.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
 using namespace pdt;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -58,20 +71,64 @@ template <> struct Eps<double> {
   static constexpr double v = 2.220446049250313e-16;  // 2^-52
 };
 
-// Block-wide sum of K values per thread; every thread gets the totals.
-template <int K> __device__ __forceinline__ void block_sum(double (&v)[K], double* shm) {
-  const int warp = threadIdx.x / WARP, lane = threadIdx.x & (WARP - 1);
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) shm[k * NWARP + warp] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(shm[k * NWARP + lane]);
-  __syncthreads();  // shm is reused by the next reduction
+constexpr int NSUM = 5;  // the widest reduction: gradient (2) and Fisher (3)
+// float64 words before the lanes: the warp sums (2 buffers x NSUM x NWARP),
+// the block totals (2 buffers x NSUM) that the cluster reads, and the K
+// blocks' totals gathered (MAX_CLUSTER x NSUM)
+constexpr int RED_WORDS = 2 * NSUM * NWARP + 2 * NSUM + MAX_CLUSTER * NSUM;
+
+// Dynamic shared memory of one block (ops/trend.py:_trend_smem_bytes
+// repeats it): the reduction buffers, and in the shared-memory mode x and
+// the target (T each) and the valid byte of each of the block's lanes.
+__host__ __device__ constexpr size_t trend_smem_bytes(int rows, int isz, bool shared) {
+  return 8 * (size_t)RED_WORDS + (shared ? (size_t)rows * (2 * isz + 1) : 0);
 }
+
+// Cluster-wide sum of NV values per thread; every thread of every block gets
+// the same totals. A block's warp sums, then its total; after the cluster
+// barrier, K x NV threads fetch the K blocks' totals (one remote read each)
+// into shared memory, and every warp adds them by an xor tree over the
+// ranks. The warp sums and block totals alternate between two buffers, so
+// that a block (or warp) that runs ahead never overwrites values another is
+// still reading; a cluster of one block stops at its total, one barrier a
+// reduction.
+struct ClusterSum {
+  double* warp_buf;   // [2][NSUM][NWARP]
+  double* block_buf;  // [2][NSUM]
+  double* gathered;   // [MAX_CLUSTER][NSUM]
+  int K;
+  int parity;
+
+  template <int NV> __device__ __forceinline__ void operator()(double (&v)[NV]) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int warp = threadIdx.x / WARP, lane = threadIdx.x & (WARP - 1);
+    double* ws = warp_buf + parity * NSUM * NWARP;
+    double* bs = block_buf + parity * NSUM;  // before the flip below
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = warp_sum(v[k]);
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) ws[k * NWARP + warp] = v[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = warp_sum(ws[k * NWARP + lane]);
+    parity ^= 1;
+    if (K == 1) return;  // one block: its total is the sum (the tree below adds zeros to it)
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) bs[k] = v[k];
+    }
+    cluster.sync();  // every block's totals are visible
+    if ((int)threadIdx.x < K * NV) {
+      const int q = threadIdx.x / NV, k = threadIdx.x - q * NV;
+      gathered[q * NSUM + k] = cluster.map_shared_rank(bs, (unsigned)q)[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < NV; ++k) v[k] = warp_sum(lane < K ? gathered[lane * NSUM + k] : 0.0);
+  }
+};
 
 template <typename T> struct Lane {
   T x, t;  // covariate and target, both 0 outside the initial mask
@@ -86,29 +143,48 @@ __device__ __forceinline__ Lane<T> lane_of(const T* bm, const T* gm, const unsig
   return {valid0 ? cov : T(0), valid0 ? g : T(0)};
 }
 
-// mean over valid lanes of t/mu + log mu, mu = max(c0 + c1 x, 1e-12);
-// lanes(i) gives lane i's covariate and target
+// A block's lanes: in shared memory (x, t, valid of local lane i), or read
+// from global memory (the streamed mode) through `from` and `valid_g`.
+template <typename T, bool SHARED, typename F> struct Lanes {
+  int rows;
+  T* xs;
+  T* ts;
+  unsigned char* vs;
+  F from;                  // local lane -> Lane<T> (streamed mode)
+  unsigned char* valid_g;  // the block's valid bytes (streamed mode)
+
+  __device__ __forceinline__ Lane<T> operator()(int i) const {
+    if constexpr (SHARED) return {xs[i], ts[i]};
+    else return from(i);
+  }
+  __device__ __forceinline__ bool valid(int i) const { return SHARED ? vs[i] != 0 : valid_g[i] != 0; }
+  __device__ __forceinline__ void set_valid(int i, bool v) const {
+    if constexpr (SHARED) vs[i] = v ? 1 : 0;
+    else valid_g[i] = v ? 1 : 0;
+  }
+};
+
+// mean over valid lanes of t/mu + log mu, mu = max(c0 + c1 x, 1e-12)
 template <typename T, typename L>
-__device__ T loss(T c0, T c1, int G, const L& lanes, const unsigned char* valid, T n, double* shm) {
+__device__ T loss(T c0, T c1, const L& lanes, T n, ClusterSum& cs) {
   double s[1] = {0.0};
-  for (int i = threadIdx.x; i < G; i += THREADS) {
-    if (!valid[i]) continue;
+  for (int i = threadIdx.x; i < lanes.rows; i += THREADS) {
+    if (!lanes.valid(i)) continue;
     const Lane<T> l = lanes(i);
     const T ms = m_max(c0 + l.x * c1, T(LOWER));
     const T per = l.t / ms + m_log(ms);
     s[0] += double(per);
   }
-  block_sum<1>(s, shm);
+  cs(s);
   return T(s[0]) / n;
 }
 
 // gradient (g0, g1) and Fisher matrix (F00, F01, F11), each divided by n
 template <typename T, typename L>
-__device__ void grad_fisher(T c0, T c1, int G, const L& lanes, const unsigned char* valid, T n, double* shm,
-                            T* g, T* F) {
+__device__ void grad_fisher(T c0, T c1, const L& lanes, T n, ClusterSum& cs, T* g, T* F) {
   double s[5] = {0.0, 0.0, 0.0, 0.0, 0.0};
-  for (int i = threadIdx.x; i < G; i += THREADS) {
-    if (!valid[i]) continue;
+  for (int i = threadIdx.x; i < lanes.rows; i += THREADS) {
+    if (!lanes.valid(i)) continue;
     const Lane<T> l = lanes(i);
     const T mu = c0 + l.x * c1;
     const T ms = m_max(mu, T(LOWER));
@@ -123,7 +199,7 @@ __device__ void grad_fisher(T c0, T c1, int G, const L& lanes, const unsigned ch
     s[3] += double(wmx);
     s[4] += double(xwmx);
   }
-  block_sum<5>(s, shm);
+  cs(s);
   g[0] = T(s[0]);
   g[1] = T(s[1]);
   F[0] = T(s[2]) / n + T(LOWER);
@@ -152,17 +228,16 @@ template <typename T> __device__ __forceinline__ void solve2(const T* F, const T
 // gain is below 10 eps (|f| + 1); converged = the projected Newton
 // decrement at the final point is below 1e3 eps (|f| + 1).
 template <typename T, typename L>
-__device__ void gamma_fit(int G, int maxiter, const L& lanes, const unsigned char* valid, T n, double* shm,
-                          T& c0, T& c1, bool& converged) {
+__device__ void gamma_fit(int maxiter, const L& lanes, T n, ClusterSum& cs, T& c0, T& c1, bool& converged) {
   const T tiny_f = T(10.0 * Eps<T>::v);
   const T ftol = T(1e3 * Eps<T>::v);
   const T at_bound_c = T(LOWER * (1 + 1e-9));
   c0 = T(1);
   c1 = T(1);
-  T f_val = loss(c0, c1, G, lanes, valid, n, shm);
+  T f_val = loss(c0, c1, lanes, n, cs);
   for (int it = 0; it < maxiter; ++it) {
     T g[2], F[3], step[2];
-    grad_fisher(c0, c1, G, lanes, valid, n, shm, g, F);
+    grad_fisher(c0, c1, lanes, n, cs, g, F);
     solve2(F, g, step);
     T t = T(1);
     T best0 = c0, best1 = c1, best_f = f_val;
@@ -170,7 +245,7 @@ __device__ void gamma_fit(int G, int maxiter, const L& lanes, const unsigned cha
     for (int j = 0; j < 20; ++j) {
       const T k0 = m_max(c0 - t * step[0], T(LOWER));
       const T k1 = m_max(c1 - t * step[1], T(LOWER));
-      const T f_cand = loss(k0, k1, G, lanes, valid, n, shm);
+      const T f_cand = loss(k0, k1, lanes, n, cs);
       if (f_cand < best_f) {
         best0 = k0;
         best1 = k1;
@@ -189,7 +264,7 @@ __device__ void gamma_fit(int G, int maxiter, const L& lanes, const unsigned cha
   }
   // projected Newton decrement at the final point
   T g[2], F[3], sol[2];
-  grad_fisher(c0, c1, G, lanes, valid, n, shm, g, F);
+  grad_fisher(c0, c1, lanes, n, cs, g, F);
   T pg[2];
   pg[0] = (c0 <= at_bound_c && g[0] > T(0)) ? T(0) : g[0];
   pg[1] = (c1 <= at_bound_c && g[1] > T(0)) ? T(0) : g[1];
@@ -198,20 +273,61 @@ __device__ void gamma_fit(int G, int maxiter, const L& lanes, const unsigned cha
   converged = isfinite(f_val) && decrement <= ftol * (m_abs(f_val) + T(1));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// This block's share of the genes: [g0, g0 + rows), at most per = ceil(G / K).
+__device__ __forceinline__ void block_rows(int G, int& g0, int& rows, int& per) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  per = (G + K - 1) / K;
+  g0 = min(G, (int)cluster.block_rank() * per);
+  rows = min(G, g0 + per) - g0;
+}
+
+// The reduction buffers and, in the shared-memory mode, the lane arrays of
+// `per` lanes, carved out of the dynamic shared memory.
+template <typename T> struct TrendSmem {
+  ClusterSum cs;
+  T* xs;
+  T* ts;
+  unsigned char* vs;
+};
+
+template <typename T> __device__ __forceinline__ TrendSmem<T> carve(double* smem, int per) {
+  TrendSmem<T> m;
+  m.cs = {smem, smem + 2 * NSUM * NWARP, smem + 2 * NSUM * NWARP + 2 * NSUM, (int)cg::this_cluster().num_blocks(),
+          0};
+  m.xs = reinterpret_cast<T*>(smem + RED_WORDS);
+  m.ts = m.xs + per;
+  m.vs = reinterpret_cast<unsigned char*>(m.ts + per);
+  return m;
+}
+
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(THREADS, 1)
     trend_kernel(int G, int max_rounds, int maxiter, const T* __restrict__ bm,
                  const T* __restrict__ gm, const unsigned char* __restrict__ nz,
                  const T* __restrict__ mean_disp_p, unsigned char* __restrict__ valid,
                  T* __restrict__ fitted, T* __restrict__ coeffs_out,
                  unsigned char* __restrict__ failed_out, int* __restrict__ rounds_out) {
-  __shared__ double shm[5 * NWARP];
-
-  for (int i = threadIdx.x; i < G; i += THREADS) {
+  extern __shared__ double smem[];
+  int g0, rows, per;
+  block_rows(G, g0, rows, per);
+  TrendSmem<T> m = carve<T>(smem, per);
+  const auto from = [&](int i) {
     bool v0;
-    lane_of(bm, gm, nz, i, v0);
-    valid[i] = v0 ? 1 : 0;
+    return lane_of(bm, gm, nz, g0 + i, v0);
+  };
+  const Lanes<T, SHARED, decltype(from)> lanes{rows, m.xs, m.ts, m.vs, from, valid + g0};
+
+  for (int i = threadIdx.x; i < rows; i += THREADS) {
+    bool v0;
+    const Lane<T> l = lane_of(bm, gm, nz, g0 + i, v0);
+    if constexpr (SHARED) {
+      m.xs[i] = l.x;
+      m.ts[i] = l.t;
+    }
+    lanes.set_valid(i, v0);
   }
+  // (the first reduction's barriers order these writes before any read)
 
   T coeffs[2] = {T(1), T(1)};
   bool failed = false;
@@ -219,30 +335,25 @@ __global__ void __launch_bounds__(THREADS)
   int rounds = 0;
   while (!failed && drift >= T(1e-6) && rounds < max_rounds) {
     double cnt[1] = {0.0};
-    for (int i = threadIdx.x; i < G; i += THREADS) cnt[0] += valid[i] ? 1.0 : 0.0;
-    block_sum<1>(cnt, shm);
+    for (int i = threadIdx.x; i < rows; i += THREADS) cnt[0] += lanes.valid(i) ? 1.0 : 0.0;
+    m.cs(cnt);
     const T n = m_max(T(cnt[0]), T(1));
 
     // ---- gamma_glm_trend_fit on the current mask ----
-    const auto lanes = [&](int i) {
-      bool v0;
-      return lane_of(bm, gm, nz, i, v0);
-    };
     T c0, c1;
     bool converged;
-    gamma_fit(G, maxiter, lanes, valid, n, shm, c0, c1, converged);
+    gamma_fit(maxiter, lanes, n, m.cs, c0, c1, converged);
 
     // ---- the exclusion round (fused.py:276-283) ----
     failed = !converged || c0 <= T(1e-10) || c1 <= T(1e-10);
     const T l0 = m_log(m_abs(c0 / coeffs[0]));
     const T l1 = m_log(m_abs(c1 / coeffs[1]));
     drift = l0 * l0 + l1 * l1;
-    for (int i = threadIdx.x; i < G; i += THREADS) {
-      if (!valid[i]) continue;
-      bool v0;
-      const Lane<T> l = lane_of(bm, gm, nz, i, v0);
-      const T ratio = gm[i] / (c0 + l.x * c1);
-      valid[i] = (ratio >= T(1e-4) && ratio < T(15)) ? 1 : 0;
+    for (int i = threadIdx.x; i < rows; i += THREADS) {
+      if (!lanes.valid(i)) continue;
+      const Lane<T> l = lanes(i);  // a valid lane's target is its genewise dispersion
+      const T ratio = l.t / (c0 + l.x * c1);
+      lanes.set_valid(i, ratio >= T(1e-4) && ratio < T(15));
     }
     coeffs[0] = c0;
     coeffs[1] = c1;
@@ -250,83 +361,117 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   const T mean_disp = *mean_disp_p;
-  for (int i = threadIdx.x; i < G; i += THREADS)
-    fitted[i] = failed ? mean_disp : coeffs[0] + coeffs[1] / bm[i];
-  if (threadIdx.x == 0) {
+  for (int i = threadIdx.x; i < rows; i += THREADS)
+    fitted[g0 + i] = failed ? mean_disp : coeffs[0] + coeffs[1] / bm[g0 + i];
+  if (cg::this_cluster().block_rank() == 0 && threadIdx.x == 0) {
     coeffs_out[0] = coeffs[0];
     coeffs_out[1] = coeffs[1];
     failed_out[0] = failed ? 1 : 0;
     rounds_out[0] = rounds;
   }
+  cg::this_cluster().sync();  // no block exits while another may still read its totals
 }
 
 // One standalone fit on the caller's mask (the class API's exclusion loop
 // runs on the host and calls this once a round): coefficients, the
 // predictions c0 + c1 x of every lane, and the converged flag.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, bool SHARED>
+__global__ void __launch_bounds__(THREADS, 1)
     trend_fit_kernel(int G, int maxiter, const T* __restrict__ cov, const T* __restrict__ tar,
                      const unsigned char* __restrict__ valid, T* __restrict__ coeffs_out,
                      T* __restrict__ pred, unsigned char* __restrict__ converged_out) {
-  __shared__ double shm[5 * NWARP];
+  extern __shared__ double smem[];
+  int g0, rows, per;
+  block_rows(G, g0, rows, per);
+  TrendSmem<T> m = carve<T>(smem, per);
+  const auto from = [&](int i) { return Lane<T>{cov[g0 + i], tar[g0 + i]}; };
+  // the caller's mask is only read
+  const Lanes<T, SHARED, decltype(from)> lanes{rows, m.xs, m.ts, m.vs, from,
+                                               const_cast<unsigned char*>(valid) + g0};
   double cnt[1] = {0.0};
-  for (int i = threadIdx.x; i < G; i += THREADS) cnt[0] += valid[i] ? 1.0 : 0.0;
-  block_sum<1>(cnt, shm);
+  for (int i = threadIdx.x; i < rows; i += THREADS) {
+    if constexpr (SHARED) {
+      m.xs[i] = cov[g0 + i];
+      m.ts[i] = tar[g0 + i];
+      m.vs[i] = valid[g0 + i];
+    }
+    cnt[0] += valid[g0 + i] ? 1.0 : 0.0;
+  }
+  m.cs(cnt);
   const T n = m_max(T(cnt[0]), T(1));
-  const auto lanes = [&](int i) { return Lane<T>{cov[i], tar[i]}; };
   T c0, c1;
   bool converged;
-  gamma_fit(G, maxiter, lanes, valid, n, shm, c0, c1, converged);
-  for (int i = threadIdx.x; i < G; i += THREADS) pred[i] = c0 + cov[i] * c1;
-  if (threadIdx.x == 0) {
+  gamma_fit(maxiter, lanes, n, m.cs, c0, c1, converged);
+  for (int i = threadIdx.x; i < rows; i += THREADS) pred[g0 + i] = c0 + cov[g0 + i] * c1;
+  if (cg::this_cluster().block_rank() == 0 && threadIdx.x == 0) {
     coeffs_out[0] = c0;
     coeffs_out[1] = c1;
     converged_out[0] = converged ? 1 : 0;
   }
+  cg::this_cluster().sync();  // no block exits while another may still read its totals
+}
+
+// Launch kernel F on one cluster of K blocks with `smem` bytes of dynamic
+// shared memory each.
+template <auto F, typename... Args> int cluster_launch(int K, size_t smem, cudaStream_t s, Args... args) {
+  if (K < 1 || K > MAX_CLUSTER || smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cluster_opt_in<F>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, K, THREADS, smem, s, &attr);
+  const cudaError_t l = cudaLaunchKernelEx(&cfg, F, args...);
+  if (l != cudaSuccess) return (int)l;
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(int G, int max_rounds, int maxiter, const void* bm, const void* gm, const void* nz,
-           const void* mean_disp, void* valid, void* fitted, void* coeffs, void* failed,
-           void* rounds, cudaStream_t s) {
-  trend_kernel<T><<<1, THREADS, 0, s>>>(G, max_rounds, maxiter, (const T*)bm, (const T*)gm,
-                                        (const unsigned char*)nz, (const T*)mean_disp,
-                                        (unsigned char*)valid, (T*)fitted, (T*)coeffs,
-                                        (unsigned char*)failed, (int*)rounds);
-  return 0;
+int launch(int G, int max_rounds, int maxiter, int K, int shared, const void* bm, const void* gm, const void* nz,
+           const void* mean_disp, void* valid, void* fitted, void* coeffs, void* failed, void* rounds,
+           cudaStream_t s) {
+  const size_t smem = trend_smem_bytes((G + K - 1) / K, (int)sizeof(T), shared != 0);
+#define PDT_TREND_ARGS                                                                                  \
+  K, smem, s, G, max_rounds, maxiter, (const T*)bm, (const T*)gm, (const unsigned char*)nz, (const T*)mean_disp, \
+      (unsigned char*)valid, (T*)fitted, (T*)coeffs, (unsigned char*)failed, (int*)rounds
+  return shared ? cluster_launch<trend_kernel<T, true>>(PDT_TREND_ARGS)
+                : cluster_launch<trend_kernel<T, false>>(PDT_TREND_ARGS);
+#undef PDT_TREND_ARGS
+}
+
+template <typename T>
+int fit_launch(int G, int maxiter, int K, int shared, const void* cov, const void* tar, const void* valid,
+               void* coeffs, void* pred, void* converged, cudaStream_t s) {
+  const size_t smem = trend_smem_bytes((G + K - 1) / K, (int)sizeof(T), shared != 0);
+#define PDT_FIT_ARGS \
+  K, smem, s, G, maxiter, (const T*)cov, (const T*)tar, (const unsigned char*)valid, (T*)coeffs, (T*)pred, \
+      (unsigned char*)converged
+  return shared ? cluster_launch<trend_fit_kernel<T, true>>(PDT_FIT_ARGS)
+                : cluster_launch<trend_fit_kernel<T, false>>(PDT_FIT_ARGS);
+#undef PDT_FIT_ARGS
 }
 
 }  // namespace
 
-extern "C" int trend_launch(int is_f64, int G, int max_rounds, int maxiter, const void* base_mean,
-                            const void* genewise_m, const void* non_zero, const void* mean_disp,
-                            void* valid, void* fitted, void* coeffs, void* failed, void* rounds,
-                            void* stream) {
-  if (G <= 0) return (int)cudaErrorInvalidValue;
+// The trend with its exclusion rounds on one cluster of K blocks (K <= 16,
+// at most G), the lanes in shared memory when `shared`.
+extern "C" int trend_launch(int is_f64, int G, int max_rounds, int maxiter, int K, int shared,
+                            const void* base_mean, const void* genewise_m, const void* non_zero,
+                            const void* mean_disp, void* valid, void* fitted, void* coeffs, void* failed,
+                            void* rounds, void* stream) {
+  if (G <= 0 || K > G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_f64) {
-    launch<double>(G, max_rounds, maxiter, base_mean, genewise_m, non_zero, mean_disp, valid,
-                   fitted, coeffs, failed, rounds, s);
-  } else {
-    launch<float>(G, max_rounds, maxiter, base_mean, genewise_m, non_zero, mean_disp, valid,
-                  fitted, coeffs, failed, rounds, s);
-  }
-  return (int)cudaGetLastError();
+  if (is_f64)
+    return launch<double>(G, max_rounds, maxiter, K, shared, base_mean, genewise_m, non_zero, mean_disp, valid,
+                          fitted, coeffs, failed, rounds, s);
+  return launch<float>(G, max_rounds, maxiter, K, shared, base_mean, genewise_m, non_zero, mean_disp, valid,
+                       fitted, coeffs, failed, rounds, s);
 }
 
-extern "C" int trend_fit_launch(int is_f64, int G, int maxiter, const void* covariates, const void* targets,
-                                const void* valid, void* coeffs, void* predictions, void* converged,
-                                void* stream) {
-  if (G <= 0) return (int)cudaErrorInvalidValue;
+extern "C" int trend_fit_launch(int is_f64, int G, int maxiter, int K, int shared, const void* covariates,
+                                const void* targets, const void* valid, void* coeffs, void* predictions,
+                                void* converged, void* stream) {
+  if (G <= 0 || K > G) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_f64) {
-    trend_fit_kernel<double><<<1, THREADS, 0, s>>>(G, maxiter, (const double*)covariates, (const double*)targets,
-                                                   (const unsigned char*)valid, (double*)coeffs,
-                                                   (double*)predictions, (unsigned char*)converged);
-  } else {
-    trend_fit_kernel<float><<<1, THREADS, 0, s>>>(G, maxiter, (const float*)covariates, (const float*)targets,
-                                                  (const unsigned char*)valid, (float*)coeffs,
-                                                  (float*)predictions, (unsigned char*)converged);
-  }
-  return (int)cudaGetLastError();
+  if (is_f64)
+    return fit_launch<double>(G, maxiter, K, shared, covariates, targets, valid, coeffs, predictions, converged, s);
+  return fit_launch<float>(G, maxiter, K, shared, covariates, targets, valid, coeffs, predictions, converged, s);
 }

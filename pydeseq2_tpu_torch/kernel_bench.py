@@ -1,0 +1,462 @@
+"""Device time of hand-written kernels at the shapes the pipelines give
+them, for one or more checkouts of this repository, on a CUDA card: the
+dispersion kernels ``disp_scan`` and ``disp_newton`` (suite ``disp``), the
+trimmed size-factor Newton round ``sf_newton`` (``sf``), and the dispersion
+trend's gamma-GLM fit, ``trend`` with its exclusion rounds and the
+standalone ``trend_fit`` (``trend``).
+
+    python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
+
+Each TREE (default: this checkout) is the root of a checkout, for example
+an earlier commit unpacked with ``git archive`` into an ignored directory.
+Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
+that tree and builds there only the sources of the suites asked for (all
+three by default). To compare two versions in one call, name them parent,
+change, change, parent.
+
+``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
+four Newton steps from the kernel scan's argmin; P > 2 adds indicator
+columns of a seeded batch factor to the two-level condition): 100 x 60000
+float32 at P = 2, 3, 5; 100 x 4000 and 100 x 10000 float32 at P = 2; 100 x
+2000 float64 at P = 2; 100 x 4000 float64 at P = 2, 5; 100 x 60000 float64
+at P = 2; the atlas dispersion block, 5000 genes x 10000 samples at P = 1,
+in float32 and float64. Per tree and shape: the mean ms of 20 warm wrapper
+calls (5 at the atlas block) by CUDA events, which on short gene lists
+include the host's launch time, and by torch.profiler the device time of the
+kernel alone and of all the wrapper runs on the card; the largest
+differences from the plain version (scan: best log-alpha, the objective
+cache relative to 1 + |f|; Newton: log-alpha, f relative to 1 + |f|), and
+per kernel instantiation the registers and spill bytes (stores, loads) of
+the ``-Xptxas -v`` report the build keeps. ``--detail`` adds, where the
+tree has them, the atlas scan with its rows unsplit (one segment), and the
+Newton launch on rows ordered by the final branch (r = exp(-la) < 8 or not)
+with the share of warps whose genes end in both branches, in gene order and
+in the wrapper's order.
+
+``sf`` shapes: one round's 8 Newton steps at 100 x 60000, 1000 x 60000 and
+the atlas 10000 x 60000 in float32 and 100 x 60000 in float64, on Poisson
+counts drawn on the card from a seeded generator (lognormal gene means,
+seeded size factors), the per-gene mean of counts / sf0 as the coefficient,
+seeded dispersions and a seeded keep set of ~95% of the genes. ``trend``
+shapes: 4000 and 60000 lanes in float32 and float64, seeded lanes (a trend
+0.05 + 2 / base_mean times gamma noise, ~97% valid). Per shape the same
+events and profiler times (kernels named ``sf_`` or ``trend``), the largest
+difference from the plain version, the plan a tree's wrapper picks where it
+has one, and for the trend the plain fit's reduction passes (loss, gradient
++ Fisher). ``--detail`` adds the other modes and cluster sizes of a tree
+that has plans.
+
+Prints the card first and, as the last line, every number as one JSON
+object.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+if __name__ == "__main__" and "--child" in sys.argv:
+    # Run as a file inside a tree: import that tree's package, not the
+    # directory of this file.
+    sys.path[0] = os.getcwd()
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+DEVICE = "cuda"
+SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
+SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",)}
+SF_SHAPES = (
+    # label, genes, samples, dtype, timed calls
+    ("f32 100x60000", 60_000, 100, torch.float32, 20),
+    ("f32 1000x60000", 60_000, 1_000, torch.float32, 10),
+    ("f64 100x60000", 60_000, 100, torch.float64, 20),
+    ("f32 atlas 10000x60000", 60_000, 10_000, torch.float32, 3),
+)
+TREND_SHAPES = (
+    # label, lanes, dtype, timed calls
+    ("f32 4000", 4_000, torch.float32, 20),
+    ("f32 60000", 60_000, torch.float32, 20),
+    ("f64 4000", 4_000, torch.float64, 20),
+    ("f64 60000", 60_000, torch.float64, 20),
+)
+SHAPES = (
+    # label, genes, samples, P, dtype, timed calls
+    ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, 20),
+    ("f32 100x60000 P=3", 60_000, 100, 3, torch.float32, 20),
+    ("f32 100x60000 P=5", 60_000, 100, 5, torch.float32, 20),
+    ("f32 100x4000 P=2", 4_000, 100, 2, torch.float32, 20),
+    ("f32 100x10000 P=2", 10_000, 100, 2, torch.float32, 20),
+    ("f64 100x2000 P=2", 2_000, 100, 2, torch.float64, 20),
+    ("f64 100x4000 P=2", 4_000, 100, 2, torch.float64, 20),
+    ("f64 100x4000 P=5", 4_000, 100, 5, torch.float64, 20),
+    ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, 20),
+    ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, 5),
+    ("f64 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float64, 5),
+)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` warm calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int, name: str) -> tuple[float, float]:
+    """Mean device time of ``fn`` over ``reps`` warm calls from
+    torch.profiler, which a host slower than the card does not inflate: (the
+    kernels whose name holds ``name``, everything ``fn`` runs on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    own = sum(e.self_device_time_total for e in kern if name in e.key)
+    return own / reps / 1e3, sum(e.self_device_time_total for e in kern) / reps / 1e3
+
+
+def inputs(G: int, N: int, P: int, dtype):
+    """(counts, mu, X) on the card: ``make_data``'s counts and design (for
+    P = 1 the intercept; for P > 2 besides indicator columns of a seeded
+    (P - 1)-level batch), median-of-ratios size factors and the OLS mean,
+    clamped at 0.5, as the pipelines' first mu."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G)
+    X_np = X_np[:, :P]
+    if P > 2:
+        batch = np.random.default_rng(1).integers(0, P - 1, N)
+        X_np = np.column_stack([X_np] + [(batch == b).astype(float) for b in range(1, P - 1)])
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    logc = torch.log(counts)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    beta = (counts / sf) @ torch.linalg.pinv(X).T
+    mu = torch.clamp((beta @ X.T) * sf, min=0.5)
+    return counts, mu.contiguous(), X
+
+
+def ptxas(kernels, sources=SOURCES) -> dict:
+    """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
+    f32|f64" for a kernel templated on the design width and "<kernel>
+    f32|f64 shared|streamed" for a cluster kernel templated on its mode."""
+    out = {}
+    for src in sources:
+        text = kernels._lib_path(src).with_suffix(".ptxas.txt").read_text()
+        rows = {}
+        for m in re.finditer(r"Compiling entry function '([^']+)'(.*?)Used (\d+) registers", text, re.S):
+            inst = re.search(r"ILi(\d+)E([fd])E", m.group(1))
+            mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
+            if inst is not None:
+                key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}"
+            elif mode is not None:
+                key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
+                       f"{'shared' if mode.group(3) == '1' else 'streamed'}")
+            else:
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", m.group(2))
+            rows[key] = [int(m.group(3)), int(sp.group(1)) if sp else 0, int(sp.group(2)) if sp else 0]
+        out[src] = rows
+    return out
+
+
+def disp_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    rows = {}
+    for label, G, N, P, dtype, reps in SHAPES:
+        counts, mu, X = inputs(G, N, P, dtype)
+        max_disp = float(max(10, N))
+        lo_f, hi_f = math.log(1e-8), math.log(max_disp)
+        K = 32
+        step1_f = (hi_f - lo_f) / (K - 1)
+        lo = torch.tensor(lo_f, dtype=dtype, device=DEVICE)
+        step1 = torch.tensor(step1_f, dtype=dtype, device=DEVICE)
+        la_grid = lo + torch.arange(K, dtype=dtype, device=DEVICE) * step1
+        bs, be = dsp._scan_branches(K, step1_f, lo_f)
+        la_hat = torch.zeros(G, dtype=dtype, device=DEVICE)
+        pdv = torch.tensor(1.0, dtype=dtype, device=DEVICE)
+        scan_args = (counts, mu, X, la_grid, bs, be, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
+        la1, coarse = dsp.scan_coarse(*scan_args)
+        la1_p, coarse_p = dsp.scan_coarse_plain(*scan_args)
+        newton_args = (counts, mu, X, la1, lo_f, hi_f, step1_f, step1_f / 3.5, 4, True, False, la_hat, pdv)
+        out = dsp.newton_polish(*newton_args)
+        out_p = dsp.newton_polish_plain(*newton_args)
+        scan_dev = device_ms(lambda: dsp.scan_coarse(*scan_args), reps, "disp_scan")
+        newton_dev = device_ms(lambda: dsp.newton_polish(*newton_args), reps, "disp_newton")
+        row = {
+            "disp_scan_ms": cuda_ms(lambda: dsp.scan_coarse(*scan_args), reps),
+            "disp_newton_ms": cuda_ms(lambda: dsp.newton_polish(*newton_args), reps),
+            "disp_scan_kernel_ms": scan_dev[0], "disp_scan_device_ms": scan_dev[1],
+            "disp_newton_kernel_ms": newton_dev[0], "disp_newton_device_ms": newton_dev[1],
+            "scan_la_err": (la1 - la1_p).abs().max().item(),
+            "scan_f_err": ((coarse - coarse_p).abs() / (1 + coarse_p.abs())).max().item(),
+            "newton_la_err": (out[0] - out_p[0]).abs().max().item(),
+            "newton_f_err": ((out[1] - out_p[1]).abs() / (1 + out_p[1].abs())).max().item(),
+        }
+        if detail and N > 1024 and hasattr(dsp, "_scan_segments"):
+            split = dsp._scan_segments
+            dsp._scan_segments = lambda G_, N_, sms: 1
+            try:
+                row["disp_scan_one_segment_ms"] = cuda_ms(lambda: dsp.scan_coarse(*scan_args), reps)
+            finally:
+                dsp._scan_segments = split
+        if detail:
+            plain_gene = torch.exp(-out_p[0]) < 8.0
+            perm = torch.argsort(plain_gene.to(torch.int8), stable=True)
+            sorted_args = (counts[perm].contiguous(), mu[perm].contiguous(), X, la1[perm].contiguous(),
+                           *newton_args[4:11], la_hat[perm].contiguous(), pdv)
+            row["disp_newton_branch_sorted_ms"] = cuda_ms(lambda: dsp.newton_polish(*sorted_args), reps)
+            # 32 / L genes a warp, L the lanes a gene by N (csrc/disp_newton.cu;
+            # short gene lists take more)
+            L = 4 if N <= 64 else (8 if N <= 128 else (16 if N <= 256 else 32))
+            per_warp = 32 // L
+
+            def mixed_share(flags):
+                pw = flags[: G - G % per_warp].reshape(-1, per_warp)
+                return (pw.any(1) & ~pw.all(1)).double().mean().item()
+
+            start_order = torch.argsort((la1 > -math.log(8.0)).to(torch.uint8), stable=True)
+            row["plain_branch_share"] = plain_gene.double().mean().item()
+            row["mixed_warps_gene_order"] = mixed_share(plain_gene)
+            row["mixed_warps_wrapper_order"] = mixed_share(plain_gene[start_order])
+        rows[label] = row
+        print(f"  {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del counts, mu, X, coarse, coarse_p, out, out_p
+        torch.cuda.empty_cache()
+    return rows
+
+
+
+
+def sf_operands(G: int, N: int, dtype):
+    """One trimmed-solve round's operands on the card, from a seeded
+    generator there (so a 10000 x 60000 draw takes no host time): Poisson
+    counts (G, N) at lognormal gene means times seeded size factors sf0,
+    the per-gene mean of counts / sf0, dispersions, a keep set of ~95%."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def randn(n):
+        return torch.randn(n, generator=g, device=DEVICE, dtype=torch.float64)
+
+    base = torch.exp(3.0 + 1.5 * randn(G))
+    s0 = 0.3 * randn(N)
+    counts = torch.poisson(base[:, None] * torch.exp(s0)[None, :], generator=g).to(dtype)
+    disp = torch.clamp(torch.exp(-2.0 + randn(G)), 1e-3, 5.0).to(dtype)
+    keep = torch.rand(G, generator=g, device=DEVICE) < 0.95
+    s0 = s0.to(dtype)
+    sf0, inv_sf0 = torch.exp(s0), torch.exp(-s0)
+    coef = (counts * inv_sf0[None, :]).mean(1)
+    return counts, coef, sf0, inv_sf0, s0, disp, keep
+
+
+def sf_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+
+    rows = {}
+    for label, G, N, dtype, reps in SF_SHAPES:
+        ops = sf_operands(G, N, dtype)
+        args = (*ops, 0.5, 8)
+        err = (sz._sf_newton_cuda(*args) - sz._sf_newton_plain(*args)).abs().max().item()
+        kern, dev = device_ms(lambda: sz._sf_newton_cuda(*args), reps, "sf_")
+        row = {"sf_newton_ms": cuda_ms(lambda: sz._sf_newton_cuda(*args), reps), "sf_newton_kernel_ms": kern,
+               "sf_newton_device_ms": dev, "err": err}
+        if hasattr(sz, "_sf_plan"):
+            sms = torch.cuda.get_device_properties(0).multi_processor_count if ops[0].is_cuda else 132
+            plan = sz._sf_plan(G, N, ops[0].element_size(), sms)
+            row["plan"] = plan._asdict()
+            if detail:
+                others = {"streamed": plan._replace(shared=False, max_clusters=0)}
+                if plan.C > 1:
+                    others[f"C={plan.C // 2}"] = plan._replace(C=plan.C // 2)
+                for name, other in others.items():
+                    row[f"kernel_ms {name}"] = device_ms(
+                        lambda: sz._sf_newton_cuda(*args, plan=other), reps, "sf_")[0]
+        rows[label] = row
+        print(f"  sf {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del ops, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def trend_lanes(G: int, dtype):
+    """Seeded lanes: covariates 1 / base_mean (lognormal means), targets
+    0.05 + 2 / base_mean times gamma noise, a mask of ~97%, base_mean."""
+    rng = np.random.default_rng(0)
+    base_mean = rng.lognormal(4.0, 2.0, G)
+    targets = (0.05 + 2.0 / base_mean) * rng.gamma(2.0, 0.5, G)
+    valid = rng.random(G) < 0.97
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=DEVICE)
+
+    return t(1.0 / base_mean), t(targets), torch.as_tensor(valid, device=DEVICE), t(base_mean)
+
+
+def count_passes(tr, run) -> tuple[int, int]:
+    """(loss passes, gradient + Fisher passes) of the plain fit in run()."""
+    calls = {"trend_loss": 0, "trend_grad": 0}
+    originals = {n: getattr(tr, n) for n in calls}
+
+    def counted(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return originals[name](*a, **k)
+
+        return fn
+
+    try:
+        for n in calls:
+            setattr(tr, n, counted(n))
+        run()
+    finally:
+        for n, fn in originals.items():
+            setattr(tr, n, fn)
+    return calls["trend_loss"], calls["trend_grad"]
+
+
+def trend_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import trend as tr
+
+    rows = {}
+    for label, G, dtype, reps in TREND_SHAPES:
+        cov, tar, valid, bm = trend_lanes(G, dtype)
+        mean_disp = tar[valid].mean()
+
+        def fit(**kw):
+            return tr._trend_fit_cuda(cov, tar, valid, 60, **kw)
+
+        def trend(**kw):
+            return tr._parametric_trend_cuda(bm, tar, valid, mean_disp, 20, **kw)
+
+        def rel(a, b):
+            return ((a - b).abs() / b.abs()).max().item()
+
+        want_fit = tr._trend_fit_plain(cov, tar, valid, 60)
+        want_trend = tr._parametric_trend_plain(bm, tar, valid, mean_disp, 20)
+        fit_k, fit_dev = device_ms(fit, reps, "trend")
+        trend_k, trend_dev = device_ms(trend, reps, "trend")
+        row = {"trend_ms": cuda_ms(trend, reps), "trend_kernel_ms": trend_k, "trend_device_ms": trend_dev,
+               "trend_fit_ms": cuda_ms(fit, reps), "trend_fit_kernel_ms": fit_k, "trend_fit_device_ms": fit_dev,
+               "trend_fit_coef_err": rel(fit()[0], want_fit[0]), "trend_coef_err": rel(trend()[1], want_trend[1]),
+               "trend_rounds": int(want_trend[3]),
+               "fit_passes": count_passes(tr, lambda: tr._trend_fit_plain(cov, tar, valid, 60)),
+               "trend_passes": count_passes(tr, lambda: tr._parametric_trend_plain(bm, tar, valid, mean_disp, 20))}
+        if hasattr(tr, "_trend_plan"):
+            plan = tr._trend_plan(G, cov.element_size())
+            row["plan"] = plan._asdict()
+            if detail:
+                for K in (1, 2, 4, 8, 16):
+                    for shared in (True, False):
+                        other = tr.TrendPlan(K, shared)
+                        if K > G or (shared and tr._trend_smem_bytes(-(-G // K), cov.element_size(), True)
+                                     > kernels.SMEM_BLOCK_MAX):
+                            continue
+                        row[f"K={K} {'shared' if shared else 'streamed'}"] = [
+                            device_ms(lambda: fit(plan=other), reps, "trend")[0],
+                            device_ms(lambda: trend(plan=other), reps, "trend")[0]]
+        rows[label] = row
+        print(f"  trend {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+    return rows
+
+
+def child(detail: bool, suites=("disp",)) -> dict:
+    from pydeseq2_tpu_torch import kernels
+
+    # Build the suites' sources only.
+    sources = tuple(src for suite in suites for src in SUITES[suite])
+    full = kernels.KERNELS, kernels.HELPERS
+    kernels.KERNELS = {k: v for k, v in full[0].items() if v[0] in sources}
+    kernels.HELPERS = {}
+    try:
+        kernels.build()
+    finally:
+        kernels.KERNELS, kernels.HELPERS = full
+
+    res = {"ptxas": ptxas(kernels, sources)}
+    if "disp" in suites:
+        res["shapes"] = disp_rows(detail)
+    if "sf" in suites:
+        res["sf"] = sf_rows(detail)
+    if "trend" in suites:
+        res["trend"] = trend_rows(detail)
+    return res
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def summary(res: dict) -> dict:
+    """The headline times of one tree's run, by suite and shape."""
+    out = {}
+    for k, v in res.get("shapes", {}).items():
+        out[f"disp {k}"] = {"scan": v["disp_scan_ms"], "newton": v["disp_newton_ms"],
+                            "scan_kernel": v["disp_scan_kernel_ms"], "newton_kernel": v["disp_newton_kernel_ms"]}
+    for k, v in res.get("sf", {}).items():
+        out[f"sf {k}"] = {"ms": v["sf_newton_ms"], "kernel": v["sf_newton_kernel_ms"]}
+    for k, v in res.get("trend", {}).items():
+        out[f"trend {k}"] = {"trend": v["trend_ms"], "trend_kernel": v["trend_kernel_ms"],
+                             "trend_fit": v["trend_fit_ms"], "trend_fit_kernel": v["trend_fit_kernel_ms"]}
+    return out
+
+
+def main(argv: list[str]) -> int:
+    detail = "--detail" in argv
+    suites = tuple(SUITES)
+    if "--only" in argv:
+        suites = tuple(argv[argv.index("--only") + 1].split(","))
+        argv = argv[:argv.index("--only")] + argv[argv.index("--only") + 2:]
+        unknown = set(suites) - set(SUITES)
+        if unknown:
+            print(f"kernel_bench: unknown suites {sorted(unknown)}; known: {sorted(SUITES)}", file=sys.stderr)
+            return 2
+    if "--child" in argv:
+        print("RESULT " + json.dumps(child(detail, suites)), flush=True)
+        return 0
+    if not torch.cuda.is_available():
+        print("kernel_bench: no CUDA device is visible", file=sys.stderr)
+        return 1
+    trees = [a for a in argv if not a.startswith("--")] or ["."]
+    print(f"card: {card_line()}", flush=True)
+    runs = []
+    for tree in trees:
+        cmd = ([sys.executable, str(Path(__file__).resolve()), "--child", "--only", ",".join(suites)]
+               + (["--detail"] if detail else []))
+        proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True, timeout=1800)
+        sys.stderr.write(proc.stderr)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(f"kernel_bench: the run in {tree} failed (exit {proc.returncode})", file=sys.stderr)
+            return 1
+        runs.append({"tree": tree, **json.loads(lines[-1][len("RESULT "):])})
+        print(f"{tree}: " + json.dumps(summary(runs[-1])), flush=True)
+    print(json.dumps({"card": card_line(), "runs": runs}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -101,17 +101,32 @@ _ARGTYPES = {
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
     "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P],
-    "trend_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    "trend_fit_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "trend_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "trend_fit_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
     "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "sf_nll_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P],
-    "sf_newton_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P, _P, _P],
+    "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "trimmed_var_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }
+
+# What one block of a thread-block cluster may hold on the H100: dynamic
+# shared memory (227 KB), and the blocks of one cluster (16, with the
+# non-portable cluster size allowed); the L2 that the streamed modes keep
+# their working set within (half of its 50 MB).
+SMEM_BLOCK_MAX = 232_448
+MAX_CLUSTER = 16
+L2_BYTES = 50_000_000
+
+
+def align16(nbytes: int) -> int:
+    """``nbytes`` rounded up to 16, as the cluster kernels lay out shared
+    memory."""
+    return (nbytes + 15) // 16 * 16
+
 
 # The kernels are templated on P = 1..8 (closed forms for P <= 3, unrolled
 # Cholesky above), as the JAX package's small solves are.

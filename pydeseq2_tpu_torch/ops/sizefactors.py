@@ -14,8 +14,11 @@ Kernels (``csrc/sizefactors.cu``) replace ``trimmed_sf_newton``
 (``pydeseq2_tpu/ops/sizefactors.py:34``) and its tiled copy in
 ``iterative_size_factors``' ``gene_block`` path (``:272-372``): ``sf_nll``
 (one warp per gene, the per-gene NLL, +inf off the mask) and ``sf_newton``
-(the Newton steps of one outer round, each a two-pass fixed-order column
-reduction over the kept genes). Neither stores the baseline means: each
+(all Newton steps of one outer round in one launch: a thread-block cluster
+per chunk of samples, each step a fixed-order column reduction over the
+kept genes joined across the cluster's blocks through distributed shared
+memory; :func:`_sf_plan` picks the chunk width, the cluster size and
+whether the counts stay in shared memory). Neither stores the baseline means: each
 cell recomputes them from the gene's OLS coefficient (``mom``'s output),
 so neither path holds a (G, N) temporary and ``gene_block`` only tiles the
 dispersion fits. Both kernels and their plain versions sum in float64 and
@@ -25,6 +28,8 @@ the ranks as device tensors (no host read).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -130,26 +135,72 @@ def _sf_newton_plain(counts, coef, sf0, inv_sf0, s, disp, keep, min_mu, iters, g
     return s
 
 
-def _newton_groups(G: int, N: int) -> int:
-    """Gene groups of the ``sf_newton`` partial pass: ~1056 blocks (8 of
-    256 threads on each of 132 SMs) over ceil(N / 32) sample chunks, at
-    least 8 genes a group."""
-    chunks = -(-N // 32)
-    return int(max(1, min(-(-G // 8), -(-1056 // chunks), 65535)))
+class SfPlan(NamedTuple):
+    """Launch plan of ``sf_newton``: chunks of ``C`` samples (a power of
+    two), clusters of ``K`` blocks splitting the genes, the counts' slab in
+    shared memory (``shared``) or read from global memory each step, and at
+    most ``max_clusters`` clusters at once (0: as many as fit the card)."""
+
+    C: int
+    K: int
+    shared: bool
+    max_clusters: int
 
 
-def _sf_newton_cuda(counts, coef, sf0, inv_sf0, s, disp, keep, min_mu, iters, gene_block=None):
+_SF_WARPS = 32  # warps of an sf_newton block (1024 threads)
+_SF_MIN_GENES = 64  # genes a block of a cluster has at least, where G allows K > 1
+
+
+def _sf_smem_bytes(C: int, rows: int, itemsize: int, shared: bool) -> int:
+    """Dynamic shared memory of one ``sf_newton`` block (the kernel's
+    ``sf_smem_bytes``): float64 partials of the warps and of the block
+    (double-buffered), the chunk's s, and in the shared-memory mode the
+    (rows, C) slab of the kept genes' counts, their r and coefficient and
+    their 16-bit row indices (rows of each at most)."""
+    fixed = 8 * (2 * _SF_WARPS * C + 4 * C) + kernels.align16(C * itemsize)
+    return fixed + (kernels.align16(rows * C * itemsize) + 2 * rows * itemsize + 2 * rows if shared else 0)
+
+
+def _sf_plan(G: int, N: int, itemsize: int, sms: int = 132) -> SfPlan:
+    """The ``sf_newton`` plan for (G, N) counts of ``itemsize`` bytes on a
+    card with ``sms`` SMs.
+
+    K = ceil(G / 64) blocks a cluster, at most 16. A gene row's chunk is at
+    most one 32-byte sector (C = 8 in float32, 4 in float64) and no wider
+    than N needs. The widest such C whose slab, with each row's r,
+    coefficient and index, fits one block's shared memory takes the
+    shared-memory mode. Where none fits, not even C = 1, the streamed mode
+    takes the widest C whose clusters in flight (about ``sms / K``: one
+    1024-thread block an SM) hold at most half the L2 in counts, and caps
+    the clusters at that many.
+    """
+    c_max = min(32 // itemsize, 1 << max(0, (N - 1).bit_length()))
+    K = min(kernels.MAX_CLUSTER, max(1, -(-G // _SF_MIN_GENES)))
+    rows = -(-G // K)
+    widths = [c_max >> i for i in range(c_max.bit_length())]
+    for C in widths:
+        if _sf_smem_bytes(C, rows, itemsize, True) <= kernels.SMEM_BLOCK_MAX:
+            return SfPlan(C, K, True, 0)
+    half_l2 = kernels.L2_BYTES // 2
+    in_flight = max(1, sms // K)
+    C = next(c for c in widths if c == 1 or min(-(-N // c), in_flight) * G * c * itemsize <= half_l2)
+    return SfPlan(C, K, False, max(1, half_l2 // (G * C * itemsize)))
+
+
+def _sf_newton_cuda(counts, coef, sf0, inv_sf0, s, disp, keep, min_mu, iters, gene_block=None, plan=None):
+    """Launch ``sf_newton`` once for the round's ``iters`` steps; ``plan``
+    (an :class:`SfPlan`) overrides :func:`_sf_plan`."""
     G, N = counts.shape
     s = s.clone().contiguous()  # stepped in place by the kernel
-    groups = _newton_groups(G, N)
-    part = torch.empty((2, groups, N), dtype=torch.float64, device=counts.device)
+    if plan is None:
+        plan = _sf_plan(G, N, counts.element_size(), kernels.sm_count(counts.device))
     keep8 = keep.to(torch.uint8).contiguous()
     ops = [t.contiguous() for t in (counts, coef, sf0, inv_sf0, disp)]
     kernels.check_cuda_operands("sf_newton", *ops, s, keep8)
     kernels.launch(
         "sf_newton",
-        [int(counts.dtype == torch.float64), G, N, int(iters), groups, *(t.data_ptr() for t in ops),
-         keep8.data_ptr(), float(min_mu), s.data_ptr(), part[0].data_ptr(), part[1].data_ptr()],
+        [int(counts.dtype == torch.float64), G, N, int(iters), plan.C, plan.K, int(plan.shared), plan.max_clusters,
+         *(t.data_ptr() for t in ops), keep8.data_ptr(), float(min_mu), s.data_ptr()],
         counts.device,
     )
     return s

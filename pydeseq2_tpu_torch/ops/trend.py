@@ -9,15 +9,17 @@ which refits after dropping genes far off the curve until the coefficients
 stop moving.
 
 Kernel (``csrc/trend.cu``): :func:`parametric_trend` on CUDA tensors runs
-every exclusion round, Newton step and backtracking trip in one block of
-1024 threads, each loss, gradient and Fisher sum a block reduction in a
-fixed order, so the host reads no loop condition (the plain version below
+every exclusion round, Newton step and backtracking trip on one
+thread-block cluster of up to 16 blocks of 1024 threads (:func:`_trend_plan`
+picks the blocks from G and the itemsize, and keeps each block's lanes in
+shared memory where they fit), each loss, gradient and Fisher sum a cluster reduction in
+a fixed order, so the host reads no loop condition (the plain version below
 reads one per trip). :func:`gamma_glm_trend_fit` on CUDA tensors launches
 the same source's ``trend_fit``: one fit on the caller's mask, the same
-block sums, for the class API, whose exclusion rounds run on the host. Its work is O(G) per step over 0.54 MB at 60000 genes
-that stays in L2: it is bound by its serial chain of reductions, not by
-bytes. The plain version (CPU tensors only) is the JAX program's loops as
-Python loops.
+cluster sums, for the class API, whose exclusion rounds run on the host.
+Its work is O(G) per step over 0.54 MB at 60000 genes: it is bound by its
+serial chain of reductions, not by bytes. The plain version (CPU tensors
+only) is the JAX program's loops as Python loops.
 
 Both versions sum every loss, gradient and Fisher term in float64 and round
 the total to the input dtype, and both spell out mu = a0 + a1 x and the
@@ -28,11 +30,50 @@ fit would otherwise stop after different Newton trips, ~1e-2 apart.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from pydeseq2_tpu_torch import kernels
 
 _LOWER = 1e-12
+
+
+class TrendPlan(NamedTuple):
+    """Launch plan of ``trend`` and ``trend_fit``: one cluster of ``K``
+    blocks, each block's lanes in shared memory (``shared``) or read from
+    global memory each pass."""
+
+    K: int
+    shared: bool
+
+
+_TREND_WARPS = 32  # warps of a trend block (1024 threads)
+# Lanes a block should have before the plan adds blocks, by itemsize: on the
+# H100 a float64 lane costs several times a float32 one (division and log in
+# float64), so float64 spreads sooner (kernel_bench --detail, PERF.md
+# section 6: at 4000 lanes one block is fastest in float32, eight in
+# float64; at 60000 sixteen in both).
+_TREND_LANES_PER_BLOCK = {4: 4096, 8: 512}
+
+
+def _trend_smem_bytes(rows: int, itemsize: int, shared: bool) -> int:
+    """Dynamic shared memory of one trend block (the kernel's
+    ``trend_smem_bytes``): the double-buffered float64 warp sums (5 values)
+    and block totals, the 16 blocks' totals gathered, and in the
+    shared-memory mode x, the target and the valid byte of each of the
+    block's ``rows`` lanes."""
+    return 8 * (2 * 5 * _TREND_WARPS + 2 * 5 + kernels.MAX_CLUSTER * 5) + (rows * (2 * itemsize + 1) if shared else 0)
+
+
+def _trend_plan(G: int, itemsize: int) -> TrendPlan:
+    """K, the least power of two that gives no block more than 4096 lanes in
+    float32 (512 in float64), at most 16 (one block for a few hundred genes);
+    the lanes in shared memory where a block's ceil(G / K) of them fit it,
+    else streamed."""
+    want = -(-G // _TREND_LANES_PER_BLOCK[itemsize])
+    K = min(kernels.MAX_CLUSTER, 1 << max(0, (want - 1).bit_length()))
+    return TrendPlan(K, _trend_smem_bytes(-(-G // K), itemsize, True) <= kernels.SMEM_BLOCK_MAX)
 
 
 def _design(covariates: torch.Tensor) -> torch.Tensor:
@@ -143,11 +184,13 @@ def _trend_fit_plain(covariates, targets, valid, maxiter):
     return c, predictions, converged
 
 
-def _trend_fit_cuda(covariates, targets, valid, maxiter):
-    """Launch ``trend_fit``: the whole fit in one block."""
+def _trend_fit_cuda(covariates, targets, valid, maxiter, plan=None):
+    """Launch ``trend_fit``: the whole fit on one cluster; ``plan`` (a
+    :class:`TrendPlan`) overrides :func:`_trend_plan`."""
     G = covariates.shape[0]
     dev = covariates.device
     covariates, targets = covariates.contiguous(), targets.contiguous()
+    plan = plan or _trend_plan(G, targets.element_size())
     valid8 = valid.to(torch.uint8).contiguous()
     coeffs = torch.empty(2, dtype=targets.dtype, device=dev)
     predictions = torch.empty_like(targets)
@@ -155,8 +198,8 @@ def _trend_fit_cuda(covariates, targets, valid, maxiter):
     kernels.check_cuda_operands("trend_fit", covariates, targets, valid8, coeffs, predictions, converged)
     kernels.launch(
         "trend_fit",
-        [int(targets.dtype == torch.float64), G, int(maxiter), covariates.data_ptr(), targets.data_ptr(),
-         valid8.data_ptr(), coeffs.data_ptr(), predictions.data_ptr(), converged.data_ptr()],
+        [int(targets.dtype == torch.float64), G, int(maxiter), plan.K, int(plan.shared), covariates.data_ptr(),
+         targets.data_ptr(), valid8.data_ptr(), coeffs.data_ptr(), predictions.data_ptr(), converged.data_ptr()],
         dev,
     )
     return coeffs, predictions, converged.bool()
@@ -203,13 +246,14 @@ def _parametric_trend_plain(base_mean, genewise_m, non_zero, mean_disp, max_roun
     return fitted, coeffs, failed, torch.tensor(rounds, dtype=torch.int32, device=base_mean.device)
 
 
-def _parametric_trend_cuda(base_mean, genewise_m, non_zero, mean_disp, max_rounds, maxiter=60):
+def _parametric_trend_cuda(base_mean, genewise_m, non_zero, mean_disp, max_rounds, maxiter=60, plan=None):
     G = base_mean.shape[0]
     dev = base_mean.device
     ops = [t.contiguous() for t in (base_mean, genewise_m, mean_disp.reshape(1))]
     base_mean, genewise_m, mean_disp = ops
+    plan = plan or _trend_plan(G, base_mean.element_size())
     nz = non_zero.to(torch.uint8).contiguous()
-    valid = torch.empty(G, dtype=torch.uint8, device=dev)
+    valid = torch.empty(G, dtype=torch.uint8, device=dev)  # the streamed mode's mask
     fitted = torch.empty_like(base_mean)
     coeffs = torch.empty(2, dtype=base_mean.dtype, device=dev)
     failed = torch.empty((), dtype=torch.uint8, device=dev)
@@ -218,7 +262,7 @@ def _parametric_trend_cuda(base_mean, genewise_m, non_zero, mean_disp, max_round
     kernels.launch(
         "trend",
         [
-            int(base_mean.dtype == torch.float64), G, int(max_rounds), int(maxiter),
+            int(base_mean.dtype == torch.float64), G, int(max_rounds), int(maxiter), plan.K, int(plan.shared),
             base_mean.data_ptr(), genewise_m.data_ptr(), nz.data_ptr(), mean_disp.data_ptr(),
             valid.data_ptr(), fitted.data_ptr(), coeffs.data_ptr(), failed.data_ptr(), rounds.data_ptr(),
         ],

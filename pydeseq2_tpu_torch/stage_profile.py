@@ -230,7 +230,9 @@ def main() -> int:
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in kern)
-    n_launch = sum(e.count for e in prof.key_averages() if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+    # (the cluster kernels launch through cudaLaunchKernelEx)
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     n_sync = sum(e.count for e in prof.key_averages()
                  if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"))
     top = [{"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:15]]

@@ -1,13 +1,15 @@
-"""``pydeseq2_tpu_torch.disp_bench`` on the CPU: its report of registers and
-spills, and one tree's run at small shapes with the plain versions standing
-in for the kernels (the kernels themselves need a card)."""
+"""``pydeseq2_tpu_torch.kernel_bench`` on the CPU: its report of registers
+and spills, and one tree's run of each suite at small shapes with the plain
+versions standing in for the kernels (the kernels themselves need a card)."""
 
 import time
 
 import pytest
 import torch
 
-from pydeseq2_tpu_torch import disp_bench, kernels
+from pydeseq2_tpu_torch import kernel_bench, kernels
+from pydeseq2_tpu_torch.ops import sizefactors as sz
+from pydeseq2_tpu_torch.ops import trend as tr
 
 torch.set_num_threads(1)  # xdist runs several workers on a few cores
 
@@ -23,15 +25,54 @@ ptxas info    : Compiling entry function 'psi_f64_launch_helper' for 'sm_90a'
 ptxas info    : Used 30 registers, 380 bytes cmem[0]
 """
 
+# The cluster kernels' entries as nvcc names them (template on type and mode).
+PTXAS_CLUSTER = """ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a3ea3f43_14_sizefactors_cu_cbb62a4d16sf_newton_kernelIfLb1EEEvNS_6SfArgsIT_EE' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__9c8daaa2_8_trend_cu_10f1c39d12trend_kernelIdLb0EEEviiiPKT_S3_PKhS3_PhPS1_S7_S6_Pi' for 'sm_90a'
+    32 bytes stack frame, 40 bytes spill stores, 116 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a3ea3f43_14_sizefactors_cu_cbb62a4d13sf_nll_kernelIfEEviiPKT_S3_S3_S3_S3_S3_PKhS1_PS1_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 35 registers, used 0 barriers
+"""
+
 
 def test_ptxas_rows_per_instantiation(tmp_path, monkeypatch):
     """Registers and spill bytes by template P and type; entries that are
     not an instantiation of a P template are left out."""
     monkeypatch.setattr(kernels, "_lib_path", lambda src: tmp_path / (src + ".so"))
-    for src in disp_bench.SOURCES:
+    for src in kernel_bench.SOURCES:
         (tmp_path / (src + ".ptxas.txt")).write_text(PTXAS)
-    got = disp_bench.ptxas(kernels)
-    assert got == {src: {"P2 f64": [64, 132, 160], "P1 f32": [40, 0, 0]} for src in disp_bench.SOURCES}
+    got = kernel_bench.ptxas(kernels)
+    assert got == {src: {"P2 f64": [64, 132, 160], "P1 f32": [40, 0, 0]} for src in kernel_bench.SOURCES}
+
+
+def test_ptxas_rows_of_cluster_kernels(tmp_path, monkeypatch):
+    """A cluster kernel's rows are keyed by kernel, type and mode; a kernel
+    templated on its type alone is left out."""
+    monkeypatch.setattr(kernels, "_lib_path", lambda src: tmp_path / (src + ".so"))
+    (tmp_path / "sizefactors.cu.ptxas.txt").write_text(PTXAS_CLUSTER)
+    got = kernel_bench.ptxas(kernels, ("sizefactors.cu",))
+    assert got == {"sizefactors.cu": {"sf_newton_kernel f32 shared": [64, 4, 4],
+                                      "trend_kernel f64 streamed": [64, 40, 116]}}
+
+
+def _on_cpu(monkeypatch):
+    """Run a child on the CPU: no build, host timers for the events and the
+    profiler, the plain versions for the kernels (any plan)."""
+    monkeypatch.setattr(kernel_bench, "DEVICE", "cpu")
+    monkeypatch.setattr(kernels, "build", lambda: {})
+    monkeypatch.setattr(kernel_bench, "ptxas", lambda k, sources=(): {})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    monkeypatch.setattr(kernel_bench, "cuda_ms", host_ms)
+    monkeypatch.setattr(kernel_bench, "device_ms", lambda fn, reps, name: (host_ms(fn, reps),) * 2)
 
 
 @pytest.mark.parametrize("detail", [False, True])
@@ -40,23 +81,12 @@ def test_child_on_cpu(monkeypatch, detail):
     wrappers run the plain versions) no difference from them; ``--detail``
     adds the one-segment scan on long rows and the Newton divergence
     readings."""
-    monkeypatch.setattr(disp_bench, "DEVICE", "cpu")
-    monkeypatch.setattr(disp_bench, "SHAPES", (
+    _on_cpu(monkeypatch)
+    monkeypatch.setattr(kernel_bench, "SHAPES", (
         ("f32 P=3", 64, 24, 3, torch.float32, 1),
         ("f64 long P=1", 8, 1100, 1, torch.float64, 1),
     ))
-    monkeypatch.setattr(kernels, "build", lambda: {})
-    monkeypatch.setattr(disp_bench, "ptxas", lambda k: {})
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
-
-    def host_ms(fn, reps):
-        t0 = time.perf_counter()
-        fn()
-        return (time.perf_counter() - t0) * 1e3
-
-    monkeypatch.setattr(disp_bench, "cuda_ms", host_ms)
-    monkeypatch.setattr(disp_bench, "device_ms", lambda fn, reps, name: (host_ms(fn, reps),) * 2)
-    res = disp_bench.child(detail)
+    res = kernel_bench.child(detail)
     assert set(res["shapes"]) == {"f32 P=3", "f64 long P=1"}
     for label, row in res["shapes"].items():
         assert row["disp_scan_ms"] > 0 and row["disp_newton_ms"] > 0
@@ -66,3 +96,41 @@ def test_child_on_cpu(monkeypatch, detail):
         assert ("disp_scan_one_segment_ms" in row) == (detail and label.startswith("f64 long"))
         if detail:
             assert 0.0 <= row["mixed_warps_wrapper_order"] <= 1.0
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
+    """The ``sf`` and ``trend`` suites of one tree's run at small shapes:
+    times, no difference from the plain versions, the plans picked, the
+    plain fit's passes; ``--detail`` the other modes and cluster sizes."""
+    _on_cpu(monkeypatch)
+    plans = {}
+    monkeypatch.setattr(sz, "_sf_newton_cuda",
+                        lambda *a, plan=None: plans.setdefault("sf", []).append(plan) or sz._sf_newton_plain(*a))
+    monkeypatch.setattr(tr, "_trend_fit_cuda",
+                        lambda *a, plan=None: plans.setdefault("fit", []).append(plan) or tr._trend_fit_plain(*a))
+    monkeypatch.setattr(tr, "_parametric_trend_cuda",
+                        lambda *a, plan=None: plans.setdefault("trend", []).append(plan)
+                        or tr._parametric_trend_plain(*a))
+    monkeypatch.setattr(kernel_bench, "SF_SHAPES", (("f32 12x300", 300, 12, torch.float32, 1),
+                                                    ("f64 3x70", 70, 3, torch.float64, 1)))
+    monkeypatch.setattr(kernel_bench, "TREND_SHAPES", (("f32 300", 300, torch.float32, 1),
+                                                       ("f64 3000", 3_000, torch.float64, 1)))
+    res = kernel_bench.child(detail, ("sf", "trend"))
+    assert "shapes" not in res and set(res) == {"ptxas", "sf", "trend"}
+    assert set(res["sf"]) == {"f32 12x300", "f64 3x70"}
+    for row in res["sf"].values():
+        assert row["sf_newton_ms"] > 0 and row["sf_newton_kernel_ms"] > 0 and row["err"] == 0.0
+        assert row["plan"]["K"] >= 1
+        assert any(k.startswith("kernel_ms streamed") for k in row) == detail
+    assert res["sf"]["f64 3x70"]["plan"] == {"C": 4, "K": 2, "shared": True, "max_clusters": 0}
+    for label, row in res["trend"].items():
+        assert row["trend_ms"] > 0 and row["trend_fit_ms"] > 0
+        assert row["trend_fit_coef_err"] == 0.0 and row["trend_coef_err"] == 0.0
+        assert row["fit_passes"][0] >= 1 and row["fit_passes"][1] >= 1
+        assert row["trend_passes"][0] >= row["fit_passes"][0]
+        assert all((f"K={K} {mode}" in row) == detail for K in (1, 2, 4, 8, 16) for mode in ("shared", "streamed"))
+    assert res["trend"]["f64 3000"]["plan"] == {"K": 8, "shared": True}
+    if detail:
+        assert any(p is not None and not p.shared for p in plans["sf"])
+        assert {p.K for p in plans["fit"] if p is not None} == {1, 2, 4, 8, 16}

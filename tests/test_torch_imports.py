@@ -32,7 +32,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import sys; before = set(sys.modules); import pydeseq2_tpu_torch, pydeseq2_tpu_torch.fused; "
         "import pydeseq2_tpu_torch.synthetic, pydeseq2_tpu_torch.kernels, pydeseq2_tpu_torch.fused_stream; "
         "import pydeseq2_tpu_torch.ops.shrink, pydeseq2_tpu_torch.models.stats, pydeseq2_tpu_torch.stage_profile; "
-        "import pydeseq2_tpu_torch.disp_bench; "
+        "import pydeseq2_tpu_torch.kernel_bench; "
         "import pydeseq2_tpu_torch.ops.refit, pydeseq2_tpu_torch.ops.linreg, pydeseq2_tpu_torch.ops.trend; "
         "import pydeseq2_tpu_torch.ops.stats, pydeseq2_tpu_torch.ops.cooks; "
         "import pydeseq2_tpu_torch.ops.sizefactors, pydeseq2_tpu_torch.ops.vst; "
