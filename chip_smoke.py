@@ -40,7 +40,14 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    float64, at N = 3 and G = 5 (one block, and a cluster of 16 with empty
    blocks), ``trend_fit`` and ``trend`` at 300, 60000 and 200000 lanes in
    both types, their lanes in shared memory and streamed, each launched
-   twice and equal to itself bit for bit;
+   twice and equal to itself bit for bit; the trimmed moments' launch plans
+   (``trim_plan_checks``): ``cooks`` (summary and refit mode) and
+   ``trimmed_var`` (cohorts and a column) at the atlas cohort shape (300
+   genes x 10000 samples, two cohorts of 5000), on tie-heavy counts (unit
+   size factors, Poisson means 0.1-3), with cohorts of 1, 2 and 3 members,
+   at cohort and column sizes on each side of the plan's thresholds (rank
+   count or radix select, a warp or a block a row, shared memory or the
+   streamed workspace), each launched twice and equal to itself bit for bit;
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -159,6 +166,11 @@ STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "coo
 # trend at a few hundred lanes (one block), the main width and that list.
 SF_STREAMED_G = 200_000
 TREND_LANES = (300, G_MAIN, SF_STREAMED_G)
+# The trimmed moments' own shapes (phase 2, trim_plan_checks): Cook's at the
+# atlas block's cohort shape (two cohorts of 5000) on TRIM_ATLAS_G genes;
+# the mean trend's column of ~G dispersions.
+TRIM_ATLAS_G = 300
+TRIM_COLUMN = 59_038
 N_STREAM_WIDE = 1_000  # phases 3f, 3h: auto gene_block splits 60000 genes into 2 blocks of 30000
 # The kernels the blind VST launches (phases 3g, 3h): the size-factor
 # medians, MoM, the genewise fit and the trend at P = 1, and the transform.
@@ -1088,11 +1100,14 @@ def summary_kernel_checks(dtype, G, N, reps, timings, outliers=False):
 
 def cooks_check(name, cargs, reps, timings):
     """The cooks kernel against its plain version on ``cargs``."""
+    from pydeseq2_tpu_torch import kernels
     from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import stats as st
 
     f32 = cargs[0].dtype == torch.float32
-    # Tolerance: the trimmed sums run in other orders and feed
-    # (v - m) / m^2, which cancels where v ~ m, so 1e-3 (f32) / 1e-9 (f64)
+    # Tolerance: both sum each trimmed mean's kept values in float64 and
+    # round once, but the mean m of y / sf is summed in other orders and
+    # feeds (v - m) / m^2, which cancels where v ~ m, so 1e-3 (f32) / 1e-9 (f64)
     # relative on the distances and the robust dispersion. Flags: identical
     # in f64; in f32 identical except on genes whose largest use_for_max
     # distance lies within that tolerance of the cutoff.
@@ -1119,10 +1134,16 @@ def cooks_check(name, cargs, reps, timings):
         members = [list(cohort).count(c) for c in range(len(trims))]
         ntrims = [math.floor(n * t) for n, t in zip(members, trims)]
         isz = counts.element_size()
+        normed = counts / cargs[1][None, :]
+        cohort_rows = [normed[:, torch.tensor([i for i, c in enumerate(cohort) if c == lvl], device=counts.device)]
+                       .contiguous() for lvl in range(len(trims))]
         timings["cooks"] = {
             "ms": cuda_ms(lambda: ck._cooks_cuda(*cargs), reps),
             "plain_ms": cuda_ms(lambda: ck._cooks_plain(*cargs), reps),
             "library_ms": None,
+            # the yardstick: torch.sort of the cohort rows, the sort alone
+            "sort_ms": cuda_ms(lambda: [torch.sort(r, dim=1) for r in cohort_rows], reps),
+            "plan": st._trim_plan(isz, members, G, True, kernels.sm_count(counts.device))._asdict(),
             # reads counts, mu, H, writes the distances (4 G N); per gene
             # the flags and the dispersion
             "bytes": 4 * G * N * isz + G * (1 + 1 + isz) + N * (isz + 1),
@@ -1908,6 +1929,30 @@ def trend_check(name: str, recorded) -> tuple[float, int, int]:
     return (got[1] - want[1]).abs().max().item(), n_loss, n_grad
 
 
+def refit_agree(label: str, got, want, cutoff, f32: bool) -> None:
+    """The refit outputs of ``cooks`` (``got``) against its plain version
+    (``want``, distances written): bit for bit, except cells whose plain
+    distance lies within 1e-5 (f32) / 1e-12 (f64) relative of the cutoff,
+    and flags of genes holding one."""
+    from pydeseq2_tpu_torch.ops import cooks as ck
+
+    dtol = 1e-5 if f32 else 1e-12
+    near = (want[0] - cutoff).abs() <= dtol * cutoff.abs()  # False on NaN distances
+    G, N = want[0].shape
+    bits_k, bits_p = ck.unpack_bits(got[3], N), ck.unpack_bits(want[3], N)
+    cell_differ = bits_k != bits_p
+    check(not bool((cell_differ & ~near).any()), f"{label}: {int((cell_differ & ~near).sum())} exceed bits "
+                                                 "differ away from the cutoff")
+    gene_near = near.any(1)
+    for what, i in (("outlier", 1), ("replaced", 4), ("cooks_outlier_refit", 5)):
+        differ = got[i] != want[i]
+        check(not bool((differ & ~gene_near).any()), f"{label}: {what} differs on "
+                                                      f"{int((differ & ~gene_near).sum())} genes away from the cutoff")
+    log(f"  {label} ({G}, {N}): exceed bits differ on {int(cell_differ.sum())} cells "
+        f"({int(near.sum())} within {dtol} of the cutoff); replaced {int(got[4].sum())} (plain {int(want[4].sum())}), "
+        f"refit flag {int(got[5].sum())} (plain {int(want[5].sum())})")
+
+
 def stream_kernel_checks(dtype, G, N, reps, timings):
     """Phase 2, the streamed refit path's kernels (``mom``, ``trend``,
     ``lowess``, ``impute`` and the refit outputs of ``cooks``) against their
@@ -2021,22 +2066,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     check(got[0] is None and all(bits_equal(x.double(), y.double()) for x, y in zip(got[1:], seen["cooks_outliers"][2][1:])),
           f"cooks {name} refit: the launch differs from the path's")
     want = ck._cooks_plain(*cargs, repl, True)
-    dtol = 1e-5 if f32 else 1e-12
-    cutoff = cargs[8]
-    near = (want[0] - cutoff).abs() <= dtol * cutoff.abs()  # False on NaN distances
-    Nc = cargs[0].shape[1]
-    bits_k, bits_p = ck.unpack_bits(got[3], Nc), ck.unpack_bits(want[3], Nc)
-    cell_differ = bits_k != bits_p
-    check(not bool((cell_differ & ~near).any()), f"cooks {name} refit: {int((cell_differ & ~near).sum())} exceed bits "
-                                                 "differ away from the cutoff")
-    gene_near = near.any(1)
-    for label, i in (("outlier", 1), ("replaced", 4), ("cooks_outlier_refit", 5)):
-        differ = got[i] != want[i]
-        check(not bool((differ & ~gene_near).any()), f"cooks {name} refit: {label} differs on "
-                                                      f"{int((differ & ~gene_near).sum())} genes away from the cutoff")
-    log(f"  cooks {name} refit mode ({cargs[0].shape[0]}, {Nc}): exceed bits differ on {int(cell_differ.sum())} cells "
-        f"({int(near.sum())} within {dtol} of the cutoff); replaced {int(got[4].sum())} (plain {int(want[4].sum())}), "
-        f"refit flag {int(got[5].sum())} (plain {int(want[5].sum())})")
+    refit_agree(f"cooks {name} refit", got, want, cargs[8], f32)
     if reps:
         timings["cooks_refit_ms"] = cuda_ms(lambda: ck._cooks_cuda(*cargs, repl, False), reps)
 
@@ -2412,6 +2442,181 @@ def cluster_kernel_checks() -> dict:
     return plans
 
 
+def cooks_case(G: int, N: int, sizes, dtype, seed: int, ties: bool = False):
+    """The ``cooks`` wrapper's summary-mode arguments for G genes of N
+    samples in shuffled cohorts of ``sizes`` members (None: one trimmed
+    variance over all samples), from a numpy seed: Poisson counts at
+    lognormal gene means times size factors around 1 (``ties``: means
+    0.1-3 and unit size factors, so zeros and equal counts fill both
+    boundaries), an outlier at 20x the row maximum in every 50th gene, H
+    uniform below 4 / N, a cutoff of 4.8, every sample in use_for_max."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        base, sf = rng.uniform(0.1, 3.0, G), np.ones(N)
+    else:
+        base, sf = rng.lognormal(3.0, 1.5, G), np.exp(rng.normal(0.0, 0.3, N))
+    mu = base[:, None] * sf[None, :]
+    counts = rng.poisson(mu).astype(np.float64)
+    counts[::50, 0] = counts[::50].max(1) * 20 + 10
+    H = rng.uniform(0.0, 4.0 / N, (G, N))
+    cohort_ids = None
+    if sizes is not None:
+        ids = np.repeat(np.arange(len(sizes)), sizes)
+        rng.shuffle(ids)
+        cohort_ids = tuple(int(c) for c in ids)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=DEVICE)
+
+    return (t(counts), t(sf), t(mu), t(H), torch.as_tensor((counts > 0).any(1), device=DEVICE), 2, cohort_ids,
+            (True,) * N, t(4.8))
+
+
+def plan_edge(fits, lo: int, hi: int) -> int:
+    """The largest n in [lo, hi) with fits(n), fits monotone (True, then
+    False)."""
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def trim_plan_checks() -> dict:
+    """Phase 2, the trimmed moments of ``cooks`` and ``trimmed_var`` in
+    every plan they have (``ops/stats.py:_trim_plan``), each launched twice
+    (the second launch equal to the first bit for bit) and held to its
+    plain version with the tolerances of ``cooks_check`` (1e-3 f32 / 1e-9
+    f64 relative on the distances and the robust dispersion; flags equal but
+    for genes at the cutoff in f32), of the streamed refit (the exceed bits
+    and refit flags bit for bit but within 1e-5 / 1e-12 of the cutoff) and
+    of ``class_kernel_checks``' trimmed_var (1e-6 f32 / 1e-12 f64 relative).
+    ``cooks`` in summary and refit mode: at the atlas cohort shape
+    (TRIM_ATLAS_G genes x N_ATLAS samples, two cohorts of 5000, f32) on
+    lognormal and on tie-heavy counts; tie-heavy at 100 samples (cohorts of
+    50, rank count) in both types and at 400 (cohorts of 200, a warp's radix
+    select); cohorts of 3, 2, 1 and 7 members (k = 1, 0, 0, 1) and one
+    trimmed variance over 7 samples (k = 0); cohort sizes rank_max and
+    rank_max + 1; one cohort of the longest row a warp takes and one sample
+    more (a block); the longest row a block holds in shared memory and one
+    sample more (the streamed workspace), f64. ``trimmed_var``: cohorts of
+    50 on tie-heavy counts in both types, of 3, 2, 1 and 7, of rank_max and
+    rank_max + 1, of the longest a warp takes and one more; a column of
+    TRIM_COLUMN dispersions (streamed) in both types, a tie-heavy column,
+    and columns of the longest a block holds in shared memory and one more
+    (f32), and of 1000 (a warp). Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    sms = kernels.sm_count(torch.device(DEVICE))
+    plans = {}
+    f32, f64 = torch.float32, torch.float64
+
+    def warp_edge(isz):
+        return plan_edge(lambda n: not st._trim_plan(isz, [n], 4000, True, sms).block, 1, 1 << 16)
+
+    def shared_edge(isz):
+        return plan_edge(lambda n: st._trim_plan(isz, [n], 64, True, sms).shared, 1, 1 << 20)
+
+    # -- cooks ----------------------------------------------------------------
+    cooks_cases = [
+        ("atlas cohorts", TRIM_ATLAS_G, N_ATLAS, [5000, 5000], f32, False),
+        ("atlas cohorts, tie-heavy", TRIM_ATLAS_G, N_ATLAS, [5000, 5000], f32, True),
+        ("tie-heavy, cohorts of 50", 4000, 100, [50, 50], f32, True),
+        ("tie-heavy, cohorts of 50", 4000, 100, [50, 50], f64, True),
+        ("tie-heavy, cohorts of 200", 1000, 400, [200, 200], f32, True),
+        ("cohorts of 3, 2, 1, 7", 4000, 13, [3, 2, 1, 7], f64, False),
+        ("cohorts of 3, 2, 1, 7", 4000, 13, [3, 2, 1, 7], f32, True),
+        ("one trimmed variance over 7 samples", 4000, 7, None, f64, False),
+    ]
+    for dtype in (f32, f64):
+        r = st._TRIM_RANK_MAX[torch.finfo(dtype).bits // 8]
+        cooks_cases.append((f"cohorts of rank_max {r} and {r + 1}", 2000, 2 * r + 1, [r, r + 1], dtype, False))
+        w = warp_edge(torch.finfo(dtype).bits // 8)
+        for n in (w, w + 1):
+            cooks_cases.append((f"one cohort of {n} (warp edge {w})", 1000, n, [n], dtype, False))
+    e = shared_edge(8)
+    for n in (e, e + 1):
+        cooks_cases.append((f"one cohort of {n} (shared-memory edge {e})", 64, n, [n], f64, False))
+    for i, (what, G, N, sizes, dtype, ties) in enumerate(cooks_cases):
+        name = "f32" if dtype == f32 else "f64"
+        cargs = cooks_case(G, N, sizes, dtype, 100 + i, ties)
+        plan = st._trim_plan(torch.finfo(dtype).bits // 8, sizes or [N], G, True, sms)
+        label = f"cooks {name} {G} x {N}, {what}"
+        plans[label] = plan._asdict()
+        got = ck._cooks_cuda(*cargs, plan=plan)
+        again = ck._cooks_cuda(*cargs, plan=plan)
+        check(all(bits_equal(a.double(), b.double()) for a, b in zip(got, again)),
+              f"{label}: a second launch differs from the first")
+        cooks_check(name, cargs, 0, {})
+        repl = (True,) * N
+        got = ck._cooks_cuda(*cargs, repl, False, plan=plan)
+        again = ck._cooks_cuda(*cargs, repl, False, plan=plan)
+        check(all(bits_equal(a.double(), b.double()) for a, b in zip(got[1:], again[1:])),
+              f"{label} refit: a second launch differs from the first")
+        refit_agree(f"{label} refit", got, ck._cooks_plain(*cargs, repl, True), cargs[8], dtype == f32)
+        log(f"  {label}: plan {plan}, repeats bit-equal")
+        del cargs, got, again
+
+    # -- trimmed_var: cohorts (mode 1) and columns (mode 0) ---------------------
+    def cells_of(sizes, rng):
+        ids = np.repeat(np.arange(len(sizes)), sizes)
+        rng.shuffle(ids)
+        return ids
+
+    trim_cases = [
+        ("tie-heavy, cohorts of 50", 4000, [50, 50], f64, True),
+        ("tie-heavy, cohorts of 50", 4000, [50, 50], f32, True),
+        ("cohorts of 3, 2, 1, 7", 4000, [3, 2, 1, 7], f64, False),
+    ]
+    for dtype in (f32, f64):
+        r = st._TRIM_RANK_MAX[torch.finfo(dtype).bits // 8]
+        trim_cases.append((f"cohorts of rank_max {r} and {r + 1}", 2000, [r, r + 1], dtype, False))
+        w = warp_edge(torch.finfo(dtype).bits // 8)
+        for n in (w, w + 1):
+            trim_cases.append((f"cohorts of {n} (warp edge {w})", 500, [n, n], dtype, False))
+    for i, (what, G, sizes, dtype, ties) in enumerate(trim_cases):
+        rng = np.random.default_rng(200 + i)
+        N = sum(sizes)
+        mean = rng.uniform(0.1, 3.0, G) if ties else rng.lognormal(3.0, 1.5, G)
+        sf = np.ones(N) if ties else np.exp(rng.normal(0.0, 0.3, N))
+        x = torch.as_tensor(rng.poisson(sf[:, None] * mean[None, :]) / sf[:, None], dtype=dtype, device=DEVICE)
+        cells = cells_of(sizes, rng)
+        plan = st._trim_plan(x.element_size(), sizes, G, False, sms)
+        label = f"trimmed_var {'f32' if dtype == f32 else 'f64'} {G} genes, {what}"
+        plans[label] = plan._asdict()
+        got = st._trimmed_cell_variance_cuda(x, cells, plan)
+        check(bits_equal(got, st._trimmed_cell_variance_cuda(x, cells, plan)),
+              f"{label}: a second launch differs from the first")
+        want = st._trimmed_cell_variance_plain(x, cells)
+        vtol = 1e-6 if dtype == f32 else 1e-12
+        e_v = rel_err(got.double(), want.double(), 1e-300)
+        check(e_v <= vtol, f"{label}: rel err {e_v:.3g} > {vtol}")
+        log(f"  {label}: plan {plan}, rel err {e_v:.3g} (tol {vtol}), {int((got != want).sum())} not bit-equal, "
+            "repeat bit-equal")
+    column_cases = [(TRIM_COLUMN, f32, False), (TRIM_COLUMN, f64, False), (TRIM_COLUMN, f32, True), (1000, f32, False)]
+    e = shared_edge(4)
+    column_cases += [(e, f32, False), (e + 1, f32, False)]
+    for i, (n, dtype, ties) in enumerate(column_cases):
+        rng = np.random.default_rng(300 + i)
+        col = rng.lognormal(-2.0, 1.0, n)
+        if ties:
+            col = np.round(col * 20.0) / 20.0
+        column = torch.as_tensor(col, dtype=dtype, device=DEVICE)
+        plan = st._trim_plan(column.element_size(), [n], 1, False, sms)
+        label = (f"trimmed_var {'f32' if dtype == f32 else 'f64'} column of {n}" + (", tie-heavy" if ties else "")
+                 + (f" (shared-memory edge {e})" if n in (e, e + 1) else ""))
+        plans[label] = plan._asdict()
+        got = st.trimmed_mean(column, 0.001)
+        check(bits_equal(got, st.trimmed_mean(column, 0.001)), f"{label}: a second launch differs from the first")
+        want = st._trimmed_mean_plain(column, 0.001, 0)
+        vtol = 1e-6 if dtype == f32 else 1e-12
+        e_m = rel_err(got.double().reshape(1), want.double().reshape(1), 1e-300)
+        check(e_m <= vtol, f"{label}: rel err {e_m:.3g} > {vtol}")
+        log(f"  {label}: plan {plan}, {got.item()!r} (plain {want.item()!r}), rel err {e_m:.3g} (tol {vtol})")
+    return plans
+
+
 def vst_kernel_checks(dtype, G, N, reps, timings):
     """Phase 2, the blind VST: ``vst`` against its plain version on the
     operands one ``vst_pipeline`` run of ``make_data(N, G)`` hands it
@@ -2686,6 +2891,7 @@ def class_kernel_checks(dtype, G, N, reps, timings):
     operands one deseq2() + summary() run of ``make_data(N, G)`` with
     planted outliers hands it. Returns {name: max_abs_err} and fills
     ``timings`` (``reps`` > 0)."""
+    from pydeseq2_tpu_torch import kernels
     from pydeseq2_tpu_torch.ops import irls as ir
     from pydeseq2_tpu_torch.ops import stats as st
     from pydeseq2_tpu_torch.ops import trend as tr
@@ -2785,11 +2991,16 @@ def class_kernel_checks(dtype, G, N, reps, timings):
         members = [len(c) for c in cohorts]
         column = torch.as_tensor(gd, dtype=dtype, device=DEVICE)
         vsz = counts_nt.element_size()  # the class API's float64 normalised counts
+        cohort_rows = [counts_nt.T[:, torch.tensor(c, device=counts_nt.device)].contiguous() for c in cohorts]
         timings["trimmed_var"] = {
             "ms": cuda_ms(lambda: st._trimmed_cell_variance_cuda(counts_nt, cells), reps),
             "plain_ms": cuda_ms(lambda: st._trimmed_cell_variance_plain(counts_nt, cells), reps),
             "library_ms": None,
+            # the yardstick: torch.sort of the cohort rows (of the column), the sort alone
+            "sort_ms": cuda_ms(lambda: [torch.sort(r, dim=1) for r in cohort_rows], reps),
             "column_ms": cuda_ms(lambda: st.trimmed_mean(column, 0.001), reps),
+            "column_sort_ms": cuda_ms(lambda: torch.sort(column), reps),
+            "plan": st._trim_plan(vsz, members, Gv, False, kernels.sm_count(column.device))._asdict(),
             # reads the (G, N) normalised counts once, writes one value a gene
             "bytes": vsz * (Gv * Nv + Gv),
             "ops": Gv * trimmed_ops(members),
@@ -3125,6 +3336,7 @@ def main() -> int:
     errs32.update(class_kernel_checks(torch.float32, G_MAIN, N_MAIN, 20, timings))
     class_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
     plans = cluster_kernel_checks()
+    plans.update(trim_plan_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3239,10 +3451,11 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "wide_ms",
-                      "wide_plain_ms", "passes", "ms_per_pass", "plan"):
+        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
+                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan"):
             if extra in t:
-                # the sort before the BH sweep; a rescue kernel over every lane
+                # the sort before the BH sweep, or the torch.sort yardstick of
+                # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
                 # of its tile; cooks in the streamed refit mode; mom writing mu;
                 # the Newton steps of one sf_newton launch; trimmed_var over the
                 # mean trend's one column; the atlas block's times of disp_scan
@@ -3263,7 +3476,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster kernel plans: " + json.dumps(plans))
+    log("cluster and trimmed-moment kernel plans: " + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

@@ -1,5 +1,5 @@
-// Cook's distances and the Cook's outlier flag, one warp per gene, with the
-// outputs of the Cook's-refit mode.
+// Cook's distances and the Cook's outlier flag, a warp or a block per gene,
+// with the outputs of the Cook's-refit mode.
 //
 // Replaces the trimmed moments of the Cook's robust dispersion
 // (pydeseq2_tpu/ops/stats.py:88,108 trimmed_variance and
@@ -7,39 +7,41 @@
 // elementwise block after them (fused.py:702-716) and the refit-mode bits
 // of the streamed pipeline (fused_stream.py:422-445).
 //
-// For each cohort (a list of sample indices) the warp computes
-//   rm  = trimmed mean of y/sf, dropping floor(n trim) at each end,
-//   v_c = scale_c * trimmed mean of (y/sf - rm)^2,
-// and v = max_c v_c, each trimmed mean by common.cuh's exact key bisection
-// (the kept multiset is the sort's). The values are recomputed from the
-// gene's row on every pass (L1-resident), not stored, so any N works
-// without shared memory.
+// For each gene the group (one warp, or one block on long rows: the launch
+// plan, ops/stats.py:_trim_plan) first forms the normalised counts
+// x_n = y_n / sf_n of its row once, sums them for m = mean_n x_n and stages
+// the keys (trimmed.cuh) of the cohorts' members, cohort after cohort, in
+// shared memory (or in the plan's global workspace where they do not fit).
+// For each cohort it computes
+//   rm  = trimmed mean of x, dropping floor(n trim) at each end,
+//   v_c = scale_c * trimmed mean of (x - rm)^2, the squared errors formed
+//         from the staged keys in place,
+// and v = max_c v_c, each trimmed mean by trimmed.cuh's rank count (short
+// cohorts) or radix select (long ones), summed in float64 and rounded once.
 //
-// Then m = mean of y/sf over all N samples, disp_c = max((v - m)/m^2, 0.04),
-// and per sample cooks = (y - mu)^2 / ((mu + disp_c mu^2) P) * H / (1 - H)^2.
-// A gene is flagged when a use_for_max sample's distance exceeds the cutoff
-// and fewer than 3 samples have a count above that of the sample with the
-// largest distance (the first argmax over ALL samples, a NaN counting as
-// the largest); outlier = flagged & non_zero, and cooks (written only when
-// asked) is NaN where the gene is not non_zero.
+// Then disp_c = max((v - m)/m^2, 0.04), and per sample cooks = (y - mu)^2 /
+// ((mu + disp_c mu^2) P) * H / (1 - H)^2. A gene is flagged when a
+// use_for_max sample's distance exceeds the cutoff and fewer than 3 samples
+// have a count above that of the sample with the largest distance (the
+// first argmax over ALL samples, a NaN counting as the largest);
+// outlier = flagged & non_zero, and cooks (written only when asked) is NaN
+// where the gene is not non_zero.
 //
 // Refit mode (a replaceable mask is given): the last pass also writes the
 // per-cell bits cooks > cutoff packed 32 to a word, bit k of word w for
-// sample 32 w + k; the warp walks the row 32 samples at a time, so lane k
-// holds sample 32 w + k and one ballot is the word. replaced = any bit &
+// sample 32 w + k; each warp walks its 32-sample chunks, so lane k holds
+// sample 32 w + k and one ballot is the word. replaced = any bit &
 // non_zero, and outlier_refit = (a use_for_max, non-replaceable sample
 // exceeds the cutoff) & the same count veto & non_zero.
 //
 // Bound on the H100 by its bytes: counts, mu and H read and cooks written,
-// 4 x G x N values (3 without the distances, plus G N / 8 bytes of bits);
-// the bisection's re-reads of the row hit L1.
-#include "common.cuh"
+// 4 x G x N values (3 without the distances, plus G N / 8 bytes of bits).
+// The trimmed moments read only the staged row.
+#include "trimmed.cuh"
 
 using namespace pdt;
 
 namespace {
-
-constexpr int THREADS = 256;
 
 // (value, index) of the first maximum, a NaN counting as the largest
 // (jnp.argmax): does (vb, ib) beat (va, ia)?
@@ -49,85 +51,10 @@ template <typename T> __device__ __forceinline__ bool beats(T vb, int ib, T va, 
   return vb > va || (vb == va && ib < ia);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    cooks_kernel(int G, int N, int P, const T* __restrict__ counts, const T* __restrict__ sf,
-                 const T* __restrict__ mu_g, const T* __restrict__ H_g,
-                 const unsigned char* __restrict__ non_zero, const unsigned char* __restrict__ ufm,
-                 const T* __restrict__ cutoff_p, int C, const int* __restrict__ perm,
-                 const int* __restrict__ offsets, const int* __restrict__ ntrim,
-                 const T* __restrict__ scale, const unsigned char* __restrict__ repl,
-                 T* __restrict__ cooks_out, unsigned char* __restrict__ outlier_out,
-                 T* __restrict__ disp_out, int* __restrict__ packed_out,
-                 unsigned char* __restrict__ replaced_out,
-                 unsigned char* __restrict__ refit_out) {
-  const int gi = (int)(((size_t)blockIdx.x * THREADS + threadIdx.x) / WARP);
-  const int lane = threadIdx.x & (WARP - 1);
-  if (gi >= G) return;  // whole warps leave together: gi is one per warp
-  const T* y = counts + (size_t)gi * N;
-  const T* mu = mu_g + (size_t)gi * N;
-  const T* H = H_g + (size_t)gi * N;
-
-  // ---- robust dispersion: max over cohorts of the trimmed variance ----
-  T v = T(0);
-  for (int c = 0; c < C; ++c) {
-    const int* idx = perm + offsets[c];
-    const int n = offsets[c + 1] - offsets[c];
-    const int k = ntrim[c];
-    auto normed = [&](int i) {
-      const int s = __ldg(idx + i);
-      return y[s] / __ldg(sf + s);
-    };
-    const T rm = trimmed_mean<T>(normed, n, k, lane);
-    auto sqerr = [&](int i) {
-      const T d = normed(i) - rm;
-      return d * d;
-    };
-    const T vc = scale[c] * trimmed_mean<T>(sqerr, n, k, lane);
-    v = c == 0 ? vc : m_max(v, vc);
-  }
-  T msum = T(0);
-  for (int n = lane; n < N; n += WARP) msum += y[n] / __ldg(sf + n);
-  const T m = warp_sum(msum) / T(N);
-  const T disp_c = m_max((v - m) / (m * m), T(0.04));
-
-  // ---- Cook's distances, cutoff tests, exceed bits, first argmax ----
-  const bool nz = non_zero[gi] != 0;
-  const T cutoff = *cutoff_p;
-  const T nan = Lim<T>::inf() - Lim<T>::inf();
-  const bool refit = repl != nullptr;
-  const int W = (N + WARP - 1) / WARP;
-  bool flagged = false, flagged_nr = false, any_exceeds = false;
-  T best = -Lim<T>::inf();
-  int best_i = 0x7fffffff;
-  for (int base = 0; base < N; base += WARP) {
-    const int n = base + lane;
-    bool exceeds = false;
-    if (n < N) {
-      const T mun = mu[n];
-      const T Hn = H[n];
-      const T V = mun + disp_c * (mun * mun);
-      const T r = y[n] - mun;
-      const T sp = r * r / (V * T(P));
-      const T omh = T(1) - Hn;
-      const T cd = sp * Hn / (omh * omh);
-      exceeds = cd > cutoff;
-      flagged = flagged || (ufm[n] != 0 && exceeds);
-      if (beats(cd, n, best, best_i)) {
-        best = cd;
-        best_i = n;
-      }
-      if (cooks_out != nullptr) cooks_out[(size_t)gi * N + n] = nz ? cd : nan;
-      if (refit) flagged_nr = flagged_nr || (ufm[n] != 0 && repl[n] == 0 && exceeds);
-    }
-    if (refit) {
-      const unsigned word = __ballot_sync(FULL, exceeds);
-      any_exceeds = any_exceeds || word != 0u;
-      if (lane == 0) packed_out[(size_t)gi * W + base / WARP] = (int)word;
-    }
-  }
-  flagged = __any_sync(FULL, flagged);
-  flagged_nr = __any_sync(FULL, flagged_nr);
+// The group's first argmax; every thread returns it. (beats is a total
+// order, so the warps' results may be folded in any order.)
+template <typename T, typename Grp>
+__device__ void group_argmax(const Grp& g, T& best, int& best_i) {
 #pragma unroll
   for (int o = WARP / 2; o > 0; o >>= 1) {
     const T vb = __shfl_xor_sync(FULL, best, o);
@@ -137,57 +64,233 @@ __global__ void __launch_bounds__(THREADS)
       best_i = ib;
     }
   }
-  const T max_count = y[best_i];
-  int above = 0;
-  for (int n = lane; n < N; n += WARP) above += y[n] > max_count;
-  above = warp_sum_i(above);
-  if (lane == 0) {
-    outlier_out[gi] = (flagged && above < 3 && nz) ? 1 : 0;
-    disp_out[gi] = disp_c;
-    if (refit) {
-      replaced_out[gi] = (any_exceeds && nz) ? 1 : 0;
-      refit_out[gi] = (flagged_nr && above < 3 && nz) ? 1 : 0;
+  if constexpr (Grp::BLOCK) {
+    __syncthreads();
+    if ((threadIdx.x & (WARP - 1)) == 0) {
+      g.red[g.warp()] = double(best);  // exact, NaN included
+      g.redi[g.warp()] = best_i;
+    }
+    __syncthreads();
+    for (int w = 0; w < g.nwarps(); ++w) {
+      const T vb = T(g.red[w]);
+      if (beats(vb, g.redi[w], best, best_i)) {
+        best = vb;
+        best_i = g.redi[w];
+      }
     }
   }
 }
 
+template <typename T> struct CooksArgs {
+  int G, N, P;
+  const T* counts;
+  const T* sf;
+  const T* mu;
+  const T* H;
+  const unsigned char* non_zero;
+  const unsigned char* ufm;
+  const T* cutoff;
+  int C;
+  const int* pos;
+  const int* offsets;
+  const int* ntrim;
+  const T* scale;
+  const unsigned char* repl;
+  T* cooks;
+  unsigned char* outlier;
+  T* disp;
+  int* packed;
+  unsigned char* replaced;
+  unsigned char* refit;
+  int rank_max, n_max, n_members;
+};
+
+// One gene on one group; keys (n_members) is the group's staging buffer,
+// hist and bnd its trimmed-mean scratch.
+template <typename T, typename Grp>
+__device__ void cooks_gene(const CooksArgs<T>& a, int gi, typename KeyOf<T>::U* keys, unsigned* hist,
+                           typename KeyOf<T>::U* bnd, const Grp& g) {
+  using K = KeyOf<T>;
+  const int N = a.N, me = g.rank(), step = g.size();
+  const int lane = threadIdx.x & (WARP - 1);
+  const T* y = a.counts + (size_t)gi * N;
+  const T* mu = a.mu + (size_t)gi * N;
+  const T* H = a.H + (size_t)gi * N;
+
+  // ---- y / sf once a sample: m = its mean over all N, and the keys of
+  // the cohorts' members at their places pos[n], cohort after cohort ----
+  double msum = 0.0;
+  for (int n = me; n < N; n += step) {
+    const T x = y[n] / __ldg(a.sf + n);
+    msum += double(x);
+    const int p = __ldg(a.pos + n);
+    if (p >= 0) keys[p] = K::key(x);
+  }
+  const T m = T(g.sum(msum)) / T(N);
+  g.sync();
+
+  // ---- robust dispersion: max over cohorts of the trimmed variance ----
+  T v = T(0);
+  for (int c = 0; c < a.C; ++c) {
+    typename K::U* ck = keys + __ldg(a.offsets + c);
+    const int n = __ldg(a.offsets + c + 1) - __ldg(a.offsets + c);
+    const int k = __ldg(a.ntrim + c);
+    const T rm = trimmed_mean_keys<T>(ck, n, k, a.rank_max, hist, bnd, g);
+    for (int i = me; i < n; i += step) {
+      const T d = K::value(ck[i]) - rm;
+      ck[i] = K::key(d * d);
+    }
+    g.sync();
+    const T vc = __ldg(a.scale + c) * trimmed_mean_keys<T>(ck, n, k, a.rank_max, hist, bnd, g);
+    v = c == 0 ? vc : m_max(v, vc);
+  }
+  const T disp_c = m_max((v - m) / (m * m), T(0.04));
+
+  // ---- Cook's distances, cutoff tests, exceed bits, first argmax ----
+  // Each warp walks the 32-sample chunks w = warp, warp + nwarps, ...
+  const bool nz = a.non_zero[gi] != 0;
+  const T cutoff = *a.cutoff;
+  const T nan = Lim<T>::inf() - Lim<T>::inf();
+  const bool refit = a.repl != nullptr;
+  const int W = (N + WARP - 1) / WARP;
+  bool flagged = false, flagged_nr = false, any_exceeds = false;
+  T best = -Lim<T>::inf();
+  int best_i = 0x7fffffff;
+  for (int base = g.warp() * WARP; base < N; base += g.nwarps() * WARP) {
+    const int n = base + lane;
+    bool exceeds = false;
+    if (n < N) {
+      const T mun = mu[n];
+      const T Hn = H[n];
+      const T V = mun + disp_c * (mun * mun);
+      const T r = y[n] - mun;
+      const T sp = r * r / (V * T(a.P));
+      const T omh = T(1) - Hn;
+      const T cd = sp * Hn / (omh * omh);
+      exceeds = cd > cutoff;
+      flagged = flagged || (a.ufm[n] != 0 && exceeds);
+      if (beats(cd, n, best, best_i)) {
+        best = cd;
+        best_i = n;
+      }
+      if (a.cooks != nullptr) a.cooks[(size_t)gi * N + n] = nz ? cd : nan;
+      if (refit) flagged_nr = flagged_nr || (a.ufm[n] != 0 && a.repl[n] == 0 && exceeds);
+    }
+    if (refit) {
+      const unsigned word = __ballot_sync(FULL, exceeds);
+      any_exceeds = any_exceeds || word != 0u;
+      if (lane == 0) a.packed[(size_t)gi * W + base / WARP] = (int)word;
+    }
+  }
+  flagged = g.any(flagged);
+  flagged_nr = g.any(flagged_nr);
+  any_exceeds = g.any(any_exceeds);
+  group_argmax(g, best, best_i);
+  const T max_count = y[best_i];
+  int above = 0;
+  for (int n = me; n < N; n += step) above += y[n] > max_count;
+  above = g.sum(above);
+  if (me == 0) {
+    a.outlier[gi] = (flagged && above < 3 && nz) ? 1 : 0;
+    a.disp[gi] = disp_c;
+    if (refit) {
+      a.replaced[gi] = (any_exceeds && nz) ? 1 : 0;
+      a.refit[gi] = (flagged_nr && above < 3 && nz) ? 1 : 0;
+    }
+  }
+  g.sync();  // the staging buffers are reused by the next gene
+}
+
+// A warp a gene, TRIM_WARPS genes a block, each warp its own slice of the
+// dynamic shared memory.
 template <typename T>
-int launch(int G, int N, int P, const void* counts, const void* sf, const void* mu, const void* H,
-           const void* non_zero, const void* ufm, const void* cutoff, int C, const void* perm,
-           const void* offsets, const void* ntrim, const void* scale, const void* repl,
-           void* cooks, void* outlier, void* disp, void* packed, void* replaced, void* refit,
-           cudaStream_t s) {
-  const unsigned blocks = (unsigned)(((size_t)G * WARP + THREADS - 1) / THREADS);
-  cooks_kernel<T><<<blocks, THREADS, 0, s>>>(
-      G, N, P, (const T*)counts, (const T*)sf, (const T*)mu, (const T*)H,
-      (const unsigned char*)non_zero, (const unsigned char*)ufm, (const T*)cutoff, C,
-      (const int*)perm, (const int*)offsets, (const int*)ntrim, (const T*)scale,
-      (const unsigned char*)repl, (T*)cooks, (unsigned char*)outlier, (T*)disp, (int*)packed,
-      (unsigned char*)replaced, (unsigned char*)refit);
-  return 0;
+__global__ void __launch_bounds__(TRIM_WARPS * WARP) cooks_warp_kernel(const CooksArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w = threadIdx.x / WARP;
+  using U = typename KeyOf<T>::U;
+  const bool radix = a.n_max > a.rank_max;
+  const size_t group = trim_group_bytes(a.n_members, (int)sizeof(T), radix, true, false);
+  const TrimSlice<U> sl(smem + w * group, a.n_members, radix, true, false, nullptr);
+  const WarpGroup g{};
+  for (int gi = blockIdx.x * TRIM_WARPS + w; gi < a.G; gi += gridDim.x * TRIM_WARPS)
+    cooks_gene<T>(a, gi, sl.keys, sl.hist, sl.bnd, g);
+}
+
+// A block a gene; the grid loops over the genes. shared: the keys in
+// dynamic shared memory, else in the block's slice of the workspace ws
+// (trim_ws_len values a block).
+template <typename T>
+__global__ void __launch_bounds__(TRIM_BLOCK_MAX) cooks_block_kernel(const CooksArgs<T> a, bool shared, T* ws) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using U = typename KeyOf<T>::U;
+  const bool radix = a.n_max > a.rank_max;
+  U* slice = shared ? nullptr : (U*)ws + blockIdx.x * trim_ws_len(a.n_members, (int)sizeof(T));
+  const TrimSlice<U> sl(smem, a.n_members, radix, shared, true, slice);
+  const BlockGroup g{sl.red, sl.redi};
+  for (int gi = blockIdx.x; gi < a.G; gi += gridDim.x) cooks_gene<T>(a, gi, sl.keys, sl.hist, sl.bnd, g);
+}
+
+template <typename T>
+int launch(const CooksArgs<T>& a, int block, int threads, int shared, int blocks, void* ws, cudaStream_t s) {
+  const bool radix = a.n_max > a.rank_max;
+  const size_t group = trim_group_bytes(a.n_members, (int)sizeof(T), radix, shared != 0, block != 0);
+  if (!block) {
+    const size_t smem = TRIM_WARPS * group;
+    if (!shared || smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+    cudaError_t e = smem_opt_in<cooks_warp_kernel<T>>();
+    if (e != cudaSuccess) return (int)e;
+    const unsigned grid = (unsigned)((a.G + TRIM_WARPS - 1) / TRIM_WARPS);
+    cooks_warp_kernel<T><<<grid, TRIM_WARPS * WARP, smem, s>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (threads < BlockGroup::MIN_SIZE || threads > TRIM_BLOCK_MAX || threads % WARP != 0 || group > SMEM_BLOCK_MAX ||
+      (!shared && (ws == nullptr || blocks < 1)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = smem_opt_in<cooks_block_kernel<T>>();
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)(shared ? a.G : (blocks < a.G ? blocks : a.G));
+  cooks_block_kernel<T><<<grid, threads, group, s>>>(a, shared != 0, (T*)ws);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // cooks may be NULL (no distances written); repl NULL switches the refit
 // outputs (packed, replaced, refit) off, else all three must be given.
+// pos (N,): the place of each sample among the cohorts' members (cohort 0's
+// members in sample order, then cohort 1's, ...; -1 outside every cohort),
+// offsets (C + 1,) the cohorts' first places, n_members = offsets[C].
+// The plan (ops/stats.py:TrimPlan): block (a block of `threads` a gene,
+// else a warp), rank_max (cohorts of at most this many members take the
+// rank count, <= 128), shared (staged keys in shared memory, else in ws:
+// `blocks` slices of trim_ws_len(n_members) values, the grid then `blocks`
+// blocks), n_max the longest cohort.
 extern "C" int cooks_launch(int is_f64, int G, int N, int P, const void* counts, const void* sf,
                             const void* mu, const void* H, const void* non_zero, const void* ufm,
-                            const void* cutoff, int C, const void* perm, const void* offsets,
+                            const void* cutoff, int C, const void* pos, const void* offsets,
                             const void* ntrim, const void* scale, const void* repl, void* cooks,
                             void* outlier, void* disp, void* packed, void* replaced, void* refit,
-                            void* stream) {
+                            int block, int threads, int rank_max, int shared, int blocks, int n_max, int n_members,
+                            void* ws, void* stream) {
   if (G <= 0) return (int)cudaSuccess;
-  if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || n_max < 1 || n_max > n_members || n_members > N || rank_max < 0 || rank_max > RANK_CAP)
+    return (int)cudaErrorInvalidValue;
   if (repl != nullptr && (packed == nullptr || replaced == nullptr || refit == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64) {
-    launch<double>(G, N, P, counts, sf, mu, H, non_zero, ufm, cutoff, C, perm, offsets, ntrim,
-                   scale, repl, cooks, outlier, disp, packed, replaced, refit, s);
-  } else {
-    launch<float>(G, N, P, counts, sf, mu, H, non_zero, ufm, cutoff, C, perm, offsets, ntrim,
-                  scale, repl, cooks, outlier, disp, packed, replaced, refit, s);
+    const CooksArgs<double> a{G, N, P, (const double*)counts, (const double*)sf, (const double*)mu,
+                              (const double*)H, (const unsigned char*)non_zero, (const unsigned char*)ufm,
+                              (const double*)cutoff, C, (const int*)pos, (const int*)offsets, (const int*)ntrim,
+                              (const double*)scale, (const unsigned char*)repl, (double*)cooks,
+                              (unsigned char*)outlier, (double*)disp, (int*)packed, (unsigned char*)replaced,
+                              (unsigned char*)refit, rank_max, n_max, n_members};
+    return launch<double>(a, block, threads, shared, blocks, ws, s);
   }
-  return (int)cudaGetLastError();
+  const CooksArgs<float> a{G, N, P, (const float*)counts, (const float*)sf, (const float*)mu, (const float*)H,
+                           (const unsigned char*)non_zero, (const unsigned char*)ufm, (const float*)cutoff, C,
+                           (const int*)pos, (const int*)offsets, (const int*)ntrim, (const float*)scale,
+                           (const unsigned char*)repl, (float*)cooks, (unsigned char*)outlier, (float*)disp,
+                           (int*)packed, (unsigned char*)replaced, (unsigned char*)refit, rank_max, n_max, n_members};
+  return launch<float>(a, block, threads, shared, blocks, ws, s);
 }

@@ -7,14 +7,17 @@
 // N >= 1024) of the normalised counts y/sf, and write
 //   imputed_n = (replaceable_n and exceeds_n) ? floor(trim02 sf_n) : y_n,
 // and new_all_zero = every imputed count is 0, on rows of the tile mask.
-// The trimmed mean is common.cuh's exact key bisection, shared with the
-// Cook's kernel: the kept multiset is a sort's and only the order of its
-// sum differs, so a product trim02 sf_n within an ulp of an integer may
-// floor to the neighbouring count.
+// The trimmed mean is trimmed.cuh's radix select, shared with the Cook's
+// kernel, over the row's keys staged once in the row's own output slice
+// (which the imputed row then overwrites): the kept multiset is a sort's,
+// summed in float64 and rounded once as the plain version does, so a
+// product trim02 sf_n within an ulp of an integer may still floor to the
+// neighbouring count where that sum rounds the other way.
 //
 // Bound on the H100 by its bytes: the tile read and the imputed tile
-// written, 2 x K x N values; the bisection's re-reads of the row hit L1.
-#include "common.cuh"
+// written, 2 x K x N values; the selection's passes re-read the staged keys
+// from L1/L2.
+#include "trimmed.cuh"
 
 using namespace pdt;
 
@@ -30,17 +33,24 @@ __global__ void __launch_bounds__(THREADS)
     impute_kernel(int K, int N, int ntrim, const T* __restrict__ counts,
                   const int* __restrict__ packed, const unsigned char* __restrict__ repl,
                   const T* __restrict__ sf, const unsigned char* __restrict__ tile_mask,
-                  T* __restrict__ imputed, unsigned char* __restrict__ new_all_zero) {
+                  T* imputed, unsigned char* __restrict__ new_all_zero) {
+  using Key = KeyOf<T>;
+  using U = typename Key::U;
+  __shared__ __align__(16) unsigned hist[THREADS / WARP][2 * RADIX];
+  __shared__ U bnd[THREADS / WARP][2];
+  const int w = threadIdx.x / WARP;
   const int gi = (int)(((size_t)blockIdx.x * THREADS + threadIdx.x) / WARP);
   const int lane = threadIdx.x & (WARP - 1);
   if (gi >= K) return;  // whole warps leave together
   const T* y = counts + (size_t)gi * N;
   const int* words = packed + (size_t)gi * ((N + WARP - 1) / WARP);
-  auto normed = [&](int i) { return y[i] / __ldg(sf + i); };
-  const T trim02 = trimmed_mean<T>(normed, N, ntrim, lane);
+  T* out = imputed + (size_t)gi * N;
+  U* keys = reinterpret_cast<U*>(out);
+  for (int n = lane; n < N; n += WARP) keys[n] = Key::key(y[n] / __ldg(sf + n));
+  __syncwarp();
+  const T trim02 = trimmed_mean_keys<T>(keys, N, ntrim, 0, hist[w], bnd[w], WarpGroup{});
 
   bool nonzero = false;
-  T* out = imputed + (size_t)gi * N;
   for (int n = lane; n < N; n += WARP) {
     const bool exceeds = ((words[n / WARP] >> (n % WARP)) & 1) != 0;
     const T v = (repl[n] != 0 && exceeds) ? m_floor(trim02 * __ldg(sf + n)) : y[n];

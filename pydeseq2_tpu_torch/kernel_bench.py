@@ -1,9 +1,10 @@
 """Device time of hand-written kernels at the shapes the pipelines give
 them, for one or more checkouts of this repository, on a CUDA card: the
 dispersion kernels ``disp_scan`` and ``disp_newton`` (suite ``disp``), the
-trimmed size-factor Newton round ``sf_newton`` (``sf``), and the dispersion
+trimmed size-factor Newton round ``sf_newton`` (``sf``), the dispersion
 trend's gamma-GLM fit, ``trend`` with its exclusion rounds and the
-standalone ``trend_fit`` (``trend``).
+standalone ``trend_fit`` (``trend``), and the trimmed moments of ``cooks``
+and ``trimmed_var`` (``cooks``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -11,7 +12,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-three by default). To compare two versions in one call, name them parent,
+four by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -46,6 +47,25 @@ has one, and for the trend the plain fit's reduction passes (loss, gradient
 + Fisher). ``--detail`` adds the other modes and cluster sizes of a tree
 that has plans.
 
+``cooks`` shapes: ``cooks`` at 100 x 60000 in float32 and float64 in
+summary mode (distances written), at 1000 x 60000 float32 and on the atlas
+block (5000 genes x 10000 samples) in refit mode, two equal cohorts, on
+Poisson counts drawn on the card (lognormal gene means, seeded size
+factors, mu their product, H uniform below 2 P / N); ``trimmed_var`` on
+60000 genes x 100 samples of normalised counts (two cohorts of 50, the
+class API's cell variances) in float64 and float32, and its mode 0 on a
+59038-value float32 column of lognormal dispersions (the mean trend's
+0.001-trimmed mean). Beside each, as a yardstick, the device time of
+``torch.sort`` of the same cohort rows (the column), the sort alone. Per
+shape the same events and profiler times (kernels named ``cooks_`` or
+``trimmed_``), the largest relative differences from the plain version and
+the plan a tree's wrapper picks where it has one; ``--detail`` adds the
+other plans: the radix select where the rank count is picked and the rank
+count where it may run, a block a row where a warp is picked and the other
+way round, and the streamed workspace; and ``cooks`` (f32, f64) on
+RANK_SWEEP_GENES genes in two cohorts of each size of RANK_SWEEP by each
+method.
+
 Prints the card first and, as the last line, every number as one JSON
 object.
 """
@@ -70,7 +90,7 @@ import torch  # noqa: E402
 
 DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
-SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",)}
+SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu")}
 SF_SHAPES = (
     # label, genes, samples, dtype, timed calls
     ("f32 100x60000", 60_000, 100, torch.float32, 20),
@@ -84,6 +104,21 @@ TREND_SHAPES = (
     ("f32 60000", 60_000, torch.float32, 20),
     ("f64 4000", 4_000, torch.float64, 20),
     ("f64 60000", 60_000, torch.float64, 20),
+)
+COOKS_SHAPES = (
+    # label, genes, samples, dtype, refit mode, timed calls
+    ("f32 100x60000", 60_000, 100, torch.float32, False, 20),
+    ("f64 100x60000", 60_000, 100, torch.float64, False, 20),
+    ("f32 1000x60000 refit", 60_000, 1_000, torch.float32, True, 10),
+    ("f32 atlas 5000x10000 refit", 5_000, 10_000, torch.float32, True, 5),
+)
+RANK_SWEEP = (32, 64, 96, 128)  # cohort sizes of --detail's rank-count sweep (2 cohorts)
+RANK_SWEEP_GENES = 60_000
+TRIM_SHAPES = (
+    # label, genes (column: values), samples (column: 0), dtype, timed calls
+    ("f64 cohorts 60000x100", 60_000, 100, torch.float64, 20),
+    ("f32 cohorts 60000x100", 60_000, 100, torch.float32, 20),
+    ("f32 column 59038", 59_038, 0, torch.float32, 20),
 )
 SHAPES = (
     # label, genes, samples, P, dtype, timed calls
@@ -157,8 +192,9 @@ def inputs(G: int, N: int, P: int, dtype):
 
 def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
-    f32|f64" for a kernel templated on the design width and "<kernel>
-    f32|f64 shared|streamed" for a cluster kernel templated on its mode."""
+    f32|f64" for a kernel templated on the design width, "<kernel>
+    f32|f64 shared|streamed" for a cluster kernel templated on its mode and
+    "<kernel> f32|f64" for one templated on its type alone."""
     out = {}
     for src in sources:
         text = kernels._lib_path(src).with_suffix(".ptxas.txt").read_text()
@@ -166,11 +202,14 @@ def ptxas(kernels, sources=SOURCES) -> dict:
         for m in re.finditer(r"Compiling entry function '([^']+)'(.*?)Used (\d+) registers", text, re.S):
             inst = re.search(r"ILi(\d+)E([fd])E", m.group(1))
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
+            typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
             if inst is not None:
                 key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}"
             elif mode is not None:
                 key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
                        f"{'shared' if mode.group(3) == '1' else 'streamed'}")
+            elif typed is not None:
+                key = f"{typed.group(1)} {'f32' if typed.group(2) == 'f' else 'f64'}"
             else:
                 continue
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", m.group(2))
@@ -380,6 +419,162 @@ def trend_rows(detail: bool) -> dict:
     return rows
 
 
+def cooks_operands(G: int, N: int, dtype, refit: bool):
+    """The ``cooks`` wrapper's arguments on the card, from a seeded
+    generator there: Poisson counts at lognormal gene means times seeded
+    size factors, mu their product, H uniform below 2 P / N (P = 2), two
+    equal cohorts of every sample, a cutoff of 4.8; in refit mode every
+    sample replaceable and no distances written."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=DEVICE, dtype=torch.float64)
+
+    base = torch.exp(3.0 + 1.5 * randn(G))
+    sf = torch.exp(0.3 * randn(N))
+    mu = base[:, None] * sf[None, :]
+    counts = torch.poisson(mu, generator=g).to(dtype)
+    H = (torch.rand(G, N, generator=g, device=DEVICE, dtype=torch.float64) * (4.0 / N)).to(dtype)
+    cohort_ids = tuple(2 * i // N for i in range(N))
+    args = (counts, sf.to(dtype), mu.to(dtype), H, (counts > 0).any(1), 2, cohort_ids, (True,) * N,
+            torch.tensor(4.8, dtype=dtype, device=DEVICE))
+    return args + (((True,) * N, False) if refit else ())
+
+
+def cohort_rows(x: torch.Tensor, cohort_ids) -> list[torch.Tensor]:
+    """The (G, n) rows of each cohort of the (G, N) values ``x``."""
+    return [x[:, torch.tensor([i for i, c in enumerate(cohort_ids) if c == lvl], device=x.device)].contiguous()
+            for lvl in dict.fromkeys(cohort_ids)]
+
+
+def other_plans(plan, itemsize: int, n: int, buf_len: int, rows: int) -> dict:
+    """The plans ``--detail`` times beside the one picked, where they fit
+    (``buf_len`` staged keys a row): the radix select where the rank count
+    is picked, the rank count where the cohorts (``n`` the longest) allow
+    it, the other group (a block of 256 a row, a warp a row), a block of
+    1024, and the streamed workspace."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    def fits(p):
+        radix = n > p.rank_max
+        if not p.block:
+            return 8 * st._trim_group_bytes(buf_len, itemsize, radix, True, False) <= kernels.SMEM_BLOCK_MAX
+        return not p.shared or st._trim_group_bytes(buf_len, itemsize, radix, True, True) <= kernels.SMEM_BLOCK_MAX
+
+    others = {}
+    if n <= plan.rank_max:
+        others["radix"] = plan._replace(rank_max=0)
+    elif n <= st._TRIM_RANK_CAP:
+        others["rank count"] = plan._replace(rank_max=st._TRIM_RANK_CAP)
+    if plan.block:
+        others["warp a row"] = plan._replace(block=False, threads=256, shared=True, blocks=0)
+        if plan.threads == 256:
+            others["block of 1024"] = plan._replace(threads=1024)
+    else:
+        others["block a row"] = plan._replace(block=True, threads=256)
+    if plan.shared:
+        others["streamed"] = plan._replace(block=True, shared=False, blocks=min(rows, 2 * 132))
+    return {name: p for name, p in others.items() if fits(p)}
+
+
+def cooks_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    rows = {}
+    for label, G, N, dtype, refit, reps in COOKS_SHAPES:
+        args = cooks_operands(G, N, dtype, refit)
+        got = ck._cooks_cuda(*args)
+        want = ck._cooks_plain(*args[:9], args[9] if refit else None, True)
+        rel = ((got[2] - want[2]).abs() / want[2].abs()).nan_to_num(0.0).max().item()
+        kern, dev = device_ms(lambda: ck._cooks_cuda(*args), reps, "cooks_")
+        normed = args[0] / args[1][None, :]
+        sorts = cohort_rows(normed, args[6])
+        row = {"cooks_ms": cuda_ms(lambda: ck._cooks_cuda(*args), reps), "cooks_kernel_ms": kern,
+               "cooks_device_ms": dev, "disp_rel_err": rel,
+               "sort_ms": device_ms(lambda: [torch.sort(r, dim=1) for r in sorts], reps, "")[1]}
+        if refit:
+            row["bits_equal"] = bool(torch.equal(got[3], want[3]))
+        else:
+            row["cooks_rel_err"] = ((got[0] - want[0]).abs() / want[0].abs().clamp(min=1e-12)).nan_to_num(0.0).max().item()
+        if hasattr(st, "_trim_plan"):
+            sizes = [r.shape[1] for r in sorts]
+            plan = st._trim_plan(args[0].element_size(), sizes, G, True, kernels.sm_count(args[0].device))
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in other_plans(plan, args[0].element_size(), max(sizes), sum(sizes), G).items():
+                    row[f"kernel_ms {name}"] = device_ms(lambda: ck._cooks_cuda(*args, plan=other), reps, "cooks_")[0]
+        rows[label] = row
+        print(f"  cooks {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del args, got, want, normed, sorts
+        torch.cuda.empty_cache()
+    if detail and hasattr(st, "_trim_plan"):
+        # where the rank count stops paying: two cohorts of n, each method
+        for dtype in (torch.float32, torch.float64):
+            for n in RANK_SWEEP:
+                args = cooks_operands(RANK_SWEEP_GENES, 2 * n, dtype, False)
+                plan = st._trim_plan(args[0].element_size(), [n, n], RANK_SWEEP_GENES, True,
+                                     kernels.sm_count(args[0].device))
+                row = {name: device_ms(lambda: ck._cooks_cuda(*args, plan=plan._replace(rank_max=r)), 10,
+                                       "cooks_")[0] for name, r in (("rank count", st._TRIM_RANK_CAP), ("radix", 0))}
+                rows[f"rank sweep {'f32' if dtype == torch.float32 else 'f64'} cohorts of {n}"] = row
+                print(f"  cooks rank sweep {dtype} n={n}: {json.dumps(row)}", file=sys.stderr, flush=True)
+                del args
+    return rows
+
+
+def trim_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    rows = {}
+    for label, G, N, dtype, reps in TRIM_SHAPES:
+        g = torch.Generator(device=DEVICE).manual_seed(0)
+        if N:
+            # (N, G) sample-major normalised counts, as the class API hands them
+            base = torch.exp(3.0 + 1.5 * torch.randn(G, generator=g, device=DEVICE, dtype=torch.float64))
+            sf = torch.exp(0.3 * torch.randn(N, generator=g, device=DEVICE, dtype=torch.float64))
+            x = (torch.poisson(sf[:, None] * base[None, :], generator=g) / sf[:, None]).to(dtype)
+            cells = np.array([2 * i // N for i in range(N)])
+            cohorts = st._cohorts(cells)[0]
+            sizes = [len(c) for c in cohorts]
+
+            def run(**kw):
+                return st._trimmed_cell_variance_cuda(x, cells, **kw)
+
+            want = st._trimmed_cell_variance_plain(x, cells)
+            sorts = cohort_rows(x.T, cells.tolist())
+        else:
+            x = torch.exp(-2.0 + torch.randn(G, generator=g, device=DEVICE, dtype=torch.float64)).to(dtype)
+            sizes = [G]
+
+            def run(**kw):
+                k = math.floor(G * 0.001)
+                return st._trimmed_rows_cuda(x[None, :], [k], **kw)[0] if kw else st.trimmed_mean(x, 0.001)
+
+            want = st._trimmed_mean_plain(x, 0.001, 0)
+            sorts = [x]
+        got = run()
+        kern, dev = device_ms(run, reps, "trimmed_")
+        row = {"trimmed_var_ms": cuda_ms(run, reps), "trimmed_var_kernel_ms": kern, "trimmed_var_device_ms": dev,
+               "rel_err": ((got - want).double().abs() / want.double().abs().clamp(min=1e-300)).max().item(),
+               "sort_ms": device_ms(lambda: [torch.sort(r, dim=-1) for r in sorts], reps, "")[1]}
+        if hasattr(st, "_trim_plan"):
+            R = G if N else 1
+            plan = st._trim_plan(x.element_size(), sizes, R, False, kernels.sm_count(x.device))
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in other_plans(plan, x.element_size(), max(sizes), max(sizes), R).items():
+                    row[f"kernel_ms {name}"] = device_ms(lambda: run(plan=other), reps, "trimmed_")[0]
+        rows[label] = row
+        print(f"  trimmed_var {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del x, got, want, sorts
+        torch.cuda.empty_cache()
+    return rows
+
+
 def child(detail: bool, suites=("disp",)) -> dict:
     from pydeseq2_tpu_torch import kernels
 
@@ -400,6 +595,9 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["sf"] = sf_rows(detail)
     if "trend" in suites:
         res["trend"] = trend_rows(detail)
+    if "cooks" in suites:
+        res["cooks"] = cooks_rows(detail)
+        res["trimmed_var"] = trim_rows(detail)
     return res
 
 
@@ -421,6 +619,10 @@ def summary(res: dict) -> dict:
     for k, v in res.get("trend", {}).items():
         out[f"trend {k}"] = {"trend": v["trend_ms"], "trend_kernel": v["trend_kernel_ms"],
                              "trend_fit": v["trend_fit_ms"], "trend_fit_kernel": v["trend_fit_kernel_ms"]}
+    for suite in ("cooks", "trimmed_var"):
+        for k, v in res.get(suite, {}).items():
+            if not k.startswith("rank sweep"):
+                out[f"{suite} {k}"] = {"ms": v[f"{suite}_ms"], "kernel": v[f"{suite}_kernel_ms"], "sort": v["sort_ms"]}
     return out
 
 

@@ -31,7 +31,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "trimmed.cuh")
 
 # kernel name -> (source file, exported C function)
 KERNELS = {
@@ -94,7 +94,7 @@ _ARGTYPES = {
     "hat_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _P, _P],
     "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _P, _P],
+                     _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
     "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
     "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
@@ -108,7 +108,7 @@ _ARGTYPES = {
     "sf_nll_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P],
     "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "trimmed_var_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "trimmed_var_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
 }

@@ -7,17 +7,18 @@ counts, the Cook's distance of every sample, and the outlier flag.
 
 Kernel (``csrc/cooks.cu``): replaces the trimmed moments
 (``ops/stats.py:88,108`` with ``ops/select.py:166 trimmed_mean_select``)
-and the elementwise block after them. One warp per gene. For each cohort
-it finds the two boundary order statistics of the trimmed mean by MSB-first
-bisection over the values' monotone integer keys (one warp-wide count per
-key bit, both ranks per pass), then sums the interior with the boundary
-ties counted exactly, as ``trimmed_mean_select`` does; the normalised
-counts ``y / sf`` and the squared errors are recomputed from the gene's row
-on every pass instead of stored, so it works for any N with no shared
-memory. A last pass over the row forms the Cook's distances, the
-``use_for_max`` cutoff test and the first argmax. It reads counts, mu and H
-and writes the distances: 4 x G x N values, 96 MB at 100 x 60000 f32, the
-bound on the H100; the bisection passes re-read the row from L1.
+and the elementwise block after them. A warp or a block a gene, as the
+launch plan (``ops/stats.py:_trim_plan``) says: the group forms the
+gene's normalised counts ``y / sf`` once, sums them for their mean and
+stages the keys of the cohorts' members (shared memory, or a global
+workspace where they do not fit), and finds the two boundary order statistics of each trimmed mean by
+counting ranks (short cohorts) or by an 8-bit radix select (long ones),
+then sums the kept values in float64 with the boundary ties counted
+exactly, as ``trimmed_mean_select`` keeps them; the squared errors are
+formed from the staged keys. A last pass over the row forms the Cook's
+distances, the ``use_for_max`` cutoff test and the first argmax. It reads
+counts, mu and H and writes the distances: 4 x G x N values, 96 MB at 100 x
+60000 f32, the bound on the H100.
 
 The plain version (CPU tensors only) is the JAX package's block with the
 sort-slice trimmed moments of ``ops/stats.py``. The two keep the same
@@ -36,6 +37,8 @@ from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops.stats import (
     _COHORT_SCALES,
     _COHORT_TRIM_RATIOS,
+    _trim_plan,
+    _trim_plan_args,
     _trimmed_cell_variance_plain,
     _trimmed_variance_plain,
     cohort_bin,
@@ -139,17 +142,33 @@ def _cooks_plain(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_m
 
 @functools.lru_cache(maxsize=16)
 def _layout_tensors(cohort, trims, scales, use_for_max, device: torch.device, dtype: torch.dtype):
-    """Device copies of a cohort layout (sample order by cohort, cohort
-    offsets, trim counts, scales, use_for_max), made once per layout so a
-    warm run copies nothing to the card."""
+    """Device copies of a cohort layout, made once per layout so a warm run
+    copies nothing to the card: the place of each sample among the cohorts'
+    members (cohort 0's members in sample order, then cohort 1's, ...; -1
+    outside every cohort), the cohorts' first places and their end, the
+    trim counts, the scales and use_for_max."""
     members = [[i for i, c in enumerate(cohort) if c == k] for k in range(len(trims))]
-    perm = torch.tensor([i for idx in members for i in idx], dtype=torch.int32, device=device)
+    places = [-1] * len(cohort)
+    for p, i in enumerate(i for idx in members for i in idx):
+        places[i] = p
+    pos = torch.tensor(places, dtype=torch.int32, device=device)
     offsets = torch.tensor(list(accumulate([0] + [len(i) for i in members])), dtype=torch.int32, device=device)
     ntrim = torch.tensor([math.floor(len(idx) * t) for idx, t in zip(members, trims)],
                          dtype=torch.int32, device=device)
     scale = torch.tensor(scales, dtype=dtype, device=device)
     ufm = torch.tensor(use_for_max, dtype=torch.uint8, device=device)
-    return perm, offsets, ntrim, scale, ufm
+    return pos, offsets, ntrim, scale, ufm
+
+
+@functools.lru_cache(maxsize=16)
+def _launch_layout(cohort_ids, use_for_max, N: int, device: torch.device, dtype: torch.dtype):
+    """The layout tensors of :func:`_layout_tensors` and the cohort sizes,
+    made once per static layout: at 10000 samples building them takes
+    milliseconds of host time, more than the kernel."""
+    use_for_max = tuple(bool(u) for u in use_for_max)
+    cohort, trims, scales = cohort_layout(cohort_ids, use_for_max, N)
+    sizes = [cohort.count(c) for c in range(len(trims))]
+    return _layout_tensors(cohort, trims, scales, use_for_max, device, dtype), sizes
 
 
 @functools.lru_cache(maxsize=16)
@@ -159,12 +178,13 @@ def _mask_tensor(mask, device: torch.device) -> torch.Tensor:
 
 
 def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_max, cutoff,
-                replaceable=None, want_distances=True):
+                replaceable=None, want_distances=True, plan=None):
+    """Launch ``cooks``; ``plan`` (an ``ops/stats.py`` ``TrimPlan``)
+    overrides ``_trim_plan``."""
     G, N = counts.shape
     dev = counts.device
-    use_for_max = tuple(bool(u) for u in use_for_max)
-    cohort, trims, scales = cohort_layout(cohort_ids, use_for_max, N)
-    perm, offsets, ntrim, scale, ufm = _layout_tensors(cohort, trims, scales, use_for_max, dev, counts.dtype)
+    cohort_ids = None if cohort_ids is None else tuple(cohort_ids)
+    (pos, offsets, ntrim, scale, ufm), sizes = _launch_layout(cohort_ids, tuple(use_for_max), N, dev, counts.dtype)
     nz = non_zero.to(torch.uint8).contiguous()
     cutoff = torch.as_tensor(cutoff, dtype=counts.dtype, device=dev).reshape(1)
     ops = [t.contiguous() for t in (counts, size_factors, mu, H)]
@@ -173,12 +193,15 @@ def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_ma
     disp_c = torch.empty(G, dtype=counts.dtype, device=dev)
     repl = packed = replaced = refit = None
     if replaceable is not None:
-        repl = _mask_tensor(tuple(bool(r) for r in replaceable), dev)
+        repl = _mask_tensor(tuple(replaceable), dev)
         packed = torch.empty((G, -(-N // 32)), dtype=torch.int32, device=dev)
         replaced = torch.empty(G, dtype=torch.uint8, device=dev)
         refit = torch.empty(G, dtype=torch.uint8, device=dev)
-    kernels.check_cuda_operands("cooks", *ops, cutoff, scale, cooks, disp_c, perm, offsets, ntrim, ufm, nz, repl,
-                                packed, replaced, refit)
+    if plan is None:
+        plan = _trim_plan(counts.element_size(), sizes, G, True, kernels.sm_count(dev))
+    plan_args, ws = _trim_plan_args(plan, sum(sizes), counts.dtype, dev)
+    kernels.check_cuda_operands("cooks", *ops, cutoff, scale, cooks, disp_c, pos, offsets, ntrim, ufm, nz, repl,
+                                packed, replaced, refit, ws)
     counts, size_factors, mu, H = ops
     kernels.launch(
         "cooks",
@@ -186,9 +209,10 @@ def _cooks_cuda(counts, size_factors, mu, H, non_zero, P, cohort_ids, use_for_ma
             int(counts.dtype == torch.float64), G, N, P,
             counts.data_ptr(), size_factors.data_ptr(), mu.data_ptr(), H.data_ptr(),
             nz.data_ptr(), ufm.data_ptr(), cutoff.data_ptr(),
-            len(trims), perm.data_ptr(), offsets.data_ptr(), ntrim.data_ptr(), scale.data_ptr(),
+            len(sizes), pos.data_ptr(), offsets.data_ptr(), ntrim.data_ptr(), scale.data_ptr(),
             kernels.ptr(repl), kernels.ptr(cooks), outlier.data_ptr(), disp_c.data_ptr(),
-            kernels.ptr(packed), kernels.ptr(replaced), kernels.ptr(refit),
+            kernels.ptr(packed), kernels.ptr(replaced), kernels.ptr(refit), *plan_args, max(sizes), sum(sizes),
+            kernels.ptr(ws),
         ],
         dev,
     )

@@ -8,13 +8,14 @@ sample's size factor and truncated to an integer; genes left all zero are
 reported, not refitted.
 
 Kernel (``csrc/impute.cu``): one warp per tile row unpacks the row's exceed
-words (bit k of word w: sample 32 w + k), takes the trimmed mean by the key
-bisection it shares with the Cook's kernel (``csrc/common.cuh``) and writes
-the imputed row and the all-zero flag. It reads the tile and writes the
+words (bit k of word w: sample 32 w + k), takes the trimmed mean by the
+radix select it shares with the Cook's kernel (``csrc/trimmed.cuh``), over
+the row's keys staged once in its own output row, and writes the imputed
+row and the all-zero flag. It reads the tile and writes the
 imputed tile, 2 x K x N values, its bytes bound on the H100. The plain
 version (CPU tensors only) is the JAX package's expressions with the
 sort-slice trimmed mean; the two keep the same multiset and sum it in
-another order.
+float64 in another order.
 """
 
 from __future__ import annotations

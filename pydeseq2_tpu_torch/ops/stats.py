@@ -11,14 +11,16 @@ and :func:`trimmed_cell_variance` on CUDA tensors launch ``trimmed_var``,
 which replaces ``trimmed_mean_select`` (pydeseq2_tpu/ops/select.py:166)
 inside ``pydeseq2_tpu/ops/stats.py:28,88,108`` as the class API calls them
 (the robust MoM dispersions of Cook's distances; the mean trend's trimmed
-mean over a column of ~G dispersions). One warp per row, or one block of
-256 for rows of 4096 or more, bisects the keys to the two boundary order
-statistics, sums the interior and counts the boundary copies exactly; the
-variances do both passes and the max over cohorts in the same launch. It is
-bound by its operations: 32 or 64 passes over a row that stays in cache.
-The kept sum is taken in float64 and rounded once, in the plain versions
-too, so in float32 kernel and plain version agree to the bit but for
-rounding ties of that sum.
+mean over a column of ~G dispersions). The launch plan (:func:`_trim_plan`,
+shared with the ``cooks`` kernel) gives a warp or a block to each row: the
+group stages each cohort's values once as monotone keys, in shared memory
+or in a global workspace, and finds the two boundary order statistics by
+counting ranks (short cohorts) or by an 8-bit radix select (long ones: 4
+passes in float32, 8 in float64), then sums the kept values; the variances
+form their squared errors from the staged keys and take the max over
+cohorts in the same launch. The kept sum is taken in float64 and rounded
+once, in the plain versions too, so in float32 kernel and plain version
+agree to the bit but for rounding ties of that sum.
 
 Kernel (``csrc/bh.cu``): replaces the shared-order path of
 ``bh_adjust_masked`` (pydeseq2_tpu/ops/stats.py:145) as ``device_padj``
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import itertools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -60,9 +63,6 @@ from pydeseq2_tpu_torch.ops.select import masked_median_select, order_stats_sele
 _NORM_PPF_075 = 0.6744897501960817
 
 
-# Rows at least this long take one block per row in the trimmed_var kernel
-# (a column of dispersions over the genes); shorter ones one warp.
-_BLOCK_ROW = 4096
 # JAX's trimmed_mean switches from the sort path to the select path here
 # (pydeseq2_tpu/ops/stats.py:46).
 _SELECT_MIN_N = 1024
@@ -96,28 +96,110 @@ def _trimmed_mean_plain(x: torch.Tensor, trim: float, axis: int) -> torch.Tensor
     return torch.where(lo == hi, lo, _kept_sum_mean(total, n - 2 * k, x.dtype))
 
 
-def _trimmed_rows_cuda(rows: torch.Tensor, ks, scales=None, cohorts=None) -> torch.Tensor:
+class TrimPlan(NamedTuple):
+    """How the ``trimmed_var`` and ``cooks`` kernels reduce their rows
+    (``csrc/trimmed.cuh``): one warp a row, 8 rows a 256-thread block, or
+    with ``block`` one block of ``threads`` a row; a cohort of at most
+    ``rank_max`` members takes the rank count, a longer one the radix
+    select; the staged values in shared memory (``shared``), or in a global
+    workspace of ``blocks`` slices, the grid then ``blocks`` blocks looping
+    over the rows (``blocks`` 0 where shared)."""
+
+    block: bool
+    threads: int
+    rank_max: int
+    shared: bool
+    blocks: int
+
+
+_TRIM_WARPS = 8  # rows of a warp-mode block
+_TRIM_RED_BYTES = 32 * (8 + 4)  # a block's reduction slots: a double and an int a warp, 32 warps
+_TRIM_HIST_BYTES = 2 * 256 * 4  # the radix select's two 256-bin histograms
+# The longest cohort the rank count takes, by itemsize: it costs n compares
+# a key, the radix select 4 (float32) or 8 (float64) histogram passes. On
+# the H100 the two tie near 96 members in both types (kernel_bench --detail
+# --only cooks, PERF.md section 6).
+_TRIM_RANK_MAX = {4: 96, 8: 96}
+_TRIM_RANK_CAP = 128  # the kernels' limit of rank_max
+# A warp-mode block's shared memory at most (3 blocks, 24 warps, an SM);
+# rows whose slices need more take a block each.
+_TRIM_WARP_SMEM = 64 * 1024
+
+
+def _trim_group_bytes(buf_len: int, itemsize: int, radix: bool, shared: bool, block: bool) -> int:
+    """Dynamic shared memory of one group (the kernels' ``trim_group_bytes``):
+    a block's reduction slots, the ``buf_len`` staged keys where ``shared``,
+    the radix histograms where ``radix``, two boundary keys."""
+    staged = kernels.align16(buf_len * itemsize) if shared else 0
+    return (_TRIM_RED_BYTES if block else 0) + staged + (_TRIM_HIST_BYTES if radix else 0) + 16
+
+
+def _trim_plan(itemsize: int, sizes, rows: int, all_cohorts: bool, sms: int = 132) -> TrimPlan:
+    """The plan for ``rows`` rows of ``itemsize``-byte values whose cohorts
+    have ``sizes`` members; ``all_cohorts``: every cohort's keys are staged
+    at once (``cooks``), else one cohort's at a time (``trimmed_var``).
+
+    A warp a row where eight warps' slices fit ``_TRIM_WARP_SMEM``: short
+    rows, many of them (100 samples, 60000 genes). Else a block a row, of
+    1024 threads where the rows are fewer than the SMs (one column of
+    dispersions), of 256 otherwise, with the staged keys in shared memory
+    where they fit one block's 227 KB, else in a global workspace of one
+    slice per block for at most two blocks an SM. Cohorts of at most
+    ``_TRIM_RANK_MAX`` members take the rank count."""
+    n_max = max(sizes)
+    buf_len = sum(sizes) if all_cohorts else n_max
+    rank_max = _TRIM_RANK_MAX[itemsize]
+    radix = n_max > rank_max
+    if _TRIM_WARPS * _trim_group_bytes(buf_len, itemsize, radix, True, False) <= _TRIM_WARP_SMEM:
+        return TrimPlan(False, 32 * _TRIM_WARPS, rank_max, True, 0)
+    threads = 1024 if rows < sms else 256
+    if _trim_group_bytes(buf_len, itemsize, radix, True, True) <= kernels.SMEM_BLOCK_MAX:
+        return TrimPlan(True, threads, rank_max, True, 0)
+    return TrimPlan(True, threads, rank_max, False, min(rows, 2 * sms))
+
+
+def _trim_ws_len(buf_len: int, itemsize: int) -> int:
+    """Values in one block's slice of the streamed workspace (the kernels'
+    ``trim_ws_len``): the keys, 16-byte aligned."""
+    return kernels.align16(buf_len * itemsize) // itemsize
+
+
+def _trim_plan_args(plan: TrimPlan, buf_len: int, dtype, device):
+    """The kernels' plan arguments, and the workspace (``blocks`` slices of
+    :func:`_trim_ws_len` values) where the plan streams, else None."""
+    itemsize = torch.finfo(dtype).bits // 8
+    ws = None if plan.shared else torch.empty(plan.blocks * _trim_ws_len(buf_len, itemsize), dtype=dtype,
+                                              device=device)
+    return [int(plan.block), plan.threads, plan.rank_max, int(plan.shared), plan.blocks], ws
+
+
+def _trimmed_rows_cuda(rows: torch.Tensor, ks, scales=None, cohorts=None, plan=None) -> torch.Tensor:
     """Launch ``trimmed_var`` over the rows of ``rows`` (R, N): the trimmed
     mean dropping ``ks[0]`` at each end (``scales`` None), or the max over
     ``cohorts`` (lists of sample indices) of ``scales[c]`` times the
-    cohort's trimmed variance dropping ``ks[c]``."""
+    cohort's trimmed variance dropping ``ks[c]``. ``plan`` (a
+    :class:`TrimPlan`) overrides :func:`_trim_plan`."""
     R, N = rows.shape
     dev = rows.device
     rows = rows.contiguous()
     out = torch.empty(R, dtype=rows.dtype, device=dev)
     ks_t = torch.tensor(ks, dtype=torch.int32, device=dev)
     members = offsets = scales_t = None
+    sizes = [N]
     if scales is not None:
+        sizes = [len(c) for c in cohorts]
         members = torch.tensor([i for c in cohorts for i in c], dtype=torch.int32, device=dev)
-        offsets = torch.tensor([0] + list(itertools.accumulate(len(c) for c in cohorts)), dtype=torch.int32,
-                               device=dev)
+        offsets = torch.tensor([0] + list(itertools.accumulate(sizes)), dtype=torch.int32, device=dev)
         scales_t = torch.tensor(scales, dtype=rows.dtype, device=dev)
-    kernels.check_cuda_operands("trimmed_var", rows, scales_t, out, ks_t, members, offsets)
+    if plan is None:
+        plan = _trim_plan(rows.element_size(), sizes, R, False, kernels.sm_count(dev))
+    plan_args, ws = _trim_plan_args(plan, max(sizes), rows.dtype, dev)
+    kernels.check_cuda_operands("trimmed_var", rows, scales_t, out, ks_t, members, offsets, ws)
     kernels.launch(
         "trimmed_var",
-        [int(rows.dtype == torch.float64), R, N, int(scales is not None), int(N >= _BLOCK_ROW), rows.data_ptr(),
+        [int(rows.dtype == torch.float64), R, N, int(scales is not None), rows.data_ptr(),
          kernels.ptr(members), kernels.ptr(offsets), 1 if cohorts is None else len(cohorts), ks_t.data_ptr(),
-         kernels.ptr(scales_t), out.data_ptr()],
+         kernels.ptr(scales_t), out.data_ptr(), *plan_args, max(sizes), kernels.ptr(ws)],
         dev,
     )
     return out
@@ -134,8 +216,8 @@ def trimmed_mean(x: torch.Tensor, trim: float = 0.1, axis: int = 0) -> torch.Ten
     sorted axis (reference pydeseq2/utils.py:567-599).
 
     Port of ``pydeseq2_tpu/ops/stats.py:28``. CUDA tensors launch the
-    ``trimmed_var`` kernel (the exact kept multiset by key bisection, any
-    n); CPU tensors take JAX's sort path below n = 1024 and its select
+    ``trimmed_var`` kernel (the exact kept multiset by rank count or radix
+    select, any n); CPU tensors take JAX's sort path below n = 1024 and its select
     semantics at or above it. Both sum the kept values in float64 and round
     once. Inputs must be finite: the select semantics drop a NaN where a
     sort would propagate it.
@@ -199,10 +281,10 @@ def _trimmed_cell_variance_plain(counts: torch.Tensor, cells) -> torch.Tensor:
     return torch.stack(var_ests, dim=0).amax(dim=0)
 
 
-def _trimmed_cell_variance_cuda(counts: torch.Tensor, cells) -> torch.Tensor:
+def _trimmed_cell_variance_cuda(counts: torch.Tensor, cells, plan=None) -> torch.Tensor:
     cohorts, bins = _cohorts(cells)
     ks = [math.floor(len(idx) * _COHORT_TRIM_RATIOS[b]) for idx, b in zip(cohorts, bins)]
-    return _trimmed_rows_cuda(counts.T, ks, [_COHORT_SCALES[b] for b in bins], cohorts)
+    return _trimmed_rows_cuda(counts.T, ks, [_COHORT_SCALES[b] for b in bins], cohorts, plan)
 
 
 def trimmed_cell_variance(counts: torch.Tensor, cells) -> torch.Tensor:

@@ -24,7 +24,7 @@ up, then:
    call wrapped in a synchronise before and after, host clock), and what
    is left outside them, over one run of the real pipeline, and the peak
    device memory of that run (``torch.cuda.max_memory_allocated``);
-2. one run under ``torch.profiler``: device time per kernel name (top 15),
+2. one run under ``torch.profiler``: device time per kernel name (top 30),
    the summed device time, and the device's idle share of the wall.
 
 Prints the card (nvidia-smi name and power limit) first and, as the last
@@ -235,7 +235,7 @@ def main() -> int:
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx"))
     n_sync = sum(e.count for e in prof.key_averages()
                  if e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync"))
-    top = [{"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:15]]
+    top = [{"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3, "count": e.count} for e in events[:30]]
     print(f"  profiled wall {wall * 1e3:.3f} ms, device busy {device_us / 1e3:.3f} ms, "
           f"idle share {1 - device_us / 1e6 / wall:.4f}, kernel launches {n_launch}, "
           f"syncs/copies {n_sync}", flush=True)

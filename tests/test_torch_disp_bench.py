@@ -50,12 +50,13 @@ def test_ptxas_rows_per_instantiation(tmp_path, monkeypatch):
 
 def test_ptxas_rows_of_cluster_kernels(tmp_path, monkeypatch):
     """A cluster kernel's rows are keyed by kernel, type and mode; a kernel
-    templated on its type alone is left out."""
+    templated on its type alone by kernel and type."""
     monkeypatch.setattr(kernels, "_lib_path", lambda src: tmp_path / (src + ".so"))
     (tmp_path / "sizefactors.cu.ptxas.txt").write_text(PTXAS_CLUSTER)
     got = kernel_bench.ptxas(kernels, ("sizefactors.cu",))
     assert got == {"sizefactors.cu": {"sf_newton_kernel f32 shared": [64, 4, 4],
-                                      "trend_kernel f64 streamed": [64, 40, 116]}}
+                                      "trend_kernel f64 streamed": [64, 40, 116],
+                                      "sf_nll_kernel f32": [35, 0, 0]}}
 
 
 def _on_cpu(monkeypatch):
@@ -134,3 +135,51 @@ def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
     if detail:
         assert any(p is not None and not p.shared for p in plans["sf"])
         assert {p.K for p in plans["fit"] if p is not None} == {1, 2, 4, 8, 16}
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_cooks_child_on_cpu(monkeypatch, detail):
+    """The ``cooks`` suite of one tree's run at small shapes: times beside
+    the sort yardstick, no difference from the plain versions, the plans
+    picked; ``--detail`` the other plans and the rank-count sweep."""
+    from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    _on_cpu(monkeypatch)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    plans = []
+
+    def plain_cooks(*a, plan=None):
+        plans.append(plan)
+        return ck._cooks_plain(*a)
+
+    def plain_rows(rows, ks, scales=None, cohorts=None, plan=None):
+        plans.append(plan)
+        return torch.stack([st._trimmed_mean_plain(r, (ks[0] + 0.5) / rows.shape[1], 0) for r in rows])
+
+    monkeypatch.setattr(ck, "_cooks_cuda", plain_cooks)
+    monkeypatch.setattr(st, "_trimmed_rows_cuda", plain_rows)
+    monkeypatch.setattr(st, "_trimmed_cell_variance_cuda",
+                        lambda x, cells, plan=None: plans.append(plan) or st._trimmed_cell_variance_plain(x, cells))
+    monkeypatch.setattr(kernel_bench, "COOKS_SHAPES", (("f32 100x300", 300, 100, torch.float32, False, 1),
+                                                       ("f32 400x50 refit", 50, 400, torch.float32, True, 1)))
+    monkeypatch.setattr(kernel_bench, "TRIM_SHAPES", (("f64 cohorts 300x100", 300, 100, torch.float64, 1),
+                                                      ("f32 column 3000", 3_000, 0, torch.float32, 1)))
+    monkeypatch.setattr(kernel_bench, "RANK_SWEEP", (8,))
+    monkeypatch.setattr(kernel_bench, "RANK_SWEEP_GENES", 20)
+    res = kernel_bench.child(detail, ("cooks",))
+    assert set(res) == {"ptxas", "cooks", "trimmed_var"}
+    shapes = {"f32 100x300", "f32 400x50 refit"}
+    assert set(res["cooks"]) == shapes | ({"rank sweep f32 cohorts of 8", "rank sweep f64 cohorts of 8"} if detail
+                                          else set())
+    for label in shapes:
+        row = res["cooks"][label]
+        assert row["cooks_ms"] > 0 and row["sort_ms"] > 0 and row["disp_rel_err"] == 0.0
+        assert row.get("bits_equal", True) and row.get("cooks_rel_err", 0.0) == 0.0
+        assert any(k.startswith("kernel_ms") for k in row) == detail
+    assert res["cooks"]["f32 100x300"]["plan"] == st._trim_plan(4, [50, 50], 300, True)._asdict()
+    for label, row in res["trimmed_var"].items():
+        assert row["trimmed_var_ms"] > 0 and row["sort_ms"] > 0 and row["rel_err"] == 0.0, label
+    assert res["trimmed_var"]["f32 column 3000"]["plan"] == {"block": True, "threads": 1024, "rank_max": 96,
+                                                              "shared": True, "blocks": 0}
+    assert any(p is not None for p in plans) == detail

@@ -207,6 +207,27 @@ def test_trimmed_statistics_match_jax(n):
            j_stats.trimmed_cell_variance(jnp.asarray(x), cells), 1e-12)
 
 
+def _low_counts(n, g, seed):
+    """(n, g) Poisson counts at means 0.2-3 and unit size factors: zeros and
+    equal values fill both trimmed boundaries."""
+    rng = np.random.default_rng(seed)
+    return rng.poisson(rng.uniform(0.2, 3.0, g)[None, :], size=(n, g)).astype(np.float64)
+
+
+@pytest.mark.parametrize("n,data", [(50, "tie-heavy"), (1500, "tie-heavy"), (7, "k=0"), (2, "k=0")])
+def test_trimmed_statistics_ties_and_k0_match_jax(n, data):
+    """Both boundaries inside runs of tied counts (n = 50 on JAX's sort path,
+    1500 on its select path), and rows where nothing is trimmed (k = 0: the
+    trims 0.1 and 0.125 of 7 values, cohorts of 1 and 2 members)."""
+    x = _low_counts(n, 9, n) if data == "tie-heavy" else _tied(n, 9, n)
+    for trim in (0.1, 0.125, 0.2):
+        _close(t_stats.trimmed_mean(torch.as_tensor(x), trim), j_stats.trimmed_mean(jnp.asarray(x), trim), 1e-12)
+    _close(t_stats.trimmed_variance(torch.as_tensor(x)), j_stats.trimmed_variance(jnp.asarray(x)), 1e-12)
+    cells = np.random.default_rng(n).integers(0, 3, n) if data == "tie-heavy" else np.arange(n) % 3
+    _close(t_stats.trimmed_cell_variance(torch.as_tensor(x), cells),
+           j_stats.trimmed_cell_variance(jnp.asarray(x), cells), 1e-12)
+
+
 @pytest.mark.parametrize("g", [500, 3000])
 def test_trim_mean_and_mad_of_a_column(g):
     """The mean trend's 0.001-trimmed mean over one column of dispersions

@@ -1,17 +1,28 @@
 """The launch plans of the cluster kernels ``sf_newton``
 (``ops/sizefactors.py:_sf_plan``) and ``trend`` / ``trend_fit``
-(``ops/trend.py:_trend_plan``), on the CPU: pure Python, no kernel runs.
+(``ops/trend.py:_trend_plan``), and of the trimmed moments of ``cooks`` and
+``trimmed_var`` (``ops/stats.py:_trim_plan``), on the CPU: pure Python, no
+kernel runs.
 
-Each plan splits the samples into chunks that cover every sample once, uses
-at most 16 blocks a cluster, keeps what a block holds in shared memory
-within one block's budget, and streams exactly where that would not fit.
+Each cluster plan splits the samples into chunks that cover every sample
+once, uses at most 16 blocks a cluster, keeps what a block holds in shared
+memory within one block's budget, and streams exactly where that would not
+fit. Each trimmed-moment plan takes every cohort size from 1 to the row's
+length, by rank count up to its rank_max and by radix select above, holds
+its staged keys in one block's shared memory or streams them exactly where
+they would not fit, and the wrappers hand the C launchers one value of the
+right kind per argument.
 """
+
+import ctypes
 
 import pytest
 import torch
 
 from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch.ops import cooks as ck
 from pydeseq2_tpu_torch.ops import sizefactors as sz
+from pydeseq2_tpu_torch.ops import stats as st
 from pydeseq2_tpu_torch.ops import trend as tr
 
 torch.set_num_threads(1)  # xdist runs several workers on a few cores
@@ -112,3 +123,137 @@ def test_trend_plan_picks():
     assert tr._trend_plan(200_000, 8) == tr.TrendPlan(16, True)
     assert tr._trend_plan(300_000, 8) == tr.TrendPlan(16, False)
     assert tr._trend_smem_bytes(10, 8, True) == 8 * (2 * 5 * 32 + 2 * 5 + 16 * 5) + 10 * 17
+
+
+def _trim_bytes(plan: st.TrimPlan, buf_len: int, n_max: int, itemsize: int) -> int:
+    """Dynamic shared memory of one launch block under ``plan``."""
+    group = st._trim_group_bytes(buf_len, itemsize, n_max > plan.rank_max, plan.shared, plan.block)
+    return group if plan.block else st._TRIM_WARPS * group
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("all_cohorts", [True, False])
+@pytest.mark.parametrize("N", [1, 2, 3, 7, 50, 96, 97, 100, 400, 767, 1_000, 1_533, 3_000])
+def test_trim_plan_covers_every_cohort_size(N, all_cohorts, itemsize):
+    """One cohort of n and two of n and N - n, for every n from 1 to N: the
+    staged keys fit one block's shared memory (a warp-mode block's
+    _TRIM_WARP_SMEM), the rank count takes exactly the cohorts of at most
+    rank_max <= 256 members, and a block has 256 or 1024 threads."""
+    for n in range(1, N + 1):
+        for sizes in ([n], [n, N - n] if n < N else [n]):
+            plan = st._trim_plan(itemsize, sizes, 60_000, all_cohorts)
+            buf_len = sum(sizes) if all_cohorts else max(sizes)
+            assert buf_len >= n and 1 <= plan.rank_max <= st._TRIM_RANK_CAP
+            assert plan.rank_max == st._TRIM_RANK_MAX[itemsize]
+            limit = kernels.SMEM_BLOCK_MAX if plan.block else st._TRIM_WARP_SMEM
+            assert _trim_bytes(plan, buf_len, max(sizes), itemsize) <= limit
+            assert plan.shared and plan.blocks == 0 and plan.threads == 256
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("rows", [1, 64, 131, 132, 5_000, 60_000])
+@pytest.mark.parametrize("n", [50, 1_532, 1_533, 28_750, 28_751, 57_500, 57_501, 59_038, 200_000, 1_000_000])
+def test_trim_plan_streams_exactly_where_shared_memory_is_short(n, rows, itemsize):
+    """A warp a row while eight slices fit _TRIM_WARP_SMEM, else a block a
+    row (1024 threads where the rows are fewer than the SMs), its keys in
+    shared memory exactly where they fit 227 KB, else in a workspace of at
+    most two slices an SM whose slice holds every key, 16-byte aligned."""
+    plan = st._trim_plan(itemsize, [n], rows, False, 132)
+    radix = n > plan.rank_max
+    warp_fits = st._TRIM_WARPS * st._trim_group_bytes(n, itemsize, radix, True, False) <= st._TRIM_WARP_SMEM
+    assert plan.block == (not warp_fits)
+    if not plan.block:
+        return
+    assert plan.threads == (1024 if rows < 132 else 256)
+    fits = st._trim_group_bytes(n, itemsize, radix, True, True) <= kernels.SMEM_BLOCK_MAX
+    assert plan.shared == fits
+    assert st._trim_group_bytes(n, itemsize, radix, plan.shared, True) <= kernels.SMEM_BLOCK_MAX
+    if not plan.shared:
+        assert 1 <= plan.blocks <= min(rows, 2 * 132)
+        ws = st._trim_ws_len(n, itemsize)
+        assert ws >= n and (ws * itemsize) % 16 == 0
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_trim_plan_picks(itemsize):
+    """The shapes PERF.md reports: Cook's cohorts of 50 (100 samples, 60000
+    genes) by rank count, a warp a gene; the atlas block's cohorts of 5000
+    (10000 samples) by radix select, a block of 256 a gene, in shared memory
+    in float64 too; the class API's cohorts of 50; the mean trend's column
+    of 59038 dispersions, one block of 1024, streamed."""
+    cohorts50 = st._trim_plan(itemsize, [50, 50], 60_000, True)
+    assert not cohorts50.block and cohorts50.shared and 50 <= cohorts50.rank_max
+    atlas = st._trim_plan(itemsize, [5_000, 5_000], 5_000, True)
+    assert atlas.block and atlas.threads == 256 and atlas.shared and 5_000 > atlas.rank_max
+    assert st._trim_group_bytes(10_000, itemsize, True, True, True) <= kernels.SMEM_BLOCK_MAX
+    assert st._trim_plan(itemsize, [10_000], 5_000, True).shared  # one cohort of all 10000 samples fits too
+    assert st._trim_plan(itemsize, [50, 50], 60_000, False) == cohorts50
+    column = st._trim_plan(itemsize, [59_038], 1, False)
+    assert column == st.TrimPlan(True, 1024, st._TRIM_RANK_MAX[itemsize], False, 1)
+
+
+def test_trim_group_bytes_layout():
+    """The kernels' layout: a block's 32 double and 32 int reduction slots,
+    the staged keys padded to 16 bytes, two 256-bin histograms, two
+    boundary keys."""
+    assert st._trim_group_bytes(100, 4, False, True, False) == 400 + 16
+    assert st._trim_group_bytes(101, 4, True, True, False) == 416 + 2048 + 16
+    assert st._trim_group_bytes(10_000, 8, True, True, True) == 384 + 80_000 + 2048 + 16
+    assert st._trim_group_bytes(10_000, 8, True, False, True) == 384 + 2048 + 16
+    assert st._trim_ws_len(101, 4) == 104 and st._trim_ws_len(3, 8) == 4
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Launches recorded instead of made, on CPU tensors."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda name, args, device: calls.append((name, args)))
+    monkeypatch.setattr(kernels, "check_cuda_operands", lambda *a: None)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    return calls
+
+
+def _assert_marshalled(name, args):
+    kinds = {ctypes.c_int: int, ctypes.c_double: float}
+    want = kernels._ARGTYPES[kernels.KERNELS[name][1]]
+    assert len(args) == len(want), name
+    for a, w in zip(args, want):
+        if w is ctypes.c_void_p:
+            assert a is None or (isinstance(a, int) and not isinstance(a, bool)), (name, a)
+        else:
+            assert isinstance(a, kinds[w]) and not isinstance(a, bool), (name, a, w)
+
+
+@pytest.mark.parametrize("N,cohort_ids", [(100, (0,) * 50 + (1,) * 50), (7, None), (30_000, (0,) * 30_000)])
+def test_cooks_wrapper_marshals_its_plan(recorded, N, cohort_ids):
+    """``_cooks_cuda`` hands the launcher its plan (warp or block, rank_max,
+    shared or streamed with a workspace of ``blocks`` slices), the longest
+    cohort and the members, in summary and refit mode."""
+    G = 3
+    x = torch.ones(G, N, dtype=torch.float64)
+    args = (x, torch.ones(N, dtype=torch.float64), x, x * 0.1, torch.ones(G, dtype=torch.bool), 2, cohort_ids,
+            (True,) * N, torch.tensor(4.8, dtype=torch.float64))
+    ck._cooks_cuda(*args)
+    ck._cooks_cuda(*args, (True,) * N, False)
+    sizes = [N] if cohort_ids is None else [cohort_ids.count(c) for c in dict.fromkeys(cohort_ids)]
+    plan = st._trim_plan(8, sizes, G, True)
+    for name, a in recorded:
+        _assert_marshalled(name, a)
+        block, threads, rank_max, shared, blocks, n_max, n_members, ws = a[-8:]
+        assert (bool(block), threads, rank_max, bool(shared), blocks) == tuple(plan)
+        assert n_max == max(sizes) and n_members == N and (ws is None) == plan.shared
+    assert recorded[1][1][21] is not None and recorded[0][1][21] is None  # refit outputs only in refit mode
+
+
+def test_trimmed_rows_wrapper_marshals_its_plan(recorded):
+    """``_trimmed_rows_cuda`` in mode 0 (a column) and mode 1 (cohorts): the
+    plan, the longest cohort and the workspace where the plan streams."""
+    column = torch.ones(1, 59_038, dtype=torch.float32)
+    st._trimmed_rows_cuda(column, [59])
+    x = torch.ones(40, 100, dtype=torch.float64)
+    st._trimmed_rows_cuda(x, [6, 6], [1.51, 1.51], [list(range(50)), list(range(50, 100))])
+    (_, a0), (_, a1) = recorded
+    for a in (a0, a1):
+        _assert_marshalled("trimmed_var", a)
+    assert a0[3] == 0 and a0[-7:-1] == [1, 1024, 96, 0, 1, 59_038] and a0[-1] is not None
+    assert a1[3] == 1 and a1[-7:-1] == [0, 256, 96, 1, 0, 50] and a1[-1] is None

@@ -477,6 +477,33 @@ def test_trimmed_variance(n):
     _close(t_stats.trimmed_variance(torch.as_tensor(x)), j_stats.trimmed_variance(jnp.asarray(x)), 1e-12)
 
 
+def _low_count_data(n, seed):
+    """(n, 40) Poisson counts at means 0.2-3, unit size factors: zeros and
+    equal values fill both trimmed boundaries."""
+    rng = np.random.default_rng(seed)
+    return rng.poisson(rng.uniform(0.2, 3.0, 40)[None, :], size=(n, 40)).astype(np.float64)
+
+
+@pytest.mark.parametrize("n", [2, 7, 50, 1100])
+def test_trimmed_variance_tie_heavy(n):
+    """Tie-heavy counts: k = 0 at 2 and 7 values (trim 0.125), both
+    boundaries inside runs of ties at 50, JAX's select path at 1100."""
+    x = _low_count_data(n, n)
+    _close(t_stats.trimmed_mean(torch.as_tensor(x), 0.125), j_stats.trimmed_mean(jnp.asarray(x), 0.125), 1e-12)
+    _close(t_stats.trimmed_variance(torch.as_tensor(x)), j_stats.trimmed_variance(jnp.asarray(x)), 1e-12)
+
+
+@pytest.mark.parametrize("data", ["tie-heavy", "k=0"])
+def test_trimmed_cell_variance_ties_and_small_cohorts(data):
+    """Cohorts of 1, 2 and 3 members (k = 0, 0, 1) beside one of 30, on
+    tie-heavy counts and on the rounded lognormal draw."""
+    x = _low_count_data(36, 14) if data == "tie-heavy" else _tied_cohort_data(36, 15)
+    cells = np.array([0] + [1] * 2 + [2] * 3 + [3] * 30)
+    np.random.default_rng(16).shuffle(cells)
+    _close(t_stats.trimmed_cell_variance(torch.as_tensor(x), cells),
+           j_stats.trimmed_cell_variance(jnp.asarray(x), cells), 1e-12)
+
+
 def test_trimmed_cell_variance_bins():
     """Cohorts of 3, 10 and 30 samples take the three (trim, scale) bins."""
     x = _tied_cohort_data(43, 11)
@@ -505,19 +532,22 @@ def _jax_cooks_block(counts, sf, mu, H, non_zero, P, cohort_ids, use_for_max, cu
     return jnp.where(non_zero[:, None], cooks, jnp.nan), flagged & non_zero, disp_c
 
 
-@pytest.mark.parametrize("layout", ["cohorts", "global", "global_1100"])
+@pytest.mark.parametrize("layout", ["cohorts", "global", "global_1100", "cohorts_tie_heavy", "cohorts_k0"])
 @pytest.mark.parametrize("name", ["f64", "f32"])
 def test_cooks_outliers(name, layout):
     """Cook's distances, robust dispersion and outlier flags against the JAX
     block, with injected outliers, an all-zero gene and samples outside
     use_for_max. Cohorts of 3, 10 and 30 (the three bins) or one global
-    cohort; 1100 samples take the JAX select path. f64: 1e-10 and equal
+    cohort; 1100 samples take the JAX select path; low counts at unit size
+    factors (both trimmed boundaries inside runs of ties); cohorts of 1, 2
+    and 3 members (k = 0, 0, 1) beside one of 37. f64: 1e-10 and equal
     flags; f32: 1e-4 (trimmed sums in another order feed (v - m) / m^2)."""
     rng = np.random.default_rng(13)
     N = 1100 if layout == "global_1100" else 48
     G = 60
-    sf = np.exp(rng.normal(0, 0.2, N))
-    mu = rng.lognormal(3.0, 1.0, size=(G, 1)) * sf[None, :]
+    ties = layout == "cohorts_tie_heavy"
+    sf = np.ones(N) if ties else np.exp(rng.normal(0, 0.2, N))
+    mu = (rng.uniform(0.5, 3.0, size=(G, 1)) if ties else rng.lognormal(3.0, 1.0, size=(G, 1))) * sf[None, :]
     counts = rng.negative_binomial(5, 5 / (5 + mu)).astype(float)
     counts[:8, 0] = mu[:8, 0] * 40 + 100  # outliers
     counts[9] = 0.0
@@ -527,10 +557,14 @@ def test_cooks_outliers(name, layout):
     counts[8, :4] = mu[8, :4] * np.array([10, 40, 40, 40]) + 100
     H[8, :4] = [0.9, 0.001, 0.001, 0.001]
     non_zero = ~(counts == 0).all(axis=1)
-    if layout == "cohorts":
+    if layout in ("cohorts", "cohorts_tie_heavy"):
         use_for_max = np.ones(N, bool)
         use_for_max[[1, 7, 20, 33, 40]] = False
         cohort_ids = tuple(int(c) for c in rng.permutation([5] * 3 + [2] * 10 + [9] * 30))
+    elif layout == "cohorts_k0":
+        use_for_max = np.ones(N, bool)
+        use_for_max[[4, 9, 20, 33, 40]] = False
+        cohort_ids = tuple(int(c) for c in rng.permutation([5] * 1 + [2] * 2 + [9] * 3 + [4] * 37))
     else:
         use_for_max, cohort_ids = np.ones(N, bool), None
     cutoff = 4.8
@@ -554,9 +588,10 @@ def test_cohort_layout():
     cohort, trims, scales = t_cooks.cohort_layout((7, 3, 7, 7, 3, 3, 3), use_for_max, 9)
     assert cohort == (0, -1, 1, 0, 0, 1, -1, 1, 1)
     assert trims == (1 / 3, 1 / 4) and scales == (2.04, 1.86)
-    perm, offsets, ntrim, scale, ufm = t_cooks._layout_tensors(
+    pos, offsets, ntrim, scale, ufm = t_cooks._layout_tensors(
         cohort, trims, scales, use_for_max, torch.device("cpu"), torch.float32)
-    assert perm.tolist() == [0, 3, 4, 2, 5, 7, 8] and offsets.tolist() == [0, 3, 7]
+    # members in cohort order [0, 3, 4 | 2, 5, 7, 8]: each sample's place there
+    assert pos.tolist() == [0, -1, 3, 1, 2, 4, -1, 5, 6] and offsets.tolist() == [0, 3, 7]
     assert ntrim.tolist() == [1, 1] and scale.dtype == torch.float32 and ufm.tolist() == [int(u) for u in use_for_max]
     assert t_cooks.cohort_layout(None, (False,) * 5, 5) == ((0,) * 5, (0.125,), (1.51,))
 
