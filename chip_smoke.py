@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-four hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-five hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -48,6 +48,15 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    at cohort and column sizes on each side of the plan's thresholds (rank
    count or radix select, a warp or a block a row, shared memory or the
    streamed workspace), each launched twice and equal to itself bit for bit;
+   ``grid_apeglm`` on three designs (intercept and indicator, intercept and
+   a continuous covariate, a zero in the first column) at 1, 16 and 937
+   lanes in both types, every other lane selected bit for bit as every lane
+   (``grid_design_checks``); ``sf_nll`` at every lane count on Poisson and
+   zero-heavy counts at 3, 100 and 10000 samples in both types, and
+   ``grid_apeglm`` at every cluster size, each launched twice and equal to
+   itself bit for bit (``nll_grid_plan_checks``); ``sf_nll`` also on a
+   zero-heavy copy of the trimmed solve's counts, and its lgamma table
+   (lgamma(1) = 0 on the card);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
    public entry point: warm wall time, genes/s, IRLS trip counts, rescue
    overflow, share of finite p-values, the share of ``_irls_with_rescue``
@@ -139,6 +148,15 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # code). sf_newton's phase-2 log line states the divisions' time at that rate.
 INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 DIV_INSTR = 16
+# SASS instructions of one apeGLM term in grid_apeglm (the shortest path
+# through a trip of its one-term float32 loops) and of one NLL cell in
+# sf_nll (the shortest and the longest path through its cell loop), read
+# by `kernel_bench --detail` (sass_loops) on this build. Their phase-2 log
+# lines state an instruction time from them: an estimate, not a bound (the
+# loops unrolled by 4 share part of a term's instructions), and not in the
+# kernels line.
+APEGLM_TERM_INSTR = 75
+SF_NLL_CELL_INSTR = (24, 538)
 
 DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
@@ -187,8 +205,20 @@ OUTLIER_EVERY = 100
 # 4 gives the share). The kernel table times grid_apeglm on the main draw's
 # failed-first tile with every lane selected.
 WEAK_LFC_SD = 0.1
-# Samples past one staged chunk of the grid kernels (csrc/grid.cu, 512).
+# Samples past one staged chunk of the grid kernels (csrc/grid.cu: grid_nb
+# 512, grid_apeglm up to 1024).
 N_GRID_WIDE = {torch.float32: 8_000, torch.float64: 4_000}
+# grid_apeglm's designs and lane counts (phase 2, grid_design_checks): the
+# intercept and condition of make_data, an intercept and a continuous
+# covariate (no sample skips a term), the two conditions' own indicators (a
+# zero in the first column); one lane, 16, and the weak-effect tile's 937.
+GRID_DESIGNS = ("indicator", "continuous", "zero-first")
+GRID_LANES = (1, 16, 937)
+# The plans' own shapes (phase 2, nll_grid_plan_checks): sf_nll at each lane
+# count on Poisson and zero-heavy draws at 100 samples, past the staged
+# chunk (10000 samples: 4096 a chunk in float32, 2048 in float64), and at
+# N = 3; grid_apeglm at each cluster size.
+NLL_PLAN_G = 4_000
 # Two coefficient sets tie when their float64 objectives differ by at most
 # TIE_UNITS rounding units of the lane, sqrt(N) eps x the summed size of
 # its terms (noise_unit); PERF.md section 6 gives the ties and the
@@ -1574,16 +1604,19 @@ def ape_objective64(counts, X, size, offset, pns, ps, cnst, shrink_index, beta):
     return f, (1.0 + terms.abs().sum(1)) / cn
 
 
-def grid_apeglm_check(what, grid, readings):
+def grid_apeglm_check(what, grid, readings, plan=None, gp=None):
     """``grid_apeglm`` against its plain version on ``grid`` (the bound
     arguments of ``grid_fit_shrink_beta_batch`` but ``sel``), every lane
-    selected: the same grid point, or objectives tied within TIE_UNITS
-    rounding units. Returns (kernel result, plain result, lanes tied)."""
+    selected, in ``plan`` (default: the wrapper's): the same grid point, or
+    objectives tied within TIE_UNITS rounding units. ``gp``: the plain
+    result where it is already known. Returns (kernel result, plain result,
+    lanes tied)."""
     from pydeseq2_tpu_torch.ops import shrink as sh
 
     ci, offset, X, si, pns, ps, cnst, shrink_index = grid[:8]
-    gk = sh._grid_shrink_cuda(*grid)
-    gp = sh._grid_shrink_plain(*grid)
+    gk = sh._grid_shrink_cuda(*grid, plan=plan)
+    if gp is None:
+        gp = sh._grid_shrink_plain(*grid)
     N = ci.shape[1]
 
     def objective(b):
@@ -1592,6 +1625,108 @@ def grid_apeglm_check(what, grid, readings):
     unit = noise_unit(N, ci.dtype) * ape_objective64(ci, X, si, offset, pns, ps, cnst, shrink_index, gp)[1]
     far, _ = tie_report(what, gk, gp, objective, unit, 1e-6 * 30.0, fine_step(*grid[-3:]), readings)
     return gk, gp, far
+
+
+def grid_terms(X: torch.Tensor, lanes: int, L: int = 60) -> int:
+    """The apeGLM terms ``grid_apeglm`` evaluates on ``lanes`` selected
+    lanes of design ``X`` (csrc/grid.cu): per pass, each sample whose
+    design row has no zero at every one of the L x L points, one with x1 =
+    0 once a row, one with x0 = 0 (and x1 != 0) once a column."""
+    a = int((X[:, 1] == 0).sum())
+    b = int(((X[:, 0] == 0) & (X[:, 1] != 0)).sum())
+    c = X.shape[0] - a - b
+    return lanes * 2 * (L * L * c + L * a + L * b)
+
+
+def grid_design_checks(readings) -> dict:
+    """Phase 2, ``grid_apeglm`` on each of GRID_DESIGNS at each of
+    GRID_LANES lanes (``kernel_bench.grid_operands``; 1 and 16 lanes at
+    N_GRID_WIDE samples, past one staged chunk, 937 at the main width) in
+    float32 and float64: against its plain version by
+    :func:`grid_apeglm_check` (the same point or tied within TIE_UNITS),
+    then on every other lane (the first always), bit for bit the all-lane
+    launch's there and NaN elsewhere. Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        for design in GRID_DESIGNS:
+            for lanes in GRID_LANES:
+                N = N_MAIN if lanes > 16 else N_GRID_WIDE[dtype]
+                grid = kernel_bench.grid_operands(lanes, N, dtype, design)
+                what = f"grid_apeglm {name} {design} {lanes} x {N}"
+                plans[what] = sh._grid_device_plan(lanes, N, 60, dtype, DEVICE)._asdict()
+                gk, _, far = grid_apeglm_check(what, grid, readings)
+                sel = torch.arange(lanes, device=gk.device) % 2 == 0
+                gs = sh._grid_shrink_cuda(*grid, sel)
+                check(bits_equal(gs[sel], gk[sel]) and bool(torch.isnan(gs[~sel]).all()),
+                      f"{what}: the launch on every other lane differs from the all-lane one")
+                log(f"  {what}: plan {plans[what]}, {far} lanes at another grid point with tied objectives "
+                    f"({readings[what]}); every other lane bit-identical")
+    return plans
+
+
+def nll_grid_plan_checks(readings) -> dict:
+    """Phase 2, the plans of ``sf_nll`` (``_nll_plan``) and ``grid_apeglm``
+    (``_grid_plan``), each launched twice (the second launch equal to the
+    first bit for bit) and held to its plain version: ``sf_nll`` at every
+    lane count 4-32, on NLL_PLAN_G genes of
+    ``kernel_bench.sf_operands`` and of its zero-heavy copy, at 100 and
+    10000 samples (past the staged chunk) and at N = 3 in both types, within
+    8 eps (float32) or 8 sqrt(N) eps (float64) of the plain NLL, relative,
+    +inf off the mask; ``grid_apeglm`` at every cluster size 1-16 on 16
+    lanes at N_GRID_WIDE samples and on 937 lanes at the main width, the
+    continuous design, in float32, the same point or tied within TIE_UNITS.
+    Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import shrink as sh
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        for N in (N_MAIN, N_ATLAS, 3):
+            # float32 cells summed in float64 round to the same total in any
+            # order but at rounding ties: 8 eps. float64 cells summed in
+            # another order: the noise of N float64 additions, 8 sqrt(N) eps
+            # of the total (a sum of -log probabilities, as large as its terms).
+            tol = 8 * torch.finfo(dtype).eps * (1.0 if dtype == torch.float32 else math.sqrt(N))
+            ops = kernel_bench.sf_operands(NLL_PLAN_G, N, dtype)
+            mask = ops[6]
+            for draw in ("Poisson", "zero-heavy"):
+                if draw == "zero-heavy":
+                    ops = (kernel_bench.zero_heavy(ops[0]), *ops[1:])
+                args = (*ops, 0.5)
+                want = sz._sf_nll_plain(*args)
+                auto = sz._nll_plan(N, ops[0].element_size())
+                for lanes in (4, 8, 16, 32):
+                    plan = auto._replace(lanes=lanes)
+                    name = "f32" if dtype == torch.float32 else "f64"
+                    label = f"sf_nll {name} {NLL_PLAN_G} x {N} {draw}, {lanes} lanes"
+                    plans[label] = plan._asdict()
+                    got = sz._sf_nll_cuda(*args, plan=plan)
+                    check(bits_equal(got, sz._sf_nll_cuda(*args, plan=plan)),
+                          f"{label}: a second launch differs from the first")
+                    check(torch.equal(torch.isinf(got), ~mask), f"{label}: +inf lanes are not the lanes off the mask")
+                    e = ((got[mask] - want[mask]).abs() / want[mask].abs().clamp(min=1.0)).max().item()
+                    check(e <= tol, f"{label}: rel err {e:.3g} > {tol:.3g}")
+                    log(f"  {label}: rel err {e:.3g} (tol {tol:.3g}), bit-equal on "
+                        f"{(got[mask] == want[mask]).double().mean().item():.5f}, repeat bit-equal")
+            del ops, args, want
+    for lanes, N in ((16, N_GRID_WIDE[torch.float32]), (937, N_MAIN)):
+        grid = kernel_bench.grid_operands(lanes, N, torch.float32, "continuous")
+        gp = sh._grid_shrink_plain(*grid)
+        auto = sh._grid_plan(lanes, N, 60, 4)
+        for K in (1, 2, 4, 8, 16):
+            plan = auto._replace(K=K)
+            label = f"grid_apeglm f32 continuous {lanes} x {N}, K {K}"
+            plans[label] = plan._asdict()
+            gk, _, far = grid_apeglm_check(label, grid, readings, plan, gp)
+            check(bits_equal(gk, sh._grid_shrink_cuda(*grid, plan=plan)),
+                  f"{label}: a second launch differs from the first")
+            log(f"  {label}: {far} lanes at another grid point with tied objectives, repeat bit-equal")
+    return plans
 
 
 def shrink_kernel_checks(seen, dtype, reps, timings, readings):
@@ -1682,16 +1817,24 @@ def shrink_kernel_checks(seen, dtype, reps, timings, readings):
             "ops": int(passes.sum()) * N * (2 * P + 14 + 2 * ntri),
             "steps_mean": trips.double().mean().item(),
         }
+        terms = grid_terms(X_b, K)
         timings["grid_apeglm"] = {
             # every lane of the failed-first tile
             "ms": cuda_ms(lambda: sh._grid_shrink_cuda(*grid), reps),
             "plain_ms": cuda_ms(lambda: sh._grid_shrink_plain(*grid), 2),
             "library_ms": None,
             "bytes": isz * (K * N + N * (P + 1) + 2 * K + 2 * 60 + 2 * K),
-            # 2 x 60 x 60 points a lane; per sample the linear predictor,
-            # logaddexp (exp, log1p) and ~8 more
-            "ops": K * 2 * 60 * 60 * N * 16,
+            # the terms the design needs (grid_terms); per term the linear
+            # predictor, logaddexp (exp, log1p) and ~8 more
+            "ops": terms * 16,
+            "terms": terms,
+            "plan": sh._grid_device_plan(K, N, 60, counts.dtype, counts.device)._asdict(),
         }
+        # the instruction time of APEGLM_TERM_INSTR a term, an estimate
+        # logged beside the bound
+        log(f"  grid_apeglm f32: {terms} terms, plan {timings['grid_apeglm']['plan']}; bound "
+            f"{terms * 16 / F32_OPS_PER_S * 1e3:.4f} ms (operations), instruction estimate "
+            f"{terms * APEGLM_TERM_INSTR / INSTR_PER_S * 1e3:.4f} ms ({APEGLM_TERM_INSTR} a term)")
     return errs
 
 
@@ -2125,6 +2268,7 @@ def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = Fal
 
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import fused_stream, kernels
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
     from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
 
     t0 = time.perf_counter()
@@ -2154,6 +2298,9 @@ def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = Fal
             for i in range(reps):
                 if i == 0:
                     kernels.STATS.reset()
+                    # sf_nll's lgamma table is made once a process: the
+                    # counted run makes it as a process's first run does
+                    sz._lgamma_tables.clear()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 res = pt.run_summary_streamed(**kw)
@@ -2164,7 +2311,7 @@ def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = Fal
     finally:
         fused_stream.iterative_size_factors = iterative
     switched = sum("Switching to iterative mode" in str(w.message) for w in caught)
-    must = STREAM_KERNELS + (("sf_nll", "sf_newton") if zero_inflated else ())
+    must = STREAM_KERNELS + (("sf_nll", "sf_newton", "lgamma_table") if zero_inflated else ())
     for name in must:
         check(launches[name] > 0, f"kernel {name} was not launched on the streamed refit path ({label})")
     if zero_inflated:
@@ -2237,6 +2384,7 @@ def sf_kernel_checks(dtype, G, N, reps, timings):
     import warnings
 
     import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernel_bench
     from pydeseq2_tpu_torch.ops import sizefactors as sz
     from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
 
@@ -2279,6 +2427,31 @@ def sf_kernel_checks(dtype, G, N, reps, timings):
     check(n_bad == 0, f"sf_nll {name}: keep sets differ on {n_bad} genes away from the quantile")
     log(f"  sf_nll {name} ({c.shape[0]}, {c.shape[1]}), {int(mask.sum())} genes on the mask: rel err {e_nll:.3g} "
         f"(tol {8 * eps:.3g}), bit-equal on {same:.5f}; keep {int(kp.sum())}, sets differ on {n_diff} (ties)")
+    # The same on a zero-heavy copy of the counts (kernel_bench.zero_heavy:
+    # ~60% zero cells, counts past the lgamma table, a non-integer row),
+    # where the zero cells take their short form.
+    cz = kernel_bench.zero_heavy(c)
+    zk = sz._sf_nll_cuda(cz, coef, sf0, inv_sf0, s0, disp, mask, min_mu)
+    zp = sz._sf_nll_plain(cz, coef, sf0, inv_sf0, s0, disp, mask, min_mu)
+    check(torch.equal(torch.isinf(zk), ~mask), f"sf_nll {name} zero-heavy: +inf lanes are not the lanes off the mask")
+    e_z = ((zk[mask] - zp[mask]).abs() / zp[mask].abs().clamp(min=1.0)).max().item()
+    check(e_z <= 8 * eps, f"sf_nll {name} zero-heavy: rel err {e_z:.3g} > {8 * eps:.3g}")
+    n_diff, n_bad = differ_off_ties(sz.keep_mask(zk, mask, quant), sz.keep_mask(zp, mask, quant), zp)
+    check(n_bad == 0, f"sf_nll {name} zero-heavy: keep sets differ on {n_bad} genes away from the quantile")
+    # The table (the lgamma_table kernel) against its plain version,
+    # torch.lgamma on the card, within 8 eps relative (|value| at least 1);
+    # the zero cells' short form rests on lgamma(1) = 0 there (the kernel
+    # also tests it, and log1p(0) = 0, before using it).
+    table = sz._lgamma_table(dtype, c.device)
+    check(table[0].item() == 0.0, f"sf_nll {name}: lgamma(1) is {table[0].item()!r} on the card")
+    ref = sz._lgamma_table_plain(dtype, c.device)
+    e_tab = ((table - ref).abs() / ref.abs().clamp(min=1.0)).max().item()
+    check(e_tab <= 8 * eps, f"lgamma_table {name}: rel err {e_tab:.3g} > {8 * eps:.3g}")
+    errs["lgamma_table"] = (table - ref).abs().max().item()
+    log(f"  sf_nll {name} zero-heavy ({(cz == 0).double().mean().item():.3f} of the cells zero): rel err {e_z:.3g} "
+        f"(tol {8 * eps:.3g}), bit-equal on {(zk[mask] == zp[mask]).double().mean().item():.5f}; keep sets differ "
+        f"on {n_diff} (ties); lgamma table ({table.numel()}) rel err {e_tab:.3g}, bit-equal to torch.lgamma on "
+        f"{(table == ref).double().mean().item():.5f}")
 
     # -- sf_newton: one round's Newton steps from the plain keep set -------------
     # Identical terms summed in float64 and rounded: 1e-5 (f32) / 1e-12 (f64).
@@ -2310,16 +2483,48 @@ def sf_kernel_checks(dtype, G, N, reps, timings):
         Gs, Ns = c.shape
         on = mask.sum().item()
         n_plain = (mask & (1.0 / disp < 8.0)).sum().item()
+        on_rows = mask[:, None].expand(Gs, Ns)
+        plain_rows = (mask & (1.0 / disp < 8.0))[:, None].expand(Gs, Ns)
+        zeros = c == 0
+        stirling_rows = on_rows & ~plain_rows
+        cells = {k: int(v.sum()) for k, v in (("plain", plain_rows & ~zeros), ("stirling", stirling_rows & ~zeros),
+                                                ("plain zero", plain_rows & zeros), ("stirling zero", stirling_rows & zeros))}
         timings["sf_nll"] = {
             "ms": cuda_ms(lambda: sz._sf_nll_cuda(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu), reps),
             "plain_ms": cuda_ms(lambda: sz._sf_nll_plain(c, coef, sf0, inv_sf0, s0, disp, mask, min_mu), reps),
             "library_ms": None,
             # reads counts, coef, disp, sf0, inv_sf0, s and the mask; writes the NLL
             "bytes": isz * (Gs * Ns + 3 * Gs + 3 * Ns) + Gs,
-            # per cell of a gene on the mask: mu 5 (two products, max, exp,
-            # product), y log mu 3, lgamma(y + 1) 2, the float64 add 2, and
-            # the plain form 14 (r < 8) or the Stirling-difference form 25
-            "ops": Ns * (n_plain * (12 + 14) + (on - n_plain) * (12 + 25)),
+            # per cell of a gene on the mask: mu 4 (two products, max,
+            # product; exp(s) is staged) and the float64 add 2; a zero count
+            # its short form, 4 (r < 8) or 3; any other y log mu 3 and the
+            # plain form 14, lgamma(y + r) among them, or the
+            # Stirling-difference form 25 (lgamma(y + 1) read from the table)
+            "ops": (6 * sum(cells.values()) + 17 * cells["plain"] + 28 * cells["stirling"] + 4 * cells["plain zero"]
+                    + 3 * cells["stirling zero"]),
+            "cells": cells,
+            "plan": sz._nll_plan(Ns, isz)._asdict(),
+        }
+        # the instruction time of SF_NLL_CELL_INSTR a cell, the shortest and
+        # the longest path, an estimate logged beside the bound
+        n_cells = sum(cells.values())
+        lo, hi = (n_cells * k / INSTR_PER_S * 1e3 for k in SF_NLL_CELL_INSTR)
+        log(f"  sf_nll {name}: {cells} cells, plan {timings['sf_nll']['plan']}; instruction estimate {lo:.4f} ms "
+            f"to {hi:.4f} ms ({SF_NLL_CELL_INSTR[0]} to {SF_NLL_CELL_INSTR[1]} a cell)")
+        n_tab = sz.LGAMMA_TABLE_LEN
+        ar = torch.arange(1, n_tab + 1, dtype=dtype, device=c.device)
+
+        def made():
+            sz._lgamma_tables.clear()
+            return sz._lgamma_table(dtype, c.device)
+
+        timings["lgamma_table"] = {
+            "ms": cuda_ms(made, reps),
+            "plain_ms": cuda_ms(lambda: sz._lgamma_table_plain(dtype, c.device), reps),
+            "library_ms": cuda_ms(lambda: torch.lgamma(ar), reps),
+            # writes the table; per value the library lgamma (~40 operations)
+            "bytes": isz * n_tab,
+            "ops": 40 * n_tab,
         }
         n_keep = kp.sum().item()
         timings["sf_newton"] = {
@@ -3337,6 +3542,8 @@ def main() -> int:
     class_kernel_checks(torch.float64, G_F64, N_MAIN, 0, {})
     plans = cluster_kernel_checks()
     plans.update(trim_plan_checks())
+    plans.update(grid_design_checks(readings))
+    plans.update(nll_grid_plan_checks(readings))
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3418,6 +3625,8 @@ def main() -> int:
         "impute": ("pydeseq2_tpu_torch/csrc/impute.cu", "pydeseq2_tpu/fused_stream.py:561", "impute"),
         "sf_nll": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34", "sf_nll"),
         "sf_newton": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34", "sf_newton"),
+        "lgamma_table": ("pydeseq2_tpu_torch/csrc/sizefactors.cu", "pydeseq2_tpu/ops/sizefactors.py:34",
+                         "lgamma_table"),
         "vst": ("pydeseq2_tpu_torch/csrc/vst.cu", "pydeseq2_tpu/fused.py:886 + pydeseq2_tpu/fused_stream.py:1249",
                 "vst"),
         "trend_fit": ("pydeseq2_tpu_torch/csrc/trend.cu", "pydeseq2_tpu/ops/trend.py:22", "trend_fit"),
@@ -3434,7 +3643,7 @@ def main() -> int:
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
                 "grid_apeglm": weak["launches"]["grid_apeglm"],
                 **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")},
-                "sf_nll": stream_zi["launches"]["sf_nll"], "sf_newton": stream_zi["launches"]["sf_newton"],
+                **{k: stream_zi["launches"][k] for k in ("sf_nll", "sf_newton", "lgamma_table")},
                 "vst": vst["launches"]["vst"],
                 **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")},
                 **{k: fine["launches"][k] for k in ("disp_scan_fine", "dnb_nll")}}
@@ -3452,7 +3661,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
         }
         for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
-                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan"):
+                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells"):
             if extra in t:
                 # the sort before the BH sweep, or the torch.sort yardstick of
                 # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
@@ -3460,8 +3669,8 @@ def main() -> int:
                 # the Newton steps of one sf_newton launch; trimmed_var over the
                 # mean trend's one column; the atlas block's times of disp_scan
                 # and disp_newton; the reduction passes of one trend or
-                # trend_fit launch and the time per pass; a cluster kernel's
-                # launch plan
+                # trend_fit launch and the time per pass; a kernel's launch
+                # plan; the apeGLM terms or NLL cells the run's data needs
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -3476,7 +3685,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster and trimmed-moment kernel plans: " + json.dumps(plans))
+    log("cluster, trimmed-moment, sf_nll and grid_apeglm kernel plans: " + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

@@ -381,9 +381,12 @@ __device__ __forceinline__ T apeglm_ll_term(T y, T y_plus_s, T xb, T off, T log_
   return y * xb - y_plus_s * m_logaddexp(xb + off, log_s);
 }
 
-// ---- thread-block clusters (sizefactors.cu, trend.cu) -------------------------
+// ---- thread-block clusters (sizefactors.cu, trend.cu, grid.cu) -------------
 constexpr int MAX_CLUSTER = 16;            // blocks a cluster, non-portable size allowed
 constexpr size_t SMEM_BLOCK_MAX = 232448;  // dynamic shared memory a block may use (227 KB)
+
+// Bytes rounded up to 16, as the kernels lay out dynamic shared memory.
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
 
 // Opt kernel F in to 16-block clusters and the full dynamic shared memory of
 // a block, once per device: these calls cost host time on every launch.

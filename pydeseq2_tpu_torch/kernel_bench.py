@@ -1,10 +1,11 @@
 """Device time of hand-written kernels at the shapes the pipelines give
 them, for one or more checkouts of this repository, on a CUDA card: the
 dispersion kernels ``disp_scan`` and ``disp_newton`` (suite ``disp``), the
-trimmed size-factor Newton round ``sf_newton`` (``sf``), the dispersion
-trend's gamma-GLM fit, ``trend`` with its exclusion rounds and the
-standalone ``trend_fit`` (``trend``), and the trimmed moments of ``cooks``
-and ``trimmed_var`` (``cooks``).
+trimmed size-factor solve's ``sf_newton`` round and ``sf_nll`` pass
+(``sf``), the dispersion trend's gamma-GLM fit, ``trend`` with its
+exclusion rounds and the standalone ``trend_fit`` (``trend``), the trimmed
+moments of ``cooks`` and ``trimmed_var`` (``cooks``), and the apeGLM grid
+rescue ``grid_apeglm`` (``grid``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -12,7 +13,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-four by default). To compare two versions in one call, name them parent,
+five by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -38,14 +39,19 @@ in the wrapper's order.
 the atlas 10000 x 60000 in float32 and 100 x 60000 in float64, on Poisson
 counts drawn on the card from a seeded generator (lognormal gene means,
 seeded size factors), the per-gene mean of counts / sf0 as the coefficient,
-seeded dispersions and a seeded keep set of ~95% of the genes. ``trend``
+seeded dispersions and a seeded keep set of ~95% of the genes; and one
+``sf_nll`` pass at the same shapes, with that set as its mask, on the same
+counts and on a zero-heavy copy of them (``zero_heavy``: ~60% of the cells
+zero, one cell in every 100th gene at or above the lgamma table's bound,
+one row of non-integer counts). ``trend``
 shapes: 4000 and 60000 lanes in float32 and float64, seeded lanes (a trend
 0.05 + 2 / base_mean times gamma noise, ~97% valid). Per shape the same
 events and profiler times (kernels named ``sf_`` or ``trend``), the largest
 difference from the plain version, the plan a tree's wrapper picks where it
 has one, and for the trend the plain fit's reduction passes (loss, gradient
 + Fisher). ``--detail`` adds the other modes and cluster sizes of a tree
-that has plans.
+that has plans, and ``sf_nll`` with its lgamma table off (every cell
+computing lgamma(y + 1)).
 
 ``cooks`` shapes: ``cooks`` at 100 x 60000 in float32 and float64 in
 summary mode (distances written), at 1000 x 60000 float32 and on the atlas
@@ -66,16 +72,37 @@ way round, and the streamed workspace; and ``cooks`` (f32, f64) on
 RANK_SWEEP_GENES genes in two cohorts of each size of RANK_SWEEP by each
 method.
 
+``grid`` shapes: ``grid_apeglm`` on the weak-effect tile (the operands that
+``run_lfc_shrink_streamed`` hands the grid after ``summary_pipeline`` on
+``make_data(100, WEAK_G, lfc_sd=0.1)``, float32: every lane of the tile,
+then the pipeline's selection), on 1, 4 and 16 lanes of ``make_data(N, 16,
+seed=3)`` at 8000 samples in float32 and 4000 in float64, and on a design
+with a continuous covariate (intercept and a seeded normal column: no
+sample skips a term) at the tile's 937 x 100 and at 16 x 8000 float32.
+Per shape the same times (kernels named ``grid_apeglm``), the share of
+lanes where kernel and plain version pick the same grid point, the plan a
+tree's wrapper picks, and a digest of ``grid_nb``'s output on the same
+operands (equal in two trees where its bits are); ``--detail`` every
+cluster size 1-16, on these shapes and on tiles of 64, 256 and 494 lanes
+at 100 samples in float32 and of 937 in float64 (GRID_DETAIL_SHAPES).
+
+``--detail`` also reports, per kernel instantiation of the suites'
+sources, the instruction counts of its loops that call a transcendental,
+from ``cuobjdump -sass`` of the built library: the loop's instructions, and
+the shortest and longest path through one trip (``sass_loops``).
+
 Prints the card first and, as the last line, every number as one JSON
 object.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -90,13 +117,35 @@ import torch  # noqa: E402
 
 DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
-SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu")}
+SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
+          "grid": ("grid.cu",)}
 SF_SHAPES = (
     # label, genes, samples, dtype, timed calls
     ("f32 100x60000", 60_000, 100, torch.float32, 20),
     ("f32 1000x60000", 60_000, 1_000, torch.float32, 10),
     ("f64 100x60000", 60_000, 100, torch.float64, 20),
     ("f32 atlas 10000x60000", 60_000, 10_000, torch.float32, 3),
+)
+ZERO_SHARE = 0.6  # cells the zero-heavy sf_nll draw sets to zero
+WEAK_G = 60_000  # genes of the weak-effect draw whose grid tile the grid suite takes
+GRID_SHAPES = (
+    # label, lanes, samples, dtype, design ("indicator" or "continuous"), timed calls
+    ("f32 1 lane x 8000", 1, 8_000, torch.float32, "indicator", 5),
+    ("f32 4 lanes x 8000", 4, 8_000, torch.float32, "indicator", 5),
+    ("f32 16 lanes x 8000", 16, 8_000, torch.float32, "indicator", 5),
+    ("f64 1 lane x 4000", 1, 4_000, torch.float64, "indicator", 5),
+    ("f64 4 lanes x 4000", 4, 4_000, torch.float64, "indicator", 5),
+    ("f64 16 lanes x 4000", 16, 4_000, torch.float64, "indicator", 5),
+    ("f32 continuous 937 x 100", 937, 100, torch.float32, "continuous", 5),
+    ("f32 continuous 16 x 8000", 16, 8_000, torch.float32, "continuous", 5),
+)
+# --detail's grid tiles between 16 and 937 lanes, and the tile's width in
+# float64, where the cluster size the plan picks changes
+GRID_DETAIL_SHAPES = (
+    ("f32 64 lanes x 100", 64, 100, torch.float32, "indicator", 5),
+    ("f32 256 lanes x 100", 256, 100, torch.float32, "indicator", 5),
+    ("f32 494 lanes x 100", 494, 100, torch.float32, "indicator", 5),
+    ("f64 937 lanes x 100", 937, 100, torch.float64, "indicator", 5),
 )
 TREND_SHAPES = (
     # label, lanes, dtype, timed calls
@@ -308,6 +357,58 @@ def sf_operands(G: int, N: int, dtype):
     return counts, coef, sf0, inv_sf0, s0, disp, keep
 
 
+def zero_heavy(counts: torch.Tensor) -> torch.Tensor:
+    """A copy of (G, N) counts with ZERO_SHARE of the cells set to zero (a
+    seeded draw), one cell in every 100th gene set at or above the lgamma
+    table's bound (4096 + the gene's index), and gene 1 made non-integer
+    (1.5 y + 0.25)."""
+    g = torch.Generator(device=counts.device).manual_seed(1)
+    G, N = counts.shape
+    out = torch.where(torch.rand(G, N, generator=g, device=counts.device) < ZERO_SHARE, 0.0, counts)
+    genes = torch.arange(0, G, 100, device=counts.device)
+    out[genes, genes % N] = (4096.0 + genes).to(counts.dtype)
+    out[min(1, G - 1)] = 1.5 * out[min(1, G - 1)] + 0.25
+    return out
+
+
+def nll_row(ops, reps: int, detail: bool, gene_block: int | None) -> dict:
+    """``sf_nll`` at the round's start on ``ops`` (``sf_operands``' tuple,
+    its keep set as the mask): times, the largest relative difference from
+    the plain version and its bit-equal share, the plan; ``--detail`` the
+    other lane counts."""
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+
+    c, coef, sf0, inv_sf0, s0, disp, mask = ops
+    args = (c, coef, sf0, inv_sf0, s0, disp, mask, 0.5)
+    got, want = sz._sf_nll_cuda(*args), sz._sf_nll_plain(*args, gene_block)
+    on = mask
+    kern, dev = device_ms(lambda: sz._sf_nll_cuda(*args), reps, "sf_nll")
+    row = {"sf_nll_ms": cuda_ms(lambda: sz._sf_nll_cuda(*args), reps), "sf_nll_kernel_ms": kern,
+           "sf_nll_device_ms": dev,
+           "rel_err": ((got[on] - want[on]).abs() / want[on].abs().clamp(min=1.0)).max().item(),
+           "bit_equal_share": (got[on] == want[on]).double().mean().item(),
+           "zero_share": (c == 0).double().mean().item()}
+    if hasattr(sz, "_nll_plan"):
+        plan = sz._nll_plan(c.shape[1], c.element_size())
+        row["plan"] = plan._asdict()
+        if detail and hasattr(sz, "LGAMMA_TABLE_LEN"):
+            # the picked plan with every cell computing lgamma(y + 1)
+            full = sz.LGAMMA_TABLE_LEN
+            sz.LGAMMA_TABLE_LEN = 0
+            try:
+                row["kernel_ms table off"] = device_ms(lambda: sz._sf_nll_cuda(*args), reps, "sf_nll")[0]
+                row["table off bit_equal"] = bool(torch.equal(sz._sf_nll_cuda(*args), got))
+            finally:
+                sz.LGAMMA_TABLE_LEN = full
+        if detail:
+            for lanes in (4, 8, 16, 32):
+                if lanes != plan.lanes:
+                    other = plan._replace(lanes=lanes)
+                    row[f"kernel_ms lanes={lanes}"] = device_ms(lambda: sz._sf_nll_cuda(*args, plan=other), reps,
+                                                                "sf_nll")[0]
+    return row
+
+
 def sf_rows(detail: bool) -> dict:
     from pydeseq2_tpu_torch.ops import sizefactors as sz
 
@@ -316,7 +417,7 @@ def sf_rows(detail: bool) -> dict:
         ops = sf_operands(G, N, dtype)
         args = (*ops, 0.5, 8)
         err = (sz._sf_newton_cuda(*args) - sz._sf_newton_plain(*args)).abs().max().item()
-        kern, dev = device_ms(lambda: sz._sf_newton_cuda(*args), reps, "sf_")
+        kern, dev = device_ms(lambda: sz._sf_newton_cuda(*args), reps, "sf_newton")
         row = {"sf_newton_ms": cuda_ms(lambda: sz._sf_newton_cuda(*args), reps), "sf_newton_kernel_ms": kern,
                "sf_newton_device_ms": dev, "err": err}
         if hasattr(sz, "_sf_plan"):
@@ -329,7 +430,11 @@ def sf_rows(detail: bool) -> dict:
                     others[f"C={plan.C // 2}"] = plan._replace(C=plan.C // 2)
                 for name, other in others.items():
                     row[f"kernel_ms {name}"] = device_ms(
-                        lambda: sz._sf_newton_cuda(*args, plan=other), reps, "sf_")[0]
+                        lambda: sz._sf_newton_cuda(*args, plan=other), reps, "sf_newton")[0]
+        # the plain NLL in blocks of 5000 genes, so the atlas fits the card
+        gene_block = 5_000 if G * N > 10_000_000 else None
+        row["sf_nll"] = nll_row(ops, reps, detail, gene_block)
+        row["sf_nll zero_heavy"] = nll_row((zero_heavy(ops[0]), *ops[1:]), reps, detail, gene_block)
         rows[label] = row
         print(f"  sf {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
         del ops, args
@@ -575,6 +680,264 @@ def trim_rows(detail: bool) -> dict:
     return rows
 
 
+def weak_tile(dtype=torch.float32):
+    """The grid tile of the weak-effect draw: ``summary_pipeline`` on
+    ``make_data(100, WEAK_G, lfc_sd=0.1)``, then ``run_lfc_shrink_streamed``
+    on its results with the first call of the grid recorded. Returns (the
+    grid's arguments but ``sel``, ``sel``), or None where no lane failed
+    Newton."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused_stream
+    from pydeseq2_tpu_torch.ops import shrink as sh
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(100, WEAK_G, lfc_sd=0.1)
+    host = pt.summary_host_inputs(X_np)
+    kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
+                              dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
+                              use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
+    out = pt.summary_pipeline(**kw)
+    seen = []
+    grid = fused_stream.grid_fit_shrink_beta_batch
+
+    def recorded(*args, **kwargs):
+        seen.append((args, kwargs))
+        return grid(*args, **kwargs)
+
+    fused_stream.grid_fit_shrink_beta_batch = recorded
+    try:
+        pt.run_lfc_shrink_streamed(counts=kw["counts"], design_matrix=kw["design_matrix"], coeff_idx=1,
+                                   dispersions=out["dispersions"], size_factors=out["size_factors"],
+                                   mle_lfc=out["lfc"][:, 1], mle_se=out["se"], adapt=True, dtype=dtype,
+                                   device=DEVICE)
+    finally:
+        fused_stream.grid_fit_shrink_beta_batch = grid
+    if not seen:
+        return None
+    b = inspect.signature(sh.grid_fit_shrink_beta_batch).bind(*seen[0][0], **seen[0][1])
+    b.apply_defaults()
+    args = tuple(b.arguments.values())
+    return args[:-1], args[-1]
+
+
+def grid_operands(lanes: int, N: int, dtype, design: str):
+    """``grid_apeglm``'s arguments (every lane selected) on the first
+    ``lanes`` genes of ``make_data(N, 16, seed=3)``: median-of-ratios size
+    factors of counts + 0.5, seeded dispersions, prior scale 0.5 and the
+    objective's scale at zero as the shrink path takes it (``_grid_tile``);
+    the design the draw's intercept and condition (``indicator``), the
+    intercept and a seeded normal column
+    (``continuous``: no sample skips a term), or the two conditions' own
+    indicators (``zero-first``: a zero in the first column, so every sample
+    skips the term of one coefficient)."""
+    from pydeseq2_tpu_torch.ops import shrink as sh
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, max(lanes, 16), seed=3)
+    rng = np.random.default_rng(4)
+    if design == "continuous":
+        X_np = np.column_stack([np.ones(N), rng.normal(0.0, 1.0, N)])
+    elif design == "zero-first":
+        X_np = np.column_stack([1.0 - X_np[:, 1], X_np[:, 1]])
+    counts = torch.as_tensor(counts_np.T[:lanes].copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    logc = np.log(counts_np.T + 0.5)
+    sf = torch.as_tensor(np.exp(np.median(logc - logc.mean(1, keepdims=True), axis=0)), dtype=dtype, device=DEVICE)
+    disp = torch.as_tensor(np.clip(rng.lognormal(-2.0, 1.0, lanes), 1e-3, 5.0), dtype=dtype, device=DEVICE)
+    size, offset = 1.0 / disp, torch.log(sf)
+    zeros = torch.zeros((lanes, 2), dtype=dtype, device=DEVICE)
+    cnst = torch.clamp(sh.nbinom_fn_batch(zeros, X, counts, size, offset, 15.0, 0.5, 1), min=1.0)
+    return (counts, offset, X, size, 15.0, 0.5, cnst, 1, 60, -30.0, 30.0)
+
+
+def grid_row(grid, sel, reps: int, detail: bool) -> dict:
+    """``grid_apeglm`` on ``grid`` (every lane, or the lanes of ``sel``):
+    times, the share of selected lanes at the plain version's grid point
+    (within 1e-6 x 30), the plan; ``--detail`` every cluster size."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    got = sh._grid_shrink_cuda(*grid, sel)
+    want = sh._grid_shrink_plain(*grid)
+    lanes = sel if sel is not None else torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    kern, dev = device_ms(lambda: sh._grid_shrink_cuda(*grid, sel), reps, "grid_apeglm")
+    row = {"grid_apeglm_ms": cuda_ms(lambda: sh._grid_shrink_cuda(*grid, sel), reps), "grid_apeglm_kernel_ms": kern,
+           "grid_apeglm_device_ms": dev, "lanes": int(lanes.sum()),
+           "same_point_share": ((got - want).abs().amax(1)[lanes] <= 30e-6).double().mean().item()}
+    if hasattr(sh, "_grid_plan"):
+        K, N = grid[0].shape
+        plan = sh._grid_device_plan(K, N, grid[8], grid[0].dtype, grid[0].device)
+        row["plan"] = plan._asdict()
+        if detail:
+            for k in (1, 2, 4, 8, 16):
+                other = plan._replace(K=k)
+                fits = sh._grid_smem_bytes(grid[8], k, plan.chunk, grid[0].element_size()) <= kernels.SMEM_BLOCK_MAX
+                if k != plan.K and k <= grid[8] and fits:
+                    row[f"kernel_ms K={k}"] = device_ms(lambda: sh._grid_shrink_cuda(*grid, sel, plan=other), reps,
+                                                        "grid_apeglm")[0]
+    return row
+
+
+def grid_rows(detail: bool) -> dict:
+    rows = {}
+    tile = weak_tile()
+    if tile is None:
+        rows["weak tile"] = "no lane failed Newton"
+    else:
+        grid, sel = tile
+        rows["f32 weak tile, every lane"] = grid_row(grid, None, 5, detail)
+        rows["f32 weak tile, the pipeline's selection"] = grid_row(grid, sel, 5, detail)
+    for label, lanes, N, dtype, design, reps in GRID_SHAPES + (GRID_DETAIL_SHAPES if detail else ()):
+        grid = grid_operands(lanes, N, dtype, design)
+        rows[label] = grid_row(grid, None, reps, detail)
+        rows[label]["grid_nb_bits"] = grid_nb_bits(grid)
+        print(f"  grid {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+    return rows
+
+
+def grid_nb_bits(grid) -> str:
+    """A digest of the bits ``grid_nb`` returns on the counts, offset (log
+    size factors) and design of an apeGLM grid's operands, dispersions 1 /
+    size: equal digests in two trees are equal results."""
+    import hashlib
+
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    counts, offset, X, size = grid[:4]
+    beta = irl.grid_fit_beta_batch(counts, torch.exp(offset), X, 1.0 / size)
+    return hashlib.sha256(beta.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def cuobjdump(kernels) -> str | None:
+    """The toolkit's cuobjdump: on the PATH, beside nvcc, or in Triton's
+    package; None where there is none."""
+    found = [shutil.which("cuobjdump")]
+    try:
+        found.append(str(Path(kernels._nvcc()).parent / "cuobjdump"))
+    except RuntimeError:
+        pass
+    try:
+        import triton
+
+        found.append(str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"))
+    except ImportError:
+        pass
+    return next((t for t in found if t and Path(t).exists()), None)
+
+
+def sass_loops(kernels, sources) -> dict:
+    """{source: {function: [loop, ...]}} for the loops that call a
+    transcendental (a MUFU instruction) in ``cuobjdump -sass`` of each
+    built library, each loop {"instructions": its count, "min_path" /
+    "max_path": the fewest and most instructions one trip can issue (the
+    shortest and longest path from its head to its back edge, inner loops
+    counted once), "mufu": its MUFU instructions}; {} where the toolkit has
+    no cuobjdump."""
+    tool = cuobjdump(kernels)
+    if tool is None:
+        return {}
+    out = {}
+    for src in sources:
+        text = subprocess.run([tool, "-sass", str(kernels._lib_path(src))], capture_output=True, text=True,
+                              timeout=300).stdout
+        out[src] = {name: loops for name, loops in sass_functions(text).items() if loops}
+    return out
+
+
+_SASS_FN = re.compile(r"^\s*Function : (\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+# a branch and its target: a label (nvdisasm) or an address (cuobjdump)
+_SASS_BRA = re.compile(r"^(@!?U?P\w+\s+)?BRA(?:\.\w+)*\s+((?:\S+\s+)*?)`?\(?(\.L_x_\d+|0x[0-9a-f]+)\)?")
+
+
+def sass_functions(text: str) -> dict:
+    """{function: [loop, ...]} of one ``cuobjdump -sass`` listing (see
+    :func:`sass_loops`)."""
+    funcs, name, body, targets = {}, None, [], {}
+
+    def close():
+        if name is not None:
+            funcs[name] = _loops(body, targets)
+
+    for line in text.splitlines():
+        m = _SASS_FN.match(line)
+        if m:
+            close()
+            name, body, targets = m.group(1), [], {}
+            continue
+        if name is None:
+            continue
+        m = _SASS_LABEL.match(line)
+        if m:
+            targets[m.group(1)] = len(body)
+            continue
+        m = _SASS_INSTR.search(line)
+        if m:
+            targets[hex(int(m.group(1), 16))] = len(body)
+            body.append(m.group(2).strip())
+    close()
+    return funcs
+
+
+def _target(ins: str, targets: dict):
+    """(conditional, index of the target) of a branch, else None; a branch
+    on a predicate (``@P0 BRA``) or on an operand (``BRA !UP0, ...``) is
+    conditional."""
+    m = _SASS_BRA.match(ins)
+    if not m:
+        return None
+    t = m.group(3)
+    return bool(m.group(1) or m.group(2)), targets.get(t if t.startswith(".") else hex(int(t, 16)))
+
+
+def _is_mufu(ins: str) -> bool:
+    return ins.startswith("MUFU") or " MUFU" in ins
+
+
+def _loops(body: list[str], targets: dict) -> list[dict]:
+    loops = []
+    for i, ins in enumerate(body):
+        br = _target(ins, targets)
+        if br is None or br[1] is None or br[1] > i:
+            continue
+        head = br[1]
+        span = body[head:i + 1]
+        if not any(_is_mufu(x) for x in span):
+            continue
+        lo, hi = _paths(span, {k: v - head for k, v in targets.items() if head <= v <= i})
+        loops.append({"instructions": len(span), "min_path": lo, "max_path": hi,
+                      "mufu": sum(1 for x in span if _is_mufu(x))})
+    return loops
+
+
+def _paths(span: list[str], targets: dict) -> tuple[int, int]:
+    """The fewest and most instructions on a path from span[0] to its last
+    instruction (the back edge), following forward branches and falling
+    through; a branch out of the span ends no path that counts. (None,
+    None) where no path reaches the back edge."""
+    n = len(span)
+    inf = float("inf")
+    lo, hi = [inf] * (n + 1), [-inf] * (n + 1)
+    lo[0] = hi[0] = 0
+    for i in range(n):
+        if lo[i] == inf:
+            continue
+        br = _target(span[i], targets)
+        succ = []
+        if br is not None:
+            if br[1] is not None and br[1] > i:
+                succ.append(br[1])
+            if br[0] or i == n - 1:  # conditional, or the back edge itself
+                succ.append(i + 1)
+        elif not span[i].startswith(("EXIT", "RET")):
+            succ.append(i + 1)
+        for j in succ:
+            lo[j] = min(lo[j], lo[i] + 1)
+            hi[j] = max(hi[j], hi[i] + 1)
+    return (None, None) if lo[n] == inf else (int(lo[n]), int(hi[n]))
+
+
 def child(detail: bool, suites=("disp",)) -> dict:
     from pydeseq2_tpu_torch import kernels
 
@@ -589,6 +952,8 @@ def child(detail: bool, suites=("disp",)) -> dict:
         kernels.KERNELS, kernels.HELPERS = full
 
     res = {"ptxas": ptxas(kernels, sources)}
+    if detail:
+        res["sass_loops"] = sass_loops(kernels, sources)
     if "disp" in suites:
         res["shapes"] = disp_rows(detail)
     if "sf" in suites:
@@ -598,6 +963,8 @@ def child(detail: bool, suites=("disp",)) -> dict:
     if "cooks" in suites:
         res["cooks"] = cooks_rows(detail)
         res["trimmed_var"] = trim_rows(detail)
+    if "grid" in suites:
+        res["grid"] = grid_rows(detail)
     return res
 
 
@@ -615,7 +982,12 @@ def summary(res: dict) -> dict:
         out[f"disp {k}"] = {"scan": v["disp_scan_ms"], "newton": v["disp_newton_ms"],
                             "scan_kernel": v["disp_scan_kernel_ms"], "newton_kernel": v["disp_newton_kernel_ms"]}
     for k, v in res.get("sf", {}).items():
-        out[f"sf {k}"] = {"ms": v["sf_newton_ms"], "kernel": v["sf_newton_kernel_ms"]}
+        out[f"sf {k}"] = {"ms": v["sf_newton_ms"], "kernel": v["sf_newton_kernel_ms"],
+                          "sf_nll_kernel": v["sf_nll"]["sf_nll_kernel_ms"],
+                          "sf_nll_zero_heavy_kernel": v["sf_nll zero_heavy"]["sf_nll_kernel_ms"]}
+    for k, v in res.get("grid", {}).items():
+        if isinstance(v, dict):
+            out[f"grid {k}"] = {"ms": v["grid_apeglm_ms"], "kernel": v["grid_apeglm_kernel_ms"]}
     for k, v in res.get("trend", {}).items():
         out[f"trend {k}"] = {"trend": v["trend_ms"], "trend_kernel": v["trend_kernel_ms"],
                              "trend_fit": v["trend_fit_ms"], "trend_fit_kernel": v["trend_fit_kernel_ms"]}

@@ -59,11 +59,15 @@ KERNELS = {
     "vst": ("vst.cu", "vst_launch"),
     "trimmed_var": ("trimmed.cu", "trimmed_var_launch"),
     "dnb_nll": ("dnb_nll.cu", "dnb_nll_launch"),
+    # sf_nll's table of lgamma(y + 1), built once per device and type
+    "lgamma_table": ("sizefactors.cu", "lgamma_table_launch"),
 }
 
-# Exported helpers that are not kernels of the pipeline (checks only);
-# they are not counted.
-HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch")}
+# Exported helpers that are not kernels of the pipeline (a check, an
+# occupancy query); they are not counted.
+HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch"),
+           # the grid_apeglm blocks an SM holds (the occupancy API; no launch)
+           "grid_apeglm_per_sm": ("grid.cu", "grid_apeglm_per_sm")}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -99,18 +103,20 @@ _ARGTYPES = {
     "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
     "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
-    "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _P],
+    "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P],
     "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P],
     "trend_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "trend_fit_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
     "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "sf_nll_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P],
+    "sf_nll_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _I, _P],
     "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "trimmed_var_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
+    "lgamma_table_launch": [_I, _I, _P],
+    "grid_apeglm_per_sm": [_I, _I, _P],
 }
 
 # What one block of a thread-block cluster may hold on the H100: dynamic

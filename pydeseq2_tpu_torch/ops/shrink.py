@@ -10,12 +10,19 @@ whose masked ``while_loop`` advances every gene until the slowest freezes;
 one warp per gene runs its own Newton loop, polish and inverse Hessian and
 leaves at its own freeze, which is the JAX iterate lane for lane.
 ``csrc/grid.cu``'s ``grid_apeglm`` replaces ``grid_fit_shrink_beta_batch``
-(shrink.py:258), one block per selected lane. On CPU tensors the wrappers
-run the plain versions (the masked loop reads its condition from the host
-once per outer step); on CUDA tensors they launch the kernels or raise.
+(shrink.py:258): a thread-block cluster per selected lane, its blocks
+splitting the grid's rows (:func:`_grid_plan`), the terms of samples whose
+design row has a zero computed once per row or column. On CPU tensors the
+wrappers run the plain versions (the masked loop reads its condition from
+the host once per outer step); on CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -243,12 +250,104 @@ def _grid_shrink_plain(counts, offset, X, size, pns, ps, scale_cnst, shrink_inde
     return torch.stack([fx, fy], dim=1)
 
 
+class GridPlan(NamedTuple):
+    """Launch plan of ``grid_apeglm``: clusters of ``K`` blocks a lane, block
+    rank q taking the grid rows :func:`_grid_rows` ``(L, K, q)`` of both
+    passes, and ``chunk`` samples (a multiple of 256) staged at a time."""
+
+    K: int
+    chunk: int
+
+
+_GRID_THREADS = 256  # threads of a grid_apeglm block
+_GRID_WARPS = _GRID_THREADS // 32
+# grid_apeglm blocks an H100 SM holds by registers, from the build's ptxas
+# report (64 registers a thread in float32, 80 in float64): the plan's
+# default where no card is asked (the wrapper asks the occupancy API).
+_GRID_REG_BLOCKS = {4: 4, 8: 3}
+_GRID_SMEM_SM = 233_472  # shared memory of an H100 SM, bytes
+_GRID_MAX_V = 4  # samples a thread classifies a chunk, at most
+
+
+def _grid_rows(L: int, K: int, q: int) -> range:
+    """The grid rows of block rank q of K (the kernel's ``ag_row0``)."""
+    return range(q * L // K, (q + 1) * L // K)
+
+
+def _grid_smem_bytes(L: int, K: int, chunk: int, itemsize: int) -> int:
+    """Dynamic shared memory of one ``grid_apeglm`` block (the kernel's
+    ``ag_smem_bytes``): float64 totals of its points, rows and columns and
+    the slice partials, the class counts, the candidates, the staged chunk
+    (five values a sample)."""
+    R = -(-L // K)
+    return (8 * (R * L + R + L + 3 * _GRID_THREADS) + kernels.align16(4 * (3 * _GRID_WARPS + 1))
+            + 16 * (2 + _GRID_WARPS) + 5 * chunk * itemsize)
+
+
+def _grid_reg_per_sm(itemsize: int, smem: int) -> int:
+    """The blocks an H100 SM holds by the ptxas registers (_GRID_REG_BLOCKS)
+    and by shared memory (1 KB reserved a block)."""
+    return max(1, min(_GRID_REG_BLOCKS[itemsize], _GRID_SMEM_SM // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_card_per_sm(device: torch.device, itemsize: int, smem: int) -> int:
+    """The blocks an SM of ``device`` holds, by the occupancy API for this
+    build of ``grid_apeglm`` (no launch)."""
+    out = ctypes.c_int(0)
+    kernels.call_helper("grid_apeglm_per_sm", [int(itemsize == 8), smem, ctypes.addressof(out)], device)
+    return max(1, out.value)
+
+
+def _grid_plan(lanes: int, N: int, L: int, itemsize: int, sms: int = 132, per_sm=None) -> GridPlan:
+    """The ``grid_apeglm`` plan for ``lanes`` lanes of N samples on an L x L
+    grid, on a card with ``sms`` SMs that each hold ``per_sm(smem)`` blocks
+    of ``smem`` bytes at once (default :func:`_grid_reg_per_sm`: 4 in
+    float32, 3 in float64 at L = 60; the wrapper asks the occupancy API).
+
+    K: the smallest power of two for which lanes x K blocks reach two waves
+    of the card, 2 x per_sm x sms, at most 16 and at most L (every block
+    holds a row): 1-16 lanes take 16, the 937-lane tile of 60000 genes 2 in
+    float32 (two waves are 1056 blocks) and 1 in float64 (792). Which lanes
+    are selected is not read: the plan needs no host sync. K doubles further
+    where one block's share would not fit its shared memory. chunk: 256 x
+    ceil(N / 256) samples, at most 1024.
+    """
+    if L < 1:
+        raise ValueError(f"grid_apeglm: grid_length={L}")
+    if per_sm is None:
+        per_sm = functools.partial(_grid_reg_per_sm, itemsize)
+    chunk = _GRID_THREADS * min(_GRID_MAX_V, max(1, -(-N // _GRID_THREADS)))
+    k_max = min(kernels.MAX_CLUSTER, 1 << (L.bit_length() - 1))
+
+    def smem(K):
+        return _grid_smem_bytes(L, K, chunk, itemsize)
+
+    K = 1
+    while K < k_max and (smem(K) > kernels.SMEM_BLOCK_MAX or lanes * K < 2 * per_sm(smem(K)) * sms):
+        K *= 2
+    if smem(K) > kernels.SMEM_BLOCK_MAX:
+        raise ValueError(f"grid_apeglm: a {L} x {L} grid does not fit {kernels.MAX_CLUSTER} blocks' shared memory")
+    return GridPlan(K, chunk)
+
+
+def _grid_device_plan(lanes: int, N: int, L: int, dtype, device) -> GridPlan:
+    """The plan the wrapper picks on ``device``: :func:`_grid_plan` with the
+    card's SMs and its occupancy for this build."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    dev = torch.device(device)
+    return _grid_plan(lanes, N, L, isz, kernels.sm_count(dev), functools.partial(_grid_card_per_sm, dev, isz))
+
+
 def _grid_shrink_cuda(counts, offset, X, size, pns, ps, scale_cnst, shrink_index, grid_length, min_beta,
-                      max_beta, sel=None):
-    """Launch the ``grid_apeglm`` kernel (one block per selected lane; NaN
-    in the lanes not selected)."""
+                      max_beta, sel=None, plan=None):
+    """Launch the ``grid_apeglm`` kernel (a cluster per selected lane; NaN
+    in the lanes not selected); ``plan`` (a :class:`GridPlan`) overrides
+    :func:`_grid_plan`."""
     K, N = counts.shape
     dev = counts.device
+    if plan is None:
+        plan = _grid_device_plan(K, N, grid_length, counts.dtype, dev)
     base, offs = grid_axes(min_beta, max_beta, grid_length, counts.dtype, dev)
     beta = torch.empty((K, 2), dtype=counts.dtype, device=dev)
     ops = [t.contiguous() for t in (counts, offset, X, size, scale_cnst, base, offs)]
@@ -262,7 +361,8 @@ def _grid_shrink_cuda(counts, offset, X, size, pns, ps, scale_cnst, shrink_index
         "grid_apeglm",
         [int(counts.dtype == torch.float64), K, N, counts.data_ptr(), offset.data_ptr(), X.data_ptr(),
          size.data_ptr(), scale_cnst.data_ptr(), kernels.ptr(sel8), base.data_ptr(), offs.data_ptr(),
-         grid_length, float(_scalar(pns, counts)), float(_scalar(ps, counts)), shrink_index, beta.data_ptr()],
+         grid_length, float(_scalar(pns, counts)), float(_scalar(ps, counts)), shrink_index, plan.K, plan.chunk,
+         beta.data_ptr()],
         dev,
     )
     return beta

@@ -13,7 +13,10 @@ at once from per-sample column sums.
 Kernels (``csrc/sizefactors.cu``) replace ``trimmed_sf_newton``
 (``pydeseq2_tpu/ops/sizefactors.py:34``) and its tiled copy in
 ``iterative_size_factors``' ``gene_block`` path (``:272-372``): ``sf_nll``
-(one warp per gene, the per-gene NLL, +inf off the mask) and ``sf_newton``
+(the per-gene NLL, +inf off the mask; :func:`_nll_plan` picks the threads a
+gene, and lgamma(y + 1) of small integer counts comes from a table the
+``lgamma_table`` kernel makes on the card once per device and type) and
+``sf_newton``
 (all Newton steps of one outer round in one launch: a thread-block cluster
 per chunk of samples, each step a fixed-order column reduction over the
 kept genes joined across the cluster's blocks through distributed shared
@@ -95,16 +98,84 @@ def _sf_nll_plain(counts, coef, sf0, inv_sf0, s, disp, mask, min_mu, gene_block=
     return torch.where(mask, nll, torch.full_like(nll, float("inf")))
 
 
-def _sf_nll_cuda(counts, coef, sf0, inv_sf0, s, disp, mask, min_mu, gene_block=None):
+class NllPlan(NamedTuple):
+    """Launch plan of ``sf_nll``: ``lanes`` threads a gene (a power of two;
+    256 / lanes genes a block) and ``chunk`` samples whose exp(s), sf0 and
+    inv_sf0 a block stages in shared memory at a time."""
+
+    lanes: int
+    chunk: int
+
+
+_NLL_THREADS = 256  # threads of an sf_nll block
+_NLL_SMEM = 49_152  # shared memory of an sf_nll block at most (48 KB, no opt-in)
+_NLL_CELLS = 16  # cells a thread a gene takes at most, where 32 lanes allow
+# lgamma(y + 1) is read from a table for integer counts below this; above,
+# each cell computes it.
+LGAMMA_TABLE_LEN = 4096
+_lgamma_tables: dict = {}
+
+
+def _nll_smem_bytes(chunk: int, itemsize: int) -> int:
+    """Shared memory of an ``sf_nll`` block (the kernel's
+    ``nll_smem_bytes``): the chunk's three staged values a sample and the
+    block's gene order."""
+    return 3 * chunk * itemsize + 4 * (_NLL_THREADS // 4)
+
+
+def _nll_plan(N: int, itemsize: int) -> NllPlan:
+    """The ``sf_nll`` plan for N samples of ``itemsize`` bytes.
+
+    lanes: the fewest threads a gene, a power of two from 4 to 32, that
+    leave each at most 16 of its cells (8 lanes at 100 samples, 4 genes a
+    warp; 32, a warp a gene, from 257 samples). chunk: all N samples, or as
+    many as fit 48 KB (4074 in float32, 2037 in float64).
+    """
+    need = -(-max(N, 1) // _NLL_CELLS)
+    lanes = min(32, max(4, 1 << (need - 1).bit_length()))
+    return NllPlan(lanes, max(1, min(N, (_NLL_SMEM - _nll_smem_bytes(0, itemsize)) // (3 * itemsize))))
+
+
+def _lgamma_table_plain(dtype, device) -> torch.Tensor:
+    """lgamma(i + 1) for i < LGAMMA_TABLE_LEN, by ``torch.lgamma``."""
+    return torch.lgamma(torch.arange(1, LGAMMA_TABLE_LEN + 1, dtype=dtype, device=device))
+
+
+def _lgamma_table_cuda(dtype, device) -> torch.Tensor:
+    """Launch ``lgamma_table``: lgamma(i + 1) for i < LGAMMA_TABLE_LEN by the
+    cells' own lgamma."""
+    table = torch.empty(LGAMMA_TABLE_LEN, dtype=dtype, device=device)
+    kernels.launch("lgamma_table", [int(dtype == torch.float64), LGAMMA_TABLE_LEN, table.data_ptr()], table.device)
+    return table
+
+
+def _lgamma_table(dtype, device) -> torch.Tensor:
+    """The table ``sf_nll`` reads on ``device``, made there once per device
+    and dtype (the kernel on a CUDA device) and kept."""
+    key = (torch.device(device), dtype)
+    table = _lgamma_tables.get(key)
+    if table is None:
+        make = _lgamma_table_cuda if key[0].type == "cuda" else _lgamma_table_plain
+        table = _lgamma_tables[key] = make(dtype, device)
+    return table
+
+
+def _sf_nll_cuda(counts, coef, sf0, inv_sf0, s, disp, mask, min_mu, gene_block=None, plan=None):
+    """Launch ``sf_nll``; ``plan`` (an :class:`NllPlan`) overrides
+    :func:`_nll_plan`."""
     G, N = counts.shape
+    if plan is None:
+        plan = _nll_plan(N, counts.element_size())
     nll = torch.empty(G, dtype=counts.dtype, device=counts.device)
     mask8 = mask.to(torch.uint8).contiguous()
     ops = [t.contiguous() for t in (counts, coef, sf0, inv_sf0, s, disp)]
     kernels.check_cuda_operands("sf_nll", *ops, nll, mask8)
+    table = _lgamma_table(counts.dtype, counts.device)
     kernels.launch(
         "sf_nll",
-        [int(counts.dtype == torch.float64), G, N, *(t.data_ptr() for t in ops), mask8.data_ptr(), float(min_mu),
-         nll.data_ptr()],
+        [int(counts.dtype == torch.float64), G, N, plan.lanes, plan.chunk,
+         *(t.data_ptr() for t in ops),
+         mask8.data_ptr(), float(min_mu), table.data_ptr(), LGAMMA_TABLE_LEN, nll.data_ptr()],
         counts.device,
     )
     return nll

@@ -103,11 +103,14 @@ def test_child_on_cpu(monkeypatch, detail):
 def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
     """The ``sf`` and ``trend`` suites of one tree's run at small shapes:
     times, no difference from the plain versions, the plans picked, the
-    plain fit's passes; ``--detail`` the other modes and cluster sizes."""
+    plain fit's passes, ``sf_nll`` on the draw and on its zero-heavy copy;
+    ``--detail`` the other modes, cluster sizes and lane counts."""
     _on_cpu(monkeypatch)
     plans = {}
     monkeypatch.setattr(sz, "_sf_newton_cuda",
                         lambda *a, plan=None: plans.setdefault("sf", []).append(plan) or sz._sf_newton_plain(*a))
+    monkeypatch.setattr(sz, "_sf_nll_cuda",
+                        lambda *a, plan=None: plans.setdefault("nll", []).append(plan) or sz._sf_nll_plain(*a))
     monkeypatch.setattr(tr, "_trend_fit_cuda",
                         lambda *a, plan=None: plans.setdefault("fit", []).append(plan) or tr._trend_fit_plain(*a))
     monkeypatch.setattr(tr, "_parametric_trend_cuda",
@@ -118,13 +121,21 @@ def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
     monkeypatch.setattr(kernel_bench, "TREND_SHAPES", (("f32 300", 300, torch.float32, 1),
                                                        ("f64 3000", 3_000, torch.float64, 1)))
     res = kernel_bench.child(detail, ("sf", "trend"))
-    assert "shapes" not in res and set(res) == {"ptxas", "sf", "trend"}
+    assert "shapes" not in res and set(res) == {"ptxas", "sf", "trend"} | ({"sass_loops"} if detail else set())
     assert set(res["sf"]) == {"f32 12x300", "f64 3x70"}
     for row in res["sf"].values():
         assert row["sf_newton_ms"] > 0 and row["sf_newton_kernel_ms"] > 0 and row["err"] == 0.0
         assert row["plan"]["K"] >= 1
         assert any(k.startswith("kernel_ms streamed") for k in row) == detail
     assert res["sf"]["f64 3x70"]["plan"] == {"C": 4, "K": 2, "shared": True, "max_clusters": 0}
+    for label, row in res["sf"].items():
+        for draw in ("sf_nll", "sf_nll zero_heavy"):
+            nll = row[draw]
+            assert nll["sf_nll_ms"] > 0 and nll["rel_err"] == 0.0 and nll["bit_equal_share"] == 1.0, (label, draw)
+            N = int(label.split("x")[0].split()[-1])
+            assert nll["plan"] == sz._nll_plan(N, 4 if "f32" in label else 8)._asdict()
+            assert any(k.startswith("kernel_ms lanes=") for k in nll) == detail
+        assert row["sf_nll zero_heavy"]["zero_share"] > 0.5 > row["sf_nll"]["zero_share"]
     for label, row in res["trend"].items():
         assert row["trend_ms"] > 0 and row["trend_fit_ms"] > 0
         assert row["trend_fit_coef_err"] == 0.0 and row["trend_coef_err"] == 0.0
@@ -168,7 +179,7 @@ def test_cooks_child_on_cpu(monkeypatch, detail):
     monkeypatch.setattr(kernel_bench, "RANK_SWEEP", (8,))
     monkeypatch.setattr(kernel_bench, "RANK_SWEEP_GENES", 20)
     res = kernel_bench.child(detail, ("cooks",))
-    assert set(res) == {"ptxas", "cooks", "trimmed_var"}
+    assert set(res) == {"ptxas", "cooks", "trimmed_var"} | ({"sass_loops"} if detail else set())
     shapes = {"f32 100x300", "f32 400x50 refit"}
     assert set(res["cooks"]) == shapes | ({"rank sweep f32 cohorts of 8", "rank sweep f64 cohorts of 8"} if detail
                                           else set())
@@ -183,3 +194,111 @@ def test_cooks_child_on_cpu(monkeypatch, detail):
     assert res["trimmed_var"]["f32 column 3000"]["plan"] == {"block": True, "threads": 1024, "rank_max": 96,
                                                               "shared": True, "blocks": 0}
     assert any(p is not None for p in plans) == detail
+
+
+def test_zero_heavy_draw():
+    """More than half the cells zero, a count at or above the lgamma
+    table's bound in every 100th gene, gene 1 non-integer."""
+    counts = torch.full((250, 40), 7.0, dtype=torch.float64)
+    z = kernel_bench.zero_heavy(counts)
+    assert (z == 0).double().mean() > 0.5
+    assert bool((z[::100] >= sz.LGAMMA_TABLE_LEN).any(1).all())
+    assert bool((z[1] != torch.round(z[1])).all())
+    assert torch.equal(counts, torch.full((250, 40), 7.0, dtype=torch.float64))  # a copy
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_grid_child_on_cpu(monkeypatch, detail):
+    """The ``grid`` suite of one tree's run at small shapes: the weak tile
+    (at the draw's width, where no lane fails Newton at 40 genes, it says
+    so; with ``--detail`` a small stand-in tile, every lane then half),
+    each shape's times, every lane at the plain version's point, the plan,
+    the digest of ``grid_nb``'s bits; ``--detail`` every cluster size."""
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    _on_cpu(monkeypatch)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    plans = []
+
+    def plain_grid(*a, plan=None):
+        plans.append(plan)
+        sel = a[11] if len(a) > 11 else None
+        out = sh._grid_shrink_plain(*a[:11])
+        return out if sel is None else torch.where(sel[:, None], out, torch.full_like(out, float("nan")))
+
+    monkeypatch.setattr(sh, "_grid_shrink_cuda", plain_grid)
+    monkeypatch.setattr(kernel_bench, "WEAK_G", 40)
+    if detail:
+        tile = kernel_bench.grid_operands(6, 50, torch.float32, "indicator")
+        monkeypatch.setattr(kernel_bench, "weak_tile", lambda: (tile, torch.arange(6) % 2 == 0))
+    monkeypatch.setattr(kernel_bench, "GRID_SHAPES", (("f32 3 lanes x 300", 3, 300, torch.float32, "indicator", 1),
+                                                      ("f64 20 x 40", 20, 40, torch.float64, "continuous", 1)))
+    monkeypatch.setattr(kernel_bench, "GRID_DETAIL_SHAPES", (("f32 9 lanes x 30", 9, 30, torch.float32, "indicator",
+                                                              1),))
+    # the card's occupancy is not asked here: the plan's register default
+    monkeypatch.setattr(sh, "_grid_device_plan", lambda lanes, N, L, dtype, device: sh._grid_plan(
+        lanes, N, L, torch.empty((), dtype=dtype).element_size()))
+    res = kernel_bench.child(detail, ("grid",))
+    assert set(res) == {"ptxas", "grid"} | ({"sass_loops"} if detail else set())
+    rows = res["grid"]
+    assert {"f32 3 lanes x 300", "f64 20 x 40"} <= set(rows)
+    assert ("f32 9 lanes x 30" in rows) == detail
+    if detail:
+        assert rows["f32 weak tile, every lane"]["lanes"] == 6
+        assert rows["f32 weak tile, the pipeline's selection"]["lanes"] == 3
+        assert rows["f32 weak tile, the pipeline's selection"]["same_point_share"] == 1.0
+    else:
+        assert rows["weak tile"] == "no lane failed Newton"
+    for label in ("f32 3 lanes x 300", "f64 20 x 40"):
+        row = rows[label]
+        assert row["grid_apeglm_ms"] > 0 and row["same_point_share"] == 1.0 and len(row["grid_nb_bits"]) == 16
+        assert sum(k.startswith("kernel_ms K=") for k in row) == (4 if detail else 0)
+    assert rows["f32 3 lanes x 300"]["plan"] == {"K": 16, "chunk": 512}
+    assert any(p is not None for p in plans) == detail
+
+
+def test_grid_operands_designs(monkeypatch):
+    """The suite's designs: the draw's intercept and condition, an
+    intercept and a continuous column (no zero), the conditions'
+    indicators (a zero in the first column of some rows, one in each)."""
+    monkeypatch.setattr(kernel_bench, "DEVICE", "cpu")
+    ind = kernel_bench.grid_operands(4, 50, torch.float64, "indicator")[2]
+    cont = kernel_bench.grid_operands(4, 50, torch.float64, "continuous")[2]
+    zf = kernel_bench.grid_operands(4, 50, torch.float64, "zero-first")[2]
+    assert bool((ind[:, 0] == 1).all()) and bool((ind[:, 1] == 0).any())
+    assert bool((cont != 0).all())
+    assert bool((zf[:, 0] == 0).any()) and bool(((zf[:, 0] == 0) != (zf[:, 1] == 0)).all())
+
+
+SASS = """
+        Function : _Z4termPf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                      /* 0x00000a00ff017b82 */
+        /*0010*/                   FMUL R3, R2, R5 ;                           /* 0x0000000502037220 */
+        /*0020*/              @P1 BRA 0x50 ;                                   /* 0x0000000000001947 */
+        /*0030*/                   MUFU.EX2 R4, R3 ;                           /* 0x0000000000001947 */
+        /*0040*/                   FADD R4, R4, 1 ;                            /* 0x0000000000001947 */
+        /*0050*/                   FADD R6, R4, R6 ;                           /* 0x0000000000001947 */
+        /*0060*/                   BRA.U !UP0, 0x10 ;                          /* 0x0000000000001947 */
+        /*0070*/                   FADD R6, R4, R6 ;                           /* 0x0000000000001947 */
+.L_x_1:
+        /*0080*/                   FMUL R3, R2, R5 ;                           /* 0x0000000502037220 */
+        /*0090*/                   FADD R6, R4, R6 ;                           /* 0x0000000000001947 */
+        /*00a0*/              @!P0 BRA `(.L_x_1) ;                             /* 0x0000000000001947 */
+        /*00b0*/                   EXIT ;                                      /* 0x0000000000001947 */
+        Function : _Z4noneP
+        /*0000*/                   EXIT ;                                      /* 0x0000000000001947 */
+"""
+
+
+def test_sass_loops_of_a_listing():
+    """A loop's instructions, its shortest and longest trip (the forward
+    branch skips two), its MUFU count; branch targets by address and by
+    label; a loop without a transcendental and a function without a loop
+    report none."""
+    assert kernel_bench.sass_functions(SASS) == {
+        "_Z4termPf": [{"instructions": 6, "min_path": 4, "max_path": 6, "mufu": 1}], "_Z4noneP": []}
+
+
+def test_sass_loops_without_cuobjdump(monkeypatch):
+    monkeypatch.setattr(kernel_bench, "cuobjdump", lambda k: None)
+    assert kernel_bench.sass_loops(kernels, ("grid.cu",)) == {}

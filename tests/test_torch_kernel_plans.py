@@ -1,8 +1,10 @@
 """The launch plans of the cluster kernels ``sf_newton``
-(``ops/sizefactors.py:_sf_plan``) and ``trend`` / ``trend_fit``
-(``ops/trend.py:_trend_plan``), and of the trimmed moments of ``cooks`` and
-``trimmed_var`` (``ops/stats.py:_trim_plan``), on the CPU: pure Python, no
-kernel runs.
+(``ops/sizefactors.py:_sf_plan``), ``trend`` / ``trend_fit``
+(``ops/trend.py:_trend_plan``) and ``grid_apeglm``
+(``ops/shrink.py:_grid_plan``), of the trimmed moments of ``cooks`` and
+``trimmed_var`` (``ops/stats.py:_trim_plan``), and of ``sf_nll``
+(``ops/sizefactors.py:_nll_plan``), on the CPU: pure Python, no kernel
+runs.
 
 Each cluster plan splits the samples into chunks that cover every sample
 once, uses at most 16 blocks a cluster, keeps what a block holds in shared
@@ -11,16 +13,20 @@ fit. Each trimmed-moment plan takes every cohort size from 1 to the row's
 length, by rank count up to its rank_max and by radix select above, holds
 its staged keys in one block's shared memory or streams them exactly where
 they would not fit, and the wrappers hand the C launchers one value of the
-right kind per argument.
+right kind per argument. ``grid_apeglm``'s blocks take every grid row of
+both passes once, and ``sf_nll``'s lane groups every gene and its chunks
+every sample once, within a block's shared memory.
 """
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
 from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops import cooks as ck
+from pydeseq2_tpu_torch.ops import shrink as sh
 from pydeseq2_tpu_torch.ops import sizefactors as sz
 from pydeseq2_tpu_torch.ops import stats as st
 from pydeseq2_tpu_torch.ops import trend as tr
@@ -257,3 +263,191 @@ def test_trimmed_rows_wrapper_marshals_its_plan(recorded):
         _assert_marshalled("trimmed_var", a)
     assert a0[3] == 0 and a0[-7:-1] == [1, 1024, 96, 0, 1, 59_038] and a0[-1] is not None
     assert a1[3] == 1 and a1[-7:-1] == [0, 256, 96, 1, 0, 50] and a1[-1] is None
+
+
+GRID_CASES = [
+    # (lanes, N, L): one lane, the wide checks' 16, the pipeline tiles of 256
+    # and 937 lanes, a short grid, a long one, a tile wider than the card
+    (1, 100, 60), (4, 8_000, 60), (16, 8_000, 60), (256, 100, 60), (494, 100, 60), (937, 100, 60),
+    (4_096, 100, 60), (937, 1, 60), (16, 300, 5), (16, 100, 1), (16, 100, 2), (937, 100, 200), (937, 100, 600),
+]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("lanes,N,L", GRID_CASES)
+def test_grid_plan_covers_and_fits(lanes, N, L, itemsize):
+    plan = sh._grid_plan(lanes, N, L, itemsize)
+    assert 1 <= plan.K <= min(kernels.MAX_CLUSTER, L) and plan.K & (plan.K - 1) == 0
+    # every row of the grid (both passes use the same split) in exactly one block
+    rows = [k for q in range(plan.K) for k in sh._grid_rows(L, plan.K, q)]
+    assert rows == list(range(L))
+    assert all(len(sh._grid_rows(L, plan.K, q)) >= 1 for q in range(plan.K))
+    assert sh._grid_smem_bytes(L, plan.K, plan.chunk, itemsize) <= kernels.SMEM_BLOCK_MAX
+    # chunks of a multiple of 256 samples, at most 1024, no more than N needs
+    assert plan.chunk % 256 == 0 and 256 <= plan.chunk <= 1024
+    assert plan.chunk == 256 or plan.chunk - 256 < N
+    # the least K whose blocks reach two waves of the card (the blocks an SM
+    # holds by registers and shared memory), at the cap, or forced by shared memory
+    def waves2(K):
+        return 2 * sh._grid_reg_per_sm(itemsize, sh._grid_smem_bytes(L, K, plan.chunk, itemsize)) * 132
+
+    k_max = min(kernels.MAX_CLUSTER, 1 << (L.bit_length() - 1))
+    assert lanes * plan.K >= waves2(plan.K) or plan.K == k_max
+    smaller = plan.K // 2
+    assert plan.K == 1 or lanes * smaller < waves2(smaller) or (
+        sh._grid_smem_bytes(L, smaller, plan.chunk, itemsize) > kernels.SMEM_BLOCK_MAX)
+
+
+def test_grid_plan_picks():
+    """The plans of the shapes PERF.md reports, and a grid too large."""
+    assert sh._grid_plan(1, 8_000, 60, 4) == sh.GridPlan(16, 1024)
+    assert sh._grid_plan(16, 8_000, 60, 4) == sh.GridPlan(16, 1024)
+    assert sh._grid_plan(16, 4_000, 60, 8) == sh.GridPlan(16, 1024)
+    assert sh._grid_plan(937, 100, 60, 4) == sh.GridPlan(2, 256)
+    assert sh._grid_plan(937, 100, 60, 8) == sh.GridPlan(1, 256)  # 3 blocks an SM: two waves are 792
+    assert sh._grid_plan(256, 100, 60, 4) == sh.GridPlan(8, 256)
+    assert sh._grid_plan(64, 100, 60, 4) == sh.GridPlan(16, 256)
+    assert sh._grid_plan(4_096, 100, 60, 8) == sh.GridPlan(1, 256)
+    assert sh._grid_plan(16, 100, 5, 4).K == 4
+    assert sh._grid_plan(937, 100, 600, 8).K == 16  # shared memory forces it
+    with pytest.raises(ValueError):
+        sh._grid_plan(937, 100, 1_000, 8)
+
+
+def test_grid_plan_follows_the_occupancy():
+    """The blocks an SM holds set the two waves K must reach: the ptxas
+    registers by default (4 blocks of 256 in float32, 3 in float64, fewer
+    where shared memory binds), else what ``per_sm`` says of each K's
+    shared memory."""
+    assert sh._grid_reg_per_sm(4, 26_656) == 4 and sh._grid_reg_per_sm(8, 46_416) == 3
+    assert sh._grid_reg_per_sm(4, 100_000) == 2 and sh._grid_reg_per_sm(8, 232_448) == 1
+    seen = []
+
+    def per_sm(smem):
+        seen.append(smem)
+        return 8
+
+    assert sh._grid_plan(937, 100, 60, 4, per_sm=per_sm) == sh.GridPlan(4, 256)  # 2 x 8 x 132 = 2112
+    assert seen and seen[-1] == sh._grid_smem_bytes(60, 4, 256, 4)
+    assert sh._grid_plan(937, 100, 60, 4, sms=66, per_sm=lambda b: 4) == sh.GridPlan(1, 256)
+    assert sh._grid_plan(1, 8_000, 60, 4, per_sm=lambda b: 1) == sh.GridPlan(16, 1024)
+
+
+def test_grid_smem_bytes_layout():
+    """The kernel's layout: float64 totals of a block's points, rows and
+    columns, 3 x 256 float64 slice partials, 25 ints padded to 16, the two
+    published candidates and the 8 warps' (16 bytes each), five staged
+    values a sample."""
+    assert sh._grid_smem_bytes(60, 2, 256, 4) == 8 * (30 * 60 + 30 + 60 + 768) + 112 + 160 + 5 * 256 * 4
+    assert sh._grid_smem_bytes(60, 16, 1024, 8) == 8 * (4 * 60 + 4 + 60 + 768) + 112 + 160 + 5 * 1024 * 8
+    assert [len(sh._grid_rows(60, 16, q)) for q in range(16)] == [3, 4, 4, 4] * 4
+
+
+NLL_SHAPES = [(60_000, 100), (60_000, 1_000), (60_000, 10_000), (4_000, 3), (1, 1), (7, 64), (7, 65), (70, 256),
+              (70, 257), (3, 4_074), (3, 4_075), (5, 2_037), (5, 2_038), (2, 100_000)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("G,N", NLL_SHAPES)
+def test_nll_plan_covers_and_fits(G, N, itemsize):
+    plan = sz._nll_plan(N, itemsize)
+    assert plan.lanes in (4, 8, 16, 32)
+    # at most 16 cells a lane, or a whole warp a gene
+    assert -(-N // plan.lanes) <= 16 or plan.lanes == 32
+    assert plan.lanes == 4 or -(-N // (plan.lanes // 2)) > 16  # the fewest such lanes
+    # every gene in one lane group, every sample in one chunk
+    per = 256 // plan.lanes
+    blocks = -(-G // per)
+    genes = [b * per + j for b in range(blocks) for j in range(per) if b * per + j < G]
+    assert genes == list(range(G))
+    seen = [n for c0 in range(0, N, plan.chunk) for n in range(c0, min(N, c0 + plan.chunk))]
+    assert seen == list(range(N))
+    assert plan.chunk <= max(N, 1)
+    # the widest chunk that fits 48 KB, or all N
+    assert sz._nll_smem_bytes(plan.chunk, itemsize) <= 49_152
+    assert plan.chunk == N or sz._nll_smem_bytes(plan.chunk + 1, itemsize) > 49_152
+
+
+def test_nll_plan_picks():
+    assert sz._nll_plan(100, 4) == sz.NllPlan(8, 100)
+    assert sz._nll_plan(100, 8) == sz.NllPlan(8, 100)
+    assert sz._nll_plan(1_000, 4) == sz.NllPlan(32, 1_000)
+    assert sz._nll_plan(10_000, 4) == sz.NllPlan(32, 4_074)
+    assert sz._nll_plan(10_000, 8) == sz.NllPlan(32, 2_037)
+    assert sz._nll_plan(3, 4) == sz.NllPlan(4, 3)
+    assert sz._nll_smem_bytes(100, 4) == 1_200 + 256 and sz._nll_smem_bytes(100, 8) == 2_400 + 256
+
+
+def test_grid_wrapper_marshals_its_plan(recorded, monkeypatch):
+    """``_grid_shrink_cuda`` hands the launcher the lanes, the grid and the
+    plan it picks (or is given); no selection, every lane."""
+    asked = []
+
+    def occupancy(name, args, device):
+        asked.append((name, args[:2]))
+        ctypes.c_int.from_address(args[2]).value = 4
+
+    monkeypatch.setattr(kernels, "call_helper", occupancy)
+    sh._grid_card_per_sm.cache_clear()
+    K, N = 937, 100
+    counts = torch.ones(K, N, dtype=torch.float32)
+    X = torch.ones(N, 2, dtype=torch.float32)
+    args = (counts, torch.zeros(N), X, torch.ones(K), 15.0, 0.5, torch.ones(K), 1, 60, -30.0, 30.0)
+    sh._grid_shrink_cuda(*args)
+    sh._grid_shrink_cuda(*args, plan=sh.GridPlan(4, 512))
+    for name, a in recorded:
+        assert name == "grid_apeglm"
+        _assert_marshalled(name, a)
+        assert a[:3] == [0, K, N] and a[11] == 60 and a[14] == 1
+    assert recorded[0][1][15:17] == list(sh._grid_plan(K, N, 60, 4)) == [2, 256]
+    assert recorded[1][1][15:17] == [4, 512]
+    assert recorded[0][1][8] is None
+    # the occupancy of each K the plan tried, asked once (then cached), none for a given plan
+    assert asked == [("grid_apeglm_per_sm", [0, sh._grid_smem_bytes(60, k, 256, 4)]) for k in (1, 2)]
+    sh._grid_card_per_sm.cache_clear()
+
+
+def test_sf_nll_wrapper_marshals_its_plan(recorded, monkeypatch):
+    """``_sf_nll_cuda`` hands the launcher its plan and the lgamma table,
+    made once per device and dtype and kept."""
+    monkeypatch.setattr(sz, "_lgamma_tables", {})
+    G, N = 300, 100
+    counts = torch.ones(G, N, dtype=torch.float64)
+    v = torch.ones(N, dtype=torch.float64)
+    g = torch.ones(G, dtype=torch.float64)
+    args = (counts, g, v, v, v, g, torch.ones(G, dtype=torch.bool), 0.5)
+    sz._sf_nll_cuda(*args)
+    sz._sf_nll_cuda(*args, plan=sz.NllPlan(32, 50))
+    (n0, a0), (n1, a1) = recorded
+    for name, a in recorded:
+        assert name == "sf_nll"
+        _assert_marshalled(name, a)
+        assert a[:3] == [1, G, N] and a[-2] == sz.LGAMMA_TABLE_LEN
+    assert a0[3:5] == [8, 100] and a1[3:5] == [32, 50]
+    table = sz._lgamma_tables[(torch.device("cpu"), torch.float64)]
+    assert a0[-3] == table.data_ptr() == a1[-3]  # the same table
+
+
+def test_lgamma_table_wrapper_marshals(recorded):
+    """``_lgamma_table_cuda`` launches (and counts) ``lgamma_table`` on the
+    table's length and pointer."""
+    table = sz._lgamma_table_cuda(torch.float32, "cpu")
+    assert table.shape == (sz.LGAMMA_TABLE_LEN,) and table.dtype == torch.float32
+    ((name, a),) = recorded
+    assert name == "lgamma_table"
+    _assert_marshalled(name, a)
+    assert a == [0, sz.LGAMMA_TABLE_LEN, table.data_ptr()]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lgamma_table_plain(dtype):
+    """The plain table is gammaln(i + 1), the NLL's lgamma(y + 1) of an
+    integer count i (scipy's, rtol 1e-6 in float32, 1e-12 in float64),
+    and lgamma(1) = 0 exactly, which the zero cells' short form needs."""
+    from scipy.special import gammaln
+
+    table = sz._lgamma_table_plain(dtype, "cpu")
+    want = gammaln(np.arange(1, sz.LGAMMA_TABLE_LEN + 1, dtype=np.float64))
+    np.testing.assert_allclose(table.double().numpy(), want, rtol=1e-6 if dtype == torch.float32 else 1e-12,
+                               atol=1e-6 if dtype == torch.float32 else 1e-12)
+    assert table[0].item() == 0.0 and table[1].item() == 0.0

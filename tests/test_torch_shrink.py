@@ -16,7 +16,9 @@ Tolerances:
   |g| < 1e-6 flag sit at the f32 rounding noise of the objective and
   gradient; an unconverged lane stops where that noise stops it: gene 2,
   one count of 1e6, ends 0.03 apart);
-- the 2-D grid, f64: 1e-12 (the same grid points win);
+- the 2-D grid, f64: 1e-12 (the same grid points win), on the draw's
+  design, on an intercept with a continuous covariate and on the two
+  conditions' indicators;
 - the streamed slice, f64: rtol 1e-6 on every key, identical NaN masks and
   flags (as the pipeline tests);
 - against R's apeGLM: ``tests/test_shrinkage.py``'s 2% on log2 fold changes.
@@ -109,6 +111,27 @@ def test_grid_fit_shrink_beta_batch_f64(shrink_inputs):
     cnst = jnp.maximum(j_shrink.nbinom_fn_batch(jnp.zeros((24, 2)), X, counts[sl], size[sl], offset, PNS, PS, 1), 1.0)
     want = np.asarray(j_shrink.grid_fit_shrink_beta_batch(counts[sl], offset, X, size[sl], PNS, PS, cnst))
     Xt, ct, st, ot = _args(shrink_inputs, "f64", "torch")
+    got = t_shrink.grid_fit_shrink_beta_batch(ct[sl], ot, Xt, st[sl], PNS, PS, torch.as_tensor(np.array(cnst)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("design", ["continuous", "zero-first"])
+def test_grid_fit_shrink_beta_batch_designs_f64(shrink_inputs, design):
+    """The grid on the same 24 lanes with a design whose rows hold no zero
+    (an intercept and a continuous covariate) and one with a zero in the
+    first column (the two conditions' indicators): the CUDA kernel skips
+    by-independent terms by design row, and its plain version must hold to
+    JAX on either."""
+    counts, X, size, offset, _ = shrink_inputs
+    if design == "continuous":
+        X = np.column_stack([np.ones(X.shape[0]), np.random.default_rng(14).normal(0.0, 1.0, X.shape[0])])
+    else:
+        X = np.column_stack([1.0 - X[:, 1], X[:, 1]])
+    sl = slice(0, 24)
+    Xj, cj, sj, oj = (jnp.asarray(np.asarray(a, np.float64)) for a in (X, counts, size, offset))
+    cnst = jnp.maximum(j_shrink.nbinom_fn_batch(jnp.zeros((24, 2)), Xj, cj[sl], sj[sl], oj, PNS, PS, 1), 1.0)
+    want = np.asarray(j_shrink.grid_fit_shrink_beta_batch(cj[sl], oj, Xj, sj[sl], PNS, PS, cnst))
+    Xt, ct, st, ot = (torch.as_tensor(np.asarray(a, np.float64)) for a in (X, counts, size, offset))
     got = t_shrink.grid_fit_shrink_beta_batch(ct[sl], ot, Xt, st[sl], PNS, PS, torch.as_tensor(np.array(cnst)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
