@@ -54,7 +54,12 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    (``grid_design_checks``); ``sf_nll`` at every lane count on Poisson and
    zero-heavy counts at 3, 100 and 10000 samples in both types, and
    ``grid_apeglm`` at every cluster size, each launched twice and equal to
-   itself bit for bit (``nll_grid_plan_checks``); ``sf_nll`` also on a
+   itself bit for bit (``nll_grid_plan_checks``); ``grid_nb`` in each plan
+   its wrapper picks from the selected count (1, 16 and 937 of a 937-lane
+   tile, and 16 at every cluster size; both types, indicator and
+   continuous designs), each launched twice (``grid_nb_plan_checks``);
+   ``shrink`` launched twice and in rounds of one candidate (the same
+   iterate, bit for bit); ``sf_nll`` also on a
    zero-heavy copy of the trimmed solve's counts, and its lgamma table
    (lgamma(1) = 0 on the card);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
@@ -157,6 +162,14 @@ DIV_INSTR = 16
 # kernels line.
 APEGLM_TERM_INSTR = 75
 SF_NLL_CELL_INSTR = (24, 538)
+# The same for one NB term of grid_nb (the shortest trip of its float32
+# term loops, 267 instructions, over the 4 terms a trip of a loop unrolled
+# by 4: the 937-lane tile's 343 M terms take 1.55 ms on an H100, which at
+# the issue rate leaves a term ~151 instructions at most) and one apeGLM
+# term of shrink's objective pass (the shortest trip of its one-sample
+# float32 loop).
+NB_TERM_INSTR = 67
+SHRINK_TERM_INSTR = 59
 
 DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
@@ -214,6 +227,9 @@ N_GRID_WIDE = {torch.float32: 8_000, torch.float64: 4_000}
 # zero in the first column); one lane, 16, and the weak-effect tile's 937.
 GRID_DESIGNS = ("indicator", "continuous", "zero-first")
 GRID_LANES = (1, 16, 937)
+# grid_nb's plan checks: a tile of NB_TILE lanes at the main width, of which
+# 1, 16 or all are selected, and every cluster size at 16 selected lanes
+NB_TILE = 937
 # The plans' own shapes (phase 2, nll_grid_plan_checks): sf_nll at each lane
 # count on Poisson and zero-heavy draws at 100 samples, past the staged
 # chunk (10000 samples: 4096 a chunk in float32, 2048 in float64), and at
@@ -1307,7 +1323,7 @@ def account_rescue_exit(seen: dict, counts: np.ndarray, i: int, gpu: dict, cpu: 
         want = irl._newton_box_plain(*lane, one(binit), min_mu, max_beta, maxiter)[0]
         what, btol = f"{label} gene {i} (Newton box)", 1e-9
     else:
-        grid = bound_args(irl.grid_fit_beta_batch, lane, {"min_mu": min_mu})[:-1]
+        grid = bound_args(irl.grid_fit_beta_batch, lane, {"min_mu": min_mu})[:-2]
         want = irl._grid_fit_beta_plain(*grid)
         what, btol = f"{label} gene {i} (grid)", 1e-6 * abs(grid[-1])
     unit = noise_unit(tc.shape[1], tc.dtype) * term_scale(lane[0])
@@ -1506,6 +1522,7 @@ def rescue_checks(seen, dtype, reps, timings, readings):
     selection). Returns {name: max_abs_err} and fills ``timings`` (float32
     only)."""
     from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops import shrink as sh
 
     f32 = dtype == torch.float32
     name = "f32" if f32 else "f64"
@@ -1513,9 +1530,12 @@ def rescue_checks(seen, dtype, reps, timings, readings):
     *box, sel = bound_args(irl.newton_box_nbglm, *seen["newton_box_nbglm"][:2])
     counts, sf, X, disp, beta_init, min_mu, max_beta, _ = box
     if "grid_fit_beta_batch" in seen:
-        *grid, sel_grid = bound_args(irl.grid_fit_beta_batch, *seen["grid_fit_beta_batch"][:2])
+        *grid, sel_grid, n_grid = bound_args(irl.grid_fit_beta_batch, *seen["grid_fit_beta_batch"][:2])
+        check(n_grid is not None and n_grid >= int(sel_grid.sum()), f"rescue {name}: the path's grid launch "
+                                                                      f"counts {n_grid} selected lanes")
     else:
-        *grid, sel_grid = bound_args(irl.grid_fit_beta_batch, (counts, sf, X, disp), {"min_mu": min_mu, "sel": sel})
+        *grid, sel_grid, n_grid = bound_args(irl.grid_fit_beta_batch, (counts, sf, X, disp),
+                                             {"min_mu": min_mu, "sel": sel, "n_sel": int(sel.sum())})
     K, N = counts.shape
     P = X.shape[1]
     # Tolerance: coefficients within 1e-4 (f32) / 1e-9 (f64), or float64
@@ -1556,9 +1576,11 @@ def rescue_checks(seen, dtype, reps, timings, readings):
     gp = irl._grid_fit_beta_plain(*grid)
     gfar, r = tie_report(f"grid_nb {name}", gk, gp, lambda b: nb_objective64(counts, sf, X, disp, b, min_mu), unit,
                          1e-6 * 30.0, fine_step(*grid[-3:]), readings)
-    gs = irl._grid_fit_beta_cuda(*grid, sel_grid)
+    gs = irl._grid_fit_beta_cuda(*grid, sel_grid, n_grid)
     check(bits_equal(gs[sel_grid], gk[sel_grid]) and bool(torch.isnan(gs[~sel_grid]).all()),
           f"grid_nb {name}: the selected launch differs from the all-lane one")
+    check(bits_equal(gs, irl._grid_fit_beta_cuda(*grid, sel_grid, n_grid)), f"grid_nb {name}: a second selected "
+                                                                            "launch differs from the first")
     log(f"  grid_nb {name}: {K} lanes, {gfar} at another grid point with tied objectives ({r}); pipeline selection "
         f"{int(sel_grid.sum())} lanes, bit-identical to the all-lane launch")
     errs = {"newton_box": (bk - bp).nan_to_num(0.0).abs().max().item(),
@@ -1567,6 +1589,7 @@ def rescue_checks(seen, dtype, reps, timings, readings):
         isz = counts.element_size()
         n_sel, n_grid = int(sel.sum()), int(sel_grid.sum())
         ntri = P * (P + 1) // 2
+        terms = grid_terms(X, n_grid)
         timings["newton_box"] = {
             "ms": cuda_ms(lambda: irl._newton_box_cuda(*box, sel), reps),
             "plain_ms": cuda_ms(lambda: irl._newton_box_plain(*box), 2),
@@ -1580,15 +1603,20 @@ def rescue_checks(seen, dtype, reps, timings, readings):
             "ops": int(passes.sum()) * N * (2 * P + 12 + 2 * ntri),
         }
         timings["grid_nb"] = {
-            "ms": cuda_ms(lambda: irl._grid_fit_beta_cuda(*grid, sel_grid), reps),
+            "ms": cuda_ms(lambda: irl._grid_fit_beta_cuda(*grid, sel_grid, n_grid), reps),
             "plain_ms": cuda_ms(lambda: irl._grid_fit_beta_plain(*grid), 2),
             "all_lanes_ms": cuda_ms(lambda: irl._grid_fit_beta_cuda(*grid), reps),
             "library_ms": None,
             "bytes": isz * (n_grid * N + N * (P + 1) + n_grid + 2 * 60 + 2 * K),
-            # 2 x 60 x 60 points a lane; per sample the linear predictor,
-            # exp, clamp, log(mu), log(mu + r) or log1p, and ~12 more
-            "ops": n_grid * 2 * 60 * 60 * N * 20,
+            # the terms the design needs (grid_terms); per term the linear
+            # predictor, exp, clamp, log(mu), log(mu + r) or log1p, and ~12 more
+            "ops": terms * 20,
+            "terms": terms,
+            "plan": sh._grid_device_plan(n_grid, N, 60, counts.dtype, counts.device, kernel="grid_nb")._asdict(),
         }
+        log(f"  grid_nb f32: {n_grid} selected lanes, {terms} terms, plan {timings['grid_nb']['plan']}; bound "
+            f"{terms * 20 / F32_OPS_PER_S * 1e3:.6f} ms (operations), instruction estimate "
+            f"{terms * NB_TERM_INSTR / INSTR_PER_S * 1e3:.6f} ms ({NB_TERM_INSTR} a term) on all SMs")
     return errs
 
 
@@ -1729,6 +1757,52 @@ def nll_grid_plan_checks(readings) -> dict:
     return plans
 
 
+def grid_nb_plan_checks(readings) -> dict:
+    """Phase 2, the plans ``grid_nb``'s wrapper picks from the selected
+    count: on a tile of NB_TILE lanes at the main width
+    (``kernel_bench.grid_operands``' counts, size factors and design,
+    dispersions 1 / size) in float32 and float64, indicator and continuous
+    designs, with the first lane, every 59th lane (16) or every lane
+    selected, and with 16 selected at every cluster size: each launched
+    twice, bit for bit the same, NaN off the selection, the selected lanes
+    at the plain version's grid point or tied within TIE_UNITS rounding
+    units, and bit for bit the all-lane launch's. Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        for design in ("indicator", "continuous"):
+            counts, offset, X, size = kernel_bench.grid_operands(NB_TILE, N_MAIN, dtype, design)[:4]
+            sf, disp = torch.exp(offset), 1.0 / size
+            grid = (counts, sf, X, disp, 0.5, 60, -30.0, 30.0)
+            gp = irl._grid_fit_beta_plain(*grid)
+            every = irl._grid_fit_beta_cuda(*grid)
+            unit = noise_unit(N_MAIN, dtype) * term_scale(counts)
+            idx = torch.arange(NB_TILE, device=counts.device)
+            cases = [(n, idx == 0 if n == 1 else (idx % 59 == 0 if n == 16 else idx >= 0), None)
+                     for n in (1, 16, NB_TILE)]
+            cases += [(16, idx % 59 == 0, K) for K in (1, 2, 4, 8, 16)]
+            for n, sel, K in cases:
+                plan = sh._grid_device_plan(n, N_MAIN, 60, dtype, DEVICE, kernel="grid_nb")
+                if K is not None:
+                    plan = plan._replace(K=K)
+                what = f"grid_nb {name} {design} {n} of {NB_TILE} x {N_MAIN}" + (f", K {K}" if K else "")
+                plans[what] = plan._asdict()
+                gk = irl._grid_fit_beta_cuda(*grid, sel, n, plan)
+                check(bits_equal(gk, irl._grid_fit_beta_cuda(*grid, sel, n, plan)),
+                      f"{what}: a second launch differs from the first")
+                check(bool(torch.isnan(gk[~sel]).all()), f"{what}: a lane not selected is not NaN")
+                check(bits_equal(gk[sel], every[sel]), f"{what}: the selected lanes differ from the all-lane launch")
+                far, r = tie_report(what, gk[sel], gp[sel], lambda b: nb_objective64(
+                    counts[sel], sf, X, disp[sel], b), unit[sel], 1e-6 * 30.0, fine_step(), readings)
+                log(f"  {what}: plan {plans[what]}, {far} lanes at another grid point with tied objectives ({r}); "
+                    "repeat bit-equal, NaN off the selection, bit-equal to the all-lane launch")
+    return plans
+
+
 def shrink_kernel_checks(seen, dtype, reps, timings, readings):
     """Phase 2, the apeGLM kernels on the operands the shrink path hands
     them (``seen`` from :func:`capture_shrink_inputs`): ``shrink`` on the
@@ -1747,9 +1821,20 @@ def shrink_kernel_checks(seen, dtype, reps, timings, readings):
     X, counts, size, offset, pns, ps, shrink_index, _ = fit
     G, N = counts.shape
     P = X.shape[1]
-    bk, ihk, ck, trips, passes = sh._nbinom_glm_cuda(*fit)
+    bk, ihk, ck, trips, passes, evals, rounds = sh._nbinom_glm_cuda(*fit)
     bp, ihp, cp = sh._nbinom_glm_plain(*fit)
     check(bits_equal(bk, seen["nbinom_glm_batch"][2][0]), f"shrink {name}: the launch differs from the path's")
+    again = sh._nbinom_glm_cuda(*fit)
+    first = (bk, ihk, ck, trips, passes, evals, rounds)
+    check(all(bits_equal(a.double(), b.double()) for a, b in zip(first, again)),
+          f"shrink {name}: a second launch differs from the first")
+    # One candidate a round is the serial schedule, whose evaluations are the
+    # passes the JAX order needs (the work the bound counts): every round
+    # size stops at the same iterate, bit for bit, and counts those passes.
+    serial = sh._nbinom_glm_cuda(*fit, cands=1)
+    check(all(bits_equal(a.double(), b.double()) for a, b in zip((bk, ihk, ck, trips, passes), serial[:5]))
+          and torch.equal(serial[5], passes), f"shrink {name}: rounds of {sh._shrink_round(dtype, P)} candidates stop "
+                                              "elsewhere than rounds of one")
     flags = (ck == cp).double().mean().item()
     both = ck & cp
     e_b = rel_err(bk[both].double(), bp[both].double(), 1.0)
@@ -1782,7 +1867,9 @@ def shrink_kernel_checks(seen, dtype, reps, timings, readings):
     log(f"  shrink {name}: ({G}, {N}), prior scale {float(ps):.6g}, flags agree {flags:.5f}, converged "
         f"{ck.double().mean().item():.5f}; where both converge beta rel {e_b:.3g}, ih at the kernel's point {e_ih:.3g} "
         f"of its tolerance (64 eps cond, cond up to {cond[both].max().item() if bool(both.any()) else 0.0:.3g}); "
-        f"Newton steps per gene (50/99/100%) {trips.double().quantile(q).tolist()}, passes {int(passes.sum())}")
+        f"Newton steps per gene (50/99/100%) {trips.double().quantile(q).tolist()}, passes {int(passes.sum())} "
+        f"(as the JAX order needs them), {int(evals.sum())} evaluations in {int(rounds.sum())} reads of the row "
+        f"(rounds of {sh._shrink_round(dtype, P)}); relaunch and rounds of one bit-identical")
 
     c, s, m, offset_b, X_b, prior_scale, pns_b, si_b = seen["_shrink_block"][0]
     conv = seen["nbinom_glm_batch"][2][2]
@@ -1812,11 +1899,18 @@ def shrink_kernel_checks(seen, dtype, reps, timings, readings):
             # reads counts, size, offset, X; writes beta, the inverse
             # Hessian and the flag
             "bytes": isz * (G * N + G + N + N * P + G * P + G * P * P) + G,
-            # per pass and sample: linear predictor, two exps or exp and
-            # log1p (logaddexp), ~12 more, and the Hessian's Gram terms
+            # per pass the JAX order needs and sample: linear predictor,
+            # two exps or exp and log1p (logaddexp), ~12 more, and the
+            # Hessian's Gram terms
             "ops": int(passes.sum()) * N * (2 * P + 14 + 2 * ntri),
             "steps_mean": trips.double().mean().item(),
+            "passes": int(passes.sum()),
         }
+        # the instruction time of SHRINK_TERM_INSTR an objective term, an
+        # estimate logged beside the bound
+        log(f"  shrink f32: {int(passes.sum())} passes the JAX order needs, {int(evals.sum())} evaluations; bound "
+            f"{timings['shrink']['ops'] / F32_OPS_PER_S * 1e3:.4f} ms (operations), instruction estimate "
+            f"{int(passes.sum()) * N * SHRINK_TERM_INSTR / INSTR_PER_S * 1e3:.4f} ms ({SHRINK_TERM_INSTR} a term)")
         terms = grid_terms(X_b, K)
         timings["grid_apeglm"] = {
             # every lane of the failed-first tile
@@ -1855,7 +1949,7 @@ def grid_wide_checks(readings) -> None:
         counts = torch.tensor(counts_np.T, dtype=dtype, device=DEVICE)
         X = torch.tensor(X_np, dtype=dtype, device=DEVICE)
         sf, disp = stage_inputs(counts, X, float(N))[2:4]
-        *grid, _ = bound_args(irl.grid_fit_beta_batch, (counts, sf, X, disp), {})
+        *grid, _, _ = bound_args(irl.grid_fit_beta_batch, (counts, sf, X, disp), {})
         gk = irl._grid_fit_beta_cuda(*grid)
         gp = irl._grid_fit_beta_plain(*grid)
         unit = noise_unit(N, dtype) * term_scale(counts)
@@ -3544,6 +3638,7 @@ def main() -> int:
     plans.update(trim_plan_checks())
     plans.update(grid_design_checks(readings))
     plans.update(nll_grid_plan_checks(readings))
+    plans.update(grid_nb_plan_checks(readings))
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3685,7 +3780,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll and grid_apeglm kernel plans: " + json.dumps(plans))
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm and grid_nb kernel plans: " + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

@@ -1,6 +1,6 @@
-// Coarse-to-fine 2-D grid searches for P == 2 designs: grid_nb (one block
-// per selected lane) and grid_apeglm (a thread-block cluster per selected
-// lane).
+// Coarse-to-fine 2-D grid searches for P == 2 designs, each selected lane on
+// a thread-block cluster: grid_nb and grid_apeglm, two objectives of one
+// search.
 //
 // grid_nb replaces grid_fit_beta_batch (pydeseq2_tpu/ops/irls.py:375), the
 // last IRLS rescue tier: the full NB NLL (ops/nb.py:84, lgamma terms and the
@@ -10,22 +10,17 @@
 // grid_fit_shrink_beta_batch (pydeseq2_tpu/ops/shrink.py:258), the same two
 // passes on the apeGLM objective scaled by the caller's per-lane constant.
 //
-// grid_nb: a block stages its lane's counts, design rows and the per-sample
-// terms that do not depend on beta through shared memory, CHUNK samples at a
-// time, so any number of samples fits (for the NB NLL the lgamma-bearing
-// part of either branch, each hoisted whole as the leading subexpression, so
-// its rounding is the plain version's). Each thread holds the running sums
-// of up to RPW x CPL grid points (its warp's rows, its lane's columns) and
-// adds the chunk's samples to each in sample order, so every point's sum
-// runs over n = 0 .. N-1 in order whatever the chunking. A grid wider than
-// 64 points takes several 64 x 64 tiles.
-//
-// grid_apeglm: a cluster of K <= 16 blocks takes one selected lane, block
-// rank q the grid rows [q L / K, (q + 1) L / K) of both passes, so that 1-16
-// lanes still fill the card and a large selection splits into blocks small
-// enough to leave no mostly idle second wave (ops/shrink.py:_grid_plan picks
-// K and the chunk from the number of lanes and N). A block stages a chunk of
-// the lane's samples sorted by design row, each class in sample order:
+// A launch runs C clusters of K <= 16 blocks. grid_nb's cluster c takes the
+// selected lanes of slots c, c + C, ... (the selected lanes in lane order;
+// every lane where the caller selects none), grid_apeglm's lane c (a launch
+// of a cluster a lane), and block rank q the grid rows
+// [q L / K, (q + 1) L / K) of both passes, so that one selected lane still
+// spreads over K SMs and a large selection splits into blocks small enough to
+// leave no mostly idle second wave (ops/shrink.py:_grid_plan picks K and the
+// chunk from the number of selected lanes and N; grid_nb's wrapper takes C
+// from the count its caller already read). The lanes not selected get NaN.
+// A block stages a chunk of the lane's samples sorted by design row, each
+// class in sample order:
 // - x1 = 0 (the reference group of an intercept-plus-indicator design): the
 //   term does not depend on the column's by, since bx x0 + by 0 is bx x0,
 //   so it is computed once per (row, sample) and added to the row's points;
@@ -36,26 +31,29 @@
 // class's samples, spread over the block's threads; each item sums its terms
 // in float64 and the slices are added in slice order, so a point's total is
 // the same on every run. A point's objective rounds the float64 total once.
+// Besides the design row, a sample stages what its term needs that does not
+// depend on beta: for the NB NLL the lgamma-bearing part of either branch,
+// hoisted whole as the leading subexpression (so its rounding is the plain
+// version's) and the Stirling corrections; for apeGLM y, the offset and
+// y + size.
 //
-// In both kernels each row ends in a warp argmin with jnp.argmin's rule
-// (first minimum, a NaN wins), and the rows are combined as the JAX code
-// combines them:
+// Each row ends in a warp argmin with jnp.argmin's rule (first minimum, a
+// NaN wins), and the rows are combined as the JAX code combines them:
 // - grid_nb's coarse pass is one flat argmin over the x-major grid, so the
 //   rows combine by the same rule (a NaN anywhere wins);
 // - grid_nb's fine pass and both grid_apeglm passes keep a row only where
 //   its minimum is strictly below the best so far, which starts at +inf:
 //   a row whose argmin is NaN never enters, and ties go to the earlier row.
 //   That is the first row of least value among the rows whose minimum is
-//   below +inf, so grid_apeglm's blocks each publish their best such row
-//   and, after a cluster barrier, every block reads the K candidates
-//   through distributed shared memory and picks the same winner.
-// Lanes the caller does not select do nothing and get NaN.
+//   below +inf.
+// Both are total orders, so each block publishes its best candidate and,
+// after a cluster barrier, every block reads the K candidates through
+// distributed shared memory and picks the same winner.
 //
 // Bound on the H100: 7200 objective evaluations of N samples per selected
-// lane (~40 operations and 3 transcendentals each); the precise expf and
-// log1pf of jnp.logaddexp in every apeGLM term make it an issue-rate bound
-// (PERF.md section 6 gives the SASS count). At 1-2 lanes grid_nb's launch
-// and its 60-row serial dependence inside a block set its time.
+// lane (~40 operations and 3 transcendentals each), fewer where a design
+// entry is 0; the precise library exp, log and log1p of every term make it
+// an issue-rate bound (PERF.md section 6 gives the SASS counts).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -69,11 +67,13 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / WARP;
 constexpr int NONE = 0x7fffffff;
-constexpr int CHUNK = 512;          // samples staged in shared memory at a time
-constexpr int RPW = 8;              // grid rows a warp holds per tile
-constexpr int CPL = 2;              // grid columns a lane holds per tile
-constexpr int TILE_R = WARPS * RPW;  // 64
-constexpr int TILE_C = WARP * CPL;   // 64
+// Sample classes by design row: the term needs bx alone (x1 = 0), by alone
+// (x0 = 0), or both.
+constexpr int CLS_A = 0, CLS_B = 1, CLS_C = 2;
+// The ints of a block: the warps' class counts, the winner, the lane of the
+// slot being searched.
+constexpr int INTS = 3 * WARPS + 2;
+constexpr int I_WIN = 3 * WARPS, I_LANE = 3 * WARPS + 1;
 
 enum Rule { FLAT = 0, ROWS = 1 };
 
@@ -100,252 +100,163 @@ template <typename T> __device__ __forceinline__ Cand<T> warp_argmin(Cand<T> c) 
   return c;
 }
 
-// The NB objective of one lane: its inputs, and the staged chunk (ARRAYS
-// arrays of CHUNK samples: y, sf, x0, x1, the hoisted lead term, y + r, and
-// the two Stirling corrections of the stable branch).
-template <typename T> struct NbLane {
-  static constexpr int ARRAYS = 8;
-  const T *row, *sf, *X;
-  T* sm;
-  T r, min_mu;
-  bool plain;
-
-  __device__ void stage(int n0, int m) const {
-    for (int i = threadIdx.x; i < m; i += THREADS) {
-      const int n = n0 + i;
-      const T yv = row[n];
-      const T lgy1 = m_lgamma(yv + T(1));
-      const T yr = yv + r;
-      sm[i] = yv;
-      sm[CHUNK + i] = sf[n];
-      sm[2 * CHUNK + i] = X[2 * n];
-      sm[3 * CHUNK + i] = X[2 * n + 1];
-      sm[5 * CHUNK + i] = yr;
-      if (plain) {
-        // -r log r - logbinom, logbinom = lgamma(y + r) - lgamma(y + 1) - lgamma(r)
-        const T logbinom = (m_lgamma(yr) - lgy1) - m_lgamma(r);
-        sm[4 * CHUNK + i] = (-r) * m_log(r) - logbinom;
-        sm[6 * CHUNK + i] = T(0);
-        sm[7 * CHUNK + i] = T(0);
-      } else {
-        const T l1y = m_log1p(yv / r);
-        sm[4 * CHUNK + i] = (lgy1 + yv) - (yr - T(0.5)) * l1y;
-        sm[6 * CHUNK + i] = yv / ((T(12) * r) * yr);
-        sm[7 * CHUNK + i] = (T(1) / ((yr * yr) * yr) - T(1) / ((r * r) * r)) / T(360);
-      }
-    }
-  }
-
-  // nb_nll's term of staged sample i at (bx, by), irls.py:393-401.
-  __device__ __forceinline__ T term(int i, T bx, T by) const {
-    const T xb = bx * sm[2 * CHUNK + i] + by * sm[3 * CHUNK + i];
-    const T mu = m_max(sm[CHUNK + i] * m_exp(xb), min_mu);
-    const T yv = sm[i];
-    const T ylogmu = yv > T(0) ? yv * m_log(mu) : T(0);
-    if (plain) return (sm[4 * CHUNK + i] + sm[5 * CHUNK + i] * m_log(mu + r)) - ylogmu;
-    return (((sm[4 * CHUNK + i] + sm[5 * CHUNK + i] * m_log1p(mu / r)) - ylogmu) + sm[6 * CHUNK + i]) +
-           sm[7 * CHUNK + i];
-  }
-
-  // nb_nll + 0.5 * (1e-6 x^2 + 1e-6 y^2) (coarse) or + 0.5e-6 (x^2 + y^2)
-  // (fine), irls.py:393-401 and :418-427.
-  __device__ __forceinline__ T finish(T acc, T bx, T by, bool coarse) const {
-    const T reg = coarse ? T(0.5) * (T(1e-6) * (bx * bx) + T(1e-6) * (by * by))
-                         : T(0.5e-6) * (bx * bx + by * by);
-    return acc + reg;
-  }
-};
-
-// One pass over the L x L grid (x_k = xg[k] + xs, y_j = yg[j] + ys):
-// returns the winning flat index k * L + j, or NONE where no row entered.
-// Every thread of the block calls it (it stages chunks and synchronises).
-template <typename T, typename Lane>
-__device__ int grid_pass(const Lane& c, int N, const T* __restrict__ xg, const T* __restrict__ yg,
-                         T xs, T ys, int L, bool coarse, Rule rule, Cand<T>* scratch) {
-  const int warp = threadIdx.x / WARP;
-  const int lane = threadIdx.x & (WARP - 1);
-  Cand<T> best{Lim<T>::inf(), NONE};
-  for (int k0 = 0; k0 < L; k0 += TILE_R) {
-    Cand<T> row[RPW];
-    T bx[RPW];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int k = k0 + warp + r * WARPS;
-      row[r] = Cand<T>{Lim<T>::inf(), NONE};
-      bx[r] = k < L ? xs + xg[k] : T(0);
-    }
-    for (int j0 = 0; j0 < L; j0 += TILE_C) {
-      T by[CPL], acc[RPW][CPL];
-#pragma unroll
-      for (int q = 0; q < CPL; ++q) {
-        const int j = j0 + lane + q * WARP;
-        by[q] = j < L ? ys + yg[j] : T(0);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) acc[r][q] = T(0);
-      }
-      for (int n0 = 0; n0 < N; n0 += CHUNK) {
-        const int m = min(CHUNK, N - n0);
-        __syncthreads();  // the previous chunk is no longer read
-        c.stage(n0, m);
-        __syncthreads();
-        for (int i = 0; i < m; ++i) {
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) {
-            if (k0 + warp + r * WARPS >= L) continue;
-#pragma unroll
-            for (int q = 0; q < CPL; ++q)
-              if (j0 + lane + q * WARP < L) acc[r][q] += c.term(i, bx[r], by[q]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int k = k0 + warp + r * WARPS;
-#pragma unroll
-        for (int q = 0; q < CPL; ++q) {
-          const int j = j0 + lane + q * WARP;
-          if (k >= L || j >= L) continue;
-          Cand<T> o{c.finish(acc[r][q], bx[r], by[q], coarse), k * L + j};
-          if (argmin_before(o, row[r])) row[r] = o;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const Cand<T> rc = warp_argmin(row[r]);  // the row's jnp.argmin
-      const bool enters = rule == FLAT || (rc.v == rc.v && rc.v < Lim<T>::inf());
-      if (k0 + warp + r * WARPS < L && enters && argmin_before(rc, best)) best = rc;
-    }
-  }
-  if (lane == 0) scratch[warp] = best;
-  __syncthreads();
-  Cand<T> out = scratch[0];
-  for (int w = 1; w < WARPS; ++w)
-    if (argmin_before(scratch[w], out)) out = scratch[w];
-  __syncthreads();
-  return out.i;
-}
-
-template <typename T, typename Lane>
-__device__ void two_passes(const Lane& c, int N, const T* __restrict__ base,
-                           const T* __restrict__ offs, int L, Cand<T>* scratch, T* out) {
-  // Coarse: the flat argmin over the x-major grid.
-  const int ic = grid_pass<T>(c, N, base, base, T(0), T(0), L, true, FLAT, scratch);
-  T bx = T(0), by = T(0);
-  if (ic != NONE) {
-    bx = base[ic / L];
-    by = base[ic % L];
-  }
-  // Fine: the row rule around the coarse winner, which stays where no row
-  // enters.
-  const int jf = grid_pass<T>(c, N, offs, offs, bx, by, L, false, ROWS, scratch);
-  T fx = bx, fy = by;
-  if (jf != NONE) {
-    fx = bx + offs[jf / L];
-    fy = by + offs[jf % L];
-  }
-  if (threadIdx.x == 0) {
-    out[0] = fx;
-    out[1] = fy;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-    grid_nb_kernel(int N, const T* __restrict__ counts, const T* __restrict__ sf,
-                   const T* __restrict__ X, const T* __restrict__ disp,
-                   const unsigned char* __restrict__ sel, const T* __restrict__ base,
-                   const T* __restrict__ offs, int L, T min_mu, T* __restrict__ beta_out) {
-  const int gi = blockIdx.x;
-  T* out = beta_out + (size_t)gi * 2;
-  if (sel != nullptr && !sel[gi]) {
-    if (threadIdx.x < 2) out[threadIdx.x] = T(NAN);
-    return;
-  }
-  __shared__ T sm[NbLane<T>::ARRAYS * CHUNK];
-  __shared__ Cand<T> scratch[WARPS];
-  NbLane<T> c;
-  c.row = counts + (size_t)gi * N;
-  c.sf = sf;
-  c.X = X;
-  c.sm = sm;
-  c.r = T(1) / disp[gi];
-  c.min_mu = min_mu;
-  c.plain = c.r < T(R_SWITCH);
-  two_passes<T>(c, N, base, offs, L, scratch, out);
-}
-
-template <typename T>
-void launch_nb(int K, int N, const void* counts, const void* sf, const void* X, const void* disp,
-               const void* sel, const void* base, const void* offs, int L, double min_mu,
-               void* beta_out, cudaStream_t s) {
-  grid_nb_kernel<T><<<K, THREADS, 0, s>>>(N, (const T*)counts, (const T*)sf, (const T*)X,
-                                          (const T*)disp, (const unsigned char*)sel,
-                                          (const T*)base, (const T*)offs, L, (T)min_mu,
-                                          (T*)beta_out);
-}
-
-
-// ---- grid_apeglm ------------------------------------------------------------
-constexpr int AG_THREADS = 256;
-constexpr int AG_WARPS = AG_THREADS / WARP;
-// Sample classes by design row: the term needs bx alone (x1 = 0), by alone
-// (x0 = 0), or both.
-constexpr int CLS_A = 0, CLS_B = 1, CLS_C = 2;
-
-template <typename T> struct ApeArgs {
-  int N, L, chunk, shrink_index;
+// What both searches share: lanes (K, N) of counts, the design, the caller's
+// selection (nullptr: every lane), the coarse grid and the fine offsets.
+template <typename T> struct GridArgs {
+  int lanes, N, L, chunk;
   const T* counts;
-  const T* offset;
   const T* X;
-  const T* size;
-  const T* cnst;
   const unsigned char* sel;
   const T* base;
   const T* offs;
-  T pns, ps;
   T* beta_out;
 };
 
+// The staged chunk: ARRAYS arrays of `chunk` samples, x0 and x1 first, then
+// the objective's own.
+
+// grid_nb's objective: nb_nll + 0.5e-6 |beta|^2 (irls.py:393-401, :418-427).
+// Staged: y, sf, the hoisted lead term, y + r, and the two Stirling
+// corrections of the stable branch.
+template <typename T> struct NbObj {
+  static constexpr int ARRAYS = 8;
+  static constexpr bool SLOTS = true;  // clusters take the selected lanes' slots
+  static constexpr Rule COARSE = FLAT;
+  static constexpr bool KEEP_COARSE = true;  // a fine pass with no entering row keeps the coarse point
+  const T* sf;
+  const T* disp;
+  T min_mu;
+  struct Lane {
+    T r;
+    bool plain;
+  };
+
+  __device__ __forceinline__ Lane lane(int gi) const {
+    const T r = T(1) / disp[gi];
+    return Lane{r, r < T(R_SWITCH)};
+  }
+  __device__ __forceinline__ void stage(const Lane& l, T* st, int c, int p, int n, T yv) const {
+    const T r = l.r;
+    const T lgy1 = m_lgamma(yv + T(1));
+    const T yr = yv + r;
+    st[2 * c + p] = yv;
+    st[3 * c + p] = sf[n];
+    st[5 * c + p] = yr;
+    if (l.plain) {
+      // -r log r - logbinom, logbinom = lgamma(y + r) - lgamma(y + 1) - lgamma(r)
+      const T logbinom = (m_lgamma(yr) - lgy1) - m_lgamma(r);
+      st[4 * c + p] = (-r) * m_log(r) - logbinom;
+      st[6 * c + p] = T(0);
+      st[7 * c + p] = T(0);
+    } else {
+      const T l1y = m_log1p(yv / r);
+      st[4 * c + p] = (lgy1 + yv) - (yr - T(0.5)) * l1y;
+      st[6 * c + p] = yv / ((T(12) * r) * yr);
+      st[7 * c + p] = (T(1) / ((yr * yr) * yr) - T(1) / ((r * r) * r)) / T(360);
+    }
+  }
+  // nb_nll's term of staged sample i at linear predictor xb.
+  __device__ __forceinline__ T term(const Lane& l, const T* st, int c, int i, T xb) const {
+    const T mu = m_max(st[3 * c + i] * m_exp(xb), min_mu);
+    const T yv = st[2 * c + i];
+    const T ylogmu = yv > T(0) ? yv * m_log(mu) : T(0);
+    if (l.plain) return (st[4 * c + i] + st[5 * c + i] * m_log(mu + l.r)) - ylogmu;
+    return (((st[4 * c + i] + st[5 * c + i] * m_log1p(mu / l.r)) - ylogmu) + st[6 * c + i]) + st[7 * c + i];
+  }
+  // nb_nll + 0.5 * (1e-6 x^2 + 1e-6 y^2) (coarse) or + 0.5e-6 (x^2 + y^2) (fine)
+  __device__ __forceinline__ T finish(const Lane&, double tot, T bx, T by, bool coarse) const {
+    const T reg = coarse ? T(0.5) * (T(1e-6) * (bx * bx) + T(1e-6) * (by * by)) : T(0.5e-6) * (bx * bx + by * by);
+    return (T)tot + reg;
+  }
+};
+
+// grid_apeglm's objective: nbinom_fn_batch(beta = (bx, by)) / cnst,
+// shrink.py:23-53 and :281-292. Staged: y, the offset, y + size.
+template <typename T> struct ApeObj {
+  static constexpr int ARRAYS = 5;
+  static constexpr bool SLOTS = false;  // a cluster a lane
+  static constexpr Rule COARSE = ROWS;
+  static constexpr bool KEEP_COARSE = false;  // a pass with no entering row gives (0, 0)
+  const T* offset;
+  const T* size;
+  const T* cnst;
+  T pns, ps;
+  int shrink_index;
+  struct Lane {
+    T s, log_s, cn, pns2x2;
+  };
+
+  __device__ __forceinline__ Lane lane(int gi) const {
+    const T s = size[gi];
+    return Lane{s, m_log(s), cnst[gi], T(2) * (pns * pns)};
+  }
+  __device__ __forceinline__ void stage(const Lane& l, T* st, int c, int p, int n, T yv) const {
+    st[2 * c + p] = yv;
+    st[3 * c + p] = offset[n];
+    st[4 * c + p] = yv + l.s;
+  }
+  __device__ __forceinline__ T term(const Lane& l, const T* st, int c, int i, T xb) const {
+    return apeglm_ll_term(st[2 * c + i], st[4 * c + i], xb, st[3 * c + i], l.log_s);
+  }
+  // from the log-likelihood's float64 total
+  __device__ __forceinline__ T finish(const Lane& l, double tot, T bx, T by, bool) const {
+    const T ll = (T)tot;
+    const T vx = shrink_index == 0 ? bx * T(0) : bx;
+    const T vy = shrink_index == 1 ? by * T(0) : by;
+    const T q = (shrink_index == 0 ? bx : by) / ps;
+    const T prior = (vx * vx + vy * vy) / l.pns2x2 + m_log1p(q * q);
+    return (prior - ll) / l.cn;
+  }
+};
+
 // The first grid row of block rank q of K (ops/shrink.py:_grid_rows).
-__host__ __device__ constexpr int ag_row0(int q, int L, int K) { return (int)(((long long)q * L) / K); }
+__host__ __device__ constexpr int row0(int q, int L, int K) { return (int)(((long long)q * L) / K); }
 
 // Dynamic shared memory of one block (ops/shrink.py:_grid_smem_bytes
 // repeats it): float64 totals of its points (R L), rows (R) and columns (L),
 // R = ceil(L / K); float64 slice partials of the three classes (3 x
-// AG_THREADS); the warps' class counts and the winner (ints); the two
-// published candidates and the warps' (16 bytes each); the staged chunk (y,
-// offset, x0, x1, y + size).
-__host__ __device__ constexpr size_t ag_smem_bytes(int L, int K, int chunk, int isz) {
-  return 8 * ((size_t)((L + K - 1) / K) * L + (L + K - 1) / K + L + 3 * AG_THREADS) +
-         align16(4 * (3 * AG_WARPS + 1)) + 16 * (2 + AG_WARPS) + 5 * (size_t)chunk * isz;
+// THREADS); INTS ints; the two published candidates and the warps' (16 bytes
+// each); the staged chunk, `arrays` values a sample.
+__host__ __device__ constexpr size_t grid_smem_bytes(int L, int K, int chunk, int isz, int arrays) {
+  return 8 * ((size_t)((L + K - 1) / K) * L + (L + K - 1) / K + L + 3 * THREADS) + align16(4 * INTS) +
+         16 * (2 + WARPS) + (size_t)arrays * chunk * isz;
 }
 
-template <typename T> struct AgSmem {
-  double* tot;  // the points' totals, then the rows', then the columns'
-  double* scr;  // [3][AG_THREADS] slice partials
-  int* cnt;     // [AG_WARPS][3] class counts, then the winner
+template <typename T> struct Smem {
+  double* tot;     // the points' totals, then the rows', then the columns'
+  double* scr;     // [3][THREADS] slice partials
+  int* ints;       // [WARPS][3] class counts (first: the selection's warp counts), the winner, the lane
   Cand<T>* pub;    // [2]: the block's candidate of each pass, read by the cluster
-  Cand<T>* wbest;  // [AG_WARPS]
-  T *y, *off, *x0, *x1, *ys;
+  Cand<T>* wbest;  // [WARPS]
+  T* st;           // the staged chunk
 };
 
-template <typename T> __device__ __forceinline__ int ag_class(T x0, T x1) {
+template <typename T> __device__ __forceinline__ int cls(T x0, T x1) {
   return x1 == T(0) ? CLS_A : (x0 == T(0) ? CLS_B : CLS_C);
+}
+
+// Inclusive sum of v over the lanes up to this one.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < WARP; o <<= 1) {
+    const int u = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
 }
 
 // Stage samples n0 .. n0 + m - 1 of the lane, class A first, then B, then
 // C, each in sample order: thread t classifies the V consecutive samples
 // from t V, and a scan over the warps places them. n[k] gets class k's size.
-template <typename T>
-__device__ void ag_stage(const ApeArgs<T>& a, const T* __restrict__ row, T s, int n0, int m, int V,
-                         const AgSmem<T>& sm, int n[3]) {
+template <typename T, typename Obj>
+__device__ void stage(const GridArgs<T>& a, const Obj& o, const typename Obj::Lane& l, const T* __restrict__ row,
+                      int n0, int m, int V, const Smem<T>& sm, int n[3]) {
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid & (WARP - 1);
   const int i0 = min(m, tid * V), i1 = min(m, i0 + V);
   const T* X = a.X + 2 * (size_t)n0;
   int c[3] = {0, 0, 0};
   for (int i = i0; i < i1; ++i) {
-    const int k = ag_class(X[2 * i], X[2 * i + 1]);
+    const int k = cls(X[2 * i], X[2 * i + 1]);
     c[0] += k == CLS_A;
     c[1] += k == CLS_B;
     c[2] += k == CLS_C;
@@ -353,22 +264,17 @@ __device__ void ag_stage(const ApeArgs<T>& a, const T* __restrict__ row, T s, in
   int pos[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    int v = c[k];
-#pragma unroll
-    for (int o = 1; o < WARP; o <<= 1) {
-      const int u = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v += u;
-    }
+    const int v = warp_scan(c[k], lane);
     pos[k] = v - c[k];
-    if (lane == WARP - 1) sm.cnt[warp * 3 + k] = v;
+    if (lane == WARP - 1) sm.ints[warp * 3 + k] = v;
   }
   __syncthreads();
   int start = 0;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     int before = 0, total = 0;
-    for (int w = 0; w < AG_WARPS; ++w) {
-      const int x = sm.cnt[w * 3 + k];
+    for (int w = 0; w < WARPS; ++w) {
+      const int x = sm.ints[w * 3 + k];
       before += w < warp ? x : 0;
       total += x;
     }
@@ -378,60 +284,48 @@ __device__ void ag_stage(const ApeArgs<T>& a, const T* __restrict__ row, T s, in
   }
   for (int i = i0; i < i1; ++i) {
     const T x0 = X[2 * i], x1 = X[2 * i + 1];
-    const int k = ag_class(x0, x1);
+    const int k = cls(x0, x1);
     const int p = k == CLS_A ? pos[0]++ : (k == CLS_B ? pos[1]++ : pos[2]++);
-    const T yv = row[n0 + i];
-    sm.y[p] = yv;
-    sm.off[p] = a.offset[n0 + i];
-    sm.x0[p] = x0;
-    sm.x1[p] = x1;
-    sm.ys[p] = yv + s;
+    sm.st[p] = x0;
+    sm.st[a.chunk + p] = x1;
+    o.stage(l, sm.st, a.chunk, p, n0 + i, row[n0 + i]);
   }
 }
 
 // Slices of a class of n samples over pts totals, about tau terms an item;
 // more than one only where pts x slices fits one scratch row.
-__device__ __forceinline__ int ag_slices(int n, long long tau, int pts) {
+__device__ __forceinline__ int slices(int n, long long tau, int pts) {
   if (n == 0 || pts == 0) return 0;
-  return (int)min((n + tau - 1) / tau, (long long)max(1, AG_THREADS / pts));
-}
-
-// nbinom_fn_batch(beta = (bx, by)) / cnst, shrink.py:23-53 and :281-292,
-// from the log-likelihood ll.
-template <typename T>
-__device__ __forceinline__ T ag_finish(const ApeArgs<T>& a, T pns2x2, T cnst, T ll, T bx, T by) {
-  const T vx = a.shrink_index == 0 ? bx * T(0) : bx;
-  const T vy = a.shrink_index == 1 ? by * T(0) : by;
-  const T q = (a.shrink_index == 0 ? bx : by) / a.ps;
-  const T prior = (vx * vx + vy * vy) / pns2x2 + m_log1p(q * q);
-  return (prior - ll) / cnst;
+  return (int)min((n + tau - 1) / tau, (long long)max(1, THREADS / pts));
 }
 
 // One pass of the cluster over the L x L grid (x_k = xg[k] + xs, y_j = yg[j]
-// + ys0), this block over rows k0 .. k0 + Rb - 1: the winning flat index k L
-// + j, or NONE where no row entered; every block of the cluster returns the
-// same. `pub` is this pass's published candidate.
-template <typename T>
-__device__ int ag_pass(const ApeArgs<T>& a, cg::cluster_group& cluster, const T* __restrict__ row, T s, T log_s,
-                       T pns2x2, T cnst, const T* __restrict__ xg, const T* __restrict__ yg, T xs, T ys0, int k0,
-                       int Rb, const AgSmem<T>& sm, Cand<T>* pub) {
+// + ys0), this block over rows k0 .. k0 + Rb - 1, rows combined by `rule`:
+// the winning flat index k L + j, or NONE where no row entered; every block
+// of the cluster returns the same. `pub` is this pass's published candidate.
+template <typename T, typename Obj>
+__device__ int pass(const GridArgs<T>& a, const Obj& o, const typename Obj::Lane& l, cg::cluster_group& cluster,
+                    const T* __restrict__ row,
+                    const T* __restrict__ xg, const T* __restrict__ yg, T xs, T ys0, int k0, int Rb, bool coarse,
+                    Rule rule, const Smem<T>& sm, Cand<T>* pub) {
   const int tid = threadIdx.x, warp = tid / WARP, lane = tid & (WARP - 1);
-  const int L = a.L, P = Rb * L, V = a.chunk / AG_THREADS;
+  const int L = a.L, P = Rb * L, V = a.chunk / THREADS, ch = a.chunk;
   double* totC = sm.tot;
   double* totA = totC + P;
   double* totB = totA + Rb;
-  for (int q = tid; q < P + Rb + L; q += AG_THREADS) totC[q] = 0.0;
+  const T* st = sm.st;
+  for (int q = tid; q < P + Rb + L; q += THREADS) totC[q] = 0.0;
   for (int n0 = 0; n0 < a.N; n0 += a.chunk) {
     const int m = min(a.chunk, a.N - n0);
     __syncthreads();  // the previous chunk is no longer read, the totals are zeroed
     int n[3];
-    ag_stage<T>(a, row, s, n0, m, V, sm, n);
+    stage<T>(a, o, l, row, n0, m, V, sm, n);
     __syncthreads();
     const long long W = (long long)P * n[CLS_C] + (long long)Rb * n[CLS_A] + (long long)L * n[CLS_B];
-    const long long tau = max(1LL, (W + AG_THREADS - 1) / AG_THREADS);
-    const int SA = ag_slices(n[CLS_A], tau, Rb), SB = ag_slices(n[CLS_B], tau, L), SC = ag_slices(n[CLS_C], tau, P);
+    const long long tau = max(1LL, (W + THREADS - 1) / THREADS);
+    const int SA = slices(n[CLS_A], tau, Rb), SB = slices(n[CLS_B], tau, L), SC = slices(n[CLS_C], tau, P);
     const int iC = P * SC, iA = iC + Rb * SA, iB = iA + L * SB;
-    for (int it = tid; it < iB; it += AG_THREADS) {
+    for (int it = tid; it < iB; it += THREADS) {
       double acc = 0.0;
       if (it < iC) {
         const int p = it % P, sl = it / P;
@@ -440,17 +334,16 @@ __device__ int ag_pass(const ApeArgs<T>& a, cg::cluster_group& cluster, const T*
         const int r = p / L;
         const T bx = xs + xg[k0 + r], by = ys0 + yg[p - r * L];
 #pragma unroll 4
-        for (int i = lo; i < hi; ++i)
-          acc += (double)apeglm_ll_term(sm.y[i], sm.ys[i], bx * sm.x0[i] + by * sm.x1[i], sm.off[i], log_s);
+        for (int i = lo; i < hi; ++i) acc += (double)o.term(l, st, ch, i, bx * st[i] + by * st[ch + i]);
         if (SC == 1) totC[p] += acc;
-        else sm.scr[2 * AG_THREADS + it] = acc;
+        else sm.scr[2 * THREADS + it] = acc;
       } else if (it < iA) {
         const int e = it - iC, p = e % Rb, sl = e / Rb;
         const int len = (n[CLS_A] + SA - 1) / SA;
         const int lo = sl * len, hi = min(n[CLS_A], (sl + 1) * len);
         const T bx = xs + xg[k0 + p];
 #pragma unroll 4
-        for (int i = lo; i < hi; ++i) acc += (double)apeglm_ll_term(sm.y[i], sm.ys[i], bx * sm.x0[i], sm.off[i], log_s);
+        for (int i = lo; i < hi; ++i) acc += (double)o.term(l, st, ch, i, bx * st[i]);
         if (SA == 1) totA[p] += acc;
         else sm.scr[e] = acc;
       } else {
@@ -459,19 +352,19 @@ __device__ int ag_pass(const ApeArgs<T>& a, cg::cluster_group& cluster, const T*
         const int lo = first + sl * len, hi = first + min(n[CLS_B], (sl + 1) * len);
         const T by = ys0 + yg[p];
 #pragma unroll 4
-        for (int i = lo; i < hi; ++i) acc += (double)apeglm_ll_term(sm.y[i], sm.ys[i], by * sm.x1[i], sm.off[i], log_s);
+        for (int i = lo; i < hi; ++i) acc += (double)o.term(l, st, ch, i, by * st[ch + i]);
         if (SB == 1) totB[p] += acc;
-        else sm.scr[AG_THREADS + e] = acc;
+        else sm.scr[THREADS + e] = acc;
       }
     }
     __syncthreads();
     // the sliced classes' partials, in slice order
-    for (int q = tid; q < P + Rb + L; q += AG_THREADS) {
+    for (int q = tid; q < P + Rb + L; q += THREADS) {
       int p = q, S = SC, pts = P;
-      const double* part = sm.scr + 2 * AG_THREADS;
+      const double* part = sm.scr + 2 * THREADS;
       if (q >= P + Rb) {
         p = q - P - Rb, S = SB, pts = L;
-        part = sm.scr + AG_THREADS;
+        part = sm.scr + THREADS;
       } else if (q >= P) {
         p = q - P, S = SA, pts = Rb;
         part = sm.scr;
@@ -484,26 +377,25 @@ __device__ int ag_pass(const ApeArgs<T>& a, cg::cluster_group& cluster, const T*
     }
   }
   __syncthreads();
-  // Each row's jnp.argmin; the block's first row of least value among those
-  // below +inf.
+  // Each row's jnp.argmin; the block's winner among its rows by the rule.
   Cand<T> wb{Lim<T>::inf(), NONE};
-  for (int r = warp; r < Rb; r += AG_WARPS) {
+  for (int r = warp; r < Rb; r += WARPS) {
     const int k = k0 + r;
     const T bx = xs + xg[k];
     Cand<T> best{Lim<T>::inf(), NONE};
     for (int j = lane; j < L; j += WARP) {
-      const T ll = (T)((totA[r] + totB[j]) + totC[r * L + j]);
-      const Cand<T> o{ag_finish(a, pns2x2, cnst, ll, bx, ys0 + yg[j]), k * L + j};
-      if (argmin_before(o, best)) best = o;
+      const Cand<T> c{o.finish(l, (totA[r] + totB[j]) + totC[r * L + j], bx, ys0 + yg[j], coarse), k * L + j};
+      if (argmin_before(c, best)) best = c;
     }
     best = warp_argmin(best);
-    if (best.v == best.v && best.v < Lim<T>::inf() && argmin_before(best, wb)) wb = best;
+    const bool enters = rule == FLAT || (best.v == best.v && best.v < Lim<T>::inf());
+    if (enters && argmin_before(best, wb)) wb = best;
   }
   if (lane == 0) sm.wbest[warp] = wb;
   __syncthreads();
   if (tid == 0) {
     Cand<T> b = sm.wbest[0];
-    for (int w = 1; w < AG_WARPS; ++w)
+    for (int w = 1; w < WARPS; ++w)
       if (argmin_before(sm.wbest[w], b)) b = sm.wbest[w];
     *pub = b;
   }
@@ -513,133 +405,212 @@ __device__ int ag_pass(const ApeArgs<T>& a, cg::cluster_group& cluster, const T*
     Cand<T> b{Lim<T>::inf(), NONE};
     if (lane < K) b = *cluster.map_shared_rank(pub, (unsigned)lane);
     b = warp_argmin(b);
-    if (lane == 0) sm.cnt[3 * AG_WARPS] = b.i;
+    if (lane == 0) sm.ints[I_WIN] = b.i;
   }
   __syncthreads();
-  return sm.cnt[3 * AG_WARPS];
+  return sm.ints[I_WIN];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(AG_THREADS) grid_apeglm_kernel(const ApeArgs<T> a) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int gi = (int)blockIdx.x / K;
-  T* out = a.beta_out + (size_t)gi * 2;
-  if (a.sel != nullptr && !a.sel[gi]) {  // the whole cluster leaves, before any barrier
-    if (rank == 0 && threadIdx.x < 2) out[threadIdx.x] = T(NAN);
-    return;
+// The selected lanes in lane order, block-wide: thread t counts those of
+// [t V, (t + 1) V), V = ceil(lanes / THREADS), and a scan over the warps
+// gives it the first slot of its range. `total` is the selected count.
+struct SelScan {
+  int first, count, total;
+};
+
+__device__ SelScan sel_scan(const unsigned char* __restrict__ sel, int lanes, int* warp_cnt) {
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid & (WARP - 1);
+  const int V = (lanes + THREADS - 1) / THREADS, i0 = min(lanes, tid * V), i1 = min(lanes, i0 + V);
+  int c = 0;
+  for (int i = i0; i < i1; ++i) c += sel[i] != 0;
+  const int v = warp_scan(c, lane);
+  if (lane == WARP - 1) warp_cnt[warp] = v;
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int w = 0; w < WARPS; ++w) {
+    before += w < warp ? warp_cnt[w] : 0;
+    total += warp_cnt[w];
   }
-  const int L = a.L, R = (L + K - 1) / K;
-  const int k0 = ag_row0(rank, L, K), Rb = ag_row0(rank + 1, L, K) - k0;
+  __syncthreads();  // warp_cnt may be written again
+  return SelScan{before + v - c, c, total};
+}
 
-  extern __shared__ double ag_smem[];
-  AgSmem<T> sm;
-  sm.tot = ag_smem;
-  sm.scr = sm.tot + (size_t)R * L + R + L;
-  sm.cnt = reinterpret_cast<int*>(sm.scr + 3 * AG_THREADS);
-  sm.pub = reinterpret_cast<Cand<T>*>(reinterpret_cast<char*>(sm.cnt) + align16(4 * (3 * AG_WARPS + 1)));
-  sm.wbest = reinterpret_cast<Cand<T>*>(reinterpret_cast<char*>(sm.pub) + 32);
-  sm.y = reinterpret_cast<T*>(reinterpret_cast<char*>(sm.wbest) + 16 * AG_WARPS);
-  sm.off = sm.y + a.chunk;
-  sm.x0 = sm.off + a.chunk;
-  sm.x1 = sm.x0 + a.chunk;
-  sm.ys = sm.x1 + a.chunk;
+// The lane of slot s: the thread whose range holds it finds it.
+__device__ int sel_lane(const unsigned char* __restrict__ sel, int lanes, const SelScan& ss, int s, int* out) {
+  if (s >= ss.first && s < ss.first + ss.count) {
+    const int V = (lanes + THREADS - 1) / THREADS;
+    int k = ss.first;
+    for (int i = threadIdx.x * V;; ++i) {
+      if (sel[i] && k++ == s) {
+        *out = i;
+        break;
+      }
+    }
+  }
+  __syncthreads();
+  return *out;
+}
 
+// Both passes for lane gi, the cluster's result written by rank 0.
+template <typename T, typename Obj>
+__device__ __forceinline__ void search_lane(const GridArgs<T>& a, const Obj& o, cg::cluster_group& cluster, int gi,
+                                            int k0, int Rb, const Smem<T>& sm) {
+  const int L = a.L;
+  const typename Obj::Lane l = o.lane(gi);
   const T* row = a.counts + (size_t)gi * a.N;
-  const T s = a.size[gi];
-  const T log_s = m_log(s);
-  const T cnst = a.cnst[gi];
-  const T pns2x2 = T(2) * (a.pns * a.pns);
-  // Coarse, then fine around the coarse winner; a search with no entering
-  // row starts again from (0, 0).
-  const int ic = ag_pass<T>(a, cluster, row, s, log_s, pns2x2, cnst, a.base, a.base, T(0), T(0), k0, Rb, sm, sm.pub);
+  // Coarse, then fine around the coarse winner (x-major flat indices).
+  const int ic = pass<T>(a, o, l, cluster, row, a.base, a.base, T(0), T(0), k0, Rb, true, Obj::COARSE, sm, sm.pub);
   T bx = T(0), by = T(0);
   if (ic != NONE) {
     bx = a.base[ic / L];
     by = a.base[ic % L];
   }
-  const int jf = ag_pass<T>(a, cluster, row, s, log_s, pns2x2, cnst, a.offs, a.offs, bx, by, k0, Rb, sm, sm.pub + 1);
-  if (rank == 0 && threadIdx.x == 0) {
-    T fx = T(0), fy = T(0);
+  const int jf = pass<T>(a, o, l, cluster, row, a.offs, a.offs, bx, by, k0, Rb, false, ROWS, sm, sm.pub + 1);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    T fx = Obj::KEEP_COARSE ? bx : T(0), fy = Obj::KEEP_COARSE ? by : T(0);
     if (jf != NONE) {
       fx = bx + a.offs[jf / L];
       fy = by + a.offs[jf % L];
     }
-    out[0] = fx;
-    out[1] = fy;
+    a.beta_out[2 * (size_t)gi] = fx;
+    a.beta_out[2 * (size_t)gi + 1] = fy;
+  }
+}
+
+// Both passes for each of the cluster's lanes: with Obj::SLOTS, the
+// selected lanes of slots c, c + C, ... (the lanes not selected NaN, written
+// by the clusters in turn), else lane c, or NaN where it is not selected.
+template <typename T, typename Obj> __device__ void grid_search(const GridArgs<T>& a, const Obj& o) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int C = (int)gridDim.x / K, c = (int)blockIdx.x / K;
+  if constexpr (!Obj::SLOTS) {
+    if (a.sel != nullptr && !a.sel[c]) {  // the whole cluster leaves, before any barrier
+      if (rank == 0 && threadIdx.x < 2) a.beta_out[2 * (size_t)c + threadIdx.x] = T(NAN);
+      return;
+    }
+  } else if (a.sel != nullptr && rank == 0) {
+    for (int gi = c + C * (int)threadIdx.x; gi < a.lanes; gi += C * THREADS)
+      if (!a.sel[gi]) {
+        a.beta_out[2 * (size_t)gi] = T(NAN);
+        a.beta_out[2 * (size_t)gi + 1] = T(NAN);
+      }
+  }
+  const int L = a.L, R = (L + K - 1) / K;
+  const int k0 = row0(rank, L, K), Rb = row0(rank + 1, L, K) - k0;
+
+  extern __shared__ double grid_smem[];
+  Smem<T> sm;
+  sm.tot = grid_smem;
+  sm.scr = sm.tot + (size_t)R * L + R + L;
+  sm.ints = reinterpret_cast<int*>(sm.scr + 3 * THREADS);
+  sm.pub = reinterpret_cast<Cand<T>*>(reinterpret_cast<char*>(sm.ints) + align16(4 * INTS));
+  sm.wbest = reinterpret_cast<Cand<T>*>(reinterpret_cast<char*>(sm.pub) + 32);
+  sm.st = reinterpret_cast<T*>(reinterpret_cast<char*>(sm.wbest) + 16 * WARPS);
+
+  if constexpr (Obj::SLOTS) {
+    // Every block of the cluster counts the same selection, so the cluster
+    // runs the same slots and meets every barrier together.
+    SelScan ss{0, 0, a.lanes};
+    if (a.sel != nullptr) ss = sel_scan(a.sel, a.lanes, sm.ints);
+    for (int slot = c; slot < ss.total; slot += C) {
+      const int gi = a.sel != nullptr ? sel_lane(a.sel, a.lanes, ss, slot, sm.ints + I_LANE) : slot;
+      search_lane<T>(a, o, cluster, gi, k0, Rb, sm);
+    }
+  } else {
+    search_lane<T>(a, o, cluster, c, k0, Rb, sm);
   }
   cluster.sync();  // no block leaves while another may still read its candidate
 }
 
-template <typename T> int launch_ape(int lanes, int K, const ApeArgs<T>& a, cudaStream_t st) {
-  constexpr auto kern = grid_apeglm_kernel<T>;
-  const size_t smem = ag_smem_bytes(a.L, K, a.chunk, (int)sizeof(T));
+template <typename T>
+__global__ void __launch_bounds__(THREADS) grid_nb_kernel(const GridArgs<T> a, const NbObj<T> o) {
+  grid_search<T>(a, o);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) grid_apeglm_kernel(const GridArgs<T> a, const ApeObj<T> o) {
+  grid_search<T>(a, o);
+}
+
+template <auto Kern, typename T, typename Obj>
+int launch(int clusters, int K, const GridArgs<T>& a, const Obj& o, cudaStream_t st) {
+  if (clusters <= 0) return (int)cudaSuccess;
+  if (a.L < 1 || K < 1 || K > MAX_CLUSTER || K > a.L || a.chunk < THREADS || a.chunk % THREADS != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = grid_smem_bytes(a.L, K, a.chunk, (int)sizeof(T), Obj::ARRAYS);
   if (smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cluster_opt_in<kern>();
+  cudaError_t e = cluster_opt_in<Kern>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = cluster_config(lanes, K, AG_THREADS, smem, st, &attr);
-  e = cudaLaunchKernelEx(&cfg, kern, a);
+  cudaLaunchConfig_t cfg = cluster_config(clusters, K, THREADS, smem, st, &attr);
+  e = cudaLaunchKernelEx(&cfg, Kern, a, o);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-// Blocks of grid_apeglm_kernel<T> with `smem` bytes of dynamic shared
-// memory that one SM holds at once, by the occupancy API (registers, shared
-// memory and threads of this build).
-template <typename T> cudaError_t ape_per_sm(size_t smem, int* per_sm) {
-  constexpr auto kern = grid_apeglm_kernel<T>;
-  cudaError_t e = cluster_opt_in<kern>();
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kern, AG_THREADS, smem);
-  return e;
+// Blocks of Kern with `smem` bytes of dynamic shared memory that one SM holds
+// at once, by the occupancy API (registers, shared memory and threads of
+// this build).
+template <auto Kern> int per_sm(int smem, int* out) {
+  if (smem < 0 || (size_t)smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster_opt_in<Kern>();
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, Kern, THREADS, (size_t)smem);
+  return (int)e;
 }
 
 }  // namespace
 
-// per_sm[0] = the grid_apeglm blocks with `smem` bytes of dynamic shared
-// memory one SM holds at once (ops/shrink.py:_grid_plan's fill rule).
-extern "C" int grid_apeglm_per_sm(int is_f64, int smem, int* per_sm, void* stream) {
+// per_sm[0] = the blocks of each kernel with `smem` bytes of dynamic shared
+// memory one SM holds at once (ops/shrink.py:_grid_plan's wave rule).
+extern "C" int grid_apeglm_per_sm(int is_f64, int smem, int* out, void* stream) {
   (void)stream;
-  if (smem < 0 || (size_t)smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-  return (int)(is_f64 ? ape_per_sm<double>((size_t)smem, per_sm) : ape_per_sm<float>((size_t)smem, per_sm));
+  return is_f64 ? per_sm<grid_apeglm_kernel<double>>(smem, out) : per_sm<grid_apeglm_kernel<float>>(smem, out);
 }
 
-extern "C" int grid_nb_launch(int is_f64, int K, int N, const void* counts, const void* sf,
-                              const void* X, const void* disp, const void* sel, const void* base,
-                              const void* offs, int L, double min_mu, void* beta_out,
-                              void* stream) {
-  if (K <= 0) return (int)cudaSuccess;
+extern "C" int grid_nb_per_sm(int is_f64, int smem, int* out, void* stream) {
+  (void)stream;
+  return is_f64 ? per_sm<grid_nb_kernel<double>>(smem, out) : per_sm<grid_nb_kernel<float>>(smem, out);
+}
+
+// beta_out (lanes, 2) = the NB grid winner of each selected lane (NaN
+// elsewhere), on `clusters` clusters of K <= 16 blocks (K <= L), `chunk`
+// samples (a multiple of 256) staged at a time.
+extern "C" int grid_nb_launch(int is_f64, int lanes, int clusters, int N, const void* counts, const void* sf,
+                              const void* X, const void* disp, const void* sel, const void* base, const void* offs,
+                              int L, double min_mu, int K, int chunk, void* beta_out, void* stream) {
+  if (lanes <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_f64)
-    launch_nb<double>(K, N, counts, sf, X, disp, sel, base, offs, L, min_mu, beta_out, s);
-  else
-    launch_nb<float>(K, N, counts, sf, X, disp, sel, base, offs, L, min_mu, beta_out, s);
-  return (int)cudaGetLastError();
+  if (is_f64) {
+    const GridArgs<double> a{lanes, N, L, chunk, (const double*)counts, (const double*)X, (const unsigned char*)sel,
+                             (const double*)base, (const double*)offs, (double*)beta_out};
+    const NbObj<double> o{(const double*)sf, (const double*)disp, min_mu};
+    return launch<grid_nb_kernel<double>>(clusters, K, a, o, s);
+  }
+  const GridArgs<float> a{lanes, N, L, chunk, (const float*)counts, (const float*)X, (const unsigned char*)sel,
+                          (const float*)base, (const float*)offs, (float*)beta_out};
+  const NbObj<float> o{(const float*)sf, (const float*)disp, (float)min_mu};
+  return launch<grid_nb_kernel<float>>(clusters, K, a, o, s);
 }
 
 // beta_out (lanes, 2) = the apeGLM grid winner of each selected lane (NaN
-// elsewhere), on clusters of K <= 16 blocks a lane (K <= L), `chunk` samples
-// (a multiple of 256) staged at a time.
-extern "C" int grid_apeglm_launch(int is_f64, int lanes, int N, const void* counts,
-                                  const void* offset, const void* X, const void* size,
-                                  const void* cnst, const void* sel, const void* base,
-                                  const void* offs, int L, double pns, double ps,
-                                  int shrink_index, int K, int chunk, void* beta_out,
-                                  void* stream) {
+// elsewhere), on a cluster of K <= 16 blocks a lane (K <= L), `chunk`
+// samples (a multiple of 256) staged at a time.
+extern "C" int grid_apeglm_launch(int is_f64, int lanes, int N, const void* counts, const void* offset,
+                                  const void* X, const void* size, const void* cnst, const void* sel,
+                                  const void* base, const void* offs, int L, double pns, double ps,
+                                  int shrink_index, int K, int chunk, void* beta_out, void* stream) {
   if (lanes <= 0) return (int)cudaSuccess;
-  if (L < 1 || K < 1 || K > MAX_CLUSTER || K > L || chunk < AG_THREADS || chunk % AG_THREADS != 0)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_f64) {
-    const ApeArgs<double> a{N, L, chunk, shrink_index, (const double*)counts, (const double*)offset,
-                            (const double*)X, (const double*)size, (const double*)cnst,
-                            (const unsigned char*)sel, (const double*)base, (const double*)offs, pns, ps,
-                            (double*)beta_out};
-    return launch_ape<double>(lanes, K, a, s);
+    const GridArgs<double> a{lanes, N, L, chunk, (const double*)counts, (const double*)X, (const unsigned char*)sel,
+                             (const double*)base, (const double*)offs, (double*)beta_out};
+    const ApeObj<double> o{(const double*)offset, (const double*)size, (const double*)cnst, pns, ps, shrink_index};
+    return launch<grid_apeglm_kernel<double>>(lanes, K, a, o, s);
   }
-  const ApeArgs<float> a{N, L, chunk, shrink_index, (const float*)counts, (const float*)offset,
-                         (const float*)X, (const float*)size, (const float*)cnst,
-                         (const unsigned char*)sel, (const float*)base, (const float*)offs, (float)pns,
-                         (float)ps, (float*)beta_out};
-  return launch_ape<float>(lanes, K, a, s);
+  const GridArgs<float> a{lanes, N, L, chunk, (const float*)counts, (const float*)X, (const unsigned char*)sel,
+                          (const float*)base, (const float*)offs, (float*)beta_out};
+  const ApeObj<float> o{(const float*)offset, (const float*)size, (const float*)cnst, (float)pns, (float)ps,
+                        shrink_index};
+  return launch<grid_apeglm_kernel<float>>(lanes, K, a, o, s);
 }

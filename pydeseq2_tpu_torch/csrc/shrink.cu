@@ -8,24 +8,40 @@
 //   scale-aware start (intercept log max(mean(y e^-offset), 0.1), the other
 //   coefficients +/-0.1);
 // - the Newton loop on f / cnst: gradient and Hessian in one pass over the
-//   row, the solve of H / cnst + 1e-10 I in registers, then candidates
-//   beta - t step for t = 1, 1/2, ..., 2^-15, one pass each, stopping at the
-//   first that lowers f (the JAX loop evaluates the rest but never replaces
-//   a captured step). The gene freezes where no t improves or where two
-//   consecutive decreases are below ftol (|f| + 1), ftol = 10 eps(dtype).
-//   Freezing is per gene and the JAX loop ends when every gene is frozen or
-//   after 60 steps, so a warp leaving at its own freeze gives the same
-//   iterate;
+//   row, the solve of H / cnst + 1e-10 I in registers, then the candidates
+//   beta - t step, t = 2^-j for j = 0 .. 15, keeping the least j whose f is
+//   below the current one (the JAX loop evaluates all 16 and captures the
+//   first that improves). With rounds of M = 1 the candidates take a pass
+//   each and the search stops at the first that improves. With M > 1, t = 1
+//   takes a pass alone, as most steps keep it, and then rounds of M
+//   candidates share one read of the row: each lane adds every candidate's
+//   terms of its samples (each candidate's sum in the lane-strided order and
+//   warp tree of a single pass, so its f has the bits of a pass of its own),
+//   lane c forms candidate c's prior and f, and a ballot picks the least
+//   improving j; the search stops at the first round that holds one, so the
+//   step where no t improves, where the gene freezes, costs 1 + 15 / M
+//   reads of the row, not 16. The gene freezes where no t improves or where
+//   two consecutive decreases are below ftol (|f| + 1), ftol = 10
+//   eps(dtype). Freezing is per gene and the JAX loop ends when every gene
+//   is frozen or after 60 steps, so a warp leaving at its own freeze gives
+//   the same iterate, whatever M;
 // - the polish (two exact Newton steps, each kept only where it lowers the
 //   gradient sup-norm), the converged flag |g| < 1e-6 and the inverse of
 //   the unscaled Hessian (closed forms for P <= 3, Cholesky to 8).
 // The Hessian keeps the JAX expression (y + s) s e / (s + e)^2, e =
 // e^{xb + offset}, which is 0 in float32 where (s + e)^2 overflows.
 //
-// Bound on the H100 by the transcendentals of the objective passes (exp,
-// log1p and exp again per sample and pass) and by the per-gene number of
-// steps: most genes freeze within a few steps, and their warps free the
-// slot for the next gene.
+// Bound on the H100 by the issue of the objective's terms (the precise exp
+// and log1p of jnp.logaddexp per sample and candidate; PERF.md section 6
+// gives the SASS count) and by the per-gene number of steps: most genes
+// freeze within a few steps, and their warps free the slot for the next
+// gene. A round of M candidates saves the reads of the row and the
+// per-candidate prior, division and test, and costs the candidates a step
+// that stops early never needed and M accumulators' registers, which the
+// launch bound keeps at one candidate a pass's occupancy (rounds exist for
+// P <= 3 only). passes_out counts the evaluations over the row that the
+// JAX order needs (as rounds of one make them), evals_out those made,
+// rounds_out the reads of the row.
 #include "common.cuh"
 
 using namespace pdt;
@@ -42,6 +58,18 @@ template <int P, typename T> struct Gene {
   int N, lane, si;
   T s, log_s, pns, ps;
 
+  // The prior of nbinom_fn_batch (shrink.py:23-53) at b.
+  __device__ __forceinline__ T prior(const T* b) const {
+    T ss = T(0);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const T v = p == si ? b[p] * T(0) : b[p];
+      ss = p == 0 ? v * v : ss + v * v;
+    }
+    const T q = b[si] / ps;
+    return ss / (T(2) * (pns * pns)) + m_log1p(q * q);
+  }
+
   // nbinom_fn_batch (shrink.py:23-53): prior minus log-likelihood.
   __device__ T fn(const T* b) const {
     T ll = T(0);
@@ -52,15 +80,50 @@ template <int P, typename T> struct Gene {
       ll += apeglm_ll_term(yv, yv + s, xb, __ldg(off + n), log_s);
     }
     ll = warp_sum(ll);
-    T ss = T(0);
+    return prior(b) - ll;
+  }
+
+  // The candidates beta - t_c step, t_c = t0 2^-c, c = 0 .. M - 1, in one
+  // read of the row: each lane sums every candidate's terms of its samples
+  // in the order fn does; then lane c (< M) returns candidate c's f / cnst
+  // (other lanes +inf). Each candidate's f has fn's bits.
+  template <int M>
+  __device__ T fn_round(const T* beta, const T* step, T t0, T cnst) const {
+    T cb[M][P], ll[M];
+    T t = t0;
 #pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const T v = p == si ? b[p] * T(0) : b[p];
-      ss = p == 0 ? v * v : ss + v * v;
+    for (int c = 0; c < M; ++c) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) cb[c][p] = beta[p] - t * step[p];
+      ll[c] = T(0);
+      t = t * T(0.5);
     }
-    const T q = b[si] / ps;
-    const T prior = ss / (T(2) * (pns * pns)) + m_log1p(q * q);
-    return prior - ll;
+    for (int n = lane; n < N; n += WARP) {
+      T xv[P];
+      const T* xn = X + (size_t)n * P;
+#pragma unroll
+      for (int p = 0; p < P; ++p) xv[p] = __ldg(xn + p);
+      const T yv = y[n], o = __ldg(off + n), yps = yv + s;
+#pragma unroll
+      for (int c = 0; c < M; ++c) {
+        T xb = T(0);
+#pragma unroll
+        for (int p = 0; p < P; ++p) xb = xb + cb[c][p] * xv[p];
+        ll[c] += apeglm_ll_term(yv, yps, xb, o, log_s);
+      }
+    }
+    T mine = T(0), cand[P];
+#pragma unroll
+    for (int c = 0; c < M; ++c) {
+      const T v = warp_sum(ll[c]);
+      if (lane == c) {
+        mine = v;
+#pragma unroll
+        for (int p = 0; p < P; ++p) cand[p] = cb[c][p];
+      }
+    }
+    if (lane >= M) return Lim<T>::inf();
+    return (prior(cand) - mine) / cnst;
   }
 
   // _grad (shrink.py:56-70) and, with want_h, _hess (:73-91), unscaled;
@@ -120,13 +183,22 @@ template <int M, typename T> __device__ __forceinline__ void scale(T* v, T c) {
   for (int i = 0; i < M; ++i) v[i] = v[i] / c;
 }
 
-template <int P, typename T>
-__global__ void __launch_bounds__(THREADS)
+// Blocks an SM must hold: for P <= 2, and for rounds of M > 1, those of one
+// candidate a pass at P = 2 (4 in float32, 3 in float64: 64 and 80
+// registers), so that neither a round's accumulators nor the compiler's
+// choice cut the warps an SM runs; wider designs take what they need.
+template <int P, typename T, int M> constexpr int min_blocks() {
+  return (P <= 2 || M > 1) ? (sizeof(T) == 8 ? 3 : 4) : 1;
+}
+
+// Rounds of M candidates after t = 1.
+template <int P, typename T, int M>
+__global__ void __launch_bounds__(THREADS, min_blocks<P, T, M>())
     shrink_kernel(int G, int N, const T* __restrict__ counts, const T* __restrict__ size,
                   const T* __restrict__ offset, const T* __restrict__ X, T pns, T ps, int si,
                   int maxiter, T ftol, T* __restrict__ beta_out, T* __restrict__ ih_out,
                   unsigned char* __restrict__ conv_out, int* __restrict__ trips_out,
-                  int* __restrict__ passes_out) {
+                  int* __restrict__ passes_out, int* __restrict__ evals_out, int* __restrict__ rounds_out) {
   const int gi = (int)(((size_t)blockIdx.x * THREADS + threadIdx.x) / WARP);
   const int lane = threadIdx.x & (WARP - 1);
   if (gi >= G) return;
@@ -153,7 +225,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int p = 1; p < P; ++p) beta[p] = (p & 1) ? -T(0.1) : T(0.1);
   T f = gene.fn(beta) / cnst;
-  int passes = 3;
+  // passes as the JAX order needs them; a round's evaluations beyond those,
+  // and the passes it folds into its one read of the row
+  int passes = 3, spec = 0, merged = 0;
 
   T g[P], H[NTRI<P>];
   int it = 0;
@@ -169,19 +243,58 @@ __global__ void __launch_bounds__(THREADS)
     T t = T(1);
     bool improved = false;
     T f_new = f;
-    for (int j = 0; j < 16 && !improved; ++j) {
-      T cand[P];
+    if constexpr (M == 1) {
+      for (int j = 0; j < 16 && !improved; ++j) {
+        T cand[P];
 #pragma unroll
-      for (int p = 0; p < P; ++p) cand[p] = beta[p] - t * step[p];
-      const T fc = gene.fn(cand) / cnst;
-      ++passes;
-      if (fc < f) {
-        improved = true;
-        f_new = fc;
+        for (int p = 0; p < P; ++p) cand[p] = beta[p] - t * step[p];
+        const T fc = gene.fn(cand) / cnst;
+        ++passes;
+        if (fc < f) {
+          improved = true;
+          f_new = fc;
 #pragma unroll
-        for (int p = 0; p < P; ++p) beta[p] = cand[p];
+          for (int p = 0; p < P; ++p) beta[p] = cand[p];
+        }
+        t = t * T(0.5);
       }
-      t = t * T(0.5);
+    } else {
+      // t = 1 alone, then rounds j0 .. j0 + M - 1: the least j whose f is
+      // below f, from the first round that holds one.
+      int j = -1;
+      {
+        T cand[P];
+#pragma unroll
+        for (int p = 0; p < P; ++p) cand[p] = beta[p] - step[p];
+        const T fc = gene.fn(cand) / cnst;
+        ++passes;
+        if (fc < f) {
+          j = 0;
+          f_new = fc;
+        }
+      }
+      T t0 = T(0.5);
+      for (int j0 = 1; j0 < 16 && j < 0; j0 += M) {
+        const T fc = gene.template fn_round<M>(beta, step, t0, cnst);
+        const unsigned hit = __ballot_sync(FULL, fc < f);
+        const int need = hit != 0u ? __ffs(hit) : M;
+        if (hit != 0u) {
+          j = j0 + need - 1;
+          f_new = __shfl_sync(FULL, fc, need - 1);
+        }
+        passes += need;
+        spec += M - need;
+        merged += need - 1;
+#pragma unroll
+        for (int c = 0; c < M; ++c) t0 = t0 * T(0.5);
+      }
+      if (j >= 0) {
+        improved = true;
+#pragma unroll 1
+        for (int k = 0; k < j; ++k) t = t * T(0.5);
+#pragma unroll
+        for (int p = 0; p < P; ++p) beta[p] = beta[p] - t * step[p];
+      }
     }
     const bool small = (f - f_new) < ftol * (m_abs(f_new) + T(1));
     done = !improved || (small && prev_small);
@@ -234,35 +347,61 @@ __global__ void __launch_bounds__(THREADS)
     conv_out[gi] = conv ? 1 : 0;
     trips_out[gi] = it;
     passes_out[gi] = passes;
+    evals_out[gi] = passes + spec;
+    rounds_out[gi] = passes - merged;
   }
 }
 
-template <int P, typename T>
+template <int P, typename T, int M>
 int launch(int G, int N, const void* counts, const void* size, const void* offset, const void* X,
            double pns, double ps, int si, int maxiter, double ftol, void* beta, void* ih,
-           void* conv, void* trips, void* passes, cudaStream_t s) {
+           void* conv, void* trips, void* passes, void* evals, void* rounds, cudaStream_t s) {
   const unsigned blocks = (unsigned)(((size_t)G * WARP + THREADS - 1) / THREADS);
-  shrink_kernel<P, T><<<blocks, THREADS, 0, s>>>(
+  shrink_kernel<P, T, M><<<blocks, THREADS, 0, s>>>(
       G, N, (const T*)counts, (const T*)size, (const T*)offset, (const T*)X, (T)pns, (T)ps, si,
-      maxiter, (T)ftol, (T*)beta, (T*)ih, (unsigned char*)conv, (int*)trips, (int*)passes);
+      maxiter, (T)ftol, (T*)beta, (T*)ih, (unsigned char*)conv, (int*)trips, (int*)passes,
+      (int*)evals, (int*)rounds);
   return 0;
+}
+
+// Candidates a round after t = 1 takes (ops/shrink.py:_shrink_round): 1, or
+// 3 where P <= 3.
+template <int P, typename T>
+int launch_m(int M, int G, int N, const void* counts, const void* size, const void* offset,
+             const void* X, double pns, double ps, int si, int maxiter, double ftol, void* beta,
+             void* ih, void* conv, void* trips, void* passes, void* evals, void* rounds,
+             cudaStream_t s) {
+  if (M == 1)
+    return launch<P, T, 1>(G, N, counts, size, offset, X, pns, ps, si, maxiter, ftol, beta, ih,
+                           conv, trips, passes, evals, rounds, s);
+  if constexpr (P <= 3) {
+    if (M == 3)
+      return launch<P, T, 3>(G, N, counts, size, offset, X, pns, ps, si, maxiter, ftol, beta, ih,
+                             conv, trips, passes, evals, rounds, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int shrink_launch(int is_f64, int P, int G, int N, const void* counts,
                              const void* size, const void* offset, const void* X, double pns,
-                             double ps, int shrink_index, int maxiter, double ftol, void* beta,
-                             void* ih, void* conv, void* trips, void* passes, void* stream) {
+                             double ps, int shrink_index, int maxiter, double ftol, int M,
+                             void* beta, void* ih, void* conv, void* trips, void* passes,
+                             void* evals, void* rounds, void* stream) {
   if (G <= 0) return (int)cudaSuccess;
   if (shrink_index < 0 || shrink_index >= P) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  int rc = 0;
   if (is_f64) {
-    PDT_DISPATCH_P(P, launch<PP, double>(G, N, counts, size, offset, X, pns, ps, shrink_index,
-                                         maxiter, ftol, beta, ih, conv, trips, passes, s));
+    PDT_DISPATCH_P(P, rc = launch_m<PP, double>(M, G, N, counts, size, offset, X, pns, ps,
+                                                shrink_index, maxiter, ftol, beta, ih, conv, trips,
+                                                passes, evals, rounds, s));
   } else {
-    PDT_DISPATCH_P(P, launch<PP, float>(G, N, counts, size, offset, X, pns, ps, shrink_index,
-                                        maxiter, ftol, beta, ih, conv, trips, passes, s));
+    PDT_DISPATCH_P(P, rc = launch_m<PP, float>(M, G, N, counts, size, offset, X, pns, ps,
+                                               shrink_index, maxiter, ftol, beta, ih, conv, trips,
+                                               passes, evals, rounds, s));
   }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -101,9 +101,12 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     if X.shape[1] == 2:
         still_bad = needs_fb & ~converged
         sel_grid = still_bad[idx]
-        # Host-evaluated lax.cond (fused.py:206-208).
-        if bool(still_bad.any()):
-            b_grid = grid_fit_beta_batch(counts[idx], size_factors, X, disp[idx], min_mu=min_mu, sel=sel_grid)
+        # Host-evaluated lax.cond (fused.py:206-208); the count it reads
+        # sizes the grid kernel's launch.
+        n_bad = int(still_bad.sum())
+        if n_bad:
+            b_grid = grid_fit_beta_batch(counts[idx], size_factors, X, disp[idx], min_mu=min_mu, sel=sel_grid,
+                                         n_sel=n_bad)
             beta = beta.clone()
             beta[idx] = torch.where(sel_grid[:, None], b_grid, beta[idx])
     return beta, converged, overflow

@@ -4,8 +4,9 @@ dispersion kernels ``disp_scan`` and ``disp_newton`` (suite ``disp``), the
 trimmed size-factor solve's ``sf_newton`` round and ``sf_nll`` pass
 (``sf``), the dispersion trend's gamma-GLM fit, ``trend`` with its
 exclusion rounds and the standalone ``trend_fit`` (``trend``), the trimmed
-moments of ``cooks`` and ``trimmed_var`` (``cooks``), and the apeGLM grid
-rescue ``grid_apeglm`` (``grid``).
+moments of ``cooks`` and ``trimmed_var`` (``cooks``), the grid rescues
+``grid_apeglm`` and ``grid_nb`` (``grid``), and the apeGLM MAP fit
+``shrink`` (``shrink``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -13,7 +14,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-five by default). To compare two versions in one call, name them parent,
+six by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -43,7 +44,9 @@ seeded dispersions and a seeded keep set of ~95% of the genes; and one
 ``sf_nll`` pass at the same shapes, with that set as its mask, on the same
 counts and on a zero-heavy copy of them (``zero_heavy``: ~60% of the cells
 zero, one cell in every 100th gene at or above the lgamma table's bound,
-one row of non-integer counts). ``trend``
+one row of non-integer counts); and ``lgamma_table`` beside ``torch.lgamma``
+of the same arange(1, 4097), float32 and float64, device time by the
+profiler. ``trend``
 shapes: 4000 and 60000 lanes in float32 and float64, seeded lanes (a trend
 0.05 + 2 / base_mean times gamma noise, ~97% valid). Per shape the same
 events and profiler times (kernels named ``sf_`` or ``trend``), the largest
@@ -81,10 +84,27 @@ with a continuous covariate (intercept and a seeded normal column: no
 sample skips a term) at the tile's 937 x 100 and at 16 x 8000 float32.
 Per shape the same times (kernels named ``grid_apeglm``), the share of
 lanes where kernel and plain version pick the same grid point, the plan a
-tree's wrapper picks, and a digest of ``grid_nb``'s output on the same
-operands (equal in two trees where its bits are); ``--detail`` every
-cluster size 1-16, on these shapes and on tiles of 64, 256 and 494 lanes
-at 100 samples in float32 and of 937 in float64 (GRID_DETAIL_SHAPES).
+tree's wrapper picks; ``--detail`` every cluster size 1-16, on these
+shapes and on tiles of 64, 256 and 494 lanes at 100 samples in float32 and
+of 937 in float64 (GRID_DETAIL_SHAPES). Then ``grid_nb`` through
+``grid_fit_beta_batch`` as a caller calls it: on the IRLS rescue tile of
+``summary_pipeline`` on ``make_data(100, RESCUE_G)`` float32 with the
+pipeline's selection (and count), then every lane of that tile, and on
+GRID_NB_SHAPES (``grid_operands``' counts, design and size factors e^offset,
+dispersions 1 / size: 937 lanes x 100, 1 and 16 lanes x 8000 float32, 4
+lanes x 4000 float64): times (kernels named ``grid_nb``), the share of
+selected lanes at the plain version's grid point, the plan; ``--detail``
+every cluster size.
+
+``shrink`` shapes: ``nbinom_glm_batch``'s fit at 100 x 60000 float32 and
+float64 and 1000 x 60000 float32 (``make_data``, median-of-ratios size
+factors of counts + 0.5 as the offset, seeded dispersions, prior scales 15
+and 0.5): times (kernels named ``shrink``), a digest of the coefficients'
+bits (equal in two trees where the iterates are), the converged share,
+Newton steps, the passes over the row the JAX order needs (the kernel's
+count) and, where the tree's kernel reports them, the evaluations it made
+and its reads of the row; ``--detail`` the other round size (1 or 3
+candidates).
 
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
@@ -118,7 +138,7 @@ import torch  # noqa: E402
 DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
-          "grid": ("grid.cu",)}
+          "grid": ("grid.cu",), "shrink": ("shrink.cu",)}
 SF_SHAPES = (
     # label, genes, samples, dtype, timed calls
     ("f32 100x60000", 60_000, 100, torch.float32, 20),
@@ -139,6 +159,13 @@ GRID_SHAPES = (
     ("f32 continuous 937 x 100", 937, 100, torch.float32, "continuous", 5),
     ("f32 continuous 16 x 8000", 16, 8_000, torch.float32, "continuous", 5),
 )
+GRID_NB_SHAPES = (
+    # label, lanes, samples, dtype, timed calls (the indicator design)
+    ("f32 937 lanes x 100", 937, 100, torch.float32, 5),
+    ("f32 1 lane x 8000", 1, 8_000, torch.float32, 3),
+    ("f32 16 lanes x 8000", 16, 8_000, torch.float32, 3),
+    ("f64 4 lanes x 4000", 4, 4_000, torch.float64, 3),
+)
 # --detail's grid tiles between 16 and 937 lanes, and the tile's width in
 # float64, where the cluster size the plan picks changes
 GRID_DETAIL_SHAPES = (
@@ -146,6 +173,13 @@ GRID_DETAIL_SHAPES = (
     ("f32 256 lanes x 100", 256, 100, torch.float32, "indicator", 5),
     ("f32 494 lanes x 100", 494, 100, torch.float32, "indicator", 5),
     ("f64 937 lanes x 100", 937, 100, torch.float64, "indicator", 5),
+)
+RESCUE_G = 60_000  # genes of the main draw whose IRLS rescue tile the grid suite takes
+SHRINK_SHAPES = (
+    # label, genes, samples, dtype, timed calls
+    ("f32 100x60000", 60_000, 100, torch.float32, 10),
+    ("f64 100x60000", 60_000, 100, torch.float64, 5),
+    ("f32 1000x60000", 60_000, 1_000, torch.float32, 3),
 )
 TREND_SHAPES = (
     # label, lanes, dtype, timed calls
@@ -241,7 +275,8 @@ def inputs(G: int, N: int, P: int, dtype):
 
 def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
-    f32|f64" for a kernel templated on the design width, "<kernel>
+    f32|f64" for a kernel templated on the design width ("P<p> f32|f64 M<m>"
+    where also on shrink's round size), "<kernel>
     f32|f64 shared|streamed" for a cluster kernel templated on its mode and
     "<kernel> f32|f64" for one templated on its type alone."""
     out = {}
@@ -249,11 +284,12 @@ def ptxas(kernels, sources=SOURCES) -> dict:
         text = kernels._lib_path(src).with_suffix(".ptxas.txt").read_text()
         rows = {}
         for m in re.finditer(r"Compiling entry function '([^']+)'(.*?)Used (\d+) registers", text, re.S):
-            inst = re.search(r"ILi(\d+)E([fd])E", m.group(1))
+            inst = re.search(r"ILi(\d+)E([fd])(?:Li(\d+)E)?E", m.group(1))
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
             typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
             if inst is not None:
-                key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}"
+                key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}" + (
+                    f" M{inst.group(3)}" if inst.group(3) else "")
             elif mode is not None:
                 key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
                        f"{'shared' if mode.group(3) == '1' else 'streamed'}")
@@ -439,7 +475,27 @@ def sf_rows(detail: bool) -> dict:
         print(f"  sf {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
         del ops, args
         torch.cuda.empty_cache()
+    if hasattr(sz, "_lgamma_table_cuda"):
+        for dtype in (torch.float32, torch.float64):
+            rows[f"lgamma_table {'f32' if dtype == torch.float32 else 'f64'}"] = lgamma_row(dtype)
     return rows
+
+
+def lgamma_row(dtype) -> dict:
+    """``lgamma_table`` (lgamma(i + 1), i < the table's length) against
+    ``torch.lgamma`` of the same arange(1, length + 1), device time by
+    the profiler (each kernel alone), the wrapper by events, and the
+    largest difference."""
+    from pydeseq2_tpu_torch.ops import sizefactors as sz
+
+    x = torch.arange(1, sz.LGAMMA_TABLE_LEN + 1, dtype=dtype, device=DEVICE)
+    table = sz._lgamma_table_cuda(dtype, x.device)
+    return {"lgamma_table_kernel_ms": device_ms(lambda: sz._lgamma_table_cuda(dtype, x.device), 50,
+                                                "lgamma_table")[0],
+            "lgamma_table_ms": cuda_ms(lambda: sz._lgamma_table_cuda(dtype, x.device), 50),
+            "torch_lgamma_kernel_ms": device_ms(lambda: torch.lgamma(x), 50, "lgamma")[0],
+            "torch_lgamma_ms": cuda_ms(lambda: torch.lgamma(x), 50),
+            "max_abs_diff": (table - torch.lgamma(x)).abs().max().item()}
 
 
 def trend_lanes(G: int, dtype):
@@ -790,22 +846,155 @@ def grid_rows(detail: bool) -> dict:
     for label, lanes, N, dtype, design, reps in GRID_SHAPES + (GRID_DETAIL_SHAPES if detail else ()):
         grid = grid_operands(lanes, N, dtype, design)
         rows[label] = grid_row(grid, None, reps, detail)
-        rows[label]["grid_nb_bits"] = grid_nb_bits(grid)
         print(f"  grid {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+    rows["grid_nb"] = grid_nb_rows(detail)
     return rows
 
 
-def grid_nb_bits(grid) -> str:
-    """A digest of the bits ``grid_nb`` returns on the counts, offset (log
-    size factors) and design of an apeGLM grid's operands, dispersions 1 /
-    size: equal digests in two trees are equal results."""
-    import hashlib
+def rescue_tile(dtype=torch.float32):
+    """The IRLS rescue tile of the main draw: ``summary_pipeline`` on
+    ``make_data(100, RESCUE_G)`` with the call of ``grid_fit_beta_batch``
+    recorded. Returns its (args, kwargs) as the pipeline made them (the
+    pipeline's selection and, where the tree passes it, its count), or None
+    where no lane reached the grid."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.synthetic import make_data
 
+    counts_np, X_np = make_data(100, RESCUE_G)
+    host = pt.summary_host_inputs(X_np)
+    kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
+                              dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
+                              use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
+    seen = []
+    grid = fused.grid_fit_beta_batch
+
+    def recorded(*args, **kwargs):
+        seen.append((args, kwargs))
+        return grid(*args, **kwargs)
+
+    fused.grid_fit_beta_batch = recorded
+    try:
+        pt.summary_pipeline(**kw)
+    finally:
+        fused.grid_fit_beta_batch = grid
+    return seen[0] if seen else None
+
+
+def nb_grid(grid) -> tuple:
+    """``grid_nb``'s operands on an apeGLM grid's counts, design and
+    offset (size factors e^offset), dispersions 1 / size."""
+    counts, offset, X, size = grid[:4]
+    return counts, torch.exp(offset), X, 1.0 / size
+
+
+def grid_nb_row(args, kwargs, reps: int, detail: bool) -> dict:
+    """``grid_nb`` through ``grid_fit_beta_batch(*args, **kwargs)``, as a
+    caller makes the call: times (kernels named ``grid_nb``), the share of
+    selected lanes at the plain version's grid point (within 1e-6 x 30), the
+    plan where the tree's wrapper has one; ``--detail`` every cluster size."""
+    from pydeseq2_tpu_torch import kernels
     from pydeseq2_tpu_torch.ops import irls as irl
 
-    counts, offset, X, size = grid[:4]
-    beta = irl.grid_fit_beta_batch(counts, torch.exp(offset), X, 1.0 / size)
-    return hashlib.sha256(beta.cpu().numpy().tobytes()).hexdigest()[:16]
+    def run():
+        return irl.grid_fit_beta_batch(*args, **kwargs)
+
+    got = run()
+    want = irl._grid_fit_beta_plain(*args[:4], kwargs.get("min_mu", 0.5), 60, -30.0, 30.0)
+    sel = kwargs.get("sel")
+    lanes = sel if sel is not None else torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    kern, dev = device_ms(run, reps, "grid_nb")
+    row = {"grid_nb_ms": cuda_ms(run, reps), "grid_nb_kernel_ms": kern, "grid_nb_device_ms": dev,
+           "lanes": int(lanes.sum()), "tile": got.shape[0],
+           "same_point_share": ((got - want).abs().amax(1)[lanes] <= 30e-6).double().mean().item()}
+    if "plan" in inspect.signature(irl._grid_fit_beta_cuda).parameters:
+        from pydeseq2_tpu_torch.ops import shrink as sh
+
+        counts = args[0]
+        n_sel = kwargs.get("n_sel")
+        n = counts.shape[0] if n_sel is None else min(max(int(n_sel), 1), counts.shape[0])
+        plan = sh._grid_device_plan(n, counts.shape[1], 60, counts.dtype, counts.device, kernel="grid_nb")
+        row["plan"] = plan._asdict()
+        if detail:
+            full = (*args[:4], kwargs.get("min_mu", 0.5), 60, -30.0, 30.0, sel, n_sel)
+            for k in (1, 2, 4, 8, 16):
+                other = plan._replace(K=k)
+                fits = sh._grid_smem_bytes(60, k, plan.chunk, counts.element_size(), 8) <= kernels.SMEM_BLOCK_MAX
+                if k != plan.K and fits:
+                    row[f"kernel_ms K={k}"] = device_ms(lambda: irl._grid_fit_beta_cuda(*full, plan=other), reps,
+                                                        "grid_nb")[0]
+    return row
+
+
+def grid_nb_rows(detail: bool) -> dict:
+    """``grid_nb`` on the pipeline's rescue tile (its selection, then every
+    lane) and on GRID_NB_SHAPES."""
+    rows = {}
+    rec = rescue_tile()
+    if rec is None:
+        rows["rescue tile"] = "no lane reached the grid"
+    else:
+        args, kwargs = rec
+        rows["f32 rescue tile, the pipeline's selection"] = grid_nb_row(args, kwargs, 20, detail)
+        every = {k: v for k, v in kwargs.items() if k not in ("sel", "n_sel")}
+        rows["f32 rescue tile, every lane"] = grid_nb_row(args, every, 5, detail)
+    for label, lanes, N, dtype, reps in GRID_NB_SHAPES:
+        rows[label] = grid_nb_row(nb_grid(grid_operands(lanes, N, dtype, "indicator")), {}, reps, detail)
+    for label, row in rows.items():
+        print(f"  grid_nb {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+    return rows
+
+
+def shrink_operands(G: int, N: int, dtype):
+    """``nbinom_glm_batch``'s arguments on ``make_data(N, G)``: the draw's
+    design, median-of-ratios size factors of counts + 0.5 as the offset,
+    seeded dispersions (size 1 / dispersion), the prior scales 15 and 0.5,
+    the condition's coefficient shrunk, 60 steps at most."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G)
+    logc = np.log(counts_np.T + 0.5)
+    sf = np.exp(np.median(logc - logc.mean(1, keepdims=True), axis=0))
+    disp = np.clip(np.random.default_rng(4).lognormal(-2.0, 1.0, G), 1e-3, 5.0)
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    size = torch.as_tensor(1.0 / disp, dtype=dtype, device=DEVICE)
+    offset = torch.as_tensor(np.log(sf), dtype=dtype, device=DEVICE)
+    return (X, counts, size, offset, 15.0, 0.5, 1, 60)
+
+
+def shrink_rows(detail: bool) -> dict:
+    """``shrink`` at SHRINK_SHAPES: times (kernels named ``shrink``), a
+    digest of its coefficients' bits (equal in two trees where the iterates
+    are), the Newton steps, and the work counts the tree's wrapper returns;
+    ``--detail`` every round size the tree's kernel takes."""
+    import hashlib
+
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    rows = {}
+    for label, G, N, dtype, reps in SHRINK_SHAPES:
+        fit = shrink_operands(G, N, dtype)
+        out = sh._nbinom_glm_cuda(*fit)
+        kern, dev = device_ms(lambda: sh._nbinom_glm_cuda(*fit), reps, "shrink")
+        row = {"shrink_ms": cuda_ms(lambda: sh._nbinom_glm_cuda(*fit), reps), "shrink_kernel_ms": kern,
+               "shrink_device_ms": dev, "beta_bits": hashlib.sha256(out[0].cpu().numpy().tobytes()).hexdigest()[:16],
+               "converged": out[2].double().mean().item(), "steps_mean": out[3].double().mean().item(),
+               "passes": int(out[4].sum())}
+        if len(out) > 5:
+            row["evaluations"] = int(out[5].sum())
+            row["rounds"] = int(out[6].sum())
+            row["round"] = sh._shrink_round(dtype, fit[0].shape[1])
+            if detail:
+                for m in (1, 3):
+                    if m != row["round"]:
+                        row[f"kernel_ms round={m}"] = device_ms(lambda: sh._nbinom_glm_cuda(*fit, cands=m), reps,
+                                                                "shrink")[0]
+        rows[label] = row
+        print(f"  shrink {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del fit, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def cuobjdump(kernels) -> str | None:
@@ -965,6 +1154,8 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["trimmed_var"] = trim_rows(detail)
     if "grid" in suites:
         res["grid"] = grid_rows(detail)
+    if "shrink" in suites:
+        res["shrink"] = shrink_rows(detail)
     return res
 
 
@@ -982,12 +1173,21 @@ def summary(res: dict) -> dict:
         out[f"disp {k}"] = {"scan": v["disp_scan_ms"], "newton": v["disp_newton_ms"],
                             "scan_kernel": v["disp_scan_kernel_ms"], "newton_kernel": v["disp_newton_kernel_ms"]}
     for k, v in res.get("sf", {}).items():
+        if k.startswith("lgamma_table"):
+            out[f"sf {k}"] = {"kernel": v["lgamma_table_kernel_ms"], "torch_lgamma": v["torch_lgamma_kernel_ms"]}
+            continue
         out[f"sf {k}"] = {"ms": v["sf_newton_ms"], "kernel": v["sf_newton_kernel_ms"],
                           "sf_nll_kernel": v["sf_nll"]["sf_nll_kernel_ms"],
                           "sf_nll_zero_heavy_kernel": v["sf_nll zero_heavy"]["sf_nll_kernel_ms"]}
     for k, v in res.get("grid", {}).items():
-        if isinstance(v, dict):
+        if k == "grid_nb":
+            for kk, vv in v.items():
+                if isinstance(vv, dict):
+                    out[f"grid_nb {kk}"] = {"ms": vv["grid_nb_ms"], "kernel": vv["grid_nb_kernel_ms"]}
+        elif isinstance(v, dict):
             out[f"grid {k}"] = {"ms": v["grid_apeglm_ms"], "kernel": v["grid_apeglm_kernel_ms"]}
+    for k, v in res.get("shrink", {}).items():
+        out[f"shrink {k}"] = {"ms": v["shrink_ms"], "kernel": v["shrink_kernel_ms"], "bits": v["beta_bits"]}
     for k, v in res.get("trend", {}).items():
         out[f"trend {k}"] = {"trend": v["trend_ms"], "trend_kernel": v["trend_kernel_ms"],
                              "trend_fit": v["trend_fit_ms"], "trend_fit_kernel": v["trend_fit_kernel_ms"]}

@@ -66,8 +66,9 @@ KERNELS = {
 # Exported helpers that are not kernels of the pipeline (a check, an
 # occupancy query); they are not counted.
 HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch"),
-           # the grid_apeglm blocks an SM holds (the occupancy API; no launch)
-           "grid_apeglm_per_sm": ("grid.cu", "grid_apeglm_per_sm")}
+           # the blocks of each grid kernel an SM holds (the occupancy API; no launch)
+           "grid_apeglm_per_sm": ("grid.cu", "grid_apeglm_per_sm"),
+           "grid_nb_per_sm": ("grid.cu", "grid_nb_per_sm")}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -101,8 +102,8 @@ _ARGTYPES = {
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
     "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
-    "grid_nb_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P],
-    "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _P, _P, _P, _P, _P],
+    "grid_nb_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _I, _P],
+    "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P],
     "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P],
     "trend_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
@@ -117,6 +118,7 @@ _ARGTYPES = {
     "psi_f64_launch": [_P, _I, _P, _P],
     "lgamma_table_launch": [_I, _I, _P],
     "grid_apeglm_per_sm": [_I, _I, _P],
+    "grid_nb_per_sm": [_I, _I, _P],
 }
 
 # What one block of a thread-block cluster may hold on the H100: dynamic

@@ -374,11 +374,22 @@ def _grid_fit_beta_plain(counts, size_factors, X, disp, min_mu, grid_length, min
     return torch.stack([best_x, best_y], dim=1)
 
 
-def _grid_fit_beta_cuda(counts, size_factors, X, disp, min_mu, grid_length, min_beta, max_beta, sel=None):
-    """Launch the ``grid_nb`` kernel (one block per selected lane; NaN in
-    the lanes not selected)."""
+def _grid_fit_beta_cuda(counts, size_factors, X, disp, min_mu, grid_length, min_beta, max_beta, sel=None,
+                        n_sel=None, plan=None):
+    """Launch the ``grid_nb`` kernel: a cluster of ``plan.K`` blocks per
+    selected lane, NaN in the lanes not selected. ``n_sel``, the selected
+    count as the caller already read it (at most the tile's lanes; every
+    lane where None), sizes the launch and the plan (``ops/shrink.py:
+    _grid_plan``) without a host read here: the kernel finds the selected
+    lanes itself, so a count off the true one costs time, not results.
+    ``plan`` (a ``GridPlan``) overrides the wrapper's."""
+    from pydeseq2_tpu_torch.ops.shrink import _grid_device_plan  # ops.shrink imports this module
+
     K, N = counts.shape
     dev = counts.device
+    lanes = K if n_sel is None else min(max(int(n_sel), 1), K)
+    if plan is None:
+        plan = _grid_device_plan(lanes, N, grid_length, counts.dtype, dev, kernel="grid_nb")
     base, offs = grid_axes(min_beta, max_beta, grid_length, counts.dtype, dev)
     beta = torch.empty((K, 2), dtype=counts.dtype, device=dev)
     ops = [t.contiguous() for t in (counts, size_factors, X, disp, base, offs)]
@@ -388,9 +399,9 @@ def _grid_fit_beta_cuda(counts, size_factors, X, disp, min_mu, grid_length, min_
     counts, size_factors, X, disp, base, offs = ops
     kernels.launch(
         "grid_nb",
-        [int(counts.dtype == torch.float64), K, N, counts.data_ptr(), size_factors.data_ptr(), X.data_ptr(),
-         disp.data_ptr(), kernels.ptr(sel8), base.data_ptr(), offs.data_ptr(), grid_length, float(min_mu),
-         beta.data_ptr()],
+        [int(counts.dtype == torch.float64), K, lanes, N, counts.data_ptr(), size_factors.data_ptr(), X.data_ptr(),
+         disp.data_ptr(), kernels.ptr(sel8), base.data_ptr(), offs.data_ptr(), grid_length, float(min_mu), plan.K,
+         plan.chunk, beta.data_ptr()],
         dev,
     )
     return beta
@@ -406,17 +417,19 @@ def grid_fit_beta_batch(
     min_beta: float = -30.0,
     max_beta: float = 30.0,
     sel: torch.Tensor | None = None,
+    n_sel: int | None = None,
 ) -> torch.Tensor:
     """Coarse then fine 2-D grid search for P == 2 designs. Port of
     ``pydeseq2_tpu/ops/irls.py:375``.
 
     ``sel`` (K,) bool marks the lanes whose result the caller uses: the
     ``grid_nb`` kernel (CUDA tensors) searches only those and returns NaN
-    for the others; the plain version ignores it.
+    for the others; the plain version ignores it. ``n_sel``, the number of
+    selected lanes where the caller has read it, sizes the kernel's launch.
     """
     args = (counts, size_factors, design_matrix, disp, min_mu, grid_length, min_beta, max_beta)
     if counts.is_cuda:
-        return _grid_fit_beta_cuda(*args, sel)
+        return _grid_fit_beta_cuda(*args, sel, n_sel)
     return _grid_fit_beta_plain(*args)
 
 

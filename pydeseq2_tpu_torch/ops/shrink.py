@@ -8,11 +8,15 @@ pydeseq2/grid_search.py:224-320), expression for expression.
 Kernels: ``csrc/shrink.cu`` replaces ``nbinom_glm_batch`` (shrink.py:101),
 whose masked ``while_loop`` advances every gene until the slowest freezes;
 one warp per gene runs its own Newton loop, polish and inverse Hessian and
-leaves at its own freeze, which is the JAX iterate lane for lane.
+leaves at its own freeze, which is the JAX iterate lane for lane; in
+float32 with P <= 3, after t = 1 a step's backtracking candidates are
+evaluated three at a time in one read of the row, the least improving one
+kept (:func:`_shrink_round`).
 ``csrc/grid.cu``'s ``grid_apeglm`` replaces ``grid_fit_shrink_beta_batch``
 (shrink.py:258): a thread-block cluster per selected lane, its blocks
-splitting the grid's rows (:func:`_grid_plan`), the terms of samples whose
-design row has a zero computed once per row or column. On CPU tensors the
+splitting the grid's rows (:func:`_grid_plan`, whose rule ``grid_nb`` shares),
+the terms of samples whose design row has a zero computed once per row or
+column. On CPU tensors the
 wrappers run the plain versions (the masked loop reads its condition from
 the host once per outer step); on CUDA tensors they launch the kernels or
 raise.
@@ -170,31 +174,50 @@ def _nbinom_glm_plain(X, counts, size, offset, pns, ps, shrink_index, maxiter):
     return beta, sym_inv(_hess(beta, *args)), converged
 
 
-def _nbinom_glm_cuda(X, counts, size, offset, pns, ps, shrink_index, maxiter):
+def _shrink_round(dtype, P: int) -> int:
+    """The candidates a backtracking round of the ``shrink`` kernel
+    evaluates in one read of the row after t = 1 alone: 3 in float32 with
+    P <= 3, else 1 (a pass a candidate). On the H100 rounds of 3 took less
+    than one candidate a pass in float32 at 100 and 1000 samples, and every
+    other round size measured took more (PERF.md section 6); the kernel
+    builds rounds of 3 for P <= 3 only."""
+    return 3 if dtype == torch.float32 and P <= 3 else 1
+
+
+def _nbinom_glm_cuda(X, counts, size, offset, pns, ps, shrink_index, maxiter, cands=None):
     """Launch the ``shrink`` kernel: ``(beta, inv_hessian, converged,
-    Newton steps per gene, passes over the row per gene)``."""
+    Newton steps, passes, evaluations, reads of the row)``, the last four
+    per gene: the passes over the row that the JAX order needs (one
+    candidate a read), the evaluations made (every candidate of a round),
+    the reads. ``cands`` overrides :func:`_shrink_round`."""
     G, N = counts.shape
     P = X.shape[1]
     dtype = counts.dtype
     dev = counts.device
+    cands = _shrink_round(dtype, P) if cands is None else cands
     beta = torch.empty((G, P), dtype=dtype, device=dev)
     ih = torch.empty((G, P, P), dtype=dtype, device=dev)
     conv = torch.empty(G, dtype=torch.uint8, device=dev)
     trips = torch.empty(G, dtype=torch.int32, device=dev)
     passes = torch.empty(G, dtype=torch.int32, device=dev)
+    evals = torch.empty(G, dtype=torch.int32, device=dev)
+    rounds = torch.empty(G, dtype=torch.int32, device=dev)
     ops = [t.contiguous() for t in (counts, size, offset, X)]
     kernels.check_cuda_operands("shrink", *ops)
     kernels.check_p("shrink", P)
     if not 0 <= shrink_index < P:
         raise ValueError(f"shrink: shrink_index={shrink_index} outside [0, {P})")
+    if cands != 1 and (cands != 3 or P > 3):
+        raise ValueError(f"shrink: {cands} candidates a round at P={P}; the kernel takes 1, or 3 where P <= 3")
     kernels.launch(
         "shrink",
         [int(dtype == torch.float64), P, G, N, *(t.data_ptr() for t in ops),
-         float(_scalar(pns, counts)), float(_scalar(ps, counts)), shrink_index, maxiter, _ftol(dtype),
-         beta.data_ptr(), ih.data_ptr(), conv.data_ptr(), trips.data_ptr(), passes.data_ptr()],
+         float(_scalar(pns, counts)), float(_scalar(ps, counts)), shrink_index, maxiter, _ftol(dtype), cands,
+         beta.data_ptr(), ih.data_ptr(), conv.data_ptr(), trips.data_ptr(), passes.data_ptr(), evals.data_ptr(),
+         rounds.data_ptr()],
         dev,
     )
-    return beta, ih, conv.bool(), trips, passes
+    return beta, ih, conv.bool(), trips, passes, evals, rounds
 
 
 def nbinom_glm_batch(
@@ -251,92 +274,119 @@ def _grid_shrink_plain(counts, offset, X, size, pns, ps, scale_cnst, shrink_inde
 
 
 class GridPlan(NamedTuple):
-    """Launch plan of ``grid_apeglm``: clusters of ``K`` blocks a lane, block
-    rank q taking the grid rows :func:`_grid_rows` ``(L, K, q)`` of both
-    passes, and ``chunk`` samples (a multiple of 256) staged at a time."""
+    """Launch plan of the grid kernels (``grid_apeglm``, ``grid_nb``):
+    clusters of ``K`` blocks a selected lane, block rank q taking the grid
+    rows :func:`_grid_rows` ``(L, K, q)`` of both passes, and ``chunk``
+    samples (a multiple of 256) staged at a time."""
 
     K: int
     chunk: int
 
 
-_GRID_THREADS = 256  # threads of a grid_apeglm block
+_GRID_THREADS = 256  # threads of a grid block
 _GRID_WARPS = _GRID_THREADS // 32
-# grid_apeglm blocks an H100 SM holds by registers, from the build's ptxas
-# report (64 registers a thread in float32, 80 in float64): the plan's
-# default where no card is asked (the wrapper asks the occupancy API).
-_GRID_REG_BLOCKS = {4: 4, 8: 3}
+# Values a sample each kernel stages (x0, x1 and its objective's own).
+_GRID_ARRAYS = {"grid_apeglm": 5, "grid_nb": 8}
+# Blocks an H100 SM holds by registers, from the build's ptxas report
+# (grid_apeglm: 64 registers a thread in float32, 80 in float64): the
+# plan's default where no card is asked (the wrappers ask the occupancy API).
+_GRID_REG_BLOCKS = {("grid_apeglm", 4): 4, ("grid_apeglm", 8): 3, ("grid_nb", 4): 4, ("grid_nb", 8): 3}
 _GRID_SMEM_SM = 233_472  # shared memory of an H100 SM, bytes
 _GRID_MAX_V = 4  # samples a thread classifies a chunk, at most
+# The share of a lane's work that every block of its cluster repeats
+# whatever K (staging the chunk, the column totals, the cluster's joins),
+# and the share of an SM's resident blocks below which a round of blocks
+# runs no faster (too few warps to hide the latency of a term's chain);
+# both fitted to a sweep of K on the H100 (PERF.md section 6).
+_GRID_BLOCK_FIXED = 1 / 32
+_GRID_LATENCY_SHARE = 3 / 4
 
 
 def _grid_rows(L: int, K: int, q: int) -> range:
-    """The grid rows of block rank q of K (the kernel's ``ag_row0``)."""
+    """The grid rows of block rank q of K (the kernel's ``row0``)."""
     return range(q * L // K, (q + 1) * L // K)
 
 
-def _grid_smem_bytes(L: int, K: int, chunk: int, itemsize: int) -> int:
-    """Dynamic shared memory of one ``grid_apeglm`` block (the kernel's
-    ``ag_smem_bytes``): float64 totals of its points, rows and columns and
+def _grid_smem_bytes(L: int, K: int, chunk: int, itemsize: int, arrays: int = 5) -> int:
+    """Dynamic shared memory of one grid block (the kernel's
+    ``grid_smem_bytes``): float64 totals of its points, rows and columns and
     the slice partials, the class counts, the candidates, the staged chunk
-    (five values a sample)."""
+    (``arrays`` values a sample)."""
     R = -(-L // K)
-    return (8 * (R * L + R + L + 3 * _GRID_THREADS) + kernels.align16(4 * (3 * _GRID_WARPS + 1))
-            + 16 * (2 + _GRID_WARPS) + 5 * chunk * itemsize)
+    return (8 * (R * L + R + L + 3 * _GRID_THREADS) + kernels.align16(4 * (3 * _GRID_WARPS + 2))
+            + 16 * (2 + _GRID_WARPS) + arrays * chunk * itemsize)
 
 
-def _grid_reg_per_sm(itemsize: int, smem: int) -> int:
+def _grid_reg_per_sm(itemsize: int, smem: int, kernel: str = "grid_apeglm") -> int:
     """The blocks an H100 SM holds by the ptxas registers (_GRID_REG_BLOCKS)
     and by shared memory (1 KB reserved a block)."""
-    return max(1, min(_GRID_REG_BLOCKS[itemsize], _GRID_SMEM_SM // (smem + 1024)))
+    return max(1, min(_GRID_REG_BLOCKS[kernel, itemsize], _GRID_SMEM_SM // (smem + 1024)))
 
 
 @functools.lru_cache(maxsize=None)
-def _grid_card_per_sm(device: torch.device, itemsize: int, smem: int) -> int:
-    """The blocks an SM of ``device`` holds, by the occupancy API for this
-    build of ``grid_apeglm`` (no launch)."""
+def _grid_card_per_sm(device: torch.device, itemsize: int, smem: int, kernel: str = "grid_apeglm") -> int:
+    """The blocks of ``kernel`` an SM of ``device`` holds, by the occupancy
+    API for this build (no launch)."""
     out = ctypes.c_int(0)
-    kernels.call_helper("grid_apeglm_per_sm", [int(itemsize == 8), smem, ctypes.addressof(out)], device)
+    kernels.call_helper(f"{kernel}_per_sm", [int(itemsize == 8), smem, ctypes.addressof(out)], device)
     return max(1, out.value)
 
 
-def _grid_plan(lanes: int, N: int, L: int, itemsize: int, sms: int = 132, per_sm=None) -> GridPlan:
-    """The ``grid_apeglm`` plan for ``lanes`` lanes of N samples on an L x L
-    grid, on a card with ``sms`` SMs that each hold ``per_sm(smem)`` blocks
-    of ``smem`` bytes at once (default :func:`_grid_reg_per_sm`: 4 in
-    float32, 3 in float64 at L = 60; the wrapper asks the occupancy API).
+def _grid_cost(lanes: int, K: int, sms: int, per_sm: int) -> float:
+    """The wave rule's time of ``lanes`` selected lanes on clusters of K, in
+    units of one lane's work on one block: an SM runs n = ceil(lanes K /
+    sms) blocks in rounds of the ``per_sm`` it holds, each block 1/K of a
+    lane plus the fixed share every block repeats, and a round of fewer
+    blocks runs no faster than 3/4 of a full one would."""
+    n = -(-lanes * K // sms)
+    full, rest = divmod(n, per_sm)
+    blocks = full * per_sm + (max(rest, _GRID_LATENCY_SHARE * per_sm) if rest else 0)
+    return blocks * (1.0 / K + _GRID_BLOCK_FIXED)
 
-    K: the smallest power of two for which lanes x K blocks reach two waves
-    of the card, 2 x per_sm x sms, at most 16 and at most L (every block
-    holds a row): 1-16 lanes take 16, the 937-lane tile of 60000 genes 2 in
-    float32 (two waves are 1056 blocks) and 1 in float64 (792). Which lanes
-    are selected is not read: the plan needs no host sync. K doubles further
-    where one block's share would not fit its shared memory. chunk: 256 x
-    ceil(N / 256) samples, at most 1024.
+
+def _grid_plan(lanes: int, N: int, L: int, itemsize: int, sms: int = 132, per_sm=None,
+               kernel: str = "grid_apeglm") -> GridPlan:
+    """The plan of ``kernel`` for ``lanes`` selected lanes of N samples on an
+    L x L grid, on a card with ``sms`` SMs that each hold ``per_sm(smem)``
+    blocks of ``smem`` bytes at once (default :func:`_grid_reg_per_sm`; the
+    wrappers ask the occupancy API).
+
+    K: the power of two, at most 16 and at most L (every block holds a row),
+    whose blocks fit their shared memory and take the least time by
+    :func:`_grid_cost` (ties to the smaller K): 1-16 lanes take 16, 64
+    lanes 8, 256 and 937 lanes 2, 494 lanes 1 (float32, 4 blocks an SM;
+    in float64, 3 an SM, 64 and 494 lanes 4, 256 lanes 1, 937 lanes 2).
+    grid_nb's wrapper counts only the selected lanes, from its caller's one
+    host read; grid_apeglm's counts the tile. chunk: 256 x ceil(N / 256)
+    samples, at most 1024.
     """
     if L < 1:
-        raise ValueError(f"grid_apeglm: grid_length={L}")
+        raise ValueError(f"{kernel}: grid_length={L}")
     if per_sm is None:
-        per_sm = functools.partial(_grid_reg_per_sm, itemsize)
+        per_sm = functools.partial(_grid_reg_per_sm, itemsize, kernel=kernel)
     chunk = _GRID_THREADS * min(_GRID_MAX_V, max(1, -(-N // _GRID_THREADS)))
     k_max = min(kernels.MAX_CLUSTER, 1 << (L.bit_length() - 1))
-
-    def smem(K):
-        return _grid_smem_bytes(L, K, chunk, itemsize)
-
+    best = None
     K = 1
-    while K < k_max and (smem(K) > kernels.SMEM_BLOCK_MAX or lanes * K < 2 * per_sm(smem(K)) * sms):
+    while K <= k_max:
+        smem = _grid_smem_bytes(L, K, chunk, itemsize, _GRID_ARRAYS[kernel])
+        if smem <= kernels.SMEM_BLOCK_MAX:
+            cost = _grid_cost(max(1, lanes), K, sms, per_sm(smem))
+            if best is None or cost < best[0]:
+                best = (cost, K)
         K *= 2
-    if smem(K) > kernels.SMEM_BLOCK_MAX:
-        raise ValueError(f"grid_apeglm: a {L} x {L} grid does not fit {kernels.MAX_CLUSTER} blocks' shared memory")
-    return GridPlan(K, chunk)
+    if best is None:
+        raise ValueError(f"{kernel}: a {L} x {L} grid does not fit {kernels.MAX_CLUSTER} blocks' shared memory")
+    return GridPlan(best[1], chunk)
 
 
-def _grid_device_plan(lanes: int, N: int, L: int, dtype, device) -> GridPlan:
+def _grid_device_plan(lanes: int, N: int, L: int, dtype, device, kernel: str = "grid_apeglm") -> GridPlan:
     """The plan the wrapper picks on ``device``: :func:`_grid_plan` with the
-    card's SMs and its occupancy for this build."""
+    card's SMs and its occupancy for this build of ``kernel``."""
     isz = torch.empty((), dtype=dtype).element_size()
     dev = torch.device(device)
-    return _grid_plan(lanes, N, L, isz, kernels.sm_count(dev), functools.partial(_grid_card_per_sm, dev, isz))
+    return _grid_plan(lanes, N, L, isz, kernels.sm_count(dev),
+                      functools.partial(_grid_card_per_sm, dev, isz, kernel=kernel), kernel)
 
 
 def _grid_shrink_cuda(counts, offset, X, size, pns, ps, scale_cnst, shrink_index, grid_length, min_beta,

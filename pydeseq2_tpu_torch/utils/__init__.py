@@ -105,6 +105,16 @@ def n_or_more_replicates(design_matrix: pd.DataFrame, min_replicates: int) -> pd
     return cohort_sizes >= min_replicates
 
 
+def get_num_processes(n_cpus: int | None = None) -> int:
+    """Number of processes to use (API parity; the torch backend ignores it).
+
+    Parity: reference pydeseq2/utils.py:963-987.
+    """
+    import multiprocessing
+
+    return n_cpus if n_cpus is not None else multiprocessing.cpu_count()
+
+
 def trimmed_mean_numpy(x: np.ndarray, trim: float = 0.1, axis: int | None = None):
     """Sort-based trimmed mean on the host, for the small refit subset
     (reference pydeseq2/utils.py:567-599)."""
@@ -119,6 +129,18 @@ def trimmed_mean_numpy(x: np.ndarray, trim: float = 0.1, axis: int | None = None
     s = np.sort(x)
     ntrim = math.floor(n * trim)
     return s[ntrim : n - ntrim].mean()
+
+
+def mean_absolute_deviation(x) -> float:
+    """Median absolute deviation with normal consistency scaling.
+
+    Parity: reference pydeseq2/utils.py:1210-1227 (same name and location in
+    `utils`; the device-batched form lives in ops/stats.py).
+    """
+    x = np.asarray(x, dtype=float)
+    center = np.median(x)
+    # Phi^-1(0.75), the normal-consistency constant.
+    return float(np.median(np.abs(x - center)) / 0.6744897501960817)
 
 
 def nb_nll_numpy(counts: np.ndarray, mu: np.ndarray, alpha: np.ndarray) -> np.ndarray:

@@ -103,9 +103,11 @@ def test_child_on_cpu(monkeypatch, detail):
 def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
     """The ``sf`` and ``trend`` suites of one tree's run at small shapes:
     times, no difference from the plain versions, the plans picked, the
-    plain fit's passes, ``sf_nll`` on the draw and on its zero-heavy copy;
-    ``--detail`` the other modes, cluster sizes and lane counts."""
+    plain fit's passes, ``sf_nll`` on the draw and on its zero-heavy copy,
+    ``lgamma_table`` beside ``torch.lgamma`` in both types; ``--detail`` the
+    other modes, cluster sizes and lane counts."""
     _on_cpu(monkeypatch)
+    monkeypatch.setattr(sz, "_lgamma_table_cuda", sz._lgamma_table_plain)
     plans = {}
     monkeypatch.setattr(sz, "_sf_newton_cuda",
                         lambda *a, plan=None: plans.setdefault("sf", []).append(plan) or sz._sf_newton_plain(*a))
@@ -122,7 +124,11 @@ def test_sf_and_trend_child_on_cpu(monkeypatch, detail):
                                                        ("f64 3000", 3_000, torch.float64, 1)))
     res = kernel_bench.child(detail, ("sf", "trend"))
     assert "shapes" not in res and set(res) == {"ptxas", "sf", "trend"} | ({"sass_loops"} if detail else set())
-    assert set(res["sf"]) == {"f32 12x300", "f64 3x70"}
+    assert set(res["sf"]) == {"f32 12x300", "f64 3x70", "lgamma_table f32", "lgamma_table f64"}
+    for dtype in ("f32", "f64"):
+        row = res["sf"].pop(f"lgamma_table {dtype}")
+        assert row["max_abs_diff"] == 0.0 and row["lgamma_table_kernel_ms"] > 0 and row["torch_lgamma_kernel_ms"] > 0
+        assert row["lgamma_table_ms"] > 0 and row["torch_lgamma_ms"] > 0
     for row in res["sf"].values():
         assert row["sf_newton_ms"] > 0 and row["sf_newton_kernel_ms"] > 0 and row["err"] == 0.0
         assert row["plan"]["K"] >= 1
@@ -212,8 +218,13 @@ def test_grid_child_on_cpu(monkeypatch, detail):
     """The ``grid`` suite of one tree's run at small shapes: the weak tile
     (at the draw's width, where no lane fails Newton at 40 genes, it says
     so; with ``--detail`` a small stand-in tile, every lane then half),
-    each shape's times, every lane at the plain version's point, the plan,
-    the digest of ``grid_nb``'s bits; ``--detail`` every cluster size."""
+    each shape's times, every lane at the plain version's point, the plan;
+    ``--detail`` every cluster size. Then ``grid_nb`` on the rescue tile
+    (none at 40 genes; with ``--detail`` a stand-in call with a selection
+    and its count) and on its shapes: times, every selected lane at the
+    plain version's point, the plan of the selected count; ``--detail``
+    every cluster size."""
+    from pydeseq2_tpu_torch.ops import irls as irl
     from pydeseq2_tpu_torch.ops import shrink as sh
 
     _on_cpu(monkeypatch)
@@ -228,16 +239,34 @@ def test_grid_child_on_cpu(monkeypatch, detail):
 
     monkeypatch.setattr(sh, "_grid_shrink_cuda", plain_grid)
     monkeypatch.setattr(kernel_bench, "WEAK_G", 40)
+    monkeypatch.setattr(kernel_bench, "RESCUE_G", 40)
+    nb_plans = []
+
+    def plain_nb(*a, plan=None):
+        nb_plans.append(plan)
+        sel = a[8] if len(a) > 8 else None
+        out = irl._grid_fit_beta_plain(*a[:8])
+        return out if sel is None else torch.where(sel[:, None], out, torch.full_like(out, float("nan")))
+
+    monkeypatch.setattr(irl, "_grid_fit_beta_cuda", plain_nb)
+    monkeypatch.setattr(kernel_bench, "GRID_NB_SHAPES", (("f32 5 lanes x 30", 5, 30, torch.float32, 1),))
     if detail:
         tile = kernel_bench.grid_operands(6, 50, torch.float32, "indicator")
         monkeypatch.setattr(kernel_bench, "weak_tile", lambda: (tile, torch.arange(6) % 2 == 0))
+        nb = kernel_bench.nb_grid(tile)
+        monkeypatch.setattr(kernel_bench, "rescue_tile", lambda: (nb, {"min_mu": 0.5, "sel": torch.arange(6) < 1,
+                                                                       "n_sel": 1}))
+    # grid_fit_beta_batch on CPU tensors runs the plain version: route it
+    # through the stand-in as a CUDA tensor would the kernel
+    monkeypatch.setattr(irl, "grid_fit_beta_batch", lambda *a, sel=None, n_sel=None, min_mu=0.5: plain_nb(
+        *a, min_mu, 60, -30.0, 30.0, sel, n_sel))
     monkeypatch.setattr(kernel_bench, "GRID_SHAPES", (("f32 3 lanes x 300", 3, 300, torch.float32, "indicator", 1),
                                                       ("f64 20 x 40", 20, 40, torch.float64, "continuous", 1)))
     monkeypatch.setattr(kernel_bench, "GRID_DETAIL_SHAPES", (("f32 9 lanes x 30", 9, 30, torch.float32, "indicator",
                                                               1),))
     # the card's occupancy is not asked here: the plan's register default
-    monkeypatch.setattr(sh, "_grid_device_plan", lambda lanes, N, L, dtype, device: sh._grid_plan(
-        lanes, N, L, torch.empty((), dtype=dtype).element_size()))
+    monkeypatch.setattr(sh, "_grid_device_plan", lambda lanes, N, L, dtype, device, kernel="grid_apeglm":
+                        sh._grid_plan(lanes, N, L, torch.empty((), dtype=dtype).element_size(), kernel=kernel))
     res = kernel_bench.child(detail, ("grid",))
     assert set(res) == {"ptxas", "grid"} | ({"sass_loops"} if detail else set())
     rows = res["grid"]
@@ -251,10 +280,65 @@ def test_grid_child_on_cpu(monkeypatch, detail):
         assert rows["weak tile"] == "no lane failed Newton"
     for label in ("f32 3 lanes x 300", "f64 20 x 40"):
         row = rows[label]
-        assert row["grid_apeglm_ms"] > 0 and row["same_point_share"] == 1.0 and len(row["grid_nb_bits"]) == 16
+        assert row["grid_apeglm_ms"] > 0 and row["same_point_share"] == 1.0
         assert sum(k.startswith("kernel_ms K=") for k in row) == (4 if detail else 0)
     assert rows["f32 3 lanes x 300"]["plan"] == {"K": 16, "chunk": 512}
     assert any(p is not None for p in plans) == detail
+    nb = rows["grid_nb"]
+    assert set(nb) == ({"f32 rescue tile, the pipeline's selection", "f32 rescue tile, every lane"} if detail
+                       else {"rescue tile"}) | {"f32 5 lanes x 30"}
+    for label, row in nb.items():
+        if isinstance(row, dict):
+            assert row["grid_nb_ms"] > 0 and row["grid_nb_kernel_ms"] > 0 and row["same_point_share"] == 1.0, label
+            assert row["plan"]["K"] == 16 and sum(k.startswith("kernel_ms K=") for k in row) == (4 if detail else 0)
+    assert nb["f32 5 lanes x 30"]["lanes"] == 5
+    if detail:
+        assert nb["f32 rescue tile, the pipeline's selection"]["lanes"] == 1
+        assert nb["f32 rescue tile, every lane"]["lanes"] == 6
+    else:
+        assert nb["rescue tile"] == "no lane reached the grid"
+    assert any(p is not None for p in nb_plans) == detail
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_shrink_child_on_cpu(monkeypatch, detail):
+    """The ``shrink`` suite of one tree's run at small shapes: times, the
+    digest of the coefficients' bits, the steps, the passes the JAX order
+    needs, the evaluations and reads of the row; ``--detail`` the other
+    round sizes."""
+    from pydeseq2_tpu_torch.ops import shrink as sh
+
+    _on_cpu(monkeypatch)
+    rounds = []
+
+    def plain_fit(*fit, cands=None):
+        rounds.append(cands)
+        beta, ih, conv = sh._nbinom_glm_plain(*fit)
+        steps = torch.full((beta.shape[0],), 3, dtype=torch.int32)
+        return beta, ih, conv, steps, steps * 9, steps * (9 if cands == 1 else 11), steps * (9 if cands == 1 else 4)
+
+    monkeypatch.setattr(sh, "_nbinom_glm_cuda", plain_fit)
+    monkeypatch.setattr(kernel_bench, "SHRINK_SHAPES", (("f32 12x40", 40, 12, torch.float32, 1),
+                                                        ("f64 8x30", 30, 8, torch.float64, 1)))
+    res = kernel_bench.child(detail, ("shrink",))
+    assert set(res) == {"ptxas", "shrink"} | ({"sass_loops"} if detail else set())
+    for label, row in res["shrink"].items():
+        G = 40 if "f32" in label else 30
+        assert row["shrink_ms"] > 0 and row["shrink_kernel_ms"] > 0 and len(row["beta_bits"]) == 16
+        assert row["steps_mean"] == 3.0 and row["passes"] == 27 * G and row["evaluations"] == 33 * G
+        assert row["rounds"] == 12 * G and row["round"] == (3 if "f32" in label else 1)
+        assert sorted(k for k in row if k.startswith("kernel_ms round=")) == (
+            [f"kernel_ms round={1 if 'f32' in label else 3}"] if detail else [])
+    assert {m for m in rounds if m is not None} == ({1, 3} if detail else set())
+
+
+def test_shrink_operands_draw(monkeypatch):
+    """The suite's fit: the draw's design, one offset a sample, positive
+    sizes, the condition's coefficient shrunk."""
+    monkeypatch.setattr(kernel_bench, "DEVICE", "cpu")
+    X, counts, size, offset, pns, ps, si, maxiter = kernel_bench.shrink_operands(30, 8, torch.float64)
+    assert counts.shape == (30, 8) and X.shape == (8, 2) and offset.shape == (8,) and size.shape == (30,)
+    assert bool((size > 0).all()) and (pns, ps, si, maxiter) == (15.0, 0.5, 1, 60)
 
 
 def test_grid_operands_designs(monkeypatch):
@@ -302,3 +386,18 @@ def test_sass_loops_of_a_listing():
 def test_sass_loops_without_cuobjdump(monkeypatch):
     monkeypatch.setattr(kernel_bench, "cuobjdump", lambda k: None)
     assert kernel_bench.sass_loops(kernels, ("grid.cu",)) == {}
+
+
+def test_ptxas_rows_of_round_templates(tmp_path, monkeypatch):
+    """A kernel templated on the design width and a round size (``shrink``)
+    is keyed by both."""
+    monkeypatch.setattr(kernels, "_lib_path", lambda src: tmp_path / (src + ".so"))
+    (tmp_path / "shrink.cu.ptxas.txt").write_text(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113shrink_kernelILi2EfLi3EEEviiPKT0_' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, 560 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113shrink_kernelILi2EdLi1EEEviiPKT0_' for 'sm_90a'\n"
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads\n"
+        "ptxas info    : Used 80 registers, 560 bytes cmem[0]\n")
+    assert kernel_bench.ptxas(kernels, ("shrink.cu",)) == {"shrink.cu": {"P2 f32 M3": [64, 0, 0],
+                                                                         "P2 f64 M1": [80, 12, 16]}}

@@ -132,6 +132,18 @@ def test_host_statistics_match_jax(metadata):
     np.testing.assert_array_equal(t_utils.dispersion_trend(x[0], coeffs), j_utils.dispersion_trend(x[0], coeffs))
 
 
+@pytest.mark.parametrize("n_cpus", [None, 1, 4_096])
+def test_get_num_processes_matches_jax(n_cpus):
+    assert t_utils.get_num_processes(n_cpus) == j_utils.get_num_processes(n_cpus)
+
+
+@pytest.mark.parametrize("draw", ["lognormal", "ties"])
+def test_mean_absolute_deviation_matches_jax(draw):
+    rng = np.random.default_rng(5)
+    x = rng.lognormal(0.0, 1.0, 101) if draw == "lognormal" else rng.integers(0, 4, 40).astype(float)
+    assert t_utils.mean_absolute_deviation(x) == j_utils.mean_absolute_deviation(x)
+
+
 def test_size_factors_ratio_and_transform_match_jax(counts_df):
     train, test = counts_df[25:75], counts_df[0:25]
     lm_t, fg_t = t_pre.deseq2_norm_fit(train, device="cpu")

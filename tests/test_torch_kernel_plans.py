@@ -1,9 +1,10 @@
 """The launch plans of the cluster kernels ``sf_newton``
 (``ops/sizefactors.py:_sf_plan``), ``trend`` / ``trend_fit``
-(``ops/trend.py:_trend_plan``) and ``grid_apeglm``
+(``ops/trend.py:_trend_plan``), ``grid_apeglm`` and ``grid_nb``
 (``ops/shrink.py:_grid_plan``), of the trimmed moments of ``cooks`` and
-``trimmed_var`` (``ops/stats.py:_trim_plan``), and of ``sf_nll``
-(``ops/sizefactors.py:_nll_plan``), on the CPU: pure Python, no kernel
+``trimmed_var`` (``ops/stats.py:_trim_plan``), of ``sf_nll``
+(``ops/sizefactors.py:_nll_plan``) and of ``shrink``'s candidate rounds
+(``ops/shrink.py:_shrink_round``), on the CPU: pure Python, no kernel
 runs.
 
 Each cluster plan splits the samples into chunks that cover every sample
@@ -13,9 +14,10 @@ fit. Each trimmed-moment plan takes every cohort size from 1 to the row's
 length, by rank count up to its rank_max and by radix select above, holds
 its staged keys in one block's shared memory or streams them exactly where
 they would not fit, and the wrappers hand the C launchers one value of the
-right kind per argument. ``grid_apeglm``'s blocks take every grid row of
-both passes once, and ``sf_nll``'s lane groups every gene and its chunks
-every sample once, within a block's shared memory.
+right kind per argument. The grid kernels' blocks take every grid row of
+both passes once, ``grid_nb``'s plan from the selected count its caller
+read, with no host read of its own, and ``sf_nll``'s lane groups every
+gene and its chunks every sample once, within a block's shared memory.
 """
 
 import ctypes
@@ -286,27 +288,35 @@ def test_grid_plan_covers_and_fits(lanes, N, L, itemsize):
     # chunks of a multiple of 256 samples, at most 1024, no more than N needs
     assert plan.chunk % 256 == 0 and 256 <= plan.chunk <= 1024
     assert plan.chunk == 256 or plan.chunk - 256 < N
-    # the least K whose blocks reach two waves of the card (the blocks an SM
-    # holds by registers and shared memory), at the cap, or forced by shared memory
-    def waves2(K):
-        return 2 * sh._grid_reg_per_sm(itemsize, sh._grid_smem_bytes(L, K, plan.chunk, itemsize)) * 132
-
+    # the wave rule: of the powers of two up to the cap whose blocks fit,
+    # the least K of least cost (an SM runs ceil(lanes K / 132) blocks in
+    # rounds of the blocks it holds by registers and shared memory, a short
+    # round counting at least 3/4 of a full one, each block 1/K of a lane
+    # plus 1/32)
     k_max = min(kernels.MAX_CLUSTER, 1 << (L.bit_length() - 1))
-    assert lanes * plan.K >= waves2(plan.K) or plan.K == k_max
-    smaller = plan.K // 2
-    assert plan.K == 1 or lanes * smaller < waves2(smaller) or (
-        sh._grid_smem_bytes(L, smaller, plan.chunk, itemsize) > kernels.SMEM_BLOCK_MAX)
+    costs = {}
+    for K in (1, 2, 4, 8, 16):
+        smem = sh._grid_smem_bytes(L, K, plan.chunk, itemsize)
+        if K <= k_max and smem <= kernels.SMEM_BLOCK_MAX:
+            per_sm = sh._grid_reg_per_sm(itemsize, smem)
+            n = -(-lanes * K // 132)
+            rounds = [per_sm] * (n // per_sm) + ([max(n % per_sm, 0.75 * per_sm)] if n % per_sm else [])
+            costs[K] = sum(rounds) * (1 / K + 1 / 32)
+    assert costs[plan.K] == min(costs.values())
+    assert all(costs[K] > costs[plan.K] for K in costs if K < plan.K)
 
 
 def test_grid_plan_picks():
-    """The plans of the shapes PERF.md reports, and a grid too large."""
+    """The plans of the shapes PERF.md reports (the best K of its sweep of
+    K on the H100, or within 5% of it), and a grid too large."""
     assert sh._grid_plan(1, 8_000, 60, 4) == sh.GridPlan(16, 1024)
     assert sh._grid_plan(16, 8_000, 60, 4) == sh.GridPlan(16, 1024)
     assert sh._grid_plan(16, 4_000, 60, 8) == sh.GridPlan(16, 1024)
     assert sh._grid_plan(937, 100, 60, 4) == sh.GridPlan(2, 256)
-    assert sh._grid_plan(937, 100, 60, 8) == sh.GridPlan(1, 256)  # 3 blocks an SM: two waves are 792
-    assert sh._grid_plan(256, 100, 60, 4) == sh.GridPlan(8, 256)
-    assert sh._grid_plan(64, 100, 60, 4) == sh.GridPlan(16, 256)
+    assert sh._grid_plan(937, 100, 60, 8) == sh.GridPlan(2, 256)  # 3 blocks an SM; K = 1 within 2.4%
+    assert sh._grid_plan(256, 100, 60, 4) == sh.GridPlan(2, 256)
+    assert sh._grid_plan(494, 100, 60, 4) == sh.GridPlan(1, 256)  # K = 2 best, 1.3% less
+    assert sh._grid_plan(64, 100, 60, 4) == sh.GridPlan(8, 256)
     assert sh._grid_plan(4_096, 100, 60, 8) == sh.GridPlan(1, 256)
     assert sh._grid_plan(16, 100, 5, 4).K == 4
     assert sh._grid_plan(937, 100, 600, 8).K == 16  # shared memory forces it
@@ -315,31 +325,36 @@ def test_grid_plan_picks():
 
 
 def test_grid_plan_follows_the_occupancy():
-    """The blocks an SM holds set the two waves K must reach: the ptxas
-    registers by default (4 blocks of 256 in float32, 3 in float64, fewer
-    where shared memory binds), else what ``per_sm`` says of each K's
-    shared memory."""
+    """The blocks an SM holds set the floor of the blocks it runs: the
+    ptxas registers by default (4 blocks of 256 in float32, 3 in float64,
+    fewer where shared memory binds), else what ``per_sm`` says of each K's
+    shared memory, asked once for every K that fits."""
     assert sh._grid_reg_per_sm(4, 26_656) == 4 and sh._grid_reg_per_sm(8, 46_416) == 3
     assert sh._grid_reg_per_sm(4, 100_000) == 2 and sh._grid_reg_per_sm(8, 232_448) == 1
+    assert sh._grid_reg_per_sm(4, 26_656, "grid_nb") == 4 and sh._grid_reg_per_sm(8, 46_416, "grid_nb") == 3
     seen = []
 
     def per_sm(smem):
         seen.append(smem)
         return 8
 
-    assert sh._grid_plan(937, 100, 60, 4, per_sm=per_sm) == sh.GridPlan(4, 256)  # 2 x 8 x 132 = 2112
-    assert seen and seen[-1] == sh._grid_smem_bytes(60, 4, 256, 4)
+    assert sh._grid_plan(937, 100, 60, 4, per_sm=per_sm) == sh.GridPlan(2, 256)
+    assert seen == [sh._grid_smem_bytes(60, k, 256, 4) for k in (1, 2, 4, 8, 16)]
+    # 24 blocks an SM held: 937 lanes run 8 a SM at K = 1, a round below 3/4 of 24
+    assert sh._grid_plan(937, 100, 60, 4, per_sm=lambda b: 24) == sh.GridPlan(2, 256)
+    # half the SMs: 15 blocks an SM at K = 1, whole rounds but the last
     assert sh._grid_plan(937, 100, 60, 4, sms=66, per_sm=lambda b: 4) == sh.GridPlan(1, 256)
     assert sh._grid_plan(1, 8_000, 60, 4, per_sm=lambda b: 1) == sh.GridPlan(16, 1024)
 
 
 def test_grid_smem_bytes_layout():
     """The kernel's layout: float64 totals of a block's points, rows and
-    columns, 3 x 256 float64 slice partials, 25 ints padded to 16, the two
+    columns, 3 x 256 float64 slice partials, 26 ints padded to 16, the two
     published candidates and the 8 warps' (16 bytes each), five staged
-    values a sample."""
+    values a sample (grid_apeglm) or eight (grid_nb)."""
     assert sh._grid_smem_bytes(60, 2, 256, 4) == 8 * (30 * 60 + 30 + 60 + 768) + 112 + 160 + 5 * 256 * 4
     assert sh._grid_smem_bytes(60, 16, 1024, 8) == 8 * (4 * 60 + 4 + 60 + 768) + 112 + 160 + 5 * 1024 * 8
+    assert sh._grid_smem_bytes(60, 1, 256, 8, 8) == 8 * (60 * 60 + 60 + 60 + 768) + 112 + 160 + 8 * 256 * 8
     assert [len(sh._grid_rows(60, 16, q)) for q in range(16)] == [3, 4, 4, 4] * 4
 
 
@@ -403,7 +418,7 @@ def test_grid_wrapper_marshals_its_plan(recorded, monkeypatch):
     assert recorded[1][1][15:17] == [4, 512]
     assert recorded[0][1][8] is None
     # the occupancy of each K the plan tried, asked once (then cached), none for a given plan
-    assert asked == [("grid_apeglm_per_sm", [0, sh._grid_smem_bytes(60, k, 256, 4)]) for k in (1, 2)]
+    assert asked == [("grid_apeglm_per_sm", [0, sh._grid_smem_bytes(60, k, 256, 4)]) for k in (1, 2, 4, 8, 16)]
     sh._grid_card_per_sm.cache_clear()
 
 
@@ -451,3 +466,196 @@ def test_lgamma_table_plain(dtype):
     np.testing.assert_allclose(table.double().numpy(), want, rtol=1e-6 if dtype == torch.float32 else 1e-12,
                                atol=1e-6 if dtype == torch.float32 else 1e-12)
     assert table[0].item() == 0.0 and table[1].item() == 0.0
+
+NB_CASES = [
+    # (selected lanes, N): the pipeline's one lane and its tile, the wide
+    # checks' 16 and 4 lanes, a tile wider than the card, one sample
+    (1, 100), (2, 100), (16, 100), (64, 100), (256, 100), (494, 100), (937, 100), (4, 4_000), (16, 8_000),
+    (4_096, 100), (937, 1),
+]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("lanes,N", NB_CASES)
+def test_grid_nb_plan_covers_and_fits(lanes, N, itemsize):
+    """``grid_nb``'s plan shares ``grid_apeglm``'s rule on its own staged
+    chunk (eight values a sample): every row in one block, within a block's
+    shared memory; one selected lane spreads over 16 blocks, and a large
+    selection leaves no mostly idle last wave."""
+    plan = sh._grid_plan(lanes, N, 60, itemsize, kernel="grid_nb")
+    rows = [k for q in range(plan.K) for k in sh._grid_rows(60, plan.K, q)]
+    assert rows == list(range(60))
+    smem = sh._grid_smem_bytes(60, plan.K, plan.chunk, itemsize, 8)
+    assert smem <= kernels.SMEM_BLOCK_MAX
+    if lanes <= 16:
+        assert plan.K == 16
+    # the last round of blocks on an SM at least half full, or the only one
+    per_sm = sh._grid_reg_per_sm(itemsize, smem, "grid_nb")
+    n = -(-lanes * plan.K // 132)
+    assert n <= per_sm or n % per_sm == 0 or n % per_sm >= per_sm / 2
+
+
+def test_grid_nb_plan_picks():
+    """The selected count, not the tile, sets the plan: 1 of a 937-lane
+    tile takes 16 blocks, every lane 2."""
+    assert sh._grid_plan(1, 100, 60, 4, kernel="grid_nb") == sh.GridPlan(16, 256)
+    assert sh._grid_plan(937, 100, 60, 4, kernel="grid_nb") == sh.GridPlan(2, 256)
+    assert sh._grid_plan(16, 8_000, 60, 4, kernel="grid_nb") == sh.GridPlan(16, 1024)
+    assert sh._grid_plan(4, 4_000, 60, 8, kernel="grid_nb") == sh.GridPlan(16, 1024)
+    assert sh._grid_plan(1, 100, 60, 8, kernel="grid_nb") == sh.GridPlan(16, 256)
+
+
+def _nb_args(K, N, dtype=torch.float32):
+    counts = torch.ones(K, N, dtype=dtype)
+    X = torch.ones(N, 2, dtype=dtype)
+    return (counts, torch.ones(N, dtype=dtype), X, torch.full((K,), 0.1, dtype=dtype), 0.5, 60, -30.0, 30.0)
+
+
+@pytest.fixture
+def nb_recorded(recorded, monkeypatch):
+    """``grid_nb`` launches recorded on CPU tensors, the selection taken as
+    it is, the occupancy of each K asked (4 blocks an SM)."""
+    asked = []
+
+    def occupancy(name, args, device):
+        asked.append((name, args[:2]))
+        ctypes.c_int.from_address(args[2]).value = 4
+
+    monkeypatch.setattr(kernels, "call_helper", occupancy)
+    monkeypatch.setattr(kernels, "check_sel", lambda name, sel, K: None if sel is None else sel.to(torch.uint8))
+    sh._grid_card_per_sm.cache_clear()
+    yield recorded, asked
+    sh._grid_card_per_sm.cache_clear()
+
+
+def test_grid_nb_wrapper_marshals_its_plan(nb_recorded):
+    """``_grid_fit_beta_cuda`` hands the launcher the tile, the clusters
+    (the selected count as its caller read it, at most the tile; the tile
+    where none is given), the grid and the plan of that count, or the plan
+    it is given; the selection's pointer where there is one."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    recorded, asked = nb_recorded
+    K, N = 937, 100
+    args = _nb_args(K, N)
+    sel = torch.zeros(K, dtype=torch.bool)
+    sel[5] = True
+    irl._grid_fit_beta_cuda(*args, sel, 1)
+    irl._grid_fit_beta_cuda(*args)
+    irl._grid_fit_beta_cuda(*args, sel, 5_000)
+    irl._grid_fit_beta_cuda(*args, sel, None, sh.GridPlan(4, 512))
+    for name, a in recorded:
+        assert name == "grid_nb"
+        _assert_marshalled(name, a)
+        assert a[0] == 0 and a[1] == K and a[3] == N and a[11] == 60 and a[12] == 0.5
+    assert [a[2] for _, a in recorded] == [1, K, K, K]
+    assert [a[13:15] for _, a in recorded] == [[16, 256], [2, 256], [2, 256], [4, 512]]
+    assert recorded[0][1][8] is not None and recorded[1][1][8] is None
+    # occupancy asked of grid_nb's own build, once for each K of each dtype
+    assert {n for n, _ in asked} == {"grid_nb_per_sm"}
+    assert asked == [("grid_nb_per_sm", [0, sh._grid_smem_bytes(60, k, 256, 4, 8)]) for k in (1, 2, 4, 8, 16)]
+
+
+def test_grid_nb_wrapper_reads_nothing_from_the_card(nb_recorded, monkeypatch):
+    """The plan comes from the count the caller hands over: the wrapper
+    reads no tensor's value on the host (a counting stub on every way a
+    tensor's value reaches Python)."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    reads = []
+    for attr in ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy", "cpu"):
+        orig = getattr(torch.Tensor, attr)
+
+        def counted(self, *a, _orig=orig, _attr=attr, **k):
+            reads.append(_attr)
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, attr, counted)
+    K, N = 937, 100
+    sel = torch.arange(K) % 7 == 0
+    irl._grid_fit_beta_cuda(*_nb_args(K, N), sel, 134)
+    assert reads == []
+    assert nb_recorded[0][0][1][2] == 134
+
+
+def test_grid_nb_caller_passes_its_count(monkeypatch):
+    """``_irls_with_rescue`` (one phase) reads two values on the host, the
+    box's branch and the count of lanes still failing, and hands the grid
+    that count with its selection: the grid's plan costs no read of its
+    own (a counting stub on every way a tensor's value reaches Python)."""
+    from pydeseq2_tpu_torch import fused
+
+    G, N = 40, 12
+    calls = []
+
+    def irls(counts, sf, X, disp, beta, **kw):
+        return beta.clone(), torch.ones(G, dtype=torch.bool), torch.zeros(G, dtype=torch.bool)
+
+    def box(counts, sf, X, disp, beta_init, min_mu=0.5, sel=None):
+        ok = torch.zeros(counts.shape[0], dtype=torch.bool)
+        ok[::3] = True
+        return beta_init.clone(), ok
+
+    def grid(counts, sf, X, disp, min_mu=0.5, sel=None, n_sel=None):
+        calls.append((counts.shape[0], sel.clone(), n_sel))
+        return torch.zeros(counts.shape[0], 2, dtype=counts.dtype)
+
+    monkeypatch.setattr(fused, "irls_core", irls)
+    monkeypatch.setattr(fused, "newton_box_nbglm", box)
+    monkeypatch.setattr(fused, "grid_fit_beta_batch", grid)
+    reads = []
+    for attr in ("__bool__", "__int__", "__float__", "__index__", "item", "tolist", "numpy", "cpu"):
+        orig = getattr(torch.Tensor, attr)
+
+        def counted(self, *a, _orig=orig, _attr=attr, **k):
+            reads.append(_attr)
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, attr, counted)
+    X = torch.stack([torch.ones(N), torch.arange(N) % 2], 1).double()
+    fused._irls_with_rescue(torch.ones(G, N, dtype=torch.float64), torch.ones(N, dtype=torch.float64), X,
+                            torch.full((G,), 0.1, dtype=torch.float64), torch.zeros(G, 2, dtype=torch.float64),
+                            0.5, 1e-8, phase1_iters=250)
+    assert reads == ["__bool__", "__int__"]
+    ((lanes, sel, n_sel),) = calls
+    assert lanes == G and int(sel.sum()) == n_sel == G - len(range(0, G, 3))  # the tile: every lane
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cands", [None, 1, 3])
+def test_shrink_wrapper_marshals_its_rounds(recorded, cands, dtype):
+    """``_nbinom_glm_cuda`` hands the launcher the candidates a later
+    backtracking round evaluates (``_shrink_round`` unless given) and seven
+    output pointers, and returns the coefficients, inverse Hessians, flags,
+    steps, the passes the JAX order needs, the evaluations made and the
+    reads of the row."""
+    G, N, P = 5, 12, 3
+    X = torch.ones(N, P, dtype=dtype)
+    args = (X, torch.ones(G, N, dtype=dtype), torch.ones(G, dtype=dtype), torch.zeros(N, dtype=dtype), 15.0, 0.5,
+            1, 60)
+    out = sh._nbinom_glm_cuda(*args) if cands is None else sh._nbinom_glm_cuda(*args, cands=cands)
+    ((name, a),) = recorded
+    assert name == "shrink"
+    _assert_marshalled(name, a)
+    assert a[:4] == [int(dtype == torch.float64), P, G, N] and a[10:13] == [1, 60, sh._ftol(dtype)]
+    assert a[13] == (sh._shrink_round(dtype, P) if cands is None else cands)
+    assert all(isinstance(p, int) for p in a[14:]) and len(set(a[14:])) == 7
+    assert [t.shape for t in out] == [(G, P), (G, P, P), (G,), (G,), (G,), (G,), (G,)]
+    assert out[2].dtype == torch.bool and out[4].dtype == out[5].dtype == out[6].dtype == torch.int32
+
+
+def test_shrink_round_plan():
+    """Rounds of 3 candidates in float32 at P <= 3, one candidate a pass
+    otherwise (the rounds the card measured no slower)."""
+    assert [sh._shrink_round(torch.float32, P) for P in range(1, 9)] == [3, 3, 3, 1, 1, 1, 1, 1]
+    assert [sh._shrink_round(torch.float64, P) for P in range(1, 9)] == [1] * 8
+
+
+@pytest.mark.parametrize("P,cands", [(2, 4), (2, 5), (4, 3), (8, 3)])
+def test_shrink_wrapper_refuses_other_rounds(recorded, P, cands):
+    """The kernel is built for rounds of 1 candidate, and of 3 where P <= 3."""
+    X = torch.ones(4, P)
+    args = (X, torch.ones(3, 4), torch.ones(3), torch.zeros(4), 15.0, 0.5, 1, 60)
+    with pytest.raises(ValueError):
+        sh._nbinom_glm_cuda(*args, cands=cands)
+    assert recorded == []
