@@ -59,7 +59,22 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    tile, and 16 at every cluster size; both types, indicator and
    continuous designs), each launched twice (``grid_nb_plan_checks``);
    ``shrink`` launched twice and in rounds of one candidate (the same
-   iterate, bit for bit); ``sf_nll`` also on a
+   iterate, bit for bit); ``select`` in every plan (``select_plan_checks``:
+   the size-factor tile 100 x 60000 in both types and 1000 x 60000
+   float32, one column of 60000 and of 60001 at each cluster size K = 1-16
+   staged and streamed, columns on each side of the staged/streamed
+   threshold, a column with no valid value, one of 777), each launched
+   twice and both launches bit for bit the sorted element; ``irls`` with
+   the deviance constant it computes itself at P = 2, 3, 5 at 12, 100,
+   1000 and 10000 samples in both types, phase 1 and the phase-2 tile it
+   leaves (``irls_plan_checks``), each launched twice, held to the stated
+   rule (99.9% of lanes within 1e-4 / 1e-7 of the plain loop, flags on
+   99.9%, the slowest lanes one trip apart) or, in float32 at P > 2 and on
+   float32 phase-2 tiles, where the plain loop does not meet that rule
+   against itself with its samples in other orders, to its worst
+   agreement (a lane beyond the tolerance agreeing where its float64
+   objective ties);
+   ``sf_nll`` also on a
    zero-heavy copy of the trimmed solve's counts, and its lgamma table
    (lgamma(1) = 0 on the card);
 3. runs ``wald_pipeline`` at 100 x 60000 float32 on the card through its
@@ -508,10 +523,12 @@ def kernel_checks(dtype, G, N, reps, timings):
     k_hi = n_valid // 2
     ks = (k_lo, k_hi)
     got = sel.order_stats_select(log_ratios, ks, axis=0)
+    again = sel.order_stats_select(log_ratios, ks, axis=0)
     want = sel.order_stats_select_plain(log_ratios, ks, axis=0)
     # Exact: the kernel must return the very element a sort puts at each rank.
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         check(torch.equal(sel._monotone_key(a), sel._monotone_key(b)), f"select {name}: not bit-identical")
+        check(torch.equal(sel._monotone_key(a), sel._monotone_key(c)), f"select {name}: a second launch differs")
     torch.manual_seed(0)
     col = torch.where(torch.rand(G, device=dev) < 0.1, math.inf, torch.randn(G, device=dev, dtype=dtype))
     n_col = torch.isfinite(col).sum()
@@ -525,8 +542,14 @@ def kernel_checks(dtype, G, N, reps, timings):
             "plain_ms": cuda_ms(lambda: sel.order_stats_select_plain(log_ratios, ks, axis=0), reps),
             "library_ms": cuda_ms(lambda: torch.sort(log_ratios, dim=0), reps),
             "bytes": log_ratios.numel() * log_ratios.element_size(),
-            # 4 passes x (key map 3 + 2 ranks x (mask, compare, digit) 6) per element
-            "ops": 4 * 9 * G * N,
+            # the key map (3) and, in the first two passes (the later ones
+            # visit the compacted candidates only), the prefix test, digit
+            # and count of the ranks' one histogram (6) per element
+            "ops": (3 + 2 * 6) * G * N,
+            # one column of G (the prior's median and MAD, the keep quantile)
+            "column_ms": cuda_ms(lambda: sel.order_stats_select(col[:, None], ks1), reps),
+            "column_sort_ms": cuda_ms(lambda: torch.sort(col), reps),
+            "plan": sel._select_device_plan(N, G, dtype, dev)._asdict(),
         }
     log(f"  select {name}: bit-identical to the sorted keys at ({G}, {N}) and ({G}, 1)")
 
@@ -594,53 +617,33 @@ def kernel_checks(dtype, G, N, reps, timings):
         log_sfu("dnb_nll", sfu)
 
     # -- kernel 4: IRLS (phase 1 of the LFC fit: every lane, 8 trips) ------
+    # The kernel computes its deviance constant itself; the plain loop gets
+    # PyTorch's (irls_against_plain, the stated rule).
     disp = torch.clamp(torch.exp(outk[0]), 1e-8, max_disp)
-    beta_init = irl.irls_beta_init(counts, sf, X)
-    beta_tol = 1e-6 if f32 else 1e-8
-    step_tol = 1e-5 if f32 else 0.0
-    log_sf = torch.log(sf)[None, :]
-    log_min_mu = torch.log(torch.tensor(0.5, dtype=dtype, device=dev))
-    mu0, log_mu0, _ = irl._mu_from_xb(beta_init, X, sf, log_sf, 0.5, log_min_mu)
-    r = 1.0 / disp[:, None]
-    nll_const = nb_nll(counts, mu0, disp) - irl._mu_part(counts, counts + r, r, mu0, log_mu0)
+    ops = {"counts": counts, "sf": sf, "X": X, "disp": disp, "beta_init": irl.irls_beta_init(counts, sf, X)}
     results = {}
     for maxiter in (8, 250):
-        bk, fbk, trips = irl._irls_cuda(counts, sf, X, disp, beta_init, nll_const, log_sf[0], 0.5,
-                                        beta_tol, 30.0, maxiter, step_tol, 2)
-        bp, fbp, it_p = irl._irls_plain(counts, sf, X, disp, beta_init, nll_const, log_sf, 0.5,
-                                        log_min_mu, beta_tol, 30.0, maxiter, step_tol, 2)
-        # Tolerance: a rounding difference in the deviance ratio can move a
-        # lane's stop by one trip, a change of order beta_tol/step_tol in the
-        # iterate; 99.9% of lanes must agree to 1e-4 (f32) / 1e-7 (f64) and
-        # the fallback flags on 99.9%.
-        btol = 1e-4 if f32 else 1e-7
-        close = ((bk - bp).abs().amax(1) <= btol).double().mean().item()
-        flags = (fbk == fbp).double().mean().item()
-        check(close >= 0.999, f"irls {name} maxiter={maxiter}: only {close:.5f} of lanes agree")
-        check(flags >= 0.999, f"irls {name} maxiter={maxiter}: flags agree on {flags:.5f}")
-        max_trips = int(trips.max())
-        # A lane whose stop moved by one trip can move the slowest lane by one.
-        check(abs(max_trips - int(it_p)) <= 1, f"irls {name}: slowest lane {max_trips} trips, plain loop {int(it_p)}")
-        results[maxiter] = (close, flags, (bk - bp).abs().max().item(), trips)
-        log(f"  irls {name} maxiter={maxiter}: lanes within {btol}: {close:.5f}, flags agree {flags:.5f}, "
-            f"slowest lane {max_trips} trips (plain loop {int(it_p)})")
-    errs["irls"] = results[8][2]
+        bk, _, trips, plan = irls_against_plain(f"{name} {G} x {N} maxiter={maxiter}", ops, maxiter)
+        results[maxiter] = (bk, trips)
+    errs["irls"] = (results[8][0] - irls_plain_of(ops, 8)[0]).abs().max().item()
     if f32:
-        trips = results[8][3].double()
+        trips = results[8][1].double()
         ntri = P * (P + 1) // 2
         per_pass = 2 * P + 26 + 2 * ntri + 2 * P
+        beta_tol, step_tol = 1e-6, 1e-5
+        log_sf = torch.log(sf)
+        kargs = (counts, sf, X, disp, ops["beta_init"], log_sf, 0.5, beta_tol, 30.0, 8, step_tol, 2)
         timings["irls"] = {
-            "ms": cuda_ms(lambda: irl._irls_cuda(counts, sf, X, disp, beta_init, nll_const, log_sf[0], 0.5,
-                                                 beta_tol, 30.0, 8, step_tol, 2), reps),
-            "plain_ms": cuda_ms(lambda: irl._irls_plain(counts, sf, X, disp, beta_init, nll_const, log_sf,
-                                                        0.5, log_min_mu, beta_tol, 30.0, 8, step_tol, 2),
-                                max(1, reps // 5)),
+            "ms": cuda_ms(lambda: irl._irls_cuda(*kargs), reps),
+            "plain_ms": cuda_ms(lambda: irls_plain_of(ops, 8), max(1, reps // 5)),
             "library_ms": None,
             "bytes": counts.numel() * counts.element_size() + 6 * G * counts.element_size(),
-            # (trips + 1) IRLS passes per gene at per_pass ops per element,
-            # plus 3 polish passes of ~(25 + 2 ntri) ops
-            "ops": int(N * ((trips + 1).sum().item() * per_pass + 3 * G * (25 + 2 * ntri))),
+            # the deviance constant (~60 ops an element), (trips + 1) IRLS
+            # passes per gene at per_pass ops per element, plus 3 polish
+            # passes of ~(25 + 2 ntri) ops
+            "ops": int(N * (60 * G + (trips + 1).sum().item() * per_pass + 3 * G * (25 + 2 * ntri))),
             "trips_mean": trips.mean().item(),
+            "plan": plan._asdict(),
         }
     return errs
 
@@ -2771,6 +2774,255 @@ def cooks_case(G: int, N: int, sizes, dtype, seed: int, ties: bool = False):
             (True,) * N, t(4.8))
 
 
+def select_case(kind: str, C: int, L: int, dtype, seed: int):
+    """``(x, ranks)`` of a ``select`` check on the card: ``tile`` the
+    log-ratios of (L, C) Poisson counts with rows holding a zero at +inf and
+    the middle ranks (axis 0); ``column`` an (L, 1) column of normal values,
+    ~10% at +inf, its middle ranks; ``empty`` an (L, 1) column of +inf (no
+    valid value: ranks 0)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    if kind == "tile":
+        base = torch.exp(3.0 + 1.5 * torch.randn(L, generator=g, device=DEVICE, dtype=torch.float64))
+        counts = torch.poisson(base[:, None].expand(L, C).contiguous(), generator=g).to(dtype)
+        logc = torch.log(counts)
+        lm = logc.mean(1)
+        ok = torch.isfinite(lm)
+        x = torch.where(ok[:, None], logc - lm[:, None], torch.full_like(logc, math.inf))
+        n = ok.sum()
+    elif kind == "column":
+        vals = torch.randn(L, generator=g, device=DEVICE, dtype=torch.float64)
+        off = torch.rand(L, generator=g, device=DEVICE) < 0.1
+        x = torch.where(off, math.inf, vals).to(dtype)[:, None]
+        n = (~off).sum()
+    else:
+        x = torch.full((L, 1), math.inf, dtype=dtype, device=DEVICE)
+        n = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    return x, (torch.clamp((n - 1) // 2, min=0), n // 2)
+
+
+def select_plan_checks() -> dict:
+    """Phase 2, ``select`` in every plan (``ops/select.py:_select_plan``),
+    each launched twice: both launches bit for bit the sorted keys' element
+    at each rank (``order_stats_select_plain``). Many columns: the
+    size-factor tile 100 x 60000 (groups of 8 f32 / 4 f64 columns, K = 16)
+    in both types, and 1000 x 60000 f32; one column of 60000 and of 60001
+    (not a multiple of K) at each cluster size K = 1-16, staged where it
+    fits and streamed, in both types; one column at the staged/streamed
+    threshold of 16 blocks and one past it (f32, f64); a column with no
+    valid value; a column of 777 (one block). Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import select as sel
+
+    plans = {}
+
+    def one(label, x, ranks, plan):
+        got = sel._order_stats_select_cuda(x, ranks, 0, plan=plan)
+        again = sel._order_stats_select_cuda(x, ranks, 0, plan=plan)
+        want = sel.order_stats_select_plain(x, ranks, 0)
+        for a, b, c in zip(got, again, want):
+            check(torch.equal(sel._monotone_key(a), sel._monotone_key(c)), f"select {label}: not the sorted element")
+            check(torch.equal(sel._monotone_key(a), sel._monotone_key(b)), f"select {label}: a second launch differs")
+        plans[label] = plan._asdict()
+
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        isz = torch.finfo(dtype).bits // 8
+        cases = [("tile", 100, 60_000), ("column", 1, 60_000), ("column", 1, 60_001), ("empty", 1, 5_000),
+                 ("column", 1, 777)]
+        if dtype == torch.float32:
+            cases.append(("tile", 1_000, 60_000))
+        edge = plan_edge(lambda L: sel._select_plan(1, L, isz).staged, 1, 1 << 22)
+        cases += [("column", 1, edge), ("column", 1, edge + 1)]
+        for i, (kind, C, L) in enumerate(cases):
+            x, ranks = select_case(kind, C, L, dtype, 10 + i)
+            plan = sel._select_device_plan(C, L, dtype, x.device)
+            one(f"{name} {kind} {C} x {L}", x, ranks, plan)
+            if kind == "column" and L in (60_000, 60_001):
+                for K in (1, 2, 4, 8, 16):
+                    for staged in (True, False):
+                        p = plan._replace(K=K, staged=staged)
+                        if sel._select_smem_bytes(1, -(-L // K), isz, staged) <= kernels.SMEM_BLOCK_MAX:
+                            one(f"{name} column {L} K={K} {'shared' if staged else 'streamed'}", x, ranks, p)
+            log(f"  select {name} {kind} {C} x {L}: plan {plan}, both launches the sorted elements"
+                + (f" (staged/streamed edge {edge})" if L in (edge, edge + 1) else ""))
+            del x
+    return plans
+
+
+def irls_case(G: int, N: int, P: int, dtype, seed: int) -> dict:
+    """Phase 1 operands of ``irls`` at (G, N, P): ``make_data`` counts and
+    design (P > 2 adds indicator columns of a seeded batch), median-of-ratios
+    size factors, seeded dispersions around 0.14, ``irls_beta_init``."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G, seed=seed)
+    if P > 2:
+        batch = np.random.default_rng(seed + 1).integers(0, P - 1, N)
+        X_np = np.column_stack([X_np] + [(batch == b).astype(float) for b in range(1, P - 1)])
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    logc = torch.log(counts)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    disp = torch.clamp(torch.exp(-2.0 + torch.randn(G, generator=g, device=DEVICE, dtype=torch.float64)),
+                       1e-4, 10.0).to(dtype)
+    return {"counts": counts, "sf": sf, "X": X, "disp": disp, "beta_init": irl.irls_beta_init(counts, sf, X)}
+
+
+def irls_plain_of(ops: dict, maxiter: int):
+    """The plain loop on ``ops`` (``irls_case``'s keys) with PyTorch's
+    deviance constant and the pipelines' tolerances for the type:
+    ``(beta, needs_fb, n_iter)``."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops.nb import nb_nll
+
+    counts, sf, X, disp, beta_init = (ops[k] for k in ("counts", "sf", "X", "disp", "beta_init"))
+    f32 = counts.dtype == torch.float32
+    beta_tol, step_tol = (1e-6, 1e-5) if f32 else (1e-8, 0.0)
+    log_sf = torch.log(sf)[None, :]
+    log_min_mu = torch.log(torch.tensor(0.5, dtype=counts.dtype, device=counts.device))
+    mu0, log_mu0, _ = irl._mu_from_xb(beta_init, X, sf, log_sf, 0.5, log_min_mu)
+    r = 1.0 / disp[:, None]
+    nll_const = nb_nll(counts, mu0, disp) - irl._mu_part(counts, counts + r, r, mu0, log_mu0)
+    return irl._irls_plain(counts, sf, X, disp, beta_init, nll_const, log_sf, 0.5, log_min_mu, beta_tol, 30.0,
+                           maxiter, step_tol, 2)
+
+
+def reordered_samples(ops: dict, seed: int | None) -> dict:
+    """``ops`` with the samples reversed (``seed`` None) or in a seeded
+    random order: the same fit, its float32 sums taken in another order."""
+    N = ops["counts"].shape[1]
+    dev = ops["counts"].device
+    perm = (torch.arange(N - 1, -1, -1, device=dev) if seed is None
+            else torch.as_tensor(np.random.default_rng(seed).permutation(N), device=dev))
+    return {**ops, "counts": ops["counts"][:, perm].contiguous(), "sf": ops["sf"][perm].contiguous(),
+            "X": ops["X"][perm].contiguous()}
+
+
+# The sample orders irls_against_plain runs the plain loop in to read its
+# own noise: reversed, and two seeded permutations.
+IRLS_NOISE_ORDERS = (None, 1, 2)
+
+
+def irls_mismatches(a, b, btol: float) -> tuple[torch.Tensor, int, int]:
+    """(lanes whose coefficients differ beyond btol, the count of unequal
+    flags, the slowest lanes' trip gap) of two IRLS results (beta,
+    needs_fb, trips or n_iter)."""
+    far = (a[0] - b[0]).abs().amax(1) > btol
+    return far, int((a[1] != b[1]).sum()), abs(int(a[2].max()) - int(b[2].max()))
+
+
+def irls_against_plain(label: str, ops: dict, maxiter: int, plan=None, own_noise: bool = False):
+    """``irls`` with its own deviance constant against the plain loop with
+    PyTorch's, a second launch bit for bit the first. The stated rule: at
+    most 0.1% of lanes beyond 1e-4 (f32) / 1e-7 (f64) of the plain loop's
+    coefficients, at most 0.1% with other flags, the slowest lanes' trips
+    at most one apart. ``own_noise`` (:func:`irls_plan_checks`' float32
+    checks at P > 2 and on phase-2 tiles only, where the plain loop misses
+    that rule against itself: its stop compares deviances that round to
+    1/16 at ~1e6, so a sum taken in another order moves a lane's stop)
+    also runs the plain loop on its samples in other
+    orders (IRLS_NOISE_ORDERS) and lets the kernel miss the rule as far:
+    its counts by the plain loop's worst count plus three standard
+    deviations of it (sqrt of the count), its trip gap by the plain loop's
+    worst gap; and a lane beyond the coefficient tolerance whose float64
+    objective ties with the plain point's (within TIE_UNITS rounding units,
+    as ``agree_or_tie`` holds the rescue tiers) counts as agreeing. Returns
+    (beta, needs_fb, trips, plan) of the kernel."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    counts, sf, X, disp, beta_init = (ops[k] for k in ("counts", "sf", "X", "disp", "beta_init"))
+    f32 = counts.dtype == torch.float32
+    beta_tol, step_tol, btol = (1e-6, 1e-5, 1e-4) if f32 else (1e-8, 0.0, 1e-7)
+    G, N = counts.shape
+    if plan is None:
+        plan = irl._irls_device_plan(G, N, X.shape[1], counts.dtype, counts.device)
+    log_sf = torch.log(sf)
+    args = (counts, sf, X, disp, beta_init, log_sf, 0.5, beta_tol, 30.0, maxiter, step_tol, 2)
+    bk, fbk, trips = irl._irls_cuda(*args, plan=plan)
+    bk2, fbk2, trips2 = irl._irls_cuda(*args, plan=plan)
+    check(bits_equal(bk, bk2) and torch.equal(fbk, fbk2) and torch.equal(trips, trips2),
+          f"irls {label}: a second launch differs from the first")
+    plain = irls_plain_of(ops, maxiter)
+    far, n_flags, gap = irls_mismatches((bk, fbk, trips), plain, btol)
+    ties = 0
+    if own_noise and bool(far.any()):
+        f_k = nb_objective64(counts[far], sf, X, disp[far], bk[far])
+        f_p = nb_objective64(counts[far], sf, X, disp[far], plain[0][far])
+        unit = noise_unit(N, counts.dtype) * term_scale(counts[far])
+        ties = int(((f_k - f_p).abs() / unit <= TIE_UNITS).sum())
+    n_far = int(far.sum()) - ties
+    allow = [G // 1000, G // 1000, 1]
+    noise = ""
+    if own_noise:
+        own = [irls_mismatches(irls_plain_of(reordered_samples(ops, seed), maxiter), plain, btol)
+               for seed in IRLS_NOISE_ORDERS]
+        worst = (max(int(o[0].sum()) for o in own), max(o[1] for o in own), max(o[2] for o in own))
+        allow = [max(allow[0], worst[0] + math.ceil(3 * math.sqrt(worst[0]))),
+                 max(allow[1], worst[1] + math.ceil(3 * math.sqrt(worst[1]))), max(allow[2], worst[2])]
+        noise = (f"; the plain loop against itself in {len(own)} other sample orders: lanes beyond "
+                 f"{[int(o[0].sum()) for o in own]}, flags {[o[1] for o in own]}, slowest lanes "
+                 f"{[o[2] for o in own]} trips apart")
+    check(n_far <= allow[0], f"irls {label}: {n_far} lanes beyond {btol}" + (" and not a tie" if own_noise else "")
+          + f" (allowed {allow[0]})")
+    check(n_flags <= allow[1], f"irls {label}: {n_flags} lanes' flags differ (allowed {allow[1]})")
+    check(gap <= allow[2], f"irls {label}: slowest lane {int(trips.max())} trips, plain loop {int(plain[2])}")
+    log(f"  irls {label}: plan {plan}, {G} lanes: {int(far.sum())} beyond {btol}"
+        + (f" ({ties} objective ties)" if own_noise else "") + f", {n_flags} flags differ, slowest lane {int(trips.max())} trips (plain loop {int(plain[2])}); second "
+        "launch bit-equal" + noise)
+    return bk, fbk, trips, plan
+
+
+def phase2_tile(ops: dict, needs_fb: torch.Tensor, beta: torch.Tensor) -> dict:
+    """The compacted tile ``_irls_with_rescue`` hands phase 2: K = max(512,
+    G/64) lanes, the unfinished first (stable), continuing from phase 1's
+    iterate."""
+    G = ops["counts"].shape[0]
+    K = min(G, max(512, G // 64))
+    idx = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:K]
+    return {"counts": ops["counts"][idx].contiguous(), "sf": ops["sf"], "X": ops["X"],
+            "disp": ops["disp"][idx].contiguous(), "beta_init": beta[idx].contiguous()}
+
+
+# irls' plan checks: (samples, genes in float32, genes in float64); the
+# float32 shapes run every group size: 4 lanes a gene at 12 samples (8 at
+# P = 5), 8 at 100, 32 at 1000 and on the phase-2 tiles, a block a gene at
+# 10000 samples.
+IRLS_PLAN_SHAPES = ((12, 60_000, 20_000), (100, 60_000, 20_000), (1_000, 6_000, 2_000), (10_000, 600, 300))
+
+
+def irls_plan_checks() -> dict:
+    """Phase 2, ``irls`` with the deviance constant it computes itself, at
+    P = 2, 3, 5 on IRLS_PLAN_SHAPES in float32 and float64: phase 1
+    (maxiter = 8) and the phase-2 tile it leaves (maxiter = 242), each
+    launched twice and held to the plain loop by
+    :func:`irls_against_plain`: by the stated rule, but in float32 at P > 2
+    and on the float32 phase-2 tiles, where the plain loop misses that rule
+    against itself in other sample orders (flags at P > 2; the slowest
+    lane of a tile's long loops, up to 2 trips), by the plain loop's
+    agreement with itself where that is lower. Returns {label: plan}."""
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        f32 = dtype == torch.float32
+        for N, g32, g64 in IRLS_PLAN_SHAPES:
+            G = g32 if f32 else g64
+            for P in (2, 3, 5):
+                ops = irls_case(G, N, P, dtype, seed=P)
+                label = f"{name} {N} x {G} P={P}"
+                bk, fbk, _, plan = irls_against_plain(f"{label} phase 1", ops, 8, own_noise=f32 and P > 2)
+                plans[f"{label} phase 1"] = plan._asdict()
+                tile = phase2_tile(ops, fbk, bk)
+                K = tile["counts"].shape[0]
+                plans[f"{label} phase 2 ({K} lanes)"] = irls_against_plain(
+                    f"{label} phase 2 tile of {K} lanes", tile, 242, own_noise=f32)[3]._asdict()
+                del ops, tile, bk, fbk
+                torch.cuda.empty_cache()
+    return plans
+
+
 def plan_edge(fits, lo: int, hi: int) -> int:
     """The largest n in [lo, hi) with fits(n), fits monotone (True, then
     False)."""
@@ -3639,6 +3891,8 @@ def main() -> int:
     plans.update(grid_design_checks(readings))
     plans.update(nll_grid_plan_checks(readings))
     plans.update(grid_nb_plan_checks(readings))
+    plans.update(select_plan_checks())
+    plans.update(irls_plan_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3780,7 +4034,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll, grid_apeglm and grid_nb kernel plans: " + json.dumps(plans))
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select and irls kernel plans: " + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

@@ -1,21 +1,44 @@
-// Exact order statistics per row by 8-bit radix select.
+// Exact order statistics per column by radix select over a thread-block
+// cluster.
 //
 // Replaces order_stats_select (pydeseq2_tpu/ops/select.py:65), the JAX
-// package's MSB-first radix bisection over monotone unsigned keys. Rows are
-// the columns of the (G, N) log-ratio tile, transposed by the wrapper so a
-// row is contiguous: x is (C, L), one block per row, and each row asks for
-// two ranks (k_lo, k_hi). Each pass histograms the next 8 key bits of the
-// keys that still match the resolved prefix of a rank, in shared memory,
-// and one thread per rank walks the 256 bins to pick the digit. Four passes
-// resolve a float key, eight a double key; the decoded key is the element a
-// sort puts at that rank, so the result is bit-identical to a sort.
+// package's MSB-first radix bisection over monotone unsigned keys. x is
+// read where it lies: C columns of L values, value (c, i) at x[c sC + i sL]
+// (the (G, N) log-ratio tile reduced over axis 0 has sC = 1, sL = N; a
+// column of a (L, 1) view sC = sL = 1). Each column asks for two ranks
+// (k_lo, k_hi), resolved together.
 //
-// Bound on the H100 by the bytes it reads (each pass re-reads the row) and
-// by shared-memory atomics where many keys share a digit (log-ratios share
-// their sign and exponent bits); warp-aggregated atomics (__match_any_sync)
-// make that one add per distinct digit per warp.
+// A launch runs one cluster of K blocks a group of B adjacent columns (the
+// plan's, ops/select.py:_select_plan, B <= 2): block q of the cluster takes
+// rows [q R, q R + R) of the group's columns, loaded with consecutive
+// threads on a row's adjacent columns. In shared mode a block maps its values
+// to keys once, into shared memory; every pass then reads shared memory,
+// never x again. A pass histograms the next 8-bit digit of the keys that match a rank's resolved prefix, for both
+// ranks of each column; from the second pass on it also compacts those keys
+// in place, so a pass visits only the keys that still match. The K blocks
+// add their integer histograms over distributed shared memory (each block
+// totals a slice of the bins, then every block gathers the totals), and
+// every block picks the same digit: 4 passes for f32 keys, 8 for f64
+// (a kernel_bench sweep found 9-11-bit digits slower at every shape, the
+// scan of their bins and the exchange outweighing a pass over the
+// compacted candidates). A warp's
+// lanes take one column's keys; where they all fall in one bin, one lane
+// adds their count, else each key adds one. Where the keys do not fit K <= 16
+// blocks' shared memory (streamed mode), each pass reads the block's share
+// from x again, with no compaction. The decoded key is the element a sort
+// puts at that rank, so the result is bit-identical to a sort, and integer
+// counts make it the same in every launch.
+//
+// Bound on the H100 by the bytes it reads (each value once in shared mode)
+// and, at small tiles, by the fixed cost of a pass (two cluster barriers,
+// the bins' exchange and scan); log-ratios share their sign and exponent
+// bits, so the first passes' digits collide on a few bins, where the
+// shared-memory atomics serialise.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace pdt;
 
 namespace {
@@ -49,91 +72,317 @@ template <> struct KeyOf<double> {
 };
 
 constexpr int THREADS = 512;
+constexpr int MAX_B = 2;  // columns a group (8 bytes of a row)
+constexpr int DIGIT = 8;  // bits a pass
+constexpr int NB = 1 << DIGIT;  // bins of a (column, rank)
+constexpr size_t STATE_BYTES = 512;  // the columns' prefixes, ranks, counts and flags
+constexpr int PER = 4;                // keys a thread takes at once (loads in flight, keys a round)
+
+template <typename T> struct SelArgs {
+  const T* x;
+  long long sC, sL;  // element strides of a column and of a row
+  int C, L;
+  int B;          // columns a group
+  int R, Rp;      // rows a block, and their stride in shared memory
+  bool staged;    // keys in shared memory (else re-read from x each pass)
+  const int* k_lo;
+  const int* k_hi;
+  T* out_lo;
+  T* out_hi;
+};
+
+// Bytes of the three bin arrays (two histogram buffers, one of gathered
+// totals), each B x 2 ranks x NB 32-bit counts.
+__host__ __device__ inline size_t bins_bytes(int B) { return 3 * align16((size_t)B * 2 * NB * 4); }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) select_kernel(const T* __restrict__ x, int L,
-                                                         const int* __restrict__ k_lo,
-                                                         const int* __restrict__ k_hi,
-                                                         T* __restrict__ out_lo,
-                                                         T* __restrict__ out_hi) {
+__global__ void __launch_bounds__(THREADS) select_kernel(SelArgs<T> a) {
   using KO = KeyOf<T>;
   using K = typename KO::K;
-  __shared__ unsigned hist[2][256];
-  __shared__ int s_digit[2];
-  __shared__ int s_rank[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int Kc = (int)cluster.num_blocks();
+  const int q = (int)cluster.block_rank();
+  const int c0 = (int)(blockIdx.x / (unsigned)Kc) * a.B;
+  const int Bg = min(a.B, a.C - c0);
+  const int r0 = q * a.R;
+  const int Rq = max(0, min(a.R, a.L - r0));
+  const int tid = threadIdx.x, lane = tid & (WARP - 1), warp = tid / WARP;
+  const int HB = a.B * 2 * NB;  // words of one bin array
+  const size_t hb_bytes = align16((size_t)HB * 4);
 
-  const T* row = x + (size_t)blockIdx.x * L;
-  const int lane = threadIdx.x & (WARP - 1);
-  K prefix[2] = {0, 0};
+  // All of it dynamic (a static array would lower the 227 KB a block may
+  // opt in to): the columns' state, then the bins, then the keys.
+  extern __shared__ __align__(16) unsigned char smem[];
+  K(*s_prefix)[2] = (K(*)[2])smem;                                  // [MAX_B][2]
+  int(*s_rank)[2] = (int(*)[2])(smem + MAX_B * 2 * sizeof(K));      // [MAX_B][2]
+  int* s_n = (int*)(smem + MAX_B * 2 * (sizeof(K) + sizeof(int)));  // candidates of a column here
+  int* s_cnt = s_n + MAX_B;                                         // the compaction's next slot
+  int* s_same = s_cnt + MAX_B;  // the column's two ranks share their prefix: one histogram serves both
+  unsigned char* bins = smem + STATE_BYTES;
+  unsigned* hist[2] = {(unsigned*)bins, (unsigned*)(bins + hb_bytes)};
+  unsigned* tot = (unsigned*)(bins + 2 * hb_bytes);
+  K* keys = (K*)(bins + bins_bytes(a.B));
+
+  // columns adjacent in memory: consecutive threads take one row's columns
+  const bool cols_fast = a.sC == 1 && a.B > 1;
+  auto addr = [&](int col, int row) -> const T* {
+    return a.x + (long long)(c0 + col) * a.sC + (long long)(r0 + row) * a.sL;
+  };
+
+  for (int i = tid; i < 2 * HB; i += THREADS) (i < HB ? hist[0] : hist[1])[i % HB] = 0u;
+  if (tid < MAX_B) {
+    const bool in = tid < Bg;
+    s_rank[tid][0] = in ? a.k_lo[c0 + tid] : 0;
+    s_rank[tid][1] = in ? a.k_hi[c0 + tid] : 0;
+    s_prefix[tid][0] = s_prefix[tid][1] = K(0);
+    s_n[tid] = Rq;
+    s_same[tid] = 1;
+  }
+  const int n_items = Bg * Rq;
+  // item i of the block's share: (column, row), adjacent columns fastest
+  // where they are adjacent in memory
+  auto item = [&](int i, int& col, int& row) {
+    col = cols_fast ? i % Bg : i / Rq;
+    row = cols_fast ? i / Bg : i % Rq;
+  };
+  if (a.staged) {
+    // PER loads in flight a thread, then their keys to shared memory
+    for (int base = 0; base < n_items; base += PER * THREADS) {
+      T v[PER];
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int i = base + j * THREADS + tid;
+        int col = 0, row = 0;
+        if (i < n_items) item(i, col, row);
+        v[j] = i < n_items ? *addr(col, row) : T(0);
+      }
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const int i = base + j * THREADS + tid;
+        int col = 0, row = 0;
+        if (i < n_items) {
+          item(i, col, row);
+          keys[(size_t)col * a.Rp + row] = KO::key(v[j]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
   K mask = 0;
-  int rank[2] = {k_lo[blockIdx.x], k_hi[blockIdx.x]};
+  int buf = 0;
+  for (int shift = KO::BITS - DIGIT; shift >= 0; shift -= DIGIT) {
+    const unsigned dmask = NB - 1u;
+    unsigned* h = hist[buf];
+    const bool compact = a.staged && mask != K(0);
 
-  for (int shift = KO::BITS - 8; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < 2 * 256; i += THREADS) (&hist[0][0])[i] = 0u;
-    __syncthreads();
-    // Whole warps iterate together so the ballot and match see every lane.
-    for (int base = 0; base < L; base += THREADS) {
-      const int i = base + threadIdx.x;
-      const bool in = i < L;
-      const K key = in ? KO::key(row[i]) : K(0);
-      const unsigned digit = (unsigned)((key >> shift) & K(0xFF));
+    // -- this block's histogram of the candidates' next digit -------------
+    // (whole warps call it: the ballots see every lane)
+    auto count = [&](int col, K key, bool in) {
+      const unsigned digit = (unsigned)((key >> shift) & K(dmask));
+      const bool same = in && s_same[col];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const bool m = in && ((key & mask) == prefix[r]);
+        const bool m = in && !(r == 1 && same) && ((key & mask) == s_prefix[col][r]);
         const unsigned act = __ballot_sync(FULL, m);
-        if (m) {
-          const unsigned peers = __match_any_sync(act, digit);
-          if (lane == __ffs(peers) - 1) atomicAdd(&hist[r][digit], (unsigned)__popc(peers));
+        if (act == 0u) continue;
+        const unsigned bin = (unsigned)((col * 2 + r) * NB) + digit;
+        // one add for a warp whose matching keys share their bin, else one
+        // a key (the counts are integers: the order does not matter)
+        const int first = __ffs(act) - 1;
+        const unsigned lead = __shfl_sync(FULL, bin, first);
+        if (__all_sync(FULL, !m || bin == lead)) {
+          if (lane == first) atomicAdd(&h[bin], (unsigned)__popc(act));
+        } else if (m) {
+          atomicAdd(&h[bin], 1u);
         }
       }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2) {
-      const int r = threadIdx.x;
-      const int k = rank[r];
-      unsigned cum = 0;
-      int d = 255;
-      for (int b = 0; b < 256; ++b) {
-        const unsigned c = hist[r][b];
-        if ((unsigned)k < cum + c) {
-          d = b;
-          break;
-        }
-        cum += c;
-      }
-      s_digit[r] = d;
-      s_rank[r] = k - (int)cum;
-    }
-    __syncthreads();
+    };
+    if (!compact) {
+      // every key of the share, from shared memory or from x
+      for (int base = 0; base < n_items; base += PER * THREADS) {
+        K kk[PER];
+        int cc[PER];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      prefix[r] |= (K)s_digit[r] << shift;
-      rank[r] = s_rank[r];
+        for (int j = 0; j < PER; ++j) {
+          // staged: a warp's lanes on one column's rows, so that the
+          // warp's matching digits add as one; from x: the load's order
+          const int i = base + j * THREADS + tid;
+          int col = 0, row = 0;
+          if (i < n_items) {
+            if (a.staged) {
+              col = i / Rq;
+              row = i % Rq;
+            } else {
+              item(i, col, row);
+            }
+          }
+          cc[j] = col;
+          kk[j] = i >= n_items ? K(0) : (a.staged ? keys[(size_t)col * a.Rp + row] : KO::key(*addr(col, row)));
+        }
+#pragma unroll
+        for (int j = 0; j < PER; ++j) count(cc[j], kk[j], base + j * THREADS + tid < n_items);
+      }
+    } else {
+      if (tid < MAX_B) s_cnt[tid] = 0;
+      __syncthreads();
+      for (int col = 0; col < Bg; ++col) {
+        K* ck = keys + (size_t)col * a.Rp;
+        const int n = s_n[col];
+        // Rounds of PER x THREADS keys: every key of a round is read before
+        // any is written back, and a kept key goes to a slot below the
+        // round's end, so the compaction in place loses none.
+        for (int base = 0; base < n; base += PER * THREADS) {
+          K kk[PER];
+          bool keep[PER];
+#pragma unroll
+          for (int j = 0; j < PER; ++j) {
+            const int i = base + j * THREADS + tid;
+            kk[j] = i < n ? ck[i] : K(0);
+          }
+#pragma unroll
+          for (int j = 0; j < PER; ++j) {
+            const bool in = base + j * THREADS + tid < n;
+            count(col, kk[j], in);
+            keep[j] = in && (((kk[j] & mask) == s_prefix[col][0]) || ((kk[j] & mask) == s_prefix[col][1]));
+          }
+          int slot[PER];
+#pragma unroll
+          for (int j = 0; j < PER; ++j) {
+            const unsigned kb = __ballot_sync(FULL, keep[j]);
+            int s0 = 0;
+            if (lane == 0 && kb) s0 = atomicAdd(&s_cnt[col], __popc(kb));
+            slot[j] = __shfl_sync(FULL, s0, 0) + __popc(kb & ((1u << lane) - 1u));
+          }
+          __syncthreads();
+#pragma unroll
+          for (int j = 0; j < PER; ++j)
+            if (keep[j]) ck[slot[j]] = kk[j];
+        }
+        __syncthreads();
+        if (tid == 0) s_n[col] = s_cnt[col];
+      }
     }
-    mask |= K(0xFF) << shift;
+
+    // -- the cluster's totals: block q sums its slice of the bins -------
+    cluster.sync();  // every block's histogram of this pass is complete
+    const int sl = (HB + Kc - 1) / Kc;
+    for (int i = q * sl + tid; i < min(HB, (q + 1) * sl); i += THREADS) {
+      unsigned s = 0;
+      for (int j = 0; j < Kc; ++j) s += cluster.map_shared_rank(h, (unsigned)j)[i];
+      h[i] = s;  // only this block reads its own slice
+    }
+    // the other buffer's remote reads (the last pass's gather) are done
+    for (int i = tid; i < HB; i += THREADS) hist[buf ^ 1][i] = 0u;
+    cluster.sync();  // the totals stand, slice by slice
+    for (int i = tid; i < HB; i += THREADS) tot[i] = cluster.map_shared_rank(h, (unsigned)(i / sl))[i];
+    __syncthreads();
+
+    // -- one warp a (column, rank): the digit where the rank falls --------
+    if (warp < Bg * 2) {
+      const int col = warp >> 1, r = warp & 1;
+      const unsigned* t = tot + (col * 2 + (s_same[col] ? 0 : r)) * NB;
+      const unsigned k = (unsigned)s_rank[col][r];
+      unsigned cum = 0;
+      int d = NB - 1;
+      unsigned before = 0;
+      bool found = false;
+      for (int b0 = 0; b0 < NB && !found; b0 += WARP) {
+        const unsigned c = t[b0 + lane];
+        unsigned incl = c;
+#pragma unroll
+        for (int o = 1; o < WARP; o <<= 1) {
+          const unsigned v = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const unsigned hit = __ballot_sync(FULL, k < cum + incl);
+        if (hit) {
+          const int L = __ffs(hit) - 1;
+          d = b0 + L;
+          before = cum + __shfl_sync(FULL, incl - c, L);
+          found = true;
+        } else {
+          cum += __shfl_sync(FULL, incl, WARP - 1);
+        }
+      }
+      if (!found) before = cum;  // a rank past the count: the last digit
+      if (lane == 0) {
+        s_prefix[col][r] |= (K)d << shift;
+        s_rank[col][r] = (int)(k - before);
+      }
+    }
+    mask |= K(dmask) << shift;
+    buf ^= 1;
+    __syncthreads();
+    if (tid < Bg) s_same[tid] = s_prefix[tid][0] == s_prefix[tid][1];
     __syncthreads();
   }
-  if (threadIdx.x == 0) {
-    out_lo[blockIdx.x] = KO::val(prefix[0]);
-    out_hi[blockIdx.x] = KO::val(prefix[1]);
+  cluster.sync();  // no block leaves while another may read its bins
+  if (q == 0 && tid < Bg) {
+    a.out_lo[c0 + tid] = KO::val(s_prefix[tid][0]);
+    a.out_hi[c0 + tid] = KO::val(s_prefix[tid][1]);
   }
+}
+
+template <typename T> size_t smem_bytes(const SelArgs<T>& a) {
+  using K = typename KeyOf<T>::K;
+  return STATE_BYTES + bins_bytes(a.B) + (a.staged ? align16((size_t)a.B * a.Rp * sizeof(K)) : 0);
+}
+
+template <typename T>
+int launch(const void* x, long long sC, long long sL, int C, int L, const void* k_lo, const void* k_hi,
+           void* out_lo, void* out_hi, int B, int K, int staged, cudaStream_t st) {
+  if (B < 1 || B > MAX_B || K < 1 || K > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  SelArgs<T> a;
+  a.x = (const T*)x;
+  a.sC = sC;
+  a.sL = sL;
+  a.C = C;
+  a.L = L;
+  a.B = B;
+  a.R = (L + K - 1) / K;
+  a.Rp = a.R | 1;  // odd: a group's columns fall in different banks
+  a.staged = staged != 0;
+  a.k_lo = (const int*)k_lo;
+  a.k_hi = (const int*)k_hi;
+  a.out_lo = (T*)out_lo;
+  a.out_hi = (T*)out_hi;
+  const size_t smem = smem_bytes(a);
+  if (smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cluster_opt_in<select_kernel<T>>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const int groups = (C + B - 1) / B;
+  cudaLaunchConfig_t cfg = cluster_config(groups, K, THREADS, smem, st, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, select_kernel<T>, a);
+}
+
+template <typename T> int max_clusters(int K, int smem, int* out) {
+  cudaError_t e = cluster_opt_in<select_kernel<T>>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(K, K, THREADS, (size_t)smem, nullptr, &attr);
+  return (int)cudaOccupancyMaxActiveClusters(out, select_kernel<T>, &cfg);
 }
 
 }  // namespace
 
-extern "C" int order_stats_select_launch(int is_f64, const void* x, int C, int L, const void* k_lo,
-                                         const void* k_hi, void* out_lo, void* out_hi,
-                                         void* stream) {
+// The k_lo-th and k_hi-th smallest of each of C columns of L values (value
+// (c, i) at x[c sC + i sL]), on clusters of K blocks a group of B columns,
+// the keys staged in shared memory or streamed.
+extern "C" int order_stats_select_launch(int is_f64, const void* x, int C, int L, long long sC, long long sL,
+                                         const void* k_lo, const void* k_hi, void* out_lo, void* out_hi, int B,
+                                         int K, int staged, void* stream) {
   if (C <= 0 || L <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_f64) {
-    select_kernel<double><<<C, THREADS, 0, s>>>((const double*)x, L, (const int*)k_lo,
-                                                (const int*)k_hi, (double*)out_lo,
-                                                (double*)out_hi);
-  } else {
-    select_kernel<float><<<C, THREADS, 0, s>>>((const float*)x, L, (const int*)k_lo,
-                                               (const int*)k_hi, (float*)out_lo,
-                                               (float*)out_hi);
-  }
-  return (int)cudaGetLastError();
+  const int rc = is_f64 ? launch<double>(x, sC, sL, C, L, k_lo, k_hi, out_lo, out_hi, B, K, staged, s)
+                        : launch<float>(x, sC, sL, C, L, k_lo, k_hi, out_lo, out_hi, B, K, staged, s);
+  return rc != 0 ? rc : (int)cudaGetLastError();
+}
+
+// out[0] = the clusters of K blocks with `smem` bytes each that the card
+// holds at once (the occupancy API; no launch), 0 where none fits.
+extern "C" int select_max_clusters(int is_f64, int K, int smem, int* out, void* stream) {
+  (void)stream;
+  return is_f64 ? max_clusters<double>(K, smem, out) : max_clusters<float>(K, smem, out);
 }

@@ -5,8 +5,9 @@ trimmed size-factor solve's ``sf_newton`` round and ``sf_nll`` pass
 (``sf``), the dispersion trend's gamma-GLM fit, ``trend`` with its
 exclusion rounds and the standalone ``trend_fit`` (``trend``), the trimmed
 moments of ``cooks`` and ``trimmed_var`` (``cooks``), the grid rescues
-``grid_apeglm`` and ``grid_nb`` (``grid``), and the apeGLM MAP fit
-``shrink`` (``shrink``).
+``grid_apeglm`` and ``grid_nb`` (``grid``), the apeGLM MAP fit
+``shrink`` (``shrink``), the order statistics of ``select`` (``select``)
+and the masked IRLS ``irls`` (``irls``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -14,7 +15,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-six by default). To compare two versions in one call, name them parent,
+eight by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -106,6 +107,33 @@ count) and, where the tree's kernel reports them, the evaluations it made
 and its reads of the row; ``--detail`` the other round size (1 or 3
 candidates).
 
+``select`` shapes (SELECT_SHAPES): the size-factor tile, 100 samples x
+60000 genes reduced over the genes (log-ratios of Poisson counts drawn
+on the card, genes with a zero excluded at +inf, the two middle ranks of
+each sample), in float32 and float64 and at 1000 samples; one column of
+60000 normal values with ~10% excluded (the prior's centre and MAD); the
+trimmed solve's keep quantile, a column of 60000 lognormal values with
+~5% excluded and the ranks either side of (n - 1) 0.95. Per shape the
+events and device times (kernels named ``select``), whether the result
+equals the plain version (a sort) and a repeated launch bit for bit, the
+plan where the tree has one, and ``torch.sort`` of the same columns as
+the yardstick; ``--detail`` every cluster size, staged where it fits and
+streamed.
+
+``irls`` shapes (IRLS_SHAPES): phase 1 of the LFC fit (``maxiter=8``) at
+100 x 60000 float32 for P = 2, 3, 5, at 12, 200 and 1000 x 60000 and on the atlas
+refit block (5000 genes x 10000 samples) in float32, at 100 x 60000 in
+float64 (``make_data`` counts and design, median-of-ratios size factors,
+seeded dispersions, ``irls_beta_init``); and the phase-2 tile, the call
+of ``irls_core`` that ``summary_pipeline`` on ``make_data(100, RESCUE_G)``
+makes after phase 1 (937 lanes, the 242-trip budget). Per shape the
+events and device times of ``_irls_cuda`` alone (the parent's wrapper is
+handed the deviance constant from PyTorch) and of ``irls_core`` whole
+(all it runs on the card: the parent's constant pass shows there), the
+share of lanes within 1e-4 (f32) / 1e-7 (f64) of the plain version, of
+equal flags, the slowest lane's trips beside the plain loop's, and the
+plan; ``--detail`` every lane count the design builds.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -138,7 +166,26 @@ import torch  # noqa: E402
 DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
-          "grid": ("grid.cu",), "shrink": ("shrink.cu",)}
+          "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",)}
+SELECT_SHAPES = (
+    # label, kind ("tile", "column" or "quantile"), columns, values a column, dtype, timed calls
+    ("f32 tile 100x60000", "tile", 100, 60_000, torch.float32, 20),
+    ("f32 column 60000", "column", 1, 60_000, torch.float32, 20),
+    ("f32 keep quantile 60000", "quantile", 1, 60_000, torch.float32, 20),
+    ("f32 tile 1000x60000", "tile", 1_000, 60_000, torch.float32, 10),
+    ("f64 tile 100x60000", "tile", 100, 60_000, torch.float64, 20),
+)
+IRLS_SHAPES = (
+    # label, genes, samples, P, dtype, maxiter, timed calls
+    ("f32 phase 1 100x60000 P=2", 60_000, 100, 2, torch.float32, 8, 20),
+    ("f32 phase 1 12x60000 P=2", 60_000, 12, 2, torch.float32, 8, 20),
+    ("f32 phase 1 200x60000 P=2", 60_000, 200, 2, torch.float32, 8, 10),
+    ("f32 phase 1 100x60000 P=3", 60_000, 100, 3, torch.float32, 8, 10),
+    ("f32 phase 1 100x60000 P=5", 60_000, 100, 5, torch.float32, 8, 10),
+    ("f32 phase 1 1000x60000 P=2", 60_000, 1_000, 2, torch.float32, 8, 5),
+    ("f32 atlas refit block 5000x10000 P=2", 5_000, 10_000, 2, torch.float32, 8, 3),
+    ("f64 phase 1 100x60000 P=2", 60_000, 100, 2, torch.float64, 8, 10),
+)
 SF_SHAPES = (
     # label, genes, samples, dtype, timed calls
     ("f32 100x60000", 60_000, 100, torch.float32, 20),
@@ -276,7 +323,7 @@ def inputs(G: int, N: int, P: int, dtype):
 def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
     f32|f64" for a kernel templated on the design width ("P<p> f32|f64 M<m>"
-    where also on shrink's round size), "<kernel>
+    where also on shrink's round size, "... S<s>" on irls' lanes a gene), "<kernel>
     f32|f64 shared|streamed" for a cluster kernel templated on its mode and
     "<kernel> f32|f64" for one templated on its type alone."""
     out = {}
@@ -288,8 +335,9 @@ def ptxas(kernels, sources=SOURCES) -> dict:
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
             typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
             if inst is not None:
+                third = "S" if "irls_kernel" in m.group(1) else "M"  # irls' lanes a gene, shrink's round
                 key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}" + (
-                    f" M{inst.group(3)}" if inst.group(3) else "")
+                    f" {third}{inst.group(3)}" if inst.group(3) else "")
             elif mode is not None:
                 key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
                        f"{'shared' if mode.group(3) == '1' else 'streamed'}")
@@ -997,6 +1045,204 @@ def shrink_rows(detail: bool) -> dict:
     return rows
 
 
+def select_operands(kind: str, C: int, L: int, dtype):
+    """``(x, ranks, axis)`` of one ``order_stats_select`` call on the card,
+    from a seeded generator there (see SELECT_SHAPES)."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    if kind == "tile":
+        base = torch.exp(3.0 + 1.5 * torch.randn(L, generator=g, device=DEVICE, dtype=torch.float64))
+        sf = torch.exp(0.3 * torch.randn(C, generator=g, device=DEVICE, dtype=torch.float64))
+        counts = torch.poisson(base[:, None] * sf[None, :], generator=g).to(dtype)
+        logc = torch.log(counts)
+        logmeans = logc.mean(1)
+        ok = torch.isfinite(logmeans)
+        x = torch.where(ok[:, None], logc - logmeans[:, None], torch.full_like(logc, math.inf))
+        n = ok.sum()
+        return x, (torch.clamp((n - 1) // 2, min=0), n // 2), 0
+    vals = torch.randn(L, generator=g, device=DEVICE, dtype=torch.float64)
+    share = 0.1 if kind == "column" else 0.05
+    if kind == "quantile":
+        vals = torch.exp(vals)
+    off = torch.rand(L, generator=g, device=DEVICE) < share
+    x = torch.where(off, math.inf, vals).to(dtype)[:, None]
+    n = (~off).sum()
+    if kind == "column":
+        return x, (torch.clamp((n - 1) // 2, min=0), n // 2), 0
+    h = (n - 1).double() * 0.95
+    return x, (torch.floor(h).long(), torch.ceil(h).long()), 0
+
+
+def select_plans(sel, plan, L: int, itemsize: int) -> dict:
+    """The plans ``--detail`` times beside the one picked: every cluster
+    size at the plan's group width, staged where it fits and streamed."""
+    from pydeseq2_tpu_torch import kernels
+
+    others = {}
+    for K in (1, 2, 4, 8, 16):
+        for staged in (True, False):
+            p = plan._replace(K=K, staged=staged)
+            if p != plan and sel._select_smem_bytes(plan.B, -(-L // K), itemsize, staged) <= kernels.SMEM_BLOCK_MAX:
+                others[f"K={K} {'shared' if staged else 'streamed'}"] = p
+    return others
+
+
+def select_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch.ops import select as sel
+
+    def key_equal(a, b):
+        return all(torch.equal(sel._monotone_key(u), sel._monotone_key(v)) for u, v in zip(a, b))
+
+    rows = {}
+    for label, kind, C, L, dtype, reps in SELECT_SHAPES:
+        x, ranks, axis = select_operands(kind, C, L, dtype)
+
+        def run(**kw):
+            return sel._order_stats_select_cuda(x, ranks, axis, **kw) if kw else sel.order_stats_select(x, ranks, axis)
+
+        got, again = run(), run()
+        kern, dev = device_ms(run, reps, "select")
+        row = {"select_ms": cuda_ms(run, reps), "select_kernel_ms": kern, "select_device_ms": dev,
+               "bits_equal": key_equal(got, sel.order_stats_select_plain(x, ranks, axis)),
+               "repeat_equal": key_equal(got, again),
+               "sort_ms": device_ms(lambda: torch.sort(x, dim=axis), reps, "")[1]}
+        if hasattr(sel, "_select_plan"):
+            plan = sel._select_device_plan(C, L, dtype, x.device, adjacent=C > 1)
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in select_plans(sel, plan, L, x.element_size()).items():
+                    row[f"kernel_ms {name}"] = device_ms(lambda: run(plan=other), reps, "select")[0]
+        rows[label] = row
+        print(f"  select {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del x, got, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def irls_operands(G: int, N: int, P: int, dtype) -> dict:
+    """``irls_core``'s operands at phase 1: ``make_data``'s counts and design
+    (P > 2 adds indicator columns of a seeded batch, as :func:`inputs`),
+    median-of-ratios size factors, seeded dispersions, ``irls_beta_init``,
+    the pipelines' tolerances for the type."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    counts, _, X = inputs(G, N, P, dtype)
+    logc = torch.log(counts)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    disp = torch.clamp(torch.exp(-2.0 + torch.randn(G, generator=g, device=DEVICE, dtype=torch.float64)),
+                       1e-4, 10.0).to(dtype)
+    f32 = dtype == torch.float32
+    return {"counts": counts, "size_factors": sf, "design_matrix": X, "disp": disp,
+            "beta_init": irl.irls_beta_init(counts, sf, X), "beta_tol": 1e-6 if f32 else 1e-8}
+
+
+def irls_tile(dtype=torch.float32):
+    """The phase-2 call of ``irls_core`` in ``summary_pipeline`` on
+    ``make_data(100, RESCUE_G)``: its (args, kwargs), recorded, or None
+    where phase 1 left no lane unfinished."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(100, RESCUE_G)
+    host = pt.summary_host_inputs(X_np)
+    kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
+                              dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
+                              use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
+    seen = []
+    core = fused.irls_core
+
+    def recorded(*args, **kwargs):
+        seen.append((args, kwargs))
+        return core(*args, **kwargs)
+
+    fused.irls_core = recorded
+    try:
+        pt.summary_pipeline(**kw)
+    finally:
+        fused.irls_core = core
+    return seen[1] if len(seen) > 1 else None
+
+
+def irls_row(ops: dict, maxiter: int, reps: int, detail: bool) -> dict:
+    """``_irls_cuda`` and ``irls_core`` on ``ops`` (``irls_core``'s keyword
+    arguments): times, agreement with the plain version, the plan;
+    ``--detail`` every lane count built for the design."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops.nb import nb_nll
+
+    counts, sf, X, disp, beta_init = (ops[k] for k in ("counts", "size_factors", "design_matrix", "disp",
+                                                       "beta_init"))
+    beta_tol = ops.get("beta_tol", 1e-8)
+    f32 = counts.dtype == torch.float32
+    step_tol = 1e-5 if f32 else 0.0
+    G, N = counts.shape
+    P = X.shape[1]
+    log_sf = torch.log(sf)
+    log_min_mu = torch.log(torch.tensor(0.5, dtype=counts.dtype, device=counts.device))
+    mu0, log_mu0, _ = irl._mu_from_xb(beta_init, X, sf, log_sf[None, :], 0.5, log_min_mu)
+    r = 1.0 / disp[:, None]
+    nll_const = nb_nll(counts, mu0, disp) - irl._mu_part(counts, counts + r, r, mu0, log_mu0)
+    del mu0, log_mu0
+    own_const = "nll_const" not in inspect.signature(irl._irls_cuda).parameters
+
+    def kernel(**kw):
+        if own_const:
+            return irl._irls_cuda(counts, sf, X, disp, beta_init, log_sf, 0.5, beta_tol, 30.0, maxiter, step_tol, 2,
+                                  **kw)
+        return irl._irls_cuda(counts, sf, X, disp, beta_init, nll_const, log_sf, 0.5, beta_tol, 30.0, maxiter,
+                              step_tol, 2)
+
+    def core():
+        return irl.irls_core(counts, sf, X, disp, beta_init, beta_tol=beta_tol, maxiter=maxiter)
+
+    bp, fbp, it_p = irl._irls_plain(counts, sf, X, disp, beta_init, nll_const, log_sf[None, :], 0.5, log_min_mu,
+                                    beta_tol, 30.0, maxiter, step_tol, 2)
+    btol = 1e-4 if f32 else 1e-7
+
+    def agreement(out) -> dict:
+        bk, fbk, trips = out
+        return {"close_share": ((bk - bp).abs().amax(1) <= btol).double().mean().item(),
+                "flags_share": (fbk == fbp).double().mean().item(),
+                "beta_max_abs_err": (bk - bp).abs().max().item(),
+                "max_trips": int(trips.max()), "plain_trips": int(it_p), "trips_mean": trips.double().mean().item()}
+
+    out = kernel()
+    kern, dev = device_ms(kernel, reps, "irls")
+    core_kern, core_dev = device_ms(core, reps, "irls")
+    row = {"irls_ms": cuda_ms(kernel, reps), "irls_kernel_ms": kern, "irls_device_ms": dev,
+           "irls_core_ms": cuda_ms(core, reps), "irls_core_kernel_ms": core_kern, "irls_core_device_ms": core_dev,
+           "genes": G, "samples": N, "P": P, "maxiter": maxiter, **agreement(out)}
+    if hasattr(irl, "_irls_device_plan"):
+        plan = irl._irls_device_plan(G, N, P, counts.dtype, counts.device)
+        row["plan"] = plan._asdict()
+        if detail:
+            for lanes in irl._irls_lane_choices(P) + (irl._IRLS_BLOCK,):
+                if lanes != plan.lanes:
+                    row[f"kernel_ms lanes={lanes}"] = device_ms(lambda: kernel(plan=irl.IrlsPlan(lanes)), reps, "irls")[0]
+                    row[f"agreement lanes={lanes}"] = agreement(kernel(plan=irl.IrlsPlan(lanes)))
+    del out, bp, fbp, nll_const
+    torch.cuda.empty_cache()
+    return row
+
+
+def irls_rows(detail: bool) -> dict:
+    rows = {}
+    for label, G, N, P, dtype, maxiter, reps in IRLS_SHAPES:
+        rows[label] = irls_row(irls_operands(G, N, P, dtype), maxiter, reps, detail)
+        print(f"  irls {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+    tile = irls_tile()
+    if tile is not None:
+        args, kwargs = tile
+        names = ("counts", "size_factors", "design_matrix", "disp", "beta_init")
+        ops = {**dict(zip(names, args)), **{k: v for k, v in kwargs.items() if k in names + ("beta_tol",)}}
+        rows["f32 phase 2 tile"] = irls_row(ops, kwargs.get("maxiter", 250), 20, detail)
+        print(f"  irls f32 phase 2 tile: {json.dumps(rows['f32 phase 2 tile'])}", file=sys.stderr, flush=True)
+    return rows
+
+
 def cuobjdump(kernels) -> str | None:
     """The toolkit's cuobjdump: on the PATH, beside nvcc, or in Triton's
     package; None where there is none."""
@@ -1014,14 +1260,18 @@ def cuobjdump(kernels) -> str | None:
     return next((t for t in found if t and Path(t).exists()), None)
 
 
+# Sources whose loops call no transcendental: sass_loops reports every loop.
+SASS_ALL_LOOPS = ("select.cu",)
+
+
 def sass_loops(kernels, sources) -> dict:
     """{source: {function: [loop, ...]}} for the loops that call a
-    transcendental (a MUFU instruction) in ``cuobjdump -sass`` of each
-    built library, each loop {"instructions": its count, "min_path" /
-    "max_path": the fewest and most instructions one trip can issue (the
-    shortest and longest path from its head to its back edge, inner loops
-    counted once), "mufu": its MUFU instructions}; {} where the toolkit has
-    no cuobjdump."""
+    transcendental (a MUFU instruction; every loop for SASS_ALL_LOOPS) in
+    ``cuobjdump -sass`` of each built library, each loop {"instructions":
+    its count, "min_path" / "max_path": the fewest and most instructions
+    one trip can issue (the shortest and longest path from its head to its
+    back edge, inner loops counted once), "mufu": its MUFU instructions};
+    {} where the toolkit has no cuobjdump."""
     tool = cuobjdump(kernels)
     if tool is None:
         return {}
@@ -1029,7 +1279,8 @@ def sass_loops(kernels, sources) -> dict:
     for src in sources:
         text = subprocess.run([tool, "-sass", str(kernels._lib_path(src))], capture_output=True, text=True,
                               timeout=300).stdout
-        out[src] = {name: loops for name, loops in sass_functions(text).items() if loops}
+        funcs = sass_functions(text, mufu_only=src not in SASS_ALL_LOOPS)
+        out[src] = {name: loops for name, loops in funcs.items() if loops}
     return out
 
 
@@ -1040,14 +1291,14 @@ _SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _SASS_BRA = re.compile(r"^(@!?U?P\w+\s+)?BRA(?:\.\w+)*\s+((?:\S+\s+)*?)`?\(?(\.L_x_\d+|0x[0-9a-f]+)\)?")
 
 
-def sass_functions(text: str) -> dict:
+def sass_functions(text: str, mufu_only: bool = True) -> dict:
     """{function: [loop, ...]} of one ``cuobjdump -sass`` listing (see
     :func:`sass_loops`)."""
     funcs, name, body, targets = {}, None, [], {}
 
     def close():
         if name is not None:
-            funcs[name] = _loops(body, targets)
+            funcs[name] = _loops(body, targets, mufu_only)
 
     for line in text.splitlines():
         m = _SASS_FN.match(line)
@@ -1084,7 +1335,7 @@ def _is_mufu(ins: str) -> bool:
     return ins.startswith("MUFU") or " MUFU" in ins
 
 
-def _loops(body: list[str], targets: dict) -> list[dict]:
+def _loops(body: list[str], targets: dict, mufu_only: bool = True) -> list[dict]:
     loops = []
     for i, ins in enumerate(body):
         br = _target(ins, targets)
@@ -1092,7 +1343,7 @@ def _loops(body: list[str], targets: dict) -> list[dict]:
             continue
         head = br[1]
         span = body[head:i + 1]
-        if not any(_is_mufu(x) for x in span):
+        if mufu_only and not any(_is_mufu(x) for x in span):
             continue
         lo, hi = _paths(span, {k: v - head for k, v in targets.items() if head <= v <= i})
         loops.append({"instructions": len(span), "min_path": lo, "max_path": hi,
@@ -1156,6 +1407,10 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["grid"] = grid_rows(detail)
     if "shrink" in suites:
         res["shrink"] = shrink_rows(detail)
+    if "select" in suites:
+        res["select"] = select_rows(detail)
+    if "irls" in suites:
+        res["irls"] = irls_rows(detail)
     return res
 
 
@@ -1191,6 +1446,13 @@ def summary(res: dict) -> dict:
     for k, v in res.get("trend", {}).items():
         out[f"trend {k}"] = {"trend": v["trend_ms"], "trend_kernel": v["trend_kernel_ms"],
                              "trend_fit": v["trend_fit_ms"], "trend_fit_kernel": v["trend_fit_kernel_ms"]}
+    for k, v in res.get("select", {}).items():
+        out[f"select {k}"] = {"ms": v["select_ms"], "kernel": v["select_kernel_ms"], "device": v["select_device_ms"],
+                              "sort": v["sort_ms"], "bits": v["bits_equal"] and v["repeat_equal"]}
+    for k, v in res.get("irls", {}).items():
+        out[f"irls {k}"] = {"ms": v["irls_ms"], "kernel": v["irls_kernel_ms"], "core": v["irls_core_ms"],
+                            "core_device": v["irls_core_device_ms"], "close": v["close_share"],
+                            "flags": v["flags_share"], "trips": [v["max_trips"], v["plain_trips"]]}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):

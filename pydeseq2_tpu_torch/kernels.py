@@ -68,7 +68,11 @@ KERNELS = {
 HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch"),
            # the blocks of each grid kernel an SM holds (the occupancy API; no launch)
            "grid_apeglm_per_sm": ("grid.cu", "grid_apeglm_per_sm"),
-           "grid_nb_per_sm": ("grid.cu", "grid_nb_per_sm")}
+           "grid_nb_per_sm": ("grid.cu", "grid_nb_per_sm"),
+           # the clusters of 16 select blocks the card holds (the occupancy API; no launch)
+           "select_max_clusters": ("select.cu", "select_max_clusters"),
+           # the blocks of an irls group size an SM holds (the occupancy API; no launch)
+           "irls_per_sm": ("irls.cu", "irls_per_sm")}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -82,19 +86,20 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # argtypes of each exported function, without the trailing stream pointer
 # (see the extern "C" launchers in csrc/*.cu).
 _ARGTYPES = {
-    "order_stats_select_launch": [_I, _P, _I, _I, _P, _P, _P, _P],
+    "order_stats_select_launch": [_I, _P, _I, _I, _L, _L, _P, _P, _P, _P, _I, _I, _I],
     "disp_scan_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
                          _P, _P, _I, _P, _P, _P, _P],
     "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _I, _I,
                               _P, _P, _I, _P, _P, _P],
     "disp_newton_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                            _I, _I, _I, _P, _P, _P, _P],
-    "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
-                    _I, _I, _P, _P, _P],
+    "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
+                    _I, _I, _I, _P, _P, _P, _P, _P],
     "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
     "hat_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _P, _P],
     "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
@@ -119,6 +124,8 @@ _ARGTYPES = {
     "lgamma_table_launch": [_I, _I, _P],
     "grid_apeglm_per_sm": [_I, _I, _P],
     "grid_nb_per_sm": [_I, _I, _P],
+    "select_max_clusters": [_I, _I, _I, _P],
+    "irls_per_sm": [_I, _I, _I, _P],
 }
 
 # What one block of a thread-block cluster may hold on the H100: dynamic
@@ -276,6 +283,14 @@ def check_cuda_operands(name: str, *tensors: torch.Tensor | None) -> None:
             if dtype is not None and t.dtype != dtype:
                 raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
             dtype = t.dtype
+
+
+def check_cuda_device(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every operand lies on a CUDA device (any layout: for
+    kernels that take their operand's strides)."""
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: operand on {t.device}, expected CUDA")
 
 
 def check_p(name: str, P: int) -> None:

@@ -10,17 +10,19 @@ gradient sup-norm follows the loop.
 
 Kernel (``csrc/irls.cu``): replaces ``irls_core`` (pydeseq2_tpu/ops/
 irls.py:45), a masked ``lax.while_loop`` that advances every lane until the
-slowest is done. One warp per gene runs its own loop and leaves it when the
-lane stops, so a lane's trip count while it is active equals the JAX loop's
-``it`` and the result is the same lane for lane. Each trip is one pass over
-the gene's row: mu from the new coefficients, the mu-part of the deviance,
-and the Gram X^T W X and X^T W z for the next trip, reduced by warp shuffle;
-the P x P solve is scalar work in registers. On the H100 it is bound by the
-transcendentals (exp and log1p per sample and trip) and by the tail: at
-100 x 60000 most lanes stop within 6 trips while a few run 20+, and a warp
-whose lane is done frees its slot for the next gene instead of idling as a
-masked lane would. The lgamma constant of the deviance (``nll_const``) is
-computed once in PyTorch and passed in.
+slowest is done. A group of lanes (:func:`_irls_plan`: 4, 8 or 32 lanes a
+gene, or a block at atlas widths) runs one gene's loop and leaves it when the
+gene stops, so a lane's trip count while it is active equals the JAX
+loop's ``it`` and the result is the same lane for lane. Each trip is one
+pass over the gene's row: mu from the new coefficients, the mu-part of the
+deviance, and the Gram X^T W X and X^T W z for the next trip, reduced
+together over the group's lanes; the P x P solve is scalar work in
+registers. The kernel first computes every gene's deviance constant
+(``nll_const``, float64 sums rounded once) in a phase of its own, so the
+CUDA route runs no (G, N) pass in PyTorch. The grid is persistent: a group
+whose gene stopped takes the next from a global counter. On the H100 it is bound by the
+issue rate of each sample's exp, log1p and divisions and by the tail of
+slow genes.
 
 The plain version (CPU tensors only) is the masked loop of the JAX package.
 
@@ -35,6 +37,10 @@ hat-only entry of ``csrc/hat_wald.cu`` (``hat``, the class API's
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -136,32 +142,114 @@ def _irls_plain(counts, size_factors, X, disp, beta_init, nll_const, log_sf, min
     return beta, needs_fb, n_iter
 
 
-def _irls_cuda(counts, size_factors, X, disp, beta_init, nll_const, log_sf, min_mu,
-               beta_tol, max_beta, maxiter, step_tol, polish_iters):
-    """Launch the ``irls`` kernel: ``(beta, needs_fb, trips per lane)``."""
+class IrlsPlan(NamedTuple):
+    """A launch of the ``irls`` kernel: ``lanes`` a gene (4, 8, 32, or 256:
+    a block)."""
+
+    lanes: int
+
+
+_IRLS_THREADS = 256  # a block (csrc/irls.cu)
+_IRLS_BLOCK = 256  # lanes of a block a gene
+_IRLS_BLOCK_MIN_N = 2_048  # samples from which a gene takes a block
+_IRLS_LANE_SAMPLES = 16  # samples a lane per pass, at most, for fewer than 32 lanes
+_IRLS_PER_SM = 4  # blocks an SM holds without the card to ask (ptxas: ~64 registers a thread)
+
+
+def _irls_lane_choices(P: int) -> tuple[int, ...]:
+    """The group sizes below a block built for a design of P columns
+    (csrc/irls.cu)."""
+    return (4, 8, 32) if P <= 3 else (8, 32)
+
+
+def _irls_plan(G: int, N: int, P: int, sms: int = 132,
+               per_sm: Callable[[int], int] = lambda lanes: _IRLS_PER_SM) -> IrlsPlan:
+    """The plan for G genes of N samples and P coefficients; ``per_sm(lanes)``
+    is the blocks of that group size an SM holds (the wrapper asks the
+    occupancy API, as the launch does).
+
+    A block a gene from 2048 samples; below, the fewest lanes (4, 8) with
+    at most 16 samples a lane a pass whose groups fill the card, G x lanes
+    >= ``sms`` x the lanes an SM holds; else 32. P > 3 builds no 4. A
+    ``kernel_bench --detail`` sweep on an H100 chose these (f32, P = 2,
+    ``maxiter=8``): 12 x 60000 4 lanes 0.093 ms against 0.113 with 8; 100 x
+    60000 8 lanes 0.381 (4: 0.387, 32: 0.392); 200 x 60000 32 lanes 0.625
+    (8: 0.682); 1000 x 60000 32 lanes 2.53 (8: 3.38, a block 3.48); the
+    atlas refit block, 5000 x 10000, a block 2.60 (32: 4.04). 16 lanes won
+    no shape. The phase-2 tile's 937 genes cannot fill the card: a block a
+    gene read 0.030 ms against 32 lanes' 0.038, but moved the slowest lane
+    of the P = 5 tile 4 trips from the plain loop's, so short gene lists
+    keep 32.
+    """
+    if N >= _IRLS_BLOCK_MIN_N:
+        return IrlsPlan(_IRLS_BLOCK)
+    fills = [s for s in _irls_lane_choices(P)
+             if s < 32 and -(-N // s) <= _IRLS_LANE_SAMPLES and G * s >= sms * per_sm(s) * _IRLS_THREADS]
+    return IrlsPlan(fills[0] if fills else 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _irls_card_per_sm(device: torch.device, itemsize: int, P: int, lanes: int) -> int:
+    """The blocks of the ``irls`` kernel of ``lanes`` a gene that an SM of
+    ``device`` holds, by the occupancy API for this build (no launch)."""
+    out = ctypes.c_int(0)
+    kernels.call_helper("irls_per_sm", [int(itemsize == 8), P, lanes, ctypes.addressof(out)], device)
+    return max(1, out.value)
+
+
+def _irls_device_plan(G: int, N: int, P: int, dtype, device) -> IrlsPlan:
+    """:func:`_irls_plan` with the card's SMs and its occupancy."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    dev = torch.device(device)
+    return _irls_plan(G, N, P, kernels.sm_count(dev), functools.partial(_irls_card_per_sm, dev, isz, P))
+
+
+def _irls_cuda(counts, size_factors, X, disp, beta_init, log_sf, min_mu, beta_tol, max_beta, maxiter, step_tol,
+               polish_iters, plan: IrlsPlan | None = None):
+    """Launch the ``irls`` kernel: ``(beta, needs_fb, trips per lane)``.
+    The kernel computes each gene's deviance constant itself; ``plan``
+    overrides :func:`_irls_plan`."""
     G, N = counts.shape
     P = X.shape[1]
-    beta = torch.empty((G, P), dtype=beta_init.dtype, device=counts.device)
-    needs_fb = torch.empty(G, dtype=torch.uint8, device=counts.device)
-    trips = torch.empty(G, dtype=torch.int32, device=counts.device)
-    ops = [counts, size_factors, log_sf, X, disp, beta_init, nll_const, beta]
-    ops = [t.contiguous() for t in ops]
-    kernels.check_cuda_operands("irls", *ops)
+    dev = counts.device
+    if plan is None:
+        plan = _irls_device_plan(G, N, P, counts.dtype, dev)
+    if plan.lanes not in _irls_lane_choices(P) + (_IRLS_BLOCK,):
+        raise ValueError(f"irls: {plan.lanes} lanes a gene are not built for P={P}")
+    beta = torch.empty((G, P), dtype=beta_init.dtype, device=dev)
+    needs_fb = torch.empty(G, dtype=torch.uint8, device=dev)
+    trips = torch.empty(G, dtype=torch.int32, device=dev)
+    # genes handed out past each group's first, blocks past the constants' barrier
+    counter = torch.zeros(2, dtype=torch.int32, device=dev)
+    nll_const = torch.empty(G, dtype=beta_init.dtype, device=dev)  # the kernel's workspace
+    ops = [t.contiguous() for t in (counts, size_factors, log_sf, X, disp, beta_init)]
+    kernels.check_cuda_operands("irls", *ops, beta)
     kernels.check_p("irls", P)
-    counts, size_factors, log_sf, X, disp, beta_init, nll_const, beta = ops
     kernels.launch(
         "irls",
         [
             int(counts.dtype == torch.float64), P, G, N,
-            counts.data_ptr(), size_factors.data_ptr(), log_sf.data_ptr(), X.data_ptr(),
-            disp.data_ptr(), beta_init.data_ptr(), nll_const.data_ptr(),
+            *(t.data_ptr() for t in ops),
             float(min_mu), float(beta_tol), float(max_beta), float(step_tol),
-            maxiter, polish_iters,
-            beta.data_ptr(), needs_fb.data_ptr(), trips.data_ptr(),
+            maxiter, polish_iters, plan.lanes,
+            counter.data_ptr(), nll_const.data_ptr(), beta.data_ptr(), needs_fb.data_ptr(), trips.data_ptr(),
         ],
-        counts.device,
+        dev,
     )
     return beta, needs_fb.bool(), trips
+
+
+def _irls_core_cuda(counts, size_factors, X, disp, beta_init, min_mu, beta_tol, max_beta, maxiter, step_tol,
+                    polish_iters):
+    """``irls_core``'s CUDA route: ``(beta, needs_fb, n_iter)``, the
+    slowest lane's trips recorded in ``kernels.STATS.irls_trips``. Nothing
+    of shape (G, N) runs here: the kernel computes the deviance constant."""
+    log_sf = torch.log(size_factors)
+    beta, needs_fb, trips = _irls_cuda(counts, size_factors, X, disp, beta_init, log_sf, min_mu, beta_tol,
+                                       max_beta, maxiter, step_tol, polish_iters)
+    n_iter = trips.amax() if trips.numel() else torch.zeros((), dtype=torch.int32, device=counts.device)
+    kernels.STATS.irls_trips.append(n_iter)
+    return beta, needs_fb, n_iter
 
 
 def irls_core(
@@ -188,21 +276,17 @@ def irls_core(
     dtype = beta_init.dtype
     if step_tol is None:
         step_tol = 1e-5 if dtype == torch.float32 else 0.0
-    # The lgamma part of the deviance is hoisted out of the loop: the stop
-    # compares deviance differences, in which it cancels exactly.
-    log_sf = torch.log(size_factors)[None, :]
-    log_min_mu = torch.log(torch.tensor(min_mu, dtype=dtype, device=counts.device))
-    mu0, log_mu0, _ = _mu_from_xb(beta_init, X, size_factors, log_sf, min_mu, log_min_mu)
-    r = 1.0 / disp[:, None]
-    nll_const = nb_nll(counts, mu0, disp) - _mu_part(counts, counts + r, r, mu0, log_mu0)
     if counts.is_cuda:
-        beta, needs_fb, trips = _irls_cuda(
-            counts, size_factors, X, disp, beta_init, nll_const, log_sf[0], min_mu,
-            beta_tol, max_beta, maxiter, step_tol, polish_iters,
-        )
-        n_iter = trips.amax() if trips.numel() else torch.zeros((), dtype=torch.int32, device=counts.device)
-        kernels.STATS.irls_trips.append(n_iter)
+        beta, needs_fb, n_iter = _irls_core_cuda(counts, size_factors, X, disp, beta_init, min_mu, beta_tol,
+                                                 max_beta, maxiter, step_tol, polish_iters)
     else:
+        # The lgamma part of the deviance is hoisted out of the loop: the
+        # stop compares deviance differences, in which it cancels exactly.
+        log_sf = torch.log(size_factors)[None, :]
+        log_min_mu = torch.log(torch.tensor(min_mu, dtype=dtype, device=counts.device))
+        mu0, log_mu0, _ = _mu_from_xb(beta_init, X, size_factors, log_sf, min_mu, log_min_mu)
+        r = 1.0 / disp[:, None]
+        nll_const = nb_nll(counts, mu0, disp) - _mu_part(counts, counts + r, r, mu0, log_mu0)
         beta, needs_fb, n_iter = _irls_plain(
             counts, size_factors, X, disp, beta_init, nll_const, log_sf, min_mu,
             log_min_mu, beta_tol, max_beta, maxiter, step_tol, polish_iters,

@@ -9,19 +9,31 @@ and restrict the ranks to the valid count, as in the JAX package.
 
 Kernel (``csrc/select.cu``): replaces ``order_stats_select``
 (pydeseq2_tpu/ops/select.py:65), the MSB-first radix bisection of the JAX
-package. One block per column runs an 8-bit radix select over the column's
-contiguous keys: 4 passes in f32 (8 in f64), each a shared-memory histogram
-of the next digit among the keys that match the resolved prefix, both ranks
-of the column in the same pass. On the H100 it is bound by the bytes it
-reads (each pass re-reads the column: 4 x 24 MB at 100 x 60000 f32, from
-L2 after the first) and by shared-memory atomics where many keys share a
-digit; warp-aggregated atomics (``__match_any_sync``) cut the latter to one
-add per distinct digit per warp. The result is bit-identical to a sort.
+package. The wrapper hands the kernel the tile where it lies, with its
+strides: no transposed copy. :func:`_select_plan` groups B adjacent
+columns (8 bytes of a row) and splits a group's rows over a thread-block
+cluster of K blocks, so that the groups' blocks cover the card's SMs and
+each block's keys fit its shared memory: one column of 60000 takes a
+cluster of 16 blocks, not one block on one SM. A block maps
+its values to keys once, into shared memory; each pass histograms the next
+8-bit digit of the keys that still match a rank's prefix (compacting them
+in place from the second pass), the cluster adds its blocks' integer
+histograms over distributed shared memory, and every block picks the same
+digit: 4 passes in float32, 8 in float64 (a ``kernel_bench`` sweep of
+8-11-bit digits found 8 the fastest at every shape: with the candidates
+compacted, a pass costs little, and wider digits pay for the scan and
+exchange of their bins). Where the keys do not fit 16 blocks,
+each pass streams them from device memory again. The result is
+bit-identical to a sort.
 
 The plain version (CPU tensors only) sorts the keys and gathers the ranks.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -64,16 +76,101 @@ def order_stats_select_plain(
     return tuple(out)
 
 
+class SelectPlan(NamedTuple):
+    """A launch of the ``select`` kernel: ``B`` adjacent columns a cluster
+    (1 or 2), ``K`` blocks a cluster (each a 1/K share of the rows), the
+    keys ``staged`` in shared memory (else streamed each pass)."""
+
+    B: int
+    K: int
+    staged: bool
+
+
+_SELECT_STATE_BYTES = 512  # the columns' prefixes, ranks, counts and flags (csrc/select.cu)
+_SELECT_BINS = 256  # bins of a (column, rank): 8-bit digits
+_SELECT_SPAN_BYTES = 8  # a group's share of a row
+_SELECT_BLOCK_KEY_BYTES = 65_536  # a block's staged keys, at most, where K allows
+_SELECT_MIN_ROWS = 512  # a block's share of the rows, at least (one per thread)
+
+
+def _select_smem_bytes(B: int, R: int, itemsize: int, staged: bool) -> int:
+    """Dynamic shared memory of a block of ``R`` rows: the columns' state,
+    three bin arrays (two histogram buffers, the gathered totals) of B x 2
+    ranks x 256 counts, and in shared mode the keys, B columns of R | 1."""
+    bins = 3 * kernels.align16(B * 2 * _SELECT_BINS * 4)
+    keys = kernels.align16(B * (R | 1) * itemsize) if staged else 0
+    return _SELECT_STATE_BYTES + bins + keys
+
+
+def _select_plan(C: int, L: int, itemsize: int, adjacent: bool = True, sms: int = 132,
+                 k_max: int = kernels.MAX_CLUSTER) -> SelectPlan:
+    """The plan for C columns of L values of ``itemsize`` bytes.
+
+    B: where the columns are adjacent in memory, those in 8 bytes of a row
+    (2 float32, 1 float64; fewer where C is smaller), else 1. A
+    ``kernel_bench`` sweep on an H100 found 32-byte groups (8 float32
+    columns, each row's span one sector) slower, 0.202 against 0.146 ms at
+    100 x 60000 and 1.84 against 1.05 at 1000 x 60000: a block's work and
+    shared memory grow with B, and the neighbouring groups read the rest of
+    each sector from L2. K: the fewest blocks (a power of two, at
+    most ``k_max``) whose share of the keys takes at most 64 KB, raised
+    until the groups' blocks cover ``sms`` SMs while a block keeps at least
+    512 rows: a column of 60000 takes 16. Staged where that share fits a
+    block's shared memory, else streamed.
+    """
+    B = 1
+    if adjacent and C > 1:
+        while B * 2 <= min(_SELECT_SPAN_BYTES // itemsize, C):
+            B *= 2
+    groups = -(-C // B)
+    k_cover = 1
+    while k_cover < k_max and groups * k_cover < sms:
+        k_cover *= 2
+    k_rows = 1
+    while k_rows < k_max and -(-L // (k_rows * 2)) >= _SELECT_MIN_ROWS:
+        k_rows *= 2
+    k_keys = 1
+    while k_keys < k_max and B * -(-L // k_keys) * itemsize > _SELECT_BLOCK_KEY_BYTES:
+        k_keys *= 2
+    K = max(k_keys, min(k_cover, k_rows))
+    staged = _select_smem_bytes(B, -(-L // K), itemsize, True) <= kernels.SMEM_BLOCK_MAX
+    return SelectPlan(B, K, staged)
+
+
+@functools.lru_cache(maxsize=None)
+def _select_k_max(device: torch.device, itemsize: int) -> int:
+    """16 where the card holds a cluster of 16 blocks of the most shared
+    memory a block may have (the occupancy API for this build; no launch),
+    else 8."""
+    out = ctypes.c_int(0)
+    kernels.call_helper("select_max_clusters", [int(itemsize == 8), kernels.MAX_CLUSTER, kernels.SMEM_BLOCK_MAX,
+                                                ctypes.addressof(out)], device)
+    return kernels.MAX_CLUSTER if out.value >= 1 else 8
+
+
+def _select_device_plan(C: int, L: int, dtype, device, adjacent: bool = True) -> SelectPlan:
+    """:func:`_select_plan` with the card's SMs and its largest cluster."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    dev = torch.device(device)
+    return _select_plan(C, L, isz, adjacent, kernels.sm_count(dev), _select_k_max(dev, isz))
+
+
 def _order_stats_select_cuda(
-    x: torch.Tensor, ranks: tuple[torch.Tensor, ...], axis: int
+    x: torch.Tensor, ranks: tuple[torch.Tensor, ...], axis: int, plan: SelectPlan | None = None
 ) -> tuple[torch.Tensor, ...]:
+    """Launch the ``select`` kernel on ``x`` where it lies (its strides, no
+    copy, wherever the reduced axes flatten to one as a view: every 2-D
+    ``x``); ``plan`` overrides :func:`_select_device_plan`."""
     if len(ranks) not in (1, 2):
         raise ValueError("the select kernel resolves one or two ranks per column")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"order_stats_select: unsupported dtype {x.dtype}")
     xt = x.movedim(axis, -1)
     red_shape = xt.shape[:-1]
     L = xt.shape[-1]
-    rows = xt.reshape(-1, L).contiguous()
-    C = rows.shape[0]
+    cols = xt.reshape(-1, L)  # a view of x for a 2-D x (a copy only for N-d layouts that need one)
+    C = cols.shape[0]
+    s_col, s_row = cols.stride()
     ks = [
         torch.as_tensor(k, dtype=torch.int32, device=x.device)
         .expand(red_shape)
@@ -84,18 +181,26 @@ def _order_stats_select_cuda(
     k_hi = ks[-1]
     out_lo = torch.empty(C, dtype=x.dtype, device=x.device)
     out_hi = torch.empty(C, dtype=x.dtype, device=x.device)
-    kernels.check_cuda_operands("order_stats_select", rows, out_lo, out_hi)
+    kernels.check_cuda_operands("order_stats_select", out_lo, out_hi)
+    kernels.check_cuda_device("order_stats_select", cols)
+    if plan is None:
+        plan = _select_device_plan(C, L, x.dtype, x.device, adjacent=s_col == 1)
     kernels.launch(
         "select",
         [
             int(x.dtype == torch.float64),
-            rows.data_ptr(),
+            cols.data_ptr(),
             C,
             L,
+            s_col,
+            s_row,
             ks[0].data_ptr(),
             k_hi.data_ptr(),
             out_lo.data_ptr(),
             out_hi.data_ptr(),
+            plan.B,
+            plan.K,
+            int(plan.staged),
         ],
         x.device,
     )
@@ -111,8 +216,8 @@ def order_stats_select(
     ``x`` is float32/float64 with excluded entries encoded as +inf; ``ranks``
     are 0-based integer ranks broadcastable to the reduced shape, within the
     valid count. Returns values bit-identical to ``sort(x, axis)[k]``.
-    CUDA tensors launch the radix-select kernel; CPU tensors take the plain
-    version.
+    CUDA tensors launch the radix-select kernel on ``x`` where it lies; CPU
+    tensors take the plain version.
     """
     if x.shape[axis] == 0:
         red = x.movedim(axis, 0).shape[1:]

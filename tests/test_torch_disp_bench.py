@@ -383,6 +383,15 @@ def test_sass_loops_of_a_listing():
         "_Z4termPf": [{"instructions": 6, "min_path": 4, "max_path": 6, "mufu": 1}], "_Z4noneP": []}
 
 
+def test_sass_loops_of_every_loop():
+    """For a source without transcendentals (select.cu) every loop counts,
+    the one with no MUFU instruction too."""
+    assert kernel_bench.sass_functions(SASS, mufu_only=False) == {
+        "_Z4termPf": [{"instructions": 6, "min_path": 4, "max_path": 6, "mufu": 1},
+                      {"instructions": 3, "min_path": 3, "max_path": 3, "mufu": 0}], "_Z4noneP": []}
+    assert "select.cu" in kernel_bench.SASS_ALL_LOOPS
+
+
 def test_sass_loops_without_cuobjdump(monkeypatch):
     monkeypatch.setattr(kernel_bench, "cuobjdump", lambda k: None)
     assert kernel_bench.sass_loops(kernels, ("grid.cu",)) == {}
@@ -401,3 +410,63 @@ def test_ptxas_rows_of_round_templates(tmp_path, monkeypatch):
         "ptxas info    : Used 80 registers, 560 bytes cmem[0]\n")
     assert kernel_bench.ptxas(kernels, ("shrink.cu",)) == {"shrink.cu": {"P2 f32 M3": [64, 0, 0],
                                                                          "P2 f64 M1": [80, 12, 16]}}
+
+
+@pytest.mark.parametrize("detail", [False, True])
+def test_select_and_irls_child_on_cpu(monkeypatch, detail):
+    """The ``select`` and ``irls`` suites of one tree's run at small shapes:
+    times beside the sort yardstick, bit-equal to the plain version and to
+    a repeated launch, the plans picked; ``irls`` both ways (the wrapper
+    alone, ``irls_core`` whole), its agreement with the plain loop and the
+    phase-2 tile of a summary run; ``--detail`` the other plans."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.ops import select as sel
+    from pydeseq2_tpu_torch.ops.nb import nb_nll
+
+    _on_cpu(monkeypatch)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(sel, "_select_k_max", lambda device, itemsize: 16)
+    monkeypatch.setattr(irl, "_irls_card_per_sm", lambda device, itemsize, P, lanes: irl._IRLS_PER_SM)
+    plans = {"select": [], "irls": []}
+
+    def plain_select(x, ranks, axis, plan=None):
+        plans["select"].append(plan)
+        return sel.order_stats_select_plain(x, ranks, axis)
+
+    def plain_irls(counts, sf, X, disp, beta_init, log_sf, min_mu, beta_tol, max_beta, maxiter, step_tol,
+                   polish_iters, plan=None):
+        plans["irls"].append(plan)
+        lmm = torch.log(torch.tensor(min_mu, dtype=counts.dtype))
+        mu0, lmu0, _ = irl._mu_from_xb(beta_init, X, sf, log_sf[None, :], min_mu, lmm)
+        r = 1.0 / disp[:, None]
+        const = nb_nll(counts, mu0, disp) - irl._mu_part(counts, counts + r, r, mu0, lmu0)
+        beta, fb, it = irl._irls_plain(counts, sf, X, disp, beta_init, const, log_sf[None, :], min_mu, lmm,
+                                       beta_tol, max_beta, maxiter, step_tol, polish_iters)
+        return beta, fb, torch.full((counts.shape[0],), int(it), dtype=torch.int32)
+
+    monkeypatch.setattr(sel, "_order_stats_select_cuda", plain_select)
+    monkeypatch.setattr(irl, "_irls_cuda", plain_irls)
+    monkeypatch.setattr(kernel_bench, "SELECT_SHAPES", (("f32 tile 12x300", "tile", 12, 300, torch.float32, 1),
+                                                        ("f64 column 500", "column", 1, 500, torch.float64, 1),
+                                                        ("f32 keep quantile 400", "quantile", 1, 400, torch.float32,
+                                                         1)))
+    monkeypatch.setattr(kernel_bench, "IRLS_SHAPES", (("f32 phase 1 12x60 P=3", 60, 12, 3, torch.float32, 8, 1),
+                                                      ("f64 phase 1 10x40 P=2", 40, 10, 2, torch.float64, 8, 1)))
+    monkeypatch.setattr(kernel_bench, "RESCUE_G", 300)
+    res = kernel_bench.child(detail, ("select", "irls"))
+    assert set(res) == {"ptxas", "select", "irls"} | ({"sass_loops"} if detail else set())
+    for label, row in res["select"].items():
+        assert row["bits_equal"] and row["repeat_equal"] and row["select_ms"] > 0 and row["sort_ms"] > 0, label
+        assert any(k.startswith("kernel_ms K=") for k in row) == detail
+    assert res["select"]["f32 tile 12x300"]["plan"] == sel._select_plan(12, 300, 4)._asdict()
+    assert res["select"]["f64 column 500"]["plan"] == {"B": 1, "K": 1, "staged": True}
+    irls_labels = {"f32 phase 1 12x60 P=3", "f64 phase 1 10x40 P=2"}
+    assert irls_labels <= set(res["irls"]) <= irls_labels | {"f32 phase 2 tile"}
+    for label, row in res["irls"].items():
+        assert row["close_share"] == 1.0 and row["flags_share"] == 1.0, label
+        assert row["max_trips"] == row["plain_trips"] and row["irls_ms"] > 0 and row["irls_core_ms"] > 0
+        assert row["plan"] == irl._irls_plan(row["genes"], row["samples"], row["P"])._asdict()
+        assert any(k.startswith("kernel_ms lanes=") for k in row) == detail
+    assert any(p is not None for p in plans["select"] + plans["irls"]) == detail
+    summary = kernel_bench.summary(res)
+    assert {f"select {k}" for k in res["select"]} <= set(summary)

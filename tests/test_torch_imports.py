@@ -119,12 +119,12 @@ def test_public_surface():
 
 def test_argtypes_match_the_c_launchers():
     """The ctypes argtypes of every exported launcher follow its C
-    signature (int, double or pointer, then the stream pointer): nvcc is not
-    here, so this is where a mismatch shows before the card."""
+    signature (int, long long, double or pointer, then the stream pointer):
+    nvcc is not here, so this is where a mismatch shows before the card."""
     import ctypes
     import re
 
-    kinds = {"int": ctypes.c_int, "double": ctypes.c_double}
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "double": ctypes.c_double}
     for name, (source, fn) in {**kernels.KERNELS, **kernels.HELPERS}.items():
         text = (kernels.CSRC / source).read_text()
         sig = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)

@@ -3,9 +3,10 @@
 (``ops/trend.py:_trend_plan``), ``grid_apeglm`` and ``grid_nb``
 (``ops/shrink.py:_grid_plan``), of the trimmed moments of ``cooks`` and
 ``trimmed_var`` (``ops/stats.py:_trim_plan``), of ``sf_nll``
-(``ops/sizefactors.py:_nll_plan``) and of ``shrink``'s candidate rounds
-(``ops/shrink.py:_shrink_round``), on the CPU: pure Python, no kernel
-runs.
+(``ops/sizefactors.py:_nll_plan``), of ``shrink``'s candidate rounds
+(``ops/shrink.py:_shrink_round``), of ``select`` (``ops/select.py:
+_select_plan``) and of ``irls`` (``ops/irls.py:_irls_plan``), on the CPU:
+pure Python, no kernel runs.
 
 Each cluster plan splits the samples into chunks that cover every sample
 once, uses at most 16 blocks a cluster, keeps what a block holds in shared
@@ -18,6 +19,10 @@ right kind per argument. The grid kernels' blocks take every grid row of
 both passes once, ``grid_nb``'s plan from the selected count its caller
 read, with no host read of its own, and ``sf_nll``'s lane groups every
 gene and its chunks every sample once, within a block's shared memory.
+``select``'s clusters take every key of every column once within a
+block's shared memory (streamed exactly where they cannot), and its
+wrapper hands the kernel the tile where it lies; ``irls_core``'s CUDA
+route makes no (G, N) tensor.
 """
 
 import ctypes
@@ -28,6 +33,8 @@ import torch
 
 from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.ops import cooks as ck
+from pydeseq2_tpu_torch.ops import irls as irl
+from pydeseq2_tpu_torch.ops import select as sel
 from pydeseq2_tpu_torch.ops import shrink as sh
 from pydeseq2_tpu_torch.ops import sizefactors as sz
 from pydeseq2_tpu_torch.ops import stats as st
@@ -217,12 +224,13 @@ def recorded(monkeypatch):
     calls = []
     monkeypatch.setattr(kernels, "launch", lambda name, args, device: calls.append((name, args)))
     monkeypatch.setattr(kernels, "check_cuda_operands", lambda *a: None)
+    monkeypatch.setattr(kernels, "check_cuda_device", lambda *a: None)
     monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     return calls
 
 
 def _assert_marshalled(name, args):
-    kinds = {ctypes.c_int: int, ctypes.c_double: float}
+    kinds = {ctypes.c_int: int, ctypes.c_double: float, ctypes.c_longlong: int}
     want = kernels._ARGTYPES[kernels.KERNELS[name][1]]
     assert len(args) == len(want), name
     for a, w in zip(args, want):
@@ -659,3 +667,208 @@ def test_shrink_wrapper_refuses_other_rounds(recorded, P, cands):
     with pytest.raises(ValueError):
         sh._nbinom_glm_cuda(*args, cands=cands)
     assert recorded == []
+
+
+SELECT_CASES = [
+    # (C, L): the size-factor tile and its 1000-sample form, the prior's and
+    # the keep quantile's column, a short column, columns shorter than a
+    # block's rows, ragged groups, the streamed side of one and many columns
+    (100, 60_000), (1_000, 60_000), (1, 60_000), (1, 1_000), (1, 777), (7, 3), (3, 100_000), (13, 5_001),
+    (1, 729_000), (1, 2_000_000), (100, 1_000_000), (132, 1), (1, 1),
+]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("C,L", SELECT_CASES)
+def test_select_plan_covers_and_fits(C, L, itemsize):
+    """Every column in one group of B, every row of a group in one of its K
+    blocks' shares, the staged keys within one block's shared
+    memory, streamed exactly where not even 16 blocks hold them."""
+    plan = sel._select_plan(C, L, itemsize)
+    assert plan.B in (1, 2) and plan.B * itemsize <= 8 and plan.B <= max(1, C)
+    assert 1 <= plan.K <= kernels.MAX_CLUSTER and plan.K & (plan.K - 1) == 0
+    groups = -(-C // plan.B)
+    cols = [c for g in range(groups) for c in range(g * plan.B, min(C, (g + 1) * plan.B))]
+    assert cols == list(range(C))
+    R = -(-L // plan.K)
+    rows = [i for q in range(plan.K) for i in range(q * R, min(L, (q + 1) * R))]
+    assert rows == list(range(L))
+    fits16 = sel._select_smem_bytes(plan.B, -(-L // 16), itemsize, True) <= kernels.SMEM_BLOCK_MAX
+    assert plan.staged == fits16
+    assert sel._select_smem_bytes(plan.B, R, itemsize, plan.staged) <= kernels.SMEM_BLOCK_MAX
+    # the groups' blocks cover the SMs where the rows allow 512 a block
+    if plan.staged and groups * plan.K < 132:
+        assert plan.K == 16 or -(-L // (2 * plan.K)) < 512
+    # a block's keys within 64 KB where 16 blocks allow it, with the fewest blocks that do
+    if plan.B * R * itemsize > 65_536:
+        assert plan.K == 16
+    elif plan.K > 1 and plan.B * -(-L // (plan.K // 2)) * itemsize <= 65_536:
+        assert groups * (plan.K // 2) < 132 and -(-L // plan.K) >= 512
+
+
+def test_select_plan_picks():
+    """One column of 60000 spreads over a cluster of 16; the size-factor
+    tile takes groups of 2 float32 (1 float64) columns on clusters of 8;
+    8-block clusters where the card holds no 16; the staged/streamed edge."""
+    assert sel._select_plan(1, 60_000, 4) == sel.SelectPlan(1, 16, True)
+    assert sel._select_plan(1, 60_000, 4, k_max=8) == sel.SelectPlan(1, 8, True)
+    assert sel._select_plan(100, 60_000, 4) == sel.SelectPlan(2, 8, True)
+    assert sel._select_plan(1_000, 60_000, 4) == sel.SelectPlan(2, 8, True)
+    assert sel._select_plan(100, 60_000, 8) == sel.SelectPlan(1, 8, True)
+    assert sel._select_plan(100, 60_000, 4, adjacent=False) == sel.SelectPlan(1, 4, True)
+    assert sel._select_plan(1, 1_000, 4) == sel.SelectPlan(1, 1, True)
+    assert sel._select_plan(1, 2_048, 4) == sel.SelectPlan(1, 4, True)  # 512 rows a block
+    edge = max(L for L in range(800_000, 1_000_000, 64)
+               if sel._select_smem_bytes(1, -(-L // 16), 4, True) <= kernels.SMEM_BLOCK_MAX)
+    assert sel._select_plan(1, edge, 4).staged and not sel._select_plan(1, edge + 64, 4).staged
+    assert sel._select_smem_bytes(2, 7_500, 4, True) == 512 + 3 * 4_096 + 60_016  # 2 x 7501 keys, 16-aligned
+    assert sel._select_smem_bytes(1, 3_750, 4, False) == 512 + 3 * 2_048
+
+
+def _shapes_made(fn):
+    """Run ``fn`` and return the element counts of every tensor an operator
+    made on the way (TorchDispatchMode: every aten call, views included)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    made = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and not func.is_view:
+                    made.append(t.numel())
+            return out
+
+    with Record():
+        fn()
+    return made
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_select_wrapper_reads_the_tile_in_place(recorded, monkeypatch, axis):
+    """``_order_stats_select_cuda`` hands the kernel the tile's own pointer
+    and strides (columns adjacent for axis 0, rows for axis 1) and makes no
+    tensor of the tile's size: no transposed copy."""
+    monkeypatch.setattr(sel, "_select_k_max", lambda device, itemsize: 16)
+    G, N = 6_000, 12
+    x = torch.randn(G, N, dtype=torch.float32)
+    if axis == 1:
+        x = x.T.contiguous()  # (N, G), each sample's values contiguous
+    ks = (torch.tensor(5), torch.tensor(6))
+    made = _shapes_made(lambda: sel._order_stats_select_cuda(x, ks, axis))
+    assert max(made) < G * N // 2
+    ((name, a),) = recorded
+    assert name == "select"
+    _assert_marshalled(name, a)
+    assert a[:4] == [0, x.data_ptr(), N, G]
+    assert a[4:6] == ([1, N] if axis == 0 else [G, 1])
+    plan = sel._select_plan(N, G, 4, adjacent=axis == 0)
+    assert a[10:] == [plan.B, plan.K, int(plan.staged)]
+
+
+def test_select_wrapper_one_column(recorded, monkeypatch):
+    """A column (the prior's median, the keep quantile) goes to the kernel
+    as it lies, on a cluster of more than one block; a given plan is
+    handed on as it is."""
+    monkeypatch.setattr(sel, "_select_k_max", lambda device, itemsize: 16)
+    col = torch.randn(60_000, dtype=torch.float64)
+    ks = (torch.tensor(29_999), torch.tensor(30_000))
+    sel._order_stats_select_cuda(col[:, None], ks, 0)
+    sel._order_stats_select_cuda(col[:, None], ks[:1], 0, plan=sel.SelectPlan(1, 4, False))
+    (_, a0), (_, a1) = recorded
+    assert a0[1] == col.data_ptr() and a0[2:4] == [1, 60_000] and a0[10] == 1 and a0[11] > 1
+    assert a1[10:] == [1, 4, 0]
+
+
+IRLS_CASES = [
+    # (G, N, P): phase 1 and its phase-2 tile, wider rows, the atlas refit
+    # block and its few hundred refitted genes, wide designs, the edges
+    (60_000, 100, 2), (937, 100, 2), (60_000, 1_000, 2), (5_000, 10_000, 2), (600, 10_000, 2),
+    (60_000, 100, 5), (60_000, 100, 8), (937, 100, 3), (1, 3, 1), (1, 1, 2), (4_000, 4_000, 2), (200_000, 12, 4),
+]
+
+
+@pytest.mark.parametrize("per_sm", [4, 2])
+@pytest.mark.parametrize("G,N,P", IRLS_CASES)
+def test_irls_plan_covers_and_fits(G, N, P, per_sm):
+    """A group size built for the design: a block at atlas widths, else the
+    fewest lanes of at most 16 samples each whose groups fill the card at
+    ``per_sm`` blocks an SM (4 float32, fewer in float64), else 32."""
+    plan = irl._irls_plan(G, N, P, per_sm=lambda lanes: per_sm)
+    assert plan.lanes in irl._irls_lane_choices(P) + (irl._IRLS_BLOCK,)
+    fits = [s for s in irl._irls_lane_choices(P) if s < 32 and G * s >= 132 * per_sm * 256 and -(-N // s) <= 16]
+    assert plan.lanes == (irl._IRLS_BLOCK if N >= 2_048 else (fits[0] if fits else 32))
+
+
+def test_irls_plan_picks():
+    """8 lanes a gene at 100 x 60000, 4 at 12 and 50 samples, 32 at 200 and
+    1000 samples and on the phase-2 tile, a block a gene at atlas widths."""
+    assert irl._irls_plan(60_000, 100, 2) == irl.IrlsPlan(8)
+    assert irl._irls_plan(60_000, 12, 2) == irl.IrlsPlan(4)
+    assert irl._irls_plan(60_000, 50, 2) == irl.IrlsPlan(4)
+    assert irl._irls_plan(60_000, 12, 5) == irl.IrlsPlan(8)
+    assert irl._irls_plan(60_000, 200, 2) == irl.IrlsPlan(32)
+    assert irl._irls_plan(937, 100, 2) == irl.IrlsPlan(32)
+    assert irl._irls_plan(60_000, 1_000, 2) == irl.IrlsPlan(32)
+    assert irl._irls_plan(600, 10_000, 2) == irl.IrlsPlan(256)
+    assert irl._irls_plan(5_000, 10_000, 2) == irl.IrlsPlan(256)
+    assert irl._irls_plan(60_000, 100, 5) == irl.IrlsPlan(8)
+
+
+def test_irls_device_plan_asks_the_occupancy(monkeypatch):
+    """The wrapper's plan fills the card by the blocks an SM holds as the
+    occupancy helper reports them for the type, design and group size: at
+    20000 genes of 100 samples 8 lanes fill 132 SMs of 2 blocks, not of 8."""
+    calls = []
+
+    def helper(name, args, device):
+        calls.append((name, args))
+        ctypes.c_int.from_address(args[-1]).value = per_sm
+
+    monkeypatch.setattr(kernels, "call_helper", helper)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    plans = {}
+    for per_sm in (2, 8):
+        irl._irls_card_per_sm.cache_clear()
+        plans[per_sm] = irl._irls_device_plan(20_000, 100, 2, torch.float64, "cpu")
+    irl._irls_card_per_sm.cache_clear()
+    assert plans == {2: irl.IrlsPlan(8), 8: irl.IrlsPlan(32)}
+    want = kernels._ARGTYPES[kernels.HELPERS["irls_per_sm"][1]]
+    assert calls and all(name == "irls_per_sm" and len(args) == len(want) for name, args in calls)
+    assert {tuple(args[:3]) for _, args in calls} == {(1, 2, 8)}
+
+
+def test_irls_core_cuda_route_makes_no_gn_tensor(recorded, monkeypatch):
+    """``irls_core``'s CUDA route (``_irls_core_cuda``): the launcher gets its
+    operands, the plan and a zeroed counter; nothing it runs makes a (G, N)
+    tensor, and the PyTorch forms of the deviance constant are not called."""
+    for name in ("nb_nll", "_mu_from_xb", "_mu_part"):
+        monkeypatch.setattr(irl, name, lambda *a, **k: pytest.fail("a (G, N) PyTorch pass ran"))
+    G, N, P = 300, 40, 2
+    rng = np.random.default_rng(0)
+    counts = torch.as_tensor(rng.poisson(20.0, (G, N)), dtype=torch.float32)
+    X = torch.as_tensor(np.column_stack([np.ones(N), np.arange(N) % 2]), dtype=torch.float32)
+    sf = torch.ones(N)
+    disp = torch.full((G,), 0.1)
+    beta0 = torch.zeros(G, P)
+    monkeypatch.setattr(irl, "_irls_card_per_sm", lambda device, itemsize, P, lanes: irl._IRLS_PER_SM)
+    kernels.STATS.reset()
+    made = _shapes_made(lambda: irl._irls_core_cuda(counts, sf, X, disp, beta0, 0.5, 1e-6, 30.0, 8, 1e-5, 2))
+    assert max(made) < G * N // 4
+    ((name, a),) = recorded
+    assert name == "irls"
+    _assert_marshalled(name, a)
+    assert a[:4] == [0, P, G, N] and a[4] == counts.data_ptr() and a[14:16] == [8, 2]
+    assert a[16] == irl._irls_plan(G, N, P).lanes
+    assert len(kernels.STATS.irls_trips) == 1
+
+
+def test_irls_wrapper_refuses_unbuilt_groups(recorded):
+    """A design past P = 3 has no 4-lane build: the wrapper raises."""
+    G, N, P = 10, 20, 5
+    x = torch.ones(G, N)
+    with pytest.raises(ValueError, match="not built"):
+        irl._irls_cuda(x, torch.ones(N), torch.ones(N, P), torch.ones(G), torch.zeros(G, P), torch.zeros(N), 0.5,
+                       1e-6, 30.0, 8, 1e-5, 2, plan=irl.IrlsPlan(4))
+    assert not recorded

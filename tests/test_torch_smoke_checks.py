@@ -91,3 +91,53 @@ def test_outlier_required(cs, run):
     other["cooks_outlier"] = np.zeros_like(other["cooks_outlier"])
     with pytest.raises(AssertionError, match="Cook's outlier"):
         cs.account_rescue_exit(seen, counts, GENE, out, other, "planted")
+
+
+def _kernel_as_plain(cs, monkeypatch, lanes=(), beta_shift=0.0, flip=False, extra_trips=0):
+    """``irls_against_plain`` on the CPU: ``_irls_cuda`` answers with the
+    plain loop (PyTorch's constant, every lane at the loop's trip count),
+    changed on ``lanes``: coefficients moved by ``beta_shift``, flags
+    flipped, ``extra_trips`` more trips."""
+
+    def plain(counts, sf, X, disp, beta_init, log_sf, min_mu, beta_tol, max_beta, maxiter, step_tol, polish, plan):
+        beta, fb, it = cs.irls_plain_of({"counts": counts, "sf": sf, "X": X, "disp": disp, "beta_init": beta_init},
+                                        maxiter)
+        trips = torch.full((counts.shape[0],), int(it), dtype=torch.int32)
+        idx = torch.as_tensor(lanes, dtype=torch.int64)
+        beta[idx] += beta_shift
+        fb[idx] ^= flip
+        trips[idx] += extra_trips
+        return beta, fb, trips
+
+    monkeypatch.setattr(irl, "_irls_cuda", plain)
+    monkeypatch.setattr(irl, "_irls_device_plan", lambda G, N, P, dtype, device: irl._irls_plan(G, N, P))
+
+
+@pytest.mark.parametrize("own_noise", [False, True])
+def test_irls_against_plain_accepts_the_plain_loop(cs, monkeypatch, own_noise):
+    """The plain loop passes its own check, by the stated rule and by the
+    plain loop's agreement with itself in other sample orders."""
+    _kernel_as_plain(cs, monkeypatch)
+    ops = cs.irls_case(400, 12, 3, torch.float32, seed=3)
+    _, _, trips, plan = cs.irls_against_plain("rehearsal", ops, 8, own_noise=own_noise)
+    assert plan == irl.IrlsPlan(32) and int(trips.max()) == 8
+
+
+@pytest.mark.parametrize("change,fails", [
+    (dict(lanes=(1, 2), flip=True), False),
+    (dict(lanes=(1, 2, 3), flip=True), True),
+    (dict(lanes=(1, 2), beta_shift=2e-4), False),
+    (dict(lanes=(1, 2, 3), beta_shift=2e-4), True),
+    (dict(lanes=(5,), extra_trips=1), False),
+    (dict(lanes=(5,), extra_trips=2), True),
+])
+def test_irls_against_plain_holds_the_stated_rule(cs, monkeypatch, change, fails):
+    """By the stated rule (2000 lanes): at most 2 lanes beyond 1e-4, at
+    most 2 with other flags, the slowest lanes at most one trip apart."""
+    _kernel_as_plain(cs, monkeypatch, **change)
+    ops = cs.irls_case(2_000, 12, 2, torch.float32, seed=2)
+    if fails:
+        with pytest.raises(AssertionError):
+            cs.irls_against_plain("rehearsal", ops, 250)
+    else:
+        cs.irls_against_plain("rehearsal", ops, 250)
