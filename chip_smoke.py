@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-five hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-six hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -73,7 +73,18 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    float32 phase-2 tiles, where the plain loop does not meet that rule
    against itself with its samples in other orders, to its worst
    agreement (a lane beyond the tolerance agreeing where its float64
-   objective ties);
+   objective ties); ``mom`` in every lane-group plan at 12, 100, 1000 and
+   10000 samples (``mom_plan_checks``: 4, 8 and 32 lanes in registers, 32
+   lanes and a block with the row staged and with part of it divided
+   again; P = 2, and the picked, one staged and one streamed plan at P =
+   1, 5 and on normalised counts; both types), each launched twice and bit
+   for bit, with and without mu, within ``mom_check``'s tolerances (or the
+   plain version's own disagreement with its samples reversed, where that
+   is larger); ``bh_count`` and ``bh_adjust`` (``bh_plan_checks``) on 1,
+   33 and 60000 genes with tied and NaN p-values under sorted, shuffled and
+   non-finite cutoffs (three rows masking every gene), every row picked by
+   a tensor on the card, each launched twice and bit for bit against the
+   plain sweep, the row on clusters of 1-16 blocks, 300 rows of counts;
    ``sf_nll`` also on a
    zero-heavy copy of the trimmed solve's counts, and its lgamma table
    (lgamma(1) = 0 on the card);
@@ -84,7 +95,7 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    (each must be > 0);
 3b. runs ``summary_pipeline`` (counts -> padj) the same way: warm wall,
    genes/s, Cook's outliers, share of finite padj, the independent-filtering
-   row picked, and the launch count of its nine kernels in one run;
+   row picked, and the launch count of its ten kernels in one run;
 3c. runs ``run_lfc_shrink_streamed`` (apeGLM) on phase 3b's results the
    same way: warm wall, genes/s, prior scale, converged share, lanes sent
    to the grid and the launches of ``shrink`` (must be > 0) and
@@ -96,7 +107,7 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 3e. runs ``run_summary_streamed(refit_cooks=True)`` the same way on a draw
    with planted outliers, the counts already on the card: warm wall,
    genes/s, the refit tile, the genes replaced and refitted, and the
-   launches of its eleven kernels in one run (each must be > 0);
+   launches of its twelve kernels in one run (each must be > 0);
 3f. the same at 1000 x 60000, where the automatic gene block streams two
    blocks of 30000 genes;
 3g. runs ``vst_pipeline`` (the blind VST) at 100 x 60000 float32 the same
@@ -104,7 +115,7 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 3h. runs ``run_vst_streamed`` at 1000 x 60000 float32 (two gene blocks);
 3i. runs phase 3e on a zero-inflated draw (a zero in every gene): each run
    must warn and switch to the iterative size factors, whose two kernels
-   must launch beside the eleven; the rounds of the iterative fit;
+   must launch beside the twelve; the rounds of the iterative fit;
 3j. runs the class API at 100 x 60000 float32 with planted outliers:
    ``DeseqDataSet(...).deseq2()``, ``DeseqStats(...).summary()``,
    ``lfc_shrink()`` and ``vst()``: the warm wall of each step, the peak
@@ -197,15 +208,15 @@ N_ATLAS, G_ATLAS_BLOCK = 10_000, 5_000
 # The fine scan's points in phases 2 and 3k (alpha_mle_batch(fine_length=8),
 # the JAX package's documented fine setting).
 FINE_LENGTH = 8
-# The kernels wald_pipeline launches; summary_pipeline adds cooks, bh and
-# lowess. Both launch the rescue tiers' kernels (newton_box, grid_nb) only
+# The kernels wald_pipeline launches; summary_pipeline adds cooks, the BH
+# counts and row (bh_count, bh_adjust) and lowess. Both launch the rescue tiers' kernels (newton_box, grid_nb) only
 # where a lane stays flagged after IRLS, as at 100 x 60000 (1-2 lanes).
 WALD_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "newton_box", "grid_nb", "mom", "trend")
-SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh", "lowess")
+SUMMARY_KERNELS = WALD_KERNELS + ("cooks", "bh_count", "bh_adjust", "lowess")
 # The kernels run_summary_streamed(refit_cooks=True) must launch (phases 3e,
 # 3f): the rescue tiers again only where a lane stays flagged.
-STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "cooks", "bh", "mom", "trend", "lowess",
-                  "impute")
+STREAM_KERNELS = ("select", "disp_scan", "disp_newton", "irls", "hat_wald", "cooks", "bh_count", "bh_adjust", "mom",
+                  "trend", "lowess", "impute")
 # The cluster kernels' own shapes (phase 2, cluster_kernel_checks): the
 # streamed mode of sf_newton at a transcript-level gene list (~200000 rows,
 # float64, whose slab does not fit a block's shared memory); trend_fit and
@@ -948,7 +959,7 @@ def capture_summary_inputs(kw: dict) -> dict:
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import fused
 
-    names = ("hat_wald", "cooks_outliers", "bh_sweep", "device_padj", "_irls_with_rescue",
+    names = ("hat_wald", "cooks_outliers", "bh_rejections", "bh_adjust_row", "device_padj", "_irls_with_rescue",
              "newton_box_nbglm", "grid_fit_beta_batch")
     return capture([(fused, names)], pt.summary_pipeline, "summary", kw)
 
@@ -1039,8 +1050,86 @@ def cooks_ops(N: int, members, ntrims) -> int:
     return per + 22 * N
 
 
+def bh_check(name: str, seen: dict, reps: int, timings: dict) -> int:
+    """``bh_count`` and ``bh_adjust`` against their plain versions on the
+    operands one ``summary_pipeline`` run hands ``bh_rejections`` and
+    ``bh_adjust_row`` (and as the whole sweep, with one row and in float32
+    operands), each launched twice, bit for bit; the run's padj against the
+    plain sweep's row at the run's pick. Fills ``timings`` (``reps`` > 0)
+    and returns the picked row."""
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    # Exact: the same order, products, quotients and minima as the plain
+    # versions, and the count as the rank of a row's last rejection.
+    rej_run = seen["bh_rejections"][2]
+    p, order, valid, base_mean, cutoffs, alpha = bound_args(st.bh_rejections, *seen["bh_rejections"][:2])
+    rargs = bound_args(st.bh_adjust_row, *seen["bh_adjust_row"][:2])
+    j_run = rargs[-1]
+    for label, sweep_args in (
+        ("50 rows", (p, order, valid, base_mean, cutoffs, alpha)),
+        ("1 row", (p, order, valid, None, None, alpha)),
+        ("50 rows, float32 operands", (p.float(), order, valid, base_mean.float(), cutoffs.float(), alpha)),
+    ):
+        adj_p, rej_p = st._bh_sweep_plain(*sweep_args)
+        for rep in range(2):
+            rej_k = st._bh_count_cuda(*sweep_args)
+            check(torch.equal(rej_k, rej_p), f"bh {name} {label}: rejection counts differ from (adj < alpha).sum(1)"
+                                             f" (launch {rep + 1})")
+            adj_k = st._bh_adjust_cuda(*sweep_args[:5], None)
+            check(bits_equal(adj_k, adj_p),
+                  f"bh {name} {label}: adjusted p-values not bit-identical (launch {rep + 1})")
+        check(torch.equal(st._bh_sweep_cuda(*sweep_args)[1], rej_p), f"bh {name} {label}: bh_sweep's counts differ")
+    adj_p, rej_p = st._bh_sweep_plain(p, order, valid, base_mean, cutoffs, alpha)
+    check(torch.equal(rej_run, rej_p), f"bh {name}: the run's counts differ from the plain sweep's")
+    rows = cutoffs.shape[0]
+    # The run's padj is the plain sweep's row at the run's pick.
+    filter_row = int(j_run)
+    check(bits_equal(seen["device_padj"][2], adj_p[filter_row]),
+          f"bh {name}: the run's padj is not the plain sweep's row j = {filter_row}")
+    log(f"  bh {name}: ({rows}, {p.shape[0]}), 1 row, and float32 operands: counts and rows bit-identical, each "
+        f"launched twice; rejections per row {rej_p.tolist()[:3]}...{rej_p.tolist()[-3:]}; filter row j = "
+        f"{filter_row}, the run's padj the plain row")
+    if reps:
+        Gp = p.shape[0]
+        bargs = (p, order, valid, base_mean, cutoffs, alpha)
+        timings["bh_count"] = {
+            "ms": cuda_ms(lambda: st._bh_count_cuda(*bargs), reps),
+            "plain_ms": cuda_ms(lambda: st._bh_count_plain(*bargs), reps),
+            "library_ms": None,
+            "sort_ms": cuda_ms(lambda: torch.argsort(p, stable=True), reps),
+            # reads p, order, valid and base_mean once, the cutoffs; writes
+            # the counts
+            "bytes": Gp * sum(x.element_size() for x in (p, order, valid, base_mean)) + rows * (8 + 8),
+            # per row and masked gene (the rows' masks are nested): the
+            # rank, the product, the comparison with alpha rank (a fused
+            # multiply-add) and the running maximum
+            "ops": 5 * int(_bh_pairs(valid, base_mean, cutoffs, p)),
+            "ops_per_s": F64_OPS_PER_S,
+        }
+        timings["bh_adjust"] = {
+            "ms": cuda_ms(lambda: st._bh_adjust_cuda(*rargs), reps),
+            "plain_ms": cuda_ms(lambda: st._bh_adjust_plain(*rargs), reps),
+            "library_ms": None,
+            "all_rows_ms": cuda_ms(lambda: st._bh_adjust_cuda(*bargs[:5], None), reps),
+            # gathers p, valid, base_mean and reads order once; writes one row
+            "bytes": Gp * sum(x.element_size() for x in (p, order, valid, base_mean)) + 8 + Gp * 8,
+            # per gene: the mask (3 compares), rank, product, quotient,
+            # minimum, clip
+            "ops": 8 * Gp,
+            "ops_per_s": F64_OPS_PER_S,
+        }
+    return filter_row
+
+
+def _bh_pairs(valid, base_mean, cutoffs, p) -> torch.Tensor:
+    """The (row, gene) pairs inside the masks of a BH sweep: the work the
+    counts' bound counts."""
+    mask = valid & ~torch.isnan(p)
+    return ((base_mean[None, :] >= cutoffs[:, None]) & mask[None, :]).sum()
+
+
 def summary_kernel_checks(dtype, G, N, reps, timings, outliers=False):
-    """Phase 2, summary kernels: hat_wald, cooks and bh against their plain
+    """Phase 2, summary kernels: hat_wald, cooks, bh_count and bh_adjust against their plain
     versions on the inputs ``summary_pipeline`` hands them. Returns
     ({name: max_abs_err}, the filter row, the captured run) and fills
     ``timings`` (float32 only)."""
@@ -1102,48 +1191,9 @@ def summary_kernel_checks(dtype, G, N, reps, timings, outliers=False):
     cargs = seen["cooks_outliers"][0]
     errs["cooks"] = cooks_check(name, cargs, reps if f32 else 0, timings)
 
-    # -- kernel 9: the batched BH sweep of independent filtering -------------
-    bargs, _, (adj_run, _) = seen["bh_sweep"]
-    p, order, valid, base_mean, cutoffs, alpha = bargs
-    for label, sweep_args in (
-        ("50 rows", bargs),
-        ("1 row", (p, order, valid, None, None, alpha)),
-        ("50 rows, float32 operands", (p.float(), order, valid, base_mean.float(), cutoffs.float(), alpha)),
-    ):
-        adj_k, rej_k = st._bh_sweep_cuda(*sweep_args)
-        adj_p, rej_p = st._bh_sweep_plain(*sweep_args)
-        # Exact: the same order, products, quotients and minima.
-        nan_k, nan_p = torch.isnan(adj_k), torch.isnan(adj_p)
-        check(torch.equal(nan_k, nan_p), f"bh {name} {label}: NaN masks differ")
-        check(torch.equal(adj_k.masked_fill(nan_k, 0.0), adj_p.masked_fill(nan_p, 0.0)),
-              f"bh {name} {label}: adjusted p-values not bit-identical")
-        check(torch.equal(rej_k, rej_p), f"bh {name} {label}: rejection counts differ")
-    rows = cutoffs.shape[0]
-    # The cutoff row the independent filter picked: the first row of the
-    # run's sweep equal to the run's padj (rows that equal it are the same
-    # adjustment). Adjusted values lie in [0, 1], so NaN is compared as 2.
-    padj_run = seen["device_padj"][2].nan_to_num(2.0)
-    same = [torch.equal(r.nan_to_num(2.0), padj_run) for r in adj_run]
-    check(any(same), f"bh {name}: the run's padj is no row of its sweep")
-    filter_row = same.index(True)
-    log(f"  bh {name}: ({rows}, {p.shape[0]}), 1 row, and float32 operands bit-identical; "
-        f"rejections per row {rej_k.tolist()[:3]}...{rej_k.tolist()[-3:]}; filter row j = {filter_row}")
-    errs["bh"] = 0.0
-    if f32:
-        Gp = p.shape[0]
-        timings["bh"] = {
-            "ms": cuda_ms(lambda: st._bh_sweep_cuda(*bargs), reps),
-            "plain_ms": cuda_ms(lambda: st._bh_sweep_plain(*bargs), reps),
-            "library_ms": None,
-            "sort_ms": cuda_ms(lambda: torch.argsort(p, stable=True), reps),
-            # reads p, base_mean (f64), order (i32), valid (u8), the cutoffs;
-            # writes adj (rows x G f64) and the counts
-            "bytes": Gp * (8 + 8 + 4 + 1) + rows * 8 + rows * Gp * 8 + rows * 8,
-            # per row and gene: mask (3 compares), rank count, product,
-            # quotient, rank clamp, minimum, clip, compare with alpha
-            "ops": 10 * rows * Gp,
-            "ops_per_s": F64_OPS_PER_S,
-        }
+    # -- kernel 9: BH, the counts of the 50 cutoff rows and the picked row ----
+    filter_row = bh_check(name, seen, reps if f32 else 0, timings)
+    errs["bh_count"] = errs["bh_adjust"] = 0.0
     return errs, filter_row, seen
 
 
@@ -3023,6 +3073,201 @@ def irls_plan_checks() -> dict:
     return plans
 
 
+# mom's plan checks: (samples, genes in float32, genes in float64), every
+# lane-group plan the row takes, on each side of the staged/streamed edge.
+MOM_PLAN_SHAPES = ((12, 20_000, 4_000), (100, G_MAIN, 4_000), (1_000, 6_000, 2_000), (10_000, 600, 300))
+
+
+def mom_case(G: int, N: int, P: int, dtype, normed: bool):
+    """(counts, sf, X, pinv) of one ``mom`` call on ``make_data(N, G)``: the
+    draw's design (P = 1 its intercept, P = 5 with indicators of a seeded
+    4-level batch), median-of-ratios size factors, the counts divided by
+    them where ``normed``."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G)
+    X_np = X_np[:, :P]
+    if P > 2:
+        batch = np.random.default_rng(1).integers(0, P - 1, N)
+        X_np = np.column_stack([X_np] + [(batch == b).astype(float) for b in range(1, P - 1)])
+    c = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    logc = torch.log(c)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    return (c / sf if normed else c), sf, X, torch.linalg.pinv(X)
+
+
+def mom_plan_list(lin, N: int, itemsize: int) -> list:
+    """The plan the wrapper picks for N samples, every register plan that
+    holds the row, and 32 lanes and a block with the row staged as the
+    picker stages it and with part of it streamed (divided again in the
+    second pass)."""
+    plans = [lin._mom_plan(N, itemsize)]
+    for lanes in (4, 8, 32):
+        if N <= lin._MOM_REG_ITEMS * lanes:
+            plans.append(lin.MomPlan(lanes, 0))
+    for lanes, budget in ((32, lin._MOM_GROUP_STAGE), (lin._MOM_BLOCK, lin._MOM_BLOCK_STAGE)):
+        plans += [lin.MomPlan(lanes, min(N, budget // itemsize)), lin.MomPlan(lanes, max(1, N // 3))]
+    return list(dict.fromkeys(plans))
+
+
+def mom_errs(got, want) -> dict:
+    """``mom_check``'s measure of two ``mom_and_mu_coef`` results, by
+    output: relative, absolute below 1; coefficients relative to the
+    gene's largest."""
+    errs = {}
+    for key, a, b in zip(("rough", "moments", "coef", "mu"), got, want):
+        if b is None:
+            continue
+        if key == "coef":
+            errs[key] = ((a - b).abs() / torch.clamp(b.abs().amax(1, keepdim=True), min=1.0)).max().item()
+        else:
+            errs[key] = scaled_err(a, b)
+    return errs
+
+
+def mom_plain_noise(lin, c, sf, X, pinv, normed) -> dict:
+    """The plain version against itself with the samples reversed (the
+    same function, its float32 sums and products in another order), by
+    output: the rounding noise of the reference."""
+    want = lin._mom_plain(c, sf, X, pinv, 0.5, True, normed)
+    rev = lin._mom_plain(c.flip(1), sf.flip(0), X.flip(0), pinv.flip(1), 0.5, True, normed)
+    return mom_errs((*rev[:3], rev[3].flip(1)), want)
+
+
+def mom_plan_checks() -> dict:
+    """``mom`` in every plan (``mom_plan_list``) at 12, 100, 1000 and 10000
+    samples (MOM_PLAN_SHAPES), P = 2 on raw counts, and in the picked plan
+    and one staged and one streamed plan at P = 1, 5 and in the normed-count
+    mode, float32 and float64: each launched twice and equal to itself bit
+    for bit, with and without mu, within ``mom_check``'s tolerances of the
+    plain version (1e-5 / 1e-12 relative, absolute below 1; coefficients
+    relative to the gene's largest). Where the plain version misses that
+    tolerance against itself with its samples reversed
+    (``mom_plain_noise``: 12 samples at P = 5, 7 residual degrees of
+    freedom, where a rough estimate sums terms of very different sizes),
+    its own disagreement is the limit of that output, as ``irls``'s plan
+    checks take the plain loop's. Returns {label: picked plan}."""
+    from pydeseq2_tpu_torch.ops import linreg as lin
+
+    picked = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        isz = torch.finfo(dtype).bits // 8
+        for N, g32, g64 in MOM_PLAN_SHAPES:
+            G = g32 if dtype == torch.float32 else g64
+            every = mom_plan_list(lin, N, isz)
+            for P, normed in ((2, False), (1, False), (5, False), (2, True)):
+                c, sf, X, pinv = mom_case(G, N, P, dtype, normed)
+                label = f"{name} {N} x {G} P={P}{' normed' if normed else ''}"
+                plans = every if (P, normed) == (2, False) else [every[0], every[-4], every[-1]]
+                want = lin._mom_plain(c, sf, X, pinv, 0.5, True, normed)
+                noise = mom_plain_noise(lin, c, sf, X, pinv, normed)
+                limit = {k: max(rtol, v) for k, v in noise.items()}
+                worst = {}
+                for plan in dict.fromkeys(plans):
+                    got = lin._mom_cuda(c, sf, X, pinv, 0.5, True, normed, plan=plan)
+                    again = lin._mom_cuda(c, sf, X, pinv, 0.5, True, normed, plan=plan)
+                    no_mu = lin._mom_cuda(c, sf, X, pinv, 0.5, False, normed, plan=plan)
+                    check(all(bits_equal(a, b) for a, b in zip(got, again)),
+                          f"mom {label} plan {tuple(plan)}: a second launch differs")
+                    check(no_mu[3] is None and all(bits_equal(a, b) for a, b in zip(no_mu[:3], got[:3])),
+                          f"mom {label} plan {tuple(plan)}: the launch without mu differs")
+                    for key, e in mom_errs(got, want).items():
+                        worst[key] = max(worst.get(key, 0.0), e)
+                        check(e <= limit[key], f"mom {label} plan {tuple(plan)} {key}: rel err {e:.3g} > "
+                                               f"{limit[key]:.3g} (the plain version against itself {noise[key]:.3g})")
+                picked[label] = every[0]._asdict()
+                log(f"  mom plans {label}: {[tuple(p) for p in dict.fromkeys(plans)]} (picked {tuple(every[0])}), "
+                    f"each launched twice, bits equal; rel err (abs below 1) "
+                    + ", ".join(f"{k} {v:.3g} (limit {limit[k]:.3g}, plain against itself {noise[k]:.3g})"
+                                for k, v in worst.items()))
+                del c, want
+                torch.cuda.empty_cache()
+    return picked
+
+
+# bh's plan checks: gene counts of the draws, and the cutoff sets (see
+# bh_cutoff_sets).
+BH_PLAN_G = (1, 33, G_MAIN)
+
+
+def bh_draw(G: int, seed: int = 40):
+    """p-values with ties (rounded to 4 digits) and ~5% NaN, base means
+    with ~10% zeros, a ~97% valid mask, as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    p = np.where(rng.random(G) < 0.3, rng.uniform(0, 1e-3, G), rng.uniform(0, 1, G))
+    p = np.round(p, 4)
+    p[rng.random(G) < 0.05] = np.nan
+    base_mean = np.where(rng.random(G) < 0.1, 0.0, rng.lognormal(2.0, 2.0, G))
+    return p, base_mean, rng.random(G) < 0.97
+
+
+def bh_cutoff_sets(base_mean: np.ndarray) -> dict:
+    """The filter's 50 quantile cutoffs in order, the same shuffled, and an
+    unsorted set with -inf, +inf, NaN, a repeat and a cutoff above every
+    base mean (so three rows mask every gene out)."""
+    cut = np.quantile(base_mean, np.linspace(0.1, 0.95, 50))
+    rng = np.random.default_rng(41)
+    edges = np.r_[cut[:44], np.inf, -np.inf, np.nan, cut[5], base_mean.max() * 2 + 1, 0.0]
+    return {"sorted": cut, "unsorted": rng.permutation(cut), "edges": rng.permutation(edges)}
+
+
+def bh_plan_checks() -> dict:
+    """``bh_count`` and ``bh_adjust`` on BH_PLAN_G genes (p with ties and
+    NaN, zero base means) under each cutoff set of ``bh_cutoff_sets``, in
+    float64 and float32 operands: the counts against the plain
+    ``(adj < alpha).sum(1)`` and every row j, picked by a 0-d tensor on the
+    card, against the plain sweep's row, each launched twice and bit for
+    bit; the one row without cutoffs; the picked row on clusters of 1, 2,
+    4, 8 and 16 blocks (more than one round of the order below 15); 300
+    rows of counts (two launches of at most 256). Returns {label: counts
+    of the first rows}."""
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = "f64" if dtype == torch.float64 else "f32"
+        for G in BH_PLAN_G:
+            p_np, bm_np, valid_np = bh_draw(G)
+            p = torch.as_tensor(p_np, dtype=dtype, device=DEVICE)
+            order = torch.argsort(torch.nan_to_num(p, nan=2.0), stable=True)
+            valid = torch.as_tensor(valid_np, device=DEVICE)
+            bm = torch.as_tensor(bm_np, dtype=dtype, device=DEVICE)
+            for cname, cut_np in bh_cutoff_sets(bm_np).items():
+                cut = torch.as_tensor(cut_np, dtype=dtype, device=DEVICE)
+                label = f"{name} {G} genes, {cname} cutoffs"
+                adj_p, rej_p = st._bh_sweep_plain(p, order, valid, bm, cut, 0.05)
+                for rep in range(2):
+                    check(torch.equal(st._bh_count_cuda(p, order, valid, bm, cut, 0.05), rej_p),
+                          f"bh {label}: counts differ from (adj < alpha).sum(1) (launch {rep + 1})")
+                bad = [j for j in range(cut.shape[0]) for _ in range(2)
+                       if not bits_equal(st.bh_adjust_row(p, order, valid, bm, cut,
+                                                          torch.tensor(j, device=DEVICE)), adj_p[j])]
+                check(not bad, f"bh {label}: rows {sorted(set(bad))} differ from the plain sweep's")
+                out[label] = rej_p.tolist()[:4]
+            one_p = st._bh_adjust_plain(p, order, valid, None, None, None)[0]
+            for rep in range(2):
+                check(bits_equal(st.bh_adjust_row(p, order, valid), one_p),
+                      f"bh {name} {G} genes: the row without cutoffs differs (launch {rep + 1})")
+            if G == G_MAIN:
+                cut = torch.as_tensor(bh_cutoff_sets(bm_np)["unsorted"], dtype=dtype, device=DEVICE)
+                want = st._bh_sweep_plain(p, order, valid, bm, cut, 0.05)[0][7]
+                for K in (1, 2, 4, 8, 16):
+                    got = st._bh_adjust_cuda(p, order, valid, bm, cut, torch.tensor(7, device=DEVICE), cluster=K)
+                    check(bits_equal(got[0], want), f"bh {name}: the row on a cluster of {K} differs")
+                many = torch.as_tensor(np.random.default_rng(42).permutation(
+                    np.quantile(bm_np, np.linspace(0.0, 0.99, 300))), dtype=dtype, device=DEVICE)
+                check(torch.equal(st._bh_count_cuda(p, order, valid, bm, many, 0.05),
+                                  st._bh_sweep_plain(p, order, valid, bm, many, 0.05)[1]),
+                      f"bh {name}: the counts of 300 rows differ")
+    log(f"  bh plans: counts and every row bit for bit on {len(out)} draws, float64 and float32, each launched "
+        f"twice; clusters of 1-16 blocks; 300 rows")
+    return out
+
+
 def plan_edge(fits, lo: int, hi: int) -> int:
     """The largest n in [lo, hi) with fits(n), fits monotone (True, then
     False)."""
@@ -3364,11 +3609,11 @@ def sf_vst_card_vs_cpu() -> None:
 # (size-factor and MAD medians, MoM in its normed-count mode, the dispersion
 # fits, the trend fit once per exclusion round, IRLS and the hat-only entry,
 # the trimmed cell variances of Cook's), summary() (the Wald-only entry, the
-# BH sweep, the lowess pick), lfc_shrink() and vst(). The rescue tiers
+# BH counts, the lowess pick, the picked row), lfc_shrink() and vst(). The rescue tiers
 # launch only where a lane stays flagged after IRLS, grid_apeglm only where
 # Newton fails: their counts are reported, not required.
 CLASS_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend_fit", "irls", "hat", "trimmed_var", "wald",
-                 "bh", "lowess", "shrink", "vst")
+                 "bh_count", "bh_adjust", "lowess", "shrink", "vst")
 
 
 def class_inputs(N: int, G: int, seed: int = 0):
@@ -3893,6 +4138,8 @@ def main() -> int:
     plans.update(grid_nb_plan_checks(readings))
     plans.update(select_plan_checks())
     plans.update(irls_plan_checks())
+    plans.update(mom_plan_checks())
+    plans.update(bh_plan_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -3963,7 +4210,8 @@ def main() -> int:
                      "pydeseq2_tpu/ops/irls.py:444 + pydeseq2_tpu/ops/wald.py:28", "hat_wald"),
         "cooks": ("pydeseq2_tpu_torch/csrc/cooks.cu",
                   "pydeseq2_tpu/ops/stats.py:108 + pydeseq2_tpu/fused.py:702", "cooks"),
-        "bh": ("pydeseq2_tpu_torch/csrc/bh.cu", "pydeseq2_tpu/ops/stats.py:145", "bh"),
+        "bh_count": ("pydeseq2_tpu_torch/csrc/bh.cu", "pydeseq2_tpu/ops/stats.py:145", "bh_count"),
+        "bh_adjust": ("pydeseq2_tpu_torch/csrc/bh.cu", "pydeseq2_tpu/ops/stats.py:145", "bh_adjust"),
         "shrink": ("pydeseq2_tpu_torch/csrc/shrink.cu", "pydeseq2_tpu/ops/shrink.py:101", "shrink"),
         "grid_apeglm": ("pydeseq2_tpu_torch/csrc/grid.cu", "pydeseq2_tpu/ops/shrink.py:258", "grid_apeglm"),
         "mom": ("pydeseq2_tpu_torch/csrc/mom.cu", "pydeseq2_tpu/ops/linreg.py:23,52,76", "mom"),
@@ -4009,12 +4257,12 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
+        for extra in ("sort_ms", "all_lanes_ms", "all_rows_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
                       "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells"):
             if extra in t:
-                # the sort before the BH sweep, or the torch.sort yardstick of
+                # the sort before the BH counts, or the torch.sort yardstick of
                 # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
-                # of its tile; cooks in the streamed refit mode; mom writing mu;
+                # of its tile; bh_adjust over every row; cooks in the streamed refit mode; mom writing mu;
                 # the Newton steps of one sf_newton launch; trimmed_var over the
                 # mean trend's one column; the atlas block's times of disp_scan
                 # and disp_newton; the reduction passes of one trend or
@@ -4034,7 +4282,8 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select and irls kernel plans: " + json.dumps(plans))
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom and bh kernel plans: "
+        + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)
     print(card_line(), flush=True)

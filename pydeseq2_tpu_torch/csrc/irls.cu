@@ -77,91 +77,6 @@ template <typename T> struct IrlsArgs {
   int* trips_out;
 };
 
-__host__ __device__ constexpr int pow2_ceil(int v) {
-  int p = 1;
-  while (p < v) p <<= 1;
-  return p;
-}
-
-// Recursive halving over the lanes of a group (offsets O, O/2, ..., 1):
-// while a lane holds CNT > 1 values it keeps one half and adds its
-// partner's copy of it; with one value left the rounds are a butterfly
-// (a + b in one lane, b + a in the other: the same bits).
-template <int O, int CNT, int VP, typename U>
-__device__ __forceinline__ void halve(U (&b)[VP], unsigned mask, int gl) {
-  if constexpr (O >= 1) {
-    if constexpr (CNT > 1) {
-      constexpr int H = CNT / 2;
-      const bool up = (gl & O) != 0;
-#pragma unroll
-      for (int i = 0; i < H; ++i) {
-        const U send = up ? b[i] : b[i + H];
-        const U keep = up ? b[i + H] : b[i];
-        b[i] = keep + __shfl_xor_sync(mask, send, O);
-      }
-      halve<O / 2, H, VP>(b, mask, gl);
-    } else {
-      b[0] = b[0] + __shfl_xor_sync(mask, b[0], O);
-      halve<O / 2, 1, VP>(b, mask, gl);
-    }
-  }
-}
-
-// After halve<S/2, VP>: the lane (offset in the group) and slot that hold
-// the total of value v.
-template <int S, int VP> __host__ __device__ constexpr int owner_lane(int v) {
-  int src = 0;
-  for (int o = S / 2, h = VP / 2; o >= 1 && h >= 1; o /= 2, h /= 2)
-    if (v & h) src += o;
-  return src;
-}
-template <int S, int VP> __host__ __device__ constexpr int owner_slot(int v) {
-  int cnt = VP;
-  for (int o = S / 2; o >= 1 && cnt > 1; o /= 2) cnt /= 2;
-  return v & (cnt - 1);
-}
-
-// The V sums of a pass over the S <= 32 lanes of a group; every lane ends
-// with the totals. Designs past P = 6 (more than 32 sums) take one
-// butterfly a value.
-template <int S, int V, typename U>
-__device__ __forceinline__ void group_sum(U (&v)[V], unsigned mask, int gl) {
-  constexpr int VP = pow2_ceil(V);
-  if constexpr (VP > WARP) {
-#pragma unroll
-    for (int i = 0; i < V; ++i)
-#pragma unroll
-      for (int o = S / 2; o >= 1; o /= 2) v[i] = v[i] + __shfl_xor_sync(mask, v[i], o);
-  } else {
-    U b[VP];
-#pragma unroll
-    for (int i = 0; i < VP; ++i) b[i] = i < V ? v[i] : U(0);
-    halve<S / 2, VP, VP>(b, mask, gl);
-#pragma unroll
-    for (int i = 0; i < V; ++i) v[i] = __shfl_sync(mask, b[owner_slot<S, VP>(i)], owner_lane<S, VP>(i), S);
-  }
-}
-
-// The same over a block of BLOCK_LANES: each warp's totals, then the warps'
-// in order through shared memory.
-template <int V, typename U>
-__device__ __forceinline__ void block_sum(U (&v)[V], U* red) {
-  const int lane = threadIdx.x & (WARP - 1), w = threadIdx.x / WARP;
-  group_sum<WARP, V>(v, FULL, lane);
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) red[w * V + i] = v[i];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    U s = red[i];
-    for (int j = 1; j < THREADS / WARP; ++j) s = s + red[j * V + i];
-    v[i] = s;
-  }
-  __syncthreads();
-}
-
 // One sample's share of nll_const: nb_nll_terms(y, mu, 1/r) minus the
 // mu-part (y + r) log1p(mu/r) - y log_mu, in the forms and order of
 // ops/nb.py (plain where r < 8, the Stirling difference above).
@@ -323,7 +238,7 @@ __global__ void __launch_bounds__(THREADS) irls_kernel(IrlsArgs<T> a) {
       }
     }
     if constexpr (BLOCK) {
-      block_sum<V>(acc, s_red);
+      block_sum<THREADS, V>(acc, s_red);
     } else {
       group_sum<S, V>(acc, mask, gl);
     }

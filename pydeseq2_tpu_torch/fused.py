@@ -29,7 +29,8 @@ from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.select import masked_median_select
 from pydeseq2_tpu_torch.ops.nb import _psi_series_f64
 from pydeseq2_tpu_torch.ops.stats import (
-    bh_sweep,
+    bh_adjust_row,
+    bh_rejections,
     lowess_pick,
     nanmedian,
     nanquantile,
@@ -468,11 +469,13 @@ def device_padj(
     """Adjusted p-values (G,), float64: BH over the valid genes, or
     independent filtering, on the device with no host read.
 
-    Independent filtering (reference pydeseq2/ds.py:486-542) sweeps 50
-    base-mean cutoffs as one launch of the ``bh`` kernel over one shared
-    order of the p-values, fits a lowess through the rejection counts and
-    picks the first cutoff whose count clears the fit's maximum less its
-    residual RMS (one launch of the ``lowess`` kernel). Port of
+    Independent filtering (reference pydeseq2/ds.py:486-542) counts the
+    rejections at 50 base-mean cutoffs over one shared order of the
+    p-values (one launch of the ``bh_count`` kernel), fits a lowess through
+    the counts and picks the first cutoff whose count clears the fit's
+    maximum less its residual RMS (one launch of the ``lowess`` kernel),
+    then adjusts that one row (one launch of ``bh_adjust``, which reads the
+    pick on the card); no (50, G) matrix is made. Port of
     ``pydeseq2_tpu/fused.py:731``.
     """
     dtype = base_mean.dtype
@@ -484,7 +487,7 @@ def device_padj(
     p_filled = torch.nan_to_num(p, nan=1.0).to(torch.float64)
     order = torch.argsort(p_filled, stable=True)
     if not independent_filter:
-        return bh_sweep(p_filled, order, valid, alpha=alpha)[0][0]
+        return bh_adjust_row(p_filled, order, valid)
 
     base_m = torch.where(gene_mask, base_mean, nan)
     # int / int is float64 in JAX under x64; torch would give float32.
@@ -495,9 +498,9 @@ def device_padj(
     )
     theta = lower_q + (upper_q - lower_q) * _linspace(0.0, 1.0, 50, dtype, dev)
     cutoffs = nanquantile(base_m, theta)
-    adj, num_rej = bh_sweep(p_filled, order, valid, base_mean, cutoffs, alpha)  # (50, G), (50,)
+    num_rej = bh_rejections(p_filled, order, valid, base_mean, cutoffs, alpha)  # (50,)
     _, j = lowess_pick(theta, num_rej, frac=1.0 / 5.0)
-    return adj.index_select(0, j.reshape(1))[0]
+    return bh_adjust_row(p_filled, order, valid, base_mean, cutoffs, j)
 
 
 def summary_host_inputs(design_matrix, min_replicates: int = 7) -> dict:

@@ -6,8 +6,10 @@ trimmed size-factor solve's ``sf_newton`` round and ``sf_nll`` pass
 exclusion rounds and the standalone ``trend_fit`` (``trend``), the trimmed
 moments of ``cooks`` and ``trimmed_var`` (``cooks``), the grid rescues
 ``grid_apeglm`` and ``grid_nb`` (``grid``), the apeGLM MAP fit
-``shrink`` (``shrink``), the order statistics of ``select`` (``select``)
-and the masked IRLS ``irls`` (``irls``).
+``shrink`` (``shrink``), the order statistics of ``select`` (``select``),
+the masked IRLS ``irls`` (``irls``), the method-of-moments pass ``mom``
+(``mom``) and the Benjamini-Hochberg kernels of the independent filter
+(``bh``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -15,7 +17,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-eight by default). To compare two versions in one call, name them parent,
+ten by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -134,6 +136,30 @@ share of lanes within 1e-4 (f32) / 1e-7 (f64) of the plain version, of
 equal flags, the slowest lane's trips beside the plain loop's, and the
 plan; ``--detail`` every lane count the design builds.
 
+``mom`` shapes (MOM_SHAPES): ``make_data``'s counts and design (P = 1 the
+intercept, P = 5 with a seeded batch's indicators, as :func:`inputs`),
+median-of-ratios size factors: 100 x 60000 float32 at P = 1, 2, 5 without
+mu, P = 2 with mu and on normalised counts (the class API's mode), 12 x
+60000, 1000 x 60000, the atlas block 5000 x 10000 at P = 1, and 100 x
+60000 float64. Per shape the events and device times (kernels named
+``mom``; the device time of everything the wrapper runs holds the
+parent's PyTorch mean(1/sf)), the largest relative difference from the
+plain version, the plan where the tree has one, and as the yardstick the
+device time of ``torch.matmul`` of the normalised counts and pinv(X)^T,
+the OLS product alone; ``--detail`` every other plan built for the shape.
+
+``bh`` shapes: the operands of ``device_padj`` in ``summary_pipeline`` on
+``make_data(100, BH_G)`` float32 (p-values as float64, their stable order,
+the valid mask, 50 base-mean cutoffs; base means and cutoffs widened to
+float64), the row the run's lowess picks. Per tree the events and device
+times (kernels named ``bh_``) of the whole (50, G) sweep
+(``_bh_sweep_cuda``), of the one row without cutoffs (the
+``independent_filter=False`` path), of ``device_padj`` whole in both
+modes, and, where the tree has them, of the counts alone, the picked row
+alone and the two together; the sweep with float32 operands; whether the
+kernels equal the plain versions bit for bit; and as the yardstick the
+device time of ``torch.argsort(stable=True)`` of the p-values.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -166,7 +192,21 @@ import torch  # noqa: E402
 DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
-          "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",)}
+          "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",),
+          "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu")}
+MOM_SHAPES = (
+    # label, genes, samples, P, dtype, want_mu, normed, timed calls
+    ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, False, False, 20),
+    ("f32 100x60000 P=2 mu", 60_000, 100, 2, torch.float32, True, False, 20),
+    ("f32 100x60000 P=1", 60_000, 100, 1, torch.float32, False, False, 20),
+    ("f32 100x60000 P=5", 60_000, 100, 5, torch.float32, False, False, 20),
+    ("f32 100x60000 P=2 normed", 60_000, 100, 2, torch.float32, False, True, 20),
+    ("f32 12x60000 P=2", 60_000, 12, 2, torch.float32, False, False, 20),
+    ("f32 1000x60000 P=2", 60_000, 1_000, 2, torch.float32, False, False, 10),
+    ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, False, False, 10),
+    ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, False, False, 20),
+)
+BH_G = 60_000  # genes of the draw whose device_padj operands the bh suite takes
 SELECT_SHAPES = (
     # label, kind ("tile", "column" or "quantile"), columns, values a column, dtype, timed calls
     ("f32 tile 100x60000", "tile", 100, 60_000, torch.float32, 20),
@@ -323,7 +363,8 @@ def inputs(G: int, N: int, P: int, dtype):
 def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
     f32|f64" for a kernel templated on the design width ("P<p> f32|f64 M<m>"
-    where also on shrink's round size, "... S<s>" on irls' lanes a gene), "<kernel>
+    where also on shrink's round size, "... S<s>" on irls' lanes a gene,
+    "... S<s> registers|shared" on mom's lanes and storage), "<kernel>
     f32|f64 shared|streamed" for a cluster kernel templated on its mode and
     "<kernel> f32|f64" for one templated on its type alone."""
     out = {}
@@ -331,13 +372,15 @@ def ptxas(kernels, sources=SOURCES) -> dict:
         text = kernels._lib_path(src).with_suffix(".ptxas.txt").read_text()
         rows = {}
         for m in re.finditer(r"Compiling entry function '([^']+)'(.*?)Used (\d+) registers", text, re.S):
-            inst = re.search(r"ILi(\d+)E([fd])(?:Li(\d+)E)?E", m.group(1))
+            inst = re.search(r"ILi(\d+)E([fd])(?:Li(\d+)E)?(?:Lb([01])E)?E", m.group(1))
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
             typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
             if inst is not None:
-                third = "S" if "irls_kernel" in m.group(1) else "M"  # irls' lanes a gene, shrink's round
+                # irls' and mom's lanes a gene, shrink's round; mom's registers or shared memory
+                third = "S" if "irls_kernel" in m.group(1) or "mom_kernel" in m.group(1) else "M"
                 key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}" + (
-                    f" {third}{inst.group(3)}" if inst.group(3) else "")
+                    f" {third}{inst.group(3)}" if inst.group(3) else "") + (
+                    f" {'registers' if inst.group(4) == '1' else 'shared'}" if inst.group(4) else "")
             elif mode is not None:
                 key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
                        f"{'shared' if mode.group(3) == '1' else 'streamed'}")
@@ -1243,6 +1286,156 @@ def irls_rows(detail: bool) -> dict:
     return rows
 
 
+def mom_operands(G: int, N: int, P: int, dtype):
+    """``(counts, sf, X, pinv)`` of one ``mom`` call on the card:
+    :func:`inputs`' counts and design, median-of-ratios size factors."""
+    counts, _, X = inputs(G, N, P, dtype)
+    logc = torch.log(counts)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    return counts, sf, X, torch.linalg.pinv(X)
+
+
+def mom_plans(lin, plan, N: int, itemsize: int) -> dict:
+    """The plans ``--detail`` times beside the one picked: every lane count
+    that holds the row in registers, 32 lanes and a block staged as the
+    picker would stage them, and a block staging half the row."""
+    others = {}
+    for lanes in (4, 8, 32):
+        if N <= lin._MOM_REG_ITEMS * lanes:
+            others[f"lanes={lanes} registers"] = lin.MomPlan(lanes, 0)
+    others["lanes=32 staged"] = lin.MomPlan(32, min(N, lin._MOM_GROUP_STAGE // itemsize))
+    others["lanes=256 staged"] = lin.MomPlan(256, min(N, lin._MOM_BLOCK_STAGE // itemsize))
+    others["lanes=256 half staged"] = lin.MomPlan(256, max(1, N // 2))
+    return {k: p for k, p in others.items() if p != plan}
+
+
+def mom_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch.ops import linreg as lin
+
+    rows = {}
+    for label, G, N, P, dtype, want_mu, normed, reps in MOM_SHAPES:
+        counts, sf, X, pinv = mom_operands(G, N, P, dtype)
+        if normed:
+            counts = counts / sf
+        y = counts if normed else counts / sf
+        pinv_t = pinv.T.contiguous()
+
+        def run(**kw):
+            return lin._mom_cuda(counts, sf, X, pinv, 0.5, want_mu, normed, **kw)
+
+        got = run()
+        want = lin._mom_plain(counts, sf, X, pinv, 0.5, want_mu, normed)
+        err = max(((a.double() - b.double()).abs() / torch.clamp(b.double().abs(), min=1.0)).max().item()
+                  for a, b in zip(got, want) if b is not None and a.ndim == 1)
+        kern, dev = device_ms(run, reps, "mom")
+        row = {"mom_ms": cuda_ms(run, reps), "mom_kernel_ms": kern, "mom_device_ms": dev, "max_rel_err": err,
+               "matmul_ms": device_ms(lambda: torch.matmul(y, pinv_t), reps, "")[1],
+               "genes": G, "samples": N, "P": P, "want_mu": want_mu, "normed": normed}
+        if hasattr(lin, "_mom_plan"):
+            plan = lin._mom_plan(N, counts.element_size())
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in mom_plans(lin, plan, N, counts.element_size()).items():
+                    row[f"kernel_ms {name}"] = device_ms(lambda: run(plan=other), reps, "mom")[0]
+        rows[label] = row
+        print(f"  mom {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del counts, y, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bh_operands(dtype=torch.float32):
+    """The sweep of ``device_padj`` in ``summary_pipeline`` on
+    ``make_data(100, BH_G)``: ``(p, order, valid, base_mean, cutoffs,
+    alpha)`` as it forms them (p float64; base means and cutoffs widened to
+    float64), the pipeline's own arguments of ``device_padj``, and the
+    lowess pick ``j`` of the sweep's counts."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.ops import stats as st
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(100, BH_G)
+    host = pt.summary_host_inputs(X_np)
+    kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
+                              dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
+                              use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
+    seen = []
+    padj = fused.device_padj
+
+    def recorded(*args, **kwargs):
+        seen.append((args, kwargs))
+        return padj(*args, **kwargs)
+
+    fused.device_padj = recorded
+    try:
+        pt.summary_pipeline(**kw)
+    finally:
+        fused.device_padj = padj
+    b = inspect.signature(padj).bind(*seen[0][0], **seen[0][1])
+    b.apply_defaults()
+    p, base_mean, gene_mask, alpha, _ = b.arguments.values()
+    dt = base_mean.dtype
+    valid = ~torch.isnan(p) & gene_mask
+    p_filled = torch.nan_to_num(p, nan=1.0).to(torch.float64)
+    order = torch.argsort(p_filled, stable=True)
+    base_m = torch.where(gene_mask, base_mean, torch.tensor(float("nan"), dtype=dt, device=p.device))
+    lower_q = (((base_m == 0) & gene_mask).sum().to(torch.float64) /
+               torch.clamp(gene_mask.sum(), min=1).to(torch.float64)).to(dt)
+    upper_q = torch.where(lower_q < 0.95, torch.tensor(0.95, dtype=dt, device=p.device),
+                          torch.tensor(1.0, dtype=dt, device=p.device))
+    theta = lower_q + (upper_q - lower_q) * torch.linspace(0.0, 1.0, 50, dtype=dt, device=p.device)
+    cutoffs = st.nanquantile(base_m, theta)
+    sweep = (p_filled, order, valid, base_mean.double(), cutoffs.double(), alpha)
+    _, num_rej = st._bh_sweep_plain(*sweep)
+    j = st.lowess_pick(theta, num_rej.to(p.device), frac=1.0 / 5.0)[1]
+    return sweep, tuple(b.arguments.values()), j
+
+
+def bh_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    del detail  # one set of shapes
+    sweep, padj_args, j = bh_operands()
+    p, order, valid, base_mean, cutoffs, alpha = sweep
+    reps = 20
+    adj_p, rej_p = st._bh_sweep_plain(*sweep)
+    adj_k, rej_k = st._bh_sweep_cuda(*sweep)
+
+    def same(a, b):
+        return torch.equal(a.nan_to_num(2.0), b.nan_to_num(2.0))
+
+    def one_row():
+        if hasattr(st, "bh_adjust_row"):
+            return st.bh_adjust_row(p, order, valid)
+        return st._bh_sweep_cuda(p, order, valid, None, None, alpha)[0][0]
+
+    f32 = (p.float(), order, valid, base_mean.float(), cutoffs.float(), alpha)
+    row = {"genes": p.shape[0], "rows": cutoffs.shape[0], "picked_row": int(j),
+           "sweep_bits_equal": same(adj_k, adj_p) and torch.equal(rej_k, rej_p),
+           "one_row_bits_equal": same(one_row(), st._bh_sweep_plain(p, order, valid, None, None, alpha)[0][0]),
+           "argsort_ms": device_ms(lambda: torch.argsort(p, stable=True), reps, "")[1]}
+    for name, fn in (("sweep", lambda: st._bh_sweep_cuda(*sweep)), ("one_row", one_row),
+                     ("sweep_f32", lambda: st._bh_sweep_cuda(*f32)),
+                     ("device_padj", lambda: fused.device_padj(*padj_args)),
+                     ("device_padj_bh", lambda: fused.device_padj(*padj_args[:4], False))):
+        kern, dev = device_ms(fn, reps, "bh_")
+        row[f"{name}_ms"], row[f"{name}_kernel_ms"], row[f"{name}_device_ms"] = cuda_ms(fn, reps), kern, dev
+    if hasattr(st, "_bh_count_cuda"):
+        row["counts_bits_equal"] = torch.equal(st._bh_count_cuda(*sweep), rej_p)
+        row["picked_row_bits_equal"] = same(st._bh_adjust_cuda(p, order, valid, base_mean, cutoffs, j)[0], adj_p[int(j)])
+        for name, fn in (("counts", lambda: st._bh_count_cuda(*sweep)),
+                         ("picked_row", lambda: st._bh_adjust_cuda(p, order, valid, base_mean, cutoffs, j)),
+                         ("counts_and_row", lambda: (st._bh_count_cuda(*sweep),
+                                                     st._bh_adjust_cuda(p, order, valid, base_mean, cutoffs, j)))):
+            kern, dev = device_ms(fn, reps, "bh_")
+            row[f"{name}_ms"], row[f"{name}_kernel_ms"], row[f"{name}_device_ms"] = cuda_ms(fn, reps), kern, dev
+    print(f"  bh: {json.dumps(row)}", file=sys.stderr, flush=True)
+    return {"f64 50x60000": row}
+
+
 def cuobjdump(kernels) -> str | None:
     """The toolkit's cuobjdump: on the PATH, beside nvcc, or in Triton's
     package; None where there is none."""
@@ -1411,6 +1604,10 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["select"] = select_rows(detail)
     if "irls" in suites:
         res["irls"] = irls_rows(detail)
+    if "mom" in suites:
+        res["mom"] = mom_rows(detail)
+    if "bh" in suites:
+        res["bh"] = bh_rows(detail)
     return res
 
 
@@ -1453,6 +1650,13 @@ def summary(res: dict) -> dict:
         out[f"irls {k}"] = {"ms": v["irls_ms"], "kernel": v["irls_kernel_ms"], "core": v["irls_core_ms"],
                             "core_device": v["irls_core_device_ms"], "close": v["close_share"],
                             "flags": v["flags_share"], "trips": [v["max_trips"], v["plain_trips"]]}
+    for k, v in res.get("mom", {}).items():
+        out[f"mom {k}"] = {"ms": v["mom_ms"], "kernel": v["mom_kernel_ms"], "device": v["mom_device_ms"],
+                           "matmul": v["matmul_ms"], "err": v["max_rel_err"]}
+    for k, v in res.get("bh", {}).items():
+        out[f"bh {k}"] = {key: v[key] for key in ("sweep_kernel_ms", "one_row_kernel_ms", "device_padj_device_ms",
+                                                  "counts_and_row_kernel_ms", "argsort_ms", "sweep_bits_equal",
+                                                  "counts_bits_equal", "picked_row_bits_equal") if key in v}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):

@@ -44,7 +44,9 @@ KERNELS = {
     "hat": ("hat_wald.cu", "hat_launch"),
     "wald": ("hat_wald.cu", "wald_launch"),
     "cooks": ("cooks.cu", "cooks_launch"),
-    "bh": ("bh.cu", "bh_launch"),
+    # the rejection counts of every cutoff row, and the adjusted values of one row (or every row)
+    "bh_count": ("bh.cu", "bh_count_launch"),
+    "bh_adjust": ("bh.cu", "bh_adjust_launch"),
     "newton_box": ("newton_box.cu", "newton_box_launch"),
     "grid_nb": ("grid.cu", "grid_nb_launch"),
     "shrink": ("shrink.cu", "shrink_launch"),
@@ -105,12 +107,13 @@ _ARGTYPES = {
     "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bh_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P],
+    "bh_count_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P],
+    "bh_adjust_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
     "grid_nb_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _I, _P],
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P],
-    "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P],
+    "mom_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _I, _I, _I, _P, _P, _P, _P],
     "trend_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "trend_fit_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],

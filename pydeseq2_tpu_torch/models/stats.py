@@ -27,7 +27,7 @@ import pandas as pd
 import torch
 
 from pydeseq2_tpu_torch.inference import Inference
-from pydeseq2_tpu_torch.ops.stats import bh_sweep, lowess_pick
+from pydeseq2_tpu_torch.ops.stats import bh_adjust_row, bh_rejections, lowess_pick
 
 LN2 = float(np.log(2.0))
 
@@ -73,11 +73,13 @@ def _independent_filter_padj(
 
     Semantics of ``pydeseq2_tpu/models/stats.py:61`` (reference
     pydeseq2/ds.py:486-527): sweep ``n_cutoffs`` base-mean quantile
-    thresholds, BH-adjust the surviving genes at each (the ``bh`` kernel),
-    smooth the rejection counts with lowess(frac=1/5) and keep the first
+    thresholds and count the rejections of BH at each (the ``bh_count``
+    kernel), smooth the counts with lowess(frac=1/5) and keep the first
     threshold whose count clears max - sqrt(MSE) (the ``lowess`` kernel),
-    the first when no row has more than 10 rejections. Raises for more than
-    64 cutoffs, the most the lowess kernel fits.
+    the first when no row has more than 10 rejections, then BH-adjust the
+    surviving genes at that threshold alone (the ``bh_adjust`` kernel, the
+    pick read on the card). Raises for more than 64 cutoffs, the most the
+    lowess kernel fits.
     """
     if not 0 < n_cutoffs <= MAX_CUTOFFS:
         raise ValueError(f"n_cutoffs={n_cutoffs}; the lowess fit takes 1 to {MAX_CUTOFFS} cutoffs")
@@ -91,17 +93,17 @@ def _independent_filter_padj(
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float64), device=device)
 
-    adj, num_rej = bh_sweep(p, order, testable, t(base_mean), t(thresholds), alpha)
+    bm, cut = t(base_mean), t(thresholds)
+    num_rej = bh_rejections(p, order, testable, bm, cut, alpha)
     _, chosen = lowess_pick(t(quantiles), num_rej, frac=1 / 5)
-    return adj[chosen].cpu().numpy()
+    return bh_adjust_row(p, order, testable, bm, cut, chosen).cpu().numpy()
 
 
 def _bh_padj(p_values: np.ndarray, device: str | torch.device = "cuda") -> np.ndarray:
     """Plain Benjamini-Hochberg over the non-NaN p-values (no filtering):
-    the ``bh`` kernel's sweep with one row."""
+    the ``bh_adjust`` kernel's one row."""
     p, order, testable = _bh_inputs(p_values, device)
-    adj, _ = bh_sweep(p, order, testable)
-    return adj[0].cpu().numpy()
+    return bh_adjust_row(p, order, testable).cpu().numpy()
 
 
 def _apeglm_prior_variance(

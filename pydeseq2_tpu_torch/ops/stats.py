@@ -3,8 +3,8 @@ adjustment, lowess.
 
 Port of ``pydeseq2_tpu/ops/stats.py``. The pipelines' Cook's-distance
 trimmed moments run inside the ``cooks`` kernel (``ops/cooks.py``). The
-independent-filtering BH sweep runs as the ``bh`` kernel through
-:func:`bh_sweep`.
+independent filter's BH runs as the ``bh_count`` and ``bh_adjust`` kernels
+through :func:`bh_rejections` and :func:`bh_adjust_row`.
 
 Kernel (``csrc/trimmed.cu``): :func:`trimmed_mean`, :func:`trimmed_variance`
 and :func:`trimmed_cell_variance` on CUDA tensors launch ``trimmed_var``,
@@ -22,21 +22,25 @@ cohorts in the same launch. The kept sum is taken in float64 and rounded
 once, in the plain versions too, so in float32 kernel and plain version
 agree to the bit but for rounding ties of that sum.
 
-Kernel (``csrc/bh.cu``): replaces the shared-order path of
+Kernels (``csrc/bh.cu``): replace the shared-order path of
 ``bh_adjust_masked`` (pydeseq2_tpu/ops/stats.py:145) as ``device_padj``
-runs it: one shared order of the p-values (a stable ``torch.sort``, one
-library call) and a (rows, G) masked sweep, each row's mask
-``base_mean >= cutoff_row & valid`` evaluated in the kernel rather than
-materialised. One block per row walks the sorted order from the end in
-chunks: a block-wide scan gives the suffix count of the mask (hence each
-element's rank from the row's total) and the suffix minimum of
-``p * n_valid / max(rank, 1)``, which is the BH adjustment before the clip
-at 1; the result is scattered back to gene order and counted against
-``alpha``. Per row it reads the shared order and gathers p, valid and
-base_mean through it, so it is bound by those gathers (L2-resident at 60000
-genes) and by the block's scan steps. It forms the same products and
-quotients as the plain version and min is exact, so the two agree bit for
-bit.
+runs it, split the way its callers use it: one shared order of the
+p-values (a stable ``torch.sort``, one library call), then the rejection
+counts of every cutoff row (:func:`bh_rejections`, ``bh_count``) and the
+adjusted values of the one row the lowess pick chooses
+(:func:`bh_adjust_row`, ``bh_adjust``, its row index read on the card).
+A row rejects where its adjusted value is below ``alpha``, and adjusted
+values grow along the order, so a row's count is the rank of its last
+masked position whose ``min(p * n_valid / rank, 1) < alpha``: the count
+kernel gathers p, valid and base_mean through the order once for all rows,
+in chunks over the whole card, and writes no (rows, G) matrix. The
+adjusting kernel spreads one row over a thread-block cluster that walks
+the order from the end with block-wide scans of the mask count (ranks)
+and of the scaled values (suffix minima), exchanging chunk totals through
+distributed shared memory. Both form the plain version's products and
+quotients and min is exact, so they agree with it bit for bit.
+:func:`bh_sweep` keeps the whole (rows, G) sweep, every row adjusted by
+the same kernels.
 
 Kernel (``csrc/lowess.cu``): :func:`lowess_pick` replaces ``lowess_device``
 (pydeseq2_tpu/ops/stats.py:218) and the cutoff pick of ``device_padj``
@@ -413,39 +417,158 @@ def cummin_reverse(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(torch.cummin(torch.flip(x, (-1,)), dim=-1).values, (-1,))
 
 
+def _bh_masks(p, valid, base_mean, cutoffs) -> torch.Tensor:
+    """(rows, G) masks: ``base_mean >= cutoffs[j] & valid & ~isnan(p)``, one
+    row of ``valid & ~isnan(p)`` without cutoffs."""
+    masks = valid[None, :] if base_mean is None else (base_mean[None, :] >= cutoffs[:, None]) & valid[None, :]
+    return masks & ~torch.isnan(p)
+
+
 def _bh_sweep_plain(p, order, valid, base_mean, cutoffs, alpha):
-    if base_mean is None:
-        masks = valid[None, :]
-    else:
-        masks = (base_mean[None, :] >= cutoffs[:, None]) & valid[None, :]
-    adj = _bh_shared_order(p, order, masks & ~torch.isnan(p))
+    adj = _bh_shared_order(p, order, _bh_masks(p, valid, base_mean, cutoffs))
     return adj, (adj < alpha).sum(dim=1)
 
 
-def _bh_sweep_cuda(p, order, valid, base_mean, cutoffs, alpha):
-    G = p.shape[0]
-    rows = 1 if cutoffs is None else cutoffs.shape[0]
-    # The mask compares base_mean with the cutoffs; widening both to p's
-    # dtype is exact and keeps the comparison's result.
+def _bh_count_plain(p, order, valid, base_mean, cutoffs, alpha):
+    """Each row's count of adjusted values below ``alpha`` as the rank of its
+    last masked position whose clipped scaled value is below ``alpha``."""
+    masks = _bh_masks(p, valid, base_mean, cutoffs)
+    if p.shape[0] == 0:
+        return torch.zeros(masks.shape[0], dtype=torch.int64, device=p.device)
+    n_valid = masks.sum(dim=-1, keepdim=True)
+    mask_sorted = masks[:, order]
+    ranks = torch.cumsum(mask_sorted.to(p.dtype), dim=-1)
+    scaled = p[order] * n_valid / torch.clamp(ranks, min=1.0)
+    hit = mask_sorted & (torch.clamp(scaled, max=1.0) < alpha)
+    return torch.where(hit, ranks, torch.zeros_like(ranks)).amax(dim=-1).to(torch.int64)
+
+
+def _bh_adjust_plain(p, order, valid, base_mean, cutoffs, j):
+    """Row ``j`` (a 0-d integer tensor) of the sweep, (1, G); every row,
+    (rows, G), when ``j`` is None."""
+    if cutoffs is not None and j is not None:
+        cutoffs = cutoffs.index_select(0, j.reshape(1).to(torch.int64))
+    return _bh_shared_order(p, order, _bh_masks(p, valid, base_mean, cutoffs))
+
+
+class BhCountPlan(NamedTuple):
+    """A launch of ``bh_count``: ``chunk`` sorted positions a block (a
+    multiple of its 512 threads), ``blocks`` chunks."""
+
+    chunk: int
+    blocks: int
+
+
+_BH_THREADS = 512  # threads of the count kernels, positions a tile (csrc/bh.cu CT)
+_BH_MAX_ROWS = 256  # cutoff rows a count launch
+_BH_BLOCKS_PER_SM = 2  # count blocks an SM takes at most: each block sums every chunk's counts
+
+
+def _bh_count_plan(G: int, sms: int = 132) -> BhCountPlan:
+    """One tile of 512 positions a block while that takes at most two
+    blocks an SM (G <= 135168 on 132 SMs), else the tiles shared evenly
+    over that many blocks: a block reads every block's row counts, so the
+    blocks are kept few."""
+    tiles = max(1, -(-G // _BH_THREADS))
+    per_block = -(-tiles // (_BH_BLOCKS_PER_SM * sms))
+    chunk = per_block * _BH_THREADS
+    return BhCountPlan(chunk, max(1, -(-G // chunk)))
+
+
+def _bh_operands(p, order, valid, base_mean, cutoffs):
+    """The kernels' operands: base_mean and cutoffs widened to p's dtype
+    (exact; the comparison keeps its result), int32 order, uint8 valid."""
     if base_mean is not None:
         base_mean = base_mean.to(p.dtype).contiguous()
         cutoffs = cutoffs.to(p.dtype).contiguous()
-    order32 = order.to(torch.int32).contiguous()
-    valid8 = valid.to(torch.uint8).contiguous()
-    adj = torch.empty((rows, G), dtype=p.dtype, device=p.device)
+    ops = p.contiguous(), order.to(torch.int32).contiguous(), valid.to(torch.uint8).contiguous()
+    return (*ops, base_mean, cutoffs)
+
+
+def _bh_count_cuda(p, order, valid, base_mean, cutoffs, alpha):
+    G = p.shape[0]
+    rows = 1 if cutoffs is None else cutoffs.shape[0]
+    p, order32, valid8, base_mean, cutoffs = _bh_operands(p, order, valid, base_mean, cutoffs)
+    plan = _bh_count_plan(G, kernels.sm_count(p.device))
     num_rej = torch.empty(rows, dtype=torch.int64, device=p.device)
-    kernels.check_cuda_operands("bh", p, base_mean, cutoffs, adj, order32, valid8)
+    p_sorted = torch.empty_like(p)
+    k_sorted = torch.empty(G, dtype=torch.int16, device=p.device)
+    cnt = torch.empty(plan.blocks * min(rows, _BH_MAX_ROWS), dtype=torch.int32, device=p.device)
+    kernels.check_cuda_operands("bh_count", p, base_mean, cutoffs, order32, valid8, num_rej, k_sorted, cnt)
+    for r0 in range(0, rows, _BH_MAX_ROWS):
+        r1 = min(rows, r0 + _BH_MAX_ROWS)
+        kernels.launch(
+            "bh_count",
+            [
+                int(p.dtype == torch.float64), r1 - r0, G, plan.chunk,
+                p.data_ptr(), order32.data_ptr(), valid8.data_ptr(),
+                kernels.ptr(base_mean), None if cutoffs is None else cutoffs[r0:r1].data_ptr(), float(alpha),
+                p_sorted.data_ptr(), k_sorted.data_ptr(), cnt.data_ptr(), num_rej[r0:r1].data_ptr(),
+            ],
+            p.device,
+        )
+    return num_rej
+
+
+def _bh_adjust_cuda(p, order, valid, base_mean, cutoffs, j, cluster: int = 0):
+    """Row ``j`` (a 0-d integer tensor on the card), (1, G), or every row,
+    (rows, G), when ``j`` is None; ``cluster`` blocks a row (0: the
+    kernel's choice, the fewest that cover G in one round)."""
+    G = p.shape[0]
+    rows = 1 if cutoffs is None else cutoffs.shape[0]
+    p, order32, valid8, base_mean, cutoffs = _bh_operands(p, order, valid, base_mean, cutoffs)
+    j64 = None if j is None else j.reshape(()).to(torch.int64).contiguous()
+    n_out = 1 if j is not None else rows
+    adj = torch.empty((n_out, G), dtype=p.dtype, device=p.device)
+    kernels.check_cuda_operands("bh_adjust", p, base_mean, cutoffs, adj, order32, valid8, j64)
     kernels.launch(
-        "bh",
+        "bh_adjust",
         [
             int(p.dtype == torch.float64), rows, G,
-            p.data_ptr(), order32.data_ptr(), valid8.data_ptr(),
-            kernels.ptr(base_mean), kernels.ptr(cutoffs), float(alpha),
-            adj.data_ptr(), num_rej.data_ptr(),
+            p.data_ptr(), order32.data_ptr(), valid8.data_ptr(), kernels.ptr(base_mean), kernels.ptr(cutoffs),
+            kernels.ptr(j64), n_out, int(cluster), adj.data_ptr(),
         ],
         p.device,
     )
-    return adj, num_rej
+    return adj
+
+
+def _bh_sweep_cuda(p, order, valid, base_mean, cutoffs, alpha):
+    return (_bh_adjust_cuda(p, order, valid, base_mean, cutoffs, None),
+            _bh_count_cuda(p, order, valid, base_mean, cutoffs, alpha))
+
+
+def bh_rejections(
+    p: torch.Tensor,
+    order: torch.Tensor,
+    valid: torch.Tensor,
+    base_mean: torch.Tensor | None = None,
+    cutoffs: torch.Tensor | None = None,
+    alpha: float = 0.05,
+) -> torch.Tensor:
+    """The rejection counts ``num_rej`` (rows,) int64 of :func:`bh_sweep`,
+    ``(adj < alpha).sum(1)``, without the adjusted matrix. CUDA tensors
+    launch the ``bh_count`` kernel; CPU tensors take the plain version."""
+    fn = _bh_count_cuda if p.is_cuda else _bh_count_plain
+    return fn(p, order, valid, base_mean, cutoffs, alpha)
+
+
+def bh_adjust_row(
+    p: torch.Tensor,
+    order: torch.Tensor,
+    valid: torch.Tensor,
+    base_mean: torch.Tensor | None = None,
+    cutoffs: torch.Tensor | None = None,
+    j: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Row ``j`` (G,) of :func:`bh_sweep`'s adjusted values: ``j`` a 0-d
+    integer tensor on ``p``'s device (the lowess pick's, no host read), row
+    0 when None (the one row without cutoffs). CUDA tensors launch the
+    ``bh_adjust`` kernel; CPU tensors take the plain version."""
+    if j is None and cutoffs is not None:
+        j = torch.zeros((), dtype=torch.int64, device=p.device)
+    fn = _bh_adjust_cuda if p.is_cuda else _bh_adjust_plain
+    return fn(p, order, valid, base_mean, cutoffs, j)[0]
 
 
 def bh_sweep(
@@ -464,8 +587,10 @@ def bh_sweep(
     A NaN p inside the mask counts as unmasked; adjusted values are clipped
     at 1 and NaN outside the mask. This is the shared-order path of
     ``bh_adjust_masked`` (``pydeseq2_tpu/ops/stats.py:145``, scipy's
-    ``false_discovery_control``), the one ``device_padj`` runs. CUDA tensors
-    launch the ``bh`` kernel; CPU tensors take the plain version.
+    ``false_discovery_control``). CUDA tensors launch ``bh_adjust`` over
+    every row and ``bh_count``; CPU tensors take the plain version. The
+    pipelines need one row of it: :func:`bh_rejections` and
+    :func:`bh_adjust_row`.
     """
     if p.is_cuda:
         return _bh_sweep_cuda(p, order, valid, base_mean, cutoffs, alpha)
