@@ -85,6 +85,17 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    non-finite cutoffs (three rows masking every gene), every row picked by
    a tensor on the card, each launched twice and bit for bit against the
    plain sweep, the row on clusters of 1-16 blocks, 300 rows of counts;
+   ``hat_wald``, ``hat`` and ``wald`` in every lane-group plan
+   (``hat_wald_plan_checks``: 4, 8, 32 lanes and a block, each staging what
+   its share of shared memory holds, and 32 lanes and a block staging a
+   third of the row, the rest formed again in pass 2) at 12,
+   100, 1000 and 10000 samples and on both sides of each plan threshold,
+   P = 2, and the picked, one staged and one streamed plan at P = 5, both
+   types (every alternative in float64), each launched twice and bit for
+   bit, within the ``hat_wald`` tolerances of the plain version, the test
+   alone and the ``hat`` and ``wald`` entries bit for bit the fused call's;
+   ``lowess`` at 2, 50 and 64 points with tied distances and an all-zero
+   row (``lowess_checks``), twice and bit for bit, the plain pick's row;
    ``sf_nll`` also on a
    zero-heavy copy of the trimmed solve's counts, and its lgamma table
    (lgamma(1) = 0 on the card);
@@ -1028,11 +1039,13 @@ def rel_err(a: torch.Tensor, b: torch.Tensor, floor: float) -> float:
 
 
 def hat_wald_ops(P: int) -> int:
-    """Operations per (gene, sample) of the hat_wald kernel: pass 1 (linear
-    predictor, exp, both weights, both Gram triangles) and pass 2 (linear
-    predictor, exp, weight, x^T M^-1 x, H)."""
+    """Operations per (gene, sample) that the fused hat diagonals and Wald
+    test need: pass 1 (linear predictor, exp, the product by sf, the clamp,
+    one weight, both Gram triangles) and pass 2 (x^T M^-1 x, H); a sample
+    whose mu is clamped needs a second weight (3 more, counted by the
+    caller)."""
     ntri = P * (P + 1) // 2
-    return (2 * P + 9 + 5 * ntri) + (2 * P + 7 + 2 * P * P + 2 * P)
+    return (2 * P + 6 + 5 * ntri) + (2 * P * P + 2 * P + 1)
 
 
 def cooks_ops(N: int, members, ntrims) -> int:
@@ -1155,6 +1168,9 @@ def summary_kernel_checks(dtype, G, N, reps, timings, outliers=False):
         hw_args = (beta, disp, sf, X, contrast, lfc_null, kwargs["min_mu"], alt)
         got = wd._hat_wald_cuda(*hw_args)
         want = wd._hat_wald_plain(*hw_args)
+        alone = wd._hat_wald_cuda(*hw_args, want_hat=False)
+        check(all(bits_equal(a, b) for a, b in zip(alone[2:], got[2:])),
+              f"hat_wald {name} {alt}: the test alone differs from the fused call's")
         for key, a, b, floor in zip(("H", "mu", "p", "stat", "se"), got, want, (1e-2, 1e-300, 0.0, 1e-3, 1e-300)):
             if key == "p":
                 # Where the plain p is below `tiny` (the f32 tail underflows)
@@ -1183,8 +1199,10 @@ def summary_kernel_checks(dtype, G, N, reps, timings, outliers=False):
             "library_ms": None,
             # reads beta, disp (G (P + 1)), sf, X; writes H and mu (2 G N), p, stat, se
             "bytes": isz * (G * (P + 1) + N * (P + 1) + 2 * G * N + 3 * G),
-            "ops": hat_wald_ops(P) * G * N,
+            "ops": hat_wald_ops(P) * G * N + 3 * int((want[1] < kwargs["min_mu"]).sum()),
             "ops_per_s": F32_OPS_PER_S,
+            "plan": wd._hat_wald_plan(N, P, isz)._asdict(),
+            "test_only_ms": cuda_ms(lambda: wd._hat_wald_cuda(*hw_args, want_hat=False), reps),
         }
 
     # -- kernel 10: Cook's distances, robust dispersion, outlier flags -------
@@ -2341,9 +2359,10 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
             "library_ms": None,
             # reads theta and the counts (int64); writes the fit and the row
             "bytes": n * (isz + 8) + n * isz + 8,
-            # 3 rounds x n^2 pairs x ~22 (weight 10, five weighted sums 12),
-            # plus a sort of each point's n distances (n log2 n compares)
-            "ops": 3 * n * n * 22 + n * n * math.ceil(math.log2(n)),
+            # the n^2 tricube weights once (~10 each), 3 rounds x n^2 pairs x
+            # 12 (five weighted sums), plus a sort of each point's n
+            # distances (n log2 n compares)
+            "ops": n * n * 10 + 3 * n * n * 12 + n * n * math.ceil(math.log2(n)),
         }
 
     # -- cooks, refit mode: exceed bits, replaced, the refit flag -------------
@@ -3189,6 +3208,166 @@ def mom_plan_checks() -> dict:
     return picked
 
 
+# hat_wald's plan checks: (samples, genes float32, genes float64) on each
+# side of every threshold of ops/wald.py:_hat_wald_plan (64, 128, 512, 2048
+# samples; a 32-lane group stages 1024 float32 / 512 float64 samples, a
+# block 12288 / 6144).
+HW_PLAN_SHAPES = ((12, 20_000, 4_000), (64, 8_000, 2_000), (65, 8_000, 2_000), (100, G_MAIN, 4_000),
+                  (128, 4_000, 1_000), (129, 4_000, 1_000), (512, 2_000, 500), (513, 2_000, 500),
+                  (1_000, 6_000, 2_000), (2_047, 1_000, 300), (2_048, 1_000, 300), (10_000, 600, 300))
+
+
+def hw_case(G: int, N: int, P: int, dtype) -> tuple:
+    """``(beta, disp, sf, X, contrast)`` of one ``hat_wald`` call on
+    ``make_data(N, G)``: the draw's design with P - 2 seeded normal columns
+    (full rank at 12 samples), median-of-ratios size factors, the
+    least-squares coefficients of log((counts + 0.5) / sf) (some samples'
+    mu below min_mu), seeded lognormal dispersions, the contrast on the
+    condition."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N, G)
+    rng = np.random.default_rng(14)
+    X_np = np.column_stack([X_np] + [rng.normal(size=N) for _ in range(P - 2)])
+    c = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=DEVICE)
+    X = torch.as_tensor(X_np, dtype=dtype, device=DEVICE)
+    logc = torch.log(c)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    beta = (torch.log((c + 0.5) / sf) @ torch.linalg.pinv(X).T).contiguous()
+    disp = torch.as_tensor(rng.lognormal(-2.0, 1.0, G), dtype=dtype, device=DEVICE)
+    contrast = torch.zeros(P, dtype=dtype, device=DEVICE)
+    contrast[1] = 1.0
+    return beta, disp, sf, X, contrast
+
+
+def hw_check(label: str, got, want, rtol: float, tiny: float) -> dict:
+    """``hat_wald`` outputs against the plain version's: the same NaN
+    places, p below ``tiny`` where the plain p is (within 1e3), and each
+    output within ``rtol`` (``kernel_bench.hat_errs``' measure). Returns
+    the errors."""
+    from pydeseq2_tpu_torch import kernel_bench
+
+    for key, a, b in zip(("H", "mu", "p", "stat", "se"), got, want):
+        if a is not None and b is not None:
+            check(torch.equal(torch.isnan(a), torch.isnan(b)), f"{label} {key}: NaN masks differ")
+    p_k, p_p = got[2], want[2]
+    check(bool((p_k[(p_p < tiny) & ~torch.isnan(p_p)] < 1e3 * tiny).all()), f"{label}: p tail")
+    errs = kernel_bench.hat_errs(got, want, tiny)
+    for key, e in errs.items():
+        check(e <= rtol, f"{label} {key}: rel err {e:.3g} > {rtol:.3g}")
+    return errs
+
+
+def hat_wald_plan_checks() -> dict:
+    """``hat_wald.cu`` in every plan (``kernel_bench.hat_plans``: 4, 8, 32
+    lanes and a block, each staging what its share of shared memory holds,
+    and 32 lanes and a block staging a third of the row, the rest formed
+    again in pass 2) at HW_PLAN_SHAPES (12, 100, 1000, 10000 samples and
+    both sides of each threshold), P = 2, and in the picked, one staged and
+    one streamed plan at P = 5, float32 and float64. In each plan: the
+    fused entry launched twice and equal to itself bit for bit and within
+    1e-4 (f32) / 1e-10 (f64) of the plain version on H, mu, p (log p over 1
+    + stat^2), stat and se (the ``hat_wald`` tolerances); the test alone
+    (``want_hat=False``) equal to the fused call's p, stat and se bit for
+    bit; the ``hat`` entry equal to the fused call's H and mu bit for bit,
+    twice; the ``wald`` entry on the fused call's mu with the 1e-6 ridge
+    equal to its p, stat and se bit for bit, twice. In float64 at the
+    picked plan every alternative hypothesis. Returns {label: picked
+    plan}."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import irls as ir
+    from pydeseq2_tpu_torch.ops import wald as wd
+
+    picked = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        rtol = 1e-4 if dtype == torch.float32 else 1e-10
+        tiny = 1e-30 if dtype == torch.float32 else 1e-300
+        isz = torch.finfo(dtype).bits // 8
+        for N, g32, g64 in HW_PLAN_SHAPES:
+            G = g32 if dtype == torch.float32 else g64
+            every = list(kernel_bench.hat_plans(wd, N, isz).values())
+            for P in (2, 5):
+                beta, disp, sf, X, contrast = hw_case(G, N, P, dtype)
+                label = f"hat_wald plans {name} {N} x {G} P={P}"
+                plans = every if P == 2 else list(dict.fromkeys([every[0], wd._hat_wald_staged(32, N, isz), every[-1]]))
+                ridge = 1e-6 * torch.eye(P, dtype=dtype, device=DEVICE)
+                alts = list(wd.ALT_CODES) if dtype == torch.float64 else [None]
+                worst = {}
+                for alt in alts:
+                    args = (beta, disp, sf, X, contrast, 0.0, 0.5, alt)
+                    want = wd._hat_wald_plain(*args)
+                    for plan in (plans if alt is None else plans[:1]):
+                        what = f"{label} alt={alt} plan {tuple(plan)}"
+                        got = wd._hat_wald_cuda(*args, plan=plan)
+                        again = wd._hat_wald_cuda(*args, plan=plan)
+                        check(all(bits_equal(a, b) for a, b in zip(got, again)), f"{what}: a second launch differs")
+                        for key, e in hw_check(what, got, want, rtol, tiny).items():
+                            worst[key] = max(worst.get(key, 0.0), e)
+                        alone = wd._hat_wald_cuda(*args, want_hat=False, plan=plan)
+                        check(alone[0] is None and alone[1] is None and
+                              all(bits_equal(a, b) for a, b in zip(alone[2:], got[2:])),
+                              f"{what}: the test alone differs from the fused call's")
+                        wald = [wd._wald_cuda(X, disp, beta, got[1], ridge, contrast, 0.0, alt, plan=plan)
+                                for _ in range(2)]
+                        check(all(bits_equal(a, b) for w in wald for a, b in zip(w, got[2:])),
+                              f"{what}: the wald entry on the fused call's mu differs from its test")
+                        if alt is None:
+                            hat = [ir._hat_cuda(sf, X, disp, beta, 0.5, plan=plan) for _ in range(2)]
+                            check(all(bits_equal(a, b) for h in hat for a, b in zip(h, got[:2])),
+                                  f"{what}: the hat entry differs from the fused call's H and mu")
+                picked[label] = every[0]._asdict()
+                log(f"  {label}: plans {[tuple(p) for p in plans]} (picked {tuple(every[0])}), alternatives "
+                    f"{alts}, each launched twice, bits equal, the test alone, hat and wald entries bit for bit "
+                    "the fused call's; rel err " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+                    + f" (tol {rtol})")
+                del beta, want
+                torch.cuda.empty_cache()
+    return picked
+
+
+# lowess checks: the points, and each draw's counts
+LOWESS_POINTS = (2, 50, 64)
+
+
+def lowess_checks() -> dict:
+    """``lowess`` at 2, 50 and 64 points on a dyadic grid (a point's
+    neighbours tie in distance exactly; one level repeated, a zero
+    distance) with rising then level counts and an all-zero row, float32
+    and float64: launched twice and bit for bit, the same row as the plain
+    pick and the fit within 1e-6 (f32) / 1e-13 (f64), relative (absolute
+    below 1), as phase 2's check on the run's operands. Returns {label:
+    row}."""
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    rows = {}
+    for n in LOWESS_POINTS:
+        theta = np.arange(n) / 64.0 + 1 / 128
+        if n > 2:
+            theta[n // 2] = theta[n // 2 - 1]
+        rng = np.random.default_rng(41 + n)
+        rising = np.maximum(0, 500 * np.minimum(theta / 0.3, 1.0) + rng.normal(0, 10, n)).round()
+        for dtype in (torch.float32, torch.float64):
+            ytol = 1e-6 if dtype == torch.float32 else 1e-13
+            th = torch.as_tensor(theta, dtype=dtype, device=DEVICE)
+            for kind, counts in (("counts", rising), ("all-zero", np.zeros(n))):
+                rej = torch.as_tensor(counts, dtype=torch.int64, device=DEVICE)
+                label = f"lowess {n} points {'f32' if dtype == torch.float32 else 'f64'} {kind}"
+                (yk, jk), (y2, j2) = st._lowess_pick_cuda(th, rej, 0.2), st._lowess_pick_cuda(th, rej, 0.2)
+                yp, jp = st._lowess_pick_plain(th, rej, 0.2)
+                check(bits_equal(yk, y2) and int(jk) == int(j2), f"{label}: a second launch differs")
+                check(int(jk) == int(jp), f"{label}: row {int(jk)}, plain {int(jp)}")
+                e_y = scaled_err(yk, yp)
+                check(e_y <= ytol, f"{label}: fit rel err {e_y:.3g} > {ytol:.3g}")
+                if kind == "all-zero":
+                    check(int(jk) == 0, f"{label}: all-zero counts must pick row 0")
+                rows[label] = int(jk)
+                log(f"  {label}: row {int(jk)} (plain {int(jp)}), fit rel err {e_y:.3g} (tol {ytol:.3g}), "
+                    f"bits equal to the plain fit: {bits_equal(yk, yp)}")
+    return rows
+
+
 # bh's plan checks: gene counts of the draws, and the cutoff sets (see
 # bh_cutoff_sets).
 BH_PLAN_G = (1, 33, G_MAIN)
@@ -3826,10 +4005,11 @@ def class_kernel_checks(dtype, G, N, reps, timings):
             "library_ms": None,
             # reads beta, disp, sf, X; writes H and mu
             "bytes": isz * (Gh * (P + 1) + Nh * (P + 1) + 2 * Gh * Nh),
-            # per (gene, sample): pass 1 linear predictor, exp, clamp, weight,
-            # the thresholded Gram triangle; pass 2 the same predictor and
-            # weight, x^T M^-1 x and H
-            "ops": Gh * Nh * ((2 * P + 6 + 3 * ntri) + (2 * P + 7 + 2 * P * P + 2 * P)),
+            # per (gene, sample): pass 1 linear predictor, exp, the product by
+            # sf, clamp, weight, the thresholded Gram triangle; pass 2 x^T
+            # M^-1 x and H
+            "ops": Gh * Nh * ((2 * P + 6 + 3 * ntri) + (2 * P * P + 2 * P + 1)),
+            "plan": wd._hat_wald_plan(Nh, P, isz)._asdict(),
         }
 
     # -- wald: the Wald-only entry (summary), the caller's mu and ridge -------
@@ -3873,6 +4053,7 @@ def class_kernel_checks(dtype, G, N, reps, timings):
             "bytes": isz * (Gw * Nw + Gw * (P + 1) + Nw * P + P * P + P + 3 * Gw),
             # per (gene, sample): the weight (3) and the Gram triangle (3 a term)
             "ops": Gw * Nw * (3 + 3 * ntri),
+            "plan": {"lanes": wd._hat_wald_plan(Nw, P, isz).lanes},
         }
     return errs
 
@@ -4140,6 +4321,8 @@ def main() -> int:
     plans.update(irls_plan_checks())
     plans.update(mom_plan_checks())
     plans.update(bh_plan_checks())
+    plans.update(hat_wald_plan_checks())
+    plans.update(lowess_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -4257,10 +4440,10 @@ def main() -> int:
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": t["library_ms"],
         }
-        for extra in ("sort_ms", "all_lanes_ms", "all_rows_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
+        for extra in ("test_only_ms", "sort_ms", "all_lanes_ms", "all_rows_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
                       "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells"):
             if extra in t:
-                # the sort before the BH counts, or the torch.sort yardstick of
+                # hat_wald without H and mu (the refit's call); the sort before the BH counts, or the torch.sort yardstick of
                 # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
                 # of its tile; bh_adjust over every row; cooks in the streamed refit mode; mom writing mu;
                 # the Newton steps of one sf_newton launch; trimmed_var over the
@@ -4282,7 +4465,8 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom and bh kernel plans: "
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald and lowess kernel "
+        "plans: "
         + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

@@ -177,7 +177,19 @@ template <typename T, int P> struct Chol {
   T L[P][P];
 };
 
-template <typename T, int P> __device__ __forceinline__ void chol(const T* M, Chol<T, P>& c) {
+// a / b. With ZQ a zero dividend over a positive finite divisor is its own
+// quotient (the same signed zero) and skips the division, whose range check
+// sends a zero down the slow path: the unit columns of an inverse divide
+// many exact zeros (hat_wald.cu).
+template <bool ZQ, typename T> __device__ __forceinline__ T div_z(T a, T b) {
+  if constexpr (ZQ) {
+    return (a == T(0) && b > T(0) && b < Lim<T>::inf()) ? a : a / b;
+  } else {
+    return a / b;
+  }
+}
+
+template <typename T, int P, bool ZQ = false> __device__ __forceinline__ void chol(const T* M, Chol<T, P>& c) {
 #pragma unroll
   for (int j = 0; j < P; ++j) {
     T s = M[tri_idx<P>(j, j)];
@@ -189,12 +201,12 @@ template <typename T, int P> __device__ __forceinline__ void chol(const T* M, Ch
       T t = M[tri_idx<P>(i, j)];
 #pragma unroll
       for (int k = 0; k < j; ++k) t = t - c.L[i][k] * c.L[j][k];
-      c.L[i][j] = t / c.L[j][j];
+      c.L[i][j] = div_z<ZQ>(t, c.L[j][j]);
     }
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, bool ZQ = false>
 __device__ __forceinline__ void chol_solve(const Chol<T, P>& c, const T* b, T* x) {
   T y[P];
 #pragma unroll
@@ -202,14 +214,14 @@ __device__ __forceinline__ void chol_solve(const Chol<T, P>& c, const T* b, T* x
     T s = b[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) s = s - c.L[i][k] * y[k];
-    y[i] = s / c.L[i][i];
+    y[i] = div_z<ZQ>(s, c.L[i][i]);
   }
 #pragma unroll
   for (int i = P - 1; i >= 0; --i) {
     T s = y[i];
 #pragma unroll
     for (int k = i + 1; k < P; ++k) s = s - c.L[k][i] * x[k];
-    x[i] = s / c.L[i][i];
+    x[i] = div_z<ZQ>(s, c.L[i][i]);
   }
 }
 

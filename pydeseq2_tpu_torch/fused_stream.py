@@ -437,7 +437,7 @@ def refit_pipeline_streamed(
         beta2, converged2, of1 = _irls_with_rescue(imputed, sf, X, disp_safe, irls_beta_init(imputed, sf, X),
                                                    min_mu=min_mu, beta_tol=beta_tol)
         _, _, pv2, st2, se2 = hat_wald(beta2, disp_safe, sf, X, contrast, lfc_null, min_mu=min_mu,
-                                       alt_hypothesis=alt_hypothesis)
+                                       alt_hypothesis=alt_hypothesis, want_hat=False)
         nan = torch.full_like(base_mean2, float("nan"))
 
         def nanl(a):

@@ -8,8 +8,9 @@ moments of ``cooks`` and ``trimmed_var`` (``cooks``), the grid rescues
 ``grid_apeglm`` and ``grid_nb`` (``grid``), the apeGLM MAP fit
 ``shrink`` (``shrink``), the order statistics of ``select`` (``select``),
 the masked IRLS ``irls`` (``irls``), the method-of-moments pass ``mom``
-(``mom``) and the Benjamini-Hochberg kernels of the independent filter
-(``bh``).
+(``mom``), the Benjamini-Hochberg kernels of the independent filter
+(``bh``), the hat diagonals and Wald test of ``hat_wald.cu`` (``hat``) and
+the filter's ``lowess`` (``lowess``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -17,7 +18,7 @@ Each TREE (default: this checkout) is the root of a checkout, for example
 an earlier commit unpacked with ``git archive`` into an ignored directory.
 Each runs in a process of its own that imports ``pydeseq2_tpu_torch`` from
 that tree and builds there only the sources of the suites asked for (all
-ten by default). To compare two versions in one call, name them parent,
+of them by default). To compare two versions in one call, name them parent,
 change, change, parent.
 
 ``disp`` shapes (``make_data`` seed 0, linear mu, the 32-point coarse grid,
@@ -160,6 +161,28 @@ alone and the two together; the sweep with float32 operands; whether the
 kernels equal the plain versions bit for bit; and as the yardstick the
 device time of ``torch.argsort(stable=True)`` of the p-values.
 
+``hat`` shapes (HAT_SHAPES): :func:`hat_operands` (``make_data`` counts
+and design as :func:`inputs`, median-of-ratios size factors, the
+least-squares coefficients of log((counts + 0.5) / sf), seeded
+dispersions) at 100 x 60000 float32 for P = 2 and 5, 12 and 1000 x 60000,
+the atlas block 5000 x 10000, 100 x 60000 float64, and the streamed
+refit's 4096-gene tile at 100 samples. Per shape the events and device
+times (kernels named ``hat_wald``) of the fused entry, the ``hat`` entry,
+the ``wald`` entry on the fused call's mu and, where the tree has it, the
+test alone (``want_hat=False``, the refit's call), beside the device time
+of ``fill_`` on 2 x G x N values (the bytes of H and mu written alone, the
+card's write rate as a yardstick); the largest differences
+from the plain version as ``chip_smoke.py`` measures them; whether a
+repeat and the test alone equal the fused call bit for bit; the plan
+where the tree has one; ``--detail`` every other plan built for the shape.
+
+``lowess`` shapes: the 50 cutoffs and rejection counts of the filter in
+``summary_pipeline`` on ``make_data(100, BH_G)`` (as the ``bh`` suite
+takes them), the quantile levels in float32 and float64: events and device
+times (kernels named ``lowess``), the row and the fit against the plain
+version, a repeat bit for bit; ``--detail`` adds seeded draws of 2 and 64
+points.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -193,7 +216,8 @@ DEVICE = "cuda"
 SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
           "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",),
-          "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu")}
+          "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu"), "hat": ("hat_wald.cu",),
+          "lowess": ("bh.cu", "lowess.cu")}
 MOM_SHAPES = (
     # label, genes, samples, P, dtype, want_mu, normed, timed calls
     ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, False, False, 20),
@@ -206,7 +230,17 @@ MOM_SHAPES = (
     ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, False, False, 10),
     ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, False, False, 20),
 )
-BH_G = 60_000  # genes of the draw whose device_padj operands the bh suite takes
+BH_G = 60_000  # genes of the draw whose device_padj operands the bh and lowess suites take
+HAT_SHAPES = (
+    # label, genes, samples, P, dtype, timed calls
+    ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, 20),
+    ("f32 12x60000 P=2", 60_000, 12, 2, torch.float32, 20),
+    ("f32 1000x60000 P=2", 60_000, 1_000, 2, torch.float32, 10),
+    ("f32 100x60000 P=5", 60_000, 100, 5, torch.float32, 20),
+    ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, 20),
+    ("f32 atlas 5000x10000 P=2", 5_000, 10_000, 2, torch.float32, 5),
+    ("f32 refit tile 100x4096 P=2", 4_096, 100, 2, torch.float32, 50),
+)
 SELECT_SHAPES = (
     # label, kind ("tile", "column" or "quantile"), columns, values a column, dtype, timed calls
     ("f32 tile 100x60000", "tile", 100, 60_000, torch.float32, 20),
@@ -364,7 +398,8 @@ def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
     f32|f64" for a kernel templated on the design width ("P<p> f32|f64 M<m>"
     where also on shrink's round size, "... S<s>" on irls' lanes a gene,
-    "... S<s> registers|shared" on mom's lanes and storage), "<kernel>
+    "... S<s> registers|shared" on mom's lanes and storage, "... S<s>
+    fused|hat|test" on hat_wald's lanes and mode), "<kernel>
     f32|f64 shared|streamed" for a cluster kernel templated on its mode and
     "<kernel> f32|f64" for one templated on its type alone."""
     out = {}
@@ -373,9 +408,13 @@ def ptxas(kernels, sources=SOURCES) -> dict:
         rows = {}
         for m in re.finditer(r"Compiling entry function '([^']+)'(.*?)Used (\d+) registers", text, re.S):
             inst = re.search(r"ILi(\d+)E([fd])(?:Li(\d+)E)?(?:Lb([01])E)?E", m.group(1))
+            hw = re.search(r"hat_wald_kernelILi(\d+)E([fd])Li(\d+)ELi([012])EE", m.group(1))
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
             typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
-            if inst is not None:
+            if hw is not None:
+                key = (f"P{hw.group(1)} {'f32' if hw.group(2) == 'f' else 'f64'} S{hw.group(3)} "
+                       f"{('fused', 'hat', 'test')[int(hw.group(4))]}")
+            elif inst is not None:
                 # irls' and mom's lanes a gene, shrink's round; mom's registers or shared memory
                 third = "S" if "irls_kernel" in m.group(1) or "mom_kernel" in m.group(1) else "M"
                 key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}" + (
@@ -1349,8 +1388,9 @@ def bh_operands(dtype=torch.float32):
     """The sweep of ``device_padj`` in ``summary_pipeline`` on
     ``make_data(100, BH_G)``: ``(p, order, valid, base_mean, cutoffs,
     alpha)`` as it forms them (p float64; base means and cutoffs widened to
-    float64), the pipeline's own arguments of ``device_padj``, and the
-    lowess pick ``j`` of the sweep's counts."""
+    float64), the pipeline's own arguments of ``device_padj``, the lowess
+    pick ``j`` of the sweep's counts, and the pick's operands ``(theta,
+    num_rej)`` (the 50 quantile levels, the counts on the card)."""
     import pydeseq2_tpu_torch as pt
     from pydeseq2_tpu_torch import fused
     from pydeseq2_tpu_torch.ops import stats as st
@@ -1389,8 +1429,9 @@ def bh_operands(dtype=torch.float32):
     cutoffs = st.nanquantile(base_m, theta)
     sweep = (p_filled, order, valid, base_mean.double(), cutoffs.double(), alpha)
     _, num_rej = st._bh_sweep_plain(*sweep)
-    j = st.lowess_pick(theta, num_rej.to(p.device), frac=1.0 / 5.0)[1]
-    return sweep, tuple(b.arguments.values()), j
+    num_rej = num_rej.to(p.device)
+    j = st.lowess_pick(theta, num_rej, frac=1.0 / 5.0)[1]
+    return sweep, tuple(b.arguments.values()), j, (theta, num_rej)
 
 
 def bh_rows(detail: bool) -> dict:
@@ -1398,7 +1439,7 @@ def bh_rows(detail: bool) -> dict:
     from pydeseq2_tpu_torch.ops import stats as st
 
     del detail  # one set of shapes
-    sweep, padj_args, j = bh_operands()
+    sweep, padj_args, j, _ = bh_operands()
     p, order, valid, base_mean, cutoffs, alpha = sweep
     reps = 20
     adj_p, rej_p = st._bh_sweep_plain(*sweep)
@@ -1434,6 +1475,147 @@ def bh_rows(detail: bool) -> dict:
             row[f"{name}_ms"], row[f"{name}_kernel_ms"], row[f"{name}_device_ms"] = cuda_ms(fn, reps), kern, dev
     print(f"  bh: {json.dumps(row)}", file=sys.stderr, flush=True)
     return {"f64 50x60000": row}
+
+
+def hat_operands(G: int, N: int, P: int, dtype):
+    """``(beta, disp, sf, X, contrast)`` of one ``hat_wald`` call on the
+    card: :func:`inputs`' counts and design, median-of-ratios size factors,
+    the least-squares fit of log((counts + 0.5) / sf) as the coefficients
+    (some samples' mu below min_mu), seeded lognormal dispersions, the
+    contrast on the design's second column (the first where P = 1)."""
+    counts, _, X = inputs(G, N, P, dtype)
+    logc = torch.log(counts)
+    ok = torch.isfinite(logc.mean(1))
+    sf = torch.exp(torch.median(logc[ok] - logc[ok].mean(1, keepdim=True), dim=0).values)
+    beta = (torch.log((counts + 0.5) / sf) @ torch.linalg.pinv(X).T).contiguous()
+    gen = torch.Generator(device=DEVICE).manual_seed(14)
+    disp = torch.exp(torch.randn(G, generator=gen, device=DEVICE, dtype=dtype) - 2.0)
+    contrast = torch.zeros(P, dtype=dtype, device=DEVICE)
+    contrast[min(1, P - 1)] = 1.0
+    del counts
+    return beta, disp, sf, X.contiguous(), contrast
+
+
+def hat_errs(got, want, tiny: float = 1e-30) -> dict:
+    """The largest differences of ``hat_wald`` outputs from the plain
+    version's, as ``chip_smoke.py`` measures them: relative on H (absolute
+    below 1e-2), mu, the statistic (absolute below 1e-3) and the SE, and on
+    log p scaled by 1 + stat^2 (p at or above ``tiny``)."""
+    errs = {}
+    for key, a, b, floor in zip(("H", "mu", "p", "stat", "se"), got, want, (1e-2, 1e-300, 0.0, 1e-3, 1e-300)):
+        if a is None or b is None:
+            continue
+        a, b = a.double(), b.double()
+        if key == "p":
+            big = b >= tiny
+            scale = 1.0 + want[3][big].double().square()
+            errs[key] = ((a[big].log() - b[big].log()).abs() / scale).max().item() if bool(big.any()) else 0.0
+        else:
+            m = ~torch.isnan(b)
+            errs[key] = ((a[m] - b[m]).abs() / torch.clamp(b[m].abs(), min=floor)).max().item() if bool(m.any()) else 0.0
+    return errs
+
+
+def hat_plans(wd, N: int, itemsize: int) -> dict:
+    """{name: plan} of ``hat_wald.cu`` for N samples: the one the wrapper
+    picks first, then every lane count staging what its share of the stage
+    holds, and 32 lanes and a block staging a third of the row (the rest
+    formed again in pass 2)."""
+    plans = {"picked": wd._hat_wald_plan(N, 2, itemsize)}
+    for lanes in wd._HW_LANES:
+        plans[f"lanes={lanes} staged"] = wd._hat_wald_staged(lanes, N, itemsize)
+    for lanes in (32, wd._HW_BLOCK):
+        plans[f"lanes={lanes} third staged"] = wd.HatWaldPlan(lanes, N // 3)
+    first = {}  # each plan once, under its first name
+    for name, plan in plans.items():
+        if plan not in first.values():
+            first[name] = plan
+    return first
+
+
+def hat_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch.ops import irls as ir
+    from pydeseq2_tpu_torch.ops import wald as wd
+
+    test_only = "want_hat" in inspect.signature(wd._hat_wald_cuda).parameters
+    rows = {}
+    for label, G, N, P, dtype, reps in HAT_SHAPES:
+        beta, disp, sf, X, contrast = hat_operands(G, N, P, dtype)
+        ridge = 1e-6 * torch.eye(P, dtype=dtype, device=DEVICE)
+        null = torch.zeros((), dtype=dtype, device=DEVICE)  # a 0-d tensor on the card, as the pipelines pass it
+        args = (beta, disp, sf, X, contrast, null, 0.5, None)
+
+        def fused(**kw):
+            return wd._hat_wald_cuda(*args, **kw)
+
+        got = fused()
+        want = wd._hat_wald_plain(*args)
+        mu = got[1]
+        runs = {"hat_wald": fused, "hat": lambda: ir._hat_cuda(sf, X, disp, beta, 0.5),
+                "wald": lambda: wd._wald_cuda(X, disp, beta, mu, ridge, contrast, null, None)}
+        if test_only:
+            runs["test_only"] = lambda: fused(want_hat=False)
+        out = torch.empty((2, G, N), dtype=dtype, device=DEVICE)
+        row = {"genes": G, "samples": N, "P": P, "clamped_share": (want[1] < 0.5).double().mean().item(),
+               "errs": hat_errs(got, want),
+               "repeat_bits_equal": all(torch.equal(a, b) for a, b in zip(got, fused())),
+               "fill_ms": device_ms(lambda: out.fill_(1.0), reps, "")[1]}
+        del out
+        for name, fn in runs.items():
+            kern, dev = device_ms(fn, reps, "hat_wald")
+            row[f"{name}_ms"], row[f"{name}_kernel_ms"], row[f"{name}_device_ms"] = cuda_ms(fn, reps), kern, dev
+        if test_only:
+            alone = fused(want_hat=False)
+            row["test_only_bits_equal"] = alone[0] is None and all(
+                torch.equal(a, b) for a, b in zip(alone[2:], got[2:]))
+        if hasattr(wd, "_hat_wald_plan"):
+            plan = wd._hat_wald_plan(N, P, beta.element_size())
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in list(hat_plans(wd, N, beta.element_size()).items())[1:]:
+                    row[f"kernel_ms {name}"] = device_ms(lambda: fused(plan=other), reps, "hat_wald")[0]
+                    row[f"bits {name}"] = all(torch.equal(a, b) for a, b in zip(fused(plan=other), fused(plan=other)))
+        rows[label] = row
+        print(f"  hat {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del got, want, mu, runs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lowess_rows(detail: bool) -> dict:
+    """``lowess`` on the 50 cutoffs of one ``summary_pipeline`` run (see
+    :func:`bh_operands`), float32 and float64: events and device times,
+    the row and the fit against the plain version, a repeat bit for bit;
+    ``--detail`` adds seeded draws of 2 and 64 points."""
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    theta, num_rej = bh_operands()[3]
+    draws = {"f32 run 50": (theta.float(), num_rej), "f64 run 50": (theta.double(), num_rej)}
+    if detail:
+        rng = np.random.default_rng(14)
+        for n in (2, 64):
+            t = np.linspace(0.05, 0.95, n)
+            rej = np.maximum(0, 500 * np.minimum(t / 0.4, 1.0) + rng.normal(0, 10, n)).round()
+            draws[f"f32 draw {n}"] = (torch.as_tensor(t, dtype=torch.float32, device=DEVICE),
+                                      torch.as_tensor(rej, dtype=torch.int64, device=DEVICE))
+    rows = {}
+    for label, (th, rej) in draws.items():
+        def run():
+            return st._lowess_pick_cuda(th, rej, 0.2)
+
+        def same(a, b):  # bit for bit, NaN where NaN (2 points: one weighted point, 0/0)
+            return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+        (yk, jk), (yp, jp) = run(), st._lowess_pick_plain(th, rej, 0.2)
+        kern, dev = device_ms(run, 50, "lowess")
+        rows[label] = {"points": th.shape[0], "row": int(jk), "plain_row": int(jp),
+                       "fit_max_rel_err": ((yk.double() - yp.double()).abs() /
+                                           torch.clamp(yp.double().abs(), min=1.0)).nan_to_num(0.0).max().item(),
+                       "fit_bits_equal": same(yk, yp), "repeat_bits_equal": same(run()[0], yk),
+                       "lowess_ms": cuda_ms(run, 50), "lowess_kernel_ms": kern, "lowess_device_ms": dev,
+                       "plain_ms": cuda_ms(lambda: st._lowess_pick_plain(th, rej, 0.2), 20)}
+        print(f"  lowess {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+    return rows
 
 
 def cuobjdump(kernels) -> str | None:
@@ -1608,6 +1790,10 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["mom"] = mom_rows(detail)
     if "bh" in suites:
         res["bh"] = bh_rows(detail)
+    if "hat" in suites:
+        res["hat"] = hat_rows(detail)
+    if "lowess" in suites:
+        res["lowess"] = lowess_rows(detail)
     return res
 
 
@@ -1653,6 +1839,12 @@ def summary(res: dict) -> dict:
     for k, v in res.get("mom", {}).items():
         out[f"mom {k}"] = {"ms": v["mom_ms"], "kernel": v["mom_kernel_ms"], "device": v["mom_device_ms"],
                            "matmul": v["matmul_ms"], "err": v["max_rel_err"]}
+    for k, v in res.get("hat", {}).items():
+        out[f"hat {k}"] = {key: v[key] for key in ("hat_wald_kernel_ms", "hat_kernel_ms", "wald_kernel_ms",
+                                                   "test_only_kernel_ms", "fill_ms", "hat_wald_ms", "errs") if key in v}
+    for k, v in res.get("lowess", {}).items():
+        out[f"lowess {k}"] = {key: v[key] for key in ("lowess_kernel_ms", "lowess_ms", "row", "plain_row",
+                                                      "fit_bits_equal")}
     for k, v in res.get("bh", {}).items():
         out[f"bh {k}"] = {key: v[key] for key in ("sweep_kernel_ms", "one_row_kernel_ms", "device_padj_device_ms",
                                                   "counts_and_row_kernel_ms", "argsort_ms", "sweep_bits_equal",

@@ -102,9 +102,9 @@ _ARGTYPES = {
                            _I, _I, _I, _P, _P, _P, _P],
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _I, _P, _P, _P, _P, _P],
-    "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P],
-    "hat_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _P, _P],
-    "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "hat_wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _I, _I, _I, _P, _P, _P, _P, _P],
+    "hat_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _I, _I, _P, _P],
+    "wald_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],
     "cooks_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bh_count_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P],

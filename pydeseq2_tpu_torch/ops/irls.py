@@ -528,11 +528,17 @@ def _hat_plain(size_factors, X, disp, beta, min_mu):
     return W * xmx, size_factors[None, :] * torch.exp(xb)
 
 
-def _hat_cuda(size_factors, X, disp, beta, min_mu):
-    """Launch the hat-only entry of ``csrc/hat_wald.cu`` (``hat``)."""
+def _hat_cuda(size_factors, X, disp, beta, min_mu, plan=None):
+    """Launch the hat-only entry of ``csrc/hat_wald.cu`` (``hat``);
+    ``plan`` overrides ``ops/wald.py:_hat_wald_plan``."""
+    from pydeseq2_tpu_torch.ops.wald import _check_plan, _hat_wald_plan  # ops.wald imports this module
+
     G, P = beta.shape
     N = X.shape[0]
     dev = beta.device
+    if plan is None:
+        plan = _hat_wald_plan(N, P, beta.element_size())
+    _check_plan("hat", plan, N, keeps=True)
     ops = [t.contiguous() for t in (beta, disp, size_factors, X)]
     beta, disp, size_factors, X = ops
     H = torch.empty((G, N), dtype=beta.dtype, device=dev)
@@ -542,7 +548,7 @@ def _hat_cuda(size_factors, X, disp, beta, min_mu):
     kernels.launch(
         "hat",
         [int(beta.dtype == torch.float64), P, G, N, beta.data_ptr(), disp.data_ptr(), size_factors.data_ptr(),
-         X.data_ptr(), float(min_mu), H.data_ptr(), mu.data_ptr()],
+         X.data_ptr(), float(min_mu), plan.lanes, plan.staged, H.data_ptr(), mu.data_ptr()],
         dev,
     )
     return H, mu

@@ -44,12 +44,13 @@ the same kernels.
 
 Kernel (``csrc/lowess.cu``): :func:`lowess_pick` replaces ``lowess_device``
 (pydeseq2_tpu/ops/stats.py:218) and the cutoff pick of ``device_padj``
-(pydeseq2_tpu/fused.py:763-768) with one launch of one 64-thread block:
-thread i owns filtering cutoff i, finds its bandwidth (the r-th smallest
-distance) and each round's median of |resid| by counting ranks, sums its
-local fit over the 50 points in index order, and thread 0 picks the
-cutoff. 3 rounds of 50 x 50 weighted sums (~50,000 operations, under 2 KB):
-bound by launch latency, where the plain version is ~40 small launches.
+(pydeseq2_tpu/fused.py:763-768) with one launch of one block: its threads
+count the ranks of the n^2 staged distances for the bandwidths (the r-th
+smallest of each row), the tricube weights replace the distances once,
+then thread i owns filtering cutoff i, sums its local fit over the points
+in index order each round and finds the median of |resid| by counting
+ranks, and thread 0 picks the cutoff. Bound by launch latency (under 2 KB
+of data), where the plain version is ~40 small launches.
 """
 
 from __future__ import annotations
