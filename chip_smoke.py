@@ -96,6 +96,18 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    alone and the ``hat`` and ``wald`` entries bit for bit the fused call's;
    ``lowess`` at 2, 50 and 64 points with tied distances and an all-zero
    row (``lowess_checks``), twice and bit for bit, the plain pick's row;
+   ``impute`` in every trimmed-moment plan (``impute_plan_checks``: a warp
+   a row by rank count and by radix select, a block a row with the keys in
+   shared memory and over the workspace) at 3, 12, 96, 97, 100, 1000 and
+   10000 samples and a float64 row past 227 KB, on Poisson, tie-heavy and
+   zero-heavy rows and rows left all zero, both types, each launched twice
+   and bit for bit, held to the plain version by the floor rule;
+   ``newton_box`` (``newton_box_plan_checks``) with 1, 2, 16 and all of a
+   937-lane tile selected at 12, 100 and 1000 samples and of a 16-lane tile
+   past the stage (8000 samples float32, 4000 float64), P = 2, 3, 5, both
+   types, each launched twice and bit for bit, the selected lanes bit for
+   bit the all-lane launch's, held to the plain version by the tie rule and
+   the exit test at the kernel's point;
    ``sf_nll`` also on a
    zero-heavy copy of the trimmed solve's counts, and its lgamma table
    (lgamma(1) = 0 on the card);
@@ -272,6 +284,25 @@ NB_TILE = 937
 # chunk (10000 samples: 4096 a chunk in float32, 2048 in float64), and at
 # N = 3; grid_apeglm at each cluster size.
 NLL_PLAN_G = 4_000
+# impute's plan checks: rows of each length, the longest a float64 row
+# past one block's 227 KB of shared memory (the workspace plan); tiles of
+# IMPUTE_PLAN_K rows, fewer past 1000 samples.
+IMPUTE_PLAN_N = (3, 12, 96, 97, 100, 1_000, 10_000)
+IMPUTE_WS_N = 30_000
+IMPUTE_PLAN_K = 4_096
+# newton_box's plan checks: a NB_TILE-lane tile at BOX_PLAN_N samples and a
+# 16-lane tile at N_GRID_WIDE, past the kernel's stage; P = 2, 3, 5.
+BOX_PLAN_N = (12, 100, 1_000)
+BOX_PLAN_P = (2, 3, 5)
+# The float32 case (samples, P) whose plain search ties with itself beyond
+# TIE_UNITS, and the draws of it that newton_box_plan_checks holds the
+# kernel to, each with its own limit.
+BOX_TIE_CASE = (12, 3)
+BOX_TIE_SEEDS = 8
+# The parent design's passes on the phase-2 rescue tiles (one warp a lane,
+# one objective pass a backtracking candidate; PERF.md section 6), logged
+# beside the passes of this build.
+BOX_PARENT_PASSES = {"f32": 28, "f64": 73}
 # Two coefficient sets tie when their float64 objectives differ by at most
 # TIE_UNITS rounding units of the lane, sqrt(N) eps x the summed size of
 # its terms (noise_unit); PERF.md section 6 gives the ties and the
@@ -315,6 +346,13 @@ def cuda_ms(fn, reps: int) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def box_selection(passes: list) -> list:
+    """Per ``newton_box`` launch of a counted run (``kernels.STATS.box_passes``
+    taken just after it): [selected lanes, lanes of the tile, the slowest
+    lane's serial passes]."""
+    return [[int((p > 0).sum()), p.numel(), int(p.max()) if p.numel() else 0] for p in passes]
 
 
 def stage_inputs(counts, X, max_disp):
@@ -768,6 +806,7 @@ def main_path(reps: int):
         if i == 0:
             launches = dict(kernels.STATS.launches)
             trips = [int(t) for t in kernels.STATS.irls_trips]
+            box = box_selection(kernels.STATS.box_passes)
     res = pt.outputs_to_numpy(out)
     for name in WALD_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the Wald path")
@@ -781,12 +820,13 @@ def main_path(reps: int):
     log(f"  wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s, "
         f"{G_MAIN / best:.1f} genes/s; _irls_with_rescue {rescue_s * 1e3:.3f} ms of a {rescue_wall * 1e3:.3f} ms "
         f"run (share {rescue_s / rescue_wall:.4f})")
-    log(f"  launches in one run {launches}; IRLS slowest-lane trips per launch {trips}")
+    log(f"  launches in one run {launches}; IRLS slowest-lane trips per launch {trips}; newton_box per launch "
+        f"[selected, tile lanes, slowest lane's passes] {box}")
     log(f"  rescue_overflow {int(res['rescue_overflow'])}, finite p-values {finite:.5f}, "
         f"irls_converged {float(res['irls_converged'].mean()):.5f}, "
         f"trend_used_mean {bool(res['trend_used_mean'])}")
     return {"walls_s": walls, "best_s": best, "genes_per_s": G_MAIN / best, "launches": launches,
-            "irls_trips": trips, "rescue_overflow": int(res["rescue_overflow"]), "finite_p": finite,
+            "irls_trips": trips, "box_selection": box, "rescue_overflow": int(res["rescue_overflow"]), "finite_p": finite,
             "rescue_share": rescue_s / rescue_wall}
 
 
@@ -1309,6 +1349,7 @@ def summary_path(reps: int, filter_row: int):
         walls.append(time.perf_counter() - t0)
         if i == 0:
             launches = dict(kernels.STATS.launches)
+            box = box_selection(kernels.STATS.box_passes)
     for name in SUMMARY_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the summary path")
     res = pt.outputs_to_numpy(out)
@@ -1326,11 +1367,12 @@ def summary_path(reps: int, filter_row: int):
     log(f"  wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s, {G_MAIN / best:.1f} genes/s; "
         f"_irls_with_rescue {rescue_s * 1e3:.3f} ms of a {rescue_wall * 1e3:.3f} ms run (share "
         f"{rescue_s / rescue_wall:.4f})")
-    log(f"  launches in one run {launches}")
+    log(f"  launches in one run {launches}; newton_box per launch [selected, tile lanes, slowest lane's passes] "
+        f"{box}")
     log(f"  cooks outliers {n_out}, finite padj {fin.mean():.5f}, padj < 0.05: {int((padj < 0.05).sum())}, "
         f"filter row j = {filter_row} (phase 2), rescue_overflow {int(res['rescue_overflow'])}")
     return {"walls_s": walls, "best_s": best, "genes_per_s": G_MAIN / best, "launches": launches,
-            "cooks_outliers": n_out, "finite_padj": float(fin.mean()), "filter_row": filter_row,
+            "box_selection": box, "cooks_outliers": n_out, "finite_padj": float(fin.mean()), "filter_row": filter_row,
             "rescue_share": rescue_s / rescue_wall}, kw, out
 
 
@@ -1507,11 +1549,12 @@ def nb_objective64(counts, sf, X, disp, beta, min_mu=0.5):
     return nb_nll(c, mu, d) + 0.5e-6 * (b**2).sum(1)
 
 
-def agree_or_tie(what, b_k, b_p, f_k, f_p, btol, unit):
+def agree_or_tie(what, b_k, b_p, f_k, f_p, btol, unit, limit=TIE_UNITS):
     """Kernel against plain, lane by lane: the coefficients agree within
     ``btol``, or the kernel's point is as good as the plain one to rounding
-    (float64 objectives within TIE_UNITS x ``unit``, the lane's rounding
-    unit): a search whose accept or argmin compares values at their
+    (float64 objectives within ``limit`` x ``unit``, the lane's rounding
+    unit; TIE_UNITS unless the caller measured the plain version's own
+    noise): a search whose accept or argmin compares values at their
     rounding noise may stop elsewhere on a flat objective. Returns (the
     number of lanes that took the second route, their largest objective
     gap in units)."""
@@ -1519,10 +1562,10 @@ def agree_or_tie(what, b_k, b_p, f_k, f_p, btol, unit):
     check(torch.equal(nan_k, nan_p), f"{what}: NaN lanes differ")
     close = ((b_k - b_p).abs().amax(1) <= btol) | nan_p
     gap = (f_k - f_p).abs() / unit
-    bad = ~close & ~(gap <= TIE_UNITS)
+    bad = ~close & ~(gap <= limit)
     if bool(bad.any()):
         raise AssertionError(f"{what}: {int(bad.sum())} lanes differ beyond {btol} and their objectives by more "
-                             f"than {TIE_UNITS} rounding units (worst {gap[bad].max().item():.3g})")
+                             f"than {limit:.3g} rounding units (worst {gap[bad].max().item():.3g})")
     far = ~close
     return int(far.sum()), (gap[far].max().item() if bool(far.any()) else 0.0)
 
@@ -1641,7 +1684,8 @@ def rescue_checks(seen, dtype, reps, timings, readings):
     log(f"  newton_box {name}: {K} lanes, {far} off by > {btol} with tied objectives (largest gap {worst:.3g} of "
         f"the limit {TIE_UNITS} rounding units); flags agree with the plain run on {flags:.4f}, with the plain test at "
         f"the kernel's point on all but {int((okk != (sup < 1e-5)).sum())} lanes within rounding of 1e-5; pipeline "
-        f"selection {int(sel.sum())} lanes, {int(passes.sum())} passes, bit-identical to the all-lane launch")
+        f"selection {int(sel.sum())} lanes, {int(passes.sum())} passes (the parent design's "
+        f"{BOX_PARENT_PASSES[name]}), bit-identical to the all-lane launch")
 
     gk = irl._grid_fit_beta_cuda(*grid)
     gp = irl._grid_fit_beta_plain(*grid)
@@ -1669,9 +1713,13 @@ def rescue_checks(seen, dtype, reps, timings, readings):
             # the selected lanes' rows, sf, log sf and X, their disp and
             # start; writes beta and the flag of the tile
             "bytes": isz * (n_sel * N + N * (P + 2) + n_sel * (P + 1) + K * P) + K,
-            # per pass and sample: linear predictor, exp, clamp, the
-            # objective's or the gradient's and Hessian's terms
+            # per serial pass and sample (a pass is at least one row
+            # evaluation that the sequential search needs, so this counts no
+            # more than the run's data needs): linear predictor, exp, clamp,
+            # the objective's or the gradient's and Hessian's terms
             "ops": int(passes.sum()) * N * (2 * P + 12 + 2 * ntri),
+            "passes": int(passes.sum()),
+            "plan": irl._box_plan(N, P, isz)._asdict(),
         }
         timings["grid_nb"] = {
             "ms": cuda_ms(lambda: irl._grid_fit_beta_cuda(*grid, sel_grid, n_grid), reps),
@@ -2261,12 +2309,28 @@ def refit_agree(label: str, got, want, cutoff, f32: bool) -> None:
         f"refit flag {int(got[5].sum())} (plain {int(want[5].sum())})")
 
 
+def impute_agree(what: str, tile, sf, got, want) -> int:
+    """``impute``'s floor rule (``kernel_bench.impute_floor_diffs``):
+    floor() is discontinuous and the kernel sums the trimmed mean in
+    another order than sort-then-mean, so a product trim02 * sf within an
+    ulp of an integer may floor one count apart. A differing cell is
+    accepted only where the plain product lies within 4 ulps of an
+    integer, and by 1; new_all_zero may differ only on rows with such a
+    cell. Returns the cells that differ."""
+    from pydeseq2_tpu_torch import kernel_bench
+
+    differ, beyond = kernel_bench.impute_floor_diffs(tile, sf, got, want)
+    check(beyond == 0, f"{what}: {beyond} cells or flags differ beyond the floor rule")
+    return differ
+
+
 def stream_kernel_checks(dtype, G, N, reps, timings):
     """Phase 2, the streamed refit path's kernels (``mom``, ``trend``,
     ``lowess``, ``impute`` and the refit outputs of ``cooks``) against their
     plain versions on the operands one ``run_summary_streamed(refit_cooks=
     True)`` run of ``make_data(N, G)`` with planted outliers hands them.
     Returns {name: max_abs_err} and fills ``timings`` (``reps`` > 0)."""
+    from pydeseq2_tpu_torch import kernels
     from pydeseq2_tpu_torch.ops import cooks as ck
     from pydeseq2_tpu_torch.ops import linreg as lin
     from pydeseq2_tpu_torch.ops import refit as rf
@@ -2379,27 +2443,16 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
     if reps:
         timings["cooks_refit_ms"] = cuda_ms(lambda: ck._cooks_cuda(*cargs, repl, False), reps)
 
-    # -- impute: the refit tile ------------------------------------------------
-    # floor() is discontinuous: the kernel sums the trimmed mean in another
-    # order than sort-then-mean, so a product trim02 * sf within an ulp of an
-    # integer may floor one count apart. A differing cell is accepted only
-    # where the plain product lies within 4 ulps of an integer, and by 1.
+    # -- impute: the refit tile, held to the plain version by the floor rule --
     tile, packed, repl_i, sf_i, mask = bound_args(rf.impute_outliers, *seen["impute_outliers"][:2])
     ik, nk = rf._impute_cuda(tile, packed, repl_i, sf_i, mask)
     ip, nplain = rf._impute_plain(tile, packed, repl_i, sf_i, mask)
     check(bits_equal(ik, seen["impute_outliers"][2][0]), f"impute {name}: the launch differs from the path's")
-    prod = st._trimmed_mean_plain(tile / sf_i[None, :], rf.TRIM, 1)[:, None] * sf_i[None, :]
-    ulp = (torch.nextafter(prod.abs(), torch.full_like(prod, math.inf)) - prod.abs())
-    near_int = (prod - torch.round(prod)).abs() <= 4 * ulp
-    differ = ik != ip
-    bad = differ & ~(near_int & ((ik - ip).abs() == 1))
-    check(not bool(bad.any()), f"impute {name}: {int(bad.sum())} cells differ beyond the floor rule")
-    naz_differ = nk != nplain
-    check(not bool((naz_differ & ~differ.any(1)).any()), f"impute {name}: new_all_zero differs on rows with equal cells")
+    differ = impute_agree(f"impute {name}", tile, sf_i, (ik, nk), (ip, nplain))
     swapped = int((ck.unpack_bits(packed, tile.shape[1]) & torch.as_tensor(repl_i, device=tile.device)[None, :]
                    & mask[:, None]).sum())
     log(f"  impute {name} ({tile.shape[0]}, {tile.shape[1]}), {int(mask.sum())} rows in the tile, {swapped} cells "
-        f"imputed: {int(differ.sum())} cells floor one count apart (plain product within 4 ulps of an integer); "
+        f"imputed: {differ} cells floor one count apart (plain product within 4 ulps of an integer); "
         f"new_all_zero {int(nk.sum())} (plain {int(nplain.sum())})")
     errs["impute"] = (ik - ip).abs().max().item()
     if reps:
@@ -2415,6 +2468,7 @@ def stream_kernel_checks(dtype, G, N, reps, timings):
             # and the trimmed sum's add, then unpack (2), test, product, floor,
             # select and the zero test
             "ops": K * Ni * (2 + math.ceil(math.log2(Ni)) + 7),
+            "plan": st._trim_plan(isz, [Ni], K, True, kernels.sm_count(tile.device))._asdict(),
         }
     return errs, seen["stream"]
 
@@ -2474,6 +2528,7 @@ def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = Fal
                 walls.append(time.perf_counter() - t0)
                 if i == 0:
                     launches = dict(kernels.STATS.launches)
+                    box = box_selection(kernels.STATS.box_passes)
     finally:
         fused_stream.iterative_size_factors = iterative
     switched = sum("Switching to iterative mode" in str(w.message) for w in caught)
@@ -2509,9 +2564,10 @@ def stream_path(reps: int, G: int, N: int, label: str, zero_inflated: bool = Fal
     if zero_inflated:
         sf = res["size_factors"]
         log(f"  iterative size factors: rounds per run {n_iters}, size factors in [{sf.min():.4f}, {sf.max():.4f}]")
-    log(f"  launches in one run {launches}")
+    log(f"  launches in one run {launches}; newton_box per launch [selected, tile lanes, slowest lane's passes] "
+        f"{box}")
     out = {"shape": [N, G], "walls_s": walls, "best_s": best, "genes_per_s": G / best, "gene_block": B,
-           "refit_tile": K, "replaced": n_rep, "refitted": n_refit, "launches": launches,
+           "refit_tile": K, "replaced": n_rep, "refitted": n_refit, "launches": launches, "box_selection": box,
            "finite_padj": float(fin.mean())}
     if zero_inflated:
         out["n_iters"] = n_iters[1]
@@ -3592,6 +3648,168 @@ def trim_plan_checks() -> dict:
     return plans
 
 
+def impute_case(K: int, N: int, dtype, seed: int, unit_sf: bool = False) -> tuple:
+    """``impute_outliers``' operands on K seeded rows of N samples, four
+    kinds in turn: Poisson counts at lognormal means, tie-heavy (means
+    0.1-3: zeros and equal counts at both trimmed boundaries), zero-heavy
+    (~90% zeros), and rows left all zero where N >= 5 (zeros but one count
+    of 50 in a flagged replaceable sample). Exceed bits at ~3% of the cells,
+    every 7th sample not replaceable, lognormal size factors (all 1 with
+    ``unit_sf``: the normalised counts tie exactly where the counts do), the
+    last eighth of the rows padding."""
+    from pydeseq2_tpu_torch.ops.cooks import pack_bits
+
+    rng = np.random.default_rng(seed)
+    sf = np.ones(N) if unit_sf else np.exp(rng.normal(0.0, 0.3, N))
+    kind = np.arange(K) % 4
+    mean = np.where(kind == 0, rng.lognormal(3.0, 1.5, K), rng.uniform(0.1, 3.0, K))
+    counts = rng.poisson(mean[:, None] * sf[None, :]).astype(np.float64)
+    counts[kind == 2] *= rng.random((int((kind == 2).sum()), N)) < 0.1
+    exceeds = rng.random((K, N)) < 0.03
+    repl = np.arange(N) % 7 != 6
+    zero = kind == 3
+    counts[zero] = 0.0
+    exceeds[zero] = False
+    exceeds[zero, 0] = True
+    counts[zero, 0] = 50.0
+    mask = np.arange(K) < K - K // 8
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(a, dtype=dt, device=DEVICE)
+
+    return (t(counts), pack_bits(t(exceeds, torch.bool)).contiguous(), tuple(bool(r) for r in repl), t(sf),
+            t(mask, torch.bool))
+
+
+def impute_plan_checks() -> dict:
+    """Phase 2, ``impute`` in every trimmed-moment plan
+    (``ops/stats.py:_trim_plan``): the plan picked at each of
+    IMPUTE_PLAN_N samples in both types (a warp a row by rank count to 96
+    samples and by radix select above; a block a row with the keys in
+    shared memory from 1000 samples in float64 and 10000 in float32) and
+    at IMPUTE_WS_N in float64 (a block a row over the workspace), and up to
+    1000 samples every other plan that fits (``kernel_bench.other_plans``),
+    on :func:`impute_case` tiles, and on tie-heavy tiles with unit size
+    factors at 100 and 1000 samples. Each launched twice (bit for bit the
+    same) and held to the plain version by the floor rule
+    (:func:`impute_agree`). Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernel_bench, kernels
+    from pydeseq2_tpu_torch.ops import refit as rf
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    sms = kernels.sm_count(torch.device(DEVICE))
+    plans = {}
+    cases = [(N, dtype, False) for N in IMPUTE_PLAN_N for dtype in (torch.float32, torch.float64)]
+    cases += [(IMPUTE_WS_N, torch.float64, False)]
+    cases += [(N, dtype, True) for N in (100, 1_000) for dtype in (torch.float32, torch.float64)]
+    for i, (N, dtype, unit_sf) in enumerate(cases):
+        K = IMPUTE_PLAN_K if N <= 1_000 else IMPUTE_PLAN_K // 16
+        args = impute_case(K, N, dtype, 500 + i, unit_sf)
+        tile, sf = args[0], args[3]
+        isz = tile.element_size()
+        picked = st._trim_plan(isz, [N], K, True, sms)
+        want = rf._impute_plain(*args)
+        others = kernel_bench.other_plans(picked, isz, N, N, K) if N <= 1_000 else {}
+        for pname, plan in {"picked": picked, **others}.items():
+            label = (f"impute {'f32' if dtype == torch.float32 else 'f64'} {K} x {N}"
+                     + (", unit size factors" if unit_sf else "") + f", {pname}")
+            plans[label] = plan._asdict()
+            got = rf._impute_cuda(*args, plan=plan)
+            again = rf._impute_cuda(*args, plan=plan)
+            check(bits_equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+                  f"{label}: a second launch differs from the first")
+            differ = impute_agree(label, tile, sf, got, want)
+            log(f"  {label}: plan {plan}, {differ} cells floor one count apart, new_all_zero {int(got[1].sum())} "
+                f"(plain {int(want[1].sum())}), repeat bit-equal")
+        del args, tile, want, got, again
+    return plans
+
+
+def newton_box_plan_checks(readings) -> dict:
+    """Phase 2, ``newton_box`` on ``kernel_bench.box_operands``' lanes: a
+    NB_TILE-lane tile at each of BOX_PLAN_N samples and a 16-lane tile at
+    N_GRID_WIDE samples (past the stage), P = 2, 3, 5, both types, and
+    BOX_TIE_SEEDS draws at BOX_TIE_CASE in float32. Every lane, then 1, 2,
+    16 and all of them selected: each launched twice and bit for bit the
+    same, the selected lanes (coefficients, flags, passes) bit for bit the
+    all-lane launch's, the others left at their start; every lane held to
+    the plain version by the tie rule (:func:`agree_or_tie`; in float32 the
+    limit is the larger of TIE_UNITS and the plain search's own worst tie
+    against itself with the samples reversed, which passes TIE_UNITS at 12
+    samples, P = 3) and its flag to the plain exit test at the kernel's
+    point (:func:`box_exit`, as :func:`rescue_checks`). Returns {label:
+    plan}; ``readings`` gets each case's ties, limit and passes."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    plans = {}
+    sweep_log = []
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        btol = 1e-4 if dtype == torch.float32 else 1e-9
+        shapes = [(N, NB_TILE) for N in BOX_PLAN_N] + [(N_GRID_WIDE[dtype], 16)]
+        for N, lanes in shapes:
+            for P in BOX_PLAN_P:
+                sweep = dtype == torch.float32 and (N, P) == BOX_TIE_CASE
+                for k in range(BOX_TIE_SEEDS if sweep else 1):
+                    seed = 600 + N + P + 1000 * k
+                    box = kernel_bench.box_operands(lanes, N, P, dtype, seed=seed)
+                    counts, sf, X, disp, beta_init, min_mu, max_beta, _ = box
+                    what = f"newton_box {name} {lanes} lanes x {N}, P = {P}" + (f", seed {seed}" if sweep else "")
+                    plans[what] = irl._box_plan(N, P, counts.element_size())._asdict()
+                    every = irl._newton_box_cuda(*box)
+                    again = irl._newton_box_cuda(*box)
+                    check(all(bits_equal(a.double(), b.double()) for a, b in zip(every, again)),
+                          f"{what}: a second launch differs from the first")
+                    bk, okk, passes = every
+                    bp, _ = irl._newton_box_plain(*box)
+                    unit = noise_unit(N, dtype) * term_scale(counts)
+                    f_p = nb_objective64(counts, sf, X, disp, bp, min_mu)
+                    limit = TIE_UNITS
+                    if dtype == torch.float32:
+                        # the plain float32 search's own noise: its stop with
+                        # the samples reversed, where it ties beyond TIE_UNITS
+                        rev = torch.arange(N - 1, -1, -1, device=counts.device)
+                        br, _ = irl._newton_box_plain(counts[:, rev].contiguous(), sf[rev].contiguous(),
+                                                      X[rev].contiguous(), *box[3:])
+                        own = ((br - bp).abs().amax(1) > btol) * (nb_objective64(counts, sf, X, disp, br, min_mu)
+                                                                  - f_p).abs() / unit
+                        limit = max(TIE_UNITS, own.max().item())
+                    far, worst = agree_or_tie(what, bk, bp, nb_objective64(counts, sf, X, disp, bk, min_mu), f_p,
+                                              btol, unit, limit)
+                    sup, noise = box_exit(counts, sf, X, disp, bk, min_mu, max_beta)
+                    wrong = (okk != (sup < 1e-5)) & ~((sup - 1e-5).abs() <= noise)
+                    check(not bool(wrong.any()), f"{what}: {int(wrong.sum())} exits differ from the plain test at "
+                                                 "the kernel's point")
+                    for n_sel in sorted({1, 2, 16, lanes}):
+                        sel = torch.zeros(lanes, dtype=torch.bool, device=counts.device)
+                        sel[torch.linspace(0, lanes - 1, n_sel, device=counts.device).round().long()] = True
+                        got = irl._newton_box_cuda(*box, sel)
+                        check(all(bits_equal(a.double(), b.double())
+                                  for a, b in zip(got, irl._newton_box_cuda(*box, sel))),
+                              f"{what}, {n_sel} selected: a second launch differs from the first")
+                        check(all(bits_equal(a[sel].double(), b[sel].double()) for a, b in zip(got, every)),
+                              f"{what}, {n_sel} selected: the selected lanes differ from the all-lane launch")
+                        check(torch.equal(got[0][~sel], beta_init[~sel]) and not bool(got[1][~sel].any())
+                              and int(got[2][~sel].abs().sum()) == 0,
+                              f"{what}, {n_sel} selected: a lane not selected was worked on")
+                    readings[what] = {"lanes": lanes, "tied": far, "tie_max_units": worst,
+                                      "tie_limit_units": limit, "passes_max": int(passes.max()),
+                                      "converged": int(okk.sum())}
+                    if sweep:
+                        sweep_log.append((seed, limit, worst))
+                    log(f"  {what}: plan {plans[what]}, {far} lanes off by > {btol} with tied objectives (largest "
+                        f"gap {worst:.4g} of the limit {limit:.4g} units, {limit - worst:.4g} below it), "
+                        f"{int(okk.sum())} converged, passes mean {passes.double().mean().item():.2f} max "
+                        f"{int(passes.max())}; repeats and 1/2/16/all selected bit-equal to the all-lane launch")
+                    del box, counts, every, again, bp
+    log("  newton_box f32 tie sweep at {} samples, P = {}: (seed, limit, largest kernel gap) in units {}; the "
+        "kernel's gap within TIE_UNITS on {} of {} draws".format(
+            *BOX_TIE_CASE, [(sd, round(lim, 4), round(w, 4)) for sd, lim, w in sweep_log],
+            sum(w <= TIE_UNITS for _, _, w in sweep_log), len(sweep_log)))
+    return plans
+
+
 def vst_kernel_checks(dtype, G, N, reps, timings):
     """Phase 2, the blind VST: ``vst`` against its plain version on the
     operands one ``vst_pipeline`` run of ``make_data(N, G)`` hands it
@@ -4173,6 +4391,7 @@ def class_path(reps: int):
         if i == 0:
             launches = dict(kernels.STATS.launches)
             peak = torch.cuda.max_memory_allocated()
+            box = box_selection(kernels.STATS.box_passes)
         for s in steps:
             walls[s].append(t[s])
     for k in CLASS_KERNELS:
@@ -4232,9 +4451,10 @@ def class_path(reps: int):
         f"traced deseq2(): {trace['traced_wall_ms']:.3f} ms wall, device busy {trace['device_busy_ms']:.3f} ms "
         f"({trace['kernels']} kernels)")
     log(f"  deseq2() stages, ms (synchronised, one run): {stage_ms}")
-    log(f"  launches in one run {launches}")
+    log(f"  launches in one run {launches}; newton_box per launch [selected, tile lanes, slowest lane's passes] "
+        f"{box}")
     return {"walls_s": walls, "best_s": best, "peak_bytes": peak, "trace_deseq2": trace, "stage_ms": stage_ms,
-            "launches": launches, "refitted": n_refit, "gaps_vs_stream": gaps}
+            "launches": launches, "box_selection": box, "refitted": n_refit, "gaps_vs_stream": gaps}
 
 
 def class_card_vs_cpu() -> None:
@@ -4323,6 +4543,8 @@ def main() -> int:
     plans.update(bh_plan_checks())
     plans.update(hat_wald_plan_checks())
     plans.update(lowess_checks())
+    plans.update(impute_plan_checks())
+    plans.update(newton_box_plan_checks(readings))
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -4449,8 +4671,9 @@ def main() -> int:
                 # the Newton steps of one sf_newton launch; trimmed_var over the
                 # mean trend's one column; the atlas block's times of disp_scan
                 # and disp_newton; the reduction passes of one trend or
-                # trend_fit launch and the time per pass; a kernel's launch
-                # plan; the apeGLM terms or NLL cells the run's data needs
+                # trend_fit launch and the time per pass, or newton_box's
+                # serial passes; a kernel's launch plan; the apeGLM terms or
+                # NLL cells the run's data needs
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))
@@ -4465,8 +4688,8 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald and lowess kernel "
-        "plans: "
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute "
+        "and newton_box kernel plans: "
         + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

@@ -487,6 +487,18 @@ constexpr size_t SMEM_BLOCK_MAX = 232448;  // dynamic shared memory a block may 
 // Bytes rounded up to 16, as the kernels lay out dynamic shared memory.
 __host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }
 
+// Dynamic shared memory above the default 48 KB for kernel F, asked once
+// per device and size (the call costs host time on every launch).
+template <auto F> cudaError_t smem_opt_in(size_t bytes) {
+  static size_t done[32] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || dev >= 32 || bytes <= done[dev]) return e;
+  e = cudaFuncSetAttribute(F, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done[dev] = bytes;
+  return e;
+}
+
 // Opt kernel F in to 16-block clusters and the full dynamic shared memory of
 // a block, once per device: these calls cost host time on every launch.
 template <auto F> cudaError_t cluster_opt_in() {

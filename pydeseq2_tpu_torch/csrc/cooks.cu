@@ -237,7 +237,7 @@ int launch(const CooksArgs<T>& a, int block, int threads, int shared, int blocks
   if (!block) {
     const size_t smem = TRIM_WARPS * group;
     if (!shared || smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-    cudaError_t e = smem_opt_in<cooks_warp_kernel<T>>();
+    cudaError_t e = smem_opt_in<cooks_warp_kernel<T>>(SMEM_BLOCK_MAX);
     if (e != cudaSuccess) return (int)e;
     const unsigned grid = (unsigned)((a.G + TRIM_WARPS - 1) / TRIM_WARPS);
     cooks_warp_kernel<T><<<grid, TRIM_WARPS * WARP, smem, s>>>(a);
@@ -246,7 +246,7 @@ int launch(const CooksArgs<T>& a, int block, int threads, int shared, int blocks
   if (threads < BlockGroup::MIN_SIZE || threads > TRIM_BLOCK_MAX || threads % WARP != 0 || group > SMEM_BLOCK_MAX ||
       (!shared && (ws == nullptr || blocks < 1)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = smem_opt_in<cooks_block_kernel<T>>();
+  cudaError_t e = smem_opt_in<cooks_block_kernel<T>>(SMEM_BLOCK_MAX);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(shared ? a.G : (blocks < a.G ? blocks : a.G));
   cooks_block_kernel<T><<<grid, threads, group, s>>>(a, shared != 0, (T*)ws);

@@ -385,18 +385,6 @@ __global__ void __launch_bounds__(THREADS) hat_wald_kernel(HwArgs<T> a) {
   }
 }
 
-// Dynamic shared memory above the default 48 KB, asked once per device and
-// size (the call costs host time on every launch).
-template <auto F> cudaError_t smem_opt_in(size_t bytes) {
-  static size_t done[32] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || dev >= 32 || bytes <= done[dev]) return e;
-  e = cudaFuncSetAttribute(F, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess) done[dev] = bytes;
-  return e;
-}
-
 template <int P, typename T, int S, int MODE> int launch_plan(const HwArgs<T>& a, cudaStream_t st) {
   constexpr auto kern = hat_wald_kernel<P, T, S, MODE>;
   constexpr int GPB = S > WARP ? 1 : THREADS / S;

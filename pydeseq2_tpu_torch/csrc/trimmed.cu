@@ -115,7 +115,7 @@ int launch(const TrimArgs& a, const void* x, const void* scales, void* out, int 
   if (!block) {
     const size_t smem = TRIM_WARPS * group;
     if (!shared || smem > SMEM_BLOCK_MAX) return (int)cudaErrorInvalidValue;
-    cudaError_t e = smem_opt_in<trimmed_warp_kernel<T>>();
+    cudaError_t e = smem_opt_in<trimmed_warp_kernel<T>>(SMEM_BLOCK_MAX);
     if (e != cudaSuccess) return (int)e;
     const unsigned grid = (unsigned)((a.R + TRIM_WARPS - 1) / TRIM_WARPS);
     trimmed_warp_kernel<T><<<grid, TRIM_WARPS * WARP, smem, s>>>(a, (const T*)x, (const T*)scales, (T*)out);
@@ -124,7 +124,7 @@ int launch(const TrimArgs& a, const void* x, const void* scales, void* out, int 
   if (threads < BlockGroup::MIN_SIZE || threads > TRIM_BLOCK_MAX || threads % WARP != 0 || group > SMEM_BLOCK_MAX ||
       (!shared && (ws == nullptr || blocks < 1)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = smem_opt_in<trimmed_block_kernel<T>>();
+  cudaError_t e = smem_opt_in<trimmed_block_kernel<T>>(SMEM_BLOCK_MAX);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(shared ? a.R : (blocks < a.R ? blocks : a.R));
   trimmed_block_kernel<T><<<grid, threads, group, s>>>(a, (const T*)x, (const T*)scales, (T*)out, shared != 0,

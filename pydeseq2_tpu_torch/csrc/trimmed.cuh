@@ -371,16 +371,4 @@ __device__ __forceinline__ T trimmed_mean_keys(const typename KeyOf<T>::U* buf, 
   return lo == hi ? lo : T(total) / T(n - 2 * k);
 }
 
-// Opt kernel F in to the full dynamic shared memory of a block, once per
-// device (the call costs host time on every launch).
-template <auto F> cudaError_t smem_opt_in() {
-  static unsigned done = 0;  // a bit per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || dev >= 32 || ((done >> dev) & 1u)) return e;
-  e = cudaFuncSetAttribute(F, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BLOCK_MAX);
-  if (e == cudaSuccess) done |= 1u << dev;
-  return e;
-}
-
 }  // namespace pdt

@@ -9,8 +9,10 @@ moments of ``cooks`` and ``trimmed_var`` (``cooks``), the grid rescues
 ``shrink`` (``shrink``), the order statistics of ``select`` (``select``),
 the masked IRLS ``irls`` (``irls``), the method-of-moments pass ``mom``
 (``mom``), the Benjamini-Hochberg kernels of the independent filter
-(``bh``), the hat diagonals and Wald test of ``hat_wald.cu`` (``hat``) and
-the filter's ``lowess`` (``lowess``).
+(``bh``), the hat diagonals and Wald test of ``hat_wald.cu`` (``hat``),
+the filter's ``lowess`` (``lowess``), the refit's Cook's imputation
+``impute`` (``impute``) and the IRLS rescue's projected Newton
+``newton_box`` (``box``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -183,6 +185,31 @@ times (kernels named ``lowess``), the row and the fit against the plain
 version, a repeat bit for bit; ``--detail`` adds seeded draws of 2 and 64
 points.
 
+``impute`` shapes (IMPUTE_SHAPES): the first refit tile (4096 rows) of
+one ``run_summary_streamed(refit_cooks=True)`` run on ``make_data(N,
+IMPUTE_G)`` with an outlier planted in every 100th gene, at 100 samples
+in float32 and float64 and at 1000 in float32 (each run builds every
+kernel lazily), and a seeded atlas tile of 4096 rows x 10000 samples
+(:func:`impute_tile`). Per shape the events, the host clock's median
+(``wall_ms``) and device times (kernels named ``impute``), the plain version's time, the cells that floor one
+count apart from the plain version and those beyond the floor rule
+(:func:`impute_floor_diffs`), a repeat bit for bit, the plan where the
+tree has one; ``--detail`` every other trimmed-moment plan that fits.
+
+``box`` shapes: the IRLS rescue tile that ``summary_pipeline`` on
+``make_data(100, RESCUE_G)`` hands ``newton_box_nbglm`` (937 lanes), in
+float32 and in float64 with two injected outliers, with the pipeline's
+selection and with every lane, and BOX_SHAPES (:func:`box_operands`' 16
+lanes at 8000 samples in float32 and 4000 in float64). Per shape the
+events, the host clock's median of 7 windows (``wall_ms``) and device
+times (kernels named ``newton_box``), the plain version's time, the
+serial passes over each selected lane's row and, where the kernel reports
+them, the evaluations of the sequential search, the shares of lanes at the
+plain version's point and with its flag, a repeat bit for bit;
+``--detail`` the plan and the kernel staged and with no sample staged
+(every pass reading the row from device memory), twice each in turn over
+5 x the shape's calls.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -202,6 +229,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 if __name__ == "__main__" and "--child" in sys.argv:
@@ -217,7 +245,7 @@ SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
           "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",),
           "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu"), "hat": ("hat_wald.cu",),
-          "lowess": ("bh.cu", "lowess.cu")}
+          "lowess": ("bh.cu", "lowess.cu"), "impute": ("impute.cu",), "box": ("newton_box.cu",)}
 MOM_SHAPES = (
     # label, genes, samples, P, dtype, want_mu, normed, timed calls
     ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, False, False, 20),
@@ -229,6 +257,20 @@ MOM_SHAPES = (
     ("f32 1000x60000 P=2", 60_000, 1_000, 2, torch.float32, False, False, 10),
     ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, False, False, 10),
     ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, False, False, 20),
+)
+IMPUTE_SHAPES = (
+    # label, samples, dtype, tile (impute_tile's kind), timed calls
+    ("f32 stream tile 4096x100", 100, torch.float32, "stream", 50),
+    ("f64 stream tile 4096x100", 100, torch.float64, "stream", 50),
+    ("f32 stream tile 4096x1000", 1_000, torch.float32, "stream", 20),
+    ("f32 atlas tile 4096x10000", 10_000, torch.float32, "atlas", 5),
+)
+IMPUTE_G = 60_000  # genes of the draws whose refit tile the impute suite takes
+IMPUTE_ROWS = 4_096  # rows of the seeded atlas tile
+BOX_SHAPES = (
+    # label, lanes, samples, P, dtype, timed calls (box_operands' lanes, every lane)
+    ("f32 16 lanes x 8000 P=2", 16, 8_000, 2, torch.float32, 10),
+    ("f64 16 lanes x 4000 P=2", 16, 4_000, 2, torch.float64, 10),
 )
 BH_G = 60_000  # genes of the draw whose device_padj operands the bh and lowess suites take
 HAT_SHAPES = (
@@ -352,6 +394,23 @@ def cuda_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def wall_ms(fn, reps: int, windows: int = 7) -> float:
+    """Median over ``windows`` windows of ``reps`` warm calls of ``fn`` of
+    the host clock's time per call, each window closed by a synchronise:
+    where the host is slower than the card, the wrapper's host time per
+    call, less swayed by one slow window than :func:`cuda_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) / reps * 1e3)
+    return float(np.median(per))
 
 
 def device_ms(fn, reps: int, name: str) -> tuple[float, float]:
@@ -866,6 +925,24 @@ def trim_rows(detail: bool) -> dict:
     return rows
 
 
+def first_call(module, name: str, run, **kw):
+    """``run(**kw)`` with ``module.name`` recorded: the (args, kwargs) of
+    its first call, or None where the run made none."""
+    seen = []
+    fn = getattr(module, name)
+
+    def recorded(*args, **kwargs):
+        seen.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, recorded)
+    try:
+        run(**kw)
+    finally:
+        setattr(module, name, fn)
+    return seen[0] if seen else None
+
+
 def weak_tile(dtype=torch.float32):
     """The grid tile of the weak-effect draw: ``summary_pipeline`` on
     ``make_data(100, WEAK_G, lfc_sd=0.1)``, then ``run_lfc_shrink_streamed``
@@ -883,24 +960,13 @@ def weak_tile(dtype=torch.float32):
                               dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
                               use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
     out = pt.summary_pipeline(**kw)
-    seen = []
-    grid = fused_stream.grid_fit_shrink_beta_batch
-
-    def recorded(*args, **kwargs):
-        seen.append((args, kwargs))
-        return grid(*args, **kwargs)
-
-    fused_stream.grid_fit_shrink_beta_batch = recorded
-    try:
-        pt.run_lfc_shrink_streamed(counts=kw["counts"], design_matrix=kw["design_matrix"], coeff_idx=1,
-                                   dispersions=out["dispersions"], size_factors=out["size_factors"],
-                                   mle_lfc=out["lfc"][:, 1], mle_se=out["se"], adapt=True, dtype=dtype,
-                                   device=DEVICE)
-    finally:
-        fused_stream.grid_fit_shrink_beta_batch = grid
-    if not seen:
+    seen = first_call(fused_stream, "grid_fit_shrink_beta_batch", pt.run_lfc_shrink_streamed,
+                      counts=kw["counts"], design_matrix=kw["design_matrix"], coeff_idx=1,
+                      dispersions=out["dispersions"], size_factors=out["size_factors"], mle_lfc=out["lfc"][:, 1],
+                      mle_se=out["se"], adapt=True, dtype=dtype, device=DEVICE)
+    if seen is None:
         return None
-    b = inspect.signature(sh.grid_fit_shrink_beta_batch).bind(*seen[0][0], **seen[0][1])
+    b = inspect.signature(sh.grid_fit_shrink_beta_batch).bind(*seen[0], **seen[1])
     b.apply_defaults()
     args = tuple(b.arguments.values())
     return args[:-1], args[-1]
@@ -996,19 +1062,7 @@ def rescue_tile(dtype=torch.float32):
     kw = pt.inputs_from_numpy(counts_np.T, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
                               dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
                               use_for_max=host["use_for_max"], max_disp=100.0, beta_tol=1e-6)
-    seen = []
-    grid = fused.grid_fit_beta_batch
-
-    def recorded(*args, **kwargs):
-        seen.append((args, kwargs))
-        return grid(*args, **kwargs)
-
-    fused.grid_fit_beta_batch = recorded
-    try:
-        pt.summary_pipeline(**kw)
-    finally:
-        fused.grid_fit_beta_batch = grid
-    return seen[0] if seen else None
+    return first_call(fused, "grid_fit_beta_batch", pt.summary_pipeline, **kw)
 
 
 def nb_grid(grid) -> tuple:
@@ -1618,6 +1672,240 @@ def lowess_rows(detail: bool) -> dict:
     return rows
 
 
+
+def impute_floor_diffs(tile, sf, got, want) -> tuple[int, int]:
+    """The cells where the kernel's imputed tile ``got`` differs from the
+    plain version's ``want`` (each ``(imputed, new_all_zero)``), and those
+    that break the floor rule: a cell may differ only by one count where
+    the plain product trim02 sf_n lies within 4 ulps of an integer (the
+    two sum the trimmed mean in other orders, and floor() is
+    discontinuous), and ``new_all_zero`` only on rows with such a cell."""
+    from pydeseq2_tpu_torch.ops import refit as rf
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    prod = st._trimmed_mean_plain(tile / sf[None, :], rf.TRIM, 1)[:, None] * sf[None, :]
+    ulp = torch.nextafter(prod.abs(), torch.full_like(prod, math.inf)) - prod.abs()
+    near_int = (prod - torch.round(prod)).abs() <= 4 * ulp
+    differ = got[0] != want[0]
+    bad = differ & ~(near_int & ((got[0] - want[0]).abs() == 1))
+    naz_bad = (got[1] != want[1]) & ~differ.any(1)
+    return int(differ.sum()), int(bad.sum()) + int(naz_bad.sum())
+
+
+def impute_tile(N: int, dtype, kind: str) -> tuple:
+    """``impute_outliers``' operands ``(tile, exceeds_packed, replaceable,
+    sf, tile_mask)``. ``stream``: the first refit tile of one
+    ``run_summary_streamed(refit_cooks=True)`` run on ``make_data(N,
+    IMPUTE_G)`` with an outlier planted in every 100th gene (the run builds
+    every kernel lazily). ``atlas``: IMPUTE_ROWS seeded rows of N samples,
+    Poisson counts at lognormal means times lognormal size factors, every
+    row's exceed bit set at one sample (every 10th row at five), every
+    sample replaceable, the last quarter of the rows padding."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused_stream
+    from pydeseq2_tpu_torch.ops import refit as rf
+    from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers
+
+    if kind == "atlas":
+        K, W = IMPUTE_ROWS, -(-N // 32)
+        g = torch.Generator(device=DEVICE).manual_seed(15)
+        base = torch.exp(2.0 + 1.5 * torch.randn(K, generator=g, device=DEVICE, dtype=torch.float64))
+        sf = torch.exp(0.3 * torch.randn(N, generator=g, device=DEVICE, dtype=torch.float64))
+        tile = torch.poisson(base[:, None] * sf[None, :], generator=g).to(dtype)
+        rng = np.random.default_rng(15)
+        words = np.zeros((K, W), dtype=np.uint32)
+        for r in range(K):
+            for n in rng.choice(N, 5 if r % 10 == 0 else 1, replace=False):
+                words[r, n // 32] |= np.uint32(1) << np.uint32(n % 32)
+        packed = torch.as_tensor(words.view(np.int32), device=DEVICE)
+        mask = torch.arange(K, device=DEVICE) < 3 * K // 4
+        return tile, packed, (True,) * N, sf.to(dtype), mask
+    counts_np, X_np = make_data(N, IMPUTE_G)
+    contrast = np.zeros(X_np.shape[1])
+    contrast[-1] = 1.0
+    kw = dict(counts=torch.as_tensor(plant_outliers(counts_np.T, 100), dtype=dtype, device=DEVICE),
+              design_matrix=X_np, contrast=contrast, dtype=dtype, refit_cooks=True, max_disp=float(max(10, N)),
+              beta_tol=1e-6 if dtype == torch.float32 else 1e-8, device=DEVICE)
+    args, kwargs = first_call(fused_stream, "impute_outliers", pt.run_summary_streamed, **kw)
+    return tuple(inspect.signature(rf.impute_outliers).bind(*args, **kwargs).arguments.values())
+
+
+def impute_rows(detail: bool) -> dict:
+    """``impute`` on IMPUTE_SHAPES: events and device times (kernels named
+    ``impute``), the plain version's time, the cells floor one count apart
+    and those beyond the floor rule, a repeat bit for bit, the plan where
+    the tree has one; ``--detail`` every other plan that fits."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import cooks as ck
+    from pydeseq2_tpu_torch.ops import refit as rf
+    from pydeseq2_tpu_torch.ops import stats as st
+
+    planned = "plan" in inspect.signature(rf._impute_cuda).parameters
+    rows = {}
+    for label, N, dtype, kind, reps in IMPUTE_SHAPES:
+        args = impute_tile(N, dtype, kind)
+        tile, packed, repl, sf, mask = args
+
+        def run(**kw):
+            return rf._impute_cuda(*args, **kw)
+
+        got, want = run(), rf._impute_plain(*args)
+        differ, beyond = impute_floor_diffs(tile, sf, got, want)
+        again = run()
+        kern, dev = device_ms(run, reps, "impute")
+        swapped = ck.unpack_bits(packed, N) & torch.as_tensor(repl, device=tile.device)[None, :] & mask[:, None]
+        row = {"impute_ms": cuda_ms(run, reps), "impute_wall_ms": wall_ms(run, reps), "impute_kernel_ms": kern,
+               "impute_device_ms": dev,
+               "plain_ms": cuda_ms(lambda: rf._impute_plain(*args), 3), "rows": tile.shape[0],
+               "live_rows": int(mask.sum()), "imputed_cells": int(swapped.sum()), "cells_floor_apart": differ,
+               "beyond_floor_rule": beyond, "new_all_zero": int(got[1].sum()),
+               "repeat_bits_equal": bool(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))}
+        if planned:
+            isz = tile.element_size()
+            plan = st._trim_plan(isz, [N], tile.shape[0], True, kernels.sm_count(tile.device))
+            row["plan"] = plan._asdict()
+            if detail:
+                for name, other in other_plans(plan, isz, N, N, tile.shape[0]).items():
+                    row[f"kernel_ms {name}"] = device_ms(lambda: run(plan=other), reps, "impute")[0]
+                    row[f"beyond_floor_rule {name}"] = impute_floor_diffs(tile, sf, run(plan=other), want)[1]
+        rows[label] = row
+        print(f"  impute {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del args, tile, got, want, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def box_operands(lanes: int, N: int, P: int, dtype, seed: int = 5) -> tuple:
+    """``newton_box_nbglm``'s operands in ``_newton_box_cuda``'s order
+    ``(counts, sf, X, disp, beta_init, min_mu, max_beta, maxiter)`` on
+    ``lanes`` seeded lanes of N samples: the intercept, a two-level
+    condition (alternate samples) and P - 2 seeded normal columns;
+    lognormal size factors; NB counts at lognormal means, N(0, 1)
+    condition and N(0, 0.3) further coefficients, lognormal dispersions.
+    Every 4th lane has no count in the condition's second level (its
+    coefficient falls until that level's means reach the min_mu clamp, to
+    the box's edge where the intercept is large) and every 7th lane means
+    near 1e4. The start is log(mean(counts / sf) + 0.5) in the intercept, zeros
+    elsewhere."""
+    rng = np.random.default_rng(seed)
+    X = np.column_stack([np.ones(N), np.arange(N) % 2] + [rng.normal(0.0, 1.0, N) for _ in range(P - 2)])
+    sf = np.exp(rng.normal(0.0, 0.3, N))
+    beta = np.column_stack([rng.normal(2.0, 1.5, lanes), rng.normal(0.0, 1.0, lanes)]
+                           + [rng.normal(0.0, 0.3, lanes) for _ in range(P - 2)])
+    beta[::7, 0] = np.log(1e4)
+    disp = np.clip(rng.lognormal(-2.0, 1.0, lanes), 1e-3, 5.0)
+    mu = sf[None, :] * np.exp(np.clip(beta @ X.T, -30.0, 15.0))
+    r = 1.0 / disp[:, None]
+    counts = rng.negative_binomial(r, r / (r + mu)).astype(np.float64)
+    counts[::4, 1::2] = 0.0
+    beta_init = np.zeros((lanes, P))
+    beta_init[:, 0] = np.log((counts / sf[None, :]).mean(1) + 0.5)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=DEVICE).contiguous()
+
+    return t(counts), t(sf), t(X), t(disp), t(beta_init), 0.5, 30.0, 60
+
+
+def box_tile(dtype) -> tuple:
+    """The IRLS rescue tile that ``summary_pipeline`` on ``make_data(100,
+    RESCUE_G)`` (float64: with outliers injected at genes 0 and 3, as
+    ``chip_smoke.py``'s float64 draw) hands ``newton_box_nbglm``: its
+    operands in ``_newton_box_cuda``'s order and the pipeline's selection,
+    or None where no lane reached the box. The run builds every kernel
+    lazily."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch.ops import irls as irl
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(100, RESCUE_G)
+    counts = counts_np.T.copy()
+    if dtype == torch.float64:
+        counts[0, 0] = counts.max() * 10 + 100
+        counts[3, 5] = counts.max() * 8 + 50
+    host = pt.summary_host_inputs(X_np)
+    kw = pt.inputs_from_numpy(counts, X_np, np.array([0.0, 1.0]), 0.0, cooks_cutoff=host["cooks_cutoff"],
+                              dtype=dtype, device=DEVICE, cohort_ids=host["cohort_ids"],
+                              use_for_max=host["use_for_max"], max_disp=100.0,
+                              beta_tol=1e-6 if dtype == torch.float32 else 1e-8)
+    seen = first_call(fused, "newton_box_nbglm", pt.summary_pipeline, **kw)
+    if seen is None:
+        return None
+    b = inspect.signature(irl.newton_box_nbglm).bind(*seen[0], **seen[1])
+    b.apply_defaults()
+    *ops, sel = b.arguments.values()
+    return tuple(ops), sel
+
+
+def per_lane(v: torch.Tensor):
+    """A per-lane count as a list (16 lanes or fewer), else its sum, mean
+    and max."""
+    if v.numel() <= 16:
+        return v.tolist()
+    return {"sum": int(v.sum()), "mean": v.double().mean().item(), "max": int(v.max())}
+
+
+def box_row(box: tuple, sel, reps: int, detail: bool = False) -> dict:
+    """``newton_box`` on ``box`` (every lane, or the lanes of ``sel``):
+    events, the host clock's median (:func:`wall_ms`) and device times
+    (kernels named ``newton_box``), the serial passes over each selected
+    lane's row and, where the tree's kernel reports them, the objective and
+    gradient evaluations of the sequential search; the share of selected
+    lanes within 1e-4 (f32) / 1e-9 (f64) of the plain version and of equal
+    flags; a repeat bit for bit; with ``detail`` the plan and the kernel's
+    device time staged and with nothing staged, each twice over 5 x
+    ``reps`` calls in turn."""
+    from pydeseq2_tpu_torch.ops import irls as irl
+
+    def run():
+        return irl._newton_box_cuda(*box, sel)
+
+    out, again = run(), run()
+    bp, okp = irl._newton_box_plain(*box)
+    lanes = sel if sel is not None else torch.ones(bp.shape[0], dtype=torch.bool, device=bp.device)
+    btol = 1e-4 if bp.dtype == torch.float32 else 1e-9
+    kern, dev = device_ms(run, reps, "newton_box")
+    row = {"box_ms": cuda_ms(run, reps), "box_wall_ms": wall_ms(run, reps), "box_kernel_ms": kern,
+           "box_device_ms": dev, "plain_ms": cuda_ms(lambda: irl._newton_box_plain(*box), 2),
+           "lanes": int(lanes.sum()), "tile": bp.shape[0], "N": box[0].shape[1], "P": box[2].shape[1],
+           "passes": per_lane(out[2][lanes]),
+           "close_share": ((out[0] - bp).abs().amax(1)[lanes] <= btol).double().mean().item(),
+           "flags_share": (out[1] == okp)[lanes].double().mean().item(),
+           "repeat_bits_equal": bool(torch.equal(out[0], again[0]) and torch.equal(out[1], again[1]))}
+    if len(out) > 3:
+        row["evaluations"] = per_lane(out[3][lanes])
+    if detail and "plan" in inspect.signature(irl._newton_box_cuda).parameters:
+        plan = irl._box_plan(box[0].shape[1], box[2].shape[1], box[0].element_size())
+        row["plan"] = plan._asdict()
+        for _ in range(2):
+            for name, p in (("staged", plan), ("unstaged", plan._replace(stage=0))):
+                row.setdefault(f"kernel_ms {name}", []).append(
+                    device_ms(lambda: irl._newton_box_cuda(*box, sel, plan=p), 5 * reps, "newton_box")[0])
+    return row
+
+
+def box_rows(detail: bool) -> dict:
+    """``newton_box`` on the pipeline's rescue tile, float32 and float64
+    (its selection, then every lane), and on BOX_SHAPES (every lane)."""
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        tile = box_tile(dtype)
+        if tile is None:
+            rows[f"{name} rescue tile"] = "no lane reached the box"
+            continue
+        box, sel = tile
+        rows[f"{name} rescue tile, the pipeline's selection"] = box_row(box, sel, 20, detail)
+        rows[f"{name} rescue tile, every lane"] = box_row(box, None, 5, detail)
+        del box, sel, tile
+    for label, lanes, N, P, dtype, reps in BOX_SHAPES:
+        rows[label] = box_row(box_operands(lanes, N, P, dtype), None, reps, detail)
+    for label, row in rows.items():
+        print(f"  newton_box {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+    return rows
+
+
 def cuobjdump(kernels) -> str | None:
     """The toolkit's cuobjdump: on the PATH, beside nvcc, or in Triton's
     package; None where there is none."""
@@ -1794,6 +2082,10 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["hat"] = hat_rows(detail)
     if "lowess" in suites:
         res["lowess"] = lowess_rows(detail)
+    if "impute" in suites:
+        res["impute"] = impute_rows(detail)
+    if "box" in suites:
+        res["box"] = box_rows(detail)
     return res
 
 
@@ -1849,6 +2141,14 @@ def summary(res: dict) -> dict:
         out[f"bh {k}"] = {key: v[key] for key in ("sweep_kernel_ms", "one_row_kernel_ms", "device_padj_device_ms",
                                                   "counts_and_row_kernel_ms", "argsort_ms", "sweep_bits_equal",
                                                   "counts_bits_equal", "picked_row_bits_equal") if key in v}
+    for k, v in res.get("impute", {}).items():
+        out[f"impute {k}"] = {key: v[key] for key in ("impute_kernel_ms", "impute_ms", "impute_wall_ms", "plain_ms",
+                                                      "beyond_floor_rule", "repeat_bits_equal") if key in v}
+    for k, v in res.get("box", {}).items():
+        if not isinstance(v, dict):
+            continue
+        out[f"box {k}"] = {key: v[key] for key in ("box_kernel_ms", "box_ms", "box_wall_ms", "lanes", "passes",
+                                                   "evaluations", "close_share", "repeat_bits_equal") if key in v}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):

@@ -109,7 +109,7 @@ _ARGTYPES = {
                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bh_count_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _P, _P, _P, _P],
     "bh_adjust_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "newton_box_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
+    "newton_box_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _I, _P, _P, _P],
     "grid_nb_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _D, _I, _I, _P],
     "shrink_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P, _P],
     "grid_apeglm_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _I, _P],
@@ -117,7 +117,7 @@ _ARGTYPES = {
     "trend_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "trend_fit_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "lowess_launch": [_I, _I, _I, _I, _P, _P, _P, _P],
-    "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sf_nll_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _I, _P],
     "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
@@ -152,11 +152,14 @@ MAX_P = 8
 
 
 class KernelStats:
-    """Launch counts per kernel, plus the IRLS trip counts of each launch.
+    """Launch counts per kernel, plus the IRLS trip counts and the box
+    rescue's passes of each launch.
 
     A count rises by one where a wrapper launches its kernel and nowhere
     else. ``irls_trips`` holds, per IRLS launch, a 0-d device tensor with
-    the largest per-lane trip count (read it after a synchronise).
+    the largest per-lane trip count; ``box_passes``, per ``newton_box``
+    launch, the (K,) int32 device tensor of its lanes' serial passes, 0
+    on a lane not selected (read them after a synchronise).
     """
 
     def __init__(self) -> None:
@@ -165,6 +168,7 @@ class KernelStats:
     def reset(self) -> None:
         self.launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
         self.irls_trips: list[torch.Tensor] = []
+        self.box_passes: list[torch.Tensor] = []
 
 
 STATS = KernelStats()
@@ -309,10 +313,10 @@ def check_p2(name: str, P: int) -> None:
 
 
 def check_sel(name: str, sel: torch.Tensor | None, K: int) -> torch.Tensor | None:
-    """The lane selection of a rescue kernel as a contiguous (K,) uint8 CUDA
-    tensor, or None (every lane)."""
+    """The lane selection of a rescue kernel as a contiguous (K,) bool CUDA
+    tensor, whose bytes (0 or 1) the kernels read, or None (every lane)."""
     if sel is None:
         return None
     if not sel.is_cuda or sel.shape != (K,) or sel.dtype != torch.bool:
         raise ValueError(f"{name}: sel must be a ({K},) bool CUDA tensor")
-    return sel.to(torch.uint8).contiguous()
+    return sel.contiguous()

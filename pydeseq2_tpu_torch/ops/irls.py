@@ -27,13 +27,15 @@ slow genes.
 The plain version (CPU tensors only) is the masked loop of the JAX package.
 
 The rescue tiers have kernels too: ``csrc/newton_box.cu`` (the projected
-Newton box solver, one warp per selected lane) and ``csrc/grid.cu``'s
-``grid_nb`` (the 2-D grid, one block per selected lane). Both take ``sel``,
-the lanes of the compacted tile whose result the caller uses, and do no work
-for the others. :func:`hat_diagonals` on CUDA tensors launches the
-hat-only entry of ``csrc/hat_wald.cu`` (``hat``, the class API's
-``TorchInference.irls``); its plain version is the hat half of
-``ops/wald.py:hat_wald``'s.
+Newton box solver, a block a selected lane with its row staged in shared
+memory, :func:`_box_plan`: a block-wide gradient and Hessian pass and the 13
+backtracking candidates in one pass, a warp each, so a step costs two
+serial passes over the row) and ``csrc/grid.cu``'s ``grid_nb`` (the 2-D
+grid, one block per selected lane). Both take ``sel``, the lanes of the
+compacted tile whose result the caller uses, and do no work for the
+others. :func:`hat_diagonals` on CUDA tensors launches the hat-only entry
+of ``csrc/hat_wald.cu`` (``hat``, the class API's ``TorchInference.irls``);
+its plain version is the hat half of ``ops/wald.py:hat_wald``'s.
 """
 
 from __future__ import annotations
@@ -355,27 +357,67 @@ def _newton_box_plain(counts, size_factors, X, disp, beta_init, min_mu, max_beta
     return beta, torch.abs(pg).amax(dim=1) < 1e-5
 
 
-def _newton_box_cuda(counts, size_factors, X, disp, beta_init, min_mu, max_beta, maxiter, sel=None):
-    """Launch the ``newton_box`` kernel: ``(beta, success, passes per lane)``,
-    passes = evaluations over the lane's row (0 where not selected)."""
+class BoxPlan(NamedTuple):
+    """The ``newton_box`` launch (``csrc/newton_box.cu``): a block of
+    ``threads`` a selected lane, the first ``stage`` samples of its row
+    staged in shared memory (the rest read from device memory), ``smem``
+    bytes of dynamic shared memory a block."""
+
+    threads: int
+    stage: int
+    smem: int
+
+
+_BOX_WARPS = 14  # a warp each of the 13 backtracking candidates, one for the start's objective
+# A block's staged row at most (y, sf, log sf and X): three blocks an SM
+# keep theirs where many lanes are selected at long rows.
+_BOX_STAGE_BYTES = 64 * 1024
+
+
+def _box_smem_bytes(stage: int, P: int, itemsize: int) -> int:
+    """Dynamic shared memory of a ``newton_box`` block (the kernel's
+    ``smem_bytes``): the block reduction's slots (a value of the gradient
+    and the packed Hessian a warp), the candidates' objectives, 15 ints,
+    and ``stage`` samples of y, sf, log sf and X."""
+    a16 = kernels.align16
+    V = P + P * (P + 1) // 2
+    return (a16(_BOX_WARPS * V * itemsize) + a16(_BOX_WARPS * itemsize) + a16((_BOX_WARPS + 1) * 4)
+            + a16(stage * (3 + P) * itemsize))
+
+
+def _box_plan(N: int, P: int, itemsize: int) -> BoxPlan:
+    """The row's first samples that fit ``_BOX_STAGE_BYTES`` are staged,
+    all of them up to ~3300 (float32, P = 2) or ~1600 (float64) samples."""
+    stage = min(N, _BOX_STAGE_BYTES // ((3 + P) * itemsize))
+    return BoxPlan(32 * _BOX_WARPS, stage, _box_smem_bytes(stage, P, itemsize))
+
+
+def _newton_box_cuda(counts, size_factors, X, disp, beta_init, min_mu, max_beta, maxiter, sel=None, plan=None):
+    """Launch the ``newton_box`` kernel: ``(beta, success, passes)`` per
+    lane, passes = serial sweeps over the lane's row (a gradient pass and a
+    candidate pass a step, and a final gradient pass where the last step
+    improved), 0 where not selected. ``plan`` (a :class:`BoxPlan`)
+    overrides :func:`_box_plan`."""
     K, N = counts.shape
     P = X.shape[1]
     dev = counts.device
     beta = torch.empty((K, P), dtype=beta_init.dtype, device=dev)
-    ok = torch.empty(K, dtype=torch.uint8, device=dev)
+    ok = torch.empty(K, dtype=torch.bool, device=dev)
     passes = torch.empty(K, dtype=torch.int32, device=dev)
     log_sf = torch.log(size_factors)
     ops = [t.contiguous() for t in (counts, size_factors, log_sf, X, disp, beta_init)]
     kernels.check_cuda_operands("newton_box", *ops)
     kernels.check_p("newton_box", P)
-    sel8 = kernels.check_sel("newton_box", sel, K)
+    sel = kernels.check_sel("newton_box", sel, K)
+    if plan is None:
+        plan = _box_plan(N, P, counts.element_size())
     kernels.launch(
         "newton_box",
-        [int(counts.dtype == torch.float64), P, K, N, *(t.data_ptr() for t in ops), kernels.ptr(sel8),
+        [int(counts.dtype == torch.float64), P, K, N, plan.stage, *(t.data_ptr() for t in ops), kernels.ptr(sel),
          float(min_mu), float(max_beta), maxiter, beta.data_ptr(), ok.data_ptr(), passes.data_ptr()],
         dev,
     )
-    return beta, ok.bool(), passes
+    return beta, ok, passes
 
 
 def newton_box_nbglm(
@@ -395,11 +437,15 @@ def newton_box_nbglm(
 
     ``sel`` (K,) bool marks the lanes whose result the caller uses: the
     ``newton_box`` kernel (CUDA tensors) does no work for the others and
-    returns ``beta_init`` and False there; the plain version ignores it.
+    returns ``beta_init`` and False there (its lanes' serial passes, 0 on
+    the others, are kept in ``kernels.STATS.box_passes``); the plain version
+    ignores it.
     """
     if counts.is_cuda:
-        return _newton_box_cuda(counts, size_factors, design_matrix, disp, beta_init, min_mu, max_beta,
-                                maxiter, sel)[:2]
+        beta, ok, passes = _newton_box_cuda(counts, size_factors, design_matrix, disp, beta_init, min_mu,
+                                            max_beta, maxiter, sel)
+        kernels.STATS.box_passes.append(passes)
+        return beta, ok
     return _newton_box_plain(counts, size_factors, design_matrix, disp, beta_init, min_mu, max_beta, maxiter)
 
 

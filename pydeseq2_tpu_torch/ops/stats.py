@@ -102,8 +102,8 @@ def _trimmed_mean_plain(x: torch.Tensor, trim: float, axis: int) -> torch.Tensor
 
 
 class TrimPlan(NamedTuple):
-    """How the ``trimmed_var`` and ``cooks`` kernels reduce their rows
-    (``csrc/trimmed.cuh``): one warp a row, 8 rows a 256-thread block, or
+    """How the ``trimmed_var``, ``cooks`` and ``impute`` kernels reduce
+    their rows (``csrc/trimmed.cuh``): one warp a row, 8 rows a 256-thread block, or
     with ``block`` one block of ``threads`` a row; a cohort of at most
     ``rank_max`` members takes the rank count, a longer one the radix
     select; the staged values in shared memory (``shared``), or in a global
@@ -142,7 +142,8 @@ def _trim_group_bytes(buf_len: int, itemsize: int, radix: bool, shared: bool, bl
 def _trim_plan(itemsize: int, sizes, rows: int, all_cohorts: bool, sms: int = 132) -> TrimPlan:
     """The plan for ``rows`` rows of ``itemsize``-byte values whose cohorts
     have ``sizes`` members; ``all_cohorts``: every cohort's keys are staged
-    at once (``cooks``), else one cohort's at a time (``trimmed_var``).
+    at once (``cooks``, and ``impute``'s one cohort of the row's N
+    samples), else one cohort's at a time (``trimmed_var``).
 
     A warp a row where eight warps' slices fit ``_TRIM_WARP_SMEM``: short
     rows, many of them (100 samples, 60000 genes). Else a block a row, of
