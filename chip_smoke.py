@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-six hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-seven hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -31,10 +31,19 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    in its normed-count mode on the operands one class-API deseq2() +
    summary() run hands them (same two scales, planted outliers);
    ``disp_scan_fine`` (the fine scan of ``alpha_mle_batch(fine_length=8)``
-   around the coarse argmin) and ``dnb_nll`` (at the genewise dispersions)
-   on the main draw's operands (same two scales); ``disp_scan`` and
-   ``disp_newton`` at the atlas iterative fit's shape (5000 genes x 10000
-   samples, P = 1, float32), checked and timed; the cluster kernels in every
+   around the coarse argmin) with its gene grouping ``disp_scan_group``
+   (the same buckets as the plain version, a permutation, the scan's bits
+   the same in any gene order) and ``dnb_nll`` (at the genewise
+   dispersions) on the main draw's operands (same two scales); ``disp_scan``,
+   ``disp_newton`` and ``disp_scan_fine`` at the atlas iterative fit's shape
+   (5000 genes x 10000 samples, P = 1, float32, the rows over segments),
+   checked and timed; the fine scan on its gene lists
+   (``fine_list_checks``: P = 2 and 5, both types, the coarse scan's
+   centres, one centre, every tile straddling r = 8, la_init centres and
+   genes with no finite point); ``vst`` in every plan (``vst_plan_checks``:
+   16-byte and scalar rows, N = 101, a pointer 4 bytes off, one and
+   several column tiles, the atlas block, each form twice and bit for bit,
+   masked rows); the cluster kernels in every
    mode (``cluster_kernel_checks``): ``sf_newton`` with its counts in shared
    memory at 100 x 60000 float32 and float64 and streamed at 200000 genes
    float64, at N = 3 and G = 5 (one block, and a cluster of 16 with empty
@@ -257,7 +266,23 @@ N_STREAM_WIDE = 1_000  # phases 3f, 3h: auto gene_block splits 60000 genes into 
 VST_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend", "vst")
 # The kernels of phase 3k: alpha_mle_batch(fine_length=8), then dnb_nll at
 # its dispersions.
-FINE_KERNELS = ("disp_scan", "disp_scan_fine", "disp_newton", "dnb_nll")
+FINE_KERNELS = ("disp_scan", "disp_scan_group", "disp_scan_fine", "disp_newton", "dnb_nll")
+# The fine scan's gene lists (phase 2, fine_list_checks), float32 at the
+# main width and float64 at G_F64, P = 2 and 5: the draw as its coarse scan
+# leaves it, every gene at one centre, every tile straddling r = 8
+# (kernel_bench.fine_lists), and la_init centres in every LA_INIT_EVERY-th
+# gene, with no finite point (mu NaN) in every NAN_EVERY-th.
+FINE_LIST_SHAPES = ((torch.float32, G_MAIN, 2), (torch.float32, G_MAIN, 5), (torch.float64, G_F64, 2),
+                    (torch.float64, G_F64, 5))
+FINE_LISTS = ("coarse", "one", "straddle", "la_init")
+LA_INIT_EVERY, NAN_EVERY = 50, 97
+# vst's plan checks (vst_plan_checks): row lengths on each side of the
+# plan's edges in each type (16-byte vectors or scalar; one column tile of
+# 4096 bytes or several; one vector a row), each at an odd gene count of
+# ~3 M cells (a partial row tile); a row length that takes vectors on a
+# pointer 4 bytes off (scalar); and the atlas block.
+VST_PLAN_N = {torch.float32: (1, 4, 100, 101, 1024, 1025, 2048), torch.float64: (1, 2, 100, 101, 512, 513, 1024)}
+VST_PLAN_CELLS = 3_000_000
 # Planted Cook's outliers of the streamed refit runs: one cell at 20x its
 # row's maximum in every OUTLIER_EVERY-th gene.
 OUTLIER_EVERY = 100
@@ -466,6 +491,44 @@ def fine_check(name: str, fine_args) -> float:
     return (la_k - la_p).abs().max().item()
 
 
+def fine_group_check(label: str, center, lo_f: float, hi_f: float, hw_f: float) -> list:
+    """``disp_scan_group`` against its plain version on the centres
+    ``center``, launched twice: the same genes in each bucket, and an order
+    that is a permutation of the genes whose keys run in bucket order (the
+    plain order's keys). Returns the bucket counts."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    n_grid = dsp._fine_buckets(lo_f, hi_f, hw_f)
+    keys = dsp._fine_keys_plain(center, lo_f, hw_f, n_grid)
+    order_p, count_p = dsp._fine_order_plain(center, lo_f, hw_f, n_grid)
+    every = torch.arange(center.numel(), dtype=torch.int32, device=center.device)
+    for _ in range(2):
+        order, count = dsp._fine_order_cuda(center, lo_f, hw_f, n_grid)
+        check(torch.equal(count, count_p), f"disp_scan_group {label}: bucket counts {count.tolist()}, plain "
+                                           f"{count_p.tolist()}")
+        check(torch.equal(torch.sort(order).values, every), f"disp_scan_group {label}: not a permutation")
+        check(torch.equal(keys[order.long()], keys[order_p.long()]), f"disp_scan_group {label}: keys out of order")
+    return count_p.tolist()
+
+
+def fine_order_check(label: str, fine_args) -> None:
+    """The fine scan's bits do not depend on its gene order: the grouped
+    call (``scan_grid``) against launches in index order and in a seeded
+    random order, bit for bit."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    counts, mu, X, center, hw, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv = fine_args
+    got = dsp.scan_grid(*fine_args)
+    G = center.numel()
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    for name, order in (("index", torch.arange(G, device=DEVICE)), ("random", torch.randperm(G, generator=gen,
+                                                                                             device=DEVICE))):
+        grid_args = (center, hw, 2.0 * hw / (length - 1), lo_f, hi_f, length, order.to(torch.int32))
+        other = dsp._scan_launch("disp_scan_fine", counts, mu, X, grid_args, length, cr_reg, prior_reg, la_hat, pdv,
+                                 None)
+        check(bits_equal(other, got), f"disp_scan_fine {label}: the genes in {name} order give other bits")
+
+
 def dnb_scale(counts, mu, alpha):
     """alpha^-2 sum_n (|psi(r)| + |psi(y + r)| + |log1p(mu a)| + |(y - mu)/(mu + r)|),
     r = 1/alpha: the size of the terms dnb_nll sums."""
@@ -663,6 +726,23 @@ def kernel_checks(dtype, G, N, reps, timings):
             "library_ms": None, "bytes": nbytes, "ops": ops,
         }
         log_sfu("disp_scan_fine", sfu)
+    # its gene grouping (a launch of scan_grid), and the scan's bits in any gene order
+    buckets = fine_group_check(name, la1_k, lo_f, hi_f, step1_f)
+    fine_order_check(name, fine_args)
+    errs["disp_scan_group"] = 0.0
+    log(f"  disp_scan_group {name}: bucket counts {buckets} (the last: any other centre); the scan's bits the "
+        "same in index and random gene order")
+    if f32:
+        n_grid = dsp._fine_buckets(lo_f, hi_f, step1_f)
+        timings["disp_scan_group"] = {
+            "ms": cuda_ms(lambda: dsp._fine_order_cuda(la1_k, lo_f, step1_f, n_grid), reps),
+            "plain_ms": cuda_ms(lambda: dsp._fine_order_plain(la1_k, lo_f, step1_f, n_grid), reps),
+            "library_ms": None,
+            # the centres read, the order and bucket counts written; per gene
+            # the key (a subtraction, a division, a rounding, two compares, the
+            # grid point's product and sum, its compare) and two claims
+            "bytes": G * isz + 4 * G + 4 * (n_grid + 1), "ops": 10 * G,
+        }
 
     # -- dnb_nll at the genewise fit's dispersions
     alpha = torch.exp(outk[0])
@@ -736,6 +816,16 @@ def wide_dispersion_checks(reps: int, timings: dict) -> None:
     _, la1 = scan_check(f"f32 atlas block {G} x {N} P=1", scan_args)
     newton_args = (counts, mu, X, la1, lo_f, hi_f, step1_f, step1_f / 3.5, 4, True, False, la_hat, pdv)
     _, _, outp = newton_check(f"f32 atlas block {G} x {N} P=1", newton_args)
+    # the fine scan on the atlas block: rows split over segments
+    fine_args = (counts, mu, X, la1, step1_f, FINE_LENGTH, lo_f, hi_f, True, False, la_hat, pdv)
+    S = dsp._scan_segments(G, N, torch.cuda.get_device_properties(0).multi_processor_count)
+    fine_check(f"f32 atlas block {G} x {N} P=1, {S} segments", fine_args)
+    fine_group_check("f32 atlas block", la1, lo_f, hi_f, step1_f)
+    fine_order_check("f32 atlas block", fine_args)
+    t = timings["disp_scan_fine"]
+    t["wide_ms"] = cuda_ms(lambda: dsp.scan_grid(*fine_args), reps)
+    t["wide_plain_ms"] = cuda_ms(lambda: dsp.scan_grid_plain(*fine_args), 1)
+    log(f"  disp_scan_fine atlas block: {t['wide_ms']:.4f} ms with its grouping (plain {t['wide_plain_ms']:.4f})")
     isz = counts.element_size()
     for key, fn, plain, cost in (
         ("disp_scan", dsp.scan_coarse, dsp.scan_coarse_plain, scan_cost(G, N, 1, K, bnd_start, bnd_end, isz)),
@@ -3877,6 +3967,113 @@ def vst_kernel_checks(dtype, G, N, reps, timings):
     return {"vst": errs_v}
 
 
+def vst_plan_checks() -> dict:
+    """``vst`` in every plan of ``ops/vst.py:_vst_plan``: the row lengths of
+    VST_PLAN_N at ~VST_PLAN_CELLS cells (an odd gene count), 100 samples on
+    a pointer 4 bytes off, and the atlas block (5000 genes x 10000
+    samples), in both types, on ``kernel_bench.vst_operands``' counts with
+    every 7th gene masked: the parametric form, ``used_mean`` set and the
+    mean form, each launched twice and bit for bit, NaN on exactly the
+    masked rows, within vst_kernel_checks' vtol of the plain version.
+    Returns {label: plan}."""
+    from pydeseq2_tpu_torch import kernel_bench, kernels
+    from pydeseq2_tpu_torch.ops import vst as vs
+
+    rows = {}
+    for dtype, ns in VST_PLAN_N.items():
+        name = "f32" if dtype == torch.float32 else "f64"
+        vtol = 1e-6 if dtype == torch.float32 else 1e-13
+        wide = 4 if dtype == torch.float32 else 2
+        cases = [(N, max(1, VST_PLAN_CELLS // N) | 1, offset) for N, offset in [(N, False) for N in ns] + [(100, True)]]
+        cases.append((10_000, G_ATLAS_BLOCK, False))
+        for N, G, offset in cases:
+            c, sf, coeffs, flag, mean_disp, _ = kernel_bench.vst_operands(G, N, dtype)
+            if offset:
+                buf = torch.empty(G * N + 1, dtype=dtype, device=DEVICE)
+                buf[1:] = c.flatten()
+                c = buf[1:].view(G, N)
+            masked = torch.arange(G, device=DEVICE) % 7 != 0
+            plan = vs._vst_plan(G, N, c.element_size(), c.data_ptr(), sms=kernels.sm_count(c.device))
+            label = f"vst {name} {G} x {N}" + (" offset pointer" if offset else "")
+            check(plan.vec == (wide if N % wide == 0 and not offset else 1), f"{label}: plan {plan}")
+            worst, exact = {}, {}
+            for form, fl, mean_only in (("parametric", flag, False), ("used_mean", torch.tensor(True, device=DEVICE),
+                                                                        False), ("mean", None, True)):
+                got = vs._vst_cuda(c, sf, coeffs, fl, mean_disp, masked, mean_only)
+                again = vs._vst_cuda(c, sf, coeffs, fl, mean_disp, masked, mean_only)
+                want = vs._vst_plain(c, sf, coeffs, fl, mean_disp, masked, mean_only)
+                check(bits_equal(got, again), f"{label} {form}: a second launch differs")
+                check(bool(torch.isnan(got).all(1).eq(~masked).all()) and not bool(torch.isnan(got[masked]).any()),
+                      f"{label} {form}: NaN cells are not the masked rows")
+                worst[form] = scaled_err(got, want)
+                exact[form] = bits_equal(got, want)
+                del got, again, want
+            check(all(v <= vtol for v in worst.values()), f"{label}: errors {worst} beyond {vtol}")
+            rows[label] = plan._asdict()
+            log(f"  {label}: plan {plan._asdict()}, rel err (abs below 1) "
+                + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + f" (tol {vtol}), bits equal to the plain "
+                f"version {exact}")
+            del c, sf, masked
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fine_list_checks() -> dict:
+    """``disp_scan_fine`` and its grouping on FINE_LIST_SHAPES' draws
+    (``kernel_bench.inputs``: ``make_data``, P - 2 batch indicators beyond
+    P = 2, the OLS mu), their centres from the coarse scan, in each of
+    FINE_LISTS: ``fine_check`` (on the la_init list, the genes with a finite
+    point; the others must keep their centre, as the plain version does),
+    ``fine_group_check`` and ``fine_order_check``. Returns {label: bucket
+    counts}."""
+    from pydeseq2_tpu_torch import kernel_bench
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    rows = {}
+    for dtype, G, P in FINE_LIST_SHAPES:
+        counts, mu, X = kernel_bench.inputs(G, N_MAIN, P, dtype)
+        max_disp = float(max(10, N_MAIN))
+        lo_f, hi_f = math.log(1e-8), math.log(max_disp)
+        K = 32
+        step1_f = (hi_f - lo_f) / (K - 1)
+        lo = torch.tensor(lo_f, dtype=dtype, device=DEVICE)
+        la_grid = lo + torch.arange(K, dtype=dtype, device=DEVICE) * torch.tensor(step1_f, dtype=dtype, device=DEVICE)
+        la_init = (lo_f + hi_f) / 2
+        la_hat = torch.zeros(G, dtype=dtype, device=DEVICE)
+        pdv = torch.tensor(1.0, dtype=dtype, device=DEVICE)
+        la1, _ = dsp.scan_coarse(counts, mu, X, la_grid, *dsp._scan_branches(K, step1_f, lo_f), la_init, True, False,
+                                 la_hat, pdv)
+        for kind in FINE_LISTS:
+            label = f"{'f32' if dtype == torch.float32 else 'f64'} {G} x {N_MAIN} P={P} {kind}"
+            if kind == "la_init":
+                c, m, lh, ctr = counts, mu.clone(), la_hat, la1.clone()
+                g = torch.arange(G, device=DEVICE)
+                nan_g = g % NAN_EVERY == 0
+                ctr[(g % LA_INIT_EVERY == 0) | nan_g] = la_init
+                m[nan_g] = math.nan
+            else:
+                c, m, lh, ctr = kernel_bench.fine_lists(counts, mu, la_hat, la1, kind, step1_f, lo_f, hi_f)
+            args = (c, m, X, ctr, step1_f, FINE_LENGTH, lo_f, hi_f, True, False, lh, pdv)
+            buckets = fine_group_check(label, ctr, lo_f, hi_f, step1_f)
+            fine_order_check(label, args)
+            if kind == "la_init":
+                la_k, la_p = dsp.scan_grid(*args), dsp.scan_grid_plain(*args)
+                check(bits_equal(la_k[nan_g], ctr[nan_g]) and bits_equal(la_p[nan_g], ctr[nan_g]),
+                      f"disp_scan_fine {label}: a gene with no finite point left its centre")
+                check(buckets[-1] >= int(((g % LA_INIT_EVERY == 0) | nan_g).sum()),
+                      f"disp_scan_fine {label}: la_init bucket {buckets[-1]}")
+                ok = ~nan_g
+                args = (c[ok].contiguous(), m[ok].contiguous(), X, ctr[ok].contiguous(), *args[4:10],
+                        lh[ok].contiguous(), pdv)
+            fine_check(label, args)
+            rows[label] = buckets
+            log(f"  disp_scan_group {label}: {int(torch.unique(ctr).numel())} centres, bucket counts {buckets}")
+            del c, m, lh, ctr, args
+        del counts, mu, X, la1
+        torch.cuda.empty_cache()
+    return rows
+
+
 def vst_path(reps: int):
     """Phase 3g: ``vst_pipeline`` through its public entry point at 100 x
     60000 float32, the counts on the card: warm wall (best of ``reps``),
@@ -4545,6 +4742,8 @@ def main() -> int:
     plans.update(lowess_checks())
     plans.update(impute_plan_checks())
     plans.update(newton_box_plan_checks(readings))
+    plans.update(vst_plan_checks())
+    plans.update(fine_list_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -4607,6 +4806,8 @@ def main() -> int:
         "disp_newton": ("pydeseq2_tpu_torch/csrc/disp_newton.cu", "pydeseq2_tpu/ops/dispersion.py:361", "disp_newton"),
         "disp_scan_fine": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:170",
                            "disp_scan_fine"),
+        "disp_scan_group": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:170",
+                            "disp_scan_group"),
         "dnb_nll": ("pydeseq2_tpu_torch/csrc/dnb_nll.cu", "pydeseq2_tpu/ops/nb.py:381", "dnb_nll"),
         "irls": ("pydeseq2_tpu_torch/csrc/irls.cu", "pydeseq2_tpu/ops/irls.py:45", "irls"),
         "newton_box": ("pydeseq2_tpu_torch/csrc/newton_box.cu", "pydeseq2_tpu/ops/irls.py:272", "newton_box"),
@@ -4641,14 +4842,14 @@ def main() -> int:
     # theirs, the streamed refit path (phase 3e) for mom, trend, lowess and
     # impute, the zero-inflated one (3i) for the size-factor kernels, the
     # blind VST (3g) for vst, the class API (3j) for its four, the fine-scan
-    # path (3k) for disp_scan_fine and dnb_nll.
+    # path (3k) for disp_scan_fine, its grouping and dnb_nll.
     launches = {**summary["launches"], "shrink": shrink["launches"]["shrink"],
                 "grid_apeglm": weak["launches"]["grid_apeglm"],
                 **{k: stream["launches"][k] for k in ("mom", "trend", "lowess", "impute")},
                 **{k: stream_zi["launches"][k] for k in ("sf_nll", "sf_newton", "lgamma_table")},
                 "vst": vst["launches"]["vst"],
                 **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")},
-                **{k: fine["launches"][k] for k in ("disp_scan_fine", "dnb_nll")}}
+                **{k: fine["launches"][k] for k in ("disp_scan_fine", "disp_scan_group", "dnb_nll")}}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -4688,8 +4889,8 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
-    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute "
-        "and newton_box kernel plans: "
+    log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute, "
+        "newton_box and vst kernel plans, and the fine scan's bucket counts: "
         + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

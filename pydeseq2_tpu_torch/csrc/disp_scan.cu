@@ -8,9 +8,10 @@
 //   - scan_grid (:170-194), the fine scan of alpha_mle_batch(fine_length > 0):
 //     a per-gene grid clip(center_g - hw + k step, lo, hi), the "auto" branch
 //     per (gene, point), no cache, the first minimum starting from
-//     (center_g, +inf) (disp_scan_fine_launch).
-// Both modes are one kernel; only the point set-up and the form choice
-// differ.
+//     (center_g, +inf) (disp_scan_fine_launch), its genes taken in the order
+//     of a grouping kernel (disp_scan_group_launch, below).
+// Both modes are one kernel; only the point set-up, the form choice and
+// the fine mode's gene order differ.
 //
 // What bounds it on the H100: the instruction issue rate on the
 // transcendentals. Each (gene, point, sample) costs two log1p and five IEEE
@@ -45,9 +46,26 @@
 //     strides, which N does not give); the staging is a few percent of a
 //     chunk's compute.
 //   - The form is fixed per thread, so the sample loop is one form's code.
-//     In the static mode it is the same for every lane of a warp; in the
-//     fine mode it is per lane, so a warp whose genes straddle r = 8 runs
-//     both forms, as the JAX auto branch computes both everywhere.
+//     In the static mode it is the same for every lane of a warp. In the
+//     fine mode it is per lane: a warp whose genes straddle r = 8 runs both
+//     forms' loops in turn (at 100 x 60000 f32, K = 8, that cost 0.75 ms
+//     against 0.42 with every gene at one centre; PERF.md section 6, PR
+//     16). So the fine scan takes its genes grouped by centre:
+//     alpha_mle_batch hands it the coarse argmin, a static grid point lo +
+//     j step or la_init, so a gene list has at most grid_length + 1
+//     centres, and genes that share one share all K points and every
+//     point's form. disp_scan_group buckets the genes by the centre's grid
+//     index j (one more bucket for la_init and any other centre) on one
+//     cluster of 16 blocks: counts in shared memory, their prefix across
+//     buckets and blocks, a scatter of the gene indices. The scan stages
+//     each tile's rows through that order (each row still a contiguous run
+//     of samples) and writes best_la back through it; at most grid_length
+//     tiles hold two centres (0.40 ms there, the grouping's 0.0075
+//     included). A lane's sums are its own gene's in sample order, and the
+//     tile count ceil(G / 32), so the segments, are those of the gene
+//     order: any order gives the same bits, and the key decides speed
+//     only. (The order within a bucket follows shared-memory atomics, so
+//     it is not stable.)
 //   - Where the tiles leave the card underfilled (fewer than ~4 blocks per
 //     SM), the rows are split over S segments of at least 32 samples
 //     (gridDim.y): each block writes the sums of its segment to a float64
@@ -67,8 +85,11 @@
 // order within a chunk, chunk sums added in chunk order, in the working
 // type; with S > 1 each segment so, the segment sums added in float64 in
 // segment order.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace pdt;
 
 namespace {
@@ -139,6 +160,7 @@ __device__ __forceinline__ void chunk_sums(int cnt, int lane, const T (*s_y)[TIL
 template <typename T> struct Grid {
   const T* la_grid;  // static mode: (K,)
   const T* center;   // fine mode: (G,)
+  const int* order;  // fine mode: the genes in tile order (G,); else NULL
   T hw, step, lo, hi;
   int K, bnd_start, bnd_end;
 };
@@ -167,6 +189,7 @@ __global__ void __launch_bounds__(TILE * WMax<P>::value)
   __shared__ T s_m[CH][TILE_PAD];
   __shared__ T s_x[CH * P];
   __shared__ T s_f[WMax<P>::value][TILE];
+  __shared__ int s_gene[TILE];  // the tile's genes, through the fine mode's order
   __shared__ int s_last;
 
   const int K = gr.K;
@@ -177,8 +200,13 @@ __global__ void __launch_bounds__(TILE * WMax<P>::value)
   const int lane = threadIdx.x & (WARP - 1);
   const int warp = threadIdx.x / WARP;
   const int g0 = tile * TILE;
-  const int g = g0 + lane;
-  const bool live = g < G;
+  if (threadIdx.x < TILE) {
+    const int gt = g0 + threadIdx.x;
+    s_gene[threadIdx.x] = gt >= G ? -1 : (gr.order != nullptr ? gr.order[gt] : gt);
+  }
+  __syncthreads();
+  const int g = s_gene[lane];
+  const bool live = g >= 0;
   const bool fine = gr.center != nullptr;
   const int seg_len = (N + S - 1) / S;
   const int n_lo = min(N, seg * seg_len);
@@ -248,8 +276,8 @@ __global__ void __launch_bounds__(TILE * WMax<P>::value)
         const int gl = e / CH;
         const int n = e - gl * CH;
         if (n < cnt) {
-          const int gg = g0 + gl;
-          const bool ok = gg < G;
+          const int gg = s_gene[gl];
+          const bool ok = gg >= 0;
           s_y[n][gl] = ok ? counts[(size_t)gg * N + c0 + n] : T(0);
           s_m[n][gl] = ok ? mu[(size_t)gg * N + c0 + n] : T(1);
         }
@@ -316,6 +344,138 @@ __global__ void __launch_bounds__(TILE * WMax<P>::value)
   if (warp == 0 && live) best_la_out[g] = best_la;
 }
 
+// The fine scan's gene order, on one cluster of GROUP_CLUSTER blocks (a
+// single block took 0.05 ms at 60000 genes f32, bound by its issue rate:
+// ~100 instructions a gene a pass on one SM). Block b takes the b-th chunk
+// of the genes: it buckets each gene by its centre's index on the coarse
+// grid (n_grid buckets, one more for any other centre) and counts each
+// bucket in its shared memory; after a cluster barrier every block reads
+// the others' counts through distributed shared memory, so that its slot
+// in bucket k starts at (the genes of buckets below k) + (the genes of
+// bucket k in the chunks before it), and scatters its genes' indices. A
+// warp's lanes that share a bucket take one atomic (__match_any_sync);
+// the slots within a chunk's bucket follow the atomics' order. Each thread
+// keeps its chunk's GROUP_UNROLL centres in flight.
+constexpr int GROUP_THREADS = 1024;
+constexpr int GROUP_CLUSTER = 16;
+constexpr int GROUP_UNROLL = 4;
+constexpr int GROUP_MAX_BUCKETS = 2048;  // ops/dispersion.py:_FINE_MAX_BUCKETS
+
+// The index j of c on the grid lo + j step (j < n_grid, the grid formed in
+// the working type as alpha_mle_batch forms it), else n_grid.
+template <typename T>
+__device__ __forceinline__ int bucket_of(T c, T lo, T step, int n_grid) {
+  const T q = (c - lo) / step;
+  if (!(q >= T(-0.5) && q < T(n_grid) - T(0.5))) return n_grid;  // NaN too
+  const int j = (int)floor(q + T(0.5));
+  return lo + T(j) * step == c ? j : n_grid;
+}
+
+// Add this lane (if valid) to s_slot[key] with one atomic per distinct key
+// of the warp; returns this lane's slot before the add.
+__device__ __forceinline__ int warp_claim(int* s_slot, int key, bool valid) {
+  const unsigned peers = __match_any_sync(0xffffffffu, valid ? key : -1);
+  const int lane = threadIdx.x & (WARP - 1);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (lane == leader && valid) base = atomicAdd(s_slot + key, __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  return base + __popc(peers & ((1u << lane) - 1u));
+}
+
+// f(i, key, valid) for every gene i of [i_lo, i_hi), GROUP_UNROLL reads a
+// thread at once (lanes past the chunk pass valid = false, so that a warp
+// stays whole).
+template <typename T, typename F>
+__device__ __forceinline__ void each_gene_key(int i_lo, int i_hi, const T* __restrict__ center, T lo, T step,
+                                              int n_grid, F f) {
+  for (int i0 = i_lo; i0 < i_hi; i0 += GROUP_THREADS * GROUP_UNROLL) {
+    T c[GROUP_UNROLL];
+#pragma unroll
+    for (int u = 0; u < GROUP_UNROLL; ++u) {
+      const int i = i0 + u * GROUP_THREADS + (int)threadIdx.x;
+      c[u] = i < i_hi ? __ldg(center + i) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < GROUP_UNROLL; ++u) {
+      const int i = i0 + u * GROUP_THREADS + (int)threadIdx.x;
+      f(i, i < i_hi ? bucket_of(c[u], lo, step, n_grid) : 0, i < i_hi);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(GROUP_THREADS)
+    disp_scan_group_kernel(int G, const T* __restrict__ center, T lo, T step, int n_grid,
+                           int* __restrict__ order, int* __restrict__ bucket_count) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks(), kb = (int)cluster.block_rank();
+  __shared__ int s_cnt[GROUP_MAX_BUCKETS + 1];   // this chunk's genes a bucket (read by the cluster)
+  __shared__ int s_slot[GROUP_MAX_BUCKETS + 1];  // this chunk's next slot a bucket
+  __shared__ int s_tot[GROUP_MAX_BUCKETS + 1];   // every chunk's genes a bucket
+  const int nb = n_grid + 1;
+  const int per = (G + K - 1) / K;
+  const int i_lo = min(G, kb * per), i_hi = min(G, i_lo + per);
+  for (int b = threadIdx.x; b < nb; b += GROUP_THREADS) s_cnt[b] = 0;
+  __syncthreads();
+  each_gene_key(i_lo, i_hi, center, lo, step, n_grid,
+                [&](int, int key, bool valid) { warp_claim(s_cnt, key, valid); });
+  cluster.sync();
+  for (int b = threadIdx.x; b < nb; b += GROUP_THREADS) {
+    int before = 0, total = 0;
+    for (int r = 0; r < K; ++r) {
+      const int c = *cluster.map_shared_rank(s_cnt + b, r);
+      total += c;
+      if (r < kb) before += c;
+    }
+    s_slot[b] = before;
+    s_tot[b] = total;
+    if (kb == 0) bucket_count[b] = total;
+  }
+  cluster.sync();  // no block leaves while another reads its counts
+  // Add the exclusive prefix of the totals, 32 buckets at a time by warp 0.
+  if (threadIdx.x < WARP) {
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int b0 = 0; b0 < nb; b0 += WARP) {
+      const int b = b0 + lane;
+      const int c = b < nb ? s_tot[b] : 0;
+      int incl = c;
+#pragma unroll
+      for (int o = 1; o < WARP; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      if (b < nb) s_slot[b] += carry + incl - c;
+      carry += __shfl_sync(0xffffffffu, incl, WARP - 1);
+    }
+  }
+  __syncthreads();
+  each_gene_key(i_lo, i_hi, center, lo, step, n_grid, [&](int i, int key, bool valid) {
+    const int slot = warp_claim(s_slot, key, valid);
+    if (valid) order[slot] = i;
+  });
+}
+
+template <typename T>
+int launch_group(int G, const T* center, T lo, T step, int n_grid, int* order, int* bucket_count,
+                 cudaStream_t s) {
+  // 16-block clusters allowed, once per device (the block's static shared
+  // memory leaves no room for cluster_opt_in's dynamic shared memory)
+  static unsigned opted = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && dev < 32 && !((opted >> dev) & 1u)) {
+    e = cudaFuncSetAttribute(disp_scan_group_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e == cudaSuccess) opted |= 1u << dev;
+  }
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(1, GROUP_CLUSTER, GROUP_THREADS, 0, s, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, disp_scan_group_kernel<T>, G, center, lo, step, n_grid, order,
+                                 bucket_count);
+}
+
 template <int P, typename T>
 int launch(int G, int N, const void* counts, const void* mu, const void* X, Grid<T> gr,
            double la_init, int cr_reg, int prior_reg, const void* la_hat, const void* pdv,
@@ -357,11 +517,12 @@ extern "C" int disp_scan_launch(int is_f64, int P, int G, int N, const void* cou
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (is_f64) {
-    const Grid<double> gr{(const double*)la_grid, nullptr, 0.0, 0.0, 0.0, 0.0, K, bnd_start, bnd_end};
+    const Grid<double> gr{(const double*)la_grid, nullptr, nullptr, 0.0, 0.0, 0.0, 0.0, K, bnd_start,
+                          bnd_end};
     rc = dispatch<double>(P, G, N, counts, mu, X, gr, la_init, cr_reg, prior_reg, la_hat, pdv,
                           segments, partial, done, best_la, coarse, s);
   } else {
-    const Grid<float> gr{(const float*)la_grid, nullptr, 0.f, 0.f, 0.f, 0.f, K, bnd_start, bnd_end};
+    const Grid<float> gr{(const float*)la_grid, nullptr, nullptr, 0.f, 0.f, 0.f, 0.f, K, bnd_start, bnd_end};
     rc = dispatch<float>(P, G, N, counts, mu, X, gr, la_init, cr_reg, prior_reg, la_hat, pdv,
                          segments, partial, done, best_la, coarse, s);
   }
@@ -370,27 +531,43 @@ extern "C" int disp_scan_launch(int is_f64, int P, int G, int N, const void* cou
 }
 
 // The fine scan: K per-gene points clip(center - halfwidth + k step, lo, hi),
-// best_la (G,) only.
+// best_la (G,) only; order (G,) a permutation of the genes (tile t takes
+// order[32 t .. 32 t + 31]), as disp_scan_group_launch writes it.
 extern "C" int disp_scan_fine_launch(int is_f64, int P, int G, int N, const void* counts,
                                      const void* mu, const void* X, const void* center,
                                      double halfwidth, double step, double lo, double hi,
-                                     int K, int cr_reg, int prior_reg, const void* la_hat,
-                                     const void* pdv, int segments, void* partial, void* done,
-                                     void* best_la, void* stream) {
+                                     int K, const void* order, int cr_reg, int prior_reg,
+                                     const void* la_hat, const void* pdv, int segments,
+                                     void* partial, void* done, void* best_la, void* stream) {
   if (G <= 0) return (int)cudaSuccess;
-  if (K <= 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || order == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int rc;
   if (is_f64) {
-    const Grid<double> gr{nullptr, (const double*)center, halfwidth, step, lo, hi, K, 0, 0};
+    const Grid<double> gr{nullptr, (const double*)center, (const int*)order, halfwidth, step, lo, hi,
+                          K, 0, 0};
     rc = dispatch<double>(P, G, N, counts, mu, X, gr, 0.0, cr_reg, prior_reg, la_hat, pdv,
                           segments, partial, done, best_la, nullptr, s);
   } else {
-    const Grid<float> gr{nullptr, (const float*)center, (float)halfwidth, (float)step,
-                         (float)lo, (float)hi, K, 0, 0};
+    const Grid<float> gr{nullptr, (const float*)center, (const int*)order, (float)halfwidth,
+                         (float)step, (float)lo, (float)hi, K, 0, 0};
     rc = dispatch<float>(P, G, N, counts, mu, X, gr, 0.0, cr_reg, prior_reg, la_hat, pdv,
                          segments, partial, done, best_la, nullptr, s);
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// The fine scan's gene order (G,) int32 and the genes of each bucket
+// (n_grid + 1,) int32: bucket j < n_grid holds the genes whose centre is
+// lo + j step in the working type, bucket n_grid every other gene.
+extern "C" int disp_scan_group_launch(int is_f64, int G, const void* center, double lo, double step,
+                                      int n_grid, void* order, void* bucket_count, void* stream) {
+  if (G < 0 || n_grid < 1 || n_grid > GROUP_MAX_BUCKETS) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rc = is_f64 ? launch_group<double>(G, (const double*)center, lo, step, n_grid, (int*)order,
+                                               (int*)bucket_count, s)
+                        : launch_group<float>(G, (const float*)center, (float)lo, (float)step, n_grid,
+                                              (int*)order, (int*)bucket_count, s);
+  return rc != 0 ? rc : (int)cudaGetLastError();
 }

@@ -11,8 +11,10 @@ the masked IRLS ``irls`` (``irls``), the method-of-moments pass ``mom``
 (``mom``), the Benjamini-Hochberg kernels of the independent filter
 (``bh``), the hat diagonals and Wald test of ``hat_wald.cu`` (``hat``),
 the filter's ``lowess`` (``lowess``), the refit's Cook's imputation
-``impute`` (``impute``) and the IRLS rescue's projected Newton
-``newton_box`` (``box``).
+``impute`` (``impute``), the IRLS rescue's projected Newton
+``newton_box`` (``box``), the blind VST's transform ``vst`` (``vst``),
+the fine dispersion scan ``disp_scan_fine`` with its gene grouping
+``disp_scan_group`` (``fine``) and ``dnb_nll`` (``dnb``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -210,6 +212,38 @@ plain version's point and with its flag, a repeat bit for bit;
 (every pass reading the row from device memory), twice each in turn over
 5 x the shape's calls.
 
+``vst`` shapes (VST_SHAPES): Poisson counts drawn on the card
+(``vst_operands``: lognormal gene means times seeded size factors, the
+parametric trend (0.05, 2.0), the mean dispersion 0.1) at 100 x 60000,
+1000 x 60000 and the atlas block 5000 x 10000, each in float32 and
+float64, and 101 x 60000 (a row length that takes the scalar accesses).
+Per shape the device times (kernels named ``vst``) of the parametric
+form, ``used_mean`` set, the mean form and every 7th gene masked, the
+largest difference of each from the plain version (relative, absolute
+below 1), a repeat bit for bit, NaN on exactly the masked rows (asserted),
+the events of the parametric call and all it runs on the card, the bytes
+bound, ``fill_`` of the output alone as the card's write rate, and the
+plan where the tree has one.
+
+``fine`` shapes (FINE_SHAPES), K = FINE_K = 8 points a gene around the
+centres of a coarse scan (``disp_scan``, 32 points) of ``inputs``' draw:
+100 x 60000 float32 at P = 2, 1 and 5, float64 at P = 2, the atlas block
+5000 x 10000 at P = 1 (rows over segments), and two diagnostic gene lists
+at 100 x 60000 float32 P = 2 (``fine_lists``): every gene at the most
+common centre, and genes alternating so that every tile straddles r = 8
+at every point. Per shape the events and device times of all that
+``scan_grid`` runs (kernels named ``disp_scan``: the scan and, where the
+tree has it, the grouping) and of the grouping alone, the (gene, point)
+pairs of each form, the share of warps whose lanes take both forms in the
+genes' order and in the tree's grouped order, the share of genes at the
+plain version's point, the segments, and a digest of the best log-alpha
+bits; ``main`` fails unless every tree gives the same digests.
+
+``dnb`` shapes (DNB_SHAPES): ``inputs``' counts and mu at 100, 1000 and 12
+x 60000 float32 and 100 x 60000 float64, seeded lognormal dispersions:
+the events and device times (kernels named ``dnb``), the gap from the
+plain version relative to the summed magnitudes, a repeat bit for bit.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -245,7 +279,37 @@ SOURCES = ("disp_scan.cu", "disp_newton.cu")  # the disp suite's
 SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "cooks": ("cooks.cu", "trimmed.cu"),
           "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",),
           "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu"), "hat": ("hat_wald.cu",),
-          "lowess": ("bh.cu", "lowess.cu"), "impute": ("impute.cu",), "box": ("newton_box.cu",)}
+          "lowess": ("bh.cu", "lowess.cu"), "impute": ("impute.cu",), "box": ("newton_box.cu",),
+          "vst": ("vst.cu",), "fine": ("disp_scan.cu",), "dnb": ("dnb_nll.cu",)}
+VST_SHAPES = (
+    # label, genes, samples, dtype, timed calls
+    ("f32 100x60000", 60_000, 100, torch.float32, 20),
+    ("f64 100x60000", 60_000, 100, torch.float64, 20),
+    ("f32 1000x60000", 60_000, 1_000, torch.float32, 10),
+    ("f64 1000x60000", 60_000, 1_000, torch.float64, 10),
+    ("f32 atlas 5000x10000", 5_000, 10_000, torch.float32, 10),
+    ("f64 atlas 5000x10000", 5_000, 10_000, torch.float64, 10),
+    ("f32 101x60000 (unaligned rows)", 60_000, 101, torch.float32, 20),
+    ("f64 101x60000 (unaligned rows)", 60_000, 101, torch.float64, 20),
+)
+FINE_K = 8  # the fine scan's points (alpha_mle_batch(fine_length=8))
+FINE_SHAPES = (
+    # label, genes, samples, P, dtype, gene list (fine_lists' kind), timed calls
+    ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, "coarse", 20),
+    ("f32 100x60000 P=1", 60_000, 100, 1, torch.float32, "coarse", 20),
+    ("f32 100x60000 P=5", 60_000, 100, 5, torch.float32, "coarse", 10),
+    ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, "coarse", 10),
+    ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, "coarse", 5),
+    ("f32 100x60000 P=2 one centre", 60_000, 100, 2, torch.float32, "one", 20),
+    ("f32 100x60000 P=2 every tile straddles", 60_000, 100, 2, torch.float32, "straddle", 20),
+)
+DNB_SHAPES = (
+    # label, genes, samples, dtype, timed calls
+    ("f32 100x60000", 60_000, 100, torch.float32, 20),
+    ("f32 1000x60000", 60_000, 1_000, torch.float32, 10),
+    ("f64 100x60000", 60_000, 100, torch.float64, 20),
+    ("f32 12x60000", 60_000, 12, torch.float32, 20),
+)
 MOM_SHAPES = (
     # label, genes, samples, P, dtype, want_mu, normed, timed calls
     ("f32 100x60000 P=2", 60_000, 100, 2, torch.float32, False, False, 20),
@@ -1906,6 +1970,197 @@ def box_rows(detail: bool) -> dict:
     return rows
 
 
+def vst_operands(G: int, N: int, dtype):
+    """``vst_transform``'s operands on the card, from a seeded generator
+    there: Poisson counts (G, N) at lognormal gene means times seeded size
+    factors, those size factors, the parametric trend (0.05, 2.0), the
+    ``used_mean`` flag off, the mean dispersion 0.1 and every gene kept."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    means = torch.exp(3.0 + 1.5 * torch.randn(G, 1, generator=g, device=DEVICE, dtype=torch.float64))
+    sf = torch.exp(0.2 * torch.randn(N, generator=g, device=DEVICE, dtype=torch.float64))
+    counts = torch.poisson(means * sf[None, :], generator=g).to(dtype)
+    return (counts, sf.to(dtype), torch.tensor([0.05, 2.0], dtype=dtype, device=DEVICE),
+            torch.tensor(False, device=DEVICE), torch.tensor(0.1, dtype=dtype, device=DEVICE),
+            torch.ones(G, dtype=torch.bool, device=DEVICE))
+
+
+def vst_rows(detail: bool) -> dict:
+    """``vst`` on VST_SHAPES in its four cases: events and device times
+    (kernels named ``vst``) beside the bytes bound, the largest difference
+    from the plain version (relative, absolute below 1), NaN on exactly the
+    masked rows (asserted), a repeat bit for bit, the plan where the tree
+    has one; ``--detail`` the parametric case with tiles of 1, 4, 8 and 16
+    vectors a thread and each count in flight the tree's kernel is built
+    for."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import vst as vs
+
+    rows = {}
+    for label, G, N, dtype, reps in VST_SHAPES:
+        c, sf, coeffs, flag, mean_disp, keep = vst_operands(G, N, dtype)
+        masked = torch.arange(G, device=DEVICE) % 7 != 0
+        isz = c.element_size()
+        row = {"genes": G, "samples": N,
+               "bytes_bound_ms": (isz * (2 * G * N + N + 3) + G + 1) / 3.35e12 * 1e3}
+        cases = {"parametric": (flag, keep, False), "used_mean": (torch.tensor(True, device=DEVICE), keep, False),
+                 "mean": (None, keep, True), "masked": (flag, masked, False)}
+        for case, (fl, gmask, mean_only) in cases.items():
+            def run():
+                return vs._vst_cuda(c, sf, coeffs, fl, mean_disp, gmask, mean_only)
+
+            got, again = run(), run()
+            want = vs._vst_plain(c, sf, coeffs, fl, mean_disp, gmask, mean_only)
+            nan_rows = torch.isnan(got).all(1)
+            if not bool(nan_rows.eq(~gmask).all()) or bool(torch.isnan(got[gmask]).any()):
+                raise AssertionError(f"vst {label} {case}: NaN rows are not the masked ones")
+            scale = torch.clamp(want.abs(), min=1.0)
+            row[f"{case}_kernel_ms"] = device_ms(run, reps, "vst")[0]
+            row[f"{case}_err"] = ((got - want).abs() / scale).nan_to_num(0.0).max().item()
+            row[f"{case}_repeat_bits_equal"] = bool(torch.equal(got.view(torch.uint8), again.view(torch.uint8)))
+            del got, again, want, scale
+        row["vst_ms"] = cuda_ms(lambda: vs._vst_cuda(c, sf, coeffs, flag, mean_disp, keep, False), reps)
+        row["vst_device_ms"] = device_ms(lambda: vs._vst_cuda(c, sf, coeffs, flag, mean_disp, keep, False), reps,
+                                         "vst")[1]
+        row["fill_ms"] = device_ms(lambda: torch.empty_like(c).fill_(1.0), reps, "")[1]
+        if hasattr(vs, "_vst_plan"):
+            row["plan"] = vs._vst_plan(G, N, isz, c.data_ptr(), sms=kernels.sm_count(c.device))._asdict()
+            base = vs._vst_plan(G, N, isz, c.data_ptr())
+            for items in getattr(vs, "VST_ITEMS_BUILT", ()) if detail else ():
+                for per_thread in (1, 4, 8, 16):
+                    tile_rows = max(1, min(G, vs._VST_THREADS * per_thread // (base.cols // base.vec)))
+                    plan = base._replace(rows=tile_rows, items=items)
+                    row[f"parametric_kernel_ms items={items} rows={tile_rows}"] = device_ms(
+                        lambda: vs._vst_cuda(c, sf, coeffs, flag, mean_disp, keep, False, plan=plan), reps,
+                        "vst")[0]
+        rows[label] = row
+        print(f"  vst {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del c, sf, masked
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fine_forms(center, hw_f: float, length: int, lo_f: float, hi_f: float) -> torch.Tensor:
+    """(length, G) bool: whether each fine point of each gene takes the
+    auto form's plain part (r = exp(-la) < 8), as ``disp_scan_fine`` picks
+    it."""
+    dt, dev = center.dtype, center.device
+    lo, hi, hw, step = (torch.tensor(v, dtype=dt, device=dev) for v in (lo_f, hi_f, hw_f, 2.0 * hw_f / (length - 1)))
+    ks = torch.arange(length, dtype=dt, device=dev)
+    la = torch.clamp(center[None, :] - hw + ks[:, None] * step, lo, hi)
+    return torch.exp(-la) < 8.0
+
+
+def mixed_warps(forms: torch.Tensor) -> float:
+    """The share of (tile of 32 genes, point) warps whose lanes take both
+    forms, in the genes' order."""
+    K, G = forms.shape
+    pad = -G % 32
+    f = torch.cat([forms, forms[:, -1:].expand(K, pad)], 1).reshape(K, -1, 32)
+    return (f.any(2) & ~f.all(2)).double().mean().item()
+
+
+def fine_lists(counts, mu, la_hat, la1, kind: str, hw_f: float, lo_f: float, hi_f: float):
+    """The genes of one ``fine`` shape: the draw as the coarse scan leaves
+    it (``coarse``); every gene at the most common centre (``one``); or
+    genes whose eight points all take one form, alternating with genes
+    whose points all take the other (``straddle``: every tile of 32 holds
+    16 of each, genes drawn again where a side has fewer)."""
+    if kind == "coarse":
+        return counts, mu, la_hat, la1
+    if kind == "one":
+        vals, cnt = torch.unique(la1, return_counts=True)
+        return counts, mu, la_hat, torch.full_like(la1, vals[cnt.argmax()].item())
+    forms = fine_forms(la1, hw_f, FINE_K, lo_f, hi_f)
+    sides = [torch.nonzero(forms.all(0)).flatten(), torch.nonzero(~forms.any(0)).flatten()]
+    if min(s.numel() for s in sides) == 0:
+        order = torch.argsort(la1)
+        sides = [order[-(la1.numel() // 2):], order[: la1.numel() // 2]]
+    G = la1.numel()
+    i = torch.arange(G, device=la1.device)
+    idx = torch.where(i % 2 == 0, sides[0][(i // 2) % sides[0].numel()], sides[1][(i // 2) % sides[1].numel()])
+    return counts[idx].contiguous(), mu[idx].contiguous(), la_hat[idx].contiguous(), la1[idx].contiguous()
+
+
+def fine_rows(detail: bool) -> dict:
+    """``disp_scan_fine`` through ``scan_grid`` on FINE_SHAPES, K = FINE_K
+    points around the centres of a coarse scan (``disp_scan``) of the same
+    draw: events and device times of every kernel ``scan_grid`` runs (the
+    names holding ``disp_scan``: the scan and, where the tree has it, its
+    gene grouping) and of the grouping alone, the (gene, point) pairs of
+    each form, the share of warps whose lanes take both forms in the genes'
+    order and in the tree's order, the share of genes at the plain
+    version's point, and a digest of the kernel's best log-alpha bits
+    (``main`` holds it equal across trees)."""
+    import hashlib
+
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    rows = {}
+    for label, G, N, P, dtype, kind, reps in FINE_SHAPES:
+        counts, mu, X = inputs(G, N, P, dtype)
+        max_disp = float(max(10, N))
+        lo_f, hi_f = math.log(1e-8), math.log(max_disp)
+        step1_f = (hi_f - lo_f) / 31
+        lo = torch.tensor(lo_f, dtype=dtype, device=DEVICE)
+        la_grid = lo + torch.arange(32, dtype=dtype, device=DEVICE) * torch.tensor(step1_f, dtype=dtype, device=DEVICE)
+        bs, be = dsp._scan_branches(32, step1_f, lo_f)
+        la_hat = torch.zeros(G, dtype=dtype, device=DEVICE)
+        pdv = torch.tensor(1.0, dtype=dtype, device=DEVICE)
+        la1, _ = dsp.scan_coarse(counts, mu, X, la_grid, bs, be, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
+        counts, mu, la_hat, center = fine_lists(counts, mu, la_hat, la1, kind, step1_f, lo_f, hi_f)
+        args = (counts, mu, X, center, step1_f, FINE_K, lo_f, hi_f, True, False, la_hat, pdv)
+        got = dsp.scan_grid(*args)
+        want = dsp.scan_grid_plain(*args)
+        forms = fine_forms(center, step1_f, FINE_K, lo_f, hi_f)
+        kern, dev = device_ms(lambda: dsp.scan_grid(*args), reps, "disp_scan")
+        row = {"genes": G, "samples": N, "P": P, "centres": int(torch.unique(center).numel()),
+               "fine_ms": cuda_ms(lambda: dsp.scan_grid(*args), reps), "fine_kernel_ms": kern, "fine_device_ms": dev,
+               "group_kernel_ms": device_ms(lambda: dsp.scan_grid(*args), reps, "group")[0],
+               "plain_pairs": int(forms.sum()), "stable_pairs": int((~forms).sum()),
+               "mixed_warps_gene_order": mixed_warps(forms),
+               "same_point_share": (got == want).double().mean().item(),
+               "segments": dsp._scan_segments(G, N, kernels.sm_count(torch.device(DEVICE))),
+               "best_la_bits": hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]}
+        if hasattr(dsp, "_fine_order_plain"):
+            order = dsp._fine_order_plain(center, lo_f, step1_f, dsp._fine_buckets(lo_f, hi_f, step1_f))[0]
+            row["mixed_warps_tree_order"] = mixed_warps(forms[:, order.long()])
+        rows[label] = row
+        print(f"  fine {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del counts, mu, X, la1, center, got, want, forms
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dnb_rows(detail: bool) -> dict:
+    """``dnb_nll`` on DNB_SHAPES (``inputs``' counts and mu, seeded
+    lognormal dispersions): events and device times (kernels named
+    ``dnb``), the largest gap from the plain version relative to the
+    summed magnitudes of its terms (as ``chip_smoke.py``'s dnb_check), a
+    repeat bit for bit."""
+    from pydeseq2_tpu_torch.ops import nb
+
+    rows = {}
+    for label, G, N, dtype, reps in DNB_SHAPES:
+        counts, mu, _ = inputs(G, N, 2, dtype)
+        rng = np.random.default_rng(6)
+        alpha = torch.as_tensor(np.clip(rng.lognormal(-2.0, 1.0, G), 1e-3, 5.0), dtype=dtype, device=DEVICE)
+        got, again = nb.dnb_nll(counts, mu, alpha), nb.dnb_nll(counts, mu, alpha)
+        want = nb._dnb_nll_plain(counts, mu, alpha)
+        r = 1.0 / alpha[:, None]
+        scale = (nb._psi_fast(r).abs() + nb._psi_fast(counts + r).abs() + torch.log1p(mu * alpha[:, None]).abs()
+                 + ((counts - mu) / (mu + r)).abs()).sum(-1) / alpha**2
+        kern, dev = device_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps, "dnb")
+        rows[label] = {"dnb_ms": cuda_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps), "dnb_kernel_ms": kern,
+                       "dnb_device_ms": dev, "err": ((got - want).abs() / scale).max().item(),
+                       "repeat_bits_equal": bool(torch.equal(got, again)),
+                       "bytes_bound_ms": (2 * G * N + 2 * G) * counts.element_size() / 3.35e12 * 1e3}
+        print(f"  dnb {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+        del counts, mu, alpha, got, again, want, scale
+        torch.cuda.empty_cache()
+    return rows
+
+
 def cuobjdump(kernels) -> str | None:
     """The toolkit's cuobjdump: on the PATH, beside nvcc, or in Triton's
     package; None where there is none."""
@@ -2086,6 +2341,12 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["impute"] = impute_rows(detail)
     if "box" in suites:
         res["box"] = box_rows(detail)
+    if "vst" in suites:
+        res["vst"] = vst_rows(detail)
+    if "fine" in suites:
+        res["fine"] = fine_rows(detail)
+    if "dnb" in suites:
+        res["dnb"] = dnb_rows(detail)
     return res
 
 
@@ -2149,6 +2410,15 @@ def summary(res: dict) -> dict:
             continue
         out[f"box {k}"] = {key: v[key] for key in ("box_kernel_ms", "box_ms", "box_wall_ms", "lanes", "passes",
                                                    "evaluations", "close_share", "repeat_bits_equal") if key in v}
+    for k, v in res.get("vst", {}).items():
+        out[f"vst {k}"] = {key: v[key] for key in ("parametric_kernel_ms", "masked_kernel_ms", "mean_kernel_ms",
+                                                   "vst_ms", "bytes_bound_ms", "parametric_err") if key in v}
+    for k, v in res.get("fine", {}).items():
+        out[f"fine {k}"] = {key: v[key] for key in ("fine_kernel_ms", "group_kernel_ms", "fine_ms",
+                                                    "mixed_warps_gene_order", "mixed_warps_tree_order",
+                                                    "best_la_bits") if key in v}
+    for k, v in res.get("dnb", {}).items():
+        out[f"dnb {k}"] = {key: v[key] for key in ("dnb_kernel_ms", "dnb_ms", "err")}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):
@@ -2186,8 +2456,16 @@ def main(argv: list[str]) -> int:
             return 1
         runs.append({"tree": tree, **json.loads(lines[-1][len("RESULT "):])})
         print(f"{tree}: " + json.dumps(summary(runs[-1])), flush=True)
+    differ = []
+    if "fine" in suites:
+        # the scan's per-gene sums do not depend on the gene order: every
+        # tree's best log-alpha must be the same bits
+        differ = sorted(k for k in runs[0]["fine"]
+                        if len({r["fine"][k]["best_la_bits"] for r in runs}) > 1)
+        print(f"fine: best_la bits equal across trees: {not differ}" + (f", differ at {differ}" if differ else ""),
+              flush=True)
     print(json.dumps({"card": card_line(), "runs": runs}), flush=True)
-    return 0
+    return 1 if "fine" in suites and differ else 0
 
 
 if __name__ == "__main__":

@@ -38,6 +38,8 @@ KERNELS = {
     "select": ("select.cu", "order_stats_select_launch"),
     "disp_scan": ("disp_scan.cu", "disp_scan_launch"),
     "disp_scan_fine": ("disp_scan.cu", "disp_scan_fine_launch"),
+    # the fine scan's gene order, grouped by centre
+    "disp_scan_group": ("disp_scan.cu", "disp_scan_group_launch"),
     "disp_newton": ("disp_newton.cu", "disp_newton_launch"),
     "irls": ("irls.cu", "irls_launch"),
     "hat_wald": ("hat_wald.cu", "hat_wald_launch"),
@@ -96,8 +98,9 @@ _ARGTYPES = {
     "order_stats_select_launch": [_I, _P, _I, _I, _L, _L, _P, _P, _P, _P, _I, _I, _I],
     "disp_scan_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
                          _P, _P, _I, _P, _P, _P, _P],
-    "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _I, _I,
+    "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _P, _I, _I,
                               _P, _P, _I, _P, _P, _P],
+    "disp_scan_group_launch": [_I, _I, _P, _D, _D, _I, _P, _P],
     "disp_newton_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                            _I, _I, _I, _P, _P, _P, _P],
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
@@ -120,7 +123,7 @@ _ARGTYPES = {
     "impute_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "sf_nll_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _P, _I, _P],
     "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
-    "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
     "trimmed_var_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
     "psi_f64_launch": [_P, _I, _P, _P],

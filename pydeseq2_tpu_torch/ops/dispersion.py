@@ -19,7 +19,9 @@ samples, which the block stages in shared memory once for all its points;
 where the tiles alone leave the card short, the rows are split over segments
 whose sums the last block of a tile adds (:func:`_scan_segments`). Bound on
 the H100 by the transcendentals (two log1p per sample and point, lgamma
-below r = 8).
+below r = 8). The fine mode takes its genes grouped by centre
+(:func:`_fine_order_cuda`, the kernel ``disp_scan_group``), so that a
+warp's lanes share one point and one form.
 
 ``csrc/disp_newton.cu`` replaces ``fgh_closed`` + ``newton_body``
 (pydeseq2_tpu/ops/dispersion.py:313,361 with ops/nb.py:
@@ -157,6 +159,56 @@ def scan_coarse(counts, mu, X, la_grid, bnd_start, bnd_end, la_init, cr_reg, pri
     return best_la, coarse
 
 
+# csrc/disp_scan.cu: the most grid points whose genes the fine scan's
+# grouping buckets apart (one more bucket takes every other centre).
+_FINE_MAX_BUCKETS = 2048
+
+
+def _fine_buckets(lo_f: float, hi_f: float, step_f: float) -> int:
+    """Grid points lo + j step the fine scan's grouping keys on: the coarse
+    grid of ``alpha_mle_batch`` (grid_length = (hi - lo) / step + 1), at
+    most ``_FINE_MAX_BUCKETS``."""
+    return max(1, min(_FINE_MAX_BUCKETS, int(round((hi_f - lo_f) / step_f)) + 1))
+
+
+def _fine_keys_plain(center, lo_f: float, step_f: float, n_grid: int) -> torch.Tensor:
+    """(G,) int64: the index j of each centre on the grid lo + j step
+    formed in the working type as ``alpha_mle_batch`` forms it, ``n_grid``
+    for any other centre (la_init, a clipped or non-finite one)."""
+    lo, step = (torch.tensor(v, dtype=center.dtype, device=center.device) for v in (lo_f, step_f))
+    q = (center - lo) / step
+    j = torch.floor(q + 0.5)
+    on = (q >= -0.5) & (q < n_grid - 0.5)
+    j = torch.where(on, j, torch.zeros_like(j))
+    on = on & (lo + j * step == center)
+    return torch.where(on, j.to(torch.int64), torch.full_like(j, n_grid, dtype=torch.int64))
+
+
+def _fine_order_plain(center, lo_f: float, step_f: float, n_grid: int):
+    """Plain version of ``disp_scan_group``: the genes ordered by their
+    centre's grid index (int32, stable) and the genes of each of the
+    ``n_grid + 1`` buckets (int32)."""
+    keys = _fine_keys_plain(center, lo_f, step_f, n_grid)
+    return (torch.argsort(keys, stable=True).to(torch.int32),
+            torch.bincount(keys, minlength=n_grid + 1).to(torch.int32))
+
+
+def _fine_order_cuda(center, lo_f: float, step_f: float, n_grid: int):
+    """Launch ``disp_scan_group``: the same buckets as
+    :func:`_fine_order_plain`, each block's genes within a bucket in the
+    order its shared-memory atomics take them."""
+    order = torch.empty(center.shape[0], dtype=torch.int32, device=center.device)
+    bucket_count = torch.empty(n_grid + 1, dtype=torch.int32, device=center.device)
+    kernels.check_cuda_operands("disp_scan_group", center, order, bucket_count)
+    kernels.launch(
+        "disp_scan_group",
+        [int(center.dtype == torch.float64), center.shape[0], center.data_ptr(), lo_f, step_f, n_grid,
+         order.data_ptr(), bucket_count.data_ptr()],
+        center.device,
+    )
+    return order, bucket_count
+
+
 def scan_grid_plain(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv):
     """Plain version of the fine scan: best_la (G,)."""
     dtype, dev = mu.dtype, mu.device
@@ -182,13 +234,21 @@ def scan_grid(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, pr
     2 halfwidth / (length - 1), and the first strict minimum per gene,
     ``center`` where no point is finite (JAX ``scan_grid``; bounds and steps
     are Python floats, rounded to the working dtype as JAX rounds them).
-    CUDA tensors launch ``disp_scan_fine``."""
-    if not counts.is_cuda:
-        return scan_grid_plain(
-            counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv
-        )
+    CUDA tensors launch ``disp_scan_group`` then ``disp_scan_fine``: the
+    genes grouped by their centre's index on the grid lo + j halfwidth (the
+    coarse grid whose argmin ``alpha_mle_batch`` hands over), then the scan
+    in that order. Each gene's result does not depend on the order."""
+    fn = _scan_grid_cuda if counts.is_cuda else scan_grid_plain
+    return fn(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv)
+
+
+def _scan_grid_cuda(counts, mu, X, center, halfwidth_f, length, lo_f, hi_f, cr_reg, prior_reg, la_hat, pdv):
+    """Launch ``disp_scan_group`` then ``disp_scan_fine``, sized from G and
+    ``length`` alone (no host read)."""
     step_f = 2.0 * halfwidth_f / (length - 1)
-    grid_args = (center.contiguous(), halfwidth_f, step_f, lo_f, hi_f, length)
+    center = center.contiguous()
+    order, _ = _fine_order_cuda(center, lo_f, halfwidth_f, _fine_buckets(lo_f, hi_f, halfwidth_f))
+    grid_args = (center, halfwidth_f, step_f, lo_f, hi_f, length, order)
     return _scan_launch("disp_scan_fine", counts, mu, X, grid_args, length, cr_reg, prior_reg, la_hat, pdv, None)
 
 

@@ -244,8 +244,9 @@ def test_wrappers_marshal_what_the_launchers_take(monkeypatch):
     coarse = torch.empty(32, G, dtype=torch.float64)
     t_disp._scan_launch("disp_scan", counts, counts, X, (la_grid, 32, 8, 12, -7.5), 32, True, True, la_hat,
                         pdv, coarse)
-    t_disp._scan_launch("disp_scan_fine", counts, counts, X, (la_grid[:G], 0.7, 0.2, -18.0, 3.0, 8), 8, True,
-                        False, la_hat, pdv, None)
+    order = torch.arange(G, dtype=torch.int32)
+    t_disp._scan_launch("disp_scan_fine", counts, counts, X, (la_grid[:G], 0.7, 0.2, -18.0, 3.0, 8, order), 8,
+                        True, False, la_hat, pdv, None)
     t_nb._dnb_nll_cuda(counts[0], counts[0], torch.tensor(0.3, dtype=torch.float64))
     t_disp._newton_polish_cuda(counts, counts, X, la_hat, -18.4, 4.6, 0.7, 0.2, 4, True, True, la_hat, pdv)
     kinds = {ctypes.c_int: int, ctypes.c_double: float}
@@ -258,4 +259,4 @@ def test_wrappers_marshal_what_the_launchers_take(monkeypatch):
             else:
                 assert isinstance(a, kinds[w]) and not isinstance(a, bool), (name, a, w)
     # 10 tiles of 300 genes leave the card short: the scans split the rows
-    assert calls[0][1][16] == calls[1][1][17] == 53
+    assert calls[0][1][16] == calls[1][1][18] == 53

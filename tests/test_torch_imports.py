@@ -155,11 +155,12 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Twenty-six kernels (the class API's trend_fit, trimmed_var and the
+    """Twenty-seven kernels (the class API's trend_fit, trimmed_var and the
     hat-only and Wald-only entries of hat_wald.cu, dnb_nll and the fine
-    scan's disp_scan_fine beside the pipelines' nineteen, sf_nll's lgamma
-    table; BH as two, the rejection counts and one adjusted row), each
-    with a launch count that starts at 0."""
+    scan's disp_scan_fine with its gene grouping disp_scan_group beside the
+    pipelines' nineteen, sf_nll's lgamma table; BH as two, the rejection
+    counts and one adjusted row), each with a launch count that starts at
+    0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 26
+    assert len(kernels.KERNELS) == 27
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)
