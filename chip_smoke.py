@@ -43,7 +43,12 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    genes with no finite point); ``vst`` in every plan (``vst_plan_checks``:
    16-byte and scalar rows, N = 101, a pointer 4 bytes off, one and
    several column tiles, the atlas block, each form twice and bit for bit,
-   masked rows); the cluster kernels in every
+   masked rows); ``dnb_nll`` in every plan (``dnb_plan_checks``: 4, 8
+   and 32 lanes and a block a row at row lengths on both sides of each of
+   ``_dnb_plan``'s thresholds, row counts that fill no last warp, both
+   types, alpha a row vector, one value on the card and a float by value,
+   each launched twice and bit for bit, within ``dnb_check``'s bounds of
+   the plain version); the cluster kernels in every
    mode (``cluster_kernel_checks``): ``sf_newton`` with its counts in shared
    memory at 100 x 60000 float32 and float64 and streamed at 200000 genes
    float64, at N = 3 and G = 5 (one block, and a cluster of 16 with empty
@@ -283,6 +288,11 @@ LA_INIT_EVERY, NAN_EVERY = 50, 97
 # pointer 4 bytes off (scalar); and the atlas block.
 VST_PLAN_N = {torch.float32: (1, 4, 100, 101, 1024, 1025, 2048), torch.float64: (1, 2, 100, 101, 512, 513, 1024)}
 VST_PLAN_CELLS = 3_000_000
+# dnb_plan_checks: row lengths on both sides of each _dnb_plan threshold
+# (48, 256, 4096 samples), the main width and the atlas', at ~DNB_PLAN_CELLS
+# cells (an odd row count); every plan at each.
+DNB_PLAN_N = (1, 12, 48, 49, 100, 256, 257, 1_000, 4_095, 4_096, 10_000)
+DNB_PLAN_CELLS = 2_000_000
 # Planted Cook's outliers of the streamed refit runs: one cell at 20x its
 # row's maximum in every OUTLIER_EVERY-th gene.
 OUTLIER_EVERY = 100
@@ -539,19 +549,24 @@ def dnb_scale(counts, mu, alpha):
             + ((counts - mu) / (mu + r)).abs()).sum(-1) / alpha**2
 
 
-def dnb_check(name: str, counts, mu, alpha) -> tuple[float, float]:
-    """``dnb_nll`` against its plain version: (max abs error, max error
-    relative to the summed magnitudes). Both evaluate the same terms with
-    the same psi; alpha^-2 amplifies psi(1/a) - psi(y + 1/a), which cancels
-    as alpha -> 0, so the gap is held against alpha^-2 sum(|psi(r)| +
-    |psi(y + r)| + |log1p(mu a)| + |(y - mu)/(mu + r)|): 1e-5 (f32) / 1e-13
-    (f64), a few rounding units of that sum in float32 (~80 eps) and
-    float64 (~450 eps) for terms summed in another order."""
+def dnb_check(name: str, counts, mu, alpha, lanes: int | None = None, want=None) -> tuple[float, float]:
+    """``dnb_nll`` (in the plan of ``lanes``, else its own) against its
+    plain version (``want`` where given): (max abs error, max error
+    relative to the summed magnitudes); a second launch must give the same
+    bits. Both evaluate the same terms with the same psi; alpha^-2
+    amplifies psi(1/a) - psi(y + 1/a), which cancels as alpha -> 0, so the
+    gap is held against alpha^-2 sum(|psi(r)| + |psi(y + r)| + |log1p(mu
+    a)| + |(y - mu)/(mu + r)|): 1e-5 (f32) / 1e-13 (f64), a few rounding
+    units of that sum in float32 (~80 eps) and float64 (~450 eps) for terms
+    summed in another order."""
     from pydeseq2_tpu_torch.ops import nb
 
     f32 = mu.dtype == torch.float32
-    got = nb.dnb_nll(counts, mu, alpha)
-    want = nb._dnb_nll_plain(counts, mu, alpha)
+    got = nb.dnb_nll(counts, mu, alpha) if lanes is None else nb._dnb_nll_cuda(counts, mu, alpha, lanes)
+    again = nb.dnb_nll(counts, mu, alpha) if lanes is None else nb._dnb_nll_cuda(counts, mu, alpha, lanes)
+    check(bits_equal(got, again), f"dnb_nll {name}: a second launch differs from the first")
+    if want is None:
+        want = nb._dnb_nll_plain(counts, mu, alpha)
     scale = dnb_scale(counts, mu, alpha)
     tol = 1e-5 if f32 else 1e-13
     check(bool(torch.equal(torch.isfinite(got), torch.isfinite(want))), f"dnb_nll {name}: non-finite lanes differ")
@@ -562,6 +577,50 @@ def dnb_check(name: str, counts, mu, alpha) -> tuple[float, float]:
     log(f"  dnb_nll {name} ({counts.shape[0]}, {counts.shape[1]}): error {err:.3g} of the summed magnitudes "
         f"(tol {tol}), max abs {abs_err:.3g}, alpha in [{alpha.min().item():.3g}, {alpha.max().item():.3g}]")
     return abs_err, err
+
+
+def dnb_draw(G: int, N: int, dtype, seed: int):
+    """(counts, mu, alpha) on the card: G rows of N negative-binomial counts
+    around lognormal means, dispersions lognormal in [1e-3, 5]."""
+    rng = np.random.default_rng(seed)
+    alpha = np.clip(rng.lognormal(-2.0, 1.0, G), 1e-3, 5.0)
+    mu = rng.lognormal(2.0, 1.0, (G, 1)) * rng.lognormal(0.0, 0.3, (G, N))
+    counts = rng.negative_binomial(1.0 / alpha[:, None], 1.0 / (1.0 + alpha[:, None] * mu))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=DEVICE) for a in (counts, mu, alpha))
+
+
+def dnb_plan_checks() -> dict:
+    """``dnb_nll`` in every plan (4, 8 and 32 lanes and a block a row) at
+    each row length of DNB_PLAN_N, on ~DNB_PLAN_CELLS cells of
+    ``dnb_draw`` (an odd row count: the last warp or block of rows is not
+    full), in both types: each launched twice and bit for bit, held to the
+    plain version by ``dnb_check``. At the main width, in the picked plan,
+    alpha as one value on the card and as a float by value give the bits
+    of a row vector of that value. Returns {label: plan}."""
+    from pydeseq2_tpu_torch.ops import nb
+
+    plans = {}
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        for N in DNB_PLAN_N:
+            G = max(1, DNB_PLAN_CELLS // N) | 1
+            counts, mu, alpha = dnb_draw(G, N, dtype, seed=N)
+            want = nb._dnb_nll_plain(counts, mu, alpha)
+            auto = nb._dnb_plan(N, mu.element_size())
+            for lanes in (4, 8, 32, nb._DNB_BLOCK):
+                label = f"{name} {G} x {N}, {lanes} lanes" + (" (picked)" if lanes == auto else "")
+                dnb_check(label, counts, mu, alpha, lanes, want)
+                plans[f"dnb_nll {label}"] = {"lanes": lanes}
+            if N == N_MAIN:
+                value = float(alpha[G // 2])
+                row = nb._dnb_nll_cuda(counts, mu, torch.full_like(alpha, value))
+                for form, a in (("one value on the card", alpha[G // 2].clone()), ("a float by value", value)):
+                    check(bits_equal(nb._dnb_nll_cuda(counts, mu, a), row),
+                          f"dnb_nll {name} {G} x {N}: alpha as {form} differs from a row vector of it")
+                log(f"  dnb_nll {name} {G} x {N}: alpha as one value on the card and as a float by value, bit for "
+                    "bit a row vector of it")
+            del counts, mu, alpha, want
+    return plans
 
 
 def scan_cost(G: int, N: int, P: int, K: int, bnd_start: int, bnd_end: int, isz: int) -> tuple[int, int, int]:
@@ -752,7 +811,7 @@ def kernel_checks(dtype, G, N, reps, timings):
         timings["dnb_nll"] = {
             "ms": cuda_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps),
             "plain_ms": cuda_ms(lambda: nb._dnb_nll_plain(counts, mu, alpha), reps),
-            "library_ms": None, "bytes": nbytes, "ops": ops,
+            "library_ms": None, "bytes": nbytes, "ops": ops, "plan": {"lanes": nb._dnb_plan(N, isz)},
         }
         log_sfu("dnb_nll", sfu)
 
@@ -4744,6 +4803,7 @@ def main() -> int:
     plans.update(newton_box_plan_checks(readings))
     plans.update(vst_plan_checks())
     plans.update(fine_list_checks())
+    plans.update(dnb_plan_checks())
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -4890,7 +4950,7 @@ def main() -> int:
     log("fine-scan path: " + json.dumps(fine))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute, "
-        "newton_box and vst kernel plans, and the fine scan's bucket counts: "
+        "newton_box, vst and dnb_nll kernel plans, and the fine scan's bucket counts: "
         + json.dumps(plans))
     print(json.dumps({"kernels": rows}), flush=True)
     name = torch.cuda.get_device_name(0)

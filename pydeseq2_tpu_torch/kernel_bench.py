@@ -240,9 +240,14 @@ plain version's point, the segments, and a digest of the best log-alpha
 bits; ``main`` fails unless every tree gives the same digests.
 
 ``dnb`` shapes (DNB_SHAPES): ``inputs``' counts and mu at 100, 1000 and 12
-x 60000 float32 and 100 x 60000 float64, seeded lognormal dispersions:
-the events and device times (kernels named ``dnb``), the gap from the
-plain version relative to the summed magnitudes, a repeat bit for bit.
+x 60000 float32, 100 x 60000 float64 and the atlas block 5000 x 10000
+float32, seeded lognormal dispersions: the events and device times
+(kernels named ``dnb``), the gap from the plain version relative to the
+summed magnitudes, a repeat bit for bit, the bytes bound, the tree's plan;
+``--detail`` the device time of every plan (DNB_LANES) at each shape and
+at DNB_EDGE_SHAPES, row lengths near the plan's thresholds.
+The ``sf`` suite's ``lgamma_table`` rows carry the launch floor: the
+device time of ``fill_`` on a one-element tensor of the type.
 
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
@@ -309,6 +314,18 @@ DNB_SHAPES = (
     ("f32 1000x60000", 60_000, 1_000, torch.float32, 10),
     ("f64 100x60000", 60_000, 100, torch.float64, 20),
     ("f32 12x60000", 60_000, 12, torch.float32, 20),
+    ("f32 atlas 5000x10000", 5_000, 10_000, torch.float32, 10),
+)
+DNB_LANES = (4, 8, 32, 256)  # every plan of ops/nb.py:_dnb_plan (256: a block a row)
+# --detail also sweeps the plans at row lengths near _dnb_plan's thresholds
+DNB_EDGE_SHAPES = (
+    ("f32 32x60000", 60_000, 32, torch.float32, 20),
+    ("f32 48x60000", 60_000, 48, torch.float32, 20),
+    ("f32 64x60000", 60_000, 64, torch.float32, 20),
+    ("f32 129x60000", 60_000, 129, torch.float32, 20),
+    ("f32 256x60000", 60_000, 256, torch.float32, 20),
+    ("f32 2048x30000", 30_000, 2_048, torch.float32, 10),
+    ("f32 4096x15000", 15_000, 4_096, torch.float32, 10),
 )
 MOM_SHAPES = (
     # label, genes, samples, P, dtype, want_mu, normed, timed calls
@@ -523,8 +540,10 @@ def ptxas(kernels, sources=SOURCES) -> dict:
     where also on shrink's round size, "... S<s>" on irls' lanes a gene,
     "... S<s> registers|shared" on mom's lanes and storage, "... S<s>
     fused|hat|test" on hat_wald's lanes and mode), "<kernel>
-    f32|f64 shared|streamed" for a cluster kernel templated on its mode and
-    "<kernel> f32|f64" for one templated on its type alone."""
+    f32|f64 shared|streamed" for a cluster kernel templated on its mode,
+    "<kernel> f32|f64 S<s>" for one templated on its type and lanes a row
+    (``dnb_nll``) and "<kernel> f32|f64" for one templated on its type
+    alone."""
     out = {}
     for src in sources:
         text = kernels._lib_path(src).with_suffix(".ptxas.txt").read_text()
@@ -534,6 +553,7 @@ def ptxas(kernels, sources=SOURCES) -> dict:
             hw = re.search(r"hat_wald_kernelILi(\d+)E([fd])Li(\d+)ELi([012])EE", m.group(1))
             mode = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Lb([01])E", m.group(1))
             typed = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])E", m.group(1))
+            lanes = re.search(r"\d+([a-z][a-z_]*_kernel)I([fd])Li(\d+)EE", m.group(1))
             if hw is not None:
                 key = (f"P{hw.group(1)} {'f32' if hw.group(2) == 'f' else 'f64'} S{hw.group(3)} "
                        f"{('fused', 'hat', 'test')[int(hw.group(4))]}")
@@ -546,6 +566,8 @@ def ptxas(kernels, sources=SOURCES) -> dict:
             elif mode is not None:
                 key = (f"{mode.group(1)} {'f32' if mode.group(2) == 'f' else 'f64'} "
                        f"{'shared' if mode.group(3) == '1' else 'streamed'}")
+            elif lanes is not None:
+                key = f"{lanes.group(1)} {'f32' if lanes.group(2) == 'f' else 'f64'} S{lanes.group(3)}"
             elif typed is not None:
                 key = f"{typed.group(1)} {'f32' if typed.group(2) == 'f' else 'f64'}"
             else:
@@ -737,17 +759,20 @@ def sf_rows(detail: bool) -> dict:
 def lgamma_row(dtype) -> dict:
     """``lgamma_table`` (lgamma(i + 1), i < the table's length) against
     ``torch.lgamma`` of the same arange(1, length + 1), device time by
-    the profiler (each kernel alone), the wrapper by events, and the
-    largest difference."""
+    the profiler (each kernel alone), the wrapper by events, the launch
+    floor (the device time of ``fill_`` on one element: the least a launch
+    takes) and the largest difference."""
     from pydeseq2_tpu_torch.ops import sizefactors as sz
 
     x = torch.arange(1, sz.LGAMMA_TABLE_LEN + 1, dtype=dtype, device=DEVICE)
+    one = torch.empty(1, dtype=dtype, device=DEVICE)
     table = sz._lgamma_table_cuda(dtype, x.device)
     return {"lgamma_table_kernel_ms": device_ms(lambda: sz._lgamma_table_cuda(dtype, x.device), 50,
                                                 "lgamma_table")[0],
             "lgamma_table_ms": cuda_ms(lambda: sz._lgamma_table_cuda(dtype, x.device), 50),
             "torch_lgamma_kernel_ms": device_ms(lambda: torch.lgamma(x), 50, "lgamma")[0],
             "torch_lgamma_ms": cuda_ms(lambda: torch.lgamma(x), 50),
+            "launch_floor_ms": device_ms(lambda: one.fill_(1.0), 50, "")[1],
             "max_abs_diff": (table - torch.lgamma(x)).abs().max().item()}
 
 
@@ -2137,11 +2162,12 @@ def dnb_rows(detail: bool) -> dict:
     lognormal dispersions): events and device times (kernels named
     ``dnb``), the largest gap from the plain version relative to the
     summed magnitudes of its terms (as ``chip_smoke.py``'s dnb_check), a
-    repeat bit for bit."""
+    repeat bit for bit; where the tree has ``_dnb_plan``, its lanes a row
+    and (``detail``) every plan's device time."""
     from pydeseq2_tpu_torch.ops import nb
 
     rows = {}
-    for label, G, N, dtype, reps in DNB_SHAPES:
+    for label, G, N, dtype, reps in DNB_SHAPES + (DNB_EDGE_SHAPES if detail else ()):
         counts, mu, _ = inputs(G, N, 2, dtype)
         rng = np.random.default_rng(6)
         alpha = torch.as_tensor(np.clip(rng.lognormal(-2.0, 1.0, G), 1e-3, 5.0), dtype=dtype, device=DEVICE)
@@ -2151,11 +2177,18 @@ def dnb_rows(detail: bool) -> dict:
         scale = (nb._psi_fast(r).abs() + nb._psi_fast(counts + r).abs() + torch.log1p(mu * alpha[:, None]).abs()
                  + ((counts - mu) / (mu + r)).abs()).sum(-1) / alpha**2
         kern, dev = device_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps, "dnb")
-        rows[label] = {"dnb_ms": cuda_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps), "dnb_kernel_ms": kern,
-                       "dnb_device_ms": dev, "err": ((got - want).abs() / scale).max().item(),
-                       "repeat_bits_equal": bool(torch.equal(got, again)),
-                       "bytes_bound_ms": (2 * G * N + 2 * G) * counts.element_size() / 3.35e12 * 1e3}
-        print(f"  dnb {label}: {json.dumps(rows[label])}", file=sys.stderr, flush=True)
+        row = {"dnb_ms": cuda_ms(lambda: nb.dnb_nll(counts, mu, alpha), reps), "dnb_kernel_ms": kern,
+               "dnb_device_ms": dev, "err": ((got - want).abs() / scale).max().item(),
+               "repeat_bits_equal": bool(torch.equal(got, again)),
+               "bytes_bound_ms": (2 * G * N + 2 * G) * counts.element_size() / 3.35e12 * 1e3}
+        if hasattr(nb, "_dnb_plan"):
+            row["lanes"] = nb._dnb_plan(N, counts.element_size())
+            if detail:
+                for lanes in DNB_LANES:
+                    row[f"kernel_ms lanes={lanes}"] = device_ms(
+                        lambda: nb._dnb_nll_cuda(counts, mu, alpha, lanes), reps, "dnb")[0]
+        rows[label] = row
+        print(f"  dnb {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
         del counts, mu, alpha, got, again, want, scale
         torch.cuda.empty_cache()
     return rows
@@ -2365,7 +2398,8 @@ def summary(res: dict) -> dict:
                             "scan_kernel": v["disp_scan_kernel_ms"], "newton_kernel": v["disp_newton_kernel_ms"]}
     for k, v in res.get("sf", {}).items():
         if k.startswith("lgamma_table"):
-            out[f"sf {k}"] = {"kernel": v["lgamma_table_kernel_ms"], "torch_lgamma": v["torch_lgamma_kernel_ms"]}
+            out[f"sf {k}"] = {"kernel": v["lgamma_table_kernel_ms"], "torch_lgamma": v["torch_lgamma_kernel_ms"],
+                              "launch_floor": v["launch_floor_ms"]}
             continue
         out[f"sf {k}"] = {"ms": v["sf_newton_ms"], "kernel": v["sf_newton_kernel_ms"],
                           "sf_nll_kernel": v["sf_nll"]["sf_nll_kernel_ms"],
@@ -2418,7 +2452,7 @@ def summary(res: dict) -> dict:
                                                     "mixed_warps_gene_order", "mixed_warps_tree_order",
                                                     "best_la_bits") if key in v}
     for k, v in res.get("dnb", {}).items():
-        out[f"dnb {k}"] = {key: v[key] for key in ("dnb_kernel_ms", "dnb_ms", "err")}
+        out[f"dnb {k}"] = {key: v[key] for key in ("dnb_kernel_ms", "dnb_ms", "err", "lanes") if key in v}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):

@@ -125,7 +125,7 @@ _ARGTYPES = {
     "sf_newton_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _P],
     "vst_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
     "trimmed_var_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dnb_nll_launch": [_I, _I, _I, _P, _P, _P, _P],
+    "dnb_nll_launch": [_I, _I, _I, _I, _P, _P, _P, _I, _D, _P],
     "psi_f64_launch": [_P, _I, _P, _P],
     "lgamma_table_launch": [_I, _I, _P],
     "grid_apeglm_per_sm": [_I, _I, _P],

@@ -19,6 +19,8 @@ CUDA tensors.
 
 from __future__ import annotations
 
+import numbers
+
 import torch
 
 from pydeseq2_tpu_torch import kernels
@@ -320,6 +322,32 @@ def _dnb_nll_plain(counts: torch.Tensor, mu: torch.Tensor, alpha: torch.Tensor) 
     return -((1.0 / alpha**2) * term.sum(-1))
 
 
+_DNB_BLOCK = 256  # lanes of a block a row (csrc/dnb_nll.cu THREADS)
+# (most samples, lanes a row) of the lane-group plans; a block a row above
+_DNB_GROUPS = ((48, 4), (256, 8), (4_095, 32))
+
+
+def _dnb_plan(N: int, itemsize: int) -> int:
+    """The lanes a row of ``dnb_nll`` takes for rows of N samples of
+    ``itemsize`` bytes, from the shape alone (no read of the card): 4 lanes
+    to 48 samples, 8 to 256, 32 below 4096, then a block a row.
+
+    A ``kernel_bench --detail`` sweep on an H100 set the edges (f32 device
+    ms, x 60000 rows unless stated): 32 samples 4 lanes 0.0167 (8: 0.0171),
+    48 a tie (0.0235 / 0.0233), 64 8 lanes 0.0297 (4: 0.0305); 129 8 lanes
+    0.0586 (32: 0.0711), 256 a tie (0.1053 / 0.1052), 1000 32 lanes 0.3633
+    (8: 0.3733); 2048 x 30000 32 lanes 0.3243 (a block 0.3484), 4096 x
+    15000 a tie (0.2950 / 0.2901), the atlas block 5000 x 10000 a block
+    0.2983 (32: 0.3573). Wider groups read whole 32-byte sectors of a row,
+    narrower ones idle fewer lanes. The edges are the same in both types
+    (``itemsize``): at 100 samples float64 32 lanes ran 1-3% ahead of 8,
+    within the spread of the float64 readings."""
+    for most, lanes in _DNB_GROUPS:
+        if N <= most:
+            return lanes
+    return _DNB_BLOCK
+
+
 def dnb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
     """Batched gradient of :func:`nb_nll` with respect to ``alpha``.
 
@@ -331,26 +359,46 @@ def dnb_nll(counts: torch.Tensor, mu: torch.Tensor, alpha) -> torch.Tensor:
     float32, the series in float64), the same on the card; the JAX package
     takes the library digamma. As alpha -> 0 the psi difference cancels and
     the float32 result is ill-conditioned, as JAX's is. CUDA tensors launch
-    ``dnb_nll`` (a warp per row).
+    ``dnb_nll`` once (:func:`_dnb_nll_cuda`: a group of 4-32 lanes or a
+    block a row by :func:`_dnb_plan`, a float64 row sum in a fixed order).
     """
-    alpha = torch.as_tensor(alpha, dtype=mu.dtype, device=mu.device)
     if not mu.is_cuda:
-        return _dnb_nll_plain(counts, mu, alpha)
+        return _dnb_nll_plain(counts, mu, torch.as_tensor(alpha, dtype=mu.dtype, device=mu.device))
     return _dnb_nll_cuda(counts, mu, alpha)
 
 
-def _dnb_nll_cuda(counts: torch.Tensor, mu: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Launch ``dnb_nll`` on the broadcast rows, one warp a row."""
-    lead = torch.broadcast_shapes(counts.shape[:-1], mu.shape[:-1], alpha.shape)
+def _dnb_nll_cuda(counts: torch.Tensor, mu: torch.Tensor, alpha, lanes: int | None = None) -> torch.Tensor:
+    """Launch ``dnb_nll`` once on the broadcast rows; ``lanes`` overrides
+    :func:`_dnb_plan`. Counts and mu of mu's dtype laid out as the rows go
+    in as they are. alpha: a number, or a one-value tensor on the host, goes
+    to the launcher by value (no copy to the card); one value on the card
+    is read by every row; else one value a row."""
+    dtype, dev = mu.dtype, mu.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dnb_nll: mu is {dtype}; the kernel takes float32 or float64")
+    a, value, step = None, 0.0, 0
+    if isinstance(alpha, torch.Tensor) and (alpha.is_cuda or alpha.numel() != 1):
+        a = alpha.to(device=dev, dtype=dtype)
+    elif not isinstance(alpha, (torch.Tensor, numbers.Real)):
+        a = torch.as_tensor(alpha, dtype=dtype, device=dev)
+    else:  # one value on the host
+        value = float(alpha)
+    lead = torch.broadcast_shapes(counts.shape[:-1], mu.shape[:-1], getattr(alpha if a is None else a, "shape", ()))
     N = torch.broadcast_shapes(counts.shape[-1:], mu.shape[-1:])[0]
-    y = counts.to(mu.dtype).expand(lead + (N,)).reshape(-1, N).contiguous()
+    y = counts.to(dtype).expand(lead + (N,)).reshape(-1, N).contiguous()
     m = mu.expand(lead + (N,)).reshape(-1, N).contiguous()
-    a = alpha.expand(lead).reshape(-1).contiguous()
-    out = torch.empty(a.shape, dtype=mu.dtype, device=mu.device)
+    if a is not None:
+        a, step = (a.reshape(()), 0) if a.numel() == 1 else (a.expand(lead).reshape(-1).contiguous(), 1)
+    out = torch.empty(lead, dtype=dtype, device=dev)
+    if lanes is None:
+        lanes = _dnb_plan(N, mu.element_size())
+    if lanes not in (4, 8, 32, _DNB_BLOCK):
+        raise ValueError(f"dnb_nll: {lanes} lanes a row; the kernel takes 4, 8, 32 or {_DNB_BLOCK}")
     kernels.check_cuda_operands("dnb_nll", y, m, a, out)
     kernels.launch(
         "dnb_nll",
-        [int(mu.dtype == torch.float64), a.shape[0], N, y.data_ptr(), m.data_ptr(), a.data_ptr(), out.data_ptr()],
-        mu.device,
+        [int(dtype == torch.float64), out.numel(), N, lanes, y.data_ptr(), m.data_ptr(), kernels.ptr(a), step, value,
+         out.data_ptr()],
+        dev,
     )
-    return out.reshape(lead)
+    return out

@@ -248,6 +248,8 @@ def test_wrappers_marshal_what_the_launchers_take(monkeypatch):
     t_disp._scan_launch("disp_scan_fine", counts, counts, X, (la_grid[:G], 0.7, 0.2, -18.0, 3.0, 8, order), 8,
                         True, False, la_hat, pdv, None)
     t_nb._dnb_nll_cuda(counts[0], counts[0], torch.tensor(0.3, dtype=torch.float64))
+    t_nb._dnb_nll_cuda(counts, counts, la_hat)  # alpha a row vector, by pointer
+    t_nb._dnb_nll_cuda(counts, counts, 0.3)  # a float, by value
     t_disp._newton_polish_cuda(counts, counts, X, la_hat, -18.4, 4.6, 0.7, 0.2, 4, True, True, la_hat, pdv)
     kinds = {ctypes.c_int: int, ctypes.c_double: float}
     for name, args in calls:

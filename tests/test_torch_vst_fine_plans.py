@@ -4,8 +4,8 @@ plain key and order (``ops/dispersion.py:_fine_keys_plain``,
 ``_fine_order_plain``) against numpy, the fine scan's result in any gene
 order and against the JAX package in the grouped order, the wrappers'
 launches recorded instead of made, and ``kernel_bench``'s ``vst``, ``fine``
-and ``dnb`` suites and ``chip_smoke.py``'s ``vst_plan_checks`` and
-``fine_list_checks`` rehearsed with the plain versions standing in for the
+and ``dnb`` suites and ``chip_smoke.py``'s ``vst_plan_checks``,
+``fine_list_checks`` and ``dnb_plan_checks`` rehearsed with the plain versions standing in for the
 kernels (which need a card)."""
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from pydeseq2_tpu.ops import dispersion as j_disp
 from pydeseq2_tpu.ops import linreg as j_lin
 from pydeseq2_tpu_torch import kernel_bench, kernels
 from pydeseq2_tpu_torch.ops import dispersion as dsp
+from pydeseq2_tpu_torch.ops import nb
 from pydeseq2_tpu_torch.ops import vst as vs
 
 torch.set_num_threads(1)  # xdist runs several workers on a few cores
@@ -290,6 +291,12 @@ def _on_cpu(monkeypatch):
     monkeypatch.setattr(kernel_bench, "cuda_ms", host_ms)
     monkeypatch.setattr(kernel_bench, "device_ms", lambda fn, reps, name: (host_ms(fn, reps),) * 2)
     monkeypatch.setattr(vs, "_vst_cuda", lambda *a, plan=None: vs._vst_plain(*a))
+    monkeypatch.setattr(nb, "_dnb_nll_cuda", _dnb_stand_in)
+
+
+def _dnb_stand_in(counts, mu, alpha, lanes=None):
+    """``_dnb_nll_cuda``'s plain stand-in on the CPU (any plan: the plain sum)."""
+    return nb._dnb_nll_plain(counts, mu, torch.as_tensor(alpha, dtype=mu.dtype))
 
 
 @pytest.mark.parametrize("detail", [False, True])
@@ -319,7 +326,9 @@ def test_bench_suites_on_cpu(monkeypatch, detail):
     assert rows["one P=1"]["centres"] == 1 and rows["one P=1"]["mixed_warps_gene_order"] == 0.0
     assert rows["straddle P=2"]["mixed_warps_gene_order"] == 1.0
     assert rows["coarse P=2"]["mixed_warps_tree_order"] < rows["coarse P=2"]["mixed_warps_gene_order"]
-    assert res["dnb"]["f32 12x50"]["err"] == 0.0
+    assert res["dnb"]["f32 12x50"]["err"] == 0.0 and res["dnb"]["f32 12x50"]["lanes"] == 4
+    assert sorted(k for k in res["dnb"]["f32 12x50"] if k.startswith("kernel_ms lanes=")) == (
+        sorted(f"kernel_ms lanes={n}" for n in kernel_bench.DNB_LANES) if detail else [])
     summ = kernel_bench.summary(res)
     assert {k.split()[0] for k in summ} == {"vst", "fine", "dnb"}
 
@@ -334,10 +343,11 @@ def cs():
 
 
 def test_smoke_checks_rehearsed(cs, monkeypatch):
-    """``vst_plan_checks`` and ``fine_list_checks`` run through on the CPU
-    at small shapes, the plain versions standing in for the kernels (the
-    scan's launch in a given order by the plain scan): every plan edge and
-    gene list is visited, and the la_init list keeps its centres."""
+    """``vst_plan_checks``, ``fine_list_checks`` and ``dnb_plan_checks`` run
+    through on the CPU at small shapes, the plain versions standing in for
+    the kernels (the scan's launch in a given order by the plain scan):
+    every plan edge and gene list is visited, the la_init list keeps its
+    centres, and every dnb_nll plan runs at every row length."""
     monkeypatch.setattr(kernel_bench, "DEVICE", "cpu")
     monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
     monkeypatch.setattr(vs, "_vst_cuda", lambda *a, plan=None: vs._vst_plain(*a))
@@ -362,3 +372,9 @@ def test_smoke_checks_rehearsed(cs, monkeypatch):
         assert sum(b) == int(label.split()[1])  # every gene in one bucket
         if label.endswith("one"):
             assert sum(1 for x in b if x) == 1
+    monkeypatch.setattr(nb, "_dnb_nll_cuda", _dnb_stand_in)
+    monkeypatch.setattr(cs, "DNB_PLAN_CELLS", 600)
+    monkeypatch.setattr(cs, "DNB_PLAN_N", (1, 24, 65, 129, 2_048))
+    plans = cs.dnb_plan_checks()
+    assert len(plans) == 2 * len(cs.DNB_PLAN_N) * len(kernel_bench.DNB_LANES)
+    assert sum(label.endswith("(picked)") for label in plans) == 2 * len(cs.DNB_PLAN_N)
