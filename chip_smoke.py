@@ -163,6 +163,13 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 3k. runs ``alpha_mle_batch(fine_length=8)`` then ``dnb_nll`` at 100 x
    60000 float32: warm wall, the launches of FINE_KERNELS in one run (each
    must be > 0), and the dispersions against ``fine_length=0``;
+3l. runs the one-call entry point ``run_deseq2`` at 100 x 60000 float32
+   from pandas DataFrames, on phase 3e's draw (the default refit route) and
+   on phase 3b's (``refit_cooks=False``), each beside the direct pipeline
+   call it makes on the same counts: warm walls of both, the launches of
+   one call (> 0 for each kernel of the route, and equal to the direct
+   call's kernel by kernel), every column within rtol 1e-6 of the direct
+   call's, and one call under cProfile (where the host time goes);
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
@@ -180,6 +187,13 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    and every float column at rtol 1e-6;
 4g. runs float64 ``alpha_mle_batch(fine_length=8)`` (MLE and MAP) and
    ``dnb_nll`` on the card and on the CPU at 100 x 2000;
+4h. runs float64 ``run_deseq2`` on the card and on the CPU at 100 x 2000
+   (both routes, poscounts, control genes, the zero-inflated switch): every
+   column at rtol 1e-6, the same refitted genes and Cook's outliers; then
+   saves a dataset fitted on the card through its genewise dispersions
+   (``pydeseq2_tpu_torch.io``), loads it with a card inference and resumes
+   the stages left (equal to the uninterrupted card run at rtol 1e-12), and
+   loads and resumes the same file on the CPU (rtol 1e-6);
 5. prints one JSON line with the kernels' numbers, the card line, and last
    the result line ``{"ok": true, "device": {...}}``.
 
@@ -4269,20 +4283,28 @@ CLASS_KERNELS = ("select", "mom", "disp_scan", "disp_newton", "trend_fit", "irls
                  "bh_count", "bh_adjust", "lowess", "shrink", "vst")
 
 
+def as_frames(counts_gn: np.ndarray, X_np: np.ndarray):
+    """Gene-major (G, N) counts and their two-column design as a user hands
+    them over: ``(counts DataFrame (N, G) of ints, metadata with a condition
+    column)``."""
+    import pandas as pd
+
+    G, N = counts_gn.shape
+    samples = [f"sample{i}" for i in range(N)]
+    counts_df = pd.DataFrame(counts_gn.T.astype(np.int64), index=samples, columns=[f"gene{j}" for j in range(G)])
+    metadata = pd.DataFrame({"condition": np.where(X_np[:, 1] > 0, "B", "A")}, index=samples)
+    return counts_df, metadata
+
+
 def class_inputs(N: int, G: int, seed: int = 0):
     """``make_data(N, G)`` with an outlier planted in every OUTLIER_EVERY-th
     gene, as the class API takes it: ``(counts DataFrame (N, G) of ints,
     metadata with a condition column, design (N, 2), gene-major counts)``."""
-    import pandas as pd
-
     from pydeseq2_tpu_torch.synthetic import make_data
 
     counts_np, X_np = make_data(N, G, seed=seed)
     counts_gn = plant_outliers(counts_np.T)
-    samples = [f"sample{i}" for i in range(N)]
-    counts_df = pd.DataFrame(counts_gn.T.astype(np.int64), index=samples, columns=[f"gene{j}" for j in range(G)])
-    metadata = pd.DataFrame({"condition": np.where(X_np[:, 1] > 0, "B", "A")}, index=samples)
-    return counts_df, metadata, X_np, counts_gn
+    return (*as_frames(counts_gn, X_np), X_np, counts_gn)
 
 
 def class_deseq2(counts_df, metadata, dtype, device):
@@ -4745,6 +4767,218 @@ def class_card_vs_cpu() -> None:
 
 
 
+# deseq2()'s stages in order (reference pydeseq2/dds.py:516-562): phase 4h
+# saves after the second and resumes with the rest.
+DESEQ2_STAGES = ("fit_size_factors", "fit_genewise_dispersions", "fit_dispersion_trend", "fit_dispersion_prior",
+                 "fit_MAP_dispersions", "fit_LFC", "calculate_cooks", "refit", "cooks_outlier")
+RESULT_COLUMNS = ("baseMean", "log2FoldChange", "lfcSE", "stat", "pvalue", "padj")
+
+
+def result_columns(out: dict, contrast: np.ndarray) -> dict:
+    """A pipeline's per-gene outputs as ``run_deseq2``'s columns."""
+    ln2 = np.log(2)
+    return {"baseMean": out["base_mean"], "log2FoldChange": out["lfc"] @ contrast / ln2, "lfcSE": out["se"] / ln2,
+            "stat": out["statistics"], "pvalue": out["p_values"], "padj": out["padj"]}
+
+
+def frame_columns(results) -> dict:
+    return {c: results[c].to_numpy() for c in RESULT_COLUMNS}
+
+
+def columns_close(label: str, got: dict, want: dict, rtol: float) -> float:
+    """Each of RESULT_COLUMNS within ``rtol`` of ``want``'s, NaN and
+    infinite entries equal; returns the largest relative difference."""
+    worst = 0.0
+    for c in RESULT_COLUMNS:
+        g, w = np.asarray(got[c], np.float64), np.asarray(want[c], np.float64)
+        m = np.isfinite(w)
+        check(np.array_equal(g[~m], w[~m], equal_nan=True), f"{label} {c}: NaN or infinite entries differ")
+        check(np.allclose(g[m], w[m], rtol=rtol, atol=0.0), f"{label} {c}: beyond rtol {rtol}")
+        worst = max(worst, float(np.max(np.abs(g[m] - w[m]) / np.maximum(np.abs(w[m]), 1e-300), initial=0.0)))
+    return worst
+
+
+# Where phase 3l's one profiled run_deseq2 call spends its host time:
+# (label, file, function name as pstats gives it, the calling file or None
+# for every caller), cumulative, the card synchronised at the call's end.
+API_PROFILE = (("DeseqDataSet", "dataset.py", "__init__", None),
+               ("validate", "__init__.py", "test_valid_counts", None),
+               ("host transpose", "~", "<built-in method numpy.ascontiguousarray>", "api.py"),
+               ("counts to device", "~", "<method 'to' of 'torch._C.TensorBase' objects>", "api.py"),
+               ("pipeline", "fused_stream.py", "run_summary_streamed", None),
+               ("pipeline", "fused.py", "summary_pipeline", "api.py"),
+               ("host copy", "fused_stream.py", "_to_host", "api.py"))
+
+
+def api_profile(call) -> dict:
+    """Milliseconds of API_PROFILE's functions in one call under cProfile,
+    and the call's wall under the profiler."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    call()
+    torch.cuda.synchronize()
+    prof.disable()
+    out = {"profiled_wall_ms": (time.perf_counter() - t0) * 1e3}
+    for label, file, name, caller in API_PROFILE:
+        for (f, _, n), (_, _, _, cum, callers) in pstats.Stats(prof).stats.items():
+            if n == name and f.endswith(file):
+                if caller is not None:
+                    cum = sum(c[3] for (cf, _, _), c in callers.items() if cf.endswith(caller))
+                out[label] = out.get(label, 0.0) + cum * 1e3
+    return out
+
+
+def api_path(reps: int) -> dict:
+    """Phase 3l: ``run_deseq2`` at 100 x 60000 float32 on the card from
+    pandas DataFrames, on phase 3e's draw (an outlier planted in every
+    OUTLIER_EVERY-th gene; the default refit route) and on phase 3b's
+    (``refit_cooks=False``). For each route: the warm wall of the call and
+    of the direct pipeline call it makes on the same counts
+    (``run_summary_streamed(refit_cooks=True)``, the counts already on the
+    card, or ``summary_pipeline``), best of ``reps`` each; the launches of
+    one call, which must be > 0 for every kernel of the route and equal to
+    the direct call's, kernel by kernel; and every column within rtol 1e-6
+    of the direct call's, NaN masks equal."""
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_MAIN)
+    contrast = np.array([0.0, 1.0])
+    routes = {}
+    for label, refit in (("refit", True), ("no refit", False)):
+        counts_gn = plant_outliers(counts_np.T) if refit else np.ascontiguousarray(counts_np.T)
+        counts_df, metadata = as_frames(counts_gn, X_np)
+        if refit:
+            kw = stream_kwargs(counts_gn, X_np, torch.float32, DEVICE)
+            direct = lambda: pt.run_summary_streamed(**kw)  # noqa: E731
+        else:
+            kw = summary_kwargs(counts_gn, X_np, torch.float32, DEVICE, beta_tol=1e-6)
+            direct = lambda: pt.outputs_to_numpy(pt.summary_pipeline(**kw))  # noqa: E731
+
+        def call():
+            return pt.run_deseq2(counts_df, metadata, contrast=["condition", "B", "A"], refit_cooks=refit,
+                                 dtype=torch.float32, device=DEVICE)
+
+        seen = {}
+        for name, fn in (("run_deseq2", call), ("direct", direct)):
+            fn()  # warm-up
+            walls = []
+            for i in range(reps):
+                if i == 0:
+                    kernels.STATS.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if i == 0:
+                    launches = dict(kernels.STATS.launches)
+            seen[name] = (out, walls, launches)
+        (res, walls, launches), (ref, dwalls, dlaunches) = seen["run_deseq2"], seen["direct"]
+        for k in STREAM_KERNELS if refit else SUMMARY_KERNELS:
+            check(launches[k] > 0, f"phase 3l {label}: kernel {k} was not launched by run_deseq2")
+        check(launches == dlaunches, f"phase 3l {label}: run_deseq2 launches {launches}, the direct call "
+                                     f"{dlaunches}")
+        check(list(res.columns) == list(RESULT_COLUMNS) and res.shape == (G_MAIN, 6),
+              f"phase 3l {label}: results shape")
+        worst = columns_close(f"phase 3l {label} against the direct call", frame_columns(res),
+                              result_columns(ref, contrast), 1e-6)
+        padj = res["padj"].to_numpy()
+        fin = np.isfinite(padj)
+        check(fin.mean() > 0.5 and np.all((padj[fin] >= 0) & (padj[fin] <= 1)), f"phase 3l {label}: padj")
+        best, dbest = min(walls), min(dwalls)
+        host = api_profile(call)
+        log(f"  {label}: run_deseq2 wall (warm) {[round(w, 4) for w in walls]} s, best {best:.4f} s; direct call "
+            f"{[round(w, 4) for w in dwalls]} s, best {dbest:.4f} s; host cost of the entry point "
+            f"{(best - dbest) * 1e3:.1f} ms; columns within {worst:.3g} of the direct call's")
+        log(f"  {label}: launches in one call {launches} (the direct call's the same)")
+        log(f"  {label}: one call under cProfile, ms: {host}")
+        routes[label] = {"walls_s": walls, "best_s": best, "direct_walls_s": dwalls, "direct_best_s": dbest,
+                         "profile_ms": host,
+                         "launches": launches, "max_rel_vs_direct": worst,
+                         "refitted": int(ref["refitted"].sum()) if refit else None}
+    return routes
+
+
+def api_card_vs_cpu() -> None:
+    """Phase 4h: float64 ``run_deseq2`` on the card against the CPU at 100 x
+    2000: the refit route (planted outliers, phase 4d's draw), the no-refit
+    route, poscounts, control genes and the zero-inflated switch to
+    iterative mode (warned on both), every column at rtol 1e-6 with equal
+    NaN masks and the same refitted genes and Cook's outliers
+    (:func:`compare_outputs`). Then an io resume: a dataset fitted on the
+    card through its size factors and genewise dispersions is saved,
+    loaded with a card inference and resumed through the stages left and
+    ``summary()``, which must equal the uninterrupted card run at rtol
+    1e-12; the same file loads and resumes on the CPU, within rtol 1e-6."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    import pydeseq2_tpu_torch as pt
+    from pydeseq2_tpu_torch import io
+    from pydeseq2_tpu_torch.synthetic import make_data, zero_per_gene
+
+    counts_np, X_np = make_data(N_MAIN, G_CPU_CMP, seed=1)
+    plain = np.ascontiguousarray(counts_np.T)
+    outliers = plant_outliers(plain)
+    zero_free = [f"gene{j}" for j in np.flatnonzero((plain > 0).all(axis=1))[:200]]
+    cases = (("refit", outliers, {}), ("no refit", plain, {"refit_cooks": False}),
+             ("poscounts", plain, {"size_factors_fit_type": "poscounts"}),
+             ("control genes", plain, {"control_genes": zero_free, "refit_cooks": False}),
+             ("zero-inflated", zero_per_gene(plain), {"refit_cooks": False}))
+    for label, counts_gn, kw in cases:
+        counts_df, metadata = as_frames(counts_gn, X_np)
+        side = {}
+        for dev in (DEVICE, "cpu"):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res, state = pt.run_deseq2(counts_df, metadata, contrast=["condition", "B", "A"],
+                                           dtype=torch.float64, return_state=True, device=dev, **kw)
+            switched = any("Switching to iterative mode" in str(w.message) for w in caught)
+            check(switched == (label == "zero-inflated"), f"phase 4h {label} on {dev}: switched {switched}")
+            side[dev] = {**frame_columns(res), "cooks_outlier": np.asarray(state["cooks_outlier"]),
+                         "size_factors": np.asarray(state["size_factors"])}
+            if kw.get("refit_cooks", True):
+                side[dev]["refitted"] = np.asarray(state["refitted"])
+        if label == "refit":
+            check(int(side[DEVICE]["refitted"].sum()) > 0, "phase 4h refit: no gene was refitted")
+        compare_outputs(f"run_deseq2 f64 {label}", side[DEVICE], side["cpu"])
+
+    counts_df, metadata = as_frames(outliers, X_np)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # this draw's trend falls back to the mean
+        dds = class_deseq2(counts_df, metadata, torch.float64, DEVICE)
+    want = frame_columns(class_summary(dds).results_df)
+    check(int(dds.var["refitted"].sum()) > 0, "phase 4h resume: no gene was refitted")
+    partial = pt.DeseqDataSet(counts=counts_df, metadata=metadata, design="~condition", quiet=True, beta_tol=1e-8,
+                              inference=pt.TorchInference(dtype=torch.float64, device=DEVICE))
+    for stage in DESEQ2_STAGES[:2]:
+        getattr(partial, stage)()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "partial.pkl"
+        io.save_dataset(partial, path)
+        for dev, rtol in ((DEVICE, 1e-12), ("cpu", 1e-6)):
+            back = io.load_dataset(path, inference=pt.TorchInference(dtype=torch.float64, device=dev))
+            check(back._dev["_mu_hat"].device.type == torch.device(dev).type, f"phase 4h resume on {dev}: store")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for stage in DESEQ2_STAGES[2:]:
+                    getattr(back, stage)()
+            got = frame_columns(class_summary(back).results_df)
+            check(np.array_equal(back.var["refitted"].to_numpy(), dds.var["refitted"].to_numpy()),
+                  f"phase 4h resume on {dev}: refitted genes differ")
+            worst = columns_close(f"phase 4h resume on {dev}", got, want, rtol)
+            log(f"  io resume after the genewise dispersions, loaded on {dev}: results within {worst:.3g} of the "
+                f"uninterrupted card run (limit {rtol})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -4840,6 +5074,9 @@ def main() -> int:
     klass = class_path(3)
     log(f"phase 3k: alpha_mle_batch(fine_length={FINE_LENGTH}) then dnb_nll, {N_MAIN} x {G_MAIN} float32")
     fine = fine_path(3)
+    log(f"phase 3l: run_deseq2 from DataFrames, {N_MAIN} x {G_MAIN} float32: the refit route on phase 3e's draw, "
+        "refit_cooks=False on phase 3b's, each beside the direct call it makes")
+    api = api_path(3)
 
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
@@ -4858,6 +5095,9 @@ def main() -> int:
     class_card_vs_cpu()
     log(f"phase 4g: float64 alpha_mle_batch(fine_length={FINE_LENGTH}) and dnb_nll, card against CPU, 100 x 2000")
     fine_card_vs_cpu()
+    log("phase 4h: float64 run_deseq2 (both routes, poscounts, control genes, the zero-inflated switch), card "
+        "against CPU, 100 x 2000, then an io save / load / resume on the card and on the CPU")
+    api_card_vs_cpu()
 
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
@@ -4948,6 +5188,7 @@ def main() -> int:
     log("streamed refit path, zero-inflated: " + json.dumps(stream_zi))
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
+    log("run_deseq2 path: " + json.dumps(api))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute, "
         "newton_box, vst and dnb_nll kernel plans, and the fine scan's bucket counts: "

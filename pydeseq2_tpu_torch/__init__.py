@@ -1,9 +1,11 @@
-"""pydeseq2_tpu_torch — the DESeq2 Wald and summary pipelines, the
+"""pydeseq2_tpu_torch — the one-call ``run_deseq2`` entry point, the DESeq2
+Wald and summary pipelines, the
 gene-streamed summary with Cook's outlier replacement and refit (and the
 iterative size factors of zero-inflated counts), apeGLM LFC shrinkage, the
 blind variance-stabilising transform and the ``DeseqDataSet`` /
-``DeseqStats`` class API over a device-resident ``TorchInference``, in
-PyTorch, with CUDA kernels.
+``DeseqStats`` class API over a device-resident ``TorchInference`` with
+its save/load (:mod:`pydeseq2_tpu_torch.io`), in PyTorch, with CUDA
+kernels.
 
 A port of the JAX package ``pydeseq2_tpu`` (which stays the reference) to
 PyTorch on an NVIDIA Hopper card. Plain tensor code is PyTorch; the
@@ -71,10 +73,13 @@ from pydeseq2_tpu_torch.preprocessing import (  # noqa: E402
     deseq2_norm_fit,
     deseq2_norm_transform,
 )
+from pydeseq2_tpu_torch.api import run_deseq2  # noqa: E402
+from pydeseq2_tpu_torch import io  # noqa: E402,F401
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "run_deseq2",
     "wald_pipeline",
     "summary_pipeline",
     "summary_host_inputs",

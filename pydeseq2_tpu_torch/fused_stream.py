@@ -640,7 +640,9 @@ def run_summary_streamed(
         knobs["replaceable"] = host["replaceable"]
 
     def on_dev(a):
-        return torch.tensor(np.asarray(a, np_dtype), device=dev)  # a copy: pandas arrays may be read-only
+        # A contiguous copy: pandas arrays may be read-only, and a
+        # DataFrame's array is column-major (torch.tensor keeps its strides).
+        return torch.tensor(np.asarray(a, np_dtype), device=dev).contiguous()
 
     X = on_dev(getattr(design_matrix, "values", design_matrix))  # a DataFrame's array
     contrast_t, lfc_null_t = on_dev(contrast), on_dev(lfc_null)
@@ -796,7 +798,9 @@ def run_lfc_shrink_streamed(
     gene_mask = gene_mask & np.pad(ok, (0, padded_G - G))
 
     def on_dev(a):
-        return torch.tensor(a, device=dev)  # a copy: pandas arrays may be read-only
+        # A contiguous copy: pandas arrays may be read-only, and a
+        # DataFrame's array is column-major (torch.tensor keeps its strides).
+        return torch.tensor(a, device=dev).contiguous()
 
     out = lfc_shrink_pipeline_streamed(
         counts,

@@ -17,7 +17,9 @@ stay device tensors in a private store, gene-major; each stage hands them to
 the next without a host copy. The public ``layers`` / ``obsm`` entries are
 numpy, exported once when the public step that made them ends; per-gene
 columns go to ``var`` as numpy. The refit's sub-dataset and the iterative
-size factors' inner rounds export nothing. Host code does the label
+size factors' inner rounds export nothing. ``io.load_dataset`` rebuilds
+the store from the public entries (``_restore_device_store``), so a
+reloaded dataset resumes at any stage. Host code does the label
 bookkeeping, the small scalar statistics (F and polygamma cutoffs), the
 exclusion loop of the trend and the data-dependent refit orchestration.
 """
@@ -250,6 +252,46 @@ class DeseqDataSet(DeseqDataContainer):
     def _drop(self, *keys: str) -> None:
         for k in keys:
             self._dev.pop(k, None)
+
+    # The public slot each store entry is exported to: (slot, key, store
+    # entry, whether the slot is widened to every gene, whether the entry
+    # is the backend's result in its dtype rather than the dataset's
+    # float64).
+    _STORE_SLOTS = (
+        ("layers", "normed_counts", "normed", False, False),
+        ("layers", "_mu_hat", "_mu_hat", True, True),
+        ("obsm", "_mu_LFC", "_mu_LFC", False, True),
+        ("obsm", "_hat_diagonals", "_hat_diagonals", False, True),
+        ("layers", "cooks", "cooks", True, False),
+        ("layers", "replace_cooks", "replace_cooks", True, False),
+    )
+
+    def _restore_device_store(self) -> None:
+        """Rebuild the device store of a dataset whose public slots were
+        restored (``io.load_dataset``): each saved slot becomes its
+        gene-major entry on the dataset's device, in the dtype the stage
+        that made it gives it, so a reloaded dataset resumes at any stage.
+        A slot that was not saved stays absent: the normalised counts and
+        Cook's distances are then recomputed by the stage that needs them,
+        the mu and hat diagonals by running their stage again. The non-zero
+        genes, and the genes a refit left all zero, come back from
+        ``var``."""
+        if "non_zero" in self.var:
+            self.non_zero_idx = np.arange(self.n_vars)[self.var["non_zero"]]
+            self.non_zero_genes = self.var_names[self.var["non_zero"]]
+        if "refitted" in self.var:
+            went_all_zero = self.var["replaced"].to_numpy(bool) & ~self.var["refitted"].to_numpy(bool)
+            self.new_all_zeroes_genes = self.var_names[went_all_zero]
+        solver = getattr(self.inference, "dtype", torch.float64)
+        for slot, key, entry, widened, backend in self._STORE_SLOTS:
+            values = getattr(self, slot).get(key)
+            if values is None:
+                continue
+            host = np.asarray(values)
+            if widened:
+                host = host[:, self.non_zero_idx]
+            self._dev[entry] = torch.as_tensor(np.ascontiguousarray(host.T), device=self.device).to(
+                solver if backend else torch.float64)
 
     # ------------------------------------------------------------ properties
     @property

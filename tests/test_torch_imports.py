@@ -40,6 +40,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import pydeseq2_tpu_torch.formula, pydeseq2_tpu_torch.preprocessing, pydeseq2_tpu_torch.inference; "
         "import pydeseq2_tpu_torch.torch_inference, pydeseq2_tpu_torch.default_inference; "
         "import pydeseq2_tpu_torch.models.dataset, pydeseq2_tpu_torch.models.stats; "
+        "import pydeseq2_tpu_torch.api, pydeseq2_tpu_torch.io; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -103,7 +104,7 @@ def test_default_device_raises_without_cuda():
 
 
 def test_public_surface():
-    for name in ("wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
+    for name in ("run_deseq2", "wald_pipeline", "summary_pipeline", "summary_host_inputs", "device_padj",
                  "run_lfc_shrink_streamed", "lfc_shrink_pipeline_streamed", "inputs_from_numpy",
                  "outputs_to_numpy", "run_summary_streamed", "summary_pipeline_streamed",
                  "refit_pipeline_streamed", "vst_pipeline", "run_vst_streamed", "vst_pipeline_streamed",
