@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-seven hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-eight hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -78,7 +78,11 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    float32, one column of 60000 and of 60001 at each cluster size K = 1-16
    staged and streamed, columns on each side of the staged/streamed
    threshold, a column with no valid value, one of 777), each launched
-   twice and both launches bit for bit the sorted element; ``irls`` with
+   twice and both launches bit for bit the sorted element; ``select_hist``
+   (``select_hist_checks``: every radix pass of the gene mesh's median on
+   the size-factor tile 100 x 60000 and at 8000 samples, both types, each
+   launched twice and bit for bit its plain version, and the one-rank radix
+   median bit for bit the ``select`` kernel's); ``irls`` with
    the deviance constant it computes itself at P = 2, 3, 5 at 12, 100,
    1000 and 10000 samples in both types, phase 1 and the phase-2 tile it
    leaves (``irls_plan_checks``), each launched twice, held to the stated
@@ -170,6 +174,15 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    one call (> 0 for each kernel of the route, and equal to the direct
    call's kernel by kernel), every column within rtol 1e-6 of the direct
    call's, and one call under cProfile (where the host time goes);
+3m. runs ``run_deseq2(mesh=)`` on a gene mesh at 100 x 60000 float32 on
+   both routes (3l's draws): one rank over NCCL (``init_distributed``,
+   ``make_gene_mesh``), every column and the refitted genes bit for bit
+   the ``mesh=None`` call's, the launches of one call those of
+   ``mesh=None`` but for the size-factor median's ``select``, which
+   becomes 4 ``select_hist`` passes; warm walls of both, one profiled call's
+   collectives; then two ranks on the one card over gloo (two processes of
+   this script, ``--mesh-rank``), every column within rtol 1e-6 of
+   ``mesh=None`` and bit for bit but for the genes it names;
 4. runs ``wald_pipeline`` in float64 at 100 x 2000 on the card and on the
    CPU (plain versions) and compares the two key by key;
 4b. does the same for ``summary_pipeline`` with injected outliers, with and
@@ -206,6 +219,7 @@ from __future__ import annotations
 import inspect
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -252,6 +266,11 @@ DEVICE = "cuda"
 G_MAIN, N_MAIN = 60_000, 100
 G_F64 = 4_000
 G_CPU_CMP = 2_000
+N_HIST_WIDE, G_HIST_WIDE = 8_000, 6_000  # select_hist past 16 x 256 columns a launch row
+# Phase 3m: the ranks of the two-rank mesh on the one card (gloo, CUDA
+# tensors), and the seconds they may take together.
+MESH_RANKS_2 = 2
+MESH_RANK_TIMEOUT_S = 420
 N_WIDE, G_WIDE = 1_500, 3_000  # Cook's past the JAX select switch (n >= 1024)
 # The atlas iterative fit's dispersion shape (PERF.md section 4): one block
 # of 5000 genes of 10000 samples, intercept-only design, float32.
@@ -3137,6 +3156,72 @@ def select_plan_checks() -> dict:
     return plans
 
 
+def select_hist_checks(timings: dict) -> dict:
+    """Phase 2, ``select_hist`` (one radix pass of the gene mesh's sharded
+    size-factor median): every pass of the median on the size-factor tile
+    100 x 60000 and on 8000 samples x 6000 genes, float32 and float64, the
+    digits the passes before resolved, each launched twice, bit for bit
+    ``select_hist_plain`` (a ``torch.bincount`` of the masked digits); then
+    ``sharded_masked_median`` on one rank (its passes and the digit picks,
+    no all-reduce) bit for bit the ``select`` kernel's median
+    (``masked_median_select``) on the whole tile. Times at 100 x 60000
+    float32: each pass, the plain version and ``torch.bincount`` of pass
+    0's masked bins. Returns {"select_hist": max_abs_err}."""
+    from pydeseq2_tpu_torch.ops import select as sel
+
+    err = 0
+    for dtype in (torch.float32, torch.float64):
+        name = "f32" if dtype == torch.float32 else "f64"
+        npass = sel._passes(dtype)
+        for C, L in ((N_MAIN, G_MAIN), (N_HIST_WIDE, G_HIST_WIDE)):
+            x, (k_lo, k_hi) = select_case("tile", C, L, dtype, 50)
+            n = torch.isfinite(x[:, 0]).sum()
+            rank = torch.stack([k_lo.expand(C), k_hi.expand(C)], dim=-1).to(torch.int64)
+            digits = torch.zeros((C, 2, npass), dtype=torch.uint8, device=x.device)
+            at_pass = []
+            for p in range(npass):
+                got = sel._select_hist_cuda(x, digits, p)
+                again = sel._select_hist_cuda(x, digits, p)
+                want = sel.select_hist_plain(x, digits, p)
+                check(torch.equal(got, want), f"select_hist {name} {C} x {L} pass {p}: differs from the plain counts")
+                check(torch.equal(got, again), f"select_hist {name} {C} x {L} pass {p}: a second launch differs")
+                check(int(got[0, 0].sum()) > 0, f"select_hist {name} {C} x {L} pass {p}: no key matched")
+                err = max(err, int((got - want).abs().max()))
+                at_pass.append(digits.clone())
+                rank = sel.radix_pick(got, rank, digits, p)
+            med = sel.sharded_masked_median(x, n)
+            want = sel.masked_median_select(x, n)
+            check(torch.equal(sel._monotone_key(med), sel._monotone_key(want)),
+                  f"select_hist {name} {C} x {L}: the radix median is not the select kernel's")
+            log(f"  select_hist {name} {C} x {L}: {npass} passes bit for bit the plain counts, twice; the one-rank "
+                "radix median bit for bit the select kernel's")
+            if dtype == torch.float32 and C == N_MAIN:
+                keys = sel._unsigned_key(x).T  # (C, L)
+                bins = (torch.arange(C * 2, device=x.device).reshape(C, 2, 1) * 256 + (keys >> 24)[:, None, :])
+                bins = bins.expand(C, 2, L).reshape(-1)
+                per_pass = [cuda_ms(lambda p=p: sel._select_hist_cuda(x, at_pass[p], p), 20) for p in range(npass)]
+                timings["select_hist"] = {
+                    "ms": per_pass[0],
+                    "ms_per_pass": per_pass,
+                    "passes": npass,
+                    "plain_ms": cuda_ms(lambda: sel.select_hist_plain(x, at_pass[0], 0), 20),
+                    # one torch.bincount of pass 0's bins (every key matches at pass 0)
+                    "library_ms": cuda_ms(lambda: torch.bincount(bins, minlength=C * 2 * 256), 20),
+                    # one pass: each key read once, the counts written once, the digits read
+                    "bytes": x.numel() * x.element_size() + C * 2 * 256 * 4 + C * 2 * npass,
+                    # ~12 warp instructions a key (load, key map, prefix tests,
+                    # digit, match and count: an estimate from the source) at
+                    # the instruction issue rate
+                    "ops": 12 * C * L,
+                    "ops_per_s": INSTR_PER_S,
+                    "plan_rows": sel._hist_rows(C, L, torch.cuda.get_device_properties(x.device).multi_processor_count),
+                }
+                log(f"  select_hist f32 {C} x {L}: {[round(t, 4) for t in per_pass]} ms a pass, plain "
+                    f"{timings['select_hist']['plain_ms']:.4f} ms, torch.bincount {timings['select_hist']['library_ms']:.4f} ms")
+            del x
+    return {"select_hist": float(err)}
+
+
 def irls_case(G: int, N: int, P: int, dtype, seed: int) -> dict:
     """Phase 1 operands of ``irls`` at (G, N, P): ``make_data`` counts and
     design (P > 2 adds indicator columns of a seeded batch), median-of-ratios
@@ -4979,6 +5064,242 @@ def api_card_vs_cpu() -> None:
                 f"uninterrupted card run (limit {rtol})")
 
 
+MESH_ROUTES = (("refit", True), ("no refit", False))
+
+
+def mesh_draws() -> dict:
+    """Phase 3m's DataFrames, phase 3l's draws: {route label: (counts_df,
+    metadata)} at N_MAIN x G_MAIN, outliers planted on the refit route."""
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    counts_np, X_np = make_data(N_MAIN, G_MAIN)
+    return {label: as_frames(plant_outliers(counts_np.T) if refit else np.ascontiguousarray(counts_np.T), X_np)
+            for label, refit in MESH_ROUTES}
+
+
+def mesh_call(frames, refit: bool, mesh):
+    import pydeseq2_tpu_torch as pt
+
+    res, state = pt.run_deseq2(*frames, contrast=["condition", "B", "A"], refit_cooks=refit, dtype=torch.float32,
+                               return_state=True, mesh=mesh, device=None if mesh is not None else DEVICE)
+    return frame_columns(res), np.asarray(state["refitted"]) if refit else None
+
+
+# What torch.profiler names the collectives: the c10d operators on the host
+# and the NCCL kernels on the card (gloo runs none there).
+COLLECTIVE_KEYS = ("c10d::", "nccl")
+
+
+def collective_times(call) -> dict:
+    """One call under torch.profiler: its wall (the profiler's overhead
+    included), and the host time of the c10d collective operators and the
+    device time of the NCCL kernels, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = dev = 0.0
+    calls = {}
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if key.startswith("c10d::"):
+            host += e.cpu_time_total / 1e3
+            calls[e.key] = e.count
+        elif "nccl" in key and getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) > 0:
+            dev += getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+    return {"profiled_wall_ms": wall * 1e3, "collectives_host_ms": host, "nccl_device_ms": dev,
+            "collective_calls": calls}
+
+
+def mesh_rank_main(rank: int, world: int, store: str, out_dir: str) -> int:
+    """A rank of phase 3m's two-rank mesh on the one card (run as
+    ``chip_smoke.py --mesh-rank RANK WORLD STORE OUT_DIR``): gloo over CUDA
+    tensors (NCCL takes one rank a device), both routes of ``run_deseq2``
+    on the phase's draws, a warm-up, one timed call and one profiled call
+    each; pickles the columns, refitted genes,
+    walls, launches and collective times to OUT_DIR/rank<RANK>.pkl, or the
+    traceback to rank<RANK>.err (exit 3)."""
+    import pickle
+    import traceback
+    import warnings
+    from datetime import timedelta
+    from pathlib import Path
+
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.parallel.mesh import init_distributed, make_gene_mesh
+
+    out = Path(out_dir)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    try:
+        init_distributed(backend="gloo", device="cuda", init_method=f"file://{store}", rank=rank, world_size=world,
+                         timeout=timedelta(seconds=MESH_RANK_TIMEOUT_S))
+        mesh = make_gene_mesh()
+        results = {}
+        for label, refit in MESH_ROUTES:
+            frames = mesh_draws()[label]
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                mesh_call(frames, refit, mesh)  # warm-up
+                kernels.STATS.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cols, refitted = mesh_call(frames, refit, mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(kernels.STATS.launches)
+                prof = collective_times(lambda: mesh_call(frames, refit, mesh))
+            results[label] = {"columns": cols, "refitted": refitted, "wall_s": wall, "launches": launches,
+                              "profile": prof}
+        torch.distributed.destroy_process_group()
+        with open(out / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(results, f)
+        return 0
+    except Exception:  # reported to the parent, which raises or states why
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        return 3
+
+
+def two_rank_mesh(none_runs: dict) -> dict:
+    """Phase 3m's two ranks on the one card: MESH_RANKS_2 processes of
+    :func:`mesh_rank_main`, under MESH_RANK_TIMEOUT_S, every process
+    stopped at the end. Each rank's columns must equal the ``mesh=None``
+    run's bit for bit where they agree and within rtol 1e-6 where they do
+    not (NaN masks equal), each differing gene named, with the same
+    refitted genes. A rank that fails fails the phase, whatever the
+    failure."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), str(MESH_RANKS_2),
+                                   str(Path(tmp) / "store"), tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for r in range(MESH_RANKS_2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        errs = {r: (Path(tmp) / f"rank{r}.err").read_text() for r in range(MESH_RANKS_2)
+                if (Path(tmp) / f"rank{r}.err").exists()}
+        for r, e in errs.items():
+            log(f"  two ranks: rank {r} failed:\n{e}")
+        check(not errs, f"phase 3m: ranks {sorted(errs)} of the two-rank mesh failed (see above)")
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"phase 3m: rank {r} exited {p.returncode}:\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(MESH_RANKS_2):
+            with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                ranks.append(pickle.load(f))
+    out = {}
+    names = mesh_draws()["refit"][0].columns
+    for label, refit in MESH_ROUTES:
+        want, want_refit = none_runs[label]
+        differ = np.zeros(G_MAIN, dtype=bool)
+        for r, rank in enumerate(ranks):
+            got = rank[label]
+            if refit:
+                check(np.array_equal(got["refitted"], want_refit), f"phase 3m two ranks {label}: refitted genes differ")
+            for c in RESULT_COLUMNS:
+                g, w = np.asarray(got["columns"][c], np.float64), np.asarray(want[c], np.float64)
+                same = (g == w) | (np.isnan(g) & np.isnan(w))
+                differ |= ~same
+            columns_close(f"phase 3m two ranks {label} rank {r}", got["columns"], want, 1e-6)
+        out[label] = {"walls_s": [rank[label]["wall_s"] for rank in ranks],
+                      "launches_rank0": ranks[0][label]["launches"],
+                      "profile_rank0": ranks[0][label]["profile"],
+                      "genes_differing": int(differ.sum()),
+                      "differing_names": [str(n) for n in names[np.flatnonzero(differ)][:50]]}
+        prof = ranks[0][label]["profile"]
+        out[label]["collective_host_share"] = prof["collectives_host_ms"] / (ranks[0][label]["wall_s"] * 1e3)
+        log(f"  two ranks {label}: walls {[round(w, 4) for w in out[label]['walls_s']]} s; every column within "
+            f"rtol 1e-6 of mesh=None, bit for bit but for {int(differ.sum())} genes: {out[label]['differing_names']}; "
+            f"rank 0's collectives {prof} (host {out[label]['collective_host_share']:.4f} of its timed wall)")
+    return out
+
+
+def mesh_path(reps: int) -> dict:
+    """Phase 3m: ``run_deseq2(mesh=)`` at N_MAIN x G_MAIN float32 on both
+    routes (phase 3l's draws). One rank over NCCL (``init_distributed``, a
+    ``file://`` store, ``make_gene_mesh()``): every column and the refitted
+    genes bit for bit the ``mesh=None`` call's; the warm walls of both,
+    best of ``reps``; the launches of one call, kernel by kernel those of
+    ``mesh=None`` but for the size-factor median, whose ``select`` launches
+    become ``select_hist``'s (one a radix pass); one profiled call's
+    collective time. Then :func:`two_rank_mesh`."""
+    import tempfile
+    import warnings
+    from pathlib import Path
+
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops.select import _passes
+    from pydeseq2_tpu_torch.parallel.mesh import init_distributed, make_gene_mesh
+
+    draws = mesh_draws()
+    out, none_runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(device="cuda", init_method=f"file://{Path(tmp) / 'store'}", rank=0, world_size=1)
+        try:
+            mesh = make_gene_mesh()
+            check(torch.distributed.get_backend() == "nccl" and mesh.size() == 1, "phase 3m: not one NCCL rank")
+            for label, refit in MESH_ROUTES:
+                seen = {}
+                for name, m in (("mesh=None", None), ("mesh", mesh)):
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        mesh_call(draws[label], refit, m)  # warm-up
+                        walls = []
+                        for i in range(reps):
+                            if i == 0:
+                                kernels.STATS.reset()
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            res = mesh_call(draws[label], refit, m)
+                            torch.cuda.synchronize()
+                            walls.append(time.perf_counter() - t0)
+                            if i == 0:
+                                launches = dict(kernels.STATS.launches)
+                    seen[name] = (res, walls, launches)
+                (ref, none_walls, none_l), (got, walls, launches) = seen["mesh=None"], seen["mesh"]
+                none_runs[label] = ref
+                for c in RESULT_COLUMNS:
+                    check(np.array_equal(got[0][c], ref[0][c], equal_nan=True),
+                          f"phase 3m {label}: {c} is not bit for bit the mesh=None call's")
+                if refit:
+                    check(np.array_equal(got[1], ref[1]) and ref[1].any(), f"phase 3m {label}: refitted genes")
+                medians = none_l["select"] - launches["select"]
+                want = {**none_l, "select": none_l["select"] - medians, "select_hist": _passes(torch.float32) * medians}
+                check(medians > 0 and launches == want,
+                      f"phase 3m {label}: launches {launches}, expected mesh=None's with the median's select as "
+                      f"select_hist {want}")
+                for k in STREAM_KERNELS if refit else SUMMARY_KERNELS:
+                    check(launches[k] > 0, f"phase 3m {label}: kernel {k} was not launched")
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    prof = collective_times(lambda: mesh_call(draws[label], refit, mesh))
+                share = prof["collectives_host_ms"] / (min(walls) * 1e3)
+                log(f"  one rank {label}: run_deseq2(mesh=) wall (warm) {[round(w, 4) for w in walls]} s, best "
+                    f"{min(walls):.4f} s; mesh=None {[round(w, 4) for w in none_walls]} s, best {min(none_walls):.4f} "
+                    f"s; every column bit for bit; launches {launches}; collectives {prof} (host "
+                    f"{share:.4f} of the best warm wall)")
+                out[label] = {"walls_s": walls, "best_s": min(walls), "none_walls_s": none_walls,
+                              "none_best_s": min(none_walls), "launches": launches, "none_launches": none_l,
+                              "profile": prof, "collective_host_share": share}
+        finally:
+            torch.distributed.destroy_process_group()
+    out["two_ranks"] = two_rank_mesh(none_runs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5038,6 +5359,7 @@ def main() -> int:
     plans.update(vst_plan_checks())
     plans.update(fine_list_checks())
     plans.update(dnb_plan_checks())
+    errs32.update(select_hist_checks(timings))
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")
     main = main_path(reps=3)
@@ -5077,6 +5399,9 @@ def main() -> int:
     log(f"phase 3l: run_deseq2 from DataFrames, {N_MAIN} x {G_MAIN} float32: the refit route on phase 3e's draw, "
         "refit_cooks=False on phase 3b's, each beside the direct call it makes")
     api = api_path(3)
+    log(f"phase 3m: run_deseq2(mesh=) on a gene mesh, {N_MAIN} x {G_MAIN} float32, both routes: one rank over "
+        f"NCCL bit for bit mesh=None, then {MESH_RANKS_2} ranks on the one card over gloo")
+    mesh = mesh_path(3)
 
     log("phase 4: float64 pipeline, card against CPU, 100 x 2000, P = 2, 3, 5")
     card_vs_cpu()
@@ -5102,6 +5427,8 @@ def main() -> int:
     # name -> (source, TPU program it replaces, the run whose launches count)
     replaces = {
         "order_stats_select": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select"),
+        # order_stats_select's radix pass, taken out of the cluster for the gene mesh
+        "select_hist": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select_hist"),
         "disp_scan": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:196", "disp_scan"),
         "disp_newton": ("pydeseq2_tpu_torch/csrc/disp_newton.cu", "pydeseq2_tpu/ops/dispersion.py:361", "disp_newton"),
         "disp_scan_fine": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:170",
@@ -5149,7 +5476,8 @@ def main() -> int:
                 **{k: stream_zi["launches"][k] for k in ("sf_nll", "sf_newton", "lgamma_table")},
                 "vst": vst["launches"]["vst"],
                 **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")},
-                **{k: fine["launches"][k] for k in ("disp_scan_fine", "disp_scan_group", "dnb_nll")}}
+                **{k: fine["launches"][k] for k in ("disp_scan_fine", "disp_scan_group", "dnb_nll")},
+                "select_hist": mesh["refit"]["launches"]["select_hist"]}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -5164,7 +5492,7 @@ def main() -> int:
             "library_ms": t["library_ms"],
         }
         for extra in ("test_only_ms", "sort_ms", "all_lanes_ms", "all_rows_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
-                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells"):
+                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells", "plan_rows"):
             if extra in t:
                 # hat_wald without H and mu (the refit's call); the sort before the BH counts, or the torch.sort yardstick of
                 # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
@@ -5189,6 +5517,7 @@ def main() -> int:
     log("class API path: " + json.dumps(klass))
     log("fine-scan path: " + json.dumps(fine))
     log("run_deseq2 path: " + json.dumps(api))
+    log("gene mesh path: " + json.dumps(mesh))
     log("ties of the rescue and grid kernels with their plain versions: " + json.dumps(readings))
     log("cluster, trimmed-moment, sf_nll, grid_apeglm, grid_nb, select, irls, mom, bh, hat_wald, lowess, impute, "
         "newton_box, vst and dnb_nll kernel plans, and the fine scan's bucket counts: "
@@ -5202,4 +5531,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -19,6 +19,13 @@ reference's warning, pydeseq2/dds.py:682-690) runs
 device counts; control genes go through the staged
 :meth:`DeseqDataSet.fit_size_factors`. The computed factors are injected.
 Nothing falls back to the CPU: ``device="cuda"`` without a card raises.
+
+With ``mesh`` (a 1-D gene mesh, :mod:`pydeseq2_tpu_torch.parallel.mesh`)
+every rank calls with the same DataFrames and returns the same whole
+``results_df``: each rank moves only its shard of the gene axis to its
+device, as the JAX package's ``api.py:228-240`` (refit route, counts padded
+with 0) and ``:280-295`` (the single pipeline, counts padded with 1 and a
+``gene_mask``) shard it, and the per-gene results are gathered.
 """
 
 from __future__ import annotations
@@ -56,7 +63,7 @@ def run_deseq2(
     mesh=None,
     return_state: bool = False,
     quiet: bool = True,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
 ):
     """Full DESeq2 Wald analysis in one call on ``device``.
 
@@ -90,15 +97,19 @@ def run_deseq2(
     dtype : torch or numpy float dtype, optional
         Compute dtype; ``None`` is float64 (the JAX package's default with
         x64 on). float32 is the card's fast type.
-    mesh : None
-        Not supported yet: a gene mesh over several cards is ROADMAP.md
-        item 17. Anything but None raises.
+    mesh : torch.distributed.device_mesh.DeviceMesh, optional
+        A 1-D gene mesh (:func:`~pydeseq2_tpu_torch.parallel.mesh.make_gene_mesh`),
+        every rank making the same call. The device is the mesh's. The
+        iterative size factors and control genes run whole on every rank
+        before sharding, as the JAX package's do. Anything but a
+        ``DeviceMesh`` raises TypeError.
     return_state : bool
         Also return the pipeline's per-gene outputs as a dict of numpy
         arrays (the keys of the JAX package's state dict).
-    device : str or torch.device
-        Where the analysis runs (default ``"cuda"``; raises if CUDA is
-        requested and absent). ``"cpu"`` runs the kernels' plain versions.
+    device : str or torch.device, optional
+        Where the analysis runs (default ``"cuda"``, or the mesh's device;
+        raises if CUDA is requested and absent, or if it disagrees with the
+        mesh). ``"cpu"`` runs the kernels' plain versions.
 
     Returns
     -------
@@ -107,20 +118,21 @@ def run_deseq2(
     state dict when ``return_state``.
     """
     from pydeseq2_tpu_torch.fused import summary_host_inputs, summary_pipeline
-    from pydeseq2_tpu_torch.fused_stream import _to_host, run_summary_streamed
+    from pydeseq2_tpu_torch.fused_stream import _REPLICATED, _to_host, run_summary_streamed
     from pydeseq2_tpu_torch.models.dataset import DeseqDataSet
     from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors, pick_sf_gene_block
+    from pydeseq2_tpu_torch.parallel.mesh import (
+        gather_gene_dict,
+        pad_to_multiple,
+        resolve_mesh_device,
+        shard_gene_major,
+    )
     from pydeseq2_tpu_torch.torch_inference import TorchInference, as_torch_dtype
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_deseq2(mesh=...) is not ported yet: the gene mesh over several cards is "
-            "ROADMAP.md item 17 (parallel/mesh.py)."
-        )
     tdtype = torch.float64 if dtype is None else as_torch_dtype(dtype)
     np_dtype = np.float64 if tdtype == torch.float64 else np.float32
-    inference = TorchInference(dtype=tdtype, device=device)
-    dev = inference.device
+    dev = resolve_mesh_device(device, mesh)  # raises TypeError on anything but a DeviceMesh
+    inference = TorchInference(dtype=tdtype, device=dev)
 
     # Host-only: validation and the design (no device work).
     dds = DeseqDataSet(
@@ -174,19 +186,23 @@ def run_deseq2(
 
     # The counts cross to the device once, gene-major and contiguous. The
     # staged control-gene estimator moves them itself (float64), and the
-    # pipelines reuse that copy.
+    # pipelines reuse that copy. With a mesh only the rank's shard crosses
+    # (the whole counts too where the size factors need them).
     staged_sf = control_genes is not None and size_factors_fit_type != "iterative"
+    counts_np = np.ascontiguousarray(dds.X.T, dtype=np_dtype)
     if staged_sf:
         dds.fit_size_factors(fit_type=size_factors_fit_type, control_genes=control_genes)
         counts_d = dds._counts().to(tdtype)
+    elif mesh is None:
+        counts_d = torch.from_numpy(counts_np).to(dev)
     else:
-        counts_d = torch.from_numpy(np.ascontiguousarray(dds.X.T, dtype=np_dtype)).to(dev)
-    G, N = counts_d.shape
+        counts_d = None
+    G, N = counts_np.shape
 
     def _iterative_sf() -> torch.Tensor:
         sf, _ = iterative_size_factors(
-            counts_d, min_disp=min_disp, max_disp=max_disp, min_mu=min_mu,
-            gene_block=pick_sf_gene_block(G, N, tdtype), device=dev,
+            torch.from_numpy(counts_np).to(dev) if counts_d is None else counts_d, min_disp=min_disp,
+            max_disp=max_disp, min_mu=min_mu, gene_block=pick_sf_gene_block(G, N, tdtype), device=dev,
         )
         return sf
 
@@ -200,7 +216,7 @@ def run_deseq2(
         sf = _iterative_sf()
     elif size_factors_fit_type == "poscounts":
         sf_in_program = "poscounts"
-    elif not bool((counts_d > 0).all(dim=1).any()):
+    elif not ((counts_np > 0).all(axis=1).any() if counts_d is None else bool((counts_d > 0).all(dim=1).any())):
         # ratio undefined: every gene has a zero (reference dds.py:682-690)
         warnings.warn(
             "Every gene contains at least one zero, cannot compute log "
@@ -218,8 +234,9 @@ def run_deseq2(
     )
     if refit_cooks:
         res = run_summary_streamed(
-            counts_d, design_df, contrast_vector, lfc_null_ln, dtype=tdtype, refit_cooks=True,
-            min_replicates=min_replicates, n_genes=G, size_factors=sf, device=dev, **knobs,
+            counts_np if counts_d is None else counts_d, design_df, contrast_vector, lfc_null_ln, dtype=tdtype,
+            refit_cooks=True, min_replicates=min_replicates, n_genes=G, size_factors=sf, device=dev, mesh=mesh,
+            **knobs,
         )
     else:
         host = summary_host_inputs(design_df)
@@ -227,13 +244,22 @@ def run_deseq2(
         def on_dev(a):
             return torch.tensor(np.asarray(a, np_dtype), device=dev).contiguous()  # a design is column-major
 
+        gene_mask = None
+        if mesh is not None:
+            # Shard-even shapes: pad lanes of ones, kept out by the mask.
+            counts_pad, _ = pad_to_multiple(counts_np, mesh.size(), fill=1)
+            counts_d = shard_gene_major(counts_pad, mesh)
+            gene_mask = shard_gene_major(np.arange(counts_pad.shape[0]) < G, mesh)
         out = summary_pipeline(
             counts_d, on_dev(design_df.to_numpy()), on_dev(contrast_vector), on_dev(lfc_null_ln),
-            on_dev(host["cooks_cutoff"]), None, sf, cohort_ids=host["cohort_ids"],
-            use_for_max=host["use_for_max"], device=dev, **knobs,
+            on_dev(host["cooks_cutoff"]), gene_mask, sf, cohort_ids=host["cohort_ids"],
+            use_for_max=host["use_for_max"], device=dev, mesh=mesh, **knobs,
         )
         keys = out if return_state else ("lfc", "base_mean", "se", "statistics", "p_values", "padj")
-        res = _to_host({k: out[k] for k in keys})  # one device-to-host copy
+        out = {k: out[k] for k in keys}
+        if mesh is not None:  # one gather of the per-gene outputs, cut to the G genes
+            out.update(gather_gene_dict({k: v for k, v in out.items() if k not in _REPLICATED}, mesh, n=G))
+        res = _to_host(out)  # one device-to-host copy
 
     ln2 = np.log(2)
     results_df = pd.DataFrame(index=dds.var_names)

@@ -365,6 +365,108 @@ template <typename T> int max_clusters(int K, int smem, int* out) {
   return (int)cudaOccupancyMaxActiveClusters(out, select_kernel<T>, &cfg);
 }
 
+// ---------------------------------------------------------------- select_hist
+// One radix pass of a select whose keys are spread over several ranks of a
+// gene mesh (ops/select.py:sharded_masked_median). Replaces no TPU kernel on
+// its own: it is order_stats_select's histogram pass (select_kernel above)
+// taken out of the cluster, so that the ranks can add their histograms with
+// an all-reduce between passes, as the cluster adds its blocks' over
+// distributed shared memory. For each column and each of its two ranks, the
+// digit at pass `pass` of the keys that match the prefix resolved so far
+// (`digits`, (C, 2, npass) bytes, MSB first) is counted into out (C, 2, NB)
+// 32-bit counts, which the caller zeroes. A block takes HIST_COLS adjacent
+// columns and `rows` rows of them, counts in shared memory (a warp's lanes
+// with the same bin add once, __match_any_sync) and adds its non-zero bins
+// to out with atomics: integer counts, so the sum is the same in any order.
+// Bound by the bytes of one read of the local keys (each pass reads x
+// again: the ranks' totals decide the next prefix between two launches).
+constexpr int HIST_THREADS = 256;
+constexpr int HIST_COLS = 16;  // columns a block
+
+template <typename T>
+__global__ void __launch_bounds__(HIST_THREADS)
+    select_hist_kernel(const T* x, long long sC, long long sL, int C, int L, int rows, const unsigned char* digits,
+                       int npass, int pass, unsigned* out) {
+  using KO = KeyOf<T>;
+  using K = typename KO::K;
+  __shared__ unsigned hist[HIST_COLS * 2 * NB];
+  __shared__ K s_prefix[HIST_COLS][2];
+  __shared__ int s_same[HIST_COLS];
+  const int tid = threadIdx.x, lane = tid & (WARP - 1);
+  const int c0 = (int)blockIdx.x * HIST_COLS;
+  const int Bc = min(HIST_COLS, C - c0);
+  const int r0 = (int)blockIdx.y * rows;
+  const int Rb = max(0, min(rows, L - r0));
+  const int shift = KO::BITS - DIGIT * (pass + 1);
+  const K mask = pass == 0 ? K(0) : ~K(0) << (KO::BITS - DIGIT * pass);
+
+  for (int i = tid; i < HIST_COLS * 2 * NB; i += HIST_THREADS) hist[i] = 0u;
+  if (tid < HIST_COLS * 2) {
+    const int col = tid >> 1, r = tid & 1;
+    K p = 0;
+    if (col < Bc)
+      for (int j = 0; j < pass; ++j)
+        p |= (K)digits[((size_t)(c0 + col) * 2 + r) * npass + j] << (KO::BITS - DIGIT * (j + 1));
+    s_prefix[col][r] = p;
+  }
+  __syncthreads();
+  if (tid < HIST_COLS) s_same[tid] = s_prefix[tid][0] == s_prefix[tid][1];
+  __syncthreads();
+
+  // item i of the block's share: (column, row), adjacent columns fastest
+  // where they are adjacent in memory, else a column's rows
+  const bool cols_fast = sC == 1;
+  const int n = Bc * Rb;
+  auto add = [&](unsigned bin) {
+    const unsigned peers = __match_any_sync(FULL, bin);
+    if (bin != ~0u && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], (unsigned)__popc(peers));
+  };
+  for (int base = 0; base < n; base += PER * HIST_THREADS) {
+    K kk[PER];
+    int cc[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = base + j * HIST_THREADS + tid;
+      int col = 0, row = 0;
+      if (i < n) {
+        col = cols_fast ? i % Bc : i / Rb;
+        row = cols_fast ? i / Bc : i % Rb;
+      }
+      cc[j] = col;
+      kk[j] = i < n ? KO::key(x[(long long)(c0 + col) * sC + (long long)(r0 + row) * sL]) : K(0);
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const bool in = base + j * HIST_THREADS + tid < n;
+      const int col = cc[j];
+      const unsigned d = (unsigned)((kk[j] >> shift) & K(NB - 1));
+      const K km = kk[j] & mask;
+      const bool m0 = in && km == s_prefix[col][0];
+      const bool m1 = in && !s_same[col] && km == s_prefix[col][1];
+      add(m0 ? (unsigned)(col * 2 * NB) + d : ~0u);
+      add(m1 ? (unsigned)((col * 2 + 1) * NB) + d : ~0u);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Bc * 2 * NB; i += HIST_THREADS) {
+    const int col = i / (2 * NB), r = (i / NB) & 1, b = i % NB;
+    const unsigned v = hist[(col * 2 + (s_same[col] ? 0 : r)) * NB + b];
+    if (v) atomicAdd(&out[((size_t)(c0 + col) * 2 + r) * NB + b], v);
+  }
+}
+
+template <typename T>
+int hist_launch(const void* x, long long sC, long long sL, int C, int L, const void* digits, int npass, int pass,
+                int rows, void* out, cudaStream_t st) {
+  if (npass != KeyOf<T>::BITS / DIGIT || pass < 0 || pass >= npass || rows < 1) return (int)cudaErrorInvalidValue;
+  const long long splits = ((long long)L + rows - 1) / rows;
+  if (splits > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((C + HIST_COLS - 1) / HIST_COLS), (unsigned)splits);
+  select_hist_kernel<T><<<grid, HIST_THREADS, 0, st>>>((const T*)x, sC, sL, C, L, rows,
+                                                       (const unsigned char*)digits, npass, pass, (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The k_lo-th and k_hi-th smallest of each of C columns of L values (value
@@ -385,4 +487,16 @@ extern "C" int order_stats_select_launch(int is_f64, const void* x, int C, int L
 extern "C" int select_max_clusters(int is_f64, int K, int smem, int* out, void* stream) {
   (void)stream;
   return is_f64 ? max_clusters<double>(K, smem, out) : max_clusters<float>(K, smem, out);
+}
+
+// One radix pass over the local keys of C columns of L values (value (c, i)
+// at x[c sC + i sL]): out (C, 2, 256) += the counts of pass `pass`'s digit
+// of the keys matching each (column, rank)'s prefix in `digits` (C, 2,
+// npass), blocks of `rows` rows.
+extern "C" int select_hist_launch(int is_f64, const void* x, int C, int L, long long sC, long long sL,
+                                  const void* digits, int npass, int pass, int rows, void* out, void* stream) {
+  if (C <= 0 || L <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_f64 ? hist_launch<double>(x, sC, sL, C, L, digits, npass, pass, rows, out, s)
+                : hist_launch<float>(x, sC, sL, C, L, digits, npass, pass, rows, out, s);
 }

@@ -16,6 +16,13 @@ from __future__ import annotations
 import torch
 
 from pydeseq2_tpu_torch.convert import resolve_device
+from pydeseq2_tpu_torch.parallel.mesh import (
+    LaneGroup,
+    all_reduce_sum,
+    gather_gene_dict,
+    local_rows,
+    resolve_mesh_device,
+)
 from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
 from pydeseq2_tpu_torch.ops.irls import (
     _linspace,
@@ -26,7 +33,7 @@ from pydeseq2_tpu_torch.ops.irls import (
 )
 from pydeseq2_tpu_torch.ops.cooks import cooks_outliers
 from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, ols_pinv
-from pydeseq2_tpu_torch.ops.select import masked_median_select
+from pydeseq2_tpu_torch.ops.select import masked_median_select, sharded_masked_median
 from pydeseq2_tpu_torch.ops.nb import _psi_series_f64
 from pydeseq2_tpu_torch.ops.stats import (
     bh_adjust_row,
@@ -41,7 +48,8 @@ from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
 
 
-def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_mu, beta_tol, phase1_iters=8):
+def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_mu, beta_tol, phase1_iters=8,
+                      group=None):
     """Two-phase IRLS with the rescue cascade: ``(beta, converged, overflow)``.
 
     Phase 1 runs ``phase1_iters`` trips over every lane; the unfinished
@@ -53,6 +61,14 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     lanes of the tile it rescues (``sel``), and its kernel works on those
     only. ``overflow`` counts flagged lanes beyond the K tile. See
     ``pydeseq2_tpu/fused.py:51``.
+
+    ``group`` (a :class:`~pydeseq2_tpu_torch.parallel.mesh.LaneGroup`)
+    makes these lanes one rank's share of a tile split over ranks: K comes
+    from the whole tile, the unfinished count that picks the phase-2 form
+    is the tile's, and the rescue takes the tile's first K flagged lanes in
+    lane order, so this rank rescues at most K less the flagged lanes of
+    the ranks before it. Two exchanges of one integer a rank, reached
+    whatever the data; ``overflow`` is then this rank's share.
     """
     X = design_matrix
     beta, needs_fb, converged = irls_core(
@@ -60,14 +76,21 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
         min_mu=min_mu, beta_tol=beta_tol, maxiter=phase1_iters,
     )
     G = counts.shape[0]
-    K = min(G, max(512, G // 64))
+    dev = counts.device
+    lanes = G if group is None else group.lanes
+    if group is not None:  # padding lanes are never flagged
+        needs_fb = needs_fb & (torch.arange(G, device=dev) + group.offset(G) < lanes)
+    K = min(lanes, max(512, lanes // 64))
+    T = min(G, K)  # this rank's share of the compacted tile
     # Flagged lanes first; ties keep ascending lane order (stable sort).
-    idx1 = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:K]
+    idx1 = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:T]
 
     # Host-evaluated lax.switch branch (fused.py:154-160); with
     # phase1_iters = 250 (one phase, as the class API's backend runs it)
     # there is nothing to continue.
-    n_unfinished = int(needs_fb.sum()) if phase1_iters < 250 else 0
+    n_unfinished = 0
+    if phase1_iters < 250:  # the tile's count: with a group, one exchange
+        n_unfinished = int(needs_fb.sum()) if group is None else sum(group.counts(needs_fb.sum()))
     if n_unfinished > K:
         b2, nfb2, conv2 = irls_core(
             counts, size_factors, X, disp, beta,
@@ -87,11 +110,22 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
         converged[idx1] = torch.where(sel1, conv2, converged[idx1])
         needs_fb[idx1] = torch.where(sel1, nfb2, needs_fb[idx1])
 
-    overflow = torch.clamp(needs_fb.sum() - K, min=0)
-    idx = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:K]
-    sel = needs_fb[idx]
-    # Host-evaluated lax.cond (fused.py:183-185).
-    if bool(needs_fb.any()):
+    if group is None:
+        quota = K  # the tile holds the first K flagged lanes
+        overflow = torch.clamp(needs_fb.sum() - K, min=0)
+        # Host-evaluated lax.cond (fused.py:183-185).
+        rescue = bool(needs_fb.any())
+    else:
+        # The tile's first K flagged lanes: this rank's first `quota`.
+        flagged = group.counts(needs_fb.sum())
+        pos = group.position()
+        quota = min(flagged[pos], max(0, K - sum(flagged[:pos])))
+        overflow = torch.tensor(flagged[pos] - quota, dtype=torch.int64, device=dev)
+        rescue = quota > 0
+    idx = torch.argsort((~needs_fb).to(torch.int8), stable=True)[:T]
+    in_quota = torch.arange(T, device=dev) < quota
+    sel = needs_fb[idx] & in_quota
+    if rescue:
         b_fb, ok = newton_box_nbglm(
             counts[idx], size_factors, X, disp[idx], beta_init[idx], min_mu=min_mu, sel=sel
         )
@@ -101,7 +135,7 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
 
     if X.shape[1] == 2:
         still_bad = needs_fb & ~converged
-        sel_grid = still_bad[idx]
+        sel_grid = still_bad[idx] & in_quota
         # Host-evaluated lax.cond (fused.py:206-208); the count it reads
         # sizes the grid kernel's launch.
         n_bad = int(still_bad.sum())
@@ -156,18 +190,30 @@ def dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P):
     return squared_logres, torch.clamp(squared_logres - trigamma, min=0.25)
 
 
-def _size_factors(counts: torch.Tensor, gene_mask: torch.Tensor):
-    """Median-of-ratios size factors: ``(sf (N,), filtered (G,))``."""
+def _column_median(values: torch.Tensor, n_valid: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Per-column median over the genes of a (G, N) tile (+inf where
+    excluded, ``n_valid`` the local counts of valid genes): the ``select``
+    kernel, or with ``mesh`` the radix passes whose histograms and counts
+    are summed over the ranks."""
+    if mesh is None:
+        return masked_median_select(values, n_valid, axis=0)
+    n_all = all_reduce_sum(n_valid.reshape(-1).clone(), mesh).reshape(n_valid.shape)
+    return sharded_masked_median(values, n_all, mesh, axis=0)
+
+
+def _size_factors(counts: torch.Tensor, gene_mask: torch.Tensor, mesh=None):
+    """Median-of-ratios size factors: ``(sf (N,), filtered (G,))``; with
+    ``mesh``, over every rank's genes."""
     log_counts = torch.log(counts)  # -inf where zero
     logmeans = log_counts.mean(dim=1)
     filtered = ~torch.isinf(logmeans) & gene_mask
     inf = torch.full_like(log_counts, float("inf"))
     log_ratios = torch.where(filtered[:, None], log_counts - logmeans[:, None], inf)
-    log_medians = masked_median_select(log_ratios, filtered.sum(), axis=0)
+    log_medians = _column_median(log_ratios, filtered.sum(), mesh)
     return torch.exp(log_medians), filtered
 
 
-def _poscounts_size_factors(counts: torch.Tensor, gene_mask: torch.Tensor) -> torch.Tensor:
+def _poscounts_size_factors(counts: torch.Tensor, gene_mask: torch.Tensor, mesh=None) -> torch.Tensor:
     """Poscounts size factors (zero-rich data; reference dds.py:656-679)."""
     pos = counts > 0
     log_pos = torch.log(torch.where(pos, counts, torch.ones_like(counts)))
@@ -175,14 +221,55 @@ def _poscounts_size_factors(counts: torch.Tensor, gene_mask: torch.Tensor) -> to
     usable = torch.isfinite(logmeans) & (logmeans > 0) & gene_mask
     in_med = usable[:, None] & pos
     ratios = torch.where(in_med, log_pos - logmeans[:, None], torch.full_like(log_pos, float("inf")))
-    sf = torch.exp(masked_median_select(ratios, in_med.sum(dim=0), axis=0))
+    sf = torch.exp(_column_median(ratios, in_med.sum(dim=0), mesh))
     return sf / torch.exp(torch.mean(torch.log(sf)))
+
+
+def _trend_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds, N, P, mesh=None):
+    """The trend (:func:`fit_fused_trend`) and the prior
+    (:func:`dispersion_prior`): ``(fitted_m, coeffs, used_mean, mean_disp,
+    squared_logres, prior_disp_var)``, ``fitted_m`` NaN off ``non_zero``.
+    With ``mesh`` the three per-gene vectors are gathered whole (one
+    collective), every rank fits the same trend and prior on them, and
+    keeps its rows of ``fitted_m``."""
+    if mesh is not None:
+        whole = gather_gene_dict({"b": base_mean, "g": genewise_m, "z": non_zero}, mesh)
+        base_mean, genewise_m, non_zero = whole["b"], whole["g"], whole["z"]
+    fitted, coeffs, used_mean, mean_disp = fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type,
+                                                           max_rounds=max_rounds)
+    fitted_m = torch.where(non_zero, fitted, torch.full_like(fitted, float("nan")))
+    squared_logres, prior_disp_var = dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P)
+    if mesh is not None:
+        fitted_m = local_rows(fitted_m, mesh)
+    return fitted_m, coeffs, used_mean, mean_disp, squared_logres, prior_disp_var
+
+
+def _padj(p, base_mean, gene_mask, alpha, independent_filter, mesh=None):
+    """:func:`device_padj`; with ``mesh`` on the gathered p-values, base
+    means and mask (one collective), whole on every rank, which keeps its
+    rows."""
+    if mesh is None:
+        return device_padj(p, base_mean, gene_mask, alpha, independent_filter)
+    whole = gather_gene_dict({"p": p, "b": base_mean, "m": gene_mask}, mesh)
+    return local_rows(device_padj(whole["p"], whole["b"], whole["m"], alpha, independent_filter), mesh)
+
+
+def _mesh_tile(gene_mask, mesh) -> LaneGroup:
+    """The IRLS tile of a mesh run of the single pipeline: every rank's
+    lanes, in rank order, up to the last gene of ``gene_mask`` over the
+    mesh. The trailing pad lanes (``shard_gene_major``'s) are then never
+    flagged, and the rescue's K is the unsharded run's, from the G genes.
+    One collective and one host read."""
+    R, S = mesh.size(), gene_mask.shape[0]
+    pos = torch.arange(1, S + 1, device=gene_mask.device) + mesh.get_local_rank() * S
+    tile = LaneGroup(mesh, 0, R, R * S)
+    return tile._replace(lanes=max(tile.counts(torch.where(gene_mask, pos, 0).max())))
 
 
 def _wald_impl(
     counts, design_matrix, contrast, lfc_null, gene_mask=None, size_factors=None,
     min_mu=0.5, min_disp=1e-8, max_disp=10.0, beta_tol=1e-8, trend_type="parametric",
-    trend_rounds=8, alt_hypothesis=None, mu_init="linear", sf_fit_type="ratio",
+    trend_rounds=8, alt_hypothesis=None, mu_init="linear", sf_fit_type="ratio", mesh=None,
 ):
     G, N = counts.shape
     P = design_matrix.shape[1]
@@ -193,14 +280,16 @@ def _wald_impl(
 
     if gene_mask is None:
         gene_mask = torch.ones(G, dtype=torch.bool, device=dev)
+    # With a mesh these G lanes are this rank's share of one IRLS tile.
+    group = None if mesh is None else _mesh_tile(gene_mask, mesh)
 
     # --- normalization ----------------------------------------------------
     if size_factors is not None:
         sf = size_factors
     elif sf_fit_type == "poscounts":
-        sf = _poscounts_size_factors(counts, gene_mask)
+        sf = _poscounts_size_factors(counts, gene_mask, mesh)
     else:
-        sf, _ = _size_factors(counts, gene_mask)
+        sf, _ = _size_factors(counts, gene_mask, mesh)
     base_mean = (counts / sf[None, :]).mean(dim=1)
     non_zero = ~(counts == 0).all(dim=1) & gene_mask
 
@@ -211,7 +300,7 @@ def _wald_impl(
     # --- mu init + genewise dispersion MLE --------------------------------
     if mu_init == "irls":
         beta_mom, _, mu_overflow = _irls_with_rescue(
-            counts, sf, X, mom, irls_beta_init(counts, sf, X), min_mu=min_mu, beta_tol=beta_tol
+            counts, sf, X, mom, irls_beta_init(counts, sf, X), min_mu=min_mu, beta_tol=beta_tol, group=group
         )
         mu_hat = sf[None, :] * torch.exp(beta_mom @ X.T)
     else:
@@ -223,12 +312,10 @@ def _wald_impl(
     genewise = torch.clamp(genewise, min_disp, max_disp)
     genewise_m = torch.where(non_zero, genewise, nan)
 
-    # --- trend --------------------------------------------------------------
-    fitted, trend_coeffs, trend_used_mean, _ = fit_fused_trend(
-        base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds=max(trend_rounds, 20)
+    # --- trend and prior (whole gene axis) -----------------------------------
+    fitted_m, trend_coeffs, trend_used_mean, _, squared_logres, prior_disp_var = _trend_prior(
+        base_mean, genewise_m, non_zero, min_disp, trend_type, max(trend_rounds, 20), N, P, mesh
     )
-    fitted_m = torch.where(non_zero, fitted, nan)
-    squared_logres, prior_disp_var = dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P)
 
     # --- MAP dispersions ------------------------------------------------------
     map_disp, _ = alpha_mle_batch(
@@ -244,7 +331,7 @@ def _wald_impl(
     disp_safe = torch.nan_to_num(dispersions, nan=0.5)
     beta_init = irls_beta_init(counts, sf, X)
     beta, converged, lfc_overflow = _irls_with_rescue(
-        counts, sf, X, disp_safe, beta_init, min_mu=min_mu, beta_tol=beta_tol
+        counts, sf, X, disp_safe, beta_init, min_mu=min_mu, beta_tol=beta_tol, group=group
     )
 
     # --- hat diagonals + Wald test (mu unthresholded) -----------------------
@@ -272,7 +359,7 @@ def _wald_impl(
         "statistics": nanm(stats),
         "se": nanm(se),
         "irls_converged": converged,
-        "rescue_overflow": mu_overflow + lfc_overflow,
+        "rescue_overflow": all_reduce_sum((mu_overflow + lfc_overflow).reshape(1), mesh)[0],
         "_non_zero": non_zero,
     }
 
@@ -293,7 +380,9 @@ def wald_pipeline(
     alt_hypothesis: str | None = None,
     mu_init: str = "linear",
     sf_fit_type: str = "ratio",
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
+    *,
+    mesh=None,
 ) -> dict:
     """One-call DESeq2 Wald pipeline on ``device`` (default ``"cuda"``).
 
@@ -304,8 +393,19 @@ def wald_pipeline(
     ``counts``. Raises if CUDA is requested and absent. Returns the dict of
     ``pydeseq2_tpu.fused.wald_pipeline`` (same keys) as tensors on
     ``device``; :func:`pydeseq2_tpu_torch.outputs_to_numpy` converts it.
+
+    ``mesh`` (:func:`~pydeseq2_tpu_torch.parallel.mesh.make_gene_mesh`):
+    every rank calls with its shard of the gene axis (``counts`` and
+    ``gene_mask`` from :func:`~pydeseq2_tpu_torch.parallel.mesh.shard_gene_major`,
+    every shard the same size) and the same replicated design, contrast and
+    size factors, on the mesh's device (a ``device`` that disagrees
+    raises). The global stages run over every rank's genes, as the JAX
+    package's sharded program does; per-gene outputs are the shard's,
+    ``rescue_overflow`` the whole run's. The IRLS rescue takes its lane
+    quota over the lanes up to the last gene of ``gene_mask``, so the
+    trailing pad lanes leave it as the unsharded run's.
     """
-    dev = resolve_device(device)
+    dev = resolve_mesh_device(device, mesh)
     counts = torch.as_tensor(counts, device=dev).contiguous()
     dtype = counts.dtype
 
@@ -318,7 +418,7 @@ def wald_pipeline(
         counts, on_dev(design_matrix), on_dev(contrast), on_dev(lfc_null), gene_mask,
         on_dev(size_factors), min_mu=min_mu, min_disp=min_disp, max_disp=max_disp,
         beta_tol=beta_tol, trend_type=trend_type, trend_rounds=trend_rounds,
-        alt_hypothesis=alt_hypothesis, mu_init=mu_init, sf_fit_type=sf_fit_type,
+        alt_hypothesis=alt_hypothesis, mu_init=mu_init, sf_fit_type=sf_fit_type, mesh=mesh,
     )
     out.pop("_non_zero")
     return out
@@ -347,7 +447,8 @@ def summary_pipeline(
     alt_hypothesis: str | None = None,
     mu_init: str = "linear",
     sf_fit_type: str = "ratio",
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
+    mesh=None,
 ) -> dict:
     """Counts -> padj on ``device`` (default ``"cuda"``): the DESeq2
     ``deseq2()`` + ``summary()`` workflow with ``refit_cooks=False``.
@@ -362,9 +463,10 @@ def summary_pipeline(
     (G, N), ``cooks_outlier`` (G,), the outlier-masked ``p_values`` and
     ``padj`` (float64 whatever the dtype of ``counts``, as the JAX package
     adjusts in float64). The Cook's block and :func:`device_padj` read
-    nothing back to the host.
+    nothing back to the host. ``mesh``: as :func:`wald_pipeline`'s; the
+    adjusted p-values are computed on the gathered gene axis.
     """
-    dev = resolve_device(device)
+    dev = resolve_mesh_device(device, mesh)
     counts = torch.as_tensor(counts, device=dev).contiguous()
     G, N = counts.shape
     dtype = counts.dtype
@@ -386,7 +488,7 @@ def summary_pipeline(
         counts, X, on_dev(contrast), on_dev(lfc_null), gene_mask, on_dev(size_factors),
         min_mu=min_mu, min_disp=min_disp, max_disp=max_disp, beta_tol=beta_tol,
         trend_type=trend_type, trend_rounds=trend_rounds, alt_hypothesis=alt_hypothesis,
-        mu_init=mu_init, sf_fit_type=sf_fit_type,
+        mu_init=mu_init, sf_fit_type=sf_fit_type, mesh=mesh,
     )
     non_zero = out.pop("_non_zero")
 
@@ -400,7 +502,7 @@ def summary_pipeline(
     if cooks_filter:
         p = torch.where(outlier, torch.full_like(p, float("nan")), p)
         out["p_values"] = p
-    padj = device_padj(p, out["base_mean"], gene_mask, alpha, independent_filter)
+    padj = _padj(p, out["base_mean"], gene_mask, alpha, independent_filter, mesh)
 
     out["cooks"] = cooks
     out["cooks_outlier"] = outlier

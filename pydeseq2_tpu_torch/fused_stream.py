@@ -30,9 +30,10 @@ import torch
 
 from pydeseq2_tpu_torch.convert import resolve_device
 from pydeseq2_tpu_torch.fused import (
+    _column_median,
     _irls_with_rescue,
-    device_padj,
-    dispersion_prior,
+    _padj,
+    _trend_prior,
     fit_fused_trend,
     summary_host_inputs,
 )
@@ -42,17 +43,49 @@ from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
 from pydeseq2_tpu_torch.ops.irls import irls_beta_init
 from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, mu_from_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.refit import impute_outliers
-from pydeseq2_tpu_torch.ops.select import masked_median_select
 from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors, pick_sf_gene_block
 from pydeseq2_tpu_torch.ops.shrink import _hess, grid_fit_shrink_beta_batch, nbinom_fn_batch, nbinom_glm_batch
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv
 from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
+from pydeseq2_tpu_torch.parallel.mesh import (
+    LaneGroup,
+    all_gather_rows,
+    all_reduce_sum,
+    gather_gene_dict,
+    resolve_mesh_device,
+)
 
 # The ~4 GB device budget of the JAX package's block sizing: ~20 live
 # (block, N) temporaries of <= 8 bytes (80 bytes a cell).
 _BLOCK_BUDGET_BYTES = 4_000_000_000
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _auto_gene_block(G: int, N: int) -> int:
+    """G split evenly into blocks whose ~20 live (block, N) temporaries of
+    <= 8 bytes fit the ~4 GB budget, rounded up to 8."""
+    raw = int(max(1024, min(G, _BLOCK_BUDGET_BYTES // (80 * N))))
+    n_blocks = -(-G // raw)
+    return ((-(-G // n_blocks) + 7) // 8) * 8
+
+
+def _mesh_layout(G: int, B: int, R: int) -> tuple[int, int, int]:
+    """How ``R`` ranks stream G genes whose unsharded run takes blocks of
+    ``B``: ``(local block, block_ranks, shard rows)``. Each unsharded block
+    stays one IRLS tile of B lanes, so the rescue's K and lanes are the
+    unsharded run's. Where there are at least R blocks, each rank takes
+    whole blocks (``block_ranks`` 1; all-padding blocks fill the last
+    ranks). Otherwise each block is split evenly over ``block_ranks``
+    consecutive ranks, the fewest groups (a divisor of R, at least the
+    blocks) whose split divides B, the blocks padded with all-padding ones
+    to the group count (with one group a rank, whole blocks again)."""
+    n_blocks = -(-G // B)
+    if n_blocks >= R:
+        return B, 1, -(-n_blocks // R) * B
+    groups = next(d for d in range(n_blocks, R + 1) if R % d == 0 and B % (R // d) == 0)
+    q = R // groups
+    return B // q, q, B // q
 
 
 def _stage_counts(counts, dtype, n_genes, gene_block, dev):
@@ -76,9 +109,7 @@ def _stage_counts(counts, dtype, n_genes, gene_block, dev):
             raise ValueError(f"n_genes={n_genes} outside (0, {G}]")
         G = n_genes
     if gene_block is None:
-        raw = int(max(1024, min(G, _BLOCK_BUDGET_BYTES // (80 * N))))
-        n_blocks = -(-G // raw)
-        gene_block = ((-(-G // n_blocks) + 7) // 8) * 8
+        gene_block = _auto_gene_block(G, N)
     padded_G = math.ceil(G_phys / gene_block) * gene_block
     if padded_G != G_phys:
         counts = torch.cat([counts, counts.new_zeros((padded_G - G_phys, N))])
@@ -122,32 +153,34 @@ def _median_of_col_blocks(counts, med_of_cols, sample_block):
     return med
 
 
-def _streamed_size_factors(counts, gene_mask, logmeans, sample_block=None):
+def _streamed_size_factors(counts, gene_mask, logmeans, sample_block=None, mesh=None):
     """Median-of-ratios size factors over the genes with finite log-means,
     sample-blocked (``pydeseq2_tpu/fused_stream.py:64``): excluded genes sit
     at +inf and the two middle order statistics come from the ``select``
-    kernel, a column block at a time."""
+    kernel, a column block at a time; with ``mesh``, from the radix passes
+    summed over the ranks (``fused._column_median``)."""
     filtered = ~torch.isinf(logmeans) & gene_mask
     m = filtered.sum()
 
     def med_of_cols(cols):
         ratios = torch.where(filtered[:, None], torch.log(cols) - logmeans[:, None],
                              torch.full_like(cols, float("inf")))
-        return masked_median_select(ratios, m, axis=0)
+        return _column_median(ratios, m, mesh)
 
     return torch.exp(_median_of_col_blocks(counts, med_of_cols, sample_block))
 
 
-def _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block=None):
+def _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block=None, mesh=None):
     """Poscounts size factors, sample-blocked (``pydeseq2_tpu/fused_stream.py:117``):
     each sample's median runs over the usable genes positive in it, then the
-    factors are rescaled to geometric mean 1."""
+    factors are rescaled to geometric mean 1. ``mesh``: as
+    :func:`_streamed_size_factors`."""
 
     def med_of_cols(cols):
         in_med = usable[:, None] & (cols > 0)
         ratios = torch.where(in_med, torch.log(torch.where(cols > 0, cols, torch.ones_like(cols))) - logmeans[:, None],
                              torch.full_like(cols, float("inf")))
-        return masked_median_select(ratios, in_med.sum(dim=0), axis=0)
+        return _column_median(ratios, in_med.sum(dim=0), mesh)
 
     sf = torch.exp(_median_of_col_blocks(counts, med_of_cols, sample_block))
     return sf / torch.exp(torch.mean(torch.log(sf)))
@@ -171,7 +204,7 @@ def _log_stats(counts, gene_mask, gene_block, sf_fit_type):
     return torch.cat(logmeans), torch.cat(non_zero)
 
 
-def _mu_init(c, sf, X, pinv, min_mu, min_disp, max_disp, beta_tol, mu_init):
+def _mu_init(c, sf, X, pinv, min_mu, min_disp, max_disp, beta_tol, mu_init, group=None):
     """MoM dispersions, the mu-init coefficients and mu of one tile: ``(mom,
     beta_coef, mu_hat, overflow)``. The coefficients are the OLS fit
     ("linear", mu from the same ``mom`` launch) or the IRLS fit with rescue
@@ -182,7 +215,8 @@ def _mu_init(c, sf, X, pinv, min_mu, min_disp, max_disp, beta_tol, mu_init):
     mom = torch.clamp(torch.minimum(rough, moments), min_disp, max_disp)
     if linear:
         return mom, coef, mu_hat, torch.zeros((), dtype=torch.int64, device=c.device)
-    coef, _, overflow = _irls_with_rescue(c, sf, X, mom, irls_beta_init(c, sf, X), min_mu=min_mu, beta_tol=beta_tol)
+    coef, _, overflow = _irls_with_rescue(c, sf, X, mom, irls_beta_init(c, sf, X), min_mu=min_mu, beta_tol=beta_tol,
+                                          group=group)
     return mom, coef, _mu_hat(coef, sf, X, min_mu, mu_init), overflow
 
 
@@ -195,15 +229,16 @@ def _mu_hat(coef, sf, X, min_mu, mu_init):
     return mu_from_coef(coef, sf, X, min_mu)
 
 
-def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init):
+def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init, group=None):
     """Streamed pass 1: per block, base means, the mu init and the genewise
     dispersion MLE with its coarse-grid objective cache, which the MAP fit
-    of pass 2 reuses (``fused_stream.py:316-332``)."""
+    of pass 2 reuses (``fused_stream.py:316-332``). ``group``: the lane
+    group of each block's IRLS tile where blocks are split over ranks."""
     base_mean, genewise, coarse, coefs, overflow = [], [], [], [], []
     for b in range(0, counts.shape[0], gene_block):
         c = counts[b:b + gene_block]
         base_mean.append((c / sf[None, :]).mean(dim=1))
-        mom, coef, mu_hat, of = _mu_init(c, sf, X, pinv, min_mu, min_disp, max_disp, beta_tol, mu_init)
+        mom, coef, mu_hat, of = _mu_init(c, sf, X, pinv, min_mu, min_disp, max_disp, beta_tol, mu_init, group)
         gw, _, cache = alpha_mle_batch(c, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, prior_reg=False,
                                        return_coarse=True)
         genewise.append(torch.clamp(gw, min_disp, max_disp))
@@ -213,13 +248,11 @@ def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, 
     return torch.cat(base_mean), torch.cat(genewise), coarse, coefs, torch.stack(overflow).sum()
 
 
-def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, N, P):
+def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, N, P, mesh=None):
     """The global reductions between the passes: the dispersion trend (one
-    ``trend`` launch) and the prior (``fused_stream.py:334-350``)."""
-    fitted, coeffs, used_mean, mean_disp = fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type)
-    fitted_m = torch.where(non_zero, fitted, torch.full_like(fitted, float("nan")))
-    squared_logres, prior_disp_var = dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P)
-    return fitted_m, coeffs, used_mean, mean_disp, squared_logres, prior_disp_var
+    ``trend`` launch) and the prior (``fused_stream.py:334-350``), over the
+    gathered gene axis with ``mesh``."""
+    return _trend_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, 20, N, P, mesh)
 
 
 def _shrunk_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, squared_logres, min_disp, max_disp):
@@ -235,7 +268,8 @@ def _shrunk_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, s
 
 def _analyse_pass(counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, genewise_m, fitted_m,
                   coarse, coefs, prior_disp_var, squared_logres, *, gene_block, cohort_ids, use_for_max,
-                  replaceable, min_mu, min_disp, max_disp, beta_tol, alt_hypothesis, mu_init, stats_layer):
+                  replaceable, min_mu, min_disp, max_disp, beta_tol, alt_hypothesis, mu_init, stats_layer,
+                  group=None):
     """Streamed pass 2: per block, MAP dispersions, IRLS with rescue, hat
     diagonals + Wald and the Cook's flags (``fused_stream.py:352-460``). The
     Cook's distances live only inside the ``cooks`` launch; with
@@ -252,7 +286,7 @@ def _analyse_pass(counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, gen
         dispersions = torch.where(nz, dispersions, nan)
         disp_safe = torch.nan_to_num(dispersions, nan=0.5)
         beta, converged, lfc_overflow = _irls_with_rescue(c, sf, X, disp_safe, irls_beta_init(c, sf, X),
-                                                          min_mu=min_mu, beta_tol=beta_tol)
+                                                          min_mu=min_mu, beta_tol=beta_tol, group=group)
         H, mu, pv, st, se = hat_wald(beta, disp_safe, sf, X, contrast, lfc_null, min_mu=min_mu,
                                      alt_hypothesis=alt_hypothesis)
         res = {
@@ -303,6 +337,8 @@ def summary_pipeline_streamed(
     stats_layer: bool = True,
     refit_mode: bool = False,
     sf_fit_type: str = "ratio",
+    mesh=None,
+    _block_ranks: int = 1,
 ) -> dict:
     """Counts -> padj with O(gene_block x N) temporaries, on the device of
     ``counts``.
@@ -320,6 +356,15 @@ def summary_pipeline_streamed(
     padj are left to the caller, which merges the refit first. Returns the
     dict of ``pydeseq2_tpu/fused_stream.py:188`` as tensors; no (G, N)
     result.
+
+    ``mesh`` (the JAX "pod" shape: gene-sharded over ranks and streamed
+    within each): every rank calls with its shard of the gene axis, every
+    shard the same size, and streams it in blocks of ``gene_block``; the
+    size factors, trend, prior and padj run over every rank's genes, and
+    per-gene outputs are the shard's; each block is its own IRLS tile.
+    (:func:`run_summary_streamed` passes ``_block_ranks`` > 1 where its
+    layout splits one tile over that many consecutive ranks, each shard one
+    block, whose rescue shares one lane quota.)
     """
     G, N = counts.shape
     X = design_matrix
@@ -332,30 +377,38 @@ def summary_pipeline_streamed(
         raise ValueError(f"pad G={G} to a multiple of gene_block={gene_block}")
     if refit_mode and replaceable is None:
         raise ValueError("refit_mode needs the replaceable mask")
+    group = None
+    if _block_ranks > 1:
+        R = mesh.size()
+        if G != gene_block or R % _block_ranks:
+            raise ValueError(f"_block_ranks={_block_ranks} needs a shard of one block and a mesh size ({R}) it "
+                             "divides")
+        first = mesh.get_local_rank() // _block_ranks * _block_ranks
+        group = LaneGroup(mesh, first, _block_ranks, gene_block * _block_ranks)
 
     logmeans, non_zero = _log_stats(counts, gene_mask, gene_block, sf_fit_type)
     if size_factors is not None:
         sf = size_factors
     elif sf_fit_type == "poscounts":
         usable = torch.isfinite(logmeans) & (logmeans > 0) & gene_mask
-        sf = _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block)
+        sf = _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block, mesh)
     else:
-        sf = _streamed_size_factors(counts, gene_mask, logmeans, sample_block)
+        sf = _streamed_size_factors(counts, gene_mask, logmeans, sample_block, mesh)
 
     base_mean, genewise, coarse, coefs, mu_overflow = _genewise_pass(
-        counts, sf, X, ols_pinv(X), gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init)
+        counts, sf, X, ols_pinv(X), gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init, group)
     genewise_m = torch.where(non_zero, genewise, torch.full_like(genewise, float("nan")))
     fitted_m, trend_coeffs, trend_used_mean, mean_disp, squared_logres, prior_disp_var = _trend_and_prior(
-        base_mean, genewise_m, non_zero, min_disp, trend_type, N, P)
+        base_mean, genewise_m, non_zero, min_disp, trend_type, N, P, mesh)
 
     flat, lfc_overflow = _analyse_pass(
         counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, genewise_m, fitted_m, coarse, coefs,
         prior_disp_var, squared_logres, gene_block=gene_block, cohort_ids=cohort_ids,
         use_for_max=tuple(bool(u) for u in use_for_max), replaceable=replaceable if refit_mode else None,
         min_mu=min_mu, min_disp=min_disp, max_disp=max_disp, beta_tol=beta_tol, alt_hypothesis=alt_hypothesis,
-        mu_init=mu_init, stats_layer=stats_layer)
+        mu_init=mu_init, stats_layer=stats_layer, group=group)
     out = {
-        "rescue_overflow": mu_overflow + lfc_overflow,
+        "rescue_overflow": all_reduce_sum((mu_overflow + lfc_overflow).reshape(1), mesh)[0],
         "size_factors": sf,
         "base_mean": base_mean,
         "genewise_dispersions": genewise_m,
@@ -372,7 +425,7 @@ def summary_pipeline_streamed(
         if cooks_filter:
             p = torch.where(out["cooks_outlier"], torch.full_like(p, float("nan")), p)
             out["p_values"] = p
-        out["padj"] = _padj_program(p, base_mean, gene_mask, alpha, independent_filter)
+        out["padj"] = _padj_program(p, base_mean, gene_mask, alpha, independent_filter, mesh)
     return out
 
 
@@ -463,9 +516,10 @@ def refit_pipeline_streamed(
     return out
 
 
-def _padj_program(p, base_mean, gene_mask, alpha, independent_filter):
-    """padj on the merged arrays (``fused_stream.py:661``), NaN off the mask."""
-    padj = device_padj(p, base_mean, gene_mask, alpha, independent_filter)
+def _padj_program(p, base_mean, gene_mask, alpha, independent_filter, mesh=None):
+    """padj on the merged arrays (``fused_stream.py:661``), NaN off the mask;
+    over the gathered gene axis with ``mesh``."""
+    padj = _padj(p, base_mean, gene_mask, alpha, independent_filter, mesh)
     return torch.where(gene_mask, padj, torch.full_like(padj, float("nan")))
 
 
@@ -486,6 +540,52 @@ def _gather_refit_tile(counts_dev, exceeds_packed, idx, refit_block):
     gather = torch.as_tensor(np.pad(idx, (0, K - n_rep)), device=dev)
     tile_mask = torch.arange(K, device=dev) < n_rep
     return counts_dev.index_select(0, gather), exceeds_packed.index_select(0, gather), tile_mask
+
+
+def _gather_refit_tile_mesh(counts_local, exceeds_local, idx, refit_block, mesh):
+    """:func:`_gather_refit_tile` over a gene mesh: the same tile, whole on
+    every rank. Each rank sends its local row 0 and its flagged genes' rows
+    and exceed words, padded to the largest count a rank holds (the counts
+    come from ``idx``, which every rank knows), in two collectives reached
+    on every rank; the pad rows are global row 0, rank 0's first slot."""
+    S = counts_local.shape[0]
+    R, r = mesh.size(), mesh.get_local_rank()
+    owner = idx // S
+    per_rank = np.bincount(owner, minlength=R)
+    width = 1 + int(per_rank.max())
+    mine = idx[owner == r] - r * S
+    take = torch.as_tensor(np.concatenate([[0], mine, np.zeros(width - 1 - len(mine), np.int64)]),
+                           dtype=torch.int64, device=counts_local.device)
+    rows = all_gather_rows(counts_local.index_select(0, take), mesh).reshape(R * width, -1)
+    words = all_gather_rows(exceeds_local.index_select(0, take), mesh).reshape(R * width, -1)
+    first = np.cumsum(per_rank) - per_rank  # each rank's first flagged gene in idx
+    pos = owner * width + 1 + (np.arange(len(idx)) - first[owner])
+    return _gather_refit_tile(rows, words, pos, refit_block)
+
+
+# The streamed summary's outputs that are the same on every rank of a mesh.
+_REPLICATED = frozenset(("rescue_overflow", "size_factors", "trend_coeffs", "trend_used_mean", "mean_disp",
+                         "squared_logres", "prior_disp_var"))
+
+
+def _stage_shard(counts, dtype, G: int, gene_block: int, mesh, dev):
+    """This rank's shard of the first G rows of whole ``counts`` (an array
+    or a tensor), zero-padded, on ``dev`` in ``dtype``, laid out by
+    :func:`_mesh_layout` for the unsharded block ``gene_block``: ``(shard,
+    local block, block_ranks)``."""
+    tdtype = dtype if isinstance(dtype, torch.dtype) else {np.dtype(np.float32): torch.float32,
+                                                           np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+    block, block_ranks, S = _mesh_layout(G, gene_block, mesh.size())
+    lo = S * mesh.get_local_rank()
+    hi = min(lo + S, G)
+    part = counts[lo:hi] if hi > lo else counts[:0]
+    if isinstance(part, torch.Tensor):
+        part = part.to(device=dev, dtype=tdtype)
+    else:
+        part = torch.tensor(np.asarray(part, _NP_DTYPE[tdtype]), device=dev)
+    if part.shape[0] < S:
+        part = torch.cat([part, part.new_zeros((S - part.shape[0], part.shape[1]))])
+    return part.contiguous(), block, block_ranks
 
 
 _REFIT_COLUMNS = ("base_mean", "genewise_dispersions", "fitted_dispersions", "MAP_dispersions", "dispersions",
@@ -515,19 +615,27 @@ def _merge_refit(res, rnp, idx, G):
     return refitted, new_all_zero
 
 
-def _apply_streamed_refit(res, out, counts_dev, X, contrast, lfc_null, host, knobs, G):
+def _apply_streamed_refit(res, out, counts_dev, X, contrast, lfc_null, host, knobs, G, mesh=None):
     """Gather the flagged genes, refit them, merge, mask, adjust
     (``pydeseq2_tpu/fused_stream.py:670``; reference dds.py:1042-1064 then
     ds.py:223-301). ``res`` is the host result of the main pass, ``out``
     its device tensors; refitted genes keep ``cooks_outlier_refit``, and
-    padj runs on the merged arrays over the G real genes."""
+    padj runs on the merged arrays over the G real genes. With ``mesh``,
+    ``res`` is whole and ``counts_dev`` and ``exceeds_packed`` the shard's:
+    the refit tile is gathered whole and every rank refits it and adjusts
+    the whole gene axis, with no collective past the gather (whose ``if``
+    reads ``res``, the same on every rank)."""
     # Host-evaluated: which genes to refit (the gather's index list).
     idx = np.where(res["replaced"])[0]
     refitted = np.zeros(G, dtype=bool)
     new_all_zero = np.zeros(G, dtype=bool)
     if len(idx) > 0:
         refit_block = _refit_block_size(X.shape[0])
-        tile, packed, tile_mask = _gather_refit_tile(counts_dev, out["exceeds_packed"], idx, refit_block)
+        if mesh is None:
+            tile, packed, tile_mask = _gather_refit_tile(counts_dev, out["exceeds_packed"], idx, refit_block)
+        else:
+            tile, packed, tile_mask = _gather_refit_tile_mesh(counts_dev, out["exceeds_packed"], idx, refit_block,
+                                                              mesh)
         r = refit_pipeline_streamed(
             tile, packed, tile_mask, out["size_factors"], X, contrast, lfc_null, out["trend_coeffs"],
             out["trend_used_mean"], out["mean_disp"], out["prior_disp_var"], out["squared_logres"],
@@ -565,7 +673,8 @@ def run_summary_streamed(
     refit_cooks: bool = False,
     min_replicates: int = 7,
     n_genes: int | None = None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
+    mesh=None,
     **knobs,
 ) -> dict:
     """Counts -> padj on ``device`` (default ``"cuda"``; raises if CUDA is
@@ -594,16 +703,37 @@ def run_summary_streamed(
     (:func:`~pydeseq2_tpu_torch.ops.sizefactors.iterative_size_factors` on
     the device-resident counts, its dispersion fits over gene blocks past 1
     GB of counts); their result is injected as ``size_factors``.
+
+    ``mesh`` (:func:`~pydeseq2_tpu_torch.parallel.mesh.make_gene_mesh`):
+    every rank calls with the same whole ``counts`` and arguments, moves
+    only its shard of the gene axis to its device (the mesh's; a ``device``
+    that disagrees raises), streams it (:func:`_mesh_layout`: each of the
+    unsharded run's gene blocks stays one IRLS tile), and returns the whole
+    result. The iterative size factors run whole on every rank, and so does
+    the refit of the gathered tile.
     """
-    dev = resolve_device(device)
-    counts, G, gene_block = _stage_counts(counts, dtype, n_genes, gene_block, dev)
-    padded_G, N = counts.shape
+    dev = resolve_mesh_device(device, mesh)
+    if mesh is None:
+        counts, G, gene_block = _stage_counts(counts, dtype, n_genes, gene_block, dev)
+        whole, block_ranks = counts, 1
+    else:
+        whole = counts
+        G = n_genes or counts.shape[0]
+        gene_block = gene_block or _auto_gene_block(G, counts.shape[1])
+        unsharded_block = gene_block
+        counts, gene_block, block_ranks = _stage_shard(counts, dtype, G, unsharded_block, mesh, dev)
+    N = counts.shape[1]
+    padded_G = counts.shape[0] * (1 if mesh is None else mesh.size())  # the whole padded gene axis
     np_dtype = _NP_DTYPE[counts.dtype]
     sf_req = knobs.get("sf_fit_type", "ratio")
     if knobs.get("size_factors") is None and sf_req in ("ratio", "iterative"):
-        # Host-evaluated: does any gene have no zero (median-of-ratios defined)?
-        ratio_undefined = sf_req == "ratio" and not bool((counts > 0).all(dim=1).any())
+        # Host-evaluated: does any gene have no zero (median-of-ratios
+        # defined)? Over every rank's genes: a collective every rank reaches.
+        n_defined = all_reduce_sum((counts > 0).all(dim=1).any().to(torch.int64).reshape(1), mesh)
+        ratio_undefined = sf_req == "ratio" and not bool(n_defined[0] > 0)
         if sf_req == "iterative" or ratio_undefined:
+            if mesh is not None:  # the iterative solve runs whole on every rank
+                whole, _, _ = _stage_counts(whole, dtype, G, unsharded_block, dev)
             if ratio_undefined:
                 warnings.warn(
                     "Every gene contains at least one zero, cannot compute log geometric means. Switching to "
@@ -614,14 +744,15 @@ def run_summary_streamed(
             # The iterative solver's own max_disp default is max(10, N),
             # not the pipeline's (fused_stream.py:871).
             knobs["size_factors"], _ = iterative_size_factors(
-                counts, torch.arange(padded_G, device=dev) < G, min_disp=knobs.get("min_disp", 1e-8),
+                whole, torch.arange(whole.shape[0], device=dev) < G, min_disp=knobs.get("min_disp", 1e-8),
                 max_disp=knobs.get("max_disp", float(max(10, N))), min_mu=knobs.get("min_mu", 0.5),
-                gene_block=pick_sf_gene_block(padded_G, N, counts.dtype), device=dev)
+                gene_block=pick_sf_gene_block(whole.shape[0], N, counts.dtype), device=dev)
             knobs["sf_fit_type"] = "ratio"  # unused once the factors are injected
     if isinstance(design_matrix, torch.Tensor):
         design_matrix = _host(design_matrix)
     host = summary_host_inputs(design_matrix, min_replicates)
-    gene_mask = torch.arange(padded_G, device=dev) < G
+    lo = 0 if mesh is None else counts.shape[0] * mesh.get_local_rank()
+    gene_mask = torch.arange(lo, lo + counts.shape[0], device=dev) < G
 
     knobs.setdefault("mu_init", host["mu_init"])
     if "sample_block" not in knobs and G * N * np.dtype(np_dtype).itemsize > 1_000_000_000:
@@ -648,18 +779,23 @@ def run_summary_streamed(
     contrast_t, lfc_null_t = on_dev(contrast), on_dev(lfc_null)
     out = summary_pipeline_streamed(
         counts, X, contrast_t, lfc_null_t, on_dev(host["cooks_cutoff"]), gene_mask, gene_block=gene_block,
-        cohort_ids=host["cohort_ids"], use_for_max=host["use_for_max"], **knobs)
+        cohort_ids=host["cohort_ids"], use_for_max=host["use_for_max"], mesh=mesh, _block_ranks=block_ranks,
+        **knobs)
     # exceeds_packed stays on the device for the refit gather; the rest
-    # comes to the host in one copy.
-    res = _to_host({k: v for k, v in out.items() if k != "exceeds_packed"})
+    # comes to the host in one copy (with a mesh, after one gather of the
+    # per-gene outputs).
+    keep = {k: v for k, v in out.items() if k != "exceeds_packed"}
+    if mesh is not None:
+        keep.update(gather_gene_dict({k: v for k, v in keep.items() if k not in _REPLICATED}, mesh))
+    res = _to_host(keep)
     res = {k: v[:G] if k != "size_factors" and v.ndim >= 1 and v.shape[0] == padded_G else v
            for k, v in res.items()}
     if refit_active:
-        res = _apply_streamed_refit(res, out, counts, X, contrast_t, lfc_null_t, host, knobs, G)
+        res = _apply_streamed_refit(res, out, counts, X, contrast_t, lfc_null_t, host, knobs, G, mesh)
     elif refit_cooks:
         for k in ("replaced", "refitted", "new_all_zeroes"):
             res[k] = np.zeros(G, dtype=bool)
-    res["gene_block"] = gene_block
+    res["gene_block"] = gene_block if mesh is None else unsharded_block
     if int(res.get("rescue_overflow", 0)) > 0:
         warnings.warn(
             f"{int(res['rescue_overflow'])} IRLS lanes still unconverged after the full 250-trip budget "

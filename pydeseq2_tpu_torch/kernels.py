@@ -36,6 +36,8 @@ HEADERS = ("common.cuh", "trimmed.cuh")
 # kernel name -> (source file, exported C function)
 KERNELS = {
     "select": ("select.cu", "order_stats_select_launch"),
+    # one radix pass of a select whose keys lie on several ranks (the sharded size-factor median)
+    "select_hist": ("select.cu", "select_hist_launch"),
     "disp_scan": ("disp_scan.cu", "disp_scan_launch"),
     "disp_scan_fine": ("disp_scan.cu", "disp_scan_fine_launch"),
     # the fine scan's gene order, grouped by centre
@@ -96,6 +98,7 @@ _L = ctypes.c_longlong
 # (see the extern "C" launchers in csrc/*.cu).
 _ARGTYPES = {
     "order_stats_select_launch": [_I, _P, _I, _I, _L, _L, _P, _P, _P, _P, _I, _I, _I],
+    "select_hist_launch": [_I, _P, _I, _I, _L, _L, _P, _I, _I, _I, _P],
     "disp_scan_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
                          _P, _P, _I, _P, _P, _P, _P],
     "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _P, _I, _I,

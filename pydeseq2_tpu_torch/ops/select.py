@@ -242,3 +242,147 @@ def masked_median_select(
     v_lo, v_hi = order_stats_select(values, (k_lo, k_hi), axis=axis)
     med = (v_lo + v_hi) / 2.0
     return torch.where(n_valid > 0, med, torch.full_like(med, float("nan")))
+
+
+# ------------------------------------------------------ the sharded median
+# A radix select whose keys are spread over the ranks of a gene mesh: each
+# pass histograms the next 8-bit digit of the local keys that match the
+# prefix resolved so far (the ``select_hist`` kernel, ``csrc/select.cu``),
+# the ranks add their integer histograms (an all-reduce), and every rank
+# picks the same digit from the same totals. The keys are the unsigned
+# ones of the kernels (a float's bits, the sign bit set on non-negatives,
+# every bit flipped on negatives), digits MSB first.
+_HIST_COLS = 16  # columns a select_hist block (csrc/select.cu)
+_HIST_MIN_ROWS = 256  # rows a block, at least
+
+
+def _passes(dtype: torch.dtype) -> int:
+    return 4 if dtype == torch.float32 else 8
+
+
+def _unsigned_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernels' unsigned keys as int64 bit patterns (float64: the
+    pattern of the 64-bit key; float32: the 32-bit key, zero-extended)."""
+    if x.dtype == torch.float32:
+        u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        return torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    if x.dtype == torch.float64:
+        i = x.contiguous().view(torch.int64)
+        return torch.where(i < 0, ~i, i ^ torch.iinfo(torch.int64).min)
+    raise TypeError(f"unsupported dtype {x.dtype}")
+
+
+def _prefix_of(digits: torch.Tensor, pass_: int) -> torch.Tensor:
+    """(C, 2) int64: the value of the first ``pass_`` digits (MSB first)."""
+    p = torch.zeros(digits.shape[:2], dtype=torch.int64, device=digits.device)
+    for j in range(pass_):
+        p = (p << 8) | digits[..., j].to(torch.int64)
+    return p
+
+
+def select_hist_plain(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0) -> torch.Tensor:
+    """Plain version of ``select_hist``: (C, 2, 256) int32 counts of pass
+    ``pass_``'s digit of the keys along ``axis`` that match each (column,
+    rank)'s prefix, a ``torch.bincount`` of the masked digits."""
+    keys = _unsigned_key(x).movedim(axis, -1)
+    keys = keys.reshape(-1, keys.shape[-1])  # (C, L)
+    C = keys.shape[0]
+    bits = 32 if x.dtype == torch.float32 else 64
+    shift = bits - 8 * (pass_ + 1)
+    digit = (keys >> shift) & 0xFF
+    if pass_:
+        top = (keys >> (bits - 8 * pass_)) & ((1 << (8 * pass_)) - 1)
+        match = top[:, None, :] == _prefix_of(digits, pass_)[:, :, None]  # (C, 2, L)
+    else:
+        match = torch.ones((C, 2, keys.shape[1]), dtype=torch.bool, device=x.device)
+    bins = (torch.arange(C * 2, device=x.device).reshape(C, 2, 1) * 256 + digit[:, None, :])[match]
+    return torch.bincount(bins, minlength=C * 2 * 256).reshape(C, 2, 256).to(torch.int32)
+
+
+def _hist_rows(C: int, L: int, sms: int = 132) -> int:
+    """Rows a ``select_hist`` block: split each 16-column group's rows so
+    that the blocks cover the SMs four times, a block keeping at least 256
+    rows."""
+    groups = -(-C // _HIST_COLS)
+    splits = max(1, min(-(-L // _HIST_MIN_ROWS), -(-4 * sms // groups)))
+    return -(-L // splits)
+
+
+def _select_hist_cuda(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0) -> torch.Tensor:
+    """Launch ``select_hist`` on ``x`` where it lies (its strides; a view of
+    a 2-D ``x``)."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"select_hist: unsupported dtype {x.dtype}")
+    cols = x.movedim(axis, -1)
+    cols = cols.reshape(-1, cols.shape[-1])
+    C, L = cols.shape
+    s_col, s_row = cols.stride()
+    npass = _passes(x.dtype)
+    if digits.shape != (C, 2, npass) or digits.dtype != torch.uint8:
+        raise ValueError(f"select_hist: digits must be ({C}, 2, {npass}) uint8")
+    digits = digits.contiguous()
+    out = torch.zeros((C, 2, 256), dtype=torch.int32, device=x.device)
+    kernels.check_cuda_device("select_hist", cols, digits)
+    kernels.launch(
+        "select_hist",
+        [int(x.dtype == torch.float64), cols.data_ptr(), C, L, s_col, s_row, digits.data_ptr(), npass, pass_,
+         _hist_rows(C, L, kernels.sm_count(x.device)), out.data_ptr()],
+        x.device,
+    )
+    return out
+
+
+def select_hist(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0) -> torch.Tensor:
+    """One radix pass over the local keys of ``x`` along ``axis``: (C, 2,
+    256) int32 counts of digit ``pass_`` (MSB first) of the keys matching
+    each (column, rank)'s prefix, given by the first ``pass_`` of
+    ``digits`` (C, 2, passes) uint8. CUDA tensors launch the ``select_hist``
+    kernel; CPU tensors take the plain version."""
+    if x.is_cuda:
+        return _select_hist_cuda(x, digits, pass_, axis)
+    return select_hist_plain(x, digits, pass_, axis)
+
+
+def _decode(digits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The floats whose keys are ``digits`` (..., passes), MSB first."""
+    word = torch.int32 if dtype == torch.float32 else torch.int64
+    k = digits.flip(-1).contiguous().view(word).squeeze(-1)  # little-endian bytes
+    top = torch.iinfo(word).min
+    return torch.where(k < 0, k ^ top, ~k).view(dtype)
+
+
+def radix_pick(hist: torch.Tensor, rank: torch.Tensor, digits: torch.Tensor, pass_: int) -> torch.Tensor:
+    """Resolve pass ``pass_``'s digit of each (column, rank) from the
+    totals ``hist`` (C, 2, 256) into ``digits``; returns the ranks within
+    the chosen bins. The digit is the first bin whose running count passes
+    the rank (a rank past the count: the last digit)."""
+    cum = hist.to(torch.int64).cumsum(-1)
+    d = torch.clamp((cum <= rank[..., None]).sum(-1), max=255)
+    before = torch.where(d > 0, cum.gather(-1, (d - 1).clamp(min=0)[..., None]).squeeze(-1), 0)
+    digits[..., pass_] = d.to(torch.uint8)
+    return rank - before
+
+
+def sharded_masked_median(values: torch.Tensor, n_valid: torch.Tensor, mesh=None, axis: int = 0) -> torch.Tensor:
+    """:func:`masked_median_select` over a reduced axis split over the ranks
+    of ``mesh``: each rank holds its rows of ``values`` (+inf at excluded
+    entries), and ``n_valid`` is the per-column count of valid entries over
+    every rank. Each of the 4 (float32) or 8 (float64) radix passes is one
+    ``select_hist`` launch and an all-reduce of its (C, 2, 256) int32
+    counts; the decoded keys are the elements a sort of the whole axis puts
+    at the two middle ranks, so the median is bit for bit the unsharded
+    one. ``mesh=None`` runs the passes on one rank."""
+    from pydeseq2_tpu_torch.parallel.mesh import all_reduce_sum
+
+    dev = values.device
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+    red_shape = values.movedim(axis, -1).shape[:-1]
+    n = n_valid.expand(red_shape).reshape(-1)
+    rank = torch.stack([torch.clamp((n - 1) // 2, min=0), n // 2], dim=-1)  # (C, 2)
+    npass = _passes(values.dtype)
+    digits = torch.zeros(rank.shape + (npass,), dtype=torch.uint8, device=dev)
+    for p in range(npass):
+        rank = radix_pick(all_reduce_sum(select_hist(values, digits, p, axis), mesh), rank, digits, p)
+    v = _decode(digits, values.dtype)  # (C, 2)
+    med = ((v[:, 0] + v[:, 1]) / 2.0).reshape(red_shape)
+    return torch.where(n_valid > 0, med, torch.full_like(med, float("nan")))

@@ -70,8 +70,8 @@ STREAM_STAGES = {
 }
 STREAM_SUBSTAGES = {
     "fused_stream": ("mom_and_mu_coef", "alpha_mle_batch", "_irls_with_rescue", "hat_wald", "cooks_outliers",
-                     "impute_outliers", "fit_fused_trend", "dispersion_prior", "device_padj"),
-    "fused": ("parametric_trend", "lowess_pick"),
+                     "impute_outliers"),
+    "fused": ("fit_fused_trend", "dispersion_prior", "device_padj", "parametric_trend", "lowess_pick"),
 }
 
 

@@ -32,6 +32,14 @@ Routes, each a kernel on CUDA tensors (plain PyTorch on the CPU):
 - ``dispersion_trend_gamma_glm``: ``trend_fit``;
 - ``lfc_shrink_nbinom_glm``: ``shrink``, and ``grid_apeglm`` at P == 2 on
   the lanes Newton leaves unconverged.
+
+With ``mesh`` (``JaxInference(mesh=)``'s counterpart) every rank runs the
+same calls on the same whole arrays; each gene batch is split over the
+ranks, each rank runs the per-gene methods on its share, and the shares are
+gathered, so every method returns the whole arrays and the dataset classes
+need no change. The IRLS rescue of a batch takes one lane quota over the
+ranks (``fused._irls_with_rescue``'s ``group``). The trend fit runs whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -42,7 +50,6 @@ from typing import Literal
 import numpy as np
 import torch
 
-from pydeseq2_tpu_torch.convert import resolve_device
 from pydeseq2_tpu_torch.fused import _irls_with_rescue
 from pydeseq2_tpu_torch.inference import Inference
 from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
@@ -52,6 +59,12 @@ from pydeseq2_tpu_torch.ops.shrink import _hess, grid_fit_shrink_beta_batch, nbi
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv
 from pydeseq2_tpu_torch.ops.trend import gamma_glm_trend_fit
 from pydeseq2_tpu_torch.ops.wald import wald_test_batch
+from pydeseq2_tpu_torch.parallel.mesh import (
+    LaneGroup,
+    all_reduce_sum,
+    gather_gene_dict,
+    resolve_mesh_device,
+)
 
 # The IRLS trip budget (reference pydeseq2/utils.py:273, maxiter=250).
 IRLS_MAXITER = 250
@@ -80,15 +93,22 @@ class TorchInference(Inference):
         Genes per batch. ``None`` sizes batches so that ~20 live (batch, N)
         temporaries fit a ~4 GB budget, as the gene-streamed pipelines do:
         the whole gene axis up to ~1000 samples.
+    mesh : torch.distributed.device_mesh.DeviceMesh, optional
+        A 1-D gene mesh (:func:`~pydeseq2_tpu_torch.parallel.mesh.make_gene_mesh`):
+        each batch's genes are split over its ranks and the results
+        gathered. The device is the mesh's; a ``device`` that disagrees
+        raises. Batches are kept a multiple of the mesh size.
     """
 
     _BUDGET_BYTES = 4_000_000_000
     _LIVE_BUFFERS = 20
 
-    def __init__(self, dtype=torch.float64, device: str | torch.device = "cuda", gene_batch_size: int | None = None):
+    def __init__(self, dtype=torch.float64, device: str | torch.device | None = None,
+                 gene_batch_size: int | None = None, mesh=None):
         self.dtype = as_torch_dtype(dtype)
-        self.device = resolve_device(device)
+        self.device = resolve_mesh_device(device, mesh)
         self.gene_batch_size = gene_batch_size
+        self.mesh = mesh
 
     # ------------------------------------------------------------------ utils
     def _t(self, a, contiguous: bool = True) -> torch.Tensor:
@@ -105,17 +125,39 @@ class TorchInference(Inference):
 
     def _batch(self, G: int, N: int) -> int:
         if self.gene_batch_size is not None:
-            return self.gene_batch_size
-        itemsize = torch.finfo(self.dtype).bits // 8
-        raw = int(max(1024, min(G, self._BUDGET_BYTES // (self._LIVE_BUFFERS * N * itemsize))))
-        n_blocks = -(-G // raw)
-        return ((-(-G // n_blocks) + 7) // 8) * 8
+            bs = self.gene_batch_size
+        else:
+            itemsize = torch.finfo(self.dtype).bits // 8
+            raw = int(max(1024, min(G, self._BUDGET_BYTES // (self._LIVE_BUFFERS * N * itemsize))))
+            n_blocks = -(-G // raw)
+            bs = ((-(-G // n_blocks) + 7) // 8) * 8
+        if self.mesh is not None:
+            # a multiple of the mesh, so that the shares stay equal (JAX :122-125)
+            R = self.mesh.size()
+            bs = max(R, bs // R * R)
+        return bs
 
     def _over_batches(self, G: int, N: int, fn):
-        """Run ``fn(slice)`` over gene batches and join its outputs (a tuple
-        of tensors, each with genes first) along the gene axis."""
+        """Run ``fn(rows, group)`` over gene batches and join its outputs (a
+        tuple of tensors, each with genes first) along the gene axis.
+        ``rows`` is the batch's slice, ``group`` None; with a mesh, ``rows``
+        indexes this rank's equal share of the batch (its last genes
+        repeated where the batch does not split evenly) and ``group`` is
+        the batch's :class:`~pydeseq2_tpu_torch.parallel.mesh.LaneGroup`,
+        and the shares are gathered (one collective a batch)."""
         bs = self._batch(G, N)
-        outs = [fn(slice(b, b + bs)) for b in range(0, G, bs)]
+        if self.mesh is None:
+            outs = [fn(slice(b, b + bs), None) for b in range(0, G, bs)]
+        else:
+            R, r = self.mesh.size(), self.mesh.get_local_rank()
+            outs = []
+            for b in range(0, G, bs):
+                n = min(bs, G - b)
+                q = -(-n // R)
+                rows = torch.clamp(torch.arange(b + r * q, b + (r + 1) * q, device=self.device), max=b + n - 1)
+                local = fn(rows, LaneGroup(self.mesh, 0, R, n))
+                whole = gather_gene_dict(dict(enumerate(local)), self.mesh, n=n)
+                outs.append(tuple(whole[i] for i in range(len(local))))
         if len(outs) == 1:
             return outs[0]
         return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -127,7 +169,7 @@ class TorchInference(Inference):
         sf, X = self._t(size_factors), self._t(design_matrix)
         pinv = ols_pinv(X)
         G, N = cnt.shape
-        (mu,) = self._over_batches(G, N, lambda sl: (mom_and_mu_coef(cnt[sl], sf, X, pinv, min_mu)[3],))
+        (mu,) = self._over_batches(G, N, lambda sl, _: (mom_and_mu_coef(cnt[sl], sf, X, pinv, min_mu)[3],))
         return mu.T
 
     def fit_rough_dispersions(self, normed_counts, design_matrix):
@@ -145,7 +187,7 @@ class TorchInference(Inference):
         pinv = ols_pinv(X)
         G, N = nc.shape
         (rough,) = self._over_batches(
-            G, N, lambda sl: (mom_and_mu_coef(nc[sl], ones, X, pinv, want_mu=False, normed=True)[0],))
+            G, N, lambda sl, _: (mom_and_mu_coef(nc[sl], ones, X, pinv, want_mu=False, normed=True)[0],))
         return rough
 
     def fit_moments_dispersions(self, normed_counts, size_factors):
@@ -156,7 +198,7 @@ class TorchInference(Inference):
         X = torch.ones((N, 1), dtype=self.dtype, device=self.device)
         pinv = ols_pinv(X)
         (moments,) = self._over_batches(
-            G, N, lambda sl: (mom_and_mu_coef(nc[sl], sf, X, pinv, want_mu=False, normed=True)[1],))
+            G, N, lambda sl, _: (mom_and_mu_coef(nc[sl], sf, X, pinv, want_mu=False, normed=True)[1],))
         return moments
 
     def irls(
@@ -191,16 +233,16 @@ class TorchInference(Inference):
         G, N = cnt.shape
         overflow = []
 
-        def run(sl):
+        def run(sl, group):
             beta_init = irls_beta_init(cnt[sl], sf, X, full_rank=full_rank)
             beta, conv, over = _irls_with_rescue(cnt[sl], sf, X, d[sl], beta_init, min_mu, beta_tol,
-                                                 phase1_iters=IRLS_MAXITER)
+                                                 phase1_iters=IRLS_MAXITER, group=group)
             overflow.append(over)
             H, mu = hat_diagonals(None, sf, X, d[sl], beta, min_mu=min_mu)
             return beta, mu, H, conv
 
         beta, mu, H, conv = self._over_batches(G, N, run)
-        n_over = int(sum(overflow))
+        n_over = int(all_reduce_sum(torch.stack(overflow).sum().reshape(1), self.mesh)[0])
         if n_over:
             warnings.warn(
                 f"{n_over} IRLS lanes exceeded the rescue tile after the full 250-trip budget and kept their "
@@ -230,7 +272,7 @@ class TorchInference(Inference):
         cnt, mu_g = self._gene_major(counts), self._gene_major(mu)
         X, ah = self._t(design_matrix), self._t(alpha_hat)
         G, N = cnt.shape
-        return self._over_batches(G, N, lambda sl: alpha_mle_batch(
+        return self._over_batches(G, N, lambda sl, _: alpha_mle_batch(
             cnt[sl], X, mu_g[sl], ah[sl], float(min_disp), float(max_disp), prior_disp_var=prior_disp_var,
             cr_reg=cr_reg, prior_reg=prior_reg))
 
@@ -243,7 +285,7 @@ class TorchInference(Inference):
         X, d, lfc_t = self._t(design_matrix), self._t(disp), self._t(lfc)
         ridge, cvec = self._t(ridge_factor), self._t(contrast)
         G, N = mu_g.shape
-        return self._over_batches(G, N, lambda sl: wald_test_batch(
+        return self._over_batches(G, N, lambda sl, _: wald_test_batch(
             X, d[sl], lfc_t[sl], mu_g[sl], ridge, cvec, float(lfc_null), alt_hypothesis))
 
     def dispersion_trend_gamma_glm(self, covariates, targets):
@@ -276,7 +318,7 @@ class TorchInference(Inference):
         G, N = cnt.shape
         P = X.shape[1]
 
-        def run(sl):
+        def run(sl, _):
             c, s = cnt[sl], sz[sl]
             beta, ih, conv = nbinom_glm_batch(X, c, s, off, pns, ps, shrink_index=si)
             if P == 2:

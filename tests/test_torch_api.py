@@ -250,8 +250,8 @@ def test_validation_errors(data):
         pt.run_deseq2(counts, metadata, contrast=CONTRAST, size_factors_fit_type="median", device="cpu")
 
 
-def test_mesh_raises(data):
-    with pytest.raises(NotImplementedError, match="item 17"):
+def test_mesh_must_be_a_device_mesh(data):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pt.run_deseq2(*data, contrast=CONTRAST, mesh=object(), device="cpu")
 
 

@@ -40,7 +40,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import pydeseq2_tpu_torch.formula, pydeseq2_tpu_torch.preprocessing, pydeseq2_tpu_torch.inference; "
         "import pydeseq2_tpu_torch.torch_inference, pydeseq2_tpu_torch.default_inference; "
         "import pydeseq2_tpu_torch.models.dataset, pydeseq2_tpu_torch.models.stats; "
-        "import pydeseq2_tpu_torch.api, pydeseq2_tpu_torch.io; "
+        "import pydeseq2_tpu_torch.api, pydeseq2_tpu_torch.io, pydeseq2_tpu_torch.parallel.mesh; "
         f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]; "
         "print(sorted(bad)); sys.exit(1 if bad else 0)"
     )
@@ -156,12 +156,12 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Twenty-seven kernels (the class API's trend_fit, trimmed_var and the
+    """Twenty-eight kernels (the class API's trend_fit, trimmed_var and the
     hat-only and Wald-only entries of hat_wald.cu, dnb_nll and the fine
     scan's disp_scan_fine with its gene grouping disp_scan_group beside the
-    pipelines' nineteen, sf_nll's lgamma table; BH as two, the rejection
-    counts and one adjusted row), each with a launch count that starts at
-    0."""
+    pipelines' nineteen, sf_nll's lgamma table, the gene mesh's select_hist;
+    BH as two, the rejection counts and one adjusted row), each with a
+    launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 27
+    assert len(kernels.KERNELS) == 28
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)
