@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the twenty-eight hand-written kernels from ``pydeseq2_tpu_torch/csrc``
+Builds the twenty-nine hand-written kernels from ``pydeseq2_tpu_torch/csrc``
 with ``nvcc`` for sm_90a (one process per source, in parallel), then:
 
 1. prints the card (name and power limit, as nvidia-smi reports them) and
@@ -79,10 +79,16 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    staged and streamed, columns on each side of the staged/streamed
    threshold, a column with no valid value, one of 777), each launched
    twice and both launches bit for bit the sorted element; ``select_hist``
-   (``select_hist_checks``: every radix pass of the gene mesh's median on
-   the size-factor tile 100 x 60000 and at 8000 samples, both types, each
-   launched twice and bit for bit its plain version, and the one-rank radix
-   median bit for bit the ``select`` kernel's); ``irls`` with
+   and ``select_pick`` (``select_hist_checks``: every radix pass of the
+   gene mesh's median in every path, a warp a column over staged chunks
+   and the sparse passes' keys tested where they were loaded, by 16-byte
+   and by scalar loads, a last group of fewer than 16 columns, a
+   column view read in place, blocks whose rows do not divide L, on the
+   size-factor tile 100 x 60000, a four-rank shard of
+   it, 8000 samples, 101 samples and single columns, both types, each
+   launched twice and bit for bit its plain version; every pick launch
+   bit for bit ``radix_pick``, twice; the one-rank radix median bit for
+   bit the ``select`` kernel's); ``irls`` with
    the deviance constant it computes itself at P = 2, 3, 5 at 12, 100,
    1000 and 10000 samples in both types, phase 1 and the phase-2 tile it
    leaves (``irls_plan_checks``), each launched twice, held to the stated
@@ -179,7 +185,8 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    ``make_gene_mesh``), every column and the refitted genes bit for bit
    the ``mesh=None`` call's, the launches of one call those of
    ``mesh=None`` but for the size-factor median's ``select``, which
-   becomes 4 ``select_hist`` passes; warm walls of both, one profiled call's
+   becomes 4 ``select_hist`` passes and their ``select_pick`` launches;
+   warm walls of both, one profiled call's
    collectives; then two ranks on the one card over gloo (two processes of
    this script, ``--mesh-rank``), every column within rtol 1e-6 of
    ``mesh=None`` and bit for bit but for the genes it names;
@@ -3157,69 +3164,149 @@ def select_plan_checks() -> dict:
 
 
 def select_hist_checks(timings: dict) -> dict:
-    """Phase 2, ``select_hist`` (one radix pass of the gene mesh's sharded
-    size-factor median): every pass of the median on the size-factor tile
-    100 x 60000 and on 8000 samples x 6000 genes, float32 and float64, the
-    digits the passes before resolved, each launched twice, bit for bit
-    ``select_hist_plain`` (a ``torch.bincount`` of the masked digits); then
-    ``sharded_masked_median`` on one rank (its passes and the digit picks,
-    no all-reduce) bit for bit the ``select`` kernel's median
-    (``masked_median_select``) on the whole tile. Times at 100 x 60000
-    float32: each pass, the plain version and ``torch.bincount`` of pass
-    0's masked bins. Returns {"select_hist": max_abs_err}."""
+    """Phase 2, ``select_hist`` and ``select_pick`` (the radix passes of the
+    gene mesh's sharded size-factor median and their digit picks) in every
+    path of ``csrc/select.cu``: the size-factor tile 100 x 60000 (a warp a
+    column over staged chunks in passes 0-1, each thread on the keys it
+    loaded in the sparse later passes; 16-byte loads in the six full
+    16-column groups, the last group of 4 columns by scalar loads) and one
+    four-rank shard of it (15000 genes) in both types, blocks of 777 rows
+    (L no multiple of it, nor of a chunk) on the tile,
+    8000 samples x 6000 genes in both types, 101 samples (rows of 101
+    values: scalar staging everywhere), the tile's transpose reduced over
+    axis 1 (a column view, read in place) in both types, one column of
+    60000 and one of 777 with nothing valid. Every pass with the digits the
+    passes before resolved, each launched twice, bit for bit
+    ``select_hist_plain``; on each case's first plan the pick launch of
+    every pass bit for bit ``radix_pick`` (digits and ranks), twice, and
+    the last pass's median bit for bit ``masked_median_select``; then
+    ``sharded_masked_median`` on one rank under each plan, bit for bit
+    ``masked_median_select``. Times at 100 x
+    60000 float32: each pass, the pick, the plain versions, ``torch.bincount``
+    of pass 0's masked bins, the whole one-rank median (device and host
+    clock). Returns {"select_hist": max_abs_err, "select_pick": ...}."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.kernel_bench import wall_ms
     from pydeseq2_tpu_torch.ops import select as sel
 
-    err = 0
+    def same_bits(a, b):
+        return torch.equal(sel._monotone_key(a), sel._monotone_key(b))
+
+    err = pick_err = 0
+    cases = []
     for dtype in (torch.float32, torch.float64):
+        cases += [("tile", N_MAIN, G_MAIN, dtype, "tile"), ("shard", N_MAIN, G_MAIN // 4, dtype, "tile"),
+                  ("wide", N_HIST_WIDE, G_HIST_WIDE, dtype, "tile"), ("column view", N_MAIN, G_MAIN, dtype, "view")]
+    cases += [("unaligned rows", N_MAIN + 1, G_MAIN, torch.float32, "tile"),
+              ("one column", 1, G_MAIN, torch.float32, "column"), ("nothing valid", 1, 777, torch.float32, "empty")]
+    for label, C, L, dtype, kind in cases:
         name = "f32" if dtype == torch.float32 else "f64"
         npass = sel._passes(dtype)
-        for C, L in ((N_MAIN, G_MAIN), (N_HIST_WIDE, G_HIST_WIDE)):
-            x, (k_lo, k_hi) = select_case("tile", C, L, dtype, 50)
-            n = torch.isfinite(x[:, 0]).sum()
-            rank = torch.stack([k_lo.expand(C), k_hi.expand(C)], dim=-1).to(torch.int64)
+        x, _ = select_case("tile" if kind == "view" else kind, C, L, dtype, 50)
+        axis = 0
+        if kind == "view":
+            x, axis = x.T.contiguous(), 1  # (C, L): a column's values adjacent, read in place
+        n = torch.isfinite(x).sum(axis)  # (C,) valid counts
+        cols = sel._columns(x, axis)
+        plan = sel._hist_device_plan(cols)
+        plans = [("", plan)]
+        if label == "tile":
+            plans.append((" rows 777", plan._replace(rows=777)))
+        want_med = sel.masked_median_select(x, n, axis=axis)
+        for tag, pl in plans:
             digits = torch.zeros((C, 2, npass), dtype=torch.uint8, device=x.device)
-            at_pass = []
+            rank = sel._mid_ranks(n)
+            r_cur, at_pass = torch.zeros((C, 2), dtype=torch.int32, device=x.device), []
             for p in range(npass):
-                got = sel._select_hist_cuda(x, digits, p)
-                again = sel._select_hist_cuda(x, digits, p)
-                want = sel.select_hist_plain(x, digits, p)
-                check(torch.equal(got, want), f"select_hist {name} {C} x {L} pass {p}: differs from the plain counts")
-                check(torch.equal(got, again), f"select_hist {name} {C} x {L} pass {p}: a second launch differs")
-                check(int(got[0, 0].sum()) > 0, f"select_hist {name} {C} x {L} pass {p}: no key matched")
+                what = f"select_hist {label} {name} {C} x {L}{tag} pass {p}"
+                got = sel._select_hist_cuda(x, digits, p, axis, pl)
+                again = sel._select_hist_cuda(x, digits, p, axis, pl)
+                want = sel.select_hist_plain(x, digits, p, axis)
+                check(torch.equal(got, want), f"{what}: differs from the plain counts")
+                check(torch.equal(got, again), f"{what}: a second launch differs")
+                check(int(got[0, 0].sum()) > 0, f"{what}: no key matched")
                 err = max(err, int((got - want).abs().max()))
                 at_pass.append(digits.clone())
+                if tag == "":
+                    outs = []
+                    for _ in range(2):
+                        d_k, r_out = digits.clone(), r_cur.clone()
+                        med = torch.empty(C, dtype=dtype, device=x.device) if p == npass - 1 else None
+                        sel._select_pick_cuda(got, n, r_out, d_k, p, med)
+                        outs.append((d_k, r_out, med))
                 rank = sel.radix_pick(got, rank, digits, p)
-            med = sel.sharded_masked_median(x, n)
-            want = sel.masked_median_select(x, n)
-            check(torch.equal(sel._monotone_key(med), sel._monotone_key(want)),
-                  f"select_hist {name} {C} x {L}: the radix median is not the select kernel's")
-            log(f"  select_hist {name} {C} x {L}: {npass} passes bit for bit the plain counts, twice; the one-rank "
-                "radix median bit for bit the select kernel's")
-            if dtype == torch.float32 and C == N_MAIN:
-                keys = sel._unsigned_key(x).T  # (C, L)
-                bins = (torch.arange(C * 2, device=x.device).reshape(C, 2, 1) * 256 + (keys >> 24)[:, None, :])
-                bins = bins.expand(C, 2, L).reshape(-1)
-                per_pass = [cuda_ms(lambda p=p: sel._select_hist_cuda(x, at_pass[p], p), 20) for p in range(npass)]
-                timings["select_hist"] = {
-                    "ms": per_pass[0],
-                    "ms_per_pass": per_pass,
-                    "passes": npass,
-                    "plain_ms": cuda_ms(lambda: sel.select_hist_plain(x, at_pass[0], 0), 20),
-                    # one torch.bincount of pass 0's bins (every key matches at pass 0)
-                    "library_ms": cuda_ms(lambda: torch.bincount(bins, minlength=C * 2 * 256), 20),
-                    # one pass: each key read once, the counts written once, the digits read
-                    "bytes": x.numel() * x.element_size() + C * 2 * 256 * 4 + C * 2 * npass,
-                    # ~12 warp instructions a key (load, key map, prefix tests,
-                    # digit, match and count: an estimate from the source) at
-                    # the instruction issue rate
-                    "ops": 12 * C * L,
-                    "ops_per_s": INSTR_PER_S,
-                    "plan_rows": sel._hist_rows(C, L, torch.cuda.get_device_properties(x.device).multi_processor_count),
-                }
-                log(f"  select_hist f32 {C} x {L}: {[round(t, 4) for t in per_pass]} ms a pass, plain "
-                    f"{timings['select_hist']['plain_ms']:.4f} ms, torch.bincount {timings['select_hist']['library_ms']:.4f} ms")
-            del x
-    return {"select_hist": float(err)}
+                if tag == "":
+                    for d_k, r_out, med in outs:
+                        check(torch.equal(d_k, digits) and torch.equal(r_out.to(torch.int64), rank),
+                              f"select_pick {label} {name} {C} x {L} pass {p}: not radix_pick's digits and ranks")
+                        pick_err = max(pick_err, int((r_out.to(torch.int64) - rank).abs().max()))
+                        if med is not None:
+                            check(same_bits(med, want_med.reshape(-1)),
+                                  f"select_pick {label} {name} {C} x {L}: the last pick's median is not the select "
+                                  "kernel's")
+                    r_cur = outs[0][1]
+            v = sel._decode(digits, dtype)
+            med = torch.where(n > 0, (v[:, 0] + v[:, 1]) / 2.0, torch.full_like(v[:, 0], math.nan))
+            check(same_bits(med, want_med.reshape(-1)),
+                  f"select_hist {label} {name} {C} x {L}{tag}: the radix median is not the select kernel's")
+            if label == "tile" and dtype == torch.float32 and tag == "":
+                hist_at_pass, hist_plan = at_pass, pl
+        for tag, pl in plans:
+            med = sel.sharded_masked_median(x, n, axis=axis, plan=pl)
+            check(same_bits(med, want_med), f"select_hist {label} {name} {C} x {L}{tag}: the one-rank median is "
+                  "not the select kernel's")
+        log(f"  select_hist {label} {name} {C} x {L}: plan {plan._asdict()}, {len(plans)} plan(s) x {npass} passes "
+            "bit for bit the plain counts, twice; the picks radix_pick's, twice; the one-rank median bit for bit the "
+            "select kernel's")
+        if label == "tile" and dtype == torch.float32:
+            keys = sel._unsigned_key(x).T  # (C, L)
+            bins = (torch.arange(C * 2, device=x.device).reshape(C, 2, 1) * 256 + (keys >> 24)[:, None, :])
+            bins = bins.expand(C, 2, L).reshape(-1)
+            per_pass = [cuda_ms(lambda p=p: sel._select_hist_cuda(x, hist_at_pass[p], p, 0, hist_plan), 20)
+                        for p in range(npass)]
+            hist0 = sel.select_hist_plain(x, hist_at_pass[0], 0)
+            r_out = torch.zeros((C, 2), dtype=torch.int32, device=x.device)
+            d_k = torch.zeros((C, 2, npass), dtype=torch.uint8, device=x.device)
+            kernels.STATS.reset()
+            sel.sharded_masked_median(x, n)
+            median_launches = {k: v for k, v in kernels.STATS.launches.items() if v}
+            timings["select_hist"] = {
+                "ms": per_pass[0],
+                "ms_per_pass": per_pass,
+                "passes": npass,
+                "plain_ms": cuda_ms(lambda: sel.select_hist_plain(x, hist_at_pass[0], 0), 20),
+                # one torch.bincount of pass 0's bins (every key matches at pass 0)
+                "library_ms": cuda_ms(lambda: torch.bincount(bins, minlength=C * 2 * 256), 20),
+                # one pass: each key read once, the counts written once, the digits read
+                "bytes": x.numel() * x.element_size() + C * 2 * 256 * 4 + C * 2 * npass,
+                # ~12 warp instructions a key (load, key map, prefix tests,
+                # digit, match and count: an estimate from the source) at
+                # the instruction issue rate
+                "ops": 12 * C * L,
+                "ops_per_s": INSTR_PER_S,
+                "plan": hist_plan._asdict(),
+                # the whole one-rank median: passes, picks and the zeroed buffer
+                "median_ms": cuda_ms(lambda: sel.sharded_masked_median(x, n), 20),
+                "median_wall_ms": wall_ms(lambda: sel.sharded_masked_median(x, n), 20),
+                "median_launches": median_launches,
+            }
+            timings["select_pick"] = {
+                "ms": cuda_ms(lambda: sel._select_pick_cuda(hist0, n, r_out, d_k, 0), 20),
+                "plain_ms": cuda_ms(lambda: sel.select_pick_plain(hist0, n, r_out, d_k, 0), 20),
+                "library_ms": None,
+                # the totals read once; the counts, ranks and digits of the pass
+                "bytes": C * 2 * 256 * 4 + C * 8 + C * 2 * (4 + 1),
+                # one add a bin of the running count of each (column, rank)
+                "ops": C * 2 * 256,
+                "ops_per_s": INSTR_PER_S,
+            }
+            log(f"  select_hist f32 {C} x {L}: {[round(t, 4) for t in per_pass]} ms a pass, plain "
+                f"{timings['select_hist']['plain_ms']:.4f} ms, torch.bincount {timings['select_hist']['library_ms']:.4f}"
+                f" ms; select_pick {timings['select_pick']['ms']:.4f} ms (plain {timings['select_pick']['plain_ms']:.4f}"
+                f"); the one-rank median {timings['select_hist']['median_ms']:.4f} ms by events, "
+                f"{timings['select_hist']['median_wall_ms']:.4f} ms by the host clock, launches {median_launches}")
+        del x
+    return {"select_hist": float(err), "select_pick": float(pick_err)}
 
 
 def irls_case(G: int, N: int, P: int, dtype, seed: int) -> dict:
@@ -5234,7 +5321,8 @@ def mesh_path(reps: int) -> dict:
     genes bit for bit the ``mesh=None`` call's; the warm walls of both,
     best of ``reps``; the launches of one call, kernel by kernel those of
     ``mesh=None`` but for the size-factor median, whose ``select`` launches
-    become ``select_hist``'s (one a radix pass); one profiled call's
+    become ``select_hist``'s and ``select_pick``'s (one each a radix pass);
+    one profiled call's
     collective time. Then :func:`two_rank_mesh`."""
     import tempfile
     import warnings
@@ -5277,10 +5365,12 @@ def mesh_path(reps: int) -> dict:
                 if refit:
                     check(np.array_equal(got[1], ref[1]) and ref[1].any(), f"phase 3m {label}: refitted genes")
                 medians = none_l["select"] - launches["select"]
-                want = {**none_l, "select": none_l["select"] - medians, "select_hist": _passes(torch.float32) * medians}
+                npass = _passes(torch.float32)
+                want = {**none_l, "select": none_l["select"] - medians, "select_hist": npass * medians,
+                        "select_pick": npass * medians}
                 check(medians > 0 and launches == want,
                       f"phase 3m {label}: launches {launches}, expected mesh=None's with the median's select as "
-                      f"select_hist {want}")
+                      f"select_hist and select_pick {want}")
                 for k in STREAM_KERNELS if refit else SUMMARY_KERNELS:
                     check(launches[k] > 0, f"phase 3m {label}: kernel {k} was not launched")
                 with warnings.catch_warnings():
@@ -5429,6 +5519,8 @@ def main() -> int:
         "order_stats_select": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select"),
         # order_stats_select's radix pass, taken out of the cluster for the gene mesh
         "select_hist": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select_hist"),
+        # and its digit pick from the ranks' summed counts
+        "select_pick": ("pydeseq2_tpu_torch/csrc/select.cu", "pydeseq2_tpu/ops/select.py:65", "select_pick"),
         "disp_scan": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:196", "disp_scan"),
         "disp_newton": ("pydeseq2_tpu_torch/csrc/disp_newton.cu", "pydeseq2_tpu/ops/dispersion.py:361", "disp_newton"),
         "disp_scan_fine": ("pydeseq2_tpu_torch/csrc/disp_scan.cu", "pydeseq2_tpu/ops/dispersion.py:170",
@@ -5477,7 +5569,7 @@ def main() -> int:
                 "vst": vst["launches"]["vst"],
                 **{k: klass["launches"][k] for k in ("trend_fit", "trimmed_var", "hat", "wald")},
                 **{k: fine["launches"][k] for k in ("disp_scan_fine", "disp_scan_group", "dnb_nll")},
-                "select_hist": mesh["refit"]["launches"]["select_hist"]}
+                **{k: mesh["refit"]["launches"][k] for k in ("select_hist", "select_pick")}}
     timings["cooks"]["refit_ms"] = timings.pop("cooks_refit_ms")
     rows = []
     for name, (source, repl, key) in replaces.items():
@@ -5492,7 +5584,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
         }
         for extra in ("test_only_ms", "sort_ms", "all_lanes_ms", "all_rows_ms", "refit_ms", "ms_with_mu", "steps", "column_ms", "column_sort_ms",
-                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells", "plan_rows"):
+                      "wide_ms", "wide_plain_ms", "passes", "ms_per_pass", "plan", "terms", "cells", "median_ms",
+                      "median_wall_ms", "median_launches"):
             if extra in t:
                 # hat_wald without H and mu (the refit's call); the sort before the BH counts, or the torch.sort yardstick of
                 # the trimmed moments' cohort rows (and column); a rescue kernel over every lane
@@ -5502,7 +5595,8 @@ def main() -> int:
                 # and disp_newton; the reduction passes of one trend or
                 # trend_fit launch and the time per pass, or newton_box's
                 # serial passes; a kernel's launch plan; the apeGLM terms or
-                # NLL cells the run's data needs
+                # NLL cells the run's data needs; the one-rank sharded
+                # median whole (events, host clock, its launches)
                 row[extra] = t[extra]
         rows.append(row)
     log("wald path: " + json.dumps(main))

@@ -366,104 +366,425 @@ template <typename T> int max_clusters(int K, int smem, int* out) {
 }
 
 // ---------------------------------------------------------------- select_hist
-// One radix pass of a select whose keys are spread over several ranks of a
-// gene mesh (ops/select.py:sharded_masked_median). Replaces no TPU kernel on
-// its own: it is order_stats_select's histogram pass (select_kernel above)
-// taken out of the cluster, so that the ranks can add their histograms with
-// an all-reduce between passes, as the cluster adds its blocks' over
-// distributed shared memory. For each column and each of its two ranks, the
-// digit at pass `pass` of the keys that match the prefix resolved so far
-// (`digits`, (C, 2, npass) bytes, MSB first) is counted into out (C, 2, NB)
-// 32-bit counts, which the caller zeroes. A block takes HIST_COLS adjacent
-// columns and `rows` rows of them, counts in shared memory (a warp's lanes
-// with the same bin add once, __match_any_sync) and adds its non-zero bins
-// to out with atomics: integer counts, so the sum is the same in any order.
-// Bound by the bytes of one read of the local keys (each pass reads x
-// again: the ranks' totals decide the next prefix between two launches).
-constexpr int HIST_THREADS = 256;
-constexpr int HIST_COLS = 16;  // columns a block
+// One radix pass of a select whose keys are spread over the ranks of a gene
+// mesh (ops/select.py:sharded_masked_median), and the pick that resolves
+// the pass's digit from the ranks' summed counts. They replace no TPU kernel
+// on their own: they are order_stats_select's histogram pass and digit pick
+// (select_kernel above) taken out of the cluster, so that the ranks can add
+// their counts with an all-reduce between a pass and its pick, as the
+// cluster adds its blocks' over distributed shared memory.
+//
+// select_hist counts, for each column and each of its two ranks, the digit
+// at pass `pass` of the keys that match the prefix resolved so far
+// (`digits`, (C, 2, npass) bytes, MSB first) into out (C, 2, NB) 32-bit
+// counts, which the caller zeroes. A block of 16 warps takes HIST_COLS
+// adjacent columns and `rows` rows of them. Where the columns are adjacent
+// in memory (the (G, N) log-ratio tile, sC = 1) it reads chunks of
+// HIST_CHUNK rows coalesced (16-byte loads where the row stride and the
+// pointer allow), the next chunk's loads in flight while it counts this
+// one, and stages the keys in shared memory column by column (rows padded
+// so that the staging stores miss no bank); a column view (sC != 1, or one
+// column) is read from x where it lies, a warp on one column's rows. Either
+// way a warp walks ONE column, 32 consecutive rows a step, so the lanes
+// whose keys share a bin are in one warp (log-ratios share their top
+// bytes): warp w takes column w % Bc and every (16 / Bc)-th step of it, and
+// counts into bins of its own (2 ranks x NB words), so no two warps add to
+// one shared word. A step where no lane's key matches a prefix costs a
+// read, a compare and a vote; the rank-1 half is skipped where a column's
+// two ranks share their prefix (always at pass 0). A matching lane adds
+// with a shared atomic to its warp's bins: on an H100 that beat one add a
+// distinct bin (__match_any_sync) and one add a warp where all lanes share
+// a bin at every shape and pass measured.
+//
+// Past pass 0 most keys match no prefix (at 100 x 60000 f32 ~35% in pass
+// 1, 0.3% in pass 2, 0.003% in pass 3), and there the staging's barriers
+// only expose the loads' latency. So a staged block first counts its
+// threads with a match in the first chunk: below one in HIST_SPARSE_SHARE
+// it goes sparse, each thread testing the keys it loaded where it holds
+// them, with no staging and no barrier, the few matches adding to their
+// column's first warp's bins with shared atomics (the one place two warps
+// may add to one word, rarely). (A ring of cp.async copies in shared
+// memory, to hold more loads in flight than registers allow, measured no
+// faster on an H100 and slowed the dense passes.) The block then adds the
+// non-zero sums of its columns' bins to out with atomics: integer counts,
+// the same sum in any order. (Row-split blocks summing their bins over a
+// thread-block cluster first, for fewer global atomics, measured slower.)
+// Bound by the bytes of one read of the local keys: each pass reads x
+// again, as the ranks' totals decide the next prefix between two launches.
+//
+// select_pick: a warp a (column, rank) finds the first bin whose running
+// count passes the rank (a rank past the count: digit 255 and the rank less
+// the count before bin 255, as ops/select.py:radix_pick) and writes the
+// digit and, in place, the rank within its bin; after the last pass it
+// decodes the two keys and writes the median, NaN where the column has no
+// valid entry.
+// Pass 0 takes its ranks, the two middle ones, from the valid counts. (The
+// pick run as the next pass's prologue, each block resolving its own
+// columns, measured no faster at 100 columns and slower at 8000.)
+constexpr int HIST_THREADS = 512;
+constexpr int HIST_WARPS = HIST_THREADS / WARP;  // 16: a warp a column of a full block
+constexpr int HIST_COLS = 16;                    // columns a block
+constexpr int HIST_CHUNK = 256;                  // rows a staged chunk
+constexpr int HIST_LOADS = HIST_COLS * HIST_CHUNK / HIST_THREADS;  // values a thread stages a chunk
+constexpr int HIST_UNROLL = 4;                   // keys a lane reads before it counts them (column view)
+constexpr int HIST_SPARSE_SHARE = 4;  // sparse below one thread in 4 with a match in the first chunk
 
+// Row stride of a staged column in shared memory, in keys, padded by 2: a
+// warp's staging stores (8 rows of 4 columns, 4 of 8 or 2 of 16) then fall
+// in distinct banks (64-bit keys: two wavefronts, the least a warp's 256
+// bytes take).
+constexpr int HIST_RP = HIST_CHUNK + 2;
+
+// Dynamic shared memory: every warp's bins, then the staged keys.
+template <typename T> size_t hist_smem(bool staged) {
+  using K = typename KeyOf<T>::K;
+  return (size_t)HIST_WARPS * 2 * NB * 4 + (staged ? (size_t)HIST_COLS * HIST_RP * sizeof(K) : 0);
+}
+
+template <typename T> struct HistArgs {
+  const T* x;
+  long long sC, sL;  // element strides of a column and of a row
+  int C, L, rows;    // rows a block
+  bool staged;       // columns adjacent in memory: chunks staged in shared memory
+  bool vec;          // staged by 16-byte loads (sC = 1, sL and the pointer aligned; full blocks)
+  const unsigned char* digits;  // (C, 2, npass), 4-byte aligned
+  int npass, pass;
+  unsigned* out;  // (C, 2, NB): this pass's counts
+};
+
+// Four floats or two doubles by one 16-byte load (p 16-byte aligned).
+__device__ __forceinline__ void load16(const float* p, float* v) {
+  const float4 w = *reinterpret_cast<const float4*>(p);
+  v[0] = w.x;
+  v[1] = w.y;
+  v[2] = w.z;
+  v[3] = w.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* v) {
+  const double2 w = *reinterpret_cast<const double2*>(p);
+  v[0] = w.x;
+  v[1] = w.y;
+}
+
+template <typename T> __device__ __forceinline__ T canonical_nan();
+template <> __device__ __forceinline__ float canonical_nan<float>() { return __int_as_float(0x7fc00000); }
+template <> __device__ __forceinline__ double canonical_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// The rank of a column's median half r among its n valid entries.
+__device__ __forceinline__ long long mid_rank(long long n, int r) { return r == 0 ? (n > 0 ? (n - 1) / 2 : 0) : n / 2; }
+
+// The digit of one (column, rank) from its NB totals t: the first bin whose
+// running count passes `rank` (none: NB - 1), and the count before it (none:
+// the count before bin NB - 1). Called by a whole warp.
+__device__ __forceinline__ void pick_digit(const unsigned* t, long long rank, int lane, int& d, long long& before) {
+  long long cum = 0;
+  for (int b0 = 0; b0 < NB; b0 += WARP) {
+    const long long c = t[b0 + lane];
+    long long incl = c;
+#pragma unroll
+    for (int o = 1; o < WARP; o <<= 1) {
+      const long long v = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned hit = __ballot_sync(FULL, rank < cum + incl);
+    if (hit) {
+      const int first = __ffs(hit) - 1;
+      d = b0 + first;
+      before = cum + __shfl_sync(FULL, incl - c, first);
+      return;
+    }
+    cum += __shfl_sync(FULL, incl, WARP - 1);
+  }
+  d = NB - 1;
+  before = cum - (long long)t[NB - 1];
+}
+
+// The digits of a (column, rank) at d (npass bytes, MSB first) as the high
+// bits of a key, by 4-byte loads (d 4-byte aligned); the caller masks off
+// the digits not resolved yet.
+__device__ __forceinline__ void digits_key(const unsigned char* d, unsigned& k) {
+  k = __byte_perm(*reinterpret_cast<const unsigned*>(d), 0u, 0x0123);
+}
+__device__ __forceinline__ void digits_key(const unsigned char* d, unsigned long long& k) {
+  const unsigned* w = reinterpret_cast<const unsigned*>(d);
+  k = ((unsigned long long)__byte_perm(w[0], 0u, 0x0123) << 32) | __byte_perm(w[1], 0u, 0x0123);
+}
+
+// Float32: three blocks an SM (42 registers a thread); float64 two.
 template <typename T>
-__global__ void __launch_bounds__(HIST_THREADS)
-    select_hist_kernel(const T* x, long long sC, long long sL, int C, int L, int rows, const unsigned char* digits,
-                       int npass, int pass, unsigned* out) {
+__global__ void __launch_bounds__(HIST_THREADS, sizeof(T) == 4 ? 3 : 2) select_hist_kernel(HistArgs<T> a) {
   using KO = KeyOf<T>;
   using K = typename KO::K;
-  __shared__ unsigned hist[HIST_COLS * 2 * NB];
+  constexpr int RP = HIST_RP;
+  constexpr int VEC = 16 / (int)sizeof(T);  // values a 16-byte load
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* bins = (unsigned*)smem;                        // [HIST_WARPS][2][NB]
+  K* keys = (K*)(smem + (size_t)HIST_WARPS * 2 * NB * 4);  // [HIST_COLS][RP]
   __shared__ K s_prefix[HIST_COLS][2];
   __shared__ int s_same[HIST_COLS];
-  const int tid = threadIdx.x, lane = tid & (WARP - 1);
+  const int tid = threadIdx.x, lane = tid & (WARP - 1), warp = tid / WARP;
   const int c0 = (int)blockIdx.x * HIST_COLS;
-  const int Bc = min(HIST_COLS, C - c0);
-  const int r0 = (int)blockIdx.y * rows;
-  const int Rb = max(0, min(rows, L - r0));
-  const int shift = KO::BITS - DIGIT * (pass + 1);
-  const K mask = pass == 0 ? K(0) : ~K(0) << (KO::BITS - DIGIT * pass);
+  const int Bc = min(HIST_COLS, a.C - c0);
+  const int r0 = (int)blockIdx.y * a.rows;
+  const int Rb = max(0, min(a.rows, a.L - r0));
+  const int shift = KO::BITS - DIGIT * (a.pass + 1);
+  const K mask = a.pass == 0 ? K(0) : ~K(0) << (KO::BITS - DIGIT * a.pass);
 
-  for (int i = tid; i < HIST_COLS * 2 * NB; i += HIST_THREADS) hist[i] = 0u;
-  if (tid < HIST_COLS * 2) {
+  // -- a staged block's loads: where the block is full and aligned, thread t
+  // takes VEC adjacent columns of a row by one 16-byte load (TPR threads a
+  // row, RPR rows a round), else one column of a row (16 columns x 32 rows
+  // a round, the columns past Bc idle); HIST_LOADS values a chunk either
+  // way. The first chunk's are issued before anything else.
+  constexpr int TPR = HIST_COLS / VEC, RPR = HIST_THREADS / TPR;
+  constexpr int SPR = HIST_THREADS / HIST_COLS;  // rows a scalar round
+  const bool vec = a.staged && a.vec && Bc == HIST_COLS;
+  const int vc = (tid % TPR) * VEC, vr = tid / TPR;      // 16-byte loads: first column, row
+  const int sc = tid % HIST_COLS, sr = tid / HIST_COLS;  // scalar loads
+  const int tc = vec ? vc : sc;                          // this thread's (first) column
+  T v[HIST_LOADS] = {};
+  auto load = [&](int base) {
+    const int n_rows = min(HIST_CHUNK, Rb - base);
+    const T* xb = a.x + (long long)(c0 + tc) * a.sC + (long long)(r0 + base) * a.sL;
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < HIST_LOADS / VEC; ++j) {
+        const int row = vr + j * RPR;
+        if (row < n_rows) load16(xb + (long long)row * a.sL, &v[j * VEC]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < HIST_LOADS; ++e) {
+        const int row = sr + e * SPR;
+        if (sc < Bc && row < n_rows) v[e] = xb[(long long)row * a.sL];
+      }
+    }
+  };
+  if (a.staged && Rb > 0) load(0);
+
+  if (tid < 2 * HIST_COLS) {
     const int col = tid >> 1, r = tid & 1;
     K p = 0;
-    if (col < Bc)
-      for (int j = 0; j < pass; ++j)
-        p |= (K)digits[((size_t)(c0 + col) * 2 + r) * npass + j] << (KO::BITS - DIGIT * (j + 1));
+    if (col < Bc && a.pass > 0) {
+      digits_key(a.digits + ((size_t)(c0 + col) * 2 + r) * a.npass, p);
+      p &= mask;
+    }
     s_prefix[col][r] = p;
+    const unsigned same = __ballot_sync(FULL, p == __shfl_xor_sync(FULL, p, 1));
+    if (r == 0) s_same[col] = (same >> lane) & 1u;
   }
-  __syncthreads();
-  if (tid < HIST_COLS) s_same[tid] = s_prefix[tid][0] == s_prefix[tid][1];
   __syncthreads();
 
-  // item i of the block's share: (column, row), adjacent columns fastest
-  // where they are adjacent in memory, else a column's rows
-  const bool cols_fast = sC == 1;
-  const int n = Bc * Rb;
-  auto add = [&](unsigned bin) {
-    const unsigned peers = __match_any_sync(FULL, bin);
-    if (bin != ~0u && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], (unsigned)__popc(peers));
+  // -- this warp's column, its share of the steps, its bins ----------------
+  const int S = HIST_WARPS / Bc;  // warps a column
+  const bool active = warp < S * Bc;
+  const int col = active ? warp % Bc : 0, share = warp / Bc;
+  const K p0 = s_prefix[col][0], p1 = s_prefix[col][1];
+  const bool two = !s_same[col];  // the column's ranks count apart
+  unsigned* h = bins + (size_t)warp * 2 * NB;
+  if (active)
+    for (int i = lane; i < (two ? 2 : 1) * NB; i += WARP) h[i] = 0u;
+  __syncwarp();
+  // a step of 32 of the column's keys (whole warps call it: the votes see every lane)
+  auto count = [&](K key, bool in) {
+    const K km = key & mask;
+    const bool m0 = in && km == p0;
+    const bool m1 = in && two && km == p1;
+    if (!__any_sync(FULL, m0 || m1)) return;
+    const unsigned d = (unsigned)(key >> shift) & (unsigned)(NB - 1);
+    if (m0) atomicAdd(&h[d], 1u);
+    if (m1) atomicAdd(&h[NB + d], 1u);
   };
-  for (int base = 0; base < n; base += PER * HIST_THREADS) {
-    K kk[PER];
-    int cc[PER];
+
+  if (a.staged) {
+    // this thread's columns (VEC adjacent ones, or one) and their prefixes
+    K tp0[VEC], tp1[VEC];
+    bool tt[VEC];
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int i = base + j * HIST_THREADS + tid;
-      int col = 0, row = 0;
-      if (i < n) {
-        col = cols_fast ? i % Bc : i / Rb;
-        row = cols_fast ? i / Bc : i % Rb;
-      }
-      cc[j] = col;
-      kk[j] = i < n ? KO::key(x[(long long)(c0 + col) * sC + (long long)(r0 + row) * sL]) : K(0);
+    for (int i = 0; i < VEC; ++i) {
+      const int c = min(tc + i, HIST_COLS - 1);
+      tp0[i] = s_prefix[c][0];
+      tp1[i] = s_prefix[c][1];
+      tt[i] = !s_same[c];
     }
+    // value e of a chunk: its column's slot i among this thread's, its row
+    auto slot = [&](int e) { return vec ? e % VEC : 0; };
+    auto row_of = [&](int e) { return vec ? vr + (e / VEC) * RPR : sr + e * SPR; };
+    auto valid = [&](int e, int n_rows) { return (vec || sc < Bc) && row_of(e) < n_rows; };
+    const int nch = (Rb + HIST_CHUNK - 1) / HIST_CHUNK;
+    // Dense or sparse: pass 0 matches every key; later passes count the
+    // threads with a match in the first chunk (which also orders the bins'
+    // zeroing before any add from another warp).
+    bool dense = true;
+    if (a.pass > 0) {
+      bool any = false;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const bool in = base + j * HIST_THREADS + tid < n;
-      const int col = cc[j];
-      const unsigned d = (unsigned)((kk[j] >> shift) & K(NB - 1));
-      const K km = kk[j] & mask;
-      const bool m0 = in && km == s_prefix[col][0];
-      const bool m1 = in && !s_same[col] && km == s_prefix[col][1];
-      add(m0 ? (unsigned)(col * 2 * NB) + d : ~0u);
-      add(m1 ? (unsigned)((col * 2 + 1) * NB) + d : ~0u);
+      for (int e = 0; e < HIST_LOADS; ++e) {
+        const K km = KO::key(v[e]) & mask;
+        const int i = slot(e);
+        any |= valid(e, min(HIST_CHUNK, Rb)) && (km == tp0[i] || (tt[i] && km == tp1[i]));
+      }
+      dense = __syncthreads_count(any) > HIST_THREADS / HIST_SPARSE_SHARE;
+    }
+    if (!dense) {
+      // Sparse: each thread tests the values it loaded where it holds them
+      // (no staging, no barrier); the few keys that match add to their
+      // column's first warp's bins.
+      for (int ch = 0; ch < nch; ++ch) {
+        const int base = ch * HIST_CHUNK, n_rows = min(HIST_CHUNK, Rb - base);
+        if (ch > 0) load(base);
+#pragma unroll
+        for (int e = 0; e < HIST_LOADS; ++e) {
+          const K key = KO::key(v[e]), km = key & mask;
+          const int i = slot(e);
+          const bool m0 = km == tp0[i], m1 = tt[i] && km == tp1[i];
+          if (valid(e, n_rows) && (m0 || m1)) {
+            const unsigned d = (unsigned)(key >> shift) & (unsigned)(NB - 1);
+            unsigned* hc = bins + (size_t)(tc + i) * 2 * NB;
+            if (m0) atomicAdd(&hc[d], 1u);
+            if (m1) atomicAdd(&hc[NB + d], 1u);
+          }
+        }
+      }
+    } else {
+      for (int ch = 0; ch < nch; ++ch) {
+        const int base = ch * HIST_CHUNK, n_rows = min(HIST_CHUNK, Rb - base);
+#pragma unroll
+        for (int e = 0; e < HIST_LOADS; ++e)
+          if (valid(e, n_rows)) keys[(tc + slot(e)) * RP + row_of(e)] = KO::key(v[e]);
+        __syncthreads();
+        if (ch + 1 < nch) load(base + HIST_CHUNK);  // in flight while this chunk is counted
+        if (active) {
+          const K* ck = keys + col * RP;
+          const int nsteps = (n_rows + WARP - 1) / WARP;
+          for (int k = share; k < nsteps; k += S) {
+            const int row = k * WARP + lane;
+            count(row < n_rows ? ck[row] : K(0), row < n_rows);
+          }
+        }
+        __syncthreads();
+      }
+    }
+  } else if (active) {
+    const T* xc = a.x + (long long)(c0 + col) * a.sC + (long long)r0 * a.sL;
+    const int nsteps = (Rb + WARP - 1) / WARP;
+    for (int k0 = share; k0 < nsteps; k0 += S * HIST_UNROLL) {
+      K kk[HIST_UNROLL];
+#pragma unroll
+      for (int u = 0; u < HIST_UNROLL; ++u) {
+        const int row = (k0 + u * S) * WARP + lane;
+        kk[u] = row < Rb ? KO::key(xc[(long long)row * a.sL]) : K(0);
+      }
+#pragma unroll
+      for (int u = 0; u < HIST_UNROLL; ++u) count(kk[u], (k0 + u * S) * WARP + lane < Rb);
     }
   }
+
+  // -- the block's columns: its warps' bins summed, four bins a thread at a
+  // time; the non-zero sums added to out, to both ranks where they share
+  // their prefix (rank 0's bins then serve both)
   __syncthreads();
-  for (int i = tid; i < Bc * 2 * NB; i += HIST_THREADS) {
-    const int col = i / (2 * NB), r = (i / NB) & 1, b = i % NB;
-    const unsigned v = hist[(col * 2 + (s_same[col] ? 0 : r)) * NB + b];
-    if (v) atomicAdd(&out[((size_t)(c0 + col) * 2 + r) * NB + b], v);
+  for (int i = tid; i < Bc * 2 * NB / 4; i += HIST_THREADS) {
+    const int c = i / (2 * NB / 4), r = (i / (NB / 4)) & 1, b = (i % (NB / 4)) * 4;
+    const bool same = s_same[c];
+    if (same && r == 1) continue;
+    unsigned nn[4] = {0u, 0u, 0u, 0u};
+    for (int s = 0; s < S; ++s) {
+      const uint4 m = *reinterpret_cast<const uint4*>(&bins[((size_t)(c + s * Bc) * 2 + r) * NB + b]);
+      nn[0] += m.x;
+      nn[1] += m.y;
+      nn[2] += m.z;
+      nn[3] += m.w;
+    }
+    unsigned* o = a.out + ((size_t)(c0 + c) * 2 + r) * NB + b;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (nn[j]) {
+        atomicAdd(o + j, nn[j]);
+        if (same) atomicAdd(o + NB + j, nn[j]);
+      }
   }
 }
 
 template <typename T>
 int hist_launch(const void* x, long long sC, long long sL, int C, int L, const void* digits, int npass, int pass,
-                int rows, void* out, cudaStream_t st) {
-  if (npass != KeyOf<T>::BITS / DIGIT || pass < 0 || pass >= npass || rows < 1) return (int)cudaErrorInvalidValue;
+                int rows, int staged, void* out, cudaStream_t st) {
+  if (npass != KeyOf<T>::BITS / DIGIT || pass < 0 || pass >= npass || rows < 1 || (uintptr_t)digits % 4)
+    return (int)cudaErrorInvalidValue;
   const long long splits = ((long long)L + rows - 1) / rows;
   if (splits > 65535) return (int)cudaErrorInvalidValue;
+  HistArgs<T> a;
+  a.x = (const T*)x;
+  a.sC = sC;
+  a.sL = sL;
+  a.C = C;
+  a.L = L;
+  a.rows = rows;
+  a.staged = staged != 0;
+  a.vec = a.staged && sC == 1 && sL % (16 / (long long)sizeof(T)) == 0 && (uintptr_t)x % 16 == 0;
+  a.digits = (const unsigned char*)digits;
+  a.npass = npass;
+  a.pass = pass;
+  a.out = (unsigned*)out;
+  const size_t smem = hist_smem<T>(a.staged);
+  const cudaError_t e = smem_opt_in<select_hist_kernel<T>>(smem);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((C + HIST_COLS - 1) / HIST_COLS), (unsigned)splits);
-  select_hist_kernel<T><<<grid, HIST_THREADS, 0, st>>>((const T*)x, sC, sL, C, L, rows,
-                                                       (const unsigned char*)digits, npass, pass, (unsigned*)out);
+  select_hist_kernel<T><<<grid, HIST_THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <typename T> int hist_per_sm(int staged, int* out) {
+  const size_t smem = hist_smem<T>(staged != 0);
+  const cudaError_t e = smem_opt_in<select_hist_kernel<T>>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, select_hist_kernel<T>, HIST_THREADS, smem);
+}
+
+constexpr int PICK_THREADS = 256;
+constexpr int PICK_COLS = PICK_THREADS / WARP / 2;  // a warp a (column, rank)
+
+template <typename T>
+__global__ void __launch_bounds__(PICK_THREADS)
+    select_pick_kernel(int C, int npass, int pass, const unsigned* counts, const long long* n_valid,
+                       long long n_stride, int* rank, unsigned char* digits, T* out) {
+  using KO = KeyOf<T>;
+  using K = typename KO::K;
+  __shared__ K s_key[PICK_COLS][2];
+  const int lane = threadIdx.x & (WARP - 1), warp = threadIdx.x / WARP;
+  const int col = (int)blockIdx.x * PICK_COLS + (warp >> 1), r = warp & 1;
+  if (col < C) {
+    const size_t cr = (size_t)col * 2 + r;
+    const long long k = pass == 0 ? mid_rank(n_valid[(long long)col * n_stride], r) : rank[cr];
+    int d;
+    long long before;
+    pick_digit(counts + cr * NB, k, lane, d, before);
+    if (lane == 0) {
+      digits[cr * npass + pass] = (unsigned char)d;
+      rank[cr] = (int)(k - before);
+      K k = (K)d << (KO::BITS - DIGIT * (pass + 1));
+      for (int j = 0; j < pass; ++j) k |= (K)digits[cr * npass + j] << (KO::BITS - DIGIT * (j + 1));
+      s_key[warp >> 1][r] = k;
+    }
+  }
+  if (out == nullptr) return;
+  __syncthreads();
+  const int c = (int)blockIdx.x * PICK_COLS + (int)threadIdx.x;
+  if (threadIdx.x < PICK_COLS && c < C) {
+    const T lo = KO::val(s_key[threadIdx.x][0]), hi = KO::val(s_key[threadIdx.x][1]);
+    out[c] = n_valid[(long long)c * n_stride] > 0 ? (lo + hi) / T(2) : canonical_nan<T>();
+  }
+}
+
+template <typename T>
+int pick_launch(int C, int npass, int pass, const void* counts, const void* n_valid, long long n_stride, void* rank,
+                void* digits, void* out, cudaStream_t st) {
+  if (npass != KeyOf<T>::BITS / DIGIT || pass < 0 || pass >= npass || !n_valid || !rank || (out && pass != npass - 1))
+    return (int)cudaErrorInvalidValue;
+  select_pick_kernel<T><<<(C + PICK_COLS - 1) / PICK_COLS, PICK_THREADS, 0, st>>>(
+      C, npass, pass, (const unsigned*)counts, (const long long*)n_valid, n_stride, (int*)rank, (unsigned char*)digits,
+      (T*)out);
   return (int)cudaGetLastError();
 }
 
@@ -492,11 +813,34 @@ extern "C" int select_max_clusters(int is_f64, int K, int smem, int* out, void* 
 // One radix pass over the local keys of C columns of L values (value (c, i)
 // at x[c sC + i sL]): out (C, 2, 256) += the counts of pass `pass`'s digit
 // of the keys matching each (column, rank)'s prefix in `digits` (C, 2,
-// npass), blocks of `rows` rows.
+// npass; 4-byte aligned), blocks of `rows` rows, staged (adjacent columns)
+// or read in place.
 extern "C" int select_hist_launch(int is_f64, const void* x, int C, int L, long long sC, long long sL,
-                                  const void* digits, int npass, int pass, int rows, void* out, void* stream) {
+                                  const void* digits, int npass, int pass, int rows, int staged, void* out,
+                                  void* stream) {
   if (C <= 0 || L <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-  return is_f64 ? hist_launch<double>(x, sC, sL, C, L, digits, npass, pass, rows, out, s)
-                : hist_launch<float>(x, sC, sL, C, L, digits, npass, pass, rows, out, s);
+  return is_f64 ? hist_launch<double>(x, sC, sL, C, L, digits, npass, pass, rows, staged, out, s)
+                : hist_launch<float>(x, sC, sL, C, L, digits, npass, pass, rows, staged, out, s);
+}
+
+// The digit of pass `pass` of each (column, rank) of C columns from the
+// ranks' totals `counts` (C, 2, 256) into digits (C, 2, npass), and the
+// rank within its bin into rank (C, 2) int32, which holds the ranks
+// entering the pass (at pass 0 they come from the two middle ranks of
+// n_valid[c n_stride], int64). With `out` (the last pass only): the median
+// of each column, NaN where n_valid is 0.
+extern "C" int select_pick_launch(int is_f64, int C, int npass, int pass, const void* counts, const void* n_valid,
+                                  long long n_stride, void* rank, void* digits, void* out, void* stream) {
+  if (C <= 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_f64 ? pick_launch<double>(C, npass, pass, counts, n_valid, n_stride, rank, digits, out, s)
+                : pick_launch<float>(C, npass, pass, counts, n_valid, n_stride, rank, digits, out, s);
+}
+
+// out[0] = the select_hist blocks an SM holds, staged or not (the occupancy
+// API; no launch).
+extern "C" int select_hist_per_sm(int is_f64, int staged, int* out, void* stream) {
+  (void)stream;
+  return is_f64 ? hist_per_sm<double>(staged, out) : hist_per_sm<float>(staged, out);
 }

@@ -14,7 +14,9 @@ the filter's ``lowess`` (``lowess``), the refit's Cook's imputation
 ``impute`` (``impute``), the IRLS rescue's projected Newton
 ``newton_box`` (``box``), the blind VST's transform ``vst`` (``vst``),
 the fine dispersion scan ``disp_scan_fine`` with its gene grouping
-``disp_scan_group`` (``fine``) and ``dnb_nll`` (``dnb``).
+``disp_scan_group`` (``fine``), ``dnb_nll`` (``dnb``) and the gene
+mesh's radix passes ``select_hist`` with their pick ``select_pick``
+(``hist``).
 
     python3 -m pydeseq2_tpu_torch.kernel_bench [--detail] [--only SUITE[,SUITE]] [TREE ...]
 
@@ -249,6 +251,22 @@ at DNB_EDGE_SHAPES, row lengths near the plan's thresholds.
 The ``sf`` suite's ``lgamma_table`` rows carry the launch floor: the
 device time of ``fill_`` on a one-element tensor of the type.
 
+``hist`` shapes (HIST_SHAPES): the size-factor tile's log-ratios
+(:func:`select_operands`' "tile", genes with a zero at +inf) at 100
+samples x 60000 genes in float32 and float64, its first 15000 genes as one
+shard of a four-rank mesh (the whole tile's ranks and digits), 1000 x
+60000 and 8000 x 6000 float32, and an atlas shard of 10000 samples x
+15000 genes float32. Per shape each radix pass with the digits of the
+passes before it (the bytes of the two middle elements, from the
+``select`` kernel): the device time (kernels named ``select_hist``), the
+plain version's counts bit for bit, a repeat bit for bit, the bytes bound
+and ``torch.bincount`` of pass 0's masked bins; where the tree has it, the
+pick launch; then the one-rank ``sharded_masked_median`` whole: its device
+time (everything it runs on the card), the kernels it launches a call
+(the profiler's count), the host clock's median a call (``wall_ms``), bit
+for bit the ``select`` kernel's median. ``--detail`` adds, where the tree
+has a plan, each pass at half and twice the plan's rows.
+
 ``--detail`` also reports, per kernel instantiation of the suites'
 sources, the instruction counts of its loops that call a transcendental,
 from ``cuobjdump -sass`` of the built library: the loop's instructions, and
@@ -285,7 +303,7 @@ SUITES = {"disp": SOURCES, "sf": ("sizefactors.cu",), "trend": ("trend.cu",), "c
           "grid": ("grid.cu",), "shrink": ("shrink.cu",), "select": ("select.cu",), "irls": ("irls.cu",),
           "mom": ("mom.cu",), "bh": ("bh.cu", "lowess.cu"), "hat": ("hat_wald.cu",),
           "lowess": ("bh.cu", "lowess.cu"), "impute": ("impute.cu",), "box": ("newton_box.cu",),
-          "vst": ("vst.cu",), "fine": ("disp_scan.cu",), "dnb": ("dnb_nll.cu",)}
+          "vst": ("vst.cu",), "fine": ("disp_scan.cu",), "dnb": ("dnb_nll.cu",), "hist": ("select.cu",)}
 VST_SHAPES = (
     # label, genes, samples, dtype, timed calls
     ("f32 100x60000", 60_000, 100, torch.float32, 20),
@@ -371,6 +389,16 @@ SELECT_SHAPES = (
     ("f32 keep quantile 60000", "quantile", 1, 60_000, torch.float32, 20),
     ("f32 tile 1000x60000", "tile", 1_000, 60_000, torch.float32, 10),
     ("f64 tile 100x60000", "tile", 100, 60_000, torch.float64, 20),
+)
+HIST_SHAPES = (
+    # label, samples (columns), genes (values a column), genes of the shard timed (None: all), dtype, timed calls
+    ("f32 100x60000", 100, 60_000, None, torch.float32, 20),
+    ("f32 100x60000 shard of 15000", 100, 60_000, 15_000, torch.float32, 20),
+    ("f64 100x60000", 100, 60_000, None, torch.float64, 20),
+    ("f64 100x60000 shard of 15000", 100, 60_000, 15_000, torch.float64, 20),
+    ("f32 1000x60000", 1_000, 60_000, None, torch.float32, 10),
+    ("f32 8000x6000", 8_000, 6_000, None, torch.float32, 10),
+    ("f32 atlas shard 10000x15000", 10_000, 15_000, None, torch.float32, 5),
 )
 IRLS_SHAPES = (
     # label, genes, samples, P, dtype, maxiter, timed calls
@@ -1339,6 +1367,87 @@ def select_rows(detail: bool) -> dict:
         rows[label] = row
         print(f"  select {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
         del x, got, again
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_launches(fn, reps: int) -> tuple[float, float]:
+    """(device ms a call of everything ``fn`` runs on the card, kernels it
+    launches a call) from torch.profiler over ``reps`` warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern) / reps / 1e3, sum(e.count for e in kern) / reps)
+
+
+def hist_rows(detail: bool) -> dict:
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import select as sel
+
+    rows = {}
+    for label, C, G, shard, dtype, reps in HIST_SHAPES:
+        whole, (k_lo, k_hi), _ = select_operands("tile", C, G, dtype)
+        n = torch.isfinite(whole[:, 0]).sum()
+        npass = sel._passes(dtype)
+        # every pass's prefix: the bytes of the whole tile's two middle keys, MSB first
+        keys = torch.stack([sel._unsigned_key(v) for v in sel.order_stats_select(whole, (k_lo, k_hi))], dim=-1)
+        digits = torch.stack([(keys >> (8 * (npass - 1 - j))) & 0xFF for j in range(npass)], dim=-1)
+        digits = digits.to(torch.uint8).contiguous()  # (C, 2, npass)
+        x = whole[:shard] if shard else whole
+        row = {"bytes_bound_ms": (x.numel() * x.element_size() + C * 2 * 256 * 4 + C * 2 * npass) / 3.35e12 * 1e3}
+        plan = sel._hist_device_plan(sel._columns(x, 0)) if hasattr(sel, "_hist_device_plan") else None
+        if plan is not None:
+            row["plan"] = plan._asdict()
+
+        def hist(p, **kw):
+            return sel._select_hist_cuda(x, digits, p, 0, **kw)
+
+        for p in range(npass):
+            got, again = hist(p), hist(p)
+            row[f"pass {p} kernel_ms"] = device_ms(lambda p=p: hist(p), reps, "select_hist")[0]
+            row[f"pass {p} bits_equal"] = torch.equal(got, sel.select_hist_plain(x, digits, p))
+            row[f"pass {p} repeat_equal"] = torch.equal(got, again)
+            row[f"pass {p} matched"] = int(got[:, 0].sum())
+            if detail and plan is not None:
+                for f in (0.5, 2):
+                    rows_f = max(32, int(plan.rows * f) // 32 * 32)
+                    row[f"pass {p} kernel_ms rows {rows_f}"] = device_ms(
+                        lambda p=p, r=rows_f: hist(p, plan=plan._replace(rows=r)), reps, "select_hist")[0]
+            if p == 0:
+                keys0 = sel._unsigned_key(x).T  # (C, L)
+                bins = (torch.arange(C * 2, device=x.device).reshape(C, 2, 1) * 256
+                        + ((keys0 >> (8 * (npass - 1))) & 0xFF)[:, None, :]).expand(C, 2, x.shape[0]).reshape(-1)
+                del keys0
+                row["bincount_ms"] = device_ms(lambda: torch.bincount(bins, minlength=C * 2 * 256), reps, "")[1]
+                del bins
+                if hasattr(sel, "_select_pick_cuda"):
+                    r_out = torch.zeros((C, 2), dtype=torch.int32, device=x.device)
+                    d_k = digits.clone()
+                    row["pick_kernel_ms"] = device_ms(
+                        lambda: sel._select_pick_cuda(got, n, r_out, d_k, 0), reps, "select_pick")[0]
+            del got, again
+        if not shard:
+            want = sel.masked_median_select(x, n)
+            med = sel.sharded_masked_median(x, n)
+            row["median_bits_equal"] = torch.equal(sel._monotone_key(med), sel._monotone_key(want))
+            row["median_device_ms"], row["median_kernels_per_call"] = profile_launches(
+                lambda: sel.sharded_masked_median(x, n), reps)
+            row["median_ms"] = cuda_ms(lambda: sel.sharded_masked_median(x, n), reps)
+            row["median_wall_ms"] = wall_ms(lambda: sel.sharded_masked_median(x, n), reps)
+            kernels.STATS.reset()
+            sel.sharded_masked_median(x, n)
+            row["median_launches"] = {k: v for k, v in kernels.STATS.launches.items() if v}
+            row["select_median_device_ms"] = profile_launches(lambda: sel.masked_median_select(x, n), reps)[0]
+        rows[label] = row
+        print(f"  hist {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
+        del x, whole, digits, keys
         torch.cuda.empty_cache()
     return rows
 
@@ -2380,6 +2489,8 @@ def child(detail: bool, suites=("disp",)) -> dict:
         res["fine"] = fine_rows(detail)
     if "dnb" in suites:
         res["dnb"] = dnb_rows(detail)
+    if "hist" in suites:
+        res["hist"] = hist_rows(detail)
     return res
 
 
@@ -2453,6 +2564,9 @@ def summary(res: dict) -> dict:
                                                     "best_la_bits") if key in v}
     for k, v in res.get("dnb", {}).items():
         out[f"dnb {k}"] = {key: v[key] for key in ("dnb_kernel_ms", "dnb_ms", "err", "lanes") if key in v}
+    for k, v in res.get("hist", {}).items():
+        out[f"hist {k}"] = {key: v[key] for key in v if key.endswith("kernel_ms") or key.startswith("median")
+                            or key in ("bincount_ms", "bytes_bound_ms", "pick_kernel_ms")}
     for suite in ("cooks", "trimmed_var"):
         for k, v in res.get(suite, {}).items():
             if not k.startswith("rank sweep"):

@@ -36,8 +36,10 @@ HEADERS = ("common.cuh", "trimmed.cuh")
 # kernel name -> (source file, exported C function)
 KERNELS = {
     "select": ("select.cu", "order_stats_select_launch"),
-    # one radix pass of a select whose keys lie on several ranks (the sharded size-factor median)
+    # one radix pass of a select whose keys lie on several ranks (the sharded size-factor median),
+    # and the digit pick from the ranks' summed counts
     "select_hist": ("select.cu", "select_hist_launch"),
+    "select_pick": ("select.cu", "select_pick_launch"),
     "disp_scan": ("disp_scan.cu", "disp_scan_launch"),
     "disp_scan_fine": ("disp_scan.cu", "disp_scan_fine_launch"),
     # the fine scan's gene order, grouped by centre
@@ -77,6 +79,8 @@ HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch"),
            "grid_nb_per_sm": ("grid.cu", "grid_nb_per_sm"),
            # the clusters of 16 select blocks the card holds (the occupancy API; no launch)
            "select_max_clusters": ("select.cu", "select_max_clusters"),
+           # the select_hist blocks an SM holds (the occupancy API; no launch)
+           "select_hist_per_sm": ("select.cu", "select_hist_per_sm"),
            # the blocks of an irls group size an SM holds (the occupancy API; no launch)
            "irls_per_sm": ("irls.cu", "irls_per_sm")}
 
@@ -98,7 +102,8 @@ _L = ctypes.c_longlong
 # (see the extern "C" launchers in csrc/*.cu).
 _ARGTYPES = {
     "order_stats_select_launch": [_I, _P, _I, _I, _L, _L, _P, _P, _P, _P, _I, _I, _I],
-    "select_hist_launch": [_I, _P, _I, _I, _L, _L, _P, _I, _I, _I, _P],
+    "select_hist_launch": [_I, _P, _I, _I, _L, _L, _P, _I, _I, _I, _I, _P],
+    "select_pick_launch": [_I, _I, _I, _I, _P, _P, _L, _P, _P, _P],
     "disp_scan_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _D, _I, _I,
                          _P, _P, _I, _P, _P, _P, _P],
     "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _P, _I, _I,
@@ -134,6 +139,7 @@ _ARGTYPES = {
     "grid_apeglm_per_sm": [_I, _I, _P],
     "grid_nb_per_sm": [_I, _I, _P],
     "select_max_clusters": [_I, _I, _I, _P],
+    "select_hist_per_sm": [_I, _I, _P],
     "irls_per_sm": [_I, _I, _I, _P],
 }
 
@@ -180,6 +186,7 @@ class KernelStats:
 STATS = KernelStats()
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -236,6 +243,11 @@ def build() -> dict[str, float]:
 
 
 def _function(fn_name: str, source: str):
+    """The bound C function, its argument types set once (a launch's host
+    time is the wrappers' to spend)."""
+    fn = _fns.get(fn_name)
+    if fn is not None:
+        return fn
     lib = _libs.get(source)
     if lib is None:
         path = _lib_path(source)
@@ -246,6 +258,7 @@ def _function(fn_name: str, source: str):
     fn = getattr(lib, fn_name)
     fn.argtypes = _ARGTYPES[fn_name] + [_P]
     fn.restype = ctypes.c_int
+    _fns[fn_name] = fn
     return fn
 
 

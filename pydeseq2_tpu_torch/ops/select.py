@@ -27,6 +27,13 @@ each pass streams them from device memory again. The result is
 bit-identical to a sort.
 
 The plain version (CPU tensors only) sorts the keys and gathers the ranks.
+
+The gene mesh's median (:func:`sharded_masked_median`) runs the same radix
+passes with the keys spread over the ranks: ``select_hist`` counts each
+pass's digit of the local keys (a warp a column over staged chunks where
+most keys match the prefix, each thread on the keys it loaded where few
+do), the ranks all-reduce the counts, and ``select_pick`` resolves the
+digit from the totals, one launch a pass, the last decoding the median.
 """
 
 from __future__ import annotations
@@ -249,11 +256,26 @@ def masked_median_select(
 # pass histograms the next 8-bit digit of the local keys that match the
 # prefix resolved so far (the ``select_hist`` kernel, ``csrc/select.cu``),
 # the ranks add their integer histograms (an all-reduce), and every rank
-# picks the same digit from the same totals. The keys are the unsigned
-# ones of the kernels (a float's bits, the sign bit set on non-negatives,
-# every bit flipped on negatives), digits MSB first.
+# picks the same digit from the same totals (the ``select_pick`` kernel).
+# The keys are the unsigned ones of the kernels (a float's bits, the sign
+# bit set on non-negatives, every bit flipped on negatives), digits MSB
+# first.
 _HIST_COLS = 16  # columns a select_hist block (csrc/select.cu)
+_HIST_WARPS = 16  # warps a block
+_HIST_CHUNK = 256  # rows a staged chunk
+_HIST_LOADS = 8  # values a thread stages a chunk
 _HIST_MIN_ROWS = 256  # rows a block, at least
+_WARP = 32
+_HIST_WAVE_SLACK = 1.1  # the plan's waves, at most this over the fewest its row splits allow
+
+
+class HistPlan(NamedTuple):
+    """A ``select_hist`` launch: ``rows`` rows a block (a multiple of 32),
+    the keys ``staged`` in shared memory (columns adjacent in memory) or
+    read where they lie."""
+
+    rows: int
+    staged: bool
 
 
 def _passes(dtype: torch.dtype) -> int:
@@ -280,6 +302,12 @@ def _prefix_of(digits: torch.Tensor, pass_: int) -> torch.Tensor:
     return p
 
 
+def _columns(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """(C, L): the columns along ``axis`` (a view of a 2-D ``x``)."""
+    cols = x.movedim(axis, -1)
+    return cols.reshape(-1, cols.shape[-1])
+
+
 def select_hist_plain(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0) -> torch.Tensor:
     """Plain version of ``select_hist``: (C, 2, 256) int32 counts of pass
     ``pass_``'s digit of the keys along ``axis`` that match each (column,
@@ -299,36 +327,119 @@ def select_hist_plain(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: i
     return torch.bincount(bins, minlength=C * 2 * 256).reshape(C, 2, 256).to(torch.int32)
 
 
-def _hist_rows(C: int, L: int, sms: int = 132) -> int:
-    """Rows a ``select_hist`` block: split each 16-column group's rows so
-    that the blocks cover the SMs four times, a block keeping at least 256
-    rows."""
+@functools.lru_cache(maxsize=None)
+def _hist_plan(C: int, L: int, staged: bool, slots: int = 528) -> HistPlan:
+    """The plan for C columns of L values, ``slots`` blocks resident on the
+    card at once (the SMs times the blocks an SM holds). Each 16-column
+    group's rows split s ways, s the fewest (each block keeping at least 256
+    rows) whose waves of blocks, ceil(groups s / slots) / s in units of one
+    unsplit block, are within 10% of the fewest any s allows: one wave at
+    100 x 60000 (7 groups); three or four splits for 625 groups, where one
+    would leave most SMs idle in its second wave. Rows a block round up to
+    a warp's 32."""
     groups = -(-C // _HIST_COLS)
-    splits = max(1, min(-(-L // _HIST_MIN_ROWS), -(-4 * sms // groups)))
-    return -(-L // splits)
+    max_splits = max(1, -(-L // _HIST_MIN_ROWS))
+    waves = [-(-(groups * s) // slots) / s for s in range(1, max_splits + 1)]
+    least = min(waves)
+    s = next(i + 1 for i, w in enumerate(waves) if w <= least * _HIST_WAVE_SLACK)
+    rows = -(-(-(-L // s)) // _WARP) * _WARP
+    return HistPlan(rows, staged)
 
 
-def _select_hist_cuda(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0) -> torch.Tensor:
+def _hist_cover(C: int, L: int, plan: HistPlan, vec: bool = True,
+                itemsize: int = 4) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """How often ``select_hist`` under ``plan`` counts each (column, row) of
+    C columns of L values, and in staged mode how often it stages each:
+    (C, L) int32 tensors from the kernel's own index arithmetic (its
+    blocks, warps, chunks, steps and lanes; ``vec``: the 16-byte loads of
+    values of ``itemsize`` bytes where a block is full), for the tests.
+    None for the staging of a plan that reads in place. A staged block that
+    goes sparse tests each value where it loaded it: the staging's cells."""
+    counted = torch.zeros((C, L), dtype=torch.int32)
+    staged = torch.zeros((C, L), dtype=torch.int32) if plan.staged else None
+    lanes = torch.arange(_WARP)
+    tid = torch.arange(_HIST_WARPS * _WARP)
+    vw = 16 // itemsize  # values a 16-byte load
+    for c0 in range(0, C, _HIST_COLS):
+        Bc = min(_HIST_COLS, C - c0)
+        S = _HIST_WARPS // Bc
+        walks = [(w % Bc, w // Bc) for w in range(S * Bc)]  # (column, share) of each active warp
+        if plan.staged:
+            if vec and Bc == _HIST_COLS:  # vw adjacent columns of a row a thread
+                tpr = _HIST_COLS // vw
+                s_col = (tid % tpr)[None, :, None] * vw + torch.arange(vw)[None, None, :]
+                s_row = (tid // tpr)[None, :, None] + (tid.numel() // tpr) * torch.arange(_HIST_LOADS // vw)[:, None, None]
+                s_col, s_row = torch.broadcast_tensors(s_col, s_row)
+            else:  # one column of a row a thread, 16 columns x 32 rows a round
+                s_col = (tid % _HIST_COLS)[None, :].expand(_HIST_LOADS, -1)
+                s_row = (tid // _HIST_COLS)[None, :] + _WARP * torch.arange(_HIST_LOADS)[:, None]
+            s_col, s_row = s_col.reshape(-1), s_row.reshape(-1)
+        for r0 in range(0, L, plan.rows):
+            Rb = min(plan.rows, L - r0)
+            chunks = [(b, min(_HIST_CHUNK, Rb - b)) for b in range(0, Rb, _HIST_CHUNK)] if plan.staged else [(0, Rb)]
+            for base, n_rows in chunks:
+                if plan.staged:
+                    ok = (s_row < n_rows) & (s_col < Bc)
+                    staged.index_put_((c0 + s_col[ok], r0 + base + s_row[ok]),
+                                      torch.ones(int(ok.sum()), dtype=torch.int32), accumulate=True)
+                for col, share in walks:
+                    for k in range(share, -(-n_rows // _WARP), S):
+                        row = k * _WARP + lanes
+                        counted[c0 + col, r0 + base + row[row < n_rows]] += 1
+    return counted, staged
+
+
+@functools.lru_cache(maxsize=None)
+def _hist_slots(device: torch.device, is_f64: bool, staged: bool) -> int:
+    """The ``select_hist`` blocks the card holds at once: its SMs times the
+    blocks an SM holds (the occupancy API for this build; no launch)."""
+    out = ctypes.c_int(0)
+    kernels.call_helper("select_hist_per_sm", [int(is_f64), int(staged), ctypes.addressof(out)], device)
+    return max(1, out.value) * kernels.sm_count(device)
+
+
+def _hist_device_plan(cols: torch.Tensor) -> HistPlan:
+    """:func:`_hist_plan` for the (C, L) columns view ``cols`` on its card:
+    staged where the columns are adjacent in memory and there are several."""
+    C, L = cols.shape
+    staged = C > 1 and cols.stride(0) == 1
+    return _hist_plan(C, L, staged, _hist_slots(cols.device, cols.dtype == torch.float64, staged))
+
+
+def _check_digits(digits: torch.Tensor, C: int, npass: int, name: str) -> None:
+    """The kernels read a (column, rank)'s digits by 4-byte words."""
+    if (digits.shape != (C, 2, npass) or digits.dtype != torch.uint8 or not digits.is_contiguous()
+            or digits.data_ptr() % 4):
+        raise ValueError(f"{name}: digits must be a contiguous, 4-byte aligned ({C}, 2, {npass}) uint8 tensor")
+
+
+def _hist_head(cols: torch.Tensor, digits: torch.Tensor) -> list:
+    """The leading ``select_hist`` arguments for the (C, L) view ``cols``:
+    its type, address, shape and strides, the digits' address, the passes."""
+    C, L = cols.shape
+    return [int(cols.dtype == torch.float64), cols.data_ptr(), C, L, *cols.stride(), digits.data_ptr(),
+            _passes(cols.dtype)]
+
+
+def _hist_launch(head: list, pass_: int, out: int, plan: HistPlan, device: torch.device) -> None:
+    """One ``select_hist`` launch (``head`` from :func:`_hist_head`) adding
+    into the counts at device address ``out``."""
+    kernels.launch("select_hist", head + [pass_, plan.rows, int(plan.staged), out], device)
+
+
+def _select_hist_cuda(x: torch.Tensor, digits: torch.Tensor, pass_: int, axis: int = 0,
+                      plan: HistPlan | None = None) -> torch.Tensor:
     """Launch ``select_hist`` on ``x`` where it lies (its strides; a view of
-    a 2-D ``x``)."""
+    a 2-D ``x``) into new zeroed counts; ``plan`` overrides
+    :func:`_hist_device_plan`."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"select_hist: unsupported dtype {x.dtype}")
-    cols = x.movedim(axis, -1)
-    cols = cols.reshape(-1, cols.shape[-1])
-    C, L = cols.shape
-    s_col, s_row = cols.stride()
-    npass = _passes(x.dtype)
-    if digits.shape != (C, 2, npass) or digits.dtype != torch.uint8:
-        raise ValueError(f"select_hist: digits must be ({C}, 2, {npass}) uint8")
-    digits = digits.contiguous()
-    out = torch.zeros((C, 2, 256), dtype=torch.int32, device=x.device)
+    cols = _columns(x, axis)
+    C = cols.shape[0]
+    _check_digits(digits, C, _passes(x.dtype), "select_hist")
     kernels.check_cuda_device("select_hist", cols, digits)
-    kernels.launch(
-        "select_hist",
-        [int(x.dtype == torch.float64), cols.data_ptr(), C, L, s_col, s_row, digits.data_ptr(), npass, pass_,
-         _hist_rows(C, L, kernels.sm_count(x.device)), out.data_ptr()],
-        x.device,
-    )
+    out = torch.zeros((C, 2, 256), dtype=torch.int32, device=x.device)
+    _hist_launch(_hist_head(cols, digits), pass_, out.data_ptr(), plan or _hist_device_plan(cols), x.device)
     return out
 
 
@@ -363,26 +474,123 @@ def radix_pick(hist: torch.Tensor, rank: torch.Tensor, digits: torch.Tensor, pas
     return rank - before
 
 
-def sharded_masked_median(values: torch.Tensor, n_valid: torch.Tensor, mesh=None, axis: int = 0) -> torch.Tensor:
+def _mid_ranks(n: torch.Tensor) -> torch.Tensor:
+    """(C, 2) int64: the two middle ranks of each column's ``n`` valid entries."""
+    return torch.stack([torch.clamp((n - 1) // 2, min=0), n // 2], dim=-1)
+
+
+def select_pick_plain(hist: torch.Tensor, n_valid: torch.Tensor, rank: torch.Tensor, digits: torch.Tensor,
+                      pass_: int, out: torch.Tensor | None = None) -> None:
+    """Plain version of ``select_pick``, in the kernel's terms: each
+    (column, rank)'s digit is the first bin of ``hist`` (C, 2, 256) whose
+    running count passes the rank (none: 255), written to ``digits[...,
+    pass_]``, and the rank less the count before that bin (none: before bin
+    255) to ``rank`` (C, 2), in place; the ranks entering the pass come
+    from ``rank``, at pass 0 the two middle ranks of ``n_valid`` (C,). With
+    ``out`` (C,): the median from the keys the digits spell, NaN where
+    ``n_valid`` is 0. ``radix_pick`` and ``_decode`` are the same function
+    written as counts and bytes."""
+    k = _mid_ranks(n_valid) if pass_ == 0 else rank.to(torch.int64)
+    cum = hist.to(torch.int64).cumsum(-1)
+    passed = cum > k[..., None]
+    d = torch.where(passed.any(-1), passed.to(torch.uint8).argmax(-1), 255)
+    before = torch.where(d > 0, cum.gather(-1, (d - 1).clamp(min=0)[..., None]).squeeze(-1), 0)
+    digits[..., pass_] = d.to(torch.uint8)
+    rank.copy_(k - before)
+    if out is None:
+        return
+    npass = digits.shape[-1]
+    bits = 8 * npass
+    key = torch.zeros(digits.shape[:2], dtype=torch.int64, device=digits.device)
+    for j in range(npass):
+        key = key | (digits[..., j].to(torch.int64) << (bits - 8 * (j + 1)))
+    if npass == 4:  # the 32-bit key as a signed int32 pattern
+        key = torch.where(key >= 1 << 31, key - (1 << 32), key)
+    word = torch.int32 if npass == 4 else torch.int64
+    key = key.to(word)
+    top = torch.iinfo(word).min
+    v = torch.where(key < 0, key ^ top, ~key).view(out.dtype)  # the top bit set: a non-negative float
+    med = (v[:, 0] + v[:, 1]) / 2.0
+    out.copy_(torch.where(n_valid > 0, med, torch.full_like(med, float("nan"))))
+
+
+def _pick_launch(is_f64: bool, C: int, npass: int, pass_: int, counts: int, n: int, n_stride: int, rank: int,
+                 digits: int, out: int | None, device: torch.device) -> None:
+    """One ``select_pick`` launch (every operand a device address)."""
+    kernels.launch("select_pick", [int(is_f64), C, npass, pass_, counts, n, n_stride, rank, digits, out], device)
+
+
+def _select_pick_cuda(hist: torch.Tensor, n_valid: torch.Tensor, rank: torch.Tensor, digits: torch.Tensor,
+                      pass_: int, out: torch.Tensor | None = None) -> None:
+    """Launch ``select_pick`` on CUDA operands (as :func:`select_pick_plain`;
+    ``rank`` int32, ``n_valid`` int64 (C,) or one count)."""
+    C = hist.shape[0]
+    npass = digits.shape[-1]
+    _check_digits(digits, C, npass, "select_pick")
+    for name, t, shape in (("hist", hist, (C, 2, 256)), ("rank", rank, (C, 2))):
+        if t.dtype != torch.int32 or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"select_pick: {name} must be a contiguous {shape} int32 tensor")
+    n = n_valid.to(torch.int64).reshape(-1).contiguous()
+    if n.numel() not in (1, C) or (out is not None and (out.shape != (C,) or not out.is_contiguous())):
+        raise ValueError("select_pick: n_valid must hold one count or one a column, out (C,)")
+    kernels.check_cuda_device("select_pick", hist, n, rank, digits, *([] if out is None else [out]))
+    _pick_launch(npass == 8, C, npass, pass_, hist.data_ptr(), n.data_ptr(), int(n.numel() > 1), rank.data_ptr(),
+                 digits.data_ptr(), kernels.ptr(out), hist.device)
+
+
+def select_pick(hist: torch.Tensor, n_valid: torch.Tensor, rank: torch.Tensor, digits: torch.Tensor, pass_: int,
+                out: torch.Tensor | None = None) -> None:
+    """Resolve pass ``pass_``'s digit of each (column, rank) from the ranks'
+    totals ``hist`` (see :func:`select_pick_plain`). CUDA tensors launch the
+    ``select_pick`` kernel; CPU tensors take the plain version."""
+    if hist.is_cuda:
+        _select_pick_cuda(hist, n_valid, rank, digits, pass_, out)
+    else:
+        select_pick_plain(hist, n_valid.expand(hist.shape[0]) if n_valid.numel() == 1 else n_valid.reshape(-1),
+                          rank, digits, pass_, out)
+
+
+def sharded_masked_median(values: torch.Tensor, n_valid: torch.Tensor, mesh=None, axis: int = 0,
+                          plan: HistPlan | None = None) -> torch.Tensor:
     """:func:`masked_median_select` over a reduced axis split over the ranks
     of ``mesh``: each rank holds its rows of ``values`` (+inf at excluded
     entries), and ``n_valid`` is the per-column count of valid entries over
     every rank. Each of the 4 (float32) or 8 (float64) radix passes is one
-    ``select_hist`` launch and an all-reduce of its (C, 2, 256) int32
-    counts; the decoded keys are the elements a sort of the whole axis puts
-    at the two middle ranks, so the median is bit for bit the unsharded
-    one. ``mesh=None`` runs the passes on one rank."""
+    ``select_hist`` launch, an all-reduce of its (C, 2, 256) int32 counts
+    and one ``select_pick`` launch; the counts of every pass, the ranks and
+    the digits share one buffer, zeroed once. The decoded keys are the
+    elements a sort of the whole axis puts at the two middle ranks, so the
+    median is bit for bit the unsharded one. ``mesh=None`` runs the passes
+    on one rank; ``plan`` overrides :func:`_hist_device_plan` on the card."""
     from pydeseq2_tpu_torch.parallel.mesh import all_reduce_sum
 
     dev = values.device
-    n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+    cols = _columns(values, axis)
+    C = cols.shape[0]
     red_shape = values.movedim(axis, -1).shape[:-1]
-    n = n_valid.expand(red_shape).reshape(-1)
-    rank = torch.stack([torch.clamp((n - 1) // 2, min=0), n // 2], dim=-1)  # (C, 2)
+    n = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
+    n = n.reshape(1) if n.numel() == 1 else n.expand(red_shape).reshape(C).contiguous()
     npass = _passes(values.dtype)
-    digits = torch.zeros(rank.shape + (npass,), dtype=torch.uint8, device=dev)
+    n_counts = npass * C * 2 * 256
+    work = torch.zeros(n_counts + 2 * C + -(-2 * C * npass // 4), dtype=torch.int32, device=dev)
+    counts = work[:n_counts].view(npass, C, 2, 256)
+    rank = work[n_counts:n_counts + 2 * C].view(C, 2)
+    digits = work[n_counts + 2 * C:].view(torch.uint8)[:2 * C * npass].view(C, 2, npass)
+    med = torch.empty(C, dtype=values.dtype, device=dev)
+    if not values.is_cuda:
+        for p in range(npass):
+            counts[p] = select_hist_plain(values, digits, p, axis)
+            all_reduce_sum(counts[p], mesh)
+            select_pick(counts[p], n, rank, digits, p, med if p == npass - 1 else None)
+        return med.reshape(red_shape)
+    kernels.check_cuda_device("sharded_masked_median", cols)
+    plan = plan or _hist_device_plan(cols)
+    head = _hist_head(cols, digits)
+    base, pass_bytes = work.data_ptr(), C * 2 * 256 * 4
     for p in range(npass):
-        rank = radix_pick(all_reduce_sum(select_hist(values, digits, p, axis), mesh), rank, digits, p)
-    v = _decode(digits, values.dtype)  # (C, 2)
-    med = ((v[:, 0] + v[:, 1]) / 2.0).reshape(red_shape)
-    return torch.where(n_valid > 0, med, torch.full_like(med, float("nan")))
+        _hist_launch(head, p, base + p * pass_bytes, plan, dev)
+        if mesh is not None:
+            all_reduce_sum(counts[p], mesh)
+        _pick_launch(head[0], C, npass, p, base + p * pass_bytes, n.data_ptr(), int(n.numel() > 1),
+                     rank.data_ptr(), head[6], med.data_ptr() if p == npass - 1 else None, dev)
+    return med.reshape(red_shape)

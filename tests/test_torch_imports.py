@@ -156,12 +156,12 @@ def test_kernels_refuse_wide_designs_and_cpu_operands():
 
 
 def test_every_kernel_is_counted():
-    """Twenty-eight kernels (the class API's trend_fit, trimmed_var and the
+    """Twenty-nine kernels (the class API's trend_fit, trimmed_var and the
     hat-only and Wald-only entries of hat_wald.cu, dnb_nll and the fine
     scan's disp_scan_fine with its gene grouping disp_scan_group beside the
-    pipelines' nineteen, sf_nll's lgamma table, the gene mesh's select_hist;
-    BH as two, the rejection counts and one adjusted row), each with a
-    launch count that starts at 0."""
+    pipelines' nineteen, sf_nll's lgamma table, the gene mesh's select_hist
+    and its digit pick select_pick; BH as two, the rejection counts and one
+    adjusted row), each with a launch count that starts at 0."""
     kernels.STATS.reset()
-    assert len(kernels.KERNELS) == 28
+    assert len(kernels.KERNELS) == 29
     assert kernels.STATS.launches == dict.fromkeys(kernels.KERNELS, 0)
