@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from pydeseq2_tpu_torch import kernels
 from pydeseq2_tpu_torch.convert import resolve_device
 from pydeseq2_tpu_torch.parallel.mesh import (
     LaneGroup,
@@ -46,8 +47,10 @@ from pydeseq2_tpu_torch.ops.stats import (
 from pydeseq2_tpu_torch.ops.trend import parametric_trend
 from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
+from pydeseq2_tpu_torch.tracing import read, traced
 
 
+@traced("deseq2.irls")
 def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_mu, beta_tol, phase1_iters=8,
                       group=None):
     """Two-phase IRLS with the rescue cascade: ``(beta, converged, overflow)``.
@@ -61,6 +64,9 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     lanes of the tile it rescues (``sel``), and its kernel works on those
     only. ``overflow`` counts flagged lanes beyond the K tile. See
     ``pydeseq2_tpu/fused.py:51``.
+
+    The lanes that the phase-2 continuation and the grid tier take, counts
+    the host already reads, add to ``kernels.STATS.rescue_lanes``.
 
     ``group`` (a :class:`~pydeseq2_tpu_torch.parallel.mesh.LaneGroup`)
     makes these lanes one rank's share of a tile split over ranks: K comes
@@ -90,7 +96,10 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
     # there is nothing to continue.
     n_unfinished = 0
     if phase1_iters < 250:  # the tile's count: with a group, one exchange
-        n_unfinished = int(needs_fb.sum()) if group is None else sum(group.counts(needs_fb.sum()))
+        with read("irls_unfinished"):
+            n_unfinished = int(needs_fb.sum()) if group is None else sum(group.counts(needs_fb.sum()))
+    if n_unfinished > 0:
+        kernels.STATS.rescue_lanes["phase2"] += n_unfinished
     if n_unfinished > K:
         b2, nfb2, conv2 = irls_core(
             counts, size_factors, X, disp, beta,
@@ -114,10 +123,12 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
         quota = K  # the tile holds the first K flagged lanes
         overflow = torch.clamp(needs_fb.sum() - K, min=0)
         # Host-evaluated lax.cond (fused.py:183-185).
-        rescue = bool(needs_fb.any())
+        with read("irls_rescue_any"):
+            rescue = bool(needs_fb.any())
     else:
         # The tile's first K flagged lanes: this rank's first `quota`.
-        flagged = group.counts(needs_fb.sum())
+        with read("irls_rescue_any"):
+            flagged = group.counts(needs_fb.sum())
         pos = group.position()
         quota = min(flagged[pos], max(0, K - sum(flagged[:pos])))
         overflow = torch.tensor(flagged[pos] - quota, dtype=torch.int64, device=dev)
@@ -138,8 +149,10 @@ def _irls_with_rescue(counts, size_factors, design_matrix, disp, beta_init, min_
         sel_grid = still_bad[idx] & in_quota
         # Host-evaluated lax.cond (fused.py:206-208); the count it reads
         # sizes the grid kernel's launch.
-        n_bad = int(still_bad.sum())
+        with read("irls_grid_count"):
+            n_bad = int(still_bad.sum())
         if n_bad:
+            kernels.STATS.rescue_lanes["grid"] += n_bad
             b_grid = grid_fit_beta_batch(counts[idx], size_factors, X, disp[idx], min_mu=min_mu, sel=sel_grid,
                                          n_sel=n_bad)
             beta = beta.clone()
@@ -605,6 +618,7 @@ def device_padj(
     return bh_adjust_row(p_filled, order, valid, base_mean, cutoffs, j)
 
 
+@traced("deseq2.host_inputs")
 def summary_host_inputs(design_matrix, min_replicates: int = 7) -> dict:
     """Host-side, design-only inputs of :func:`summary_pipeline`.
 

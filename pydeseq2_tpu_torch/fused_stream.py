@@ -55,6 +55,7 @@ from pydeseq2_tpu_torch.parallel.mesh import (
     gather_gene_dict,
     resolve_mesh_device,
 )
+from pydeseq2_tpu_torch.tracing import read, span, traced
 
 # The ~4 GB device budget of the JAX package's block sizing: ~20 live
 # (block, N) temporaries of <= 8 bytes (80 bytes a cell).
@@ -88,6 +89,7 @@ def _mesh_layout(G: int, B: int, R: int) -> tuple[int, int, int]:
     return B // q, q, B // q
 
 
+@traced("deseq2.stage")
 def _stage_counts(counts, dtype, n_genes, gene_block, dev):
     """The host wrappers' counts: on ``dev`` in ``dtype`` (a torch or numpy
     float dtype; a tensor already there is not copied), with zero rows
@@ -116,6 +118,7 @@ def _stage_counts(counts, dtype, n_genes, gene_block, dev):
     return counts.contiguous(), G, gene_block
 
 
+@traced("deseq2.to_host")
 def _to_host(tensors: dict) -> dict:
     """Numpy copies of a dict of tensors in ONE device-to-host copy: every
     tensor is widened to one dtype, joined, copied, split and cast back.
@@ -126,7 +129,9 @@ def _to_host(tensors: dict) -> dict:
         return {}
     narrow = all(v.dtype in (torch.float32, torch.bool) for v in tensors.values())
     wide = torch.float32 if narrow else torch.float64
-    flat = torch.cat([v.reshape(-1).to(wide) for v in tensors.values()]).cpu().numpy()
+    flat = torch.cat([v.reshape(-1).to(wide) for v in tensors.values()])
+    with read("to_host"):
+        flat = flat.cpu().numpy()
     out, at = {}, 0
     for k, v in tensors.items():
         n = v.numel()
@@ -229,6 +234,7 @@ def _mu_hat(coef, sf, X, min_mu, mu_init):
     return mu_from_coef(coef, sf, X, min_mu)
 
 
+@traced("deseq2.genewise")
 def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init, group=None):
     """Streamed pass 1: per block, base means, the mu init and the genewise
     dispersion MLE with its coarse-grid objective cache, which the MAP fit
@@ -248,6 +254,7 @@ def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, 
     return torch.cat(base_mean), torch.cat(genewise), coarse, coefs, torch.stack(overflow).sum()
 
 
+@traced("deseq2.trend_prior")
 def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, N, P, mesh=None):
     """The global reductions between the passes: the dispersion trend (one
     ``trend`` launch) and the prior (``fused_stream.py:334-350``), over the
@@ -255,6 +262,7 @@ def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, N, P
     return _trend_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, 20, N, P, mesh)
 
 
+@traced("deseq2.map")
 def _shrunk_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, squared_logres, min_disp, max_disp):
     """MAP dispersions from the cached coarse scan, and the dispersions the
     LFC fit uses (genewise where the gene is a shrinkage outlier):
@@ -266,6 +274,7 @@ def _shrunk_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, s
     return map_disp, torch.where(shrink_outlier, genewise, map_disp)
 
 
+@traced("deseq2.analyse")
 def _analyse_pass(counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, genewise_m, fitted_m,
                   coarse, coefs, prior_disp_var, squared_logres, *, gene_block, cohort_ids, use_for_max,
                   replaceable, min_mu, min_disp, max_disp, beta_tol, alt_hypothesis, mu_init, stats_layer,
@@ -386,14 +395,15 @@ def summary_pipeline_streamed(
         first = mesh.get_local_rank() // _block_ranks * _block_ranks
         group = LaneGroup(mesh, first, _block_ranks, gene_block * _block_ranks)
 
-    logmeans, non_zero = _log_stats(counts, gene_mask, gene_block, sf_fit_type)
-    if size_factors is not None:
-        sf = size_factors
-    elif sf_fit_type == "poscounts":
-        usable = torch.isfinite(logmeans) & (logmeans > 0) & gene_mask
-        sf = _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block, mesh)
-    else:
-        sf = _streamed_size_factors(counts, gene_mask, logmeans, sample_block, mesh)
+    with span("deseq2.size_factors"):
+        logmeans, non_zero = _log_stats(counts, gene_mask, gene_block, sf_fit_type)
+        if size_factors is not None:
+            sf = size_factors
+        elif sf_fit_type == "poscounts":
+            usable = torch.isfinite(logmeans) & (logmeans > 0) & gene_mask
+            sf = _streamed_poscounts_size_factors(counts, usable, logmeans, sample_block, mesh)
+        else:
+            sf = _streamed_size_factors(counts, gene_mask, logmeans, sample_block, mesh)
 
     base_mean, genewise, coarse, coefs, mu_overflow = _genewise_pass(
         counts, sf, X, ols_pinv(X), gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init, group)
@@ -516,6 +526,7 @@ def refit_pipeline_streamed(
     return out
 
 
+@traced("deseq2.padj")
 def _padj_program(p, base_mean, gene_mask, alpha, independent_filter, mesh=None):
     """padj on the merged arrays (``fused_stream.py:661``), NaN off the mask;
     over the gathered gene axis with ``mesh``."""
@@ -615,6 +626,7 @@ def _merge_refit(res, rnp, idx, G):
     return refitted, new_all_zero
 
 
+@traced("deseq2.refit")
 def _apply_streamed_refit(res, out, counts_dev, X, contrast, lfc_null, host, knobs, G, mesh=None):
     """Gather the flagged genes, refit them, merge, mask, adjust
     (``pydeseq2_tpu/fused_stream.py:670``; reference dds.py:1042-1064 then
@@ -655,14 +667,17 @@ def _apply_streamed_refit(res, out, counts_dev, X, contrast, lfc_null, host, kno
         p[outlier] = np.nan
         res["p_values"] = p
     dev = counts_dev.device
-    res["padj"] = _padj_program(
+    padj = _padj_program(
         torch.as_tensor(p, device=dev), torch.as_tensor(res["base_mean"].astype(p.dtype), device=dev),
         torch.ones(G, dtype=torch.bool, device=dev), knobs.get("alpha", 0.05),
         knobs.get("independent_filter", True),
-    ).cpu().numpy()
+    )
+    with read("padj"):
+        res["padj"] = padj.cpu().numpy()
     return res
 
 
+@traced("deseq2.study")
 def run_summary_streamed(
     counts,
     design_matrix,
@@ -726,28 +741,30 @@ def run_summary_streamed(
     padded_G = counts.shape[0] * (1 if mesh is None else mesh.size())  # the whole padded gene axis
     np_dtype = _NP_DTYPE[counts.dtype]
     sf_req = knobs.get("sf_fit_type", "ratio")
-    if knobs.get("size_factors") is None and sf_req in ("ratio", "iterative"):
-        # Host-evaluated: does any gene have no zero (median-of-ratios
-        # defined)? Over every rank's genes: a collective every rank reaches.
-        n_defined = all_reduce_sum((counts > 0).all(dim=1).any().to(torch.int64).reshape(1), mesh)
-        ratio_undefined = sf_req == "ratio" and not bool(n_defined[0] > 0)
-        if sf_req == "iterative" or ratio_undefined:
-            if mesh is not None:  # the iterative solve runs whole on every rank
-                whole, _, _ = _stage_counts(whole, dtype, G, unsharded_block, dev)
-            if ratio_undefined:
-                warnings.warn(
-                    "Every gene contains at least one zero, cannot compute log geometric means. Switching to "
-                    "iterative mode.",
-                    UserWarning,
-                    stacklevel=2,
-                )
-            # The iterative solver's own max_disp default is max(10, N),
-            # not the pipeline's (fused_stream.py:871).
-            knobs["size_factors"], _ = iterative_size_factors(
-                whole, torch.arange(whole.shape[0], device=dev) < G, min_disp=knobs.get("min_disp", 1e-8),
-                max_disp=knobs.get("max_disp", float(max(10, N))), min_mu=knobs.get("min_mu", 0.5),
-                gene_block=pick_sf_gene_block(whole.shape[0], N, counts.dtype), device=dev)
-            knobs["sf_fit_type"] = "ratio"  # unused once the factors are injected
+    with span("deseq2.size_factors"):
+        if knobs.get("size_factors") is None and sf_req in ("ratio", "iterative"):
+            # Host-evaluated: does any gene have no zero (median-of-ratios
+            # defined)? Over every rank's genes: a collective every rank reaches.
+            n_defined = all_reduce_sum((counts > 0).all(dim=1).any().to(torch.int64).reshape(1), mesh)
+            with read("sf_defined"):
+                ratio_undefined = sf_req == "ratio" and not bool(n_defined[0] > 0)
+            if sf_req == "iterative" or ratio_undefined:
+                if mesh is not None:  # the iterative solve runs whole on every rank
+                    whole, _, _ = _stage_counts(whole, dtype, G, unsharded_block, dev)
+                if ratio_undefined:
+                    warnings.warn(
+                        "Every gene contains at least one zero, cannot compute log geometric means. Switching to "
+                        "iterative mode.",
+                        UserWarning,
+                        stacklevel=3,  # the caller, past the span's wrapper
+                    )
+                # The iterative solver's own max_disp default is max(10, N),
+                # not the pipeline's (fused_stream.py:871).
+                knobs["size_factors"], _ = iterative_size_factors(
+                    whole, torch.arange(whole.shape[0], device=dev) < G, min_disp=knobs.get("min_disp", 1e-8),
+                    max_disp=knobs.get("max_disp", float(max(10, N))), min_mu=knobs.get("min_mu", 0.5),
+                    gene_block=pick_sf_gene_block(whole.shape[0], N, counts.dtype), device=dev)
+                knobs["sf_fit_type"] = "ratio"  # unused once the factors are injected
     if isinstance(design_matrix, torch.Tensor):
         design_matrix = _host(design_matrix)
     host = summary_host_inputs(design_matrix, min_replicates)
@@ -803,7 +820,7 @@ def run_summary_streamed(
             "final IRLS iterate (converged=False). This only happens when >~1.5% of genes fail to converge "
             "in IRLS.",
             UserWarning,
-            stacklevel=2,
+            stacklevel=3,  # the caller, past the span's wrapper
         )
     return res
 

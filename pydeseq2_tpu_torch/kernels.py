@@ -164,14 +164,19 @@ MAX_P = 8
 
 
 class KernelStats:
-    """Launch counts per kernel, plus the IRLS trip counts and the box
-    rescue's passes of each launch.
+    """Launch counts per kernel, the IRLS rescue's lanes, and, while tracing
+    is on (:mod:`~pydeseq2_tpu_torch.tracing`), the IRLS trip counts and the
+    box rescue's passes of each launch.
 
     A count rises by one where a wrapper launches its kernel and nowhere
-    else. ``irls_trips`` holds, per IRLS launch, a 0-d device tensor with
-    the largest per-lane trip count; ``box_passes``, per ``newton_box``
-    launch, the (K,) int32 device tensor of its lanes' serial passes, 0
-    on a lane not selected (read them after a synchronise).
+    else. ``rescue_lanes`` sums, over ``fused._irls_with_rescue`` calls, the
+    unfinished lanes that the phase-2 continuation takes (``"phase2"``) and
+    the lanes the grid tier takes (``"grid"``), from counts the host reads
+    anyway. With tracing on, ``irls_trips`` holds, per IRLS launch, a 0-d
+    device tensor with the largest per-lane trip count; ``box_passes``, per
+    ``newton_box`` launch, the (K,) int32 device tensor of its lanes' serial
+    passes, 0 on a lane not selected (read them after a synchronise). With
+    tracing off they stay empty, and the trip count is not reduced.
     """
 
     def __init__(self) -> None:
@@ -179,6 +184,7 @@ class KernelStats:
 
     def reset(self) -> None:
         self.launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
+        self.rescue_lanes: dict[str, int] = {"phase2": 0, "grid": 0}
         self.irls_trips: list[torch.Tensor] = []
         self.box_passes: list[torch.Tensor] = []
 

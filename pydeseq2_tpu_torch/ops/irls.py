@@ -46,7 +46,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch import kernels, tracing
 from pydeseq2_tpu_torch.ops.dispersion import first_argmin
 from pydeseq2_tpu_torch.ops.nb import nb_nll
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv, sym_solve, weighted_gram
@@ -242,15 +242,21 @@ def _irls_cuda(counts, size_factors, X, disp, beta_init, log_sf, min_mu, beta_to
 
 
 def _irls_core_cuda(counts, size_factors, X, disp, beta_init, min_mu, beta_tol, max_beta, maxiter, step_tol,
-                    polish_iters):
-    """``irls_core``'s CUDA route: ``(beta, needs_fb, n_iter)``, the
-    slowest lane's trips recorded in ``kernels.STATS.irls_trips``. Nothing
-    of shape (G, N) runs here: the kernel computes the deviance constant."""
+                    polish_iters, want_iters=False):
+    """``irls_core``'s CUDA route: ``(beta, needs_fb, n_iter)``. The
+    slowest lane's trips ``n_iter`` (one reduction launch) are made where
+    ``want_iters`` or tracing is on, and recorded in
+    ``kernels.STATS.irls_trips`` while tracing is on; else ``n_iter`` is
+    None. Nothing of shape (G, N) runs here: the kernel computes the
+    deviance constant."""
     log_sf = torch.log(size_factors)
     beta, needs_fb, trips = _irls_cuda(counts, size_factors, X, disp, beta_init, log_sf, min_mu, beta_tol,
                                        max_beta, maxiter, step_tol, polish_iters)
-    n_iter = trips.amax() if trips.numel() else torch.zeros((), dtype=torch.int32, device=counts.device)
-    kernels.STATS.irls_trips.append(n_iter)
+    n_iter = None
+    if want_iters or tracing.active():
+        n_iter = trips.amax() if trips.numel() else torch.zeros((), dtype=torch.int32, device=counts.device)
+        if tracing.active():
+            kernels.STATS.irls_trips.append(n_iter)
     return beta, needs_fb, n_iter
 
 
@@ -280,7 +286,7 @@ def irls_core(
         step_tol = 1e-5 if dtype == torch.float32 else 0.0
     if counts.is_cuda:
         beta, needs_fb, n_iter = _irls_core_cuda(counts, size_factors, X, disp, beta_init, min_mu, beta_tol,
-                                                 max_beta, maxiter, step_tol, polish_iters)
+                                                 max_beta, maxiter, step_tol, polish_iters, return_iters)
     else:
         # The lgamma part of the deviance is hoisted out of the loop: the
         # stop compares deviance differences, in which it cancels exactly.
@@ -438,13 +444,15 @@ def newton_box_nbglm(
     ``sel`` (K,) bool marks the lanes whose result the caller uses: the
     ``newton_box`` kernel (CUDA tensors) does no work for the others and
     returns ``beta_init`` and False there (its lanes' serial passes, 0 on
-    the others, are kept in ``kernels.STATS.box_passes``); the plain version
+    the others, are kept in ``kernels.STATS.box_passes`` while tracing is
+    on); the plain version
     ignores it.
     """
     if counts.is_cuda:
         beta, ok, passes = _newton_box_cuda(counts, size_factors, design_matrix, disp, beta_init, min_mu,
                                             max_beta, maxiter, sel)
-        kernels.STATS.box_passes.append(passes)
+        if tracing.active():
+            kernels.STATS.box_passes.append(passes)
         return beta, ok
     return _newton_box_plain(counts, size_factors, design_matrix, disp, beta_init, min_mu, max_beta, maxiter)
 

@@ -23,12 +23,15 @@ from typing import NamedTuple
 
 import torch
 
-from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch import kernels, tracing
 
 
 def ols_pinv(design_matrix: torch.Tensor) -> torch.Tensor:
-    """Moore-Penrose pseudo-inverse of the design matrix (P, N), computed once."""
-    return torch.linalg.pinv(design_matrix)
+    """Moore-Penrose pseudo-inverse of the design matrix (P, N), computed
+    once. On the card the SVD under it reads its convergence flag back (a
+    host read: the ``deseq2.read.pinv`` span)."""
+    with tracing.read("pinv"):
+        return torch.linalg.pinv(design_matrix)
 
 
 def fit_lin_mu_batch(

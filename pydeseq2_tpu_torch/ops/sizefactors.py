@@ -37,7 +37,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch import kernels, tracing
 from pydeseq2_tpu_torch.convert import resolve_device
 from pydeseq2_tpu_torch.fused import dispersion_prior
 from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
@@ -432,6 +432,8 @@ def iterative_size_factors(
         log_sf = torch.where(any_informative, new_log_sf, log_sf)
         it += 1
         # Host-evaluated while_loop condition (sizefactors.py:377-393).
-        if bool(done):
+        with tracing.read("sf_iter_done"):
+            stop = bool(done)
+        if stop:
             break
     return torch.exp(log_sf), it
