@@ -622,33 +622,41 @@ def device_padj(
 def summary_host_inputs(design_matrix, min_replicates: int = 7) -> dict:
     """Host-side, design-only inputs of :func:`summary_pipeline`.
 
-    From the design matrix (pandas DataFrame or array): the F(0.99, P,
-    N - P) Cook's cutoff (scipy, reference pydeseq2/dds.py:1080), the
-    ``use_for_max`` mask of samples in >= 3-replicate cohorts (reference
-    pydeseq2/utils.py:888-911), the cohort ids of those samples in
-    first-seen order (None when there are none), the ``replaceable`` mask
-    of >= ``min_replicates``-replicate samples, and the ``mu_init`` mode
+    From the design matrix (an array, a DataFrame or a tensor on the host):
+    the F(0.99, P, N - P) Cook's cutoff (scipy, reference
+    pydeseq2/dds.py:1080), the ``use_for_max`` mask of samples in
+    >= 3-replicate cohorts (reference pydeseq2/utils.py:888-911), the cohort
+    ids of those samples in sorted-row order (``groupby(columns).ngroup()``;
+    None when there are none), the ``replaceable`` mask of
+    >= ``min_replicates``-replicate samples, and the ``mu_init`` mode
     ("linear" when the design rows group 1:1 onto its columns, else
-    "irls"). Port of ``pydeseq2_tpu/fused.py:772``.
+    "irls"). Port of ``pydeseq2_tpu/fused.py:772``, with one lexicographic
+    sort of the rows in place of pandas' per-row tuples.
     """
     import numpy as np
-    import pandas as pd
     from scipy.stats import f
 
-    from pydeseq2_tpu_torch.utils import n_or_more_replicates
-
-    df = design_matrix if isinstance(design_matrix, pd.DataFrame) else pd.DataFrame(np.asarray(design_matrix))
-    n, p = df.shape
-    three_or_more = n_or_more_replicates(df, 3).to_numpy()
+    X = np.asarray(design_matrix, dtype=np.float64)
+    n, p = X.shape
+    # Sort the rows once, first column as the primary key (lexsort's last):
+    # a cohort is a run of equal rows, -0.0 and 0.0 alike.
+    order = np.lexsort(X.T[::-1])
+    ordered = X[order]
+    starts = np.flatnonzero(np.r_[True, (ordered[1:] != ordered[:-1]).any(axis=1)])
+    sizes = np.diff(np.r_[starts, n])
+    cohort = np.empty(n, dtype=np.intp)
+    cohort[order] = np.repeat(np.arange(len(starts)), sizes)
+    three_or_more = (sizes >= 3)[cohort]
     if three_or_more.any():
-        filtered = df.loc[three_or_more, :]
-        cohort_ids = tuple(int(x) for x in filtered.groupby(filtered.columns.tolist()).ngroup())
+        # ngroup over the kept rows: the kept cohorts renumbered in sorted order.
+        renumber = np.cumsum(sizes >= 3) - 1
+        cohort_ids = tuple(renumber[cohort[three_or_more]].tolist())
     else:
         cohort_ids = None
     return {
         "cooks_cutoff": float(f.ppf(0.99, p, n - p)),
-        "use_for_max": tuple(bool(b) for b in three_or_more),
+        "use_for_max": tuple(three_or_more.tolist()),
         "cohort_ids": cohort_ids,
-        "replaceable": tuple(bool(b) for b in n_or_more_replicates(df, min_replicates).to_numpy()),
-        "mu_init": "linear" if len(df.value_counts()) == p else "irls",
+        "replaceable": tuple((sizes >= min_replicates)[cohort].tolist()),
+        "mu_init": "linear" if len(starts) == p else "irls",
     }

@@ -740,6 +740,11 @@ def run_summary_streamed(
     N = counts.shape[1]
     padded_G = counts.shape[0] * (1 if mesh is None else mesh.size())  # the whole padded gene axis
     np_dtype = _NP_DTYPE[counts.dtype]
+    # The design's host inputs, while the card still copies the counts: the
+    # size-factor check below is the study's first host read.
+    if isinstance(design_matrix, torch.Tensor):
+        design_matrix = _host(design_matrix)
+    host = summary_host_inputs(design_matrix, min_replicates)
     sf_req = knobs.get("sf_fit_type", "ratio")
     with span("deseq2.size_factors"):
         if knobs.get("size_factors") is None and sf_req in ("ratio", "iterative"):
@@ -765,9 +770,6 @@ def run_summary_streamed(
                     max_disp=knobs.get("max_disp", float(max(10, N))), min_mu=knobs.get("min_mu", 0.5),
                     gene_block=pick_sf_gene_block(whole.shape[0], N, counts.dtype), device=dev)
                 knobs["sf_fit_type"] = "ratio"  # unused once the factors are injected
-    if isinstance(design_matrix, torch.Tensor):
-        design_matrix = _host(design_matrix)
-    host = summary_host_inputs(design_matrix, min_replicates)
     lo = 0 if mesh is None else counts.shape[0] * mesh.get_local_rank()
     gene_mask = torch.arange(lo, lo + counts.shape[0], device=dev) < G
 

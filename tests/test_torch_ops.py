@@ -697,25 +697,73 @@ def test_device_padj(name, independent_filter):
     assert np.sum(want < 0.05) > 10
 
 
-def test_summary_host_inputs():
-    """Equal dicts for a single-factor, a multi-factor (one cohort of 2),
-    a continuous design (no cohort) and a DataFrame design."""
+def _host_design(case):
+    """The (N, P) design of a ``test_summary_host_inputs`` case."""
     import pandas as pd
-
-    from pydeseq2_tpu.fused import summary_host_inputs as j_host
-    from pydeseq2_tpu_torch.fused import summary_host_inputs as t_host
 
     rng = np.random.default_rng(16)
     cond = rng.integers(0, 2, 20).astype(float)
-    group = np.r_[np.zeros(18), np.ones(2)]
-    designs = [
-        np.column_stack([np.ones(20), cond]),
-        np.column_stack([np.ones(20), group, cond]),
-        np.column_stack([np.ones(20), cond, rng.normal(size=20)]),
-        pd.DataFrame({"intercept": np.ones(20), "cond": cond}),
-    ]
-    for X in designs:
-        assert t_host(X) == j_host(X)
+
+    def one_hot(levels):  # treatment coding: a column for each level past the first
+        return (levels[:, None] == np.unique(levels)[1:]).astype(float)
+
+    if case == "single_factor":
+        return np.column_stack([np.ones(20), cond])
+    if case == "cohort_of_two":
+        return np.column_stack([np.ones(20), np.r_[np.zeros(18), np.ones(2)], cond])
+    if case == "continuous":
+        return np.column_stack([np.ones(20), cond, rng.normal(size=20)])
+    if case == "all_distinct":
+        return np.column_stack([np.ones(40), rng.normal(size=40)])
+    if case == "dataframe":
+        return pd.DataFrame({"intercept": np.ones(20), "cond": cond})
+    if case == "dataframe_column_major":
+        # Named columns out of sorted order, held column-major by pandas.
+        return pd.DataFrame({"z_cond": cond, "a_level": rng.integers(0, 3, 20).astype(float),
+                             "Intercept": np.ones(20)})
+    if case == "read_only":
+        X = np.column_stack([np.ones(20), cond])
+        X.setflags(write=False)
+        return X
+    if case == "negative_zero":
+        return np.column_stack([np.ones(20), np.where(cond > 0, 1.0, np.where(np.arange(20) % 3 == 0, -0.0, 0.0))])
+    if case == "cohorts_2_3_6_7":
+        levels = rng.permutation(np.repeat(np.arange(4), [2, 3, 6, 7]))
+        return np.column_stack([np.ones(len(levels)), one_hot(levels)])
+    if case == "three_levels":
+        return np.column_stack([np.ones(30), one_hot(rng.integers(0, 3, 30))])
+    if case == "gtex_2_to_1":
+        N = 17_382
+        return np.column_stack([np.ones(N), (rng.permutation(N) < 2 * N // 3).astype(float)])
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize(
+    "case,min_replicates",
+    [(c, 7) for c in ("single_factor", "cohort_of_two", "continuous", "dataframe", "dataframe_column_major",
+                      "read_only", "negative_zero", "cohorts_2_3_6_7", "all_distinct", "three_levels",
+                      "gtex_2_to_1")]
+    + [("cohorts_2_3_6_7", 3), ("three_levels", 3), ("cohorts_2_3_6_7", 50), ("gtex_2_to_1", 50)],
+)
+def test_summary_host_inputs(case, min_replicates):
+    """The numpy grouping gives the JAX package's pandas dict, equal key for
+    key: Python bools and ints in tuples, ``ngroup``'s cohort numbering."""
+    from pydeseq2_tpu.fused import summary_host_inputs as j_host
+    from pydeseq2_tpu_torch.fused import summary_host_inputs as t_host
+
+    X = _host_design(case)
+    got = t_host(X, min_replicates)
+    assert got == j_host(X, min_replicates)
+    assert all(type(b) is bool for b in got["use_for_max"] + got["replaceable"])
+    if got["cohort_ids"] is not None:
+        assert all(type(i) is int for i in got["cohort_ids"])
+    if case == "all_distinct":
+        assert got["cohort_ids"] is None and got["mu_init"] == "irls"
+    if case == "cohorts_2_3_6_7":
+        assert 0 < sum(got["use_for_max"]) < len(got["use_for_max"])
+        assert sum(got["replaceable"]) == {3: 16, 7: 7, 50: 0}[min_replicates]
+    if case == "negative_zero":
+        assert got["mu_init"] == "linear"
 
 
 @pytest.mark.parametrize("alt", [None, "greaterAbs", "lessAbs", "greater", "less"])

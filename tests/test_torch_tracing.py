@@ -124,6 +124,33 @@ def test_spans_nest_under_the_study_and_lanes_match_the_reads(monkeypatch):
     kernels.STATS.reset()
 
 
+def test_host_inputs_come_before_the_first_read(monkeypatch):
+    """The design's host inputs are derived before the size-factor check's
+    host read, the study's first, so that they run while the card still
+    has the counts' copy queued."""
+    counts, X = _study()
+    seen = []
+    host_inputs, fused_read, stream_read = fused_stream.summary_host_inputs, fused.read, fused_stream.read
+
+    def recording_host_inputs(*a, **k):
+        seen.append("host_inputs")
+        return host_inputs(*a, **k)
+
+    def recording_read(real):
+        def read(site):
+            seen.append(site)
+            return real(site)
+
+        return read
+
+    monkeypatch.setattr(fused_stream, "summary_host_inputs", recording_host_inputs)
+    monkeypatch.setattr(fused_stream, "read", recording_read(stream_read))
+    monkeypatch.setattr(fused, "read", recording_read(fused_read))
+    _run(counts, X)
+    assert seen[:2] == ["host_inputs", "sf_defined"]
+    assert seen.count("host_inputs") == 1
+
+
 def test_grid_lanes_count_the_grid_launch(monkeypatch):
     """The grid tier's lanes: every lane the Newton rescue leaves failed."""
     counts, X = _study(G=300)
