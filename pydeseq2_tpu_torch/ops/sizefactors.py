@@ -347,6 +347,19 @@ def trimmed_sf_newton(
 def _iteration(counts, log_sf, non_zero, X, pinv, slices, quant, min_disp, max_disp, min_mu, gene_block):
     """One round of ``iterative_size_factors`` (``pydeseq2_tpu/ops/
     sizefactors.py:235-270``): ``(new log_sf, any_informative)``."""
+    with tracing.span("deseq2.sf_dispersions"):
+        coef, disp, informative = _round_dispersions(counts, log_sf, non_zero, X, pinv, slices, min_disp, max_disp,
+                                                     min_mu)
+    with tracing.span("deseq2.sf_trim"):
+        raw, _ = trimmed_sf_newton(counts, coef, disp, log_sf, quant=quant, mask=non_zero, min_mu=min_mu,
+                                   gene_block=gene_block)
+    return raw - raw.mean(), informative.any()
+
+
+def _round_dispersions(counts, log_sf, non_zero, X, pinv, slices, min_disp, max_disp, min_mu):
+    """A round's fits at size factors exp(log_sf): ``(coef (G,), disp (G,),
+    informative (G,))``, the OLS coefficients, the dispersions the trimmed
+    solve takes and the genes the constant trend runs over."""
     G, N = counts.shape
     sf = torch.exp(log_sf)
     genewise, coefs = [], []
@@ -377,10 +390,7 @@ def _iteration(counts, log_sf, non_zero, X, pinv, slices, quant, min_disp, max_d
     map_disp = torch.clamp(torch.cat(map_disp), min_disp, max_disp)
     disp = torch.where(outlier, genewise, map_disp)
     disp = torch.where(non_zero, disp, torch.ones_like(disp))  # masked lanes: any finite value
-
-    raw, _ = trimmed_sf_newton(counts, coef, disp, log_sf, quant=quant, mask=non_zero, min_mu=min_mu,
-                               gene_block=gene_block)
-    return raw - raw.mean(), informative.any()
+    return coef, disp, informative
 
 
 def iterative_size_factors(
@@ -425,15 +435,17 @@ def iterative_size_factors(
     log_sf = torch.zeros(N, dtype=dtype, device=dev)
     it = 0
     while it < niter:
-        new_log_sf, any_informative = _iteration(counts, log_sf, non_zero, X, pinv, slices, quant, min_disp,
-                                                 max_disp, min_mu, gene_block)
-        delta = ((log_sf - new_log_sf) ** 2).sum()
-        done = ~any_informative | ((delta < 1e-4) & (it > 1))
-        log_sf = torch.where(any_informative, new_log_sf, log_sf)
-        it += 1
-        # Host-evaluated while_loop condition (sizefactors.py:377-393).
-        with tracing.read("sf_iter_done"):
-            stop = bool(done)
+        with tracing.span("deseq2.sf_round"):
+            new_log_sf, any_informative = _iteration(counts, log_sf, non_zero, X, pinv, slices, quant, min_disp,
+                                                     max_disp, min_mu, gene_block)
+            delta = ((log_sf - new_log_sf) ** 2).sum()
+            done = ~any_informative | ((delta < 1e-4) & (it > 1))
+            log_sf = torch.where(any_informative, new_log_sf, log_sf)
+            it += 1
+            # Host-evaluated while_loop condition (sizefactors.py:377-393).
+            with tracing.read("sf_iter_done"):
+                stop = bool(done)
         if stop:
             break
+    kernels.STATS.sf_rounds += it
     return torch.exp(log_sf), it

@@ -20,7 +20,11 @@ Span names (fixed, prefix ``deseq2.``): ``deseq2.study`` around all of
 ``fused_stream.run_summary_streamed``; the stages inside it,
 ``deseq2.stage`` (counts cast and padded), ``deseq2.host_inputs``
 (``summary_host_inputs``), ``deseq2.size_factors`` (the ratio-defined
-check, the log-means and the estimator, iterative too),
+check, the log-means and the estimator, iterative too; inside it each
+round of ``ops.sizefactors.iterative_size_factors`` is
+``deseq2.sf_round``, holding ``deseq2.sf_dispersions``, the round's MoM,
+genewise and MAP fits with their constant trend and prior, and
+``deseq2.sf_trim``, ``trimmed_sf_newton``'s keep rounds),
 ``deseq2.genewise``, ``deseq2.trend_prior``, ``deseq2.analyse`` (MAP,
 IRLS with rescue, hat + Wald, Cook's), ``deseq2.map``, ``deseq2.irls``,
 ``deseq2.to_host``, ``deseq2.refit`` and ``deseq2.padj``; and

@@ -1,8 +1,9 @@
 """The port's tracing switch (``pydeseq2_tpu_torch.tracing``): off by
 default and then free of spans and of the per-launch records; on, the
 ``deseq2.*`` spans of the streamed refit route nested under one study, the
-host reads in spans of their own, and the IRLS rescue's lane counters equal
-to the counts the host read."""
+host reads in spans of their own, the IRLS rescue's lane counters equal
+to the counts the host read, and the iterative size factors' rounds as
+spans inside ``deseq2.size_factors`` and as a counter."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from pydeseq2_tpu_torch import fused, fused_stream, kernels, tracing
 from pydeseq2_tpu_torch.ops import irls as irl
+from pydeseq2_tpu_torch.ops import sizefactors
 from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers, zero_per_gene
 
 PKG = Path(tracing.__file__).resolve().parent
@@ -228,3 +230,52 @@ def test_iterative_switch_warns_at_the_caller(monkeypatch):
     (w,) = [w for w in caught if "iterative mode" in str(w.message)]
     assert w.filename == __file__
     assert "deseq2.read.sf_iter_done" in spy.names
+
+
+SF_SPANS = ("deseq2.sf_round", "deseq2.sf_dispersions", "deseq2.sf_trim")
+
+
+def _within(inner, outer) -> bool:
+    return outer.time_range.start <= inner.time_range.start and inner.time_range.end <= outer.time_range.end
+
+
+def test_iterative_spans_nest_in_the_size_factors(monkeypatch):
+    """On: each round a ``deseq2.sf_round`` inside ``deseq2.size_factors``,
+    holding one ``deseq2.sf_dispersions`` and one ``deseq2.sf_trim``, as
+    many rounds as the counter gives; off: no span entered."""
+    counts, X = make_data(12, 120, 1)
+    zi = zero_per_gene(counts.T)
+    spy = _Counting()
+    monkeypatch.setattr(torch.profiler, "record_function", spy)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        off = _run(zi, X)
+        assert spy.names == []
+        kernels.STATS.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof, tracing.enabled():
+            on = _run(zi, X)
+    _same(off, on)
+    ev = [e for e in prof.events() if e.name.startswith("deseq2.")]
+    by = {n: [e for e in ev if e.name == n] for n in SF_SPANS + ("deseq2.size_factors",)}
+    rounds = kernels.STATS.sf_rounds
+    assert rounds >= 3 and all(len(by[n]) == rounds for n in SF_SPANS)
+    for r in by["deseq2.sf_round"]:
+        assert any(_within(r, s) for s in by["deseq2.size_factors"])
+        for n in ("deseq2.sf_dispersions", "deseq2.sf_trim"):
+            assert sum(_within(e, r) for e in by[n]) == 1
+    kernels.STATS.reset()
+
+
+def test_sf_rounds_count_the_solves_rounds():
+    """``STATS.sf_rounds`` adds each solve's returned rounds, and a study
+    whose ratio is defined leaves it untouched."""
+    counts, X = make_data(12, 120, 1)
+    zi = torch.as_tensor(zero_per_gene(counts.T))
+    kernels.STATS.reset()
+    _, n1 = sizefactors.iterative_size_factors(zi, device="cpu")
+    assert kernels.STATS.sf_rounds == n1 >= 3
+    _, n2 = sizefactors.iterative_size_factors(zi[:, :10], device="cpu")
+    assert kernels.STATS.sf_rounds == n1 + n2
+    kernels.STATS.reset()
+    _run(*_study())
+    assert kernels.STATS.sf_rounds == 0
