@@ -165,16 +165,18 @@ MAX_P = 8
 
 class KernelStats:
     """Launch counts per kernel, the IRLS rescue's lanes, the iterative size
-    factors' rounds, and, while tracing is on
-    (:mod:`~pydeseq2_tpu_torch.tracing`), the IRLS trip counts and the box
-    rescue's passes of each launch.
+    factors' rounds, the dispersion fits that reuse a coarse scan, and,
+    while tracing is on (:mod:`~pydeseq2_tpu_torch.tracing`), the IRLS trip
+    counts and the box rescue's passes of each launch.
 
     A count rises by one where a wrapper launches its kernel and nowhere
     else. ``rescue_lanes`` sums, over ``fused._irls_with_rescue`` calls, the
     unfinished lanes that the phase-2 continuation takes (``"phase2"``) and
     the lanes the grid tier takes (``"grid"``), from counts the host reads
     anyway. ``sf_rounds`` sums the rounds that
-    ``ops.sizefactors.iterative_size_factors`` ran, the host's own count.
+    ``ops.sizefactors.iterative_size_factors`` ran, the host's own count;
+    ``coarse_reuses`` the ``ops.dispersion.alpha_mle_batch`` calls that took
+    their coarse scan from a ``coarse_cache`` (a Python int, no read).
     With tracing on, ``irls_trips`` holds, per IRLS launch, a 0-d device
     tensor with the largest per-lane trip count; ``box_passes``, per
     ``newton_box`` launch, the (K,) int32 device tensor of its lanes' serial
@@ -189,6 +191,7 @@ class KernelStats:
         self.launches: dict[str, int] = dict.fromkeys(KERNELS, 0)
         self.rescue_lanes: dict[str, int] = {"phase2": 0, "grid": 0}
         self.sf_rounds: int = 0
+        self.coarse_reuses: int = 0
         self.irls_trips: list[torch.Tensor] = []
         self.box_passes: list[torch.Tensor] = []
 

@@ -375,7 +375,8 @@ def alpha_mle_batch(
     Returns ``(alpha, converged)``, plus the (grid_length, G) base objective
     (no prior) at the static grid points when ``return_coarse``. A later
     call on the same counts/mu/design can pass it as ``coarse_cache`` to
-    skip its coarse scan (the MAP fit only adds a per-lane prior).
+    skip its coarse scan (the MAP fit only adds a per-lane prior); each such
+    call adds one to ``kernels.STATS.coarse_reuses``.
     See ``pydeseq2_tpu/ops/dispersion.py:78`` for the full contract.
     """
     dtype = mu.dtype
@@ -398,6 +399,7 @@ def alpha_mle_batch(
 
     coarse_vals = None
     if coarse_cache is not None:
+        kernels.STATS.coarse_reuses += 1
         f_all = coarse_cache + prior if prior_reg else coarse_cache
         la1 = la_grid[first_argmin(f_all)]
     else:

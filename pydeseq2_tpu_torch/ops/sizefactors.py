@@ -28,6 +28,15 @@ dispersion fits. Both kernels and their plain versions sum in float64 and
 round, so they stop on the same keep sets. The quantile between the
 launches takes its two order statistics from the ``select`` kernel, with
 the ranks as device tensors (no host read).
+
+A round runs one coarse dispersion scan a gene slice, where the JAX
+package's round runs two (``pydeseq2_tpu/ops/sizefactors.py:242-251,
+286-299``): the MAP fit takes the genewise fit's (32, G) objective as its
+``coarse_cache`` and adds its prior, as the main pass's MAP fit does. Both
+fits see the same mu (the genewise fit's from the ``mom`` launch, the MAP
+fit's from ``mu_from_coef``, each max(sf coef, min_mu) at P = 1), and the
+scan adds the prior last, so the plain path keeps its bits: its factors
+and rounds are those of the two-scan round.
 """
 
 from __future__ import annotations
@@ -359,17 +368,25 @@ def _iteration(counts, log_sf, non_zero, X, pinv, slices, quant, min_disp, max_d
 def _round_dispersions(counts, log_sf, non_zero, X, pinv, slices, min_disp, max_disp, min_mu):
     """A round's fits at size factors exp(log_sf): ``(coef (G,), disp (G,),
     informative (G,))``, the OLS coefficients, the dispersions the trimmed
-    solve takes and the genes the constant trend runs over."""
+    solve takes and the genes the constant trend runs over.
+
+    Each slice's genewise fit keeps its coarse scan's (32, rows) objective,
+    and the slice's MAP fit picks its start from it plus the prior instead
+    of scanning again: its mu, rebuilt by ``mu_from_coef`` rather than held
+    (G, N), is the genewise fit's bit for bit at the intercept-only design.
+    On the round's objectives, finite at every point, the cached pick
+    (``first_argmin``) and the scan's (the first strict minimum) agree."""
     G, N = counts.shape
     sf = torch.exp(log_sf)
-    genewise, coefs = [], []
+    genewise, coefs, coarse = [], [], []
     for sl in slices:
         c = counts[sl]
         rough, moments, coef, mu_hat = mom_and_mu_coef(c, sf, X, pinv, min_mu)
         mom = torch.clamp(torch.minimum(rough, moments), min_disp, max_disp)
-        gw, _ = alpha_mle_batch(c, X, mu_hat, mom, min_disp, max_disp, cr_reg=True)
+        gw, _, cache = alpha_mle_batch(c, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, return_coarse=True)
         genewise.append(torch.clamp(gw, min_disp, max_disp))
         coefs.append(coef[:, 0])
+        coarse.append(cache)
     genewise, coef = torch.cat(genewise), torch.cat(coefs)
 
     # The constant trend: the 0.001-trimmed mean of the informative genewise
@@ -381,11 +398,11 @@ def _round_dispersions(counts, log_sf, non_zero, X, pinv, slices, min_disp, max_
     outlier = torch.log(genewise) > torch.log(fitted) + 2.0 * torch.sqrt(squared_logres)
 
     map_disp = []
-    for sl in slices:
+    for sl, cache in zip(slices, coarse):
         c = counts[sl]
         mu_hat = mu_from_coef(coef[sl, None], sf, X, min_mu)
         md, _ = alpha_mle_batch(c, X, mu_hat, fitted.expand(c.shape[0]), min_disp, max_disp,
-                                prior_disp_var=prior_disp_var, cr_reg=True, prior_reg=True)
+                                prior_disp_var=prior_disp_var, cr_reg=True, prior_reg=True, coarse_cache=cache)
         map_disp.append(md)
     map_disp = torch.clamp(torch.cat(map_disp), min_disp, max_disp)
     disp = torch.where(outlier, genewise, map_disp)

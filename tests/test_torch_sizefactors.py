@@ -30,6 +30,8 @@ from pydeseq2_tpu.ops.sizefactors import trimmed_sf_newton as jax_trimmed
 import pydeseq2_tpu_torch as pt
 from pydeseq2_tpu.fused_stream import run_summary_streamed as jax_run_summary_streamed
 from pydeseq2_tpu.utils import load_example_data
+from pydeseq2_tpu_torch import kernels
+from pydeseq2_tpu_torch.ops import dispersion
 from pydeseq2_tpu_torch.ops import sizefactors as sz
 from test_torch_stream import assert_parity
 
@@ -142,6 +144,36 @@ def test_gene_block_changes_no_value(zero_per_gene):
         got, n_it = sz.iterative_size_factors(zero_per_gene, gene_block=block, device="cpu")
         assert n_it == n_whole
         np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("gene_block", [None, 8], ids=["whole_g", "gene_block_8"])
+def test_round_map_fit_reuses_the_genewise_scan(zero_per_gene, monkeypatch, gene_block):
+    """A round runs one coarse scan a slice, the genewise fit's, and its MAP
+    fit takes that scan's objective (``STATS.coarse_reuses`` one a slice a
+    round); the factors and rounds are bit for bit those of the uncached
+    route, which scans again for MAP."""
+    n_slices = len(sz._row_slices(zero_per_gene.shape[0], gene_block))
+    scans = []
+    scan = dispersion.scan_coarse
+    monkeypatch.setattr(dispersion, "scan_coarse", lambda *a, **k: scans.append(1) or scan(*a, **k))
+    kernels.STATS.reset()
+    got, n_it = sz.iterative_size_factors(zero_per_gene, gene_block=gene_block, device="cpu")
+    assert n_it >= 3 and len(scans) == kernels.STATS.coarse_reuses == n_it * n_slices
+
+    fit = sz.alpha_mle_batch
+
+    def uncached(*a, coarse_cache=None, return_coarse=False, **k):
+        out = fit(*a, **k)
+        return (*out, None) if return_coarse else out
+
+    monkeypatch.setattr(sz, "alpha_mle_batch", uncached)
+    scans.clear()
+    kernels.STATS.reset()
+    want, want_it = sz.iterative_size_factors(zero_per_gene, gene_block=gene_block, device="cpu")
+    assert len(scans) == 2 * want_it * n_slices and kernels.STATS.coarse_reuses == 0
+    assert n_it == want_it
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+    kernels.STATS.reset()
 
 
 def test_iterative_size_factors_r_golden():

@@ -279,3 +279,23 @@ def test_sf_rounds_count_the_solves_rounds():
     kernels.STATS.reset()
     _run(*_study())
     assert kernels.STATS.sf_rounds == 0
+
+
+def test_coarse_reuses_count_the_cached_fits():
+    """``STATS.coarse_reuses`` is 0 after ``reset()``, rises by one at least
+    a gene block (the main pass's MAP fit takes the genewise scan's cache)
+    on counts whose ratio is defined, and counts the same with tracing off
+    and on."""
+    counts, X = _study()
+    kernels.STATS.coarse_reuses = 5
+    kernels.STATS.reset()
+    assert kernels.STATS.coarse_reuses == 0
+    reuses = []
+    for on in (False, True):
+        kernels.STATS.reset()
+        with tracing.enabled(on):
+            fused_stream.run_summary_streamed(counts, X, np.array([0.0, 1.0]), dtype=np.float64, refit_cooks=True,
+                                              min_replicates=3, gene_block=128, device="cpu")
+        reuses.append(kernels.STATS.coarse_reuses)
+    assert reuses[0] == reuses[1] >= -(-counts.shape[0] // 128)
+    kernels.STATS.reset()
