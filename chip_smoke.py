@@ -433,7 +433,7 @@ def box_selection(passes: list) -> list:
 def stage_inputs(counts, X, max_disp):
     """The tensors the pipeline hands to each kernel (size factors, MoM,
     linear mu), computed with the port's own stage functions."""
-    from pydeseq2_tpu_torch.fused import _size_factors
+    from pydeseq2_tpu_torch.fused_stream import _streamed_size_factors
     from pydeseq2_tpu_torch.ops.linreg import (
         fit_lin_mu_batch,
         fit_moments_dispersions_batch,
@@ -449,7 +449,7 @@ def stage_inputs(counts, X, max_disp):
         filtered[:, None], log_counts - logmeans[:, None], torch.full_like(log_counts, math.inf)
     )
     n_valid = filtered.sum()
-    sf, _ = _size_factors(counts, mask)
+    sf = _streamed_size_factors(counts, mask, logmeans)
     normed = counts / sf[None, :]
     mom = torch.clamp(
         torch.minimum(fit_rough_dispersions_batch(normed, X), fit_moments_dispersions_batch(normed, sf)),
@@ -1198,11 +1198,11 @@ def capture_summary_inputs(kw: dict) -> dict:
     and ``device_padj``, and what each returned, plus the run's output under
     ``"summary"``."""
     import pydeseq2_tpu_torch as pt
-    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch import fused, fused_stream
 
-    names = ("hat_wald", "cooks_outliers", "bh_rejections", "bh_adjust_row", "device_padj", "_irls_with_rescue",
-             "newton_box_nbglm", "grid_fit_beta_batch")
-    return capture([(fused, names)], pt.summary_pipeline, "summary", kw)
+    return capture([(fused_stream, ("hat_wald", "cooks_outliers", "_irls_with_rescue")),
+                    (fused, ("bh_rejections", "bh_adjust_row", "device_padj", "newton_box_nbglm",
+                             "grid_fit_beta_batch"))], pt.summary_pipeline, "summary", kw)
 
 
 def capture_shrink_inputs(kw: dict) -> dict:
@@ -2298,9 +2298,9 @@ def weak_shrink_path(reps: int, readings: dict):
 def rescue_share(run, kw) -> tuple[float, float]:
     """One more run with ``_irls_with_rescue`` timed (synchronised before
     and after): (its seconds, the run's wall)."""
-    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch import fused_stream
 
-    orig = fused._irls_with_rescue
+    orig = fused_stream._irls_with_rescue
     spent = []
 
     def timed(*args, **kwargs):
@@ -2311,7 +2311,7 @@ def rescue_share(run, kw) -> tuple[float, float]:
         spent.append(time.perf_counter() - t0)
         return out
 
-    fused._irls_with_rescue = timed
+    fused_stream._irls_with_rescue = timed
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2319,7 +2319,7 @@ def rescue_share(run, kw) -> tuple[float, float]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        fused._irls_with_rescue = orig
+        fused_stream._irls_with_rescue = orig
     return sum(spent), wall
 
 
@@ -4156,7 +4156,7 @@ def vst_kernel_checks(dtype, G, N, reps, timings):
     ``disp_newton`` and ``trend`` at P = 1 on that run's blind-design
     operands. Returns {name: max_abs_err} and fills ``timings``."""
     import pydeseq2_tpu_torch as pt
-    from pydeseq2_tpu_torch import fused
+    from pydeseq2_tpu_torch import fused, fused_stream
     from pydeseq2_tpu_torch.ops import dispersion as dsp
     from pydeseq2_tpu_torch.ops import vst as vs
     from pydeseq2_tpu_torch.synthetic import make_data
@@ -4164,7 +4164,7 @@ def vst_kernel_checks(dtype, G, N, reps, timings):
     f32 = dtype == torch.float32
     name = "f32" if f32 else "f64"
     counts = torch.as_tensor(make_data(N, G)[0].T.copy(), dtype=dtype, device=DEVICE)
-    seen = capture([(fused, ("vst_transform", "mom_and_mu_coef", "parametric_trend")),
+    seen = capture([(fused_stream, ("vst_transform", "mom_and_mu_coef")), (fused, ("parametric_trend",)),
                     (dsp, ("scan_coarse", "newton_polish"))],
                    pt.vst_pipeline, "vst", dict(counts=counts, max_disp=float(max(10, N)), device=DEVICE))
     for key in ("vst_transform", "mom_and_mu_coef", "parametric_trend", "scan_coarse", "newton_polish"):
@@ -4982,7 +4982,7 @@ API_PROFILE = (("DeseqDataSet", "dataset.py", "__init__", None),
                ("host transpose", "~", "<built-in method numpy.ascontiguousarray>", "api.py"),
                ("counts to device", "~", "<method 'to' of 'torch._C.TensorBase' objects>", "api.py"),
                ("pipeline", "fused_stream.py", "run_summary_streamed", None),
-               ("pipeline", "fused.py", "summary_pipeline", "api.py"),
+               ("pipeline", "fused_stream.py", "summary_pipeline", "api.py"),
                ("host copy", "fused_stream.py", "_to_host", "api.py"))
 
 

@@ -45,21 +45,18 @@ from pydeseq2_tpu_torch.convert import (  # noqa: E402
     outputs_to_numpy,
     resolve_device,
 )
-from pydeseq2_tpu_torch.fused import (  # noqa: E402
-    device_padj,
-    summary_host_inputs,
-    summary_pipeline,
-    vst_pipeline,
-    wald_pipeline,
-)
+from pydeseq2_tpu_torch.fused import device_padj, summary_host_inputs  # noqa: E402
 from pydeseq2_tpu_torch.fused_stream import (  # noqa: E402
     lfc_shrink_pipeline_streamed,
     refit_pipeline_streamed,
     run_lfc_shrink_streamed,
     run_summary_streamed,
     run_vst_streamed,
+    summary_pipeline,
     summary_pipeline_streamed,
+    vst_pipeline,
     vst_pipeline_streamed,
+    wald_pipeline,
 )
 from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors  # noqa: E402
 from pydeseq2_tpu_torch.container import DeseqDataContainer  # noqa: E402

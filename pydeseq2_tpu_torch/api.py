@@ -8,7 +8,7 @@ tensor, and routes the analysis to the ported pipelines:
 - ``refit_cooks=True`` (the reference's default, pydeseq2/dds.py:221):
   :func:`~pydeseq2_tpu_torch.fused_stream.run_summary_streamed`, the
   gene-streamed main pass with the Cook's outlier replacement and refit;
-- ``refit_cooks=False``: :func:`~pydeseq2_tpu_torch.fused.summary_pipeline`
+- ``refit_cooks=False``: :func:`~pydeseq2_tpu_torch.fused_stream.summary_pipeline`
   (flag-then-mask, no replacement), then one host copy of the per-gene
   outputs.
 
@@ -117,8 +117,8 @@ def run_deseq2(
     padj (the reference's ``results_df``, pydeseq2/ds.py:268-286), plus the
     state dict when ``return_state``.
     """
-    from pydeseq2_tpu_torch.fused import summary_host_inputs, summary_pipeline
-    from pydeseq2_tpu_torch.fused_stream import _REPLICATED, _to_host, run_summary_streamed
+    from pydeseq2_tpu_torch.fused import summary_host_inputs
+    from pydeseq2_tpu_torch.fused_stream import _REPLICATED, _to_host, run_summary_streamed, summary_pipeline
     from pydeseq2_tpu_torch.models.dataset import DeseqDataSet
     from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors, pick_sf_gene_block
     from pydeseq2_tpu_torch.parallel.mesh import (

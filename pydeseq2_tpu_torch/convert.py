@@ -3,8 +3,8 @@
 DESeq2 carries no weights; what crosses over from the JAX package is the
 call itself: :func:`inputs_from_numpy` turns the numpy arguments of
 ``pydeseq2_tpu.fused.wald_pipeline`` or ``summary_pipeline`` into keyword
-arguments of the port's :func:`~pydeseq2_tpu_torch.fused.wald_pipeline` or
-:func:`~pydeseq2_tpu_torch.fused.summary_pipeline`, and
+arguments of the port's :func:`~pydeseq2_tpu_torch.fused_stream.wald_pipeline` or
+:func:`~pydeseq2_tpu_torch.fused_stream.summary_pipeline`, and
 :func:`outputs_to_numpy` turns the port's result into the dict that
 ``jax.device_get`` gives for the JAX result (same keys, same dtypes).
 """

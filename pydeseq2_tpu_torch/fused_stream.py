@@ -1,23 +1,31 @@
-"""Gene-streamed pipelines: the summary with Cook's outlier replacement and
-refit, apeGLM LFC shrinkage and the blind VST, with O(gene_block x N)
-temporaries.
+"""The port's DESeq2 pipelines: the per-tile fit as gene-streamed passes,
+and every entry point that runs them, with O(gene_block x N) temporaries.
 
-Port of ``pydeseq2_tpu/fused_stream.py``: the streamed summary
-(:func:`summary_pipeline_streamed`, ``:188``), the refit of the genes whose
-Cook's outliers were replaced (:func:`refit_pipeline_streamed`, ``:504``),
-their host wrapper :func:`run_summary_streamed` (``:783``, the default path
-of ``api.run_deseq2``), and the shrinkage
+Port of ``pydeseq2_tpu/fused_stream.py`` and of the entry points of
+``pydeseq2_tpu/fused.py``. One set of passes fits DESeq2 for every
+pipeline: the log-stats sweep and the size factors, the genewise pass
+(:func:`_genewise_pass`), the trend and prior (:func:`_trend_and_prior`),
+and the analyse pass (:func:`_analyse_pass`: MAP dispersions, IRLS with
+rescue, hat + Wald, the Cook's flags), then padj. They serve the streamed
+summary (:func:`summary_pipeline_streamed`, ``:188``) and its host wrapper
+:func:`run_summary_streamed` (``:783``, the default path of
+``api.run_deseq2``), which refits the genes whose Cook's outliers were
+replaced (:func:`refit_pipeline_streamed`, ``:504``); and the single-tile
+:func:`wald_pipeline` and :func:`summary_pipeline`, which run them over the
+tile as one gene block. Beside them: the apeGLM LFC shrinkage
 (:func:`lfc_shrink_pipeline_streamed`, ``:975``, and
 :func:`run_lfc_shrink_streamed`, ``:1085``) and the blind VST
-(:func:`vst_pipeline_streamed`, ``:1184``, and :func:`run_vst_streamed`,
-``:1285``). The raw counts stay on the
-device once; every per-gene stage runs over ``gene_block`` row slices in a
-Python loop (``lax.map`` in the JAX program), and the global reductions
-(size factors, trend, prior, the BH sweep) run between the passes on O(G)
-data, so each block sees the inputs the monolithic pipeline would give it.
-The ``lax.cond``/``while_loop`` conditions that stay on the host are marked
-where they are read. On zero-inflated counts :func:`run_summary_streamed`
-switches to the iterative size factors (:mod:`~pydeseq2_tpu_torch.ops.sizefactors`).
+(:func:`vst_pipeline`; :func:`vst_pipeline_streamed`, ``:1184``, and
+:func:`run_vst_streamed`, ``:1285``). The raw counts stay on the device
+once; every per-gene stage runs over ``gene_block`` row slices in a Python
+loop (``lax.map`` in the JAX program), and the global reductions (size
+factors, trend, prior, the BH sweep) run between the passes on O(G) data,
+so each block sees the inputs the whole tile would give it. The stage
+helpers the passes share are in :mod:`~pydeseq2_tpu_torch.fused`, the
+kernels' wrappers in ``ops/``. The ``lax.cond``/``while_loop`` conditions
+that stay on the host are marked where they are read. On zero-inflated
+counts :func:`run_summary_streamed` switches to the iterative size factors
+(:mod:`~pydeseq2_tpu_torch.ops.sizefactors`).
 """
 
 from __future__ import annotations
@@ -37,14 +45,19 @@ from pydeseq2_tpu_torch.fused import (
     fit_fused_trend,
     summary_host_inputs,
 )
-from pydeseq2_tpu_torch.models.stats import _apeglm_prior_variance
 from pydeseq2_tpu_torch.ops.cooks import cooks_outliers
-from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
+from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch, map_dispersions
 from pydeseq2_tpu_torch.ops.irls import irls_beta_init
 from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, mu_from_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.refit import impute_outliers
 from pydeseq2_tpu_torch.ops.sizefactors import iterative_size_factors, pick_sf_gene_block
-from pydeseq2_tpu_torch.ops.shrink import _hess, grid_fit_shrink_beta_batch, nbinom_fn_batch, nbinom_glm_batch
+from pydeseq2_tpu_torch.ops.shrink import (
+    _apeglm_prior_variance,
+    _hess,
+    grid_fit_shrink_beta_batch,
+    nbinom_fn_batch,
+    nbinom_glm_batch,
+)
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv
 from pydeseq2_tpu_torch.ops.vst import vst_transform
 from pydeseq2_tpu_torch.ops.wald import hat_wald
@@ -87,6 +100,18 @@ def _mesh_layout(G: int, B: int, R: int) -> tuple[int, int, int]:
     groups = next(d for d in range(n_blocks, R + 1) if R % d == 0 and B % (R // d) == 0)
     q = R // groups
     return B // q, q, B // q
+
+
+def _mesh_tile(gene_mask, mesh) -> LaneGroup:
+    """The IRLS tile of a mesh run of the single pipeline: every rank's
+    lanes, in rank order, up to the last gene of ``gene_mask`` over the
+    mesh. The trailing pad lanes (``shard_gene_major``'s) are then never
+    flagged, and the rescue's K is the unsharded run's, from the G genes.
+    One collective and one host read."""
+    R, S = mesh.size(), gene_mask.shape[0]
+    pos = torch.arange(1, S + 1, device=gene_mask.device) + mesh.get_local_rank() * S
+    tile = LaneGroup(mesh, 0, R, R * S)
+    return tile._replace(lanes=max(tile.counts(torch.where(gene_mask, pos, 0).max())))
 
 
 @traced("deseq2.stage")
@@ -255,34 +280,32 @@ def _genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_disp, 
 
 
 @traced("deseq2.trend_prior")
-def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, N, P, mesh=None):
+def _trend_and_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds, N, P, mesh=None):
     """The global reductions between the passes: the dispersion trend (one
-    ``trend`` launch) and the prior (``fused_stream.py:334-350``), over the
-    gathered gene axis with ``mesh``."""
-    return _trend_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, 20, N, P, mesh)
+    ``trend`` launch, at most ``max_rounds`` rounds) and the prior
+    (``fused_stream.py:334-350``), over the gathered gene axis with
+    ``mesh``."""
+    return _trend_prior(base_mean, genewise_m, non_zero, min_disp, trend_type, max_rounds, N, P, mesh)
 
 
 @traced("deseq2.map")
 def _shrunk_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, squared_logres, min_disp, max_disp):
-    """MAP dispersions from the cached coarse scan, and the dispersions the
-    LFC fit uses (genewise where the gene is a shrinkage outlier):
+    """One block's :func:`~pydeseq2_tpu_torch.ops.dispersion.map_dispersions`:
     ``(map, dispersions)``."""
-    map_disp, _ = alpha_mle_batch(c, X, mu_hat, torch.nan_to_num(fitted, nan=0.5), min_disp, max_disp,
-                                  prior_disp_var=prior_disp_var, cr_reg=True, prior_reg=True, coarse_cache=cache)
-    map_disp = torch.clamp(map_disp, min_disp, max_disp)
-    shrink_outlier = torch.log(genewise) > torch.log(fitted) + 2.0 * torch.sqrt(squared_logres)
-    return map_disp, torch.where(shrink_outlier, genewise, map_disp)
+    return map_dispersions(c, X, mu_hat, genewise, fitted, cache, prior_disp_var, squared_logres, min_disp, max_disp)
 
 
 @traced("deseq2.analyse")
 def _analyse_pass(counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, genewise_m, fitted_m,
                   coarse, coefs, prior_disp_var, squared_logres, *, gene_block, cohort_ids, use_for_max,
                   replaceable, min_mu, min_disp, max_disp, beta_tol, alt_hypothesis, mu_init, stats_layer,
-                  group=None):
+                  group=None, tile_outputs=False):
     """Streamed pass 2: per block, MAP dispersions, IRLS with rescue, hat
     diagonals + Wald and the Cook's flags (``fused_stream.py:352-460``). The
     Cook's distances live only inside the ``cooks`` launch; with
-    ``replaceable`` it also emits the refit-mode outputs."""
+    ``replaceable`` it also emits the refit-mode outputs. ``tile_outputs``
+    keeps each block's (rows, N) ``mu``, ``hat_diagonals`` and, with the
+    Cook's flags, the distances ``cooks``."""
     P = X.shape[1]
     blocks = []
     for k, b in enumerate(range(0, counts.shape[0], gene_block)):
@@ -308,14 +331,20 @@ def _analyse_pass(counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, gen
             "irls_converged": converged,
             "_lfc_overflow": lfc_overflow,
         }
+        if tile_outputs:
+            res["mu"], res["hat_diagonals"] = mu, H
         if stats_layer:
             flags = cooks_outliers(c, sf, mu, H, nz, P, cohort_ids, use_for_max, cooks_cutoff,
-                                   replaceable=replaceable, want_distances=False)
+                                   replaceable=replaceable, want_distances=tile_outputs)
             res["cooks_outlier"] = flags[1]
+            if tile_outputs:
+                res["cooks"] = flags[0]
             if replaceable is not None:
                 res["exceeds_packed"], res["replaced"], res["cooks_outlier_refit"] = flags[3:]
         blocks.append(res)
     lfc_overflow = torch.stack([blk.pop("_lfc_overflow") for blk in blocks]).sum()
+    if len(blocks) == 1:  # the single pipelines' one block: no copy of its (G, N) outputs
+        return blocks[0], lfc_overflow
     return {k: torch.cat([blk[k] for blk in blocks]) for k in blocks[0]}, lfc_overflow
 
 
@@ -341,13 +370,15 @@ def summary_pipeline_streamed(
     max_disp: float = 10.0,
     beta_tol: float = 1e-8,
     trend_type: str = "parametric",
+    trend_rounds: int = 8,
     alt_hypothesis: str | None = None,
     mu_init: str = "linear",
     stats_layer: bool = True,
     refit_mode: bool = False,
     sf_fit_type: str = "ratio",
+    tile_outputs: bool = False,
     mesh=None,
-    _block_ranks: int = 1,
+    group: LaneGroup | None = None,
 ) -> dict:
     """Counts -> padj with O(gene_block x N) temporaries, on the device of
     ``counts``.
@@ -364,16 +395,19 @@ def summary_pipeline_streamed(
     ``exceeds_packed`` and ``cooks_outlier_refit``; p-value masking and
     padj are left to the caller, which merges the refit first. Returns the
     dict of ``pydeseq2_tpu/fused_stream.py:188`` as tensors; no (G, N)
-    result.
+    result unless ``tile_outputs``, which adds the (G, N) ``mu``,
+    ``hat_diagonals`` and, with the stats layer, the Cook's distances
+    ``cooks`` (what :func:`summary_pipeline` returns). The trend runs at
+    most max(``trend_rounds``, 20) rounds.
 
     ``mesh`` (the JAX "pod" shape: gene-sharded over ranks and streamed
     within each): every rank calls with its shard of the gene axis, every
     shard the same size, and streams it in blocks of ``gene_block``; the
     size factors, trend, prior and padj run over every rank's genes, and
-    per-gene outputs are the shard's; each block is its own IRLS tile.
-    (:func:`run_summary_streamed` passes ``_block_ranks`` > 1 where its
-    layout splits one tile over that many consecutive ranks, each shard one
-    block, whose rescue shares one lane quota.)
+    per-gene outputs are the shard's; each block is its own IRLS tile, or
+    with ``group`` (a :class:`~pydeseq2_tpu_torch.parallel.mesh.LaneGroup`
+    the caller builds, the shard then one block) this rank's share of the
+    group's tile, whose rescue shares one lane quota.
     """
     G, N = counts.shape
     X = design_matrix
@@ -386,14 +420,8 @@ def summary_pipeline_streamed(
         raise ValueError(f"pad G={G} to a multiple of gene_block={gene_block}")
     if refit_mode and replaceable is None:
         raise ValueError("refit_mode needs the replaceable mask")
-    group = None
-    if _block_ranks > 1:
-        R = mesh.size()
-        if G != gene_block or R % _block_ranks:
-            raise ValueError(f"_block_ranks={_block_ranks} needs a shard of one block and a mesh size ({R}) it "
-                             "divides")
-        first = mesh.get_local_rank() // _block_ranks * _block_ranks
-        group = LaneGroup(mesh, first, _block_ranks, gene_block * _block_ranks)
+    if group is not None and G != gene_block:
+        raise ValueError(f"a lane group needs a shard of one gene block, not G={G} in blocks of {gene_block}")
 
     with span("deseq2.size_factors"):
         logmeans, non_zero = _log_stats(counts, gene_mask, gene_block, sf_fit_type)
@@ -409,14 +437,14 @@ def summary_pipeline_streamed(
         counts, sf, X, ols_pinv(X), gene_block, min_mu, min_disp, max_disp, beta_tol, mu_init, group)
     genewise_m = torch.where(non_zero, genewise, torch.full_like(genewise, float("nan")))
     fitted_m, trend_coeffs, trend_used_mean, mean_disp, squared_logres, prior_disp_var = _trend_and_prior(
-        base_mean, genewise_m, non_zero, min_disp, trend_type, N, P, mesh)
+        base_mean, genewise_m, non_zero, min_disp, trend_type, max(trend_rounds, 20), N, P, mesh)
 
     flat, lfc_overflow = _analyse_pass(
         counts, non_zero, sf, X, contrast, lfc_null, cooks_cutoff, genewise_m, fitted_m, coarse, coefs,
         prior_disp_var, squared_logres, gene_block=gene_block, cohort_ids=cohort_ids,
         use_for_max=tuple(bool(u) for u in use_for_max), replaceable=replaceable if refit_mode else None,
         min_mu=min_mu, min_disp=min_disp, max_disp=max_disp, beta_tol=beta_tol, alt_hypothesis=alt_hypothesis,
-        mu_init=mu_init, stats_layer=stats_layer, group=group)
+        mu_init=mu_init, stats_layer=stats_layer, group=group, tile_outputs=tile_outputs)
     out = {
         "rescue_overflow": all_reduce_sum((mu_overflow + lfc_overflow).reshape(1), mesh)[0],
         "size_factors": sf,
@@ -437,6 +465,133 @@ def summary_pipeline_streamed(
             out["p_values"] = p
         out["padj"] = _padj_program(p, base_mean, gene_mask, alpha, independent_filter, mesh)
     return out
+
+
+# ------------------------------------------------------- one tile: one block
+def _one_block(counts, design_matrix, contrast, lfc_null, cooks_cutoff, gene_mask, size_factors, device, mesh,
+               **knobs) -> dict:
+    """:func:`summary_pipeline_streamed` over a (G, N) tile as one gene
+    block, every operand moved to ``device`` (the mesh's with ``mesh``) in
+    the dtype of ``counts``, contiguous; with ``mesh`` the IRLS tile is
+    :func:`_mesh_tile`'s. Returns the single pipelines' keys and the
+    ``cooks_outlier`` and ``padj`` of the stats layer."""
+    dev = resolve_mesh_device(device, mesh)
+    counts = torch.as_tensor(counts, device=dev).contiguous()
+    G = counts.shape[0]
+
+    def on_dev(a):
+        return None if a is None else torch.as_tensor(a, dtype=counts.dtype, device=dev).contiguous()
+
+    gene_mask = (torch.ones(G, dtype=torch.bool, device=dev) if gene_mask is None
+                 else torch.as_tensor(gene_mask, dtype=torch.bool, device=dev))
+    out = summary_pipeline_streamed(
+        counts, on_dev(design_matrix), on_dev(contrast), on_dev(lfc_null), on_dev(cooks_cutoff), gene_mask,
+        on_dev(size_factors), gene_block=G, tile_outputs=True, mesh=mesh,
+        group=None if mesh is None else _mesh_tile(gene_mask, mesh), **knobs)
+    del out["MAP_dispersions"], out["mean_disp"]
+    return out
+
+
+def wald_pipeline(
+    counts,
+    design_matrix,
+    contrast,
+    lfc_null,
+    gene_mask=None,
+    size_factors=None,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    beta_tol: float = 1e-8,
+    trend_type: str = "parametric",
+    trend_rounds: int = 8,
+    alt_hypothesis: str | None = None,
+    mu_init: str = "linear",
+    sf_fit_type: str = "ratio",
+    device: str | torch.device | None = None,
+    *,
+    mesh=None,
+) -> dict:
+    """One-call DESeq2 Wald pipeline on ``device`` (default ``"cuda"``):
+    size factors -> MoM dispersions -> mu init -> genewise dispersions ->
+    trend -> prior -> MAP dispersions -> IRLS LFCs -> hat diagonals + Wald
+    test, the passes of :func:`summary_pipeline_streamed` over the tile as
+    one gene block without the stats layer.
+
+    counts (G, N) float32/float64, gene-major; design_matrix (N, P);
+    contrast (P,); lfc_null a natural-log scalar; gene_mask (G,) bool with
+    False for padding lanes; size_factors (N,) to bypass the estimator.
+    Tensors or arrays; every operand moves to ``device`` in the dtype of
+    ``counts``. Raises if CUDA is requested and absent. Returns the dict of
+    ``pydeseq2_tpu.fused.wald_pipeline`` (same keys) as tensors on
+    ``device``; :func:`pydeseq2_tpu_torch.outputs_to_numpy` converts it.
+
+    ``mesh`` (:func:`~pydeseq2_tpu_torch.parallel.mesh.make_gene_mesh`):
+    every rank calls with its shard of the gene axis (``counts`` and
+    ``gene_mask`` from :func:`~pydeseq2_tpu_torch.parallel.mesh.shard_gene_major`,
+    every shard the same size) and the same replicated design, contrast and
+    size factors, on the mesh's device (a ``device`` that disagrees
+    raises). The global stages run over every rank's genes, as the JAX
+    package's sharded program does; per-gene outputs are the shard's,
+    ``rescue_overflow`` the whole run's. The IRLS rescue takes its lane
+    quota over the lanes up to the last gene of ``gene_mask``, so the
+    trailing pad lanes leave it as the unsharded run's.
+    """
+    return _one_block(
+        counts, design_matrix, contrast, lfc_null, None, gene_mask, size_factors, device, mesh, min_mu=min_mu,
+        min_disp=min_disp, max_disp=max_disp, beta_tol=beta_tol, trend_type=trend_type, trend_rounds=trend_rounds,
+        alt_hypothesis=alt_hypothesis, mu_init=mu_init, sf_fit_type=sf_fit_type, stats_layer=False)
+
+
+def summary_pipeline(
+    counts,
+    design_matrix,
+    contrast,
+    lfc_null,
+    cooks_cutoff,
+    gene_mask=None,
+    size_factors=None,
+    *,
+    cohort_ids: tuple[int, ...] | None = None,
+    use_for_max: tuple[bool, ...] | None = None,
+    alpha: float = 0.05,
+    cooks_filter: bool = True,
+    independent_filter: bool = True,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    beta_tol: float = 1e-8,
+    trend_type: str = "parametric",
+    trend_rounds: int = 8,
+    alt_hypothesis: str | None = None,
+    mu_init: str = "linear",
+    sf_fit_type: str = "ratio",
+    device: str | torch.device | None = None,
+    mesh=None,
+) -> dict:
+    """Counts -> padj on ``device`` (default ``"cuda"``): the DESeq2
+    ``deseq2()`` + ``summary()`` workflow with ``refit_cooks=False``.
+
+    :func:`wald_pipeline`, then Cook's distances and the Cook's outlier
+    mask (reference pydeseq2/dds.py:986-1110) and the adjusted p-values, BH
+    with or without independent filtering (reference pydeseq2/ds.py:486-542),
+    all of it the passes of :func:`summary_pipeline_streamed` over the tile
+    as one gene block. ``cooks_cutoff`` (the F(0.99, P, N - P) quantile),
+    ``cohort_ids`` and ``use_for_max`` come from :func:`summary_host_inputs`;
+    the other arguments are :func:`wald_pipeline`'s. Returns the dict of
+    ``pydeseq2_tpu.fused.summary_pipeline``: the Wald keys plus ``cooks``
+    (G, N), ``cooks_outlier`` (G,), the outlier-masked ``p_values`` and
+    ``padj`` (float64 whatever the dtype of ``counts``, as the JAX package
+    adjusts in float64). The Cook's block and ``device_padj`` read nothing
+    back to the host. ``mesh``: as :func:`wald_pipeline`'s; the adjusted
+    p-values are computed on the gathered gene axis.
+    """
+    return _one_block(
+        counts, design_matrix, contrast, lfc_null, cooks_cutoff, gene_mask, size_factors, device, mesh,
+        cohort_ids=cohort_ids, use_for_max=use_for_max, alpha=alpha, cooks_filter=cooks_filter,
+        independent_filter=independent_filter, min_mu=min_mu, min_disp=min_disp, max_disp=max_disp,
+        beta_tol=beta_tol, trend_type=trend_type, trend_rounds=trend_rounds, alt_hypothesis=alt_hypothesis,
+        mu_init=mu_init, sf_fit_type=sf_fit_type)
 
 
 # --------------------------------------------------------------- Cook's refit
@@ -583,7 +738,10 @@ def _stage_shard(counts, dtype, G: int, gene_block: int, mesh, dev):
     """This rank's shard of the first G rows of whole ``counts`` (an array
     or a tensor), zero-padded, on ``dev`` in ``dtype``, laid out by
     :func:`_mesh_layout` for the unsharded block ``gene_block``: ``(shard,
-    local block, block_ranks)``."""
+    local block, group)``, ``group`` the
+    :class:`~pydeseq2_tpu_torch.parallel.mesh.LaneGroup` of this rank's
+    block where the layout splits one block over several ranks, else
+    None."""
     tdtype = dtype if isinstance(dtype, torch.dtype) else {np.dtype(np.float32): torch.float32,
                                                            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
     block, block_ranks, S = _mesh_layout(G, gene_block, mesh.size())
@@ -596,7 +754,11 @@ def _stage_shard(counts, dtype, G: int, gene_block: int, mesh, dev):
         part = torch.tensor(np.asarray(part, _NP_DTYPE[tdtype]), device=dev)
     if part.shape[0] < S:
         part = torch.cat([part, part.new_zeros((S - part.shape[0], part.shape[1]))])
-    return part.contiguous(), block, block_ranks
+    group = None
+    if block_ranks > 1:
+        first = mesh.get_local_rank() // block_ranks * block_ranks
+        group = LaneGroup(mesh, first, block_ranks, block * block_ranks)
+    return part.contiguous(), block, group
 
 
 _REFIT_COLUMNS = ("base_mean", "genewise_dispersions", "fitted_dispersions", "MAP_dispersions", "dispersions",
@@ -730,13 +892,13 @@ def run_summary_streamed(
     dev = resolve_mesh_device(device, mesh)
     if mesh is None:
         counts, G, gene_block = _stage_counts(counts, dtype, n_genes, gene_block, dev)
-        whole, block_ranks = counts, 1
+        whole, group = counts, None
     else:
         whole = counts
         G = n_genes or counts.shape[0]
         gene_block = gene_block or _auto_gene_block(G, counts.shape[1])
         unsharded_block = gene_block
-        counts, gene_block, block_ranks = _stage_shard(counts, dtype, G, unsharded_block, mesh, dev)
+        counts, gene_block, group = _stage_shard(counts, dtype, G, unsharded_block, mesh, dev)
     N = counts.shape[1]
     padded_G = counts.shape[0] * (1 if mesh is None else mesh.size())  # the whole padded gene axis
     np_dtype = _NP_DTYPE[counts.dtype]
@@ -798,7 +960,7 @@ def run_summary_streamed(
     contrast_t, lfc_null_t = on_dev(contrast), on_dev(lfc_null)
     out = summary_pipeline_streamed(
         counts, X, contrast_t, lfc_null_t, on_dev(host["cooks_cutoff"]), gene_mask, gene_block=gene_block,
-        cohort_ids=host["cohort_ids"], use_for_max=host["use_for_max"], mesh=mesh, _block_ranks=block_ranks,
+        cohort_ids=host["cohort_ids"], use_for_max=host["use_for_max"], mesh=mesh, group=group,
         **knobs)
     # exceeds_packed stays on the device for the refit gather; the rest
     # comes to the host in one copy (with a mesh, after one gather of the
@@ -990,6 +1152,59 @@ def _vst_genewise_pass(counts, sf, X, pinv, gene_block, min_mu, min_disp, max_di
         base_mean.append(bm)
         genewise.append(torch.clamp(gw, min_disp, max_disp))
     return torch.cat(base_mean), torch.cat(genewise)
+
+
+def vst_pipeline(
+    counts,
+    gene_mask=None,
+    min_mu: float = 0.5,
+    min_disp: float = 1e-8,
+    max_disp: float = 10.0,
+    trend_type: str = "parametric",
+    trend_rounds: int = 8,
+    device: str | torch.device = "cuda",
+) -> dict:
+    """Blind variance-stabilising transform of a (G, N) counts tile on
+    ``device`` (default ``"cuda"``; raises if CUDA is requested and absent).
+
+    Port of ``pydeseq2_tpu/fused.py:828`` (reference pydeseq2/dds.py:349-514
+    with ``use_design=False``): median-of-ratios size factors, the MoM
+    dispersions and linear mu under the intercept-only design (one ``mom``
+    launch), the genewise dispersion MLE, the parametric (or mean) trend,
+    then the transform (the ``vst`` kernel, :mod:`~pydeseq2_tpu_torch.ops.vst`).
+    Unlike :func:`vst_pipeline_streamed`, the genewise fit takes the OLS mu
+    of the ``mom`` launch, as the JAX package's does. counts float32/float64,
+    a tensor or array; gene_mask (G,) bool, False on padding lanes. Returns
+    tensors: ``vst_counts`` (G, N), ``size_factors``, ``base_mean``,
+    ``genewise_dispersions``, and ``trend_coeffs`` with ``trend_used_mean``
+    (parametric) or ``mean_disp`` (mean).
+    """
+    dev = resolve_device(device)
+    counts = torch.as_tensor(counts, device=dev).contiguous()
+    G, N = counts.shape
+    dtype = counts.dtype
+    gene_mask = (torch.ones(G, dtype=torch.bool, device=dev) if gene_mask is None
+                 else torch.as_tensor(gene_mask, dtype=torch.bool, device=dev))
+    X = torch.ones((N, 1), dtype=dtype, device=dev)  # blind: intercept-only design
+
+    logmeans, non_zero = _log_stats(counts, gene_mask, G, "ratio")
+    sf = _streamed_size_factors(counts, gene_mask, logmeans)
+    base_mean = (counts / sf[None, :]).mean(dim=1)
+    rde, mde, _, mu_hat = mom_and_mu_coef(counts, sf, X, ols_pinv(X), min_mu)
+    mom = torch.clamp(torch.minimum(rde, mde), min_disp, max_disp)
+    genewise, _ = alpha_mle_batch(counts, X, mu_hat, mom, min_disp, max_disp, cr_reg=True, prior_reg=False)
+    genewise = torch.clamp(genewise, min_disp, max_disp)
+    genewise_m = torch.where(non_zero, genewise, torch.full_like(genewise, float("nan")))
+    _, coeffs, used_mean, mean_disp = fit_fused_trend(base_mean, genewise_m, non_zero, min_disp, trend_type,
+                                                      max_rounds=max(trend_rounds, 20))
+    out = {"size_factors": sf, "base_mean": base_mean, "genewise_dispersions": genewise_m}
+    if trend_type == "parametric":
+        out["trend_coeffs"] = coeffs
+        out["trend_used_mean"] = used_mean
+    else:
+        out["mean_disp"] = mean_disp
+    out["vst_counts"] = vst_transform(counts, sf, coeffs, used_mean, mean_disp, gene_mask, trend_type)
+    return out
 
 
 def vst_pipeline_streamed(

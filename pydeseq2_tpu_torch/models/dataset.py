@@ -377,7 +377,7 @@ class DeseqDataSet(DeseqDataContainer):
         if fit_type == "iterative":
             self._fit_iterate_size_factors()
         elif fit_type == "poscounts":
-            self._size_factors_poscounts(self._control_gene_mask(control_genes))
+            self._fit_poscounts_size_factors(self._control_gene_mask(control_genes))
         elif not (self.X > 0).all(0).any():
             warnings.warn(
                 "Every gene contains at least one zero, cannot compute log "
@@ -387,13 +387,13 @@ class DeseqDataSet(DeseqDataContainer):
             )
             self._fit_iterate_size_factors()
         else:
-            self._size_factors_ratio(self._control_gene_mask(control_genes))
+            self._fit_ratio_size_factors(self._control_gene_mask(control_genes))
 
         self.var["_normed_means"] = _np(self._dev["normed"].mean(dim=1))
         if not self.quiet:
             print(f"... done in {time.time() - start:.2f} seconds.\n", file=sys.stderr)
 
-    def _size_factors_ratio(self, control_mask: np.ndarray) -> None:
+    def _fit_ratio_size_factors(self, control_mask: np.ndarray) -> None:
         """Median-of-ratios estimator (the ``select`` kernel's medians)."""
         x = self._counts().T
         logmeans, filtered = norm_fit_t(x)
@@ -403,7 +403,7 @@ class DeseqDataSet(DeseqDataContainer):
         self.obs["size_factors"] = _np(sf)
         self._set_normed(normed.T)
 
-    def _size_factors_poscounts(self, control_mask: np.ndarray) -> None:
+    def _fit_poscounts_size_factors(self, control_mask: np.ndarray) -> None:
         """Positive-counts estimator, one batched ragged median."""
         x = self._counts().T
         logmeans, usable = poscounts_fit_t(x)

@@ -34,6 +34,11 @@ M'' reduced beside the NB sums. Bound like the scan by transcendentals.
 The JAX package takes the autodiff (f, g, h) below N = 512 for TPU speed;
 the port uses the closed form at every N (both compute the same values,
 ``test_closed_form_fgh_matches_autodiff`` in the JAX tests).
+
+:func:`dispersion_prior` and :func:`map_dispersions` are the shrinkage
+step every pipeline shares: the prior from the genewise fit's residuals
+off the trend, then the MAP fit from the genewise fit's cached coarse scan
+with the 2-sigma outlier rule.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ import math
 import torch
 
 from pydeseq2_tpu_torch import kernels
-from pydeseq2_tpu_torch.ops.nb import _R_SWITCH, nb_nll_centered, nb_nll_centered_fgh
+from pydeseq2_tpu_torch.ops.nb import _R_SWITCH, _psi_series_f64, nb_nll_centered, nb_nll_centered_fgh
 from pydeseq2_tpu_torch.ops.smalllinalg import sym_inv, sym_logdet, weighted_gram
+from pydeseq2_tpu_torch.ops.stats import nanmedian
 
 
 def _alpha_objective(
@@ -432,3 +438,41 @@ def alpha_mle_batch(
     if return_coarse:
         return alpha, converged, coarse_vals
     return alpha, converged
+
+
+def dispersion_prior(genewise_m, fitted_m, non_zero, min_disp, N, P):
+    """``(squared_logres, prior_disp_var)``: the squared MAD of the log
+    residuals off the trend over genes with genewise >= 100 min_disp, and
+    the prior variance max(squared_logres - trigamma((N - P) / 2), 0.25)
+    (reference dds.py:840-884; ``pydeseq2_tpu/fused.py:447-458``)."""
+    disp_resid = torch.log(genewise_m) - torch.log(fitted_m)
+    above = genewise_m >= 100.0 * min_disp
+    resid_sel = torch.where(above & non_zero, disp_resid, torch.full_like(disp_resid, float("nan")))
+    # jnp.nanmedian averages the two middle values; torch.nanmedian does not.
+    center = nanmedian(resid_sel)
+    mad = nanmedian(torch.abs(resid_sel - center)) / 0.6744897501960817
+    squared_logres = mad**2
+    half_df = torch.tensor((N - P) / 2.0, dtype=genewise_m.dtype, device=genewise_m.device)
+    # torch.polygamma(1, .) is ~1e-9 relative off in float64; the series is
+    # ~1e-15 (the JAX package's polygamma is within 2e-16).
+    trigamma = _psi_series_f64(half_df)[1] if half_df.dtype == torch.float64 else torch.polygamma(1, half_df)
+    return squared_logres, torch.clamp(squared_logres - trigamma, min=0.25)
+
+
+def map_dispersions(counts, X, mu, genewise, fitted, coarse, prior_disp_var, squared_logres, min_disp, max_disp):
+    """MAP dispersions and the dispersions the LFC fit uses: ``(map,
+    dispersions)``.
+
+    The MAP fit takes the genewise fit's (grid_length, G) objective
+    ``coarse`` (``alpha_mle_batch(return_coarse=True)`` on the same counts,
+    mu and design) and adds the prior centred on log ``fitted`` (0.5 where
+    NaN), so it scans nothing; its result is clamped to [min_disp,
+    max_disp]. A gene whose log genewise dispersion lies more than two
+    sigma = sqrt(squared_logres) above log ``fitted`` is a shrinkage
+    outlier and keeps its genewise dispersion (reference dds.py:925-932).
+    """
+    map_disp, _ = alpha_mle_batch(counts, X, mu, torch.nan_to_num(fitted, nan=0.5), min_disp, max_disp,
+                                  prior_disp_var=prior_disp_var, cr_reg=True, prior_reg=True, coarse_cache=coarse)
+    map_disp = torch.clamp(map_disp, min_disp, max_disp)
+    outlier = torch.log(genewise) > torch.log(fitted) + 2.0 * torch.sqrt(squared_logres)
+    return map_disp, torch.where(outlier, genewise, map_disp)

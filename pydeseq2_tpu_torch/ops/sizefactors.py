@@ -48,8 +48,7 @@ import torch
 
 from pydeseq2_tpu_torch import kernels, tracing
 from pydeseq2_tpu_torch.convert import resolve_device
-from pydeseq2_tpu_torch.fused import dispersion_prior
-from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch
+from pydeseq2_tpu_torch.ops.dispersion import alpha_mle_batch, dispersion_prior, map_dispersions
 from pydeseq2_tpu_torch.ops.linreg import mom_and_mu_coef, mu_from_coef, ols_pinv
 from pydeseq2_tpu_torch.ops.nb import nb_nll_terms
 from pydeseq2_tpu_torch.ops.select import order_stats_select
@@ -391,21 +390,15 @@ def _round_dispersions(counts, log_sf, non_zero, X, pinv, slices, min_disp, max_
 
     # The constant trend: the 0.001-trimmed mean of the informative genewise
     # dispersions (dds.py:1493); the MAD prior (dds.py:840-884) with
-    # trigamma((N - 1) / 2); the 2-sigma shrinkage-outlier rule.
+    # trigamma((N - 1) / 2); the MAP fit with the 2-sigma outlier rule.
     informative = (genewise > 10.0 * min_disp) & non_zero
-    fitted = torch.clamp(trimmed_mean_masked(genewise, informative, 0.001), min=min_disp)
-    squared_logres, prior_disp_var = dispersion_prior(genewise, fitted.expand(G), non_zero, min_disp, N, 1)
-    outlier = torch.log(genewise) > torch.log(fitted) + 2.0 * torch.sqrt(squared_logres)
-
-    map_disp = []
-    for sl, cache in zip(slices, coarse):
-        c = counts[sl]
-        mu_hat = mu_from_coef(coef[sl, None], sf, X, min_mu)
-        md, _ = alpha_mle_batch(c, X, mu_hat, fitted.expand(c.shape[0]), min_disp, max_disp,
-                                prior_disp_var=prior_disp_var, cr_reg=True, prior_reg=True, coarse_cache=cache)
-        map_disp.append(md)
-    map_disp = torch.clamp(torch.cat(map_disp), min_disp, max_disp)
-    disp = torch.where(outlier, genewise, map_disp)
+    fitted = torch.clamp(trimmed_mean_masked(genewise, informative, 0.001), min=min_disp).expand(G)
+    squared_logres, prior_disp_var = dispersion_prior(genewise, fitted, non_zero, min_disp, N, 1)
+    disp = torch.cat([
+        map_dispersions(counts[sl], X, mu_from_coef(coef[sl, None], sf, X, min_mu), genewise[sl], fitted[sl], cache,
+                        prior_disp_var, squared_logres, min_disp, max_disp)[1]
+        for sl, cache in zip(slices, coarse)
+    ])
     disp = torch.where(non_zero, disp, torch.ones_like(disp))  # masked lanes: any finite value
     return coef, disp, informative
 

@@ -20,7 +20,7 @@ the host copy) on ``make_data(n_samples, n_genes)``
 (default 100 x 60000, float32, the benchmark's configuration) once to warm
 up, then:
 
-1. wall time per stage function of ``fused`` and ``fused_stream`` (each
+1. wall time per stage function of ``fused_stream`` and ``fused`` (each
    call wrapped in a synchronise before and after, host clock), and what
    is left outside them, over one run of the real pipeline, and the peak
    device memory of that run (``torch.cuda.max_memory_allocated``);
@@ -44,21 +44,19 @@ import torch
 
 
 # The pipelines' stage functions, by the module that calls them (as module
-# globals): the summary pipeline adds the last two of ``fused``'s, the
-# shrink path those of ``fused_stream`` (the host prior fit, then the
-# streamed blocks).
+# globals): ``wald_pipeline`` and ``summary_pipeline`` run the streamed
+# passes over one gene block (the summary adds padj), the shrink path then
+# ``fused_stream``'s host prior fit and streamed blocks.
 STAGES = {
-    "fused": (
-        "_size_factors", "mom_and_mu_coef", "alpha_mle_batch", "fit_fused_trend", "dispersion_prior",
-        "irls_beta_init", "_irls_with_rescue", "hat_wald", "cooks_outliers", "device_padj",
-    ),
-    "fused_stream": ("_apeglm_prior_variance", "lfc_shrink_pipeline_streamed"),
+    "fused_stream": ("_log_stats", "_streamed_size_factors", "_genewise_pass", "_trend_and_prior", "_analyse_pass",
+                     "_padj_program", "_apeglm_prior_variance", "lfc_shrink_pipeline_streamed"),
 }
-# Called inside a stage (_irls_with_rescue, fit_fused_trend, device_padj,
-# lfc_shrink_pipeline_streamed): timed too, and not added to the stages.
+# Called inside a stage: timed too, and not added to the stages.
 SUBSTAGES = {
-    "fused": ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch", "parametric_trend", "lowess_pick"),
-    "fused_stream": ("nbinom_glm_batch", "grid_fit_shrink_beta_batch"),
+    "fused_stream": ("mom_and_mu_coef", "alpha_mle_batch", "_shrunk_dispersions", "_irls_with_rescue", "hat_wald",
+                     "cooks_outliers", "nbinom_glm_batch", "grid_fit_shrink_beta_batch"),
+    "fused": ("irls_core", "newton_box_nbglm", "grid_fit_beta_batch", "fit_fused_trend", "dispersion_prior",
+              "device_padj", "parametric_trend", "lowess_pick"),
 }
 # The streamed refit run (``--stream``): its passes, the host copy, and the
 # refit's gather, tile and merge, with the stage functions they call.

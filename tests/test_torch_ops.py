@@ -428,9 +428,11 @@ def test_gamma_glm_trend_fit(name):
 @pytest.mark.parametrize("name", ["f64", "f32"])
 def test_size_factors_ratio_and_poscounts(name):
     """Median-of-ratios and poscounts size factors, with a padding lane and
-    zero-rich genes (the poscounts median is ragged per sample)."""
+    zero-rich genes (the poscounts median is ragged per sample): the
+    log-stats sweep and the size-factor helpers the pipelines run, against
+    the JAX package's single-tile estimators."""
     from pydeseq2_tpu import fused as j_fused
-    from pydeseq2_tpu_torch import fused as t_fused
+    from pydeseq2_tpu_torch import fused_stream as t_stream
 
     rng = np.random.default_rng(9)
     counts = rng.negative_binomial(2, 0.05, size=(300, 12)).astype(float)
@@ -438,11 +440,14 @@ def test_size_factors_ratio_and_poscounts(name):
     mask = np.ones(300, bool)
     mask[4] = False
     rtol = {"f64": 1e-12, "f32": 1e-5}[name]
-    sf_t, filt_t = t_fused._size_factors(_t(counts, name), torch.as_tensor(mask))
+    c_t, m_t = _t(counts, name), torch.as_tensor(mask)
+    logmeans, _ = t_stream._log_stats(c_t, m_t, 300, "ratio")
     sf_j, filt_j = j_fused._size_factors(_j(counts, name), jnp.asarray(mask))
-    _close(sf_t, sf_j, rtol)
-    assert np.array_equal(_np(filt_t), np.asarray(filt_j))
-    _close(t_fused._poscounts_size_factors(_t(counts, name), torch.as_tensor(mask)),
+    _close(t_stream._streamed_size_factors(c_t, m_t, logmeans), sf_j, rtol)
+    assert np.array_equal(_np(~torch.isinf(logmeans) & m_t), np.asarray(filt_j))
+    pos_logmeans, _ = t_stream._log_stats(c_t, m_t, 300, "poscounts")
+    usable = torch.isfinite(pos_logmeans) & (pos_logmeans > 0) & m_t
+    _close(t_stream._streamed_poscounts_size_factors(c_t, usable, pos_logmeans),
            j_fused._poscounts_size_factors(_j(counts, name), jnp.asarray(mask)), rtol)
 
 

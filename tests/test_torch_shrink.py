@@ -37,8 +37,8 @@ from pydeseq2_tpu.fused import summary_pipeline as jax_summary_pipeline
 from pydeseq2_tpu.fused_stream import run_lfc_shrink_streamed as jax_run_shrink
 from pydeseq2_tpu.ops import shrink as j_shrink
 from pydeseq2_tpu_torch import fused_stream as t_stream
-from pydeseq2_tpu_torch.models.stats import _apeglm_prior_variance
 from pydeseq2_tpu_torch.ops import shrink as t_shrink
+from pydeseq2_tpu_torch.ops.shrink import _apeglm_prior_variance
 from pydeseq2_tpu_torch.synthetic import make_data
 
 torch.set_num_threads(1)  # xdist runs several workers on a few cores

@@ -120,3 +120,45 @@ def test_sf_fit_type_iterative_matches_jax(synthetic):
     assert_parity(jo, po)
     ratio = pt.run_summary_streamed(counts, X, [0.0, 1.0], device="cpu", **KW)
     assert not np.allclose(po["size_factors"], ratio["size_factors"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("block", ["whole", "half", "eight_padded"])
+def test_gene_block_changes_no_output(block):
+    """``summary_pipeline_streamed`` on one study of 44 genes (an all-zero
+    gene, a planted outlier in every 10th) as one block of 44, two of 22
+    and six of 8 (four padding lanes): the flags equal and every per-gene
+    and global output within rtol 1e-12 of the one-block run, which is
+    what ``wald_pipeline`` and ``summary_pipeline`` run."""
+    from pydeseq2_tpu_torch.synthetic import make_data, plant_outliers
+
+    counts, X = make_data(24, 44, seed=11)
+    counts = plant_outliers(counts.T.copy(), every=10)
+    counts[5] = 0.0
+    G = counts.shape[0]
+    host = pt.summary_host_inputs(X)
+
+    def run(gene_block):
+        padded = -(-G // gene_block) * gene_block
+        c = torch.zeros((padded, counts.shape[1]), dtype=torch.float64)
+        c[:G] = torch.as_tensor(counts)
+        t = {k: torch.as_tensor(np.asarray(v, np.float64)) for k, v in
+             {"X": X, "contrast": [0.0, 1.0], "null": 0.0, "cutoff": host["cooks_cutoff"]}.items()}
+        out = pt.summary_pipeline_streamed(c, t["X"], t["contrast"], t["null"], t["cutoff"],
+                                           torch.arange(padded) < G, gene_block=gene_block,
+                                           cohort_ids=host["cohort_ids"], use_for_max=host["use_for_max"],
+                                           max_disp=24.0, mu_init="irls")
+        return {k: (v[:G] if v.ndim >= 1 and v.shape[0] == padded and k != "size_factors" else v).numpy()
+                for k, v in out.items()}
+
+    want = run(G)
+    got = run({"whole": G, "half": G // 2, "eight_padded": 8}[block])
+    assert want.keys() == got.keys()
+    assert want["cooks_outlier"].any() and np.isnan(want["dispersions"][5])
+    for k in want:
+        a, b = want[k], got[k]
+        assert a.shape == b.shape and a.dtype == b.dtype, k
+        if a.dtype.kind == "f":
+            assert np.array_equal(np.isnan(a), np.isnan(b)), k
+            np.testing.assert_allclose(b[~np.isnan(a)], a[~np.isnan(a)], rtol=1e-12, atol=0, err_msg=k)
+        else:
+            assert np.array_equal(a, b), k
