@@ -37,7 +37,10 @@ with ``nvcc`` for sm_90a (one process per source, in parallel), then:
    dispersions) on the main draw's operands (same two scales); ``disp_scan``,
    ``disp_newton`` and ``disp_scan_fine`` at the atlas iterative fit's shape
    (5000 genes x 10000 samples, P = 1, float32, the rows over segments),
-   checked and timed; the fine scan on its gene lists
+   checked and timed; ``disp_newton`` where its plan splits each gene's
+   row over several warps (``newton_split_check``: 512 x 17382 float32, P =
+   2), held to the plain version by the same tolerances, with its gap from
+   the unsplit launch; the fine scan on its gene lists
    (``fine_list_checks``: P = 2 and 5, both types, the coarse scan's
    centres, one centre, every tile straddling r = 8, la_init centres and
    genes with no finite point); ``vst`` in every plan (``vst_plan_checks``:
@@ -939,6 +942,57 @@ def wide_dispersion_checks(reps: int, timings: dict) -> None:
         bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
         log(f"  {key} atlas block: {t['wide_ms']:.4f} ms (plain {t['wide_plain_ms']:.4f}), bound "
             f"{bound:.4f} ms, SFU estimate {sfu / SFU_OPS_PER_S * 1e3:.4f} ms")
+
+
+# A short gene list at an atlas's width, where disp_newton's plan splits a
+# gene's row over several warps (ops/dispersion.py:_newton_plan).
+G_SPLIT, N_SPLIT = 512, 17_382
+
+
+def newton_split_check() -> dict:
+    """``disp_newton`` where its plan splits each gene's row over several
+    warps: G_SPLIT x N_SPLIT float32 at P = 2, four Newton steps from the
+    kernel scan's argmin, held to the plain version by ``newton_check``'s
+    tolerances; beside it the largest log-alpha gap from the unsplit launch
+    (one warp a gene, ``plan=1``) and the genes whose log-alpha differs from
+    it in any bit. The plan must split, and ``STATS.newton_split`` count the
+    launch."""
+    from pydeseq2_tpu_torch import kernels
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+    from pydeseq2_tpu_torch.synthetic import make_data
+
+    G, N, P = G_SPLIT, N_SPLIT, 2
+    dtype = torch.float32
+    dev = torch.device(DEVICE)
+    counts_np, X_np = make_data(N, G)
+    counts = torch.as_tensor(counts_np.T.copy(), dtype=dtype, device=dev)
+    X = torch.as_tensor(X_np[:, :P], dtype=dtype, device=dev)
+    max_disp = float(max(10, N))
+    _, _, _, mom, mu = stage_inputs(counts, X, max_disp)
+    lo_f, hi_f = math.log(1e-8), math.log(max_disp)
+    K = 32
+    step1_f = (hi_f - lo_f) / (K - 1)
+    lo = torch.tensor(lo_f, dtype=dtype, device=dev)
+    la_grid = lo + torch.arange(K, dtype=dtype, device=dev) * torch.tensor(step1_f, dtype=dtype, device=dev)
+    bnd_start, bnd_end = dsp._scan_branches(K, step1_f, lo_f)
+    la_hat = torch.log(torch.clamp(mom, 1e-8, max_disp))
+    pdv = torch.tensor(1.0, dtype=dtype, device=dev)
+    scan_args = (counts, mu, X, la_grid, bnd_start, bnd_end, (lo_f + hi_f) / 2, True, False, la_hat, pdv)
+    la1, _ = dsp.scan_coarse(*scan_args)
+    newton_args = (counts, mu, X, la1, lo_f, hi_f, step1_f, step1_f / 3.5, 4, True, False, la_hat, pdv)
+    wg = dsp._newton_device_plan(G, N, P, dtype, dev)
+    check(wg > 1, f"disp_newton {G} x {N}: the plan keeps one warp a gene")
+    before = kernels.STATS.newton_split
+    name = f"f32 split {G} x {N} P=2, {wg} warps a gene"
+    _, outk, _ = newton_check(name, newton_args)
+    check(kernels.STATS.newton_split == before + 1, f"disp_newton {name}: STATS.newton_split not counted")
+    unsplit = dsp._newton_polish_cuda(*newton_args, plan=1)
+    torch.cuda.synchronize()
+    gap = (outk[0] - unsplit[0]).abs().max().item()
+    differ = int((outk[0] != unsplit[0]).sum().item())
+    log(f"  disp_newton {name}: largest la gap from one warp a gene {gap:.3g}, {differ} of {G} genes not bit "
+        "for bit")
+    return {"newton_split": {"warps": wg, "la_gap_unsplit": gap, "genes_not_bit_equal_unsplit": differ}}
 
 
 def psi_check() -> None:
@@ -5453,6 +5507,7 @@ def main() -> int:
     plans.update(vst_plan_checks())
     plans.update(fine_list_checks())
     plans.update(dnb_plan_checks())
+    plans.update(newton_split_check())
     errs32.update(select_hist_checks(timings))
 
     log("phase 3: wald_pipeline, 100 x 60000 float32")

@@ -32,12 +32,25 @@
 //     butterfly of log2 L shuffles; every lane of a gene ends with the same
 //     bits, so the epilogue and the acceptance step run on the gene's own
 //     lanes with no broadcast, and one warp instruction serves 32 / L genes.
+//   - A gene's row split over wg = 2, 4 or 8 warps of its block (L = 32 wg
+//     lanes, 8 / wg genes a block), where the wrapper's plan asks for it
+//     (ops/dispersion.py:_newton_plan: wide rows whose genes, a warp each,
+//     leave the card short of warps, as an atlas's gene blocks do). Each
+//     warp reduces its lanes by the full butterfly, then its lane 0 writes
+//     the warp's sums to shared memory; after a barrier every lane of the
+//     gene adds its wg warps' sums in warp order, so all of them hold the
+//     same bits and run the epilogue and the acceptance step as above; a
+//     second barrier frees the slots for the next evaluation. Every warp of
+//     the block reaches both barriers: the evaluations are a loop of fixed
+//     trip count, and a warp past the last gene evaluates the block's first
+//     gene. The split is its own instantiation (SPLIT), so wg = 1 runs the
+//     code, the registers and hence the plan it ran before the split.
 //   - The block's rows (256 / L genes) and the design are staged once into
 //     shared memory when they fit in 100 KB (N = 100: 32 genes, 35 KB f32,
 //     71 KB f64) and all five evaluations read them there; the row stride is
 //     padded to L mod 32 so the L lanes of the 32 / L genes of a warp hit 32
 //     distinct banks. Longer rows are read from device memory by each
-//     evaluation, L = 32 lanes coalesced (the rows of a block do
+//     evaluation, 32 lanes a warp coalesced (the rows of a block do
 //     not fit, and every evaluation needs the whole row). Plain loads stage
 //     the rows: TMA would need 16-byte aligned row strides, which N does not
 //     give, and other resident blocks hide the one load.
@@ -48,15 +61,17 @@
 //     array; each gene's results land at its own index), and the branch test
 //     sits inside the sample loop, so a warp that is mixed all the same
 //     runs the shared part of a sample (mu / r, the Grams) once.
-//     pydeseq2_tpu_torch/disp_bench.py --detail times the launch on rows
-//     ordered by their final branch beside the wrapper's order.
+//     `python3 -m pydeseq2_tpu_torch.kernel_bench --only disp --detail`
+//     times the launch on rows ordered by their final branch beside the
+//     wrapper's order, and each split of the rows.
 //   - One fgh call site: the first evaluation and the iters Newton steps
 //     are one loop.
 // Sum order, per gene and evaluation: lane l of the gene's L sums the value,
 // gradient and curvature terms of samples l, l + L, l + 2L, ... in index
-// order in float64, the L lane sums are combined by the xor butterfly
-// (offsets L/2, ..., 1) in float64, and the total is rounded once to the
-// working type, as the plain version (ops/nb.py:_sum_f64) sums them. The
+// order in float64, the lane sums of each warp are combined by the xor
+// butterfly (offsets min(L, 32)/2, ..., 1) in float64, a split row's wg warp
+// sums are added in warp order in float64, and the total is rounded once to
+// the working type, as the plain version (ops/nb.py:_sum_f64) sums them. The
 // Grams: the same order in the working type.
 #include "common.cuh"
 
@@ -66,6 +81,14 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr size_t STAGE_MAX = 100 * 1024;  // shared memory for staged rows
+constexpr int WARPS = THREADS / WARP;
+
+// Shared memory of a split row's warp sums: the value, gradient and
+// curvature in float64, then the three Grams in the working type, a slot a
+// warp of the block.
+template <int P, typename T> constexpr size_t red_bytes() {
+  return (size_t)WARPS * (3 * sizeof(double) + 3 * NTRI<P> * sizeof(T));
+}
 
 template <typename T> __device__ __forceinline__ T seg_sum(T v, int L) {
   for (int o = L >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
@@ -73,10 +96,13 @@ template <typename T> __device__ __forceinline__ T seg_sum(T v, int L) {
 }
 
 // (f, g, h) of one gene at la; y, m, X may point to shared or device memory.
-template <int P, typename T>
+// SPLIT: the gene's row spans L / 32 warps, whose sums meet in red_d and
+// red_t (red_bytes<P, T>() of shared memory); every thread of the block
+// calls it.
+template <int P, typename T, bool SPLIT>
 __device__ __forceinline__ void fgh(const T* y, const T* m, const T* X, int N, int sub, int L,
-                                    T la, int cr_reg, int prior_reg, T lah, T pdv, T& f, T& g,
-                                    T& h) {
+                                    double* red_d, T* red_t, T la, int cr_reg, int prior_reg,
+                                    T lah, T pdv, T& f, T& g, T& h) {
   const T r = m_exp(-la);
   const bool plain = r < T(R_SWITCH);
   const T ir = T(1) / r;
@@ -153,16 +179,82 @@ __device__ __forceinline__ void fgh(const T* y, const T* m, const T* X, int N, i
       }
     }
   }
-  f = (T)seg_sum(fs, L);
-  g = (T)seg_sum(gs, L);
-  h = (T)seg_sum(hs, L);
-  if (cr_reg) {
+  if constexpr (SPLIT) {
+    // Each warp's sums by the full butterfly, then the gene's wg warp sums
+    // in warp order.
+    fs = seg_sum(fs, WARP);
+    gs = seg_sum(gs, WARP);
+    hs = seg_sum(hs, WARP);
+    if (cr_reg) {
 #pragma unroll
-    for (int i = 0; i < NTRI<P>; ++i) {
-      M0[i] = seg_sum(M0[i], L);
-      M1[i] = seg_sum(M1[i], L);
-      M2[i] = seg_sum(M2[i], L);
+      for (int i = 0; i < NTRI<P>; ++i) {
+        M0[i] = seg_sum(M0[i], WARP);
+        M1[i] = seg_sum(M1[i], WARP);
+        M2[i] = seg_sum(M2[i], WARP);
+      }
     }
+    const int warp = threadIdx.x / WARP;
+    const int wg = L / WARP;
+    if (threadIdx.x % WARP == 0) {
+      red_d[3 * warp] = fs;
+      red_d[3 * warp + 1] = gs;
+      red_d[3 * warp + 2] = hs;
+      if (cr_reg) {
+        T* rt = red_t + 3 * NTRI<P> * warp;
+#pragma unroll
+        for (int i = 0; i < NTRI<P>; ++i) {
+          rt[i] = M0[i];
+          rt[NTRI<P> + i] = M1[i];
+          rt[2 * NTRI<P> + i] = M2[i];
+        }
+      }
+    }
+    __syncthreads();
+    const int w0 = warp - warp % wg;
+    fs = red_d[3 * w0];
+    gs = red_d[3 * w0 + 1];
+    hs = red_d[3 * w0 + 2];
+    for (int w = w0 + 1; w < w0 + wg; ++w) {
+      fs += red_d[3 * w];
+      gs += red_d[3 * w + 1];
+      hs += red_d[3 * w + 2];
+    }
+    if (cr_reg) {
+      const T* rt = red_t + 3 * NTRI<P> * w0;
+#pragma unroll
+      for (int i = 0; i < NTRI<P>; ++i) {
+        M0[i] = rt[i];
+        M1[i] = rt[NTRI<P> + i];
+        M2[i] = rt[2 * NTRI<P> + i];
+      }
+      for (int w = 1; w < wg; ++w) {
+        rt += 3 * NTRI<P>;
+#pragma unroll
+        for (int i = 0; i < NTRI<P>; ++i) {
+          M0[i] += rt[i];
+          M1[i] += rt[NTRI<P> + i];
+          M2[i] += rt[2 * NTRI<P> + i];
+        }
+      }
+    }
+    __syncthreads();
+    f = (T)fs;
+    g = (T)gs;
+    h = (T)hs;
+  } else {
+    f = (T)seg_sum(fs, L);
+    g = (T)seg_sum(gs, L);
+    h = (T)seg_sum(hs, L);
+    if (cr_reg) {
+#pragma unroll
+      for (int i = 0; i < NTRI<P>; ++i) {
+        M0[i] = seg_sum(M0[i], L);
+        M1[i] = seg_sum(M1[i], L);
+        M2[i] = seg_sum(M2[i], L);
+      }
+    }
+  }
+  if (cr_reg) {
     T Minv[P * P], F1[P * P], F2[P * P];
     sym_inv<T, P>(M0, Minv);
     unpack<T, P>(M1, F1);
@@ -201,9 +293,12 @@ __device__ __forceinline__ void fgh(const T* y, const T* m, const T* X, int N, i
 
 // stride > 0: the block's rows and X are staged in dynamic shared memory,
 // row r of the block at r * stride; stride == 0: read from device memory.
-template <int P, typename T>
+// SPLIT: L / 32 warps a gene, their sums' slots at byte red_off of the
+// dynamic shared memory.
+template <int P, typename T, bool SPLIT>
 __global__ void __launch_bounds__(THREADS)
-    disp_newton_kernel(int G, int N, int L, int stride, const int* __restrict__ order,
+    disp_newton_kernel(int G, int N, int L, int stride, size_t red_off,
+                       const int* __restrict__ order,
                        const T* __restrict__ counts,
                        const T* __restrict__ mu, const T* __restrict__ X,
                        const T* __restrict__ la0, const T* __restrict__ la_hat,
@@ -249,6 +344,8 @@ __global__ void __launch_bounds__(THREADS)
     m = mu + (size_t)gi * N;
     Xs = X;
   }
+  double* red_d = reinterpret_cast<double*>(smem_raw + red_off);
+  T* red_t = reinterpret_cast<T*>(red_d + 3 * WARPS);
   const T pdv = *pdv_p;
   const T lah = prior_reg ? la_hat[gi] : T(0);
 
@@ -263,7 +360,8 @@ __global__ void __launch_bounds__(THREADS)
       cand = m_min(m_max(la - step, lo), hi);
     }
     T fn, gn, hn;
-    fgh<P, T>(y, m, Xs, N, sub, L, cand, cr_reg, prior_reg, lah, pdv, fn, gn, hn);
+    fgh<P, T, SPLIT>(y, m, Xs, N, sub, L, red_d, red_t, cand, cr_reg, prior_reg, lah, pdv, fn, gn,
+                     hn);
     if (it < 0) {
       f = fn;
       g = gn;
@@ -300,18 +398,46 @@ void stage_layout(int N, int P, int L, int& stride, size_t& bytes) {
   }
 }
 
+// The split kernel's layout for wg warps a gene: the staged rows as above,
+// then the warp sums' slots at red_off (8-byte aligned); bytes in all.
 template <int P, typename T>
-int launch(int G, int N, const void* order, const void* counts, const void* mu,
+void split_layout(int N, int wg, int& stride, size_t& red_off, size_t& bytes) {
+  stage_layout<T>(N, P, WARP * wg, stride, red_off);
+  red_off = (red_off + 7) / 8 * 8;
+  bytes = red_off + red_bytes<P, T>();
+}
+
+// wg warps a gene (1, 2, 4 or 8; the wrapper's plan): 1 runs the unsplit
+// kernel, L lanes a gene by N and the card's fill as the note says.
+template <int P, typename T>
+int launch(int G, int N, int wg, const void* order, const void* counts, const void* mu,
            const void* X, const void* la0,
            const void* la_hat, const void* pdv, double lo, double hi, double clipw,
            double step2, int iters, int cr_reg, int prior_reg, void* la_out, void* f_out,
            void* g_out, void* h_out, cudaStream_t s) {
+  if (wg != 1 && wg != 2 && wg != 4 && wg != 8) return (int)cudaErrorInvalidValue;
+  if (wg > 1) {
+    auto kern = disp_newton_kernel<P, T, true>;
+    int stride;
+    size_t red_off, bytes;
+    split_layout<P, T>(N, wg, stride, red_off, bytes);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(STAGE_MAX + 8 + red_bytes<P, T>()));
+    if (e != cudaSuccess) return (int)e;
+    const int gpb = WARPS / wg;
+    const unsigned blocks = (unsigned)((G + gpb - 1) / gpb);
+    kern<<<blocks, THREADS, bytes, s>>>(
+        G, N, WARP * wg, stride, red_off, (const int*)order, (const T*)counts, (const T*)mu,
+        (const T*)X, (const T*)la0, (const T*)la_hat, (const T*)pdv, (T)lo, (T)hi, (T)clipw,
+        (T)step2, iters, cr_reg, prior_reg, (T*)la_out, (T*)f_out, (T*)g_out, (T*)h_out);
+    return 0;
+  }
+  auto kern = disp_newton_kernel<P, T, false>;
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(disp_newton_kernel<P, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)STAGE_MAX);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)STAGE_MAX);
   if (e != cudaSuccess) return (int)e;
   int L = N <= 64 ? 4 : (N <= 128 ? 8 : (N <= 256 ? 16 : 32));
   int stride;
@@ -320,19 +446,44 @@ int launch(int G, int N, const void* order, const void* counts, const void* mu,
     stage_layout<T>(N, P, L, stride, bytes);
     if (L == WARP) break;
     int per_sm = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, disp_newton_kernel<P, T>, THREADS,
-                                                      bytes);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, bytes);
     if (e != cudaSuccess) return (int)e;
     const int gpb = THREADS / L;
     if ((long long)(G + gpb - 1) / gpb >= (long long)per_sm * sms) break;
   }
   const int gpb = THREADS / L;
   const unsigned blocks = (unsigned)((G + gpb - 1) / gpb);
-  disp_newton_kernel<P, T><<<blocks, THREADS, bytes, s>>>(
-      G, N, L, stride, (const int*)order, (const T*)counts, (const T*)mu, (const T*)X, (const T*)la0,
-      (const T*)la_hat, (const T*)pdv, (T)lo, (T)hi, (T)clipw, (T)step2, iters, cr_reg,
-      prior_reg, (T*)la_out, (T*)f_out, (T*)g_out, (T*)h_out);
+  kern<<<blocks, THREADS, bytes, s>>>(
+      G, N, L, stride, 0, (const int*)order, (const T*)counts, (const T*)mu, (const T*)X,
+      (const T*)la0, (const T*)la_hat, (const T*)pdv, (T)lo, (T)hi, (T)clipw, (T)step2, iters,
+      cr_reg, prior_reg, (T*)la_out, (T*)f_out, (T*)g_out, (T*)h_out);
   return 0;
+}
+
+// out[0] = the blocks of the kernel for wg warps a gene (1: at 32 lanes a
+// gene, where the unsplit kernel's lanes stop doubling) that an SM holds at
+// once for N samples: the occupancy API, with the dynamic shared memory the
+// launch gives.
+template <int P, typename T> int per_sm(int N, int wg, int* out) {
+  int stride;
+  size_t red_off, bytes;
+  if (wg == 1) {
+    stage_layout<T>(N, P, WARP, stride, bytes);
+    cudaError_t e = cudaFuncSetAttribute(disp_newton_kernel<P, T, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)STAGE_MAX);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, disp_newton_kernel<P, T, false>,
+                                                              THREADS, bytes);
+  }
+  if (wg != 2 && wg != 4 && wg != 8) return (int)cudaErrorInvalidValue;
+  split_layout<P, T>(N, wg, stride, red_off, bytes);
+  cudaError_t e = cudaFuncSetAttribute(disp_newton_kernel<P, T, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(STAGE_MAX + 8 + red_bytes<P, T>()));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, disp_newton_kernel<P, T, true>,
+                                                            THREADS, bytes);
 }
 
 __global__ void psi_f64_kernel(const double* __restrict__ x, int n, double* __restrict__ psi,
@@ -346,7 +497,7 @@ __global__ void psi_f64_kernel(const double* __restrict__ x, int n, double* __re
 
 }  // namespace
 
-extern "C" int disp_newton_launch(int is_f64, int P, int G, int N, const void* order,
+extern "C" int disp_newton_launch(int is_f64, int P, int G, int N, int wg, const void* order,
                                   const void* counts,
                                   const void* mu, const void* X, const void* la0,
                                   const void* la_hat, const void* pdv, double lo, double hi,
@@ -357,16 +508,24 @@ extern "C" int disp_newton_launch(int is_f64, int P, int G, int N, const void* o
   cudaStream_t s = (cudaStream_t)stream;
   int rc = 0;
   if (is_f64) {
-    PDT_DISPATCH_P(P, rc = launch<PP, double>(G, N, order, counts, mu, X, la0, la_hat, pdv, lo, hi,
+    PDT_DISPATCH_P(P, rc = launch<PP, double>(G, N, wg, order, counts, mu, X, la0, la_hat, pdv, lo, hi,
                                               clipw, step2, iters, cr_reg, prior_reg, la_out,
                                               f_out, g_out, h_out, s));
   } else {
-    PDT_DISPATCH_P(P, rc = launch<PP, float>(G, N, order, counts, mu, X, la0, la_hat, pdv, lo, hi,
+    PDT_DISPATCH_P(P, rc = launch<PP, float>(G, N, wg, order, counts, mu, X, la0, la_hat, pdv, lo, hi,
                                              clipw, step2, iters, cr_reg, prior_reg, la_out,
                                              f_out, g_out, h_out, s));
   }
   if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// The blocks of the kernel an SM holds at once for wg warps a gene (see
+// per_sm); no launch.
+extern "C" int disp_newton_per_sm(int is_f64, int P, int N, int wg, int* out, void* stream) {
+  (void)stream;
+  PDT_DISPATCH_P(P, return is_f64 ? per_sm<PP, double>(N, wg, out) : per_sm<PP, float>(N, wg, out));
+  return (int)cudaErrorInvalidValue;
 }
 
 // The float64 psi and psi' of common.cuh, elementwise, for checking them

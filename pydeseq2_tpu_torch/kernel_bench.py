@@ -33,7 +33,9 @@ columns of a seeded batch factor to the two-level condition): 100 x 60000
 float32 at P = 2, 3, 5; 100 x 4000 and 100 x 10000 float32 at P = 2; 100 x
 2000 float64 at P = 2; 100 x 4000 float64 at P = 2, 5; 100 x 60000 float64
 at P = 2; the atlas dispersion block, 5000 genes x 10000 samples at P = 1,
-in float32 and float64. Per tree and shape: the mean ms of 20 warm wrapper
+in float32 and float64; the benchmark cells' gene blocks, 2816 x 17382
+float32 (``gtex.refit``) and 30336 x 1224 float64 (``brca.refit``), at P =
+2. Per tree and shape: the mean ms of 20 warm wrapper
 calls (5 at the atlas block) by CUDA events, which on short gene lists
 include the host's launch time, and by torch.profiler the device time of the
 kernel alone and of all the wrapper runs on the card; the largest
@@ -44,7 +46,12 @@ the ``-Xptxas -v`` report the build keeps. ``--detail`` adds, where the
 tree has them, the atlas scan with its rows unsplit (one segment), and the
 Newton launch on rows ordered by the final branch (r = exp(-la) < 8 or not)
 with the share of warps whose genes end in both branches, in gene order and
-in the wrapper's order.
+in the wrapper's order; and, on rows over 1024 samples, the Newton launch
+at each split of a gene's row over 1, 2, 4 and 8 warps
+(``ops.dispersion._newton_plan``, which it names): its device time, the
+blocks an SM holds, its largest differences from the plain version and
+from the unsplit launch, and the genes whose log-alpha is not bit for bit
+the unsplit launch's.
 
 ``sf`` shapes: one round's 8 Newton steps at 100 x 60000, 1000 x 60000 and
 the atlas 10000 x 60000 in float32 and 100 x 60000 in float64, on Poisson
@@ -488,6 +495,9 @@ SHAPES = (
     ("f64 100x60000 P=2", 60_000, 100, 2, torch.float64, 20),
     ("f32 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float32, 5),
     ("f64 atlas 5000x10000 P=1", 5_000, 10_000, 1, torch.float64, 5),
+    # the benchmark cells' gene blocks: gtex.refit's and brca.refit's
+    ("f32 gtex block 2816x17382 P=2", 2_816, 17_382, 2, torch.float32, 5),
+    ("f64 brca block 30336x1224 P=2", 30_336, 1_224, 2, torch.float64, 5),
 )
 
 
@@ -565,7 +575,8 @@ def inputs(G: int, N: int, P: int, dtype):
 def ptxas(kernels, sources=SOURCES) -> dict:
     """{source: {key: [registers, spill stores, spill loads]}}, the key "P<p>
     f32|f64" for a kernel templated on the design width ("P<p> f32|f64 M<m>"
-    where also on shrink's round size, "... S<s>" on irls' lanes a gene,
+    where also on shrink's round size, "... split" for disp_newton's row
+    split over warps, "... S<s>" on irls' lanes a gene,
     "... S<s> registers|shared" on mom's lanes and storage, "... S<s>
     fused|hat|test" on hat_wald's lanes and mode), "<kernel>
     f32|f64 shared|streamed" for a cluster kernel templated on its mode,
@@ -585,6 +596,10 @@ def ptxas(kernels, sources=SOURCES) -> dict:
             if hw is not None:
                 key = (f"P{hw.group(1)} {'f32' if hw.group(2) == 'f' else 'f64'} S{hw.group(3)} "
                        f"{('fused', 'hat', 'test')[int(hw.group(4))]}")
+            elif inst is not None and "disp_newton_kernel" in m.group(1):
+                # the row split over several warps a gene, its own instantiation
+                key = f"P{inst.group(1)} {'f32' if inst.group(2) == 'f' else 'f64'}" + (
+                    " split" if inst.group(4) == "1" else "")
             elif inst is not None:
                 # irls' and mom's lanes a gene, shrink's round; mom's registers or shared memory
                 third = "S" if "irls_kernel" in m.group(1) or "mom_kernel" in m.group(1) else "M"
@@ -666,6 +681,9 @@ def disp_rows(detail: bool) -> dict:
             row["plain_branch_share"] = plain_gene.double().mean().item()
             row["mixed_warps_gene_order"] = mixed_share(plain_gene)
             row["mixed_warps_wrapper_order"] = mixed_share(plain_gene[start_order])
+        if detail and N > 1024 and hasattr(dsp, "_newton_plan"):
+            row["disp_newton_plan"] = dsp._newton_device_plan(G, N, P, dtype, DEVICE)
+            row["disp_newton_split"] = newton_split_sweep(dsp, newton_args, out, out_p, reps)
         rows[label] = row
         print(f"  {label}: {json.dumps(row)}", file=sys.stderr, flush=True)
         del counts, mu, X, coarse, coarse_p, out, out_p
@@ -673,6 +691,37 @@ def disp_rows(detail: bool) -> dict:
     return rows
 
 
+
+
+def newton_split_sweep(dsp, newton_args, out, out_p, reps: int) -> dict:
+    """{warps a gene: readings} of the ``disp_newton`` launch at each split
+    of a gene's row (``_newton_polish_cuda(plan=wg)``): device ms, the
+    blocks an SM holds, the largest log-alpha and relative objective gaps
+    from the plain version (``out_p``) and from the launch the wrapper's
+    plan made (``out``), and the genes whose log-alpha differs in any bit
+    from the unsplit launch's."""
+    counts, mu, X = newton_args[:3]
+    G, N = counts.shape
+    isz = counts.element_size()
+    sweep, unsplit = {}, None
+    for wg in dsp._NEWTON_WARPS:
+        def run(wg=wg):
+            return dsp._newton_polish_cuda(*newton_args, plan=wg)
+
+        o = run()
+        if unsplit is None:
+            unsplit = o
+        sweep[wg] = {
+            "device_ms": device_ms(run, reps, "disp_newton")[0],
+            "per_sm": dsp._newton_card_per_sm(torch.device(DEVICE), isz, X.shape[1], N, wg),
+            "la_err": (o[0] - out_p[0]).abs().max().item(),
+            "f_err": ((o[1] - out_p[1]).abs() / (1 + out_p[1].abs())).max().item(),
+            "la_gap_plan": (o[0] - out[0]).abs().max().item(),
+            "la_gap_unsplit": (o[0] - unsplit[0]).abs().max().item(),
+            "genes_not_bit_equal_unsplit": int((o[0] != unsplit[0]).sum().item()),
+        }
+        print(f"    disp_newton {wg} warps a gene: {json.dumps(sweep[wg])}", file=sys.stderr, flush=True)
+    return sweep
 
 
 def sf_operands(G: int, N: int, dtype):

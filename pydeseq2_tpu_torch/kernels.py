@@ -82,7 +82,9 @@ HELPERS = {"psi_f64": ("disp_newton.cu", "psi_f64_launch"),
            # the select_hist blocks an SM holds (the occupancy API; no launch)
            "select_hist_per_sm": ("select.cu", "select_hist_per_sm"),
            # the blocks of an irls group size an SM holds (the occupancy API; no launch)
-           "irls_per_sm": ("irls.cu", "irls_per_sm")}
+           "irls_per_sm": ("irls.cu", "irls_per_sm"),
+           # the disp_newton blocks of a row split an SM holds (the occupancy API; no launch)
+           "disp_newton_per_sm": ("disp_newton.cu", "disp_newton_per_sm")}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -109,7 +111,7 @@ _ARGTYPES = {
     "disp_scan_fine_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _D, _D, _D, _D, _I, _P, _I, _I,
                               _P, _P, _I, _P, _P, _P],
     "disp_scan_group_launch": [_I, _I, _P, _D, _D, _I, _P, _P],
-    "disp_newton_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
+    "disp_newton_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                            _I, _I, _I, _P, _P, _P, _P],
     "irls_launch": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _D, _D, _D, _D,
                     _I, _I, _I, _P, _P, _P, _P, _P],
@@ -141,6 +143,7 @@ _ARGTYPES = {
     "select_max_clusters": [_I, _I, _I, _P],
     "select_hist_per_sm": [_I, _I, _P],
     "irls_per_sm": [_I, _I, _I, _P],
+    "disp_newton_per_sm": [_I, _I, _I, _I, _P],
 }
 
 # What one block of a thread-block cluster may hold on the H100: dynamic
@@ -165,7 +168,8 @@ MAX_P = 8
 
 class KernelStats:
     """Launch counts per kernel, the IRLS rescue's lanes, the iterative size
-    factors' rounds, the dispersion fits that reuse a coarse scan, and,
+    factors' rounds, the dispersion fits that reuse a coarse scan, the
+    Newton polishes that split a gene's row over several warps, and,
     while tracing is on (:mod:`~pydeseq2_tpu_torch.tracing`), the IRLS trip
     counts and the box rescue's passes of each launch.
 
@@ -176,7 +180,10 @@ class KernelStats:
     anyway. ``sf_rounds`` sums the rounds that
     ``ops.sizefactors.iterative_size_factors`` ran, the host's own count;
     ``coarse_reuses`` the ``ops.dispersion.alpha_mle_batch`` calls that took
-    their coarse scan from a ``coarse_cache`` (a Python int, no read).
+    their coarse scan from a ``coarse_cache`` (a Python int, no read);
+    ``newton_split`` the ``disp_newton`` launches whose plan
+    (``ops.dispersion._newton_plan``) took more than one warp a gene (a
+    Python int, no read).
     With tracing on, ``irls_trips`` holds, per IRLS launch, a 0-d device
     tensor with the largest per-lane trip count; ``box_passes``, per
     ``newton_box`` launch, the (K,) int32 device tensor of its lanes' serial
@@ -192,6 +199,7 @@ class KernelStats:
         self.rescue_lanes: dict[str, int] = {"phase2": 0, "grid": 0}
         self.sf_rounds: int = 0
         self.coarse_reuses: int = 0
+        self.newton_split: int = 0
         self.irls_trips: list[torch.Tensor] = []
         self.box_passes: list[torch.Tensor] = []
 

@@ -27,9 +27,10 @@ warp's lanes share one point and one form.
 (pydeseq2_tpu/ops/dispersion.py:313,361 with ops/nb.py:
 nb_nll_centered_fgh). One launch runs the initial (f, g, h) and all Newton
 steps per gene, L = 4-32 lanes a gene by N and, on short gene lists, by
-how many blocks fill the card, the rows staged in shared memory
-for all five evaluations where they fit, the three Cox-Reid Grams M, M',
-M'' reduced beside the NB sums. Bound like the scan by transcendentals.
+how many blocks fill the card; where wide rows still leave it short, a
+gene's row over 2-8 warps (:func:`_newton_plan`); the rows staged in shared
+memory for all five evaluations where they fit, the three Cox-Reid Grams M,
+M', M'' reduced beside the NB sums. Bound like the scan by transcendentals.
 
 The JAX package takes the autodiff (f, g, h) below N = 512 for TPU speed;
 the port uses the closed form at every N (both compute the same values,
@@ -43,7 +44,10 @@ with the 2-sigma outlier rule.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import Callable
 
 import torch
 
@@ -322,11 +326,74 @@ def newton_polish(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg,
     return _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv)
 
 
-def _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv):
+# csrc/disp_newton.cu: the warps of a block and those a gene's row may span;
+# the fewest samples a lane of a split row sums; the waves of blocks a
+# launch has to fill before its rows stay whole; the blocks an SM holds
+# without the card to ask (ptxas: 80 registers a thread in float32 at P = 2).
+_NEWTON_BLOCK_WARPS = 8
+_NEWTON_WARPS = (1, 2, 4, 8)
+_NEWTON_LANE_SAMPLES = 64
+_NEWTON_WAVES = 4
+_NEWTON_PER_SM = 3
+
+
+def _newton_plan(G: int, N: int, sms: int = 132,
+                 per_sm: Callable[[int], int] = lambda wg: _NEWTON_PER_SM) -> int:
+    """Warps a gene (1, 2, 4 or 8) of the ``disp_newton`` launch for G genes
+    of N samples, on a card of ``sms`` SMs that each hold ``per_sm(wg)``
+    blocks of that split at once (the wrapper asks the occupancy API for
+    the type, the design width and N, as the launch sizes its shared
+    memory).
+
+    The kernel's own rule doubles the lanes a gene up to a warp while its
+    blocks (256 threads) would not fill one wave of the card; this goes on
+    past the warp: the fewest warps a gene whose blocks fill
+    ``_NEWTON_WAVES`` waves, at least ``_NEWTON_LANE_SAMPLES`` samples a
+    lane, else the most such warps. 1 wherever the genes alone fill the
+    card (long gene lists: a cohort's blocks, the iterative size factors'
+    rounds) or the rows are short; an atlas's gene blocks and refit tile
+    split. A ``kernel_bench --detail`` sweep on an H100 (80 registers, 3
+    blocks an SM in float32 at P <= 2; 128 and 2 in float64) chose 4 waves:
+    the gtex block, 2816 x 17382 f32 P = 2 (0.9 waves unsplit), 7.14 ms
+    with 1 warp a gene, 6.47 with 2, 5.52 with 4, 5.05 with 8; the atlas
+    block 5000 x 10000 f32 P = 1 (1.6 waves) 6.29, 5.56, 4.93, 4.46
+    (f64: 14.96, 12.75, 11.05, 9.86); a cohort's block, 30336 x 1224 f64
+    (14 waves, 19 samples a lane at 2 warps), 9.43, 8.82, 8.77, 11.08.
+    """
+    wg = 1
+    for w in _NEWTON_WARPS[1:]:
+        if N < 32 * w * _NEWTON_LANE_SAMPLES or -(-G // (_NEWTON_BLOCK_WARPS // wg)) >= (
+                _NEWTON_WAVES * sms * per_sm(wg)):
+            break
+        wg = w
+    return wg
+
+
+@functools.lru_cache(maxsize=None)
+def _newton_card_per_sm(device: torch.device, itemsize: int, P: int, N: int, wg: int) -> int:
+    """The ``disp_newton`` blocks of ``wg`` warps a gene that an SM of
+    ``device`` holds for N samples and P columns, by the occupancy API for
+    this build (no launch)."""
+    out = ctypes.c_int(0)
+    kernels.call_helper("disp_newton_per_sm", [int(itemsize == 8), P, N, wg, ctypes.addressof(out)], device)
+    return max(1, out.value)
+
+
+def _newton_device_plan(G: int, N: int, P: int, dtype, device) -> int:
+    """:func:`_newton_plan` with the card's SMs and its occupancy."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    dev = torch.device(device)
+    return _newton_plan(G, N, kernels.sm_count(dev), functools.partial(_newton_card_per_sm, dev, isz, P, N))
+
+
+def _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, cr_reg, prior_reg, la_hat, pdv,
+                        plan: int | None = None):
     """Launch ``disp_newton``: four outputs. The kernel takes the genes in
     an order grouped by the branch at their start (r = exp(-la) < 8 or
     not), so that the genes of a warp mostly run one form; each gene's
-    results land at its own index."""
+    results land at its own index. ``plan``, the warps a gene, overrides
+    :func:`_newton_plan`; a launch of more than one adds one to
+    ``kernels.STATS.newton_split``."""
     G, N = counts.shape
     P = X.shape[1]
     la = la.contiguous()
@@ -336,10 +403,11 @@ def _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, c
     pdv = pdv.reshape(()).contiguous()
     kernels.check_cuda_operands("disp_newton", counts, mu, X, la, lah, pdv, order, *outs)
     kernels.check_p("disp_newton", P)
+    wg = _newton_device_plan(G, N, P, mu.dtype, mu.device) if plan is None else plan
     kernels.launch(
         "disp_newton",
         [
-            int(mu.dtype == torch.float64), P, G, N, order.data_ptr(),
+            int(mu.dtype == torch.float64), P, G, N, wg, order.data_ptr(),
             counts.data_ptr(), mu.data_ptr(), X.data_ptr(), la.data_ptr(),
             kernels.ptr(lah), pdv.data_ptr(), lo_f, hi_f, clip_f, step2_f,
             iters, int(cr_reg), int(prior_reg),
@@ -347,6 +415,8 @@ def _newton_polish_cuda(counts, mu, X, la, lo_f, hi_f, clip_f, step2_f, iters, c
         ],
         mu.device,
     )
+    if wg > 1:
+        kernels.STATS.newton_split += 1
     return tuple(outs)
 
 

@@ -48,6 +48,24 @@ def test_ptxas_rows_per_instantiation(tmp_path, monkeypatch):
     assert got == {src: {"P2 f64": [64, 132, 160], "P1 f32": [40, 0, 0]} for src in kernel_bench.SOURCES}
 
 
+PTXAS_NEWTON = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118disp_newton_kernelILi2EfLb0EEEviiiiimPKiPKT0_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118disp_newton_kernelILi2EfLb1EEEviiiiimPKiPKT0_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, 560 bytes cmem[0]
+"""
+
+
+def test_ptxas_rows_of_the_newton_split(tmp_path, monkeypatch):
+    """``disp_newton``'s unsplit instantiation keeps its key by P and type;
+    the one that splits a gene's row over warps adds ``split``."""
+    monkeypatch.setattr(kernels, "_lib_path", lambda src: tmp_path / (src + ".so"))
+    (tmp_path / "disp_newton.cu.ptxas.txt").write_text(PTXAS_NEWTON)
+    got = kernel_bench.ptxas(kernels, ("disp_newton.cu",))
+    assert got == {"disp_newton.cu": {"P2 f32": [72, 0, 0], "P2 f32 split": [80, 0, 0]}}
+
+
 def test_ptxas_rows_of_cluster_kernels(tmp_path, monkeypatch):
     """A cluster kernel's rows are keyed by kernel, type and mode; a kernel
     templated on its type alone by kernel and type."""
@@ -81,8 +99,14 @@ def test_child_on_cpu(monkeypatch, detail):
     """One tree's run: every shape has its times, and on the CPU (where the
     wrappers run the plain versions) no difference from them; ``--detail``
     adds the one-segment scan on long rows and the Newton divergence
-    readings."""
+    readings, and on long rows the Newton launch at each split of a gene's
+    row over warps with the plan named."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
     _on_cpu(monkeypatch)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(dsp, "_newton_card_per_sm", lambda device, itemsize, P, N, wg: dsp._NEWTON_PER_SM)
+    monkeypatch.setattr(dsp, "_newton_polish_cuda", lambda *args, plan=None: dsp.newton_polish_plain(*args))
     monkeypatch.setattr(kernel_bench, "SHAPES", (
         ("f32 P=3", 64, 24, 3, torch.float32, 1),
         ("f64 long P=1", 8, 1100, 1, torch.float64, 1),
@@ -97,6 +121,15 @@ def test_child_on_cpu(monkeypatch, detail):
         assert ("disp_scan_one_segment_ms" in row) == (detail and label.startswith("f64 long"))
         if detail:
             assert 0.0 <= row["mixed_warps_wrapper_order"] <= 1.0
+        long_detail = detail and label.startswith("f64 long")
+        assert ("disp_newton_split" in row) == ("disp_newton_plan" in row) == long_detail
+        if long_detail:
+            assert row["disp_newton_plan"] == 1  # 1100 samples: too few to split
+            assert sorted(row["disp_newton_split"]) == list(dsp._NEWTON_WARPS)
+            for reading in row["disp_newton_split"].values():
+                assert reading["device_ms"] > 0 and reading["per_sm"] == dsp._NEWTON_PER_SM
+                assert reading["la_err"] == reading["la_gap_unsplit"] == 0.0
+                assert reading["genes_not_bit_equal_unsplit"] == 0
 
 
 @pytest.mark.parametrize("detail", [False, True])

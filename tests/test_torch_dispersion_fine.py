@@ -251,6 +251,8 @@ def test_wrappers_marshal_what_the_launchers_take(monkeypatch):
     t_nb._dnb_nll_cuda(counts, counts, la_hat)  # alpha a row vector, by pointer
     t_nb._dnb_nll_cuda(counts, counts, 0.3)  # a float, by value
     t_disp._newton_polish_cuda(counts, counts, X, la_hat, -18.4, 4.6, 0.7, 0.2, 4, True, True, la_hat, pdv)
+    t_disp._newton_polish_cuda(counts, counts, X, la_hat, -18.4, 4.6, 0.7, 0.2, 4, True, False, la_hat, pdv,
+                               plan=4)  # a gene's row over 4 warps
     kinds = {ctypes.c_int: int, ctypes.c_double: float}
     for name, args in calls:
         want = kernels._ARGTYPES[kernels.KERNELS[name][1]]
@@ -262,3 +264,5 @@ def test_wrappers_marshal_what_the_launchers_take(monkeypatch):
                 assert isinstance(a, kinds[w]) and not isinstance(a, bool), (name, a, w)
     # 10 tiles of 300 genes leave the card short: the scans split the rows
     assert calls[0][1][16] == calls[1][1][18] == 53
+    # the Newton launches' warps a gene: 3000 samples keep one, the plan given is passed on
+    assert [args[4] for name, args in calls if name == "disp_newton"] == [1, 4]

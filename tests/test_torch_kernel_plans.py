@@ -839,6 +839,84 @@ def test_irls_device_plan_asks_the_occupancy(monkeypatch):
     assert {tuple(args[:3]) for _, args in calls} == {(1, 2, 8)}
 
 
+# disp_newton's row split (ops/dispersion.py:_newton_plan): (G, N, P, itemsize,
+# blocks an SM holds on an H100, whether the plan splits). One warp a gene:
+# brca.refit's gene blocks, the iterative size factors' P = 1 fits over a
+# cohort's genes, chip_smoke.py's main draw and its float64 draw, an atlas's
+# genes in one block; split: gtex.refit's gene blocks and its refit tile.
+NEWTON_PLANS = [
+    (30_336, 1_224, 2, 8, 2, False),
+    (60_660, 1_224, 1, 8, 2, False),
+    (60_000, 100, 2, 4, 3, False),
+    (4_000, 100, 2, 8, 2, False),
+    (56_200, 17_382, 2, 4, 3, False),
+    (2_816, 17_382, 2, 4, 3, True),
+    (2_880, 17_382, 2, 4, 3, True),
+]
+
+
+@pytest.mark.parametrize("G,N,P,itemsize,per_sm,split", NEWTON_PLANS)
+def test_newton_plan_splits_where_the_card_is_short(G, N, P, itemsize, per_sm, split):
+    """One warp a gene wherever the genes alone fill the card or the rows
+    are short; several warps on short gene lists of wide rows; never fewer
+    than the fewest samples a lane, never more warps than a block holds."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    wg = dsp._newton_plan(G, N, 132, lambda w: per_sm)
+    assert wg in dsp._NEWTON_WARPS
+    assert (wg > 1) == split
+    assert wg == 1 or N // (32 * wg) >= dsp._NEWTON_LANE_SAMPLES
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4, 8])
+def test_newton_plan_keeps_a_lane_samples_and_stops_once_filled(per_sm):
+    """Over a grid of shapes: at least ``_NEWTON_LANE_SAMPLES`` samples a
+    lane of a split row; one warp a gene where the unsplit blocks fill
+    ``_NEWTON_WAVES`` waves; a split doubles only while the blocks of the
+    split before it fell short of them."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    slots = dsp._NEWTON_WAVES * 132 * per_sm
+    for G in (1, 7, 100, 512, 2_816, 5_000, 12_671, 12_672, 30_336, 60_660):
+        for N in (12, 100, 1_224, 4_095, 4_096, 8_192, 10_000, 16_383, 16_384, 17_382, 60_000):
+            wg = dsp._newton_plan(G, N, 132, lambda w: per_sm)
+            blocks = [-(-G // (dsp._NEWTON_BLOCK_WARPS // w)) for w in dsp._NEWTON_WARPS]
+            assert wg == 1 or N // (32 * wg) >= dsp._NEWTON_LANE_SAMPLES, (G, N, wg)
+            if blocks[0] >= slots:
+                assert wg == 1, (G, N, wg)
+            if wg > 1:
+                assert blocks[dsp._NEWTON_WARPS.index(wg // 2)] < slots, (G, N, wg)
+            if wg < dsp._NEWTON_WARPS[-1] and N >= 32 * 2 * wg * dsp._NEWTON_LANE_SAMPLES:
+                assert blocks[dsp._NEWTON_WARPS.index(wg)] >= slots, (G, N, wg)
+
+
+def test_newton_device_plan_asks_the_occupancy(monkeypatch):
+    """The wrapper's plan asks the occupancy helper for the blocks an SM
+    holds by type, design width, N and warps a gene, with one value a
+    argtype: at 2816 x 17382 float32 the unsplit blocks fill 132 SMs of 1
+    block four times over, not of 3."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    calls = []
+
+    def helper(name, args, device):
+        calls.append((name, args))
+        ctypes.c_int.from_address(args[-1]).value = per_sm
+
+    monkeypatch.setattr(kernels, "call_helper", helper)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    plans = {}
+    for per_sm in (1, 3):
+        dsp._newton_card_per_sm.cache_clear()
+        plans[per_sm] = dsp._newton_device_plan(2_816, 17_382, 2, torch.float32, "cpu")
+    dsp._newton_card_per_sm.cache_clear()
+    assert plans == {1: 2, 3: 8}
+    want = kernels._ARGTYPES[kernels.HELPERS["disp_newton_per_sm"][1]]
+    assert calls and all(name == "disp_newton_per_sm" and len(args) == len(want) for name, args in calls)
+    assert {tuple(args[:3]) for _, args in calls} == {(0, 2, 17_382)}
+    assert {args[3] for _, args in calls} == {1, 2, 4}
+
+
 def test_irls_core_cuda_route_makes_no_gn_tensor(recorded, monkeypatch):
     """``irls_core``'s CUDA route (``_irls_core_cuda``): the launcher gets its
     operands, the plan and a zeroed counter; nothing it runs makes a (G, N)

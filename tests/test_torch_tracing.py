@@ -299,3 +299,30 @@ def test_coarse_reuses_count_the_cached_fits():
         reuses.append(kernels.STATS.coarse_reuses)
     assert reuses[0] == reuses[1] >= -(-counts.shape[0] // 128)
     kernels.STATS.reset()
+
+
+def test_newton_split_counts_the_split_launches(monkeypatch):
+    """``STATS.newton_split`` is 0 after ``reset()`` and rises by one for each
+    ``disp_newton`` launch whose plan takes more than one warp a gene (short
+    gene lists of wide rows), not for one warp a gene (short rows, or the
+    plan given as 1). The launches are recorded, not made."""
+    from pydeseq2_tpu_torch.ops import dispersion as dsp
+
+    kernels.STATS.newton_split = 5
+    kernels.STATS.reset()
+    assert kernels.STATS.newton_split == 0
+    launched = []
+    monkeypatch.setattr(kernels, "launch", lambda name, args, device: launched.append(args[4]))
+    monkeypatch.setattr(kernels, "check_cuda_operands", lambda *a: None)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 132)
+    monkeypatch.setattr(dsp, "_newton_card_per_sm", lambda device, itemsize, P, N, wg: 4)
+    pdv = torch.tensor(1.0)
+    for G, N, plan in ((16, 8_192, None), (16, 8_192, 1), (16, 100, None), (600, 17_382, None)):
+        counts = torch.ones(G, N)
+        X = torch.ones(N, 2)
+        la = torch.zeros(G)
+        dsp._newton_polish_cuda(counts, counts, X, la, -18.4, 4.6, 0.7, 0.2, 4, True, False, la, pdv, plan=plan)
+    assert launched == [4, 1, 1, 8]
+    assert kernels.STATS.newton_split == 2
+    kernels.STATS.reset()
+    assert kernels.STATS.newton_split == 0
